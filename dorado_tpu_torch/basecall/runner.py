@@ -1,0 +1,315 @@
+"""Batched basecall engine on a CUDA device (or the CPU, for tests).
+
+Port of ``dorado_tpu/basecall/runner.py::BasecallRunner`` for the Viterbi
+decoder. One device step takes a batch of f16 signal chunks through the
+model, the backward LSE scan and the fused forward pass (alpha, posteriors,
+choices), the traceback, and the qual and sequence byte materialisation;
+only uint8 bases, qual chars and moves come back to the host, which compacts
+them by the move mask (as dorado/basecall/decode/CUDADecoder.cpp:115 does).
+
+The step is enqueued on the current CUDA stream and returns at once
+(``dispatch``); ``finish`` waits for it, so the host feeds and finishes
+other batches while the device computes.
+"""
+
+from __future__ import annotations
+
+import copy
+import functools
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dorado_tpu_torch.config import BasecallModelConfig
+from dorado_tpu_torch.decode.common import DecodedChunk, DecoderOptions
+from dorado_tpu_torch.models.crf_model import LSTMCRFModel
+from dorado_tpu_torch.ops.crf_cuda import fused_viterbi_decode, viterbi_traceback
+
+# chunk-length lanes {T, 3T/4}: the reference's dual batch dims
+# (CudaCaller.cpp:391-415)
+_CHUNK_LANES = 2
+_ALPHABET = np.array(list(b"ACGT"), np.uint8)
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Raises when CUDA is asked for (or left as the default) and the
+    machine has none; it never falls back to the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _qual_weight_table(num_states: int) -> np.ndarray:
+    """Constant [S, S] candidate-weight table for the per-block posterior sum.
+
+    Row s holds the weight of each posterior state for a Viterbi call in
+    state s: 1.0 for s itself plus 1.0 for every *distinct* left/right
+    k-mer shift of s that differs from s: the candidate set and dedup order
+    of the reference qual calc (beam_search.cpp:411-470)."""
+    msb = num_states >> 2
+    table = np.zeros((num_states, num_states), np.float32)
+    for s in range(num_states):
+        table[s, s] = 1.0
+        shifted = []
+        for b in range(4):
+            shifted.append((s >> 2) + msb * b)  # interleaved [l0, r0, ...]
+            shifted.append(((s << 2) % num_states) + b)
+        seen = []
+        for cand in shifted:
+            if cand != s and cand not in seen:
+                table[s, cand] += 1.0
+            seen.append(cand)
+    return table
+
+
+def device_qual(
+    states_nt: torch.Tensor, t_posts: torch.Tensor, table: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block base probabilities on the device: (qual [N, T, 4],
+    block_prob [N, T]), both rounded to bf16 as the JAX runner does.
+    t_posts [N, T, S] are the posterior rows 1..T."""
+    state = states_nt.long()
+    block_prob = (table[state] * t_posts.float()).sum(dim=-1)
+    block_prob = torch.clamp(block_prob, 0.0, 1.0) ** 0.4
+    wrong = ((1.0 - block_prob) / 3.0)[..., None].expand(*block_prob.shape, 4)
+    is_base = torch.nn.functional.one_hot(state & 3, 4).bool()
+    qual = torch.where(is_base, block_prob[..., None], wrong)
+    return qual.to(torch.bfloat16), block_prob.to(torch.bfloat16)
+
+
+def device_sequence(
+    states_nt: torch.Tensor,
+    moves_nt: torch.Tensor,
+    qual: torch.Tensor,
+    block_prob: torch.Tensor,
+    q_scale: float,
+    q_shift: float,
+    alphabet: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ASCII bases [N, T] uint8, phred chars [N, T] uint8) in emit-position
+    layout, valid where moves_nt == 1; ``alphabet`` is b"ACGT" as uint8 on
+    the device.
+
+    Per-base sums come from cumsum differences broadcast to the segment
+    boundaries with monotone cummax/cummin scans, exactly the JAX runner's
+    arithmetic (a segment starts at position 0 and at every emit but the
+    first; pre-first-emit positions fold into base 0)."""
+    n, t = states_nt.shape
+    dev = states_nt.device
+    moves_i = moves_nt.to(torch.int32)
+    base_prob_blk = block_prob.float()
+    total_blk = qual.float().sum(dim=-1)
+
+    tidx = torch.arange(t, device=dev)
+    cum = torch.cumsum(moves_i, dim=1)
+    is_start = (tidx[None, :] == 0) | ((moves_i == 1) & (cum > 1))
+    is_end = torch.cat([is_start[:, 1:], torch.ones(n, 1, dtype=torch.bool, device=dev)], 1)
+
+    def seg_sums(vals: torch.Tensor) -> torch.Tensor:
+        c = torch.cumsum(vals, dim=1)  # inclusive, non-decreasing
+        # exclusive prefix via a shift (NOT c - vals, which rounds differently)
+        e = torch.cat([torch.zeros(n, 1, device=dev), c[:, :-1]], dim=1)
+        lo = torch.cummax(torch.where(is_start, e, float("-inf")), dim=1).values
+        hi = torch.flip(
+            torch.cummin(torch.flip(torch.where(is_end, c, float("inf")), [1]), dim=1).values,
+            [1],
+        )
+        return hi - lo
+
+    base_probs = seg_sums(base_prob_blk)
+    total_probs = seg_sums(total_blk)
+    err = 1.0 - base_probs / torch.clamp(total_probs, min=1e-30)
+    phred = -10.0 * torch.log10(torch.clamp(err, min=1e-30))
+    qscore = torch.clamp(phred * q_scale + q_shift, 1.0, 50.0)
+    qchar = (33.5 + qscore).to(torch.uint8)  # truncates, as the reference
+    return alphabet[(states_nt & 3).long()], qchar
+
+
+@dataclass
+class RunnerStats:
+    batches_called: int = 0
+    chunks_called: int = 0
+    samples_called: int = 0  # incl. the repeat-padding of short chunks
+    # host seconds blocked in the enqueue, waiting for the device results
+    # (and the device-to-host copy), and compacting calls on the host
+    dispatch_s: float = 0.0
+    fetch_s: float = 0.0
+    host_decode_s: float = 0.0
+
+    def snapshot(self) -> tuple:
+        return (
+            self.batches_called,
+            self.chunks_called,
+            self.samples_called,
+            self.dispatch_s,
+            self.fetch_s,
+            self.host_decode_s,
+        )
+
+
+class TorchBasecallRunner:
+    """Owns a copy of the model on its device and runs the Viterbi device
+    step over fixed-size chunk batches, one batch shape per lane."""
+
+    def __init__(
+        self,
+        config: BasecallModelConfig,
+        model: LSTMCRFModel,
+        chunk_size: int | None = None,
+        batch_size: int | None = None,
+        device: torch.device | str | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        self.chunk_size = int(chunk_size or config.basecaller.chunk_size)
+        granularity = config.chunk_size_granularity
+        self.chunk_size -= self.chunk_size % granularity
+        # a geometric ladder of chunk lengths: short reads go to the smaller
+        # lane, bounding padding waste
+        overlap = config.basecaller.overlap
+        self.chunk_sizes = [self.chunk_size]
+        while len(self.chunk_sizes) < _CHUNK_LANES:
+            nxt = self.chunk_sizes[-1] * 3 // 4
+            nxt -= nxt % granularity
+            if nxt <= overlap or nxt < granularity or nxt == self.chunk_sizes[-1]:
+                break
+            self.chunk_sizes.append(nxt)
+        self.batch_size = int(batch_size or config.basecaller.batch_size or 128)
+        self.options = DecoderOptions(
+            blank_score=config.blank_score if config.blank_score is not None else 2.0,
+            q_shift=config.qbias,
+            q_scale=config.qscale,
+        )
+        # bf16 on the card (the kernels' type, as the TPU path runs); float32
+        # on the CPU, as the JAX package runs there
+        self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        if self.device.type == "cuda":
+            # float32 products in full precision: no TF32 in matmuls or
+            # cuDNN convolutions (the model runs in bf16 on the card anyway;
+            # this pins what float32 work there is)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            from dorado_tpu_torch.ops._cuda import build_kernels
+
+            build_kernels()
+        self.model = copy.deepcopy(model).to(self.device).eval()
+        self.model.freeze_lstm_constants(self.compute_dtype)
+        self.model.to(self.compute_dtype)
+        # device constants made once: creating them per step would copy from
+        # the host, which waits for the stream and breaks async dispatch
+        self._qual_table = torch.as_tensor(
+            _qual_weight_table(config.num_states), device=self.device
+        )
+        self._alphabet = torch.as_tensor(_ALPHABET, device=self.device)
+        self.stats = RunnerStats()
+
+    def lane_for(self, raw_size: int) -> int:
+        """Smallest configured chunk size that holds a chunk of raw_size."""
+        for i in range(len(self.chunk_sizes) - 1, 0, -1):
+            if raw_size <= self.chunk_sizes[i]:
+                return i
+        return 0
+
+    def lane_batch_size(self, lane: int = 0) -> int:
+        """Batch rows for a lane, scaled inversely to its chunk length so
+        every lane dispatches about the same samples per batch, rounded up
+        to 128 when the base batch is a multiple of 128, else to the base
+        batch."""
+        raw = self.batch_size * self.chunk_size / self.chunk_sizes[lane]
+        g = 128 if self.batch_size % 128 == 0 else self.batch_size
+        return min(-(-int(raw) // g) * g, 2048)
+
+    def make_input_buffer(self, lane: int = 0) -> np.ndarray:
+        """A zeroed host batch buffer [rows, chunk] of f16 signal (the
+        reference feeds f16 signal too, ScalerNode.cpp:227-229). For a CUDA
+        runner it lies in pinned memory, so ``dispatch`` copies it to the
+        card without waiting: the caller must not write to a dispatched
+        buffer until ``finish`` has returned its batch."""
+        shape = (self.lane_batch_size(lane), self.chunk_sizes[lane])
+        if self.config.num_features > 1:
+            shape += (self.config.num_features,)
+        pinned = self.device.type == "cuda"
+        return torch.zeros(shape, dtype=torch.float16, pin_memory=pinned).numpy()
+
+    def accept_chunk(self, buffer: np.ndarray, idx: int, signal: np.ndarray) -> None:
+        """Copy one (possibly short) chunk into the batch, repeat-padding to
+        the buffer's chunk size (BasecallerNode.cpp:431-440)."""
+        size = buffer.shape[1]
+        n = len(signal)
+        if n == size:
+            buffer[idx] = signal
+        else:
+            reps = -(-size // n)
+            tiled = np.tile(signal, (reps, 1) if signal.ndim == 2 else reps)
+            buffer[idx] = tiled[:size]
+
+    @torch.inference_mode()
+    def _device_step(self, sig: torch.Tensor) -> torch.Tensor:
+        """f16 signal [N, T] on the device -> uint8 [3, N, T_out]: ASCII
+        bases, phred chars and moves."""
+        return self.decode_scores(self.model(sig).to(self.compute_dtype))
+
+    @torch.inference_mode()
+    def decode_scores(self, scores: torch.Tensor) -> torch.Tensor:
+        """Time-major CRF scores [T, N, C] -> uint8 [3, N, T]: ASCII bases,
+        phred chars and moves of each row's Viterbi path."""
+        blank = float(self.options.blank_score)
+        t_posts, choices, final = fused_viterbi_decode(scores, blank)
+        last_state = torch.argmax(final, dim=-1).to(torch.int32)
+        states, moves = viterbi_traceback(choices, last_state)
+        states_nt = states.t()
+        moves_nt = moves.t()
+        qual, block_prob = device_qual(states_nt, t_posts.transpose(0, 1), self._qual_table)
+        bases, qchars = device_sequence(
+            states_nt, moves_nt, qual, block_prob,
+            float(self.options.q_scale), float(self.options.q_shift), self._alphabet,
+        )
+        return torch.stack([bases, qchars, moves_nt])
+
+    def dispatch(self, buffer: np.ndarray, num_chunks: int):
+        """Enqueue the device step for the first ``num_chunks`` rows of a
+        batch and return a handle for ``finish``; on CUDA this does not wait
+        for the device. Rows are independent, so the unused rows of a
+        partial batch are not computed (the JAX runner pads to a fixed
+        shape because each shape is a compiled program)."""
+        self.stats.batches_called += 1
+        self.stats.chunks_called += num_chunks
+        self.stats.samples_called += num_chunks * buffer.shape[1]
+        t0 = time.perf_counter()
+        sig = torch.from_numpy(buffer[:num_chunks]).to(self.device, non_blocking=True)
+        handle = (self._device_step(sig), num_chunks)
+        self.stats.dispatch_s += time.perf_counter() - t0
+        return handle
+
+    def finish(self, handle) -> list[DecodedChunk]:
+        """Wait for a dispatched batch and materialise its per-chunk calls."""
+        out, num_chunks = handle
+        t0 = time.perf_counter()
+        host = out.cpu().numpy()
+        t1 = time.perf_counter()
+        self.stats.fetch_s += t1 - t0
+        seq_chars, qchars, moves_all = host
+        res = []
+        for i in range(num_chunks):
+            # device arrays are in emit-position layout; compact by the moves
+            mask = moves_all[i].astype(bool)
+            res.append(
+                DecodedChunk(
+                    sequence=seq_chars[i][mask].tobytes().decode(),
+                    qstring=qchars[i][mask].tobytes().decode(),
+                    moves=moves_all[i],
+                )
+            )
+        self.stats.host_decode_s += time.perf_counter() - t1
+        return res
+
+    def call_chunks(self, buffer: np.ndarray, num_chunks: int) -> list[DecodedChunk]:
+        """Run the device step on a batch and materialise per-chunk calls."""
+        return self.finish(self.dispatch(buffer, num_chunks))

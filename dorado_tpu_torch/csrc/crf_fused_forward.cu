@@ -1,0 +1,162 @@
+// One forward pass over the CRF scores: alpha log-sum-exp, posterior rows and
+// Viterbi choices together.
+//
+// Replaces dorado_tpu/ops/crf_pallas.py::_fused_forward_decode_blk (Pallas
+// body _fused_fwd_blk_kernel). Per step t, in the raw layout c = s*4 + r with
+// predecessors pred(s,r) = r*(S/4) + (s>>2):
+//   alpha: m = max(a); a[s] = m + log(exp(a[s]-m)*e^stay
+//                                     + sum_r exp(a[pred]-m) * exp(score[s*4+r]))
+//   posts[t] = bf16(softmax(a + beta_shift[t]))
+//   Viterbi: v -= max(v); best = max_r v[pred] + score[s*4+r] (lowest r on
+//   ties); stay = v[s] + stay_score; choice = stay >= best ? 4 : r_best;
+//   v[s] = max(stay, best)
+// and final = v after the last step.
+//
+// What bounds it on the H100: like the backward scan, a serial chain of T
+// steps per chunk whose bytes (scores and beta in, posts and choices out)
+// are small beside its latency. One block per chunk row and one thread per
+// state keep both carries in registers; a step costs three block-wide
+// reductions (the two carry maxima share one, then the posterior max and
+// sum) and four barriers. The next score and beta rows load into registers
+// during the current step; the score row is staged in shared memory in the
+// block layout r*S + s, both raw and exponentiated, so the predecessor terms
+// are conflict-free reads. The Viterbi adds are single f32 operations in the
+// same order as the plain version, so the choices agree exactly.
+#include "common.cuh"
+
+template <int S>
+__global__ void __launch_bounds__(S) fused_forward_kernel(
+    const __nv_bfloat16* __restrict__ scores,  // [T, N, 4S]
+    const __nv_bfloat16* __restrict__ beta,    // [T, N, S] shifted, normalised
+    __nv_bfloat16* __restrict__ posts,         // [T, N, S]
+    int8_t* __restrict__ choices,              // [T, N, S]
+    float* __restrict__ final_carry,           // [N, S]
+    int T, int N, float stay_score, float stay_factor) {
+  constexpr int S4 = S / 4;
+  constexpr int NW = S / 32;
+  __shared__ float sc[2][4 * S];  // score, block layout r*S + s
+  __shared__ float es[2][4 * S];  // exp(score), same layout
+  __shared__ float ec[S];         // exp(alpha - m)
+  __shared__ float vn[S];         // Viterbi carry minus its max
+  __shared__ float red_carry[2][NW];
+  __shared__ float red_pmax[NW];
+  __shared__ float red_psum[NW];
+
+  const int n = blockIdx.x;
+  const int s = threadIdx.x;
+  const int warp = s >> 5, lane = s & 31;
+  const size_t srow = (size_t)N * 4 * S;
+  const size_t row = (size_t)N * S;
+  const __nv_bfloat16* scn = scores + (size_t)n * 4 * S + 4 * s;
+  const size_t own = (size_t)n * S + s;
+  const int p0 = s >> 2;
+
+  uint2 next = *reinterpret_cast<const uint2*>(scn);
+  __nv_bfloat16 beta_next = beta[own];
+  float a = 0.f, v = 0.f;
+  for (int t = 0; t < T; ++t) {
+    float* scb = sc[t & 1];
+    float* esb = es[t & 1];
+    {
+      float x[4];
+      unpack4(next, x);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        scb[r * S + s] = x[r];
+        esb[r * S + s] = expf(x[r]);
+      }
+    }
+    const float beta_t = __bfloat162float(beta_next);
+    if (t + 1 < T) {
+      next = *reinterpret_cast<const uint2*>(scn + (size_t)(t + 1) * srow);
+      beta_next = beta[(size_t)(t + 1) * row + own];
+    }
+
+    // A: maxima of both carries
+    const float wa = warp_max(a), wv = warp_max(v);
+    if (lane == 0) {
+      red_carry[0][warp] = wa;
+      red_carry[1][warp] = wv;
+    }
+    __syncthreads();
+    float ma = red_carry[0][0], mv = red_carry[1][0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) {
+      ma = fmaxf(ma, red_carry[0][w]);
+      mv = fmaxf(mv, red_carry[1][w]);
+    }
+    // B: publish the shifted carries
+    const float ea = expf(a - ma);
+    ec[s] = ea;
+    const float vs = v - mv;
+    vn[s] = vs;
+    __syncthreads();
+
+    // C: alpha step, Viterbi step, posterior row max
+    float red = ea * stay_factor;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) red += ec[r * S4 + p0] * esb[r * S + s];
+    a = ma + logf(red);
+
+    float best = vn[p0] + scb[s];
+    int best_r = 0;
+#pragma unroll
+    for (int r = 1; r < 4; ++r) {
+      const float cand = vn[r * S4 + p0] + scb[r * S + s];
+      if (cand > best) {
+        best = cand;
+        best_r = r;
+      }
+    }
+    const float stay = vs + stay_score;
+    const bool is_stay = stay >= best;
+    v = is_stay ? stay : best;
+    choices[(size_t)t * row + own] = static_cast<int8_t>(is_stay ? 4 : best_r);
+
+    const float pb = a + beta_t;
+    const float wp = warp_max(pb);
+    if (lane == 0) red_pmax[warp] = wp;
+    __syncthreads();
+    float pm = red_pmax[0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) pm = fmaxf(pm, red_pmax[w]);
+    // D: posterior row sum
+    const float pe = expf(pb - pm);
+    const float ws = warp_sum(pe);
+    if (lane == 0) red_psum[warp] = ws;
+    __syncthreads();
+    float total = red_psum[0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) total += red_psum[w];
+    posts[(size_t)t * row + own] = __float2bfloat16(pe / total);
+  }
+  final_carry[own] = v;
+}
+
+template <int S>
+static int launch(const void* scores, const void* beta, void* posts, void* choices,
+                  void* final_carry, int T, int N, float stay_score, float stay_factor,
+                  cudaStream_t stream) {
+  fused_forward_kernel<S><<<N, S, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(scores), static_cast<const __nv_bfloat16*>(beta),
+      static_cast<__nv_bfloat16*>(posts), static_cast<int8_t*>(choices),
+      static_cast<float*>(final_carry), T, N, stay_score, stay_factor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S (states) must be 64 or 256 (state_len 3 or 4).
+DTT_EXPORT int crf_fused_forward_bf16(const void* scores, const void* beta, void* posts,
+                                      void* choices, void* final_carry, int T, int N,
+                                      int S, float stay_score, float stay_factor,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (S) {
+    case 64:
+      return launch<64>(scores, beta, posts, choices, final_carry, T, N, stay_score,
+                        stay_factor, st);
+    case 256:
+      return launch<256>(scores, beta, posts, choices, final_carry, T, N, stay_score,
+                         stay_factor, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

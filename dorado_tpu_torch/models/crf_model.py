@@ -1,0 +1,210 @@
+"""Conv + LSTM + LinearCRF basecalling model (fast/hac families).
+
+Port of ``dorado_tpu/models/crf_model.py`` (architecture parity with the
+reference CRF models, dorado/basecall/model/CRFModel.cpp:29-62):
+
+  normalised signal [N, T] -> conv stack (stride product) -> time-major
+  [T/stride, N, H] -> 5 alternating-direction LSTM layers (first reversed)
+  -> LinearCRF (optional decomposition, tanh*5, clamp +-5) -> transition
+  scores [T/stride, N, 4^(state_len+1)] float32
+
+Each LSTM layer runs its input projection ``x @ W_ih^T + (b_ih + b_hh)`` as
+one time-parallel matmul and hands the serial recurrence to
+``ops.lstm.lstm_scan_time_major`` (a CUDA kernel on the GPU). Convolutions
+and matmuls take the module's dtype, sum in float32 where PyTorch does, add
+their biases in float32 and cast back, as the JAX model does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dorado_tpu_torch.config import Activation, BasecallModelConfig
+from dorado_tpu_torch.ops.lstm import lstm_scan_time_major
+
+
+def _activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
+    if act is Activation.SWISH:
+        return F.silu(x)
+    if act is Activation.SWISH_CLAMP:
+        # silu clamped from above at 3.5 (reference: nn/ConvStack.cpp:154)
+        return torch.clamp(F.silu(x), max=3.5)
+    if act is Activation.TANH:
+        return torch.tanh(x)
+    raise ValueError(f"unknown activation {act}")
+
+
+def _lstm_constants(layer: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's bias b_ih + b_hh summed in float32, and W_hh^T in dtype,
+    contiguous."""
+    return layer.b_ih.float() + layer.b_hh.float(), layer.w_hh.t().to(dtype).contiguous()
+
+
+def _linear_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """x @ w^T in x's dtype, returned in float32 with the bias added there."""
+    out = torch.matmul(x, w.t()).float()
+    return out if b is None else out + b.float()
+
+
+class LSTMCRFModel(nn.Module):
+    """Parameters use the JAX model's names and the torch layouts: conv
+    weights [C_out, C_in, K], LSTM weights [4H, C] (gate order i, f, g, o),
+    linear weights [out, in]."""
+
+    def __init__(
+        self,
+        config: BasecallModelConfig,
+        device: torch.device | str | None = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if not config.is_lstm_model or config.is_flstm_model:
+            raise ValueError("LSTMCRFModel supports conv + LSTM CRF models only")
+        self.config = config
+        kw = {"device": device, "dtype": dtype}
+        self.conv_w = nn.ParameterList(
+            nn.Parameter(torch.zeros(cv.size, cv.insize, cv.winlen, **kw))
+            for cv in config.convs
+        )
+        self.conv_b = nn.ParameterList(
+            nn.Parameter(torch.zeros(cv.size, **kw)) for cv in config.convs
+        )
+        h = config.lstm_size
+        self.lstms = nn.ModuleList()
+        for _ in range(config.lstm_layers):
+            layer = nn.Module()
+            layer.w_ih = nn.Parameter(torch.zeros(4 * h, h, **kw))
+            layer.w_hh = nn.Parameter(torch.zeros(4 * h, h, **kw))
+            layer.b_ih = nn.Parameter(torch.zeros(4 * h, **kw))
+            layer.b_hh = nn.Parameter(torch.zeros(4 * h, **kw))
+            self.lstms.append(layer)
+        self.pre_v4 = config.convs[0].size <= 4 or config.num_features != 1
+        if config.out_features is not None:
+            self.linear1_w = nn.Parameter(torch.zeros(config.out_features, h, **kw))
+            self.linear1_b = (
+                nn.Parameter(torch.zeros(config.out_features, **kw)) if config.bias else None
+            )
+            self.linear2_w = nn.Parameter(
+                torch.zeros(config.outsize, config.out_features, **kw)
+            )
+        else:
+            self.linear1_w = nn.Parameter(torch.zeros(config.outsize, h, **kw))
+            self.linear1_b = (
+                nn.Parameter(torch.zeros(config.outsize, **kw))
+                if config.bias or self.pre_v4
+                else None
+            )
+            self.linear2_w = None
+        self._frozen_lstm: list[tuple[torch.Tensor, torch.Tensor]] | None = None
+
+    @torch.no_grad()
+    def freeze_lstm_constants(self, dtype: torch.dtype) -> None:
+        """Make each layer's float32 bias sum and its W_hh^T in ``dtype``
+        once, on the module's current device, instead of on every forward
+        pass. Called before the module is cast to ``dtype``, it sums the
+        float32 biases, as the JAX model does. The weights must not change
+        afterwards."""
+        self._frozen_lstm = [_lstm_constants(p, dtype) for p in self.lstms]
+
+    def conv_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """[N, C_in, T] -> [N, C_out, T/stride]."""
+        for cv, w, b in zip(self.config.convs, self.conv_w, self.conv_b):
+            y = F.conv1d(x, w, stride=cv.stride, padding=cv.padding)
+            x = _activation((y.float() + b.float()[:, None]).to(x.dtype), cv.activation)
+        return x
+
+    def lstm_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """[T, N, H] -> [T, N, H]; layer i runs reversed when i is even."""
+        for i, p in enumerate(self.lstms):
+            bias, w_hh_t = (
+                self._frozen_lstm[i] if self._frozen_lstm else _lstm_constants(p, x.dtype)
+            )
+            xproj = _linear_f32(x, p.w_ih, bias).to(x.dtype)
+            x = lstm_scan_time_major(xproj, w_hh_t, reverse=i % 2 == 0)
+        return x
+
+    def linear_crf_head(self, x: torch.Tensor) -> torch.Tensor:
+        """[T, N, H] -> [T, N, outsize] float32 scores."""
+        tanh_x5 = self.config.scale == 5.0
+        if self.linear2_w is not None:
+            y = _linear_f32(x, self.linear1_w, self.linear1_b).to(x.dtype)
+            scores = _linear_f32(y, self.linear2_w, None)
+        else:
+            scores = _linear_f32(x, self.linear1_w, self.linear1_b)
+        if self.pre_v4 and self.linear2_w is None:
+            return 5.0 * torch.tanh(scores)
+        if tanh_x5:
+            scores = 5.0 * torch.tanh(scores)
+        if self.config.clamp:
+            scores = torch.clamp(scores, -5.0, 5.0)
+        return scores
+
+    def forward(self, signal: torch.Tensor) -> torch.Tensor:
+        """[N, T] (or [N, T, F]) normalised signal -> time-major scores
+        [T/stride, N, outsize] float32, computed in the module's dtype."""
+        if signal.dim() == 2:
+            signal = signal[..., None]
+        dtype = self.conv_w[0].dtype
+        x = self.conv_stack(signal.to(dtype).transpose(1, 2))
+        x = x.permute(2, 0, 1).contiguous()  # [T, N, H]
+        return self.linear_crf_head(self.lstm_stack(x))
+
+
+def init_lstm_crf_params(
+    config: BasecallModelConfig,
+    generator: torch.Generator,
+    device: torch.device | str | None = None,
+) -> LSTMCRFModel:
+    """A model with random weights of the reference shapes, drawn from
+    ``generator`` with the JAX package's distributions (the numbers differ:
+    the two frameworks' generators differ)."""
+    model = LSTMCRFModel(config, device="cpu")
+    h = config.lstm_size
+
+    def normal(shape, fan_in):
+        return torch.randn(shape, generator=generator) / math.sqrt(fan_in)
+
+    def uniform(shape, scale):
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * scale
+
+    with torch.no_grad():
+        for cv, w in zip(config.convs, model.conv_w):
+            w.copy_(normal(w.shape, cv.insize * cv.winlen))
+        for p in model.lstms:
+            scale = 1.0 / math.sqrt(h)
+            for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                getattr(p, name).copy_(uniform(getattr(p, name).shape, scale))
+        model.linear1_w.copy_(normal(model.linear1_w.shape, h))
+        if model.linear2_w is not None:
+            model.linear2_w.copy_(normal(model.linear2_w.shape, config.out_features))
+    return model.to(device) if device is not None else model
+
+
+def params_from_jax(params, config: BasecallModelConfig) -> LSTMCRFModel:
+    """A float32 CPU model holding the weights of a JAX parameter pytree
+    (``dorado_tpu.models.crf_model.init_lstm_crf_params`` layout, as numpy
+    arrays or anything ``np.asarray`` takes), so both packages compute the
+    same function."""
+    model = LSTMCRFModel(config, device="cpu")
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    with torch.no_grad():
+        for p, w, b in zip(params["convs"], model.conv_w, model.conv_b):
+            w.copy_(t(p["w"]).permute(2, 1, 0))  # HIO [K, C_in, C_out] -> [C_out, C_in, K]
+            b.copy_(t(p["b"]))
+        for p, layer in zip(params["lstms"], model.lstms):
+            for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                getattr(layer, name).copy_(t(p[name]))
+        model.linear1_w.copy_(t(params["linear1"]["w"]))
+        if model.linear1_b is not None:
+            model.linear1_b.copy_(t(params["linear1"]["b"]))
+        if model.linear2_w is not None:
+            model.linear2_w.copy_(t(params["linear2"]["w"]))
+    return model

@@ -1,0 +1,188 @@
+"""The Viterbi decode's lattice kernels: backward LSE scan, fused forward
+pass and traceback.
+
+Port of the decode path of ``dorado_tpu/ops/crf_pallas.py``
+(``fused_viterbi_decode`` -> ``_lse_scan_pallas_blk`` +
+``_fused_forward_decode_blk``, then ``viterbi_traceback_pallas``). Scores stay
+in the raw layout c = s*4 + r; the TPU's block permutation is not used.
+
+Each wrapper launches its CUDA kernel (``csrc/crf_*.cu``) on CUDA tensors
+and runs its plain PyTorch version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dorado_tpu_torch.ops import _cuda
+from dorado_tpu_torch.ops.crf_scan import (
+    backward_scores,
+    lse_step,
+    predecessor_index,
+    viterbi_step,
+    viterbi_traceback as viterbi_traceback_plain,
+)
+
+
+def _stream_dtype(scores: torch.Tensor) -> torch.dtype:
+    # a bf16 score stream gets bf16 beta and posterior streams, as on the TPU
+    return torch.bfloat16 if scores.dtype == torch.bfloat16 else torch.float32
+
+
+def _check_scores(scores: torch.Tensor) -> tuple[int, int, int]:
+    if scores.dim() != 3:
+        raise ValueError(f"scores: expected [T, N, C], got {tuple(scores.shape)}")
+    t_len, n, c = scores.shape
+    if c // 4 not in (64, 256) or c % 4 or t_len == 0 or n == 0:
+        raise ValueError(f"scores: unsupported shape {tuple(scores.shape)}")
+    _cuda.check_tensor(scores, "scores", torch.bfloat16, (t_len, n, c))
+    return t_len, n, c // 4
+
+
+# ---------------------------------------------------------------------------
+# K3: backward LSE scan, shifted stream
+# ---------------------------------------------------------------------------
+
+
+def backward_scores_shifted_plain(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
+    """[T, N, C] scores -> [T, N, S] with row j = beta[j+1] - max(beta[j+1]),
+    in the stream dtype."""
+    beta = backward_scores(scores, stay_score)[1:]
+    return (beta - beta.amax(dim=-1, keepdim=True)).to(_stream_dtype(scores))
+
+
+def backward_scores_shifted(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
+    """Backward LSE scan emitting the shifted, max-normalised beta stream
+    the fused forward pass consumes (row j = beta[j+1] - its row max)."""
+    if scores.device.type == "cpu":
+        return backward_scores_shifted_plain(scores, stay_score)
+    t_len, n, s = _check_scores(scores)
+    out = torch.empty(t_len, n, s, dtype=torch.bfloat16, device=scores.device)
+    fn = _cuda.kernel_function(
+        "crf_lse_backward", "crf_lse_backward_bf16",
+        [_cuda.VOIDP, _cuda.VOIDP, _cuda.INT, _cuda.INT, _cuda.INT, _cuda.FLOAT, _cuda.VOIDP],
+    )
+    with torch.cuda.device(scores.device):
+        code = fn(
+            scores.data_ptr(), out.data_ptr(), t_len, n, s,
+            math.exp(stay_score), _cuda.stream_ptr(scores.device),
+        )
+    _cuda.check_launch("crf_lse_backward", code)
+    backward_scores_shifted.launches += 1
+    return out
+
+
+backward_scores_shifted.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: fused forward pass (alpha, posteriors, Viterbi choices)
+# ---------------------------------------------------------------------------
+
+
+def fused_forward_decode_plain(
+    scores: torch.Tensor, beta_shift: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(posts [T, N, S] softmax(alpha[t+1] + beta_shift[t]) in the stream
+    dtype, choices [T, N, S] int8, final Viterbi carry [N, S] float32)."""
+    t_len, n, c = scores.shape
+    s = c // 4
+    dev = scores.device
+    sc = scores.float()
+    es = torch.exp(sc)
+    ms = sc.reshape(t_len, n, s, 4)
+    idx = torch.as_tensor(predecessor_index(s), device=dev)
+    flat = torch.arange(c, device=dev).reshape(s, 4)
+    stay_factor = math.exp(stay_score)
+    alpha = torch.zeros(n, s, dtype=torch.float32, device=dev)
+    vit = torch.zeros(n, s, dtype=torch.float32, device=dev)
+    posts = torch.empty(t_len, n, s, dtype=_stream_dtype(scores), device=dev)
+    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=dev)
+    for t in range(t_len):
+        alpha = lse_step(alpha, es[t], idx, flat, stay_factor)
+        posts[t] = torch.softmax(alpha + beta_shift[t].float(), dim=-1).to(posts.dtype)
+        vit = vit - vit.amax(dim=-1, keepdim=True)
+        vit, choices[t] = viterbi_step(vit, ms[t], idx, stay_score)
+    return posts, choices, vit
+
+
+def fused_forward_decode(
+    scores: torch.Tensor, beta_shift: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pass over the scores: alpha LSE, posterior rows and Viterbi
+    choices (4 = stay). Returns (posts, choices, final carry)."""
+    if scores.device.type == "cpu":
+        return fused_forward_decode_plain(scores, beta_shift, stay_score)
+    t_len, n, s = _check_scores(scores)
+    _cuda.check_tensor(beta_shift, "beta_shift", torch.bfloat16, (t_len, n, s))
+    if beta_shift.device != scores.device:
+        raise ValueError("fused_forward_decode: inputs are on different devices")
+    posts = torch.empty(t_len, n, s, dtype=torch.bfloat16, device=scores.device)
+    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
+    final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
+    fn = _cuda.kernel_function(
+        "crf_fused_forward", "crf_fused_forward_bf16",
+        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2 + [_cuda.VOIDP],
+    )
+    with torch.cuda.device(scores.device):
+        code = fn(
+            scores.data_ptr(), beta_shift.data_ptr(), posts.data_ptr(),
+            choices.data_ptr(), final.data_ptr(), t_len, n, s,
+            float(stay_score), math.exp(stay_score), _cuda.stream_ptr(scores.device),
+        )
+    _cuda.check_launch("crf_fused_forward", code)
+    fused_forward_decode.launches += 1
+    return posts, choices, final
+
+
+fused_forward_decode.launches = 0
+
+
+def fused_viterbi_decode(
+    scores: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(posts rows 1..T, choices, final) for the Viterbi path: the backward
+    LSE scan, then the fused forward pass."""
+    beta_shift = backward_scores_shifted(scores, stay_score)
+    return fused_forward_decode(scores, beta_shift, stay_score)
+
+
+# ---------------------------------------------------------------------------
+# K5: traceback
+# ---------------------------------------------------------------------------
+
+
+def viterbi_traceback(
+    choices: torch.Tensor, last_state: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(states [T, N] int32, moves [T, N] uint8, moves[0] = 1) from the
+    choices [T, N, S] and the final states [N]."""
+    if choices.device.type == "cpu":
+        return viterbi_traceback_plain(choices, last_state)
+    if choices.dim() != 3 or 0 in choices.shape or choices.shape[2] % 4:
+        raise ValueError(f"choices: unsupported shape {tuple(choices.shape)}")
+    t_len, n, s = choices.shape
+    _cuda.check_tensor(choices, "choices", torch.int8, (t_len, n, s))
+    _cuda.check_tensor(last_state, "last_state", torch.int32, (n,))
+    if last_state.device != choices.device:
+        raise ValueError("viterbi_traceback: inputs are on different devices")
+    states = torch.empty(t_len, n, dtype=torch.int32, device=choices.device)
+    moves = torch.empty(t_len, n, dtype=torch.uint8, device=choices.device)
+    fn = _cuda.kernel_function(
+        "crf_traceback", "crf_traceback",
+        [_cuda.VOIDP] * 4 + [_cuda.INT] * 3 + [_cuda.VOIDP],
+    )
+    with torch.cuda.device(choices.device):
+        code = fn(
+            choices.data_ptr(), last_state.data_ptr(), states.data_ptr(),
+            moves.data_ptr(), t_len, n, s, _cuda.stream_ptr(choices.device),
+        )
+    _cuda.check_launch("crf_traceback", code)
+    viterbi_traceback.launches += 1
+    return states, moves
+
+
+viterbi_traceback.launches = 0
+

@@ -1,0 +1,410 @@
+"""Simplex basecalling pipeline: reads -> scaled chunks -> device engine -> BAM.
+
+Port of ``dorado_tpu/pipeline/basecaller.py::BasecallerPipeline`` for
+simplex DNA basecalling without read splitting, modified bases, barcoding or
+poly(A) estimation (the JAX pipeline with ``split_reads=False`` and none of
+those set). Host code is a *feeder* (scale + trim + chunk + batch fill) and
+a *finisher* (stitch + tags + write) around ``TorchBasecallRunner``; the
+device computes batch k+1 while the host finishes batch k.
+
+Per-read semantics follow ScalerNode (dorado/read_pipeline/nodes/
+ScalerNode.cpp:143-270), BasecallerNode chunking/stitch (BasecallerNode.cpp:
+96-286) and ReadCommon tag generation (read_pipeline/base/messages.cpp:43-130).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+from dorado_tpu_torch.config import BasecallModelConfig
+from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
+from dorado_tpu_torch.io.sam import SamHeader, SamRecord, SamTag
+from dorado_tpu_torch.models.crf_model import LSTMCRFModel
+from dorado_tpu_torch.pipeline.host import OrderedPool, OrderedSink, default_host_threads
+from dorado_tpu_torch.signal.chunk import generate_chunks
+from dorado_tpu_torch.signal.scaling import Scaler
+from dorado_tpu_torch.signal.stitch import CalledChunk, stitch_chunks
+from dorado_tpu_torch.signal.trim import trim_signal
+from dorado_tpu_torch.utils.read_trim import mux_change_trim
+from dorado_tpu_torch.utils.sequence import mean_qscore_from_qstring
+from dorado_tpu_torch.utils.time_utils import timestamp_from_unix_ms
+
+
+@dataclass
+class PipelineStats:
+    reads_called: int = 0
+    samples_processed: int = 0  # real samples fed to the model (excl. padding)
+    samples_incl_padding: int = 0  # incl. the repeat-padding of short chunks
+    bases_called: int = 0
+    batches: int = 0
+    elapsed_s: float = 0.0
+    # wall time with no batch in flight on the device while the run loop was
+    # live: the host-starvation metric
+    device_idle_s: float = 0.0
+    # wall time the host spent blocked in runner.finish() waiting for the
+    # device: large values mean the device, not the host, is the bottleneck
+    finish_wait_s: float = 0.0
+    dispatch_wait_s: float = 0.0  # blocked in the dispatch call
+    device_fetch_s: float = 0.0  # blocked on the device results
+    host_decode_s: float = 0.0  # compacting calls on the host
+    # cumulative time inside _finish_read across sink worker threads
+    # (thread-seconds: can exceed wall time)
+    host_finish_s: float = 0.0
+
+    @property
+    def device_idle_frac(self) -> float:
+        return self.device_idle_s / self.elapsed_s if self.elapsed_s else 0.0
+
+    @property
+    def samples_per_s(self) -> float:
+        return self.samples_processed / self.elapsed_s if self.elapsed_s else 0.0
+
+    @property
+    def bases_per_s(self) -> float:
+        return self.bases_called / self.elapsed_s if self.elapsed_s else 0.0
+
+
+@dataclass
+class _WorkingRead:
+    read: Pod5Read
+    scaled: np.ndarray
+    num_trimmed: int
+    shift_pa: float
+    scale_pa: float
+    scaling_method: str
+    offsets: list[int]
+    chunk_sizes: list[int]
+    results: list = field(default_factory=list)
+    pending: int = 0
+
+
+class BasecallerPipeline:
+    def __init__(
+        self,
+        config: BasecallModelConfig,
+        model: LSTMCRFModel,
+        chunk_size: int | None = None,
+        batch_size: int | None = None,
+        overlap: int | None = None,
+        emit_moves: bool = False,
+        device: torch.device | str | None = None,
+    ):
+        if config.is_rna_model:
+            raise ValueError("RNA models are not supported by this pipeline yet")
+        self.config = config
+        if not config.has_normalised_basecaller_params():
+            config.normalise_basecaller_params()
+        self.runner = TorchBasecallRunner(
+            config,
+            model,
+            chunk_size=chunk_size,
+            batch_size=batch_size,
+            device=device,
+        )
+        self.overlap = int(overlap if overlap is not None else config.basecaller.overlap)
+        self.overlap -= self.overlap % config.stride
+        self.emit_moves = emit_moves
+        self.scaler = Scaler(config.signal_norm_params)
+        self.stats = PipelineStats()
+        self._stats_lock = threading.Lock()
+        self._inflight_total = 0  # batches dispatched but not yet harvested
+        self._idle_mark: float | None = None  # when inflight last hit zero
+        # one batching lane per configured chunk size
+        self._lanes = [
+            {
+                "buffer": self.runner.make_input_buffer(i),
+                "spare": self.runner.make_input_buffer(i),
+                "batch": [],  # (read, chunk index)
+                "inflight": None,  # (device handle, batch)
+            }
+            for i in range(len(self.runner.chunk_sizes))
+        ]
+
+    # ------------------------------------------------------------------
+    # header
+    # ------------------------------------------------------------------
+
+    def build_header(self, run_infos: Iterable[RunInfo], cli_line: str = "") -> SamHeader:
+        """@PG plus one @RG per distinct protocol run."""
+        header = SamHeader()
+        header.programs.append(
+            {
+                "ID": "basecaller",
+                "PN": "dorado_tpu_torch",
+                "VN": "0.1.0",
+                "CL": cli_line or "dorado_tpu_torch basecaller",
+            }
+        )
+        seen: dict[str, dict] = {}
+        for ri in run_infos:
+            rg_id = f"{ri.protocol_run_id}_{self.config.model_name}"
+            if rg_id in seen:
+                continue
+            started = timestamp_from_unix_ms(ri.acquisition_start_time_ms)
+            seen[rg_id] = {
+                "ID": rg_id,
+                "PU": ri.flow_cell_id or "unknown",
+                "PM": ri.system_name or "unknown",
+                "DT": started,
+                "PL": "ONT",
+                "DS": (
+                    f"runid={ri.protocol_run_id or 'unknown'}"
+                    f" basecall_model={self.config.model_name}"
+                    f" acquisition_start_time={started}"
+                    f" model_stride={self.config.stride}"
+                ),
+                "LB": ri.sample_id or "unknown",
+            }
+        header.read_groups = list(seen.values())
+        return header
+
+    # ------------------------------------------------------------------
+    # per-read feed
+    # ------------------------------------------------------------------
+
+    def _scale_and_trim(self, read: Pod5Read) -> tuple[np.ndarray, int, float, float, str]:
+        strategy = self.config.signal_norm_params.strategy
+        scaled, result = self.scaler.scale_read(
+            read.signal,
+            read_scale=read.calibration_scale,
+            read_offset=read.calibration_offset,
+            open_pore_level=read.open_pore_level,
+            flow_cell_product_code=read.run_info.flow_cell_product_code,
+        )
+        if self.config.signal_norm_params.standardisation.standardise:
+            # kit14 pA-standardised data: constant trim (ScalerNode.cpp:238-243)
+            trim = 10
+        else:
+            trim = trim_signal(scaled[: min(8000, len(scaled) // 2)])
+        if trim < len(scaled):
+            scaled = scaled[trim:]
+        else:
+            trim = 0
+        # tags report shift/scale in pA space (ScalerNode.cpp:231-234)
+        shift_pa = read.calibration_scale * (result.shift + read.calibration_offset)
+        scale_pa = read.calibration_scale * result.scale
+        return scaled.astype(np.float32), trim, shift_pa, scale_pa, strategy.value
+
+    def _prepare_read(self, read: Pod5Read) -> list[_WorkingRead]:
+        """Scale/trim + chunk layout. Thread-safe: touches no pipeline state,
+        so the run loop fans it out on the scale pool."""
+        scaled, trimmed, shift_pa, scale_pa, method = self._scale_and_trim(read)
+        if len(scaled) == 0:
+            return []
+        offsets = generate_chunks(
+            len(scaled), self.runner.chunk_size, self.config.stride, self.overlap
+        )
+        sizes = [min(self.runner.chunk_size, len(scaled) - off) for off in offsets]
+        wr = _WorkingRead(
+            read=read,
+            scaled=scaled,
+            num_trimmed=trimmed,
+            shift_pa=shift_pa,
+            scale_pa=scale_pa,
+            scaling_method=method,
+            offsets=offsets,
+            chunk_sizes=sizes,
+        )
+        wr.results = [None] * len(offsets)
+        wr.pending = len(offsets)
+        return [wr]
+
+    def _feed_prepared(self, wr: _WorkingRead, flush_cb) -> None:
+        self.stats.samples_processed += len(wr.scaled)
+        for ci, off in enumerate(wr.offsets):
+            size = wr.chunk_sizes[ci]
+            lane = self._lanes[self.runner.lane_for(size)]
+            idx = len(lane["batch"])
+            self.runner.accept_chunk(lane["buffer"], idx, wr.scaled[off : off + size])
+            lane["batch"].append((wr, ci))
+            if len(lane["batch"]) == lane["buffer"].shape[0]:
+                flush_cb()
+
+    def _flush_batch(self, finished: list[_WorkingRead], force: bool = False) -> None:
+        """Dispatch full lanes (all lanes when ``force``) and harvest the
+        batches dispatched before: the device computes batch k+1 while the
+        host decodes batch k (the stream overlap of CudaCaller.cpp:634)."""
+        for lane in self._lanes:
+            rows = lane["buffer"].shape[0]
+            if lane["batch"] and (force or len(lane["batch"]) == rows):
+                n = len(lane["batch"])
+                if self._inflight_total == 0 and self._idle_mark is not None:
+                    self.stats.device_idle_s += time.perf_counter() - self._idle_mark
+                handle = self.runner.dispatch(lane["buffer"], n)
+                self._inflight_total += 1
+                self.stats.batches += 1
+                self.stats.samples_incl_padding += n * lane["buffer"].shape[1]
+                inflight = (handle, lane["batch"])
+                lane["batch"] = []
+                lane["buffer"], lane["spare"] = lane["spare"], lane["buffer"]
+            else:
+                inflight = None
+
+            if lane["inflight"] is not None:
+                handle, batch = lane["inflight"]
+                t_wait = time.perf_counter()
+                decoded = self.runner.finish(handle)
+                self.stats.finish_wait_s += time.perf_counter() - t_wait
+                self._inflight_total -= 1
+                if self._inflight_total == 0:
+                    self._idle_mark = time.perf_counter()
+                for (wr, ci), chunk in zip(batch, decoded):
+                    wr.results[ci] = chunk
+                    wr.pending -= 1
+                    if wr.pending == 0:
+                        finished.append(wr)
+            lane["inflight"] = inflight
+
+    def _drain(self, finished: list[_WorkingRead]) -> None:
+        """Flush any partial batches and harvest all in-flight work."""
+        self._flush_batch(finished, force=True)
+        self._flush_batch(finished, force=True)
+
+    # ------------------------------------------------------------------
+    # finish: stitch + record
+    # ------------------------------------------------------------------
+
+    def _finish_read(self, wr: _WorkingRead) -> list[SamRecord]:
+        t_start = time.perf_counter()
+        try:
+            return self._finish_read_inner(wr)
+        finally:
+            dt = time.perf_counter() - t_start
+            with self._stats_lock:
+                self.stats.host_finish_s += dt
+
+    def _finish_read_inner(self, wr: _WorkingRead) -> list[SamRecord]:
+        called = [
+            CalledChunk(
+                seq=res.sequence,
+                qstring=res.qstring,
+                moves=np.asarray(res.moves, dtype=np.uint8),
+                input_offset=off,
+                raw_chunk_size=size,
+            )
+            for res, off, size in zip(wr.results, wr.offsets, wr.chunk_sizes)
+        ]
+        stitched = stitch_chunks(called, self.config.stride, len(wr.scaled))
+        # mux-change/unblock trimming: the garbage is at the pore-exit end
+        # (BasecallerNode.cpp:251-254)
+        seq, qstring, moves, wr.scaled = mux_change_trim(
+            stitched.seq, stitched.qstring, stitched.moves, wr.scaled,
+            self.config.stride, wr.read.end_reason,
+        )
+        rec = self._make_record(wr, seq, qstring, moves)
+        # pore type / end reason / minknow event count close the read-tag
+        # block (messages.cpp:134-147 order)
+        if wr.read.pore_type:
+            rec.tags.append(SamTag("po", "Z", wr.read.pore_type))
+        if wr.read.end_reason:
+            rec.tags.append(SamTag("er", "Z", wr.read.end_reason))
+        rec.tags.append(SamTag("me", "I", wr.read.num_minknow_events & 0xFFFFFFFF))
+        with self._stats_lock:
+            self.stats.reads_called += 1
+            self.stats.bases_called += len(seq)
+        return [rec]
+
+    def _mean_qscore(self, qstring: str) -> float:
+        start = self.config.mean_qscore_start_pos
+        if start < 0:
+            start = 60
+        if len(qstring) <= start:
+            return mean_qscore_from_qstring(qstring)
+        return mean_qscore_from_qstring(qstring[start:])
+
+    def _make_record(
+        self, wr: _WorkingRead, seq: str, qstring: str, moves: np.ndarray
+    ) -> SamRecord:
+        read = wr.read
+        ri = read.run_info
+        sample_rate = ri.sample_rate or self.config.sample_rate
+        num_samples = len(wr.scaled)
+        start_ms = ri.acquisition_start_time_ms + (read.start_sample * 1000) // max(
+            1, sample_rate
+        )
+        tags = [
+            SamTag("qs", "f", self._mean_qscore(qstring)),
+            SamTag("du", "f", (num_samples + wr.num_trimmed) / float(max(1, sample_rate))),
+            SamTag("ns", "i", num_samples + wr.num_trimmed),
+            SamTag("ts", "i", wr.num_trimmed),
+            SamTag("mx", "i", read.well),
+            SamTag("ch", "i", read.channel),
+            SamTag("st", "Z", timestamp_from_unix_ms(start_ms)),
+            SamTag("rn", "i", read.read_number),
+            SamTag("fn", "Z", read.filename),
+            SamTag("sm", "f", wr.shift_pa),
+            SamTag("sd", "f", wr.scale_pa),
+            SamTag("sv", "Z", wr.scaling_method),
+            SamTag("dx", "i", 0),
+            SamTag("RG", "Z", f"{ri.protocol_run_id}_{self.config.model_name}"),
+        ]
+        if self.emit_moves:
+            mv = np.concatenate([[np.uint8(self.config.stride)], moves.astype(np.uint8)])
+            tags.append(SamTag("mv", "B", mv, subtype="c"))
+        return SamRecord(qname=read.read_id, seq=seq, qual=qstring, tags=tags)
+
+    # ------------------------------------------------------------------
+    # run
+    # ------------------------------------------------------------------
+
+    def run_reads(
+        self,
+        reads: Iterable[Pod5Read],
+        writer,
+        max_seconds: float | None = None,
+    ) -> PipelineStats:
+        """Basecall every read of ``reads`` and write one record per read to
+        ``writer``, in input order. ``max_seconds`` time-boxes the run: no
+        new reads are fed after the deadline; in-flight reads still finish."""
+        t0 = time.perf_counter()
+        self.stats = PipelineStats()
+        rs_before = self.runner.stats.snapshot()
+        self._idle_mark = t0  # initial fill counts as device idle
+        self._inflight_total = 0
+        deadline = t0 + max_seconds if max_seconds is not None else None
+        finished: list[_WorkingRead] = []
+        workers = default_host_threads()
+        # scale pool ahead of the feed loop; finish pool behind the device
+        # step; records written on this thread in submission order
+        scale_pool = OrderedPool(self._prepare_read, workers)
+        finish_sink = OrderedSink(
+            self._finish_read, lambda recs: [writer.write(r) for r in recs], workers
+        )
+
+        def flush():
+            self._flush_batch(finished)
+            for wr in finished:
+                finish_sink.submit(wr)
+            finished.clear()
+            finish_sink.drain_ready()
+
+        def timed_reads():
+            for read in reads:
+                if deadline is not None and time.perf_counter() > deadline:
+                    return
+                yield read
+
+        try:
+            for prepared in scale_pool.map(timed_reads()):
+                for wr in prepared:
+                    self._feed_prepared(wr, flush)
+            self._drain(finished)
+            for wr in finished:
+                finish_sink.submit(wr)
+            finished.clear()
+        finally:
+            finish_sink.shutdown()
+            scale_pool.shutdown()
+        self.stats.elapsed_s = time.perf_counter() - t0
+        rs_after = self.runner.stats.snapshot()
+        self.stats.dispatch_wait_s = rs_after[3] - rs_before[3]
+        self.stats.device_fetch_s = rs_after[4] - rs_before[4]
+        self.stats.host_decode_s = rs_after[5] - rs_before[5]
+        return self.stats

@@ -1,0 +1,21 @@
+"""Sequence-space utilities (parity: dorado/utils/sequence_utils.cpp)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+_CHAR_TO_ERR = 10.0 ** (-(np.arange(256, dtype=np.float32) - 33.0) / 10.0)
+_CHAR_TO_ERR[:33] = 0.0
+
+
+def mean_qscore_from_qstring(qstring: str | bytes) -> float:
+    """Mean qscore in probability space, clamped to [1, 50]
+    (sequence_utils.cpp `mean_qscore_from_qstring`)."""
+    if not qstring:
+        return 0.0
+    q = np.frombuffer(
+        qstring.encode() if isinstance(qstring, str) else qstring, dtype=np.uint8
+    )
+    mean_error = float(np.mean(_CHAR_TO_ERR[q], dtype=np.float64))
+    mean_q = -10.0 * np.log10(mean_error)
+    return float(np.clip(mean_q, 1.0, 50.0))

@@ -1,0 +1,118 @@
+"""The port's CRF lattice code against the JAX package: the plain versions
+of the three CUDA decode kernels (backward LSE scan, fused forward pass,
+traceback) against the Pallas kernels in interpret mode, and the raw-layout
+plain scans against ``dorado_tpu.ops.crf_scan``.
+
+Scores are multiples of 1/8 in [-5, 5]: every Viterbi sum is then exact in
+float32 and in the Pallas kernel's hi/lo bf16 copy (``_dot2``), so choices,
+states and moves must agree exactly, ties included. LSE values and posts
+agree to 1e-4 relative: ``_dot2`` copies to about 2^-17 relative, and the
+sums run in other orders.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dorado_tpu.ops import crf_scan as jax_scan
+from dorado_tpu.ops.crf_pallas import (
+    _fused_forward_decode_blk,
+    _lse_scan_pallas_blk,
+    block_permutation,
+    viterbi_traceback_pallas,
+)
+from dorado_tpu_torch.ops import crf_cuda, crf_scan
+
+STAY = 2.0
+T, N = 24, 8
+
+
+def _scores(num_states, seed):
+    rs = np.random.RandomState(seed)
+    x = np.round(rs.randn(T, N, 4 * num_states) * 2.0 * 8) / 8
+    return np.clip(x, -5, 5).astype(np.float32)
+
+
+def _lse_close(out, ref):
+    # 1e-4 relative to the magnitude of the values compared
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.fixture(scope="module", params=[64, 256], ids=["S64", "S256"])
+def lattice(request):
+    s = request.param
+    raw = _scores(s, seed=s)
+    blk = jnp.asarray(raw[..., block_permutation(s)])
+    beta_jax = _lse_scan_pallas_blk(blk, STAY, True, True, prepermuted=True, shifted=True)
+    posts_jax, choices_jax, final_jax = _fused_forward_decode_blk(
+        blk, beta_jax, STAY, True, prepermuted=True, beta_shifted=True
+    )
+    return s, raw, np.array(beta_jax), (
+        np.array(posts_jax), np.array(choices_jax), np.array(final_jax)
+    )
+
+
+def test_backward_scan_shifted_matches_pallas(lattice):
+    s, raw, beta_jax, _ = lattice
+    out = crf_cuda.backward_scores_shifted(torch.from_numpy(raw), STAY)
+    assert out.dtype == torch.float32 and out.shape == (T, N, s)
+    assert crf_cuda.backward_scores_shifted.launches == 0
+    _lse_close(out.numpy(), beta_jax)
+
+
+def test_fused_forward_decode_matches_pallas(lattice):
+    s, raw, beta_jax, (posts_jax, choices_jax, final_jax) = lattice
+    posts, choices, final = crf_cuda.fused_forward_decode(
+        torch.from_numpy(raw), torch.from_numpy(beta_jax), STAY
+    )
+    np.testing.assert_array_equal(choices.numpy(), choices_jax)
+    np.testing.assert_array_equal(final.numpy(), final_jax)
+    np.testing.assert_allclose(posts.numpy(), posts_jax, rtol=1e-4, atol=1e-7)
+
+
+def test_traceback_matches_pallas(lattice):
+    _, _, _, (_, choices_jax, final_jax) = lattice
+    last = np.argmax(final_jax, axis=-1).astype(np.int32)
+    st_ref, mv_ref = viterbi_traceback_pallas(
+        jnp.asarray(choices_jax), jnp.asarray(last), interpret=True
+    )
+    st, mv = crf_cuda.viterbi_traceback(
+        torch.from_numpy(choices_jax), torch.from_numpy(last)
+    )
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+
+
+@pytest.mark.parametrize("num_states", [64, 256])
+def test_plain_scans_match_xla(num_states):
+    raw = _scores(num_states, seed=7 + num_states)
+    sc = torch.from_numpy(raw)
+    _lse_close(
+        crf_scan.forward_scores(sc, STAY).numpy(),
+        np.asarray(jax_scan.forward_scores(jnp.asarray(raw), STAY)),
+    )
+    _lse_close(
+        crf_scan.backward_scores(sc, STAY).numpy(),
+        np.asarray(jax_scan.backward_scores(jnp.asarray(raw), STAY)),
+    )
+    st, mv = crf_scan.viterbi_path(sc, STAY)
+    st_ref, mv_ref = jax_scan.viterbi_path(jnp.asarray(raw), STAY)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+
+
+def test_fused_decode_agrees_with_separate_scans():
+    """The fused path's posts equal softmax(alpha + beta) of the separate
+    plain scans, and its choices trace back to the Viterbi path."""
+    raw = torch.from_numpy(_scores(256, seed=11))
+    posts, choices, final = crf_cuda.fused_viterbi_decode(raw, STAY)
+    alpha = crf_scan.forward_scores(raw, STAY)
+    beta = crf_scan.backward_scores(raw, STAY)
+    ref = torch.softmax(alpha + beta, dim=-1)[1:]
+    np.testing.assert_allclose(posts.numpy(), ref.numpy(), rtol=1e-4, atol=1e-7)
+    st, mv = crf_cuda.viterbi_traceback(choices, torch.argmax(final, -1).to(torch.int32))
+    st_ref, mv_ref = crf_scan.viterbi_path(raw, STAY)
+    np.testing.assert_array_equal(st.numpy(), st_ref.numpy())
+    np.testing.assert_array_equal(mv.numpy(), mv_ref.numpy())

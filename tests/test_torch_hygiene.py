@@ -1,0 +1,141 @@
+"""Hygiene of the port package: it imports neither JAX nor the JAX package,
+its entry points default to CUDA and refuse to fall back to the CPU, and
+each kernel wrapper runs its plain version on CPU tensors without counting
+a launch."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import dorado_tpu_torch
+from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+from dorado_tpu_torch.models.crf_model import LSTMCRFModel
+from dorado_tpu_torch.models.presets import fast_v40_config, hac_v43_config
+from dorado_tpu_torch.ops import _cuda, crf_cuda, lstm
+from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+PKG = Path(dorado_tpu_torch.__file__).parent
+
+
+def _module_names():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="dorado_tpu_torch.")
+    )
+
+
+def test_package_imports_no_jax():
+    names = _module_names()
+    assert "dorado_tpu_torch.basecall.runner" in names and len(names) > 20
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
+        "bad = sorted(new & {'jax', 'jaxlib', 'dorado_tpu'})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_sources_name_no_jax():
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.replace(",", " ").split()
+            if words[:1] in (["import"], ["from"]):
+                assert not {"jax", "jaxlib", "dorado_tpu"} & {
+                    w.split(".")[0] for w in words[1:2]
+                }, f"{path}: {line}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = fast_v40_config()
+    model = LSTMCRFModel(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchBasecallRunner(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BasecallerPipeline(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchBasecallRunner(cfg, model, device="cuda")
+    assert TorchBasecallRunner(cfg, model, device="cpu").device.type == "cpu"
+
+
+@pytest.fixture
+def no_kernels(monkeypatch):
+    """Fail if anything tries to build or launch a CUDA kernel."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA kernel was requested for a CPU tensor")
+
+    monkeypatch.setattr(_cuda, "kernel_function", refuse)
+    monkeypatch.setattr(_cuda, "build_kernels", refuse)
+    for wrapper in (
+        lstm.lstm_scan_time_major,
+        crf_cuda.backward_scores_shifted,
+        crf_cuda.fused_forward_decode,
+        crf_cuda.viterbi_traceback,
+    ):
+        monkeypatch.setattr(wrapper, "launches", 0)
+
+
+def _spy(monkeypatch, calls, module, name):
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+
+
+def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
+    rs = np.random.RandomState(0)
+    calls = []
+    _spy(monkeypatch, calls, lstm, "lstm_scan_plain")
+    _spy(monkeypatch, calls, crf_cuda, "backward_scores_shifted_plain")
+    _spy(monkeypatch, calls, crf_cuda, "fused_forward_decode_plain")
+    _spy(monkeypatch, calls, crf_cuda, "viterbi_traceback_plain")
+    x = torch.from_numpy(rs.randn(5, 2, 16).astype(np.float32))
+    lstm.lstm_scan_time_major(x, torch.from_numpy(rs.randn(4, 16).astype(np.float32)))
+    scores = torch.from_numpy(rs.randn(5, 2, 256).astype(np.float32))
+    beta = crf_cuda.backward_scores_shifted(scores, 2.0)
+    _, choices, final = crf_cuda.fused_forward_decode(scores, beta, 2.0)
+    crf_cuda.viterbi_traceback(choices, torch.argmax(final, -1).to(torch.int32))
+    assert sorted(calls) == sorted(
+        ["lstm_scan_plain", "backward_scores_shifted_plain",
+         "fused_forward_decode_plain", "viterbi_traceback_plain"]
+    )
+    assert lstm.lstm_scan_time_major.launches == 0
+    assert crf_cuda.backward_scores_shifted.launches == 0
+    assert crf_cuda.fused_forward_decode.launches == 0
+    assert crf_cuda.viterbi_traceback.launches == 0
+
+
+def test_cpu_runner_launches_no_kernel(no_kernels):
+    cfg = hac_v43_config()
+    cfg.lstm_size = 16
+    cfg.convs[2].size = 16
+    runner = TorchBasecallRunner(cfg, LSTMCRFModel(cfg), chunk_size=1200, batch_size=2, device="cpu")
+    buf = runner.make_input_buffer(0)
+    out = runner.call_chunks(buf, 1)
+    assert len(out) == 1 and len(out[0].moves) == 1200 // cfg.stride
+    assert lstm.lstm_scan_time_major.launches == 0
+    assert crf_cuda.viterbi_traceback.launches == 0
+
+
+def test_kernel_sources_present():
+    for name in _cuda.KERNEL_SOURCES:
+        src = (_cuda.CSRC / f"{name}.cu").read_text()
+        assert "Replaces dorado_tpu/ops/" in src and "What bounds it on the H100" in src
+    assert _cuda.library_path("lstm_scan").parent == _cuda.BUILD_DIR
