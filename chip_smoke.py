@@ -4,25 +4,34 @@
     python3 chip_smoke.py
 
 1. Requires CUDA and prints the card's name and power limit.
-2. Builds the four CUDA kernels from ``dorado_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel).
+2. Builds the seven CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and prints their register and spill
+   reports.
 3. Runs each kernel and its plain PyTorch version on the card at hac v4.3
-   shapes (chunk 9996 -> T = 1666, batch N = 128, H = 384, S = 256, bf16),
-   holds them against each other (K1 also at the short lane's shape and a
-   512-row batch, so each of its rows-per-block variants and both
-   directions are held) and times both, beside cuDNN's LSTM as a
-   yardstick for the recurrence (cuDNN's time includes the input projection,
-   which the kernel leaves to a matmul; the port never calls cuDNN's LSTM).
+   shapes (chunk 9996 -> T = 1666, batch N = 128, H = 384, S = 256), holds
+   them against each other and times both, beside a PyTorch call that
+   computes the same function where there is one (the port never calls it):
+   K1 (LSTM recurrence) at each rows-per-block variant and both directions,
+   beside cuDNN's LSTM; K2 (W8A8 projection) bit for bit at three row
+   counts, beside the bf16 matmul it replaces and ``torch._int_mm`` with
+   separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
+   scans and traceback); K6 (full-history LSE scan) in both directions; K17
+   (beam search) on outcomes against the plain beam at the full T (and at
+   64 states at a short T), and its traceback exactly.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``) at hac v4.3's full width over 16 synthetic reads (14 of
    20k-60k samples, 2 of 3k-7k for the short-chunk lane) with seeded random
-   weights, with every kernel launch counter at 0 before the run, and
-   requires every kernel to have been launched by it.
-5. Checks the device decode against the CPU's plain decode on the same
-   scores (sequences and moves exactly) and the bf16 model on the card
-   against the float32 model on the CPU.
-6. Profiles one more full batch of the device step and prints its device
-   time by kernel and the device's busy share.
+   weights, once with the Viterbi decoder and once with the beam decoder,
+   both with W8A8 input projections (the default on the card). Every launch
+   counter is set to 0 before each run, and each run must have launched every
+   kernel of its path.
+5. Checks the outputs: the model on the card against the float32 model on
+   the CPU, the W8A8 model against the bf16 model, the device decode against
+   the CPU's plain decode of the same scores (the beam also with the card's
+   back guide on both sides), and the beam decoder against the Viterbi decoder on
+   scores with a planted path.
+6. Profiles one more full batch of each decoder's device step and prints
+   its device time by kernel and the device's busy share.
 7. Prints one JSON line of per-kernel numbers and, last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
@@ -32,6 +41,7 @@ result.
 
 from __future__ import annotations
 
+import difflib
 import io
 import json
 import subprocess
@@ -42,16 +52,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 1234
 T, N, H, S = 1666, 128, 384, 256  # hac v4.3 at chunk 9996, batch 128
+W = 32  # beam width
+BEAM_CUT = 100.0
 STAY = 2.0
 N_READS = 16
 # random weights either stay on every step or move on most of them; this
 # gain on the CRF head's weights makes the path emit bases
 HEAD_GAIN = 64.0
-# published H100 SXM peaks (dense): bf16 tensor cores, non-tensor f32, HBM3
+# published H100 SXM peaks (dense): int8 and bf16 tensor cores, non-tensor
+# f32, HBM3
+PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_BYTES_S = 3.35e12
-# kernel vs plain version on the card, both in bf16 (max abs error):
+# kernel vs plain version on the card (max abs error):
 # K1: the f32 sums of h @ W_hh run in another order, so h can round to the
 #     neighbouring bf16 value (2^-8 at |h| < 1) and feed that to later steps
 TOL_LSTM = 0.05
@@ -61,6 +75,11 @@ TOL_LSTM = 0.05
 # forward, as every second layer runs) and of a 512-row batch (4 a block;
 # short T keeps the plain version's step loop quick)
 LSTM_SHAPES = [(T, N, True), (1249, 2 * N, False), (64, 4 * N, True)]
+# K2: bit for bit (the int32 sums are exact and every float step is a single
+#     rounded operation in the kernel and in the plain version), at the long
+#     lane's rows, the short lane's, and a count that is no multiple of the
+#     kernel's 128-row tile
+W8A8_ROWS = [T * N, 1249 * 2 * N, 5 * 128 + 37]
 # K3: the carry's f32 LSE sums run in another order; rows are bf16, whose
 #     spacing is 2^-7 relative: |err| <= 0.05 + 2^-7 * |value|
 TOL_BETA_ABS, TOL_BETA_REL = 0.05, 2.0**-7
@@ -70,6 +89,33 @@ TOL_BETA_ABS, TOL_BETA_REL = 0.05, 2.0**-7
 #     |err| <= 1e-5 + 2^-7 * |value|, elementwise; choices and the final
 #     carry must be identical
 TOL_POSTS_ABS, TOL_POSTS_REL = 1e-5, 2.0**-7
+# K6: float32 history; the four-term sums and exp/log run in another order
+#     and through other library functions over up to 1666 chained steps:
+#     |err| <= 1e-3 + 1e-5 * |value| (values reach about 1e4)
+TOL_LSE_ABS, TOL_LSE_REL = 1e-3, 1e-5
+# K17: held on outcomes, at the full T the pipeline gives it. CUDA's
+#     log1pf/expf and PyTorch's differ in the last bit, so a merged score can
+#     differ in its last bit and a near-tie in the merge, the cutoff or the
+#     selection can go the other way, after which that row's beams differ.
+#     On the same scores and the same back guide every run so far gave identical
+#     states and moves on every row; the limits leave room for one such tie:
+#     at most one row of the batch may differ, at no more than 2% of its
+#     steps (a tie moves a stretch of one path, not the rest of the row).
+BEAM_MAX_ROWS_DIFFERENT = 1
+BEAM_MAX_ROW_SHARE_DIFFERENT = 0.02
+# the beam decode on the card against the plain beam on the CPU, over four
+# chunks. With the card's back guide copied over, the limits are K17's above
+# (every run: no step differs). With the CPU's own back guide, K6's error in the
+# back guide (up to 4.9e-4 here, within TOL_LSE_*) moves near-ties, which the
+# beam search amplifies (the JAX beam does the same when it is handed the
+# other back guide: tests/test_torch_runner.py). Every run had 96.86% of
+# positions equal (2, 0, 0 and 207 of a row's 1666 steps differ); the limit
+# is that less a margin of two points
+MIN_BEAM_CPU_POSITIONS_EQUAL = 0.95
+# the decoders against each other (lowest sequence similarity of a row, on
+# scores with a planted path) and the precisions against each other
+MIN_BEAM_VITERBI_IDENTITY = 0.8
+MAX_W8A8_REL_ERR, MIN_W8A8_ARGMAX_AGREE = 0.02, 0.98
 
 
 def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -94,9 +140,9 @@ def main() -> None:
     from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
     from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
     from dorado_tpu_torch.io.sam import BamWriter
-    from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+    from dorado_tpu_torch.models.crf_model import _linear_f32, init_lstm_crf_params
     from dorado_tpu_torch.models.presets import hac_v43_config
-    from dorado_tpu_torch.ops import _cuda, crf_cuda, lstm
+    from dorado_tpu_torch.ops import _cuda, beam, crf_cuda, crf_scan, int8_matmul, lstm
     from dorado_tpu_torch.pipeline import BasecallerPipeline
 
     smi = subprocess.run(
@@ -110,7 +156,7 @@ def main() -> None:
     # ---- build -----------------------------------------------------------
     t0 = time.perf_counter()
     libs = _cuda.build_kernels()
-    print(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"built {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in libs.items():
         log = path.with_suffix(".so.log")
         if log.exists():
@@ -136,12 +182,16 @@ def main() -> None:
     rows = []
 
     def report(name, source, replaces, err, ms, plain_ms, ops, peak, nbytes, library_ms,
-               library_what=""):
+               library_what="", wrappers=None, **extra):
+        """One row of the ``kernels`` line. ``wrappers`` names the launch
+        counters (keys of ``wrappers`` below) whose sum is the row's
+        ``launches``: the row's own name unless given."""
         b_ms, b_by = bound_ms(ops, peak, nbytes)
         rows.append({
+            "wrappers": wrappers or [name],
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, **extra,
         })
         lib = "none" if library_ms is None else f"{library_ms:.3f} ms {library_what}"
         print(
@@ -181,7 +231,59 @@ def main() -> None:
             time_ms(lambda: cudnn(x_in), 3),
             "(cuDNN nn.LSTM, one layer, incl. its input projection)",
         )
-        del xproj, cudnn, x_in
+        del xproj, cudnn
+
+        # ---- K2: W8A8 input projection -------------------------------------
+        w_ih = (torch.rand(4 * H, H, generator=gen, device=dev) * 2 - 1) / H**0.5
+        wq, ws = int8_matmul.quantize_weight_rows(w_ih)
+        wq_t = wq.t()  # the transposed view the model passes: used as it is
+        bias = torch.randn(4 * H, generator=gen, device=dev) * 0.1
+        err = 0.0
+        for m in W8A8_ROWS:
+            x = torch.randn(m, H, generator=gen, device=dev).bfloat16()
+            out_k = int8_matmul.w8a8_matmul_fq(x, wq_t, ws, bias)
+            out_p = int8_matmul.w8a8_matmul_fq_plain(x, wq_t, ws, bias)
+            torch.cuda.synchronize()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            same = torch.equal(out_k, out_p)
+            print(f"w8a8_matmul_fq M={m}: bit for bit {same}, max abs error {e:.3g}", flush=True)
+            if not same:
+                bad = (out_k != out_p).float().mean().item()
+                raise AssertionError(
+                    f"w8a8_matmul_fq at M={m}: {bad:.3%} of outputs differ from the plain "
+                    f"version (max abs error {e})"
+                )
+            err = max(err, e)
+            del x, out_k, out_p
+        x_flat = x_in.reshape(T * N, H)
+        w_bf16 = w_ih.bfloat16()
+
+        def int_mm_path():
+            # the same function through torch._int_mm, with the quantise and
+            # dequantise steps as separate PyTorch passes
+            xf = x_flat.float()
+            s = xf.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) * (1.0 / 127.0)
+            xq = torch.round(xf * torch.reciprocal(s)).to(torch.int8)
+            acc = torch._int_mm(xq, wq_t)
+            return (acc.float() * s * ws + bias).to(torch.bfloat16)
+
+        if not torch.equal(int_mm_path(), int8_matmul.w8a8_matmul_fq(x_flat, wq_t, ws, bias)):
+            raise AssertionError("w8a8_matmul_fq differs from the torch._int_mm path")
+        bf16_ms = time_ms(lambda: _linear_f32(x_flat, w_bf16, bias).to(torch.bfloat16), 5)
+        m, k, o = T * N, H, 4 * H
+        report(
+            "w8a8_matmul_fq", "dorado_tpu_torch/csrc/w8a8_matmul_fq.cu",
+            "dorado_tpu/ops/int8_matmul.py:267", err,
+            time_ms(lambda: int8_matmul.w8a8_matmul_fq(x_flat, wq_t, ws, bias), 10),
+            time_ms(lambda: int8_matmul.w8a8_matmul_fq_plain(x_flat, wq_t, ws, bias), 2),
+            2.0 * m * k * o, PEAK_INT8, 2 * m * k + k * o + 8 * o + 2 * m * o,
+            time_ms(int_mm_path, 5),
+            "(torch._int_mm with separate quantise and dequantise passes)",
+            bf16_matmul_ms=bf16_ms,
+        )
+        print(f"  the bf16 torch.matmul + float32 bias + cast it replaces: {bf16_ms:.3f} ms",
+              flush=True)
+        del x_in, x_flat, w_ih, w_bf16, wq, wq_t, ws, bias
 
         # ---- K3: backward LSE scan, shifted ------------------------------
         scores = (torch.randn(T, N, 4 * S, generator=gen, device=dev) * 2).clamp(-5, 5).bfloat16()
@@ -236,18 +338,62 @@ def main() -> None:
             # one choice byte read per step and row, states and moves written
             4.0 * T * N, PEAK_F32, T * N * (1 + 4 + 1) + 4 * N, None,
         )
-        del scores, beta_k, beta_p, diff, posts_k, posts_p, ch_k, ch_p, st_k, st_p
+        del beta_k, beta_p, diff, posts_k, posts_p, ch_k, ch_p, st_k, st_p
+
+        # ---- K6: full-history LSE scan, both directions --------------------
+        def hold_lse(sc, what):
+            errs = {}
+            for direction, kernel, plain in (
+                ("forward", crf_cuda.forward_scores, crf_scan.forward_scores),
+                ("backward", crf_cuda.backward_scores, crf_scan.backward_scores),
+            ):
+                out_k, out_p = kernel(sc, STAY), plain(sc, STAY)
+                torch.cuda.synchronize()
+                d = (out_k - out_p).abs()
+                e = d.max().item()
+                print(f"crf_lse_scan {direction} {what}: max abs error {e:.3g} on values up to "
+                      f"{out_p.abs().max().item():.4g}", flush=True)
+                if not bool((d <= TOL_LSE_ABS + TOL_LSE_REL * out_p.abs()).all()):
+                    raise AssertionError(f"crf_lse_scan {direction} {what}: max abs error {e}")
+                errs[direction] = e
+            return errs
+
+        scores32 = scores.float()
+        del scores
+        small = (torch.randn(64, 8, 4 * 64, generator=gen, device=dev) * 2).clamp(-5, 5)
+        hold_lse(small, "T=64 N=8 S=64")
+        errs = hold_lse(scores32, f"T={T} N={N} S={S}")
+        fwd_ms = time_ms(lambda: crf_cuda.forward_scores(scores32, STAY), 3)
+        bwd_ms = time_ms(lambda: crf_cuda.backward_scores(scores32, STAY), 3)
+        plain_ms = time_ms(lambda: crf_scan.backward_scores(scores32, STAY), 1)
+        print(f"crf_lse_scan: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms", flush=True)
+        report(
+            "crf_lse_scan", "dorado_tpu_torch/csrc/crf_lse_scan.cu",
+            "dorado_tpu/ops/crf_pallas.py:152", max(errs.values()),
+            # one launch is one direction: the mean of the two
+            (fwd_ms + bwd_ms) / 2, plain_ms,
+            17.0 * T * N * S, PEAK_F32, 4 * T * N * 4 * S + 4 * (T + 1) * N * S, None,
+            wrappers=["crf_lse_scan_forward", "crf_lse_scan_backward"],
+            forward_ms=fwd_ms, backward_ms=bwd_ms,
+        )
+        del scores32, small
     torch.cuda.empty_cache()
 
-    # ---- main path: the simplex pipeline at hac v4.3's full width ----------
+    # ---- the model and the pipelines at hac v4.3's full width ---------------
     cfg = hac_v43_config()
     cfg.normalise_basecaller_params()
+    plain_model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED))
     model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         model.linear1_w.mul_(HEAD_GAIN)
+    # W8A8 is the default precision on the card
     pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True)
-    if pipe.runner.chunk_size // cfg.stride != T:
-        raise AssertionError(f"chunk size {pipe.runner.chunk_size} does not give T = {T}")
+    beam_pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True, decoder="beam")
+    for p in (pipe, beam_pipe):
+        if p.runner.chunk_size // cfg.stride != T or p.runner.lstm_precision != "w8a8":
+            raise AssertionError(
+                f"chunk size {p.runner.chunk_size} does not give T = {T}, or not W8A8")
+    runner, beam_runner = pipe.runner, beam_pipe.runner
 
     rs = np.random.RandomState(SEED)
     run_info = RunInfo(
@@ -273,111 +419,313 @@ def main() -> None:
             predicted_scaling_shift=float("nan"), run_info=run_info,
             filename="smoke.pod5",
         ))
+    samples = sum(len(r.signal) for r in reads)
 
+    # ---- K17: beam search, on the model's own scores ------------------------
+    buf = runner.make_input_buffer(0)
+    buf[:] = rs.randn(*buf.shape)
+    with torch.inference_mode():
+        scores = runner.model(torch.from_numpy(buf).to(dev)).contiguous()
+        if scores.shape != (T, N, 4 * S) or scores.dtype != torch.float32:
+            raise AssertionError(f"model scores: {tuple(scores.shape)} {scores.dtype}")
+
+        def hold_beam(sc, back_guide, what):
+            """Kernel against plain beam on the same scores and back guide:
+            (share of positions that differ, rows that differ, the kernel's
+            history, the plain forward beam's ms)."""
+            hist_k = beam.beam_forward(sc, back_guide, W, BEAM_CUT, STAY)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist_p = beam.beam_forward_plain(sc, back_guide, W, BEAM_CUT, STAY)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            st_k, mv_k = beam.beam_traceback(*hist_k)
+            st_p, mv_p = beam.beam_traceback_plain(*hist_p)
+            different = (st_k != st_p) | (mv_k != mv_p)
+            per_row = different.sum(dim=1)
+            rows_different = int((per_row > 0).sum().item())
+            positions_different = different.float().mean().item()
+            print(
+                f"beam_search vs plain at {what}, W={W}: {rows_different} rows differ, "
+                f"{positions_different:.4%} of positions; differing steps by row "
+                f"{ {i: int(c) for i, c in enumerate(per_row.tolist()) if c} }; "
+                f"{mv_k.float().mean().item():.1%} of steps emit a base", flush=True)
+            if (rows_different > BEAM_MAX_ROWS_DIFFERENT
+                    or per_row.max().item() > BEAM_MAX_ROW_SHARE_DIFFERENT * sc.shape[0]):
+                raise AssertionError(
+                    f"beam_search at {what}: outcomes differ from the plain beam's")
+            # the traceback kernel against its plain version on the same history
+            tb_p = beam.beam_traceback_plain(*hist_k)
+            if not torch.equal(st_k, tb_p[0]) or not torch.equal(mv_k, tb_p[1]):
+                raise AssertionError(
+                    f"beam_traceback at {what}: states or moves differ from the plain version")
+            return positions_different, rows_different, hist_k, mv_k, plain_ms
+
+        # 64 states (the kernel's other instantiation) at a short T
+        small = (torch.randn(64, 8, 4 * 64, generator=gen, device=dev) * 2).clamp(-5, 5)
+        hold_beam(small, crf_cuda.backward_scores(small, STAY), "T=64 N=8 S=64")
+        beta = crf_cuda.backward_scores(scores, STAY)
+        positions_different, rows_different, hist, mv_k, plain_fwd_ms = hold_beam(
+            scores, beta, f"T={T} N={N} S={S}")
+        if not mv_k.float().mean().item() > 0.05:
+            raise AssertionError("beam_search: the paths emit no bases")
+        c = 4 * S
+        report(
+            "beam_search", "dorado_tpu_torch/csrc/beam_search.cu",
+            "dorado_tpu/ops/beam_pallas.py:348", positions_different,
+            time_ms(lambda: beam.beam_forward(scores, beta, W, BEAM_CUT, STAY), 3),
+            plain_fwd_ms,
+            # the W x 4W match both ways, the counts of at most 11 cutoffs, the
+            # candidates and the selection: about 2*4W + 5*11 + 60 a lane and step
+            float(T * N * W * (8 * W + 115)), PEAK_F32,
+            4 * T * N * c + 4 * T * N * S + T * N * W * 5 + N * W * (4 + 4 + 4), None,
+            rows_different=rows_different,
+        )
+        print("  (max_abs_err of beam_search is the share of positions that differ from the "
+              "plain beam's)", flush=True)
+        report(
+            "beam_traceback", "dorado_tpu_torch/csrc/beam_search.cu",
+            "dorado_tpu/ops/beam.py:303", 0.0,
+            time_ms(lambda: beam.beam_traceback(*hist), 3),
+            time_ms(lambda: beam.beam_traceback_plain(*hist), 1),
+            4.0 * T * N, PEAK_F32, T * N * (4 + 1 + 4 + 1) + 4 * N * W, None,
+        )
+        del scores, beta, hist, small
+    torch.cuda.empty_cache()
+
+    # ---- main paths: the simplex pipeline with each decoder -----------------
     class Discard:
         def write(self, rec):
             pass
 
-    # a first run over the same reads pays the one-time set-up of each new
-    # batch shape (cuDNN and cuBLAS plans), which the measured run then reuses
-    t0 = time.perf_counter()
-    pipe.run_reads(reads, Discard())
-    torch.cuda.synchronize()
-    print(f"first run, incl. per-shape set-up: {time.perf_counter() - t0:.3f} s", flush=True)
-    bam = io.BytesIO()
-    writer = BamWriter(bam, pipe.build_header([run_info]))
     wrappers = {
         "lstm_scan": lstm.lstm_scan_time_major,
+        "w8a8_matmul_fq": int8_matmul.w8a8_matmul_fq,
         "crf_lse_backward": crf_cuda.backward_scores_shifted,
         "crf_fused_forward": crf_cuda.fused_forward_decode,
         "crf_traceback": crf_cuda.viterbi_traceback,
+        "crf_lse_scan_forward": crf_cuda.forward_scores,
+        "crf_lse_scan_backward": crf_cuda.backward_scores,
+        "beam_search": beam.beam_forward,
+        "beam_traceback": beam.beam_traceback,
     }
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stats = pipe.run_reads(reads, writer)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
-    writer.close()
+    path_kernels = {
+        "viterbi": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward",
+                    "crf_traceback"],
+        "beam": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_scan_forward",
+                 "crf_lse_scan_backward", "beam_search", "beam_traceback"],
+    }
+    launches = {}
+    for decoder, p in (("viterbi", pipe), ("beam", beam_pipe)):
+        # a first run over the same reads pays the one-time set-up of each new
+        # batch shape (cuDNN and cuBLAS plans), which the measured run reuses
+        t0 = time.perf_counter()
+        p.run_reads(reads, Discard())
+        torch.cuda.synchronize()
+        print(f"{decoder}: first run, incl. per-shape set-up: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        bam = io.BytesIO()
+        writer = BamWriter(bam, p.build_header([run_info]))
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = p.run_reads(reads, writer)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches[decoder] = {name: w.launches for name, w in wrappers.items()}
+        writer.close()
 
-    data = bam.getvalue()
-    if stats.reads_called != N_READS or writer.records_written != N_READS:
-        raise AssertionError(f"{writer.records_written} of {N_READS} reads written")
-    if data[:4] != b"\x1f\x8b\x08\x04":
-        raise AssertionError("output does not start with the BGZF magic")
+        data = bam.getvalue()
+        if stats.reads_called != N_READS or writer.records_written != N_READS:
+            raise AssertionError(f"{decoder}: {writer.records_written} of {N_READS} reads written")
+        if data[:4] != b"\x1f\x8b\x08\x04":
+            raise AssertionError(f"{decoder}: output does not start with the BGZF magic")
+        for name, count in launches[decoder].items():
+            if (count > 0) != (name in path_kernels[decoder]):
+                raise AssertionError(
+                    f"{decoder} pipeline launched {name} {count} times: its path is "
+                    f"{path_kernels[decoder]}")
+        print(
+            f"{decoder} pipeline: {N_READS} reads, {samples} samples, {stats.batches} batches, "
+            f"{stats.bases_called} bases in {elapsed:.3f} s = {samples / elapsed:.0f} samples/s "
+            f"(hac v4.3, batch {N}, bf16 with W8A8 projections) [{card}]; launches "
+            f"{ {k: v for k, v in launches[decoder].items() if v} }; "
+            f"device idle {stats.device_idle_s:.3f} s, host blocked in dispatch "
+            f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s",
+            flush=True,
+        )
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
         if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} was not launched by the main path")
-    samples = sum(len(r.signal) for r in reads)
-    print(
-        f"pipeline: {N_READS} reads, {samples} samples, {stats.batches} batches, "
-        f"{stats.bases_called} bases in {elapsed:.3f} s = {samples / elapsed:.0f} samples/s "
-        f"(hac v4.3, batch {N}, bf16) [{card}]; launches {launches}; "
-        f"device idle {stats.device_idle_s:.3f} s, host blocked in dispatch "
-        f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s",
-        flush=True,
-    )
+            raise AssertionError(f"{row['name']} was not launched by a main path")
 
-    # ---- outputs against a reference on a small input ----------------------
-    runner = pipe.runner
-    cpu_runner = TorchBasecallRunner(cfg, model, batch_size=N, device="cpu")
+    # ---- outputs against references on a small input ------------------------
+    def sequences(out):
+        """[3, N, T] decode output -> each row's called sequence."""
+        return [out[0][i][out[2][i].astype(bool)].tobytes().decode() for i in range(out.shape[1])]
+
+    def identity(a, b) -> tuple[float, float]:
+        """(lowest, highest) similarity ratio of two decode outputs' rows."""
+        ratios = [
+            difflib.SequenceMatcher(None, x, y, autojunk=False).ratio()
+            for x, y in zip(sequences(a), sequences(b))
+        ]
+        return min(ratios), max(ratios)
+
+    def planted_scores(t_len, n):
+        """Float32 scores [t_len, n, 4S] that favour one random path per row
+        (half stays, half steps), and that path in the decode output's
+        layout [3, n, t_len] (bases, unused, moves)."""
+        state_len = S.bit_length() // 2
+        moves = torch.rand(t_len, n, generator=gen, device=dev) < 0.5
+        bases = torch.randint(0, 4, (t_len, n), generator=gen, device=dev)
+        sc = torch.randn(t_len, n, 4 * S, generator=gen, device=dev)
+        sc = torch.where(moves[..., None], sc, sc - 3.0).clamp(-5, 5)
+        state = torch.randint(0, S, (n,), generator=gen, device=dev)
+        states = torch.empty(t_len, n, dtype=torch.int64, device=dev)
+        rows_idx = torch.arange(n, device=dev)
+        for t in range(t_len):
+            nxt = ((state << 2) | bases[t]) & (S - 1)
+            flat = nxt * 4 + (state >> (2 * (state_len - 1)))
+            sc[t, rows_idx[moves[t]], flat[moves[t]]] = 5.0
+            state = torch.where(moves[t], nxt, state)
+            states[t] = state
+        alphabet = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+        truth = torch.stack([
+            alphabet[(states & 3)].t(), torch.zeros(n, t_len, dtype=torch.uint8, device=dev),
+            moves.t().to(torch.uint8),
+        ])
+        return sc, truth.cpu().numpy()
+
+    kw = dict(batch_size=N)
+    bf16_runner = TorchBasecallRunner(cfg, model, lstm_precision="bf16", **kw)
+    cpu_runner = TorchBasecallRunner(cfg, model, device="cpu", lstm_precision="w8a8", **kw)
     sig = np.stack([
         pipe.scaler.scale_read(r.signal, read_scale=0.2)[0][10 : 10 + runner.chunk_size]
         for r in reads[2:6]  # long reads: each fills a whole chunk
     ]).astype(np.float16)
     with torch.inference_mode():
-        scores = runner.model(torch.from_numpy(sig).to(dev))
+        on_dev = torch.from_numpy(sig).to(dev)
+        scores = runner.model(on_dev)
         ref_scores = cpu_runner.model(torch.from_numpy(sig))
         if scores.shape != (T, 4, cfg.outsize) or not bool(torch.isfinite(scores).all()):
             raise AssertionError("model scores are not finite or of the wrong shape")
         score_err = (scores.cpu() - ref_scores).abs()
         if not score_err.mean() <= 0.02 * ref_scores.abs().mean():
             raise AssertionError(f"bf16 model vs float32 model: mean abs error {score_err.mean()}")
-        scores = scores.to(torch.bfloat16)
-        on_card = runner.decode_scores(scores).cpu().numpy()
-        on_cpu = cpu_runner.decode_scores(scores.float().cpu()).numpy()
-    if not (np.array_equal(on_card[0], on_cpu[0]) and np.array_equal(on_card[2], on_cpu[2])):
-        raise AssertionError("device decode: sequences or moves differ from the CPU decode")
-    emit = on_card[2].astype(bool)
-    q = on_card[1][emit].astype(np.int32) - 33
-    if emit.sum() == 0 or q.min() < 1 or q.max() > 50:
-        raise AssertionError("device decode: no bases, or qual chars out of [1, 50]")
-    print(
-        f"reference check: bf16 scores vs float32 mean abs {score_err.mean():.4f} "
-        f"(max {score_err.max():.4f}); {int(emit.sum())} bases equal to the CPU decode, "
-        f"qual chars differing at {np.mean(on_card[1][emit] != on_cpu[1][emit]):.3%}",
-        flush=True,
-    )
+        print(
+            f"W8A8 model, bf16 on the card vs float32 on the CPU: mean abs {score_err.mean():.4f} "
+            f"(max {score_err.max():.4f})", flush=True)
 
-    # ---- where the device step's time goes (one full batch, profiled) ------
+        # W8A8 against bf16 projections, on the card, with the head as drawn
+        # (the gain saturates the head's tanh and hides the difference)
+        q_scores = TorchBasecallRunner(cfg, plain_model, **kw).model(on_dev)
+        b_scores = TorchBasecallRunner(cfg, plain_model, lstm_precision="bf16", **kw).model(on_dev)
+        rel = (torch.linalg.norm(q_scores - b_scores) / torch.linalg.norm(b_scores)).item()
+        agree = (q_scores.argmax(-1) == b_scores.argmax(-1)).float().mean().item()
+        print(f"W8A8 vs bf16 projections on the card: relative norm error {rel:.4f}, "
+              f"argmax agreement {agree:.4f}", flush=True)
+        if not (rel < MAX_W8A8_REL_ERR and agree > MIN_W8A8_ARGMAX_AGREE):
+            raise AssertionError("W8A8 scores are too far from the bf16 model's")
+
+        # the Viterbi decode on the card against the CPU's plain decode
+        vit_scores = scores.to(torch.bfloat16)
+        on_card = runner.decode_scores(vit_scores).cpu().numpy()
+        on_cpu = cpu_runner.decode_scores(vit_scores.float().cpu()).numpy()
+        if not (np.array_equal(on_card[0], on_cpu[0]) and np.array_equal(on_card[2], on_cpu[2])):
+            raise AssertionError("device decode: sequences or moves differ from the CPU decode")
+        emit = on_card[2].astype(bool)
+        q = on_card[1][emit].astype(np.int32) - 33
+        if emit.sum() == 0 or q.min() < 1 or q.max() > 50:
+            raise AssertionError("device decode: no bases, or qual chars out of [1, 50]")
+        print(
+            f"Viterbi decode: {int(emit.sum())} bases equal to the CPU decode, qual chars "
+            f"differing at {np.mean(on_card[1][emit] != on_cpu[1][emit]):.3%}", flush=True)
+
+        # the beam search on the card against the plain beam on the CPU, on
+        # the same scores: first with the card's back guide copied over, where
+        # only K17's own rounding can part them (its limits above), then
+        # through the runners, each with its own back guide
+        back_guide = crf_cuda.backward_scores(scores, STAY)
+        st_k, mv_k = beam.beam_search_device(scores, back_guide, W, BEAM_CUT, STAY)
+        st_c, mv_c = beam.beam_search_plain(scores.cpu(), back_guide.cpu(), W, BEAM_CUT, STAY)
+        per_row = ((st_k.cpu() != st_c) | (mv_k.cpu() != mv_c)).sum(dim=1).tolist()
+        print(f"beam search on the card vs the CPU's plain beam, the card's back guide on both: "
+              f"differing steps by row {per_row} of {T}", flush=True)
+        if (sum(c > 0 for c in per_row) > BEAM_MAX_ROWS_DIFFERENT
+                or max(per_row) > BEAM_MAX_ROW_SHARE_DIFFERENT * T):
+            raise AssertionError(
+                "beam search: far from the CPU's plain beam on the same back guide")
+        cpu_back_guide = crf_scan.backward_scores(scores.cpu(), STAY)
+        back_guide_err = (back_guide.cpu() - cpu_back_guide).abs().max().item()
+        beam_card = beam_runner.decode_scores_beam(scores).cpu().numpy()
+        beam_cpu = cpu_runner.decode_scores_beam(scores.cpu()).numpy()
+        equal = (beam_card[0] == beam_cpu[0]) & (beam_card[2] == beam_cpu[2])
+        same = equal.mean()
+        emit_b = beam_card[2].astype(bool)
+        qb = beam_card[1][emit_b].astype(np.int32) - 33
+        print(f"beam decode: {int(emit_b.sum())} bases; {same:.3%} of positions equal to the "
+              f"CPU's plain beam decode with its own back guide (the back guides differ by up to "
+              f"{back_guide_err:.3g}); differing steps by row "
+              f"{(~equal).sum(axis=1).tolist()} of {T}",
+              flush=True)
+        if (emit_b.sum() == 0 or qb.min() < 1 or qb.max() > 50
+                or same < MIN_BEAM_CPU_POSITIONS_EQUAL):
+            raise AssertionError("beam decode: no bases, bad qual chars, or far from the CPU's")
+        del back_guide
+        # the two decoders against each other. On a random model's scores
+        # they need not agree (the best path is not the best sequence), so
+        # that identity is only printed; on scores with a planted path (its
+        # steps at +5, stays made the best choice elsewhere, noise around)
+        # both must recover that path
+        b_scores = bf16_runner.model(on_dev)
+        vit = bf16_runner.decode_scores(b_scores.to(torch.bfloat16)).cpu().numpy()
+        bm = beam_runner.decode_scores_beam(b_scores).cpu().numpy()
+        print("beam vs Viterbi sequences on the bf16 model's scores: identity "
+              "%.3f-%.3f over %d chunks" % (*identity(vit, bm), len(sig)), flush=True)
+        planted, truth = planted_scores(T, 16)
+        vit = runner.decode_scores(planted.to(torch.bfloat16)).cpu().numpy()
+        bm = beam_runner.decode_scores_beam(planted).cpu().numpy()
+        both = identity(vit, bm)
+        print("planted path, %d bases over 16 rows: beam vs Viterbi identity %.3f-%.3f, "
+              "Viterbi vs planted %.3f-%.3f, beam vs planted %.3f-%.3f"
+              % (int(truth[2].sum()), *both, *identity(vit, truth), *identity(bm, truth)),
+              flush=True)
+        if both[0] < MIN_BEAM_VITERBI_IDENTITY:
+            raise AssertionError("beam and Viterbi sequences disagree on a planted path")
+    del bf16_runner, cpu_runner, scores, q_scores, b_scores
+
+    # ---- where each device step's time goes (one full batch, profiled) ------
     from torch.profiler import ProfilerActivity, profile
 
     buf = runner.make_input_buffer(0)
     buf[:] = rs.randn(*buf.shape)
-    runner.call_chunks(buf, buf.shape[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.call_chunks(buf, buf.shape[0])
+    for decoder, r in (("viterbi", runner), ("beam", beam_runner)):
+        r.call_chunks(buf, buf.shape[0])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = sorted(
-        ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-         if e.self_device_time_total > 0),
-        key=lambda kv: -kv[1],
-    )
-    busy_ms = sum(ms for _, ms in by_kernel)
-    print(
-        f"device step (batch {buf.shape[0]}): wall {wall_ms:.2f} ms, device busy "
-        f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}) [{card}]",
-        flush=True,
-    )
-    for key, ms in by_kernel[:8]:
-        print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%}  {key[:90]}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r.call_chunks(buf, buf.shape[0])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = sorted(
+            ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+             if e.self_device_time_total > 0),
+            key=lambda kv: -kv[1],
+        )
+        busy_ms = sum(ms for _, ms in by_kernel)
+        print(
+            f"{decoder} device step (batch {buf.shape[0]}, W8A8): wall {wall_ms:.2f} ms, device "
+            f"busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}) [{card}]",
+            flush=True,
+        )
+        for key, ms in by_kernel[:10]:
+            print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%}  {key[:90]}")
 
+    print(smi, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

@@ -13,10 +13,16 @@ one time-parallel matmul and hands the serial recurrence to
 ``ops.lstm.lstm_scan_time_major`` (a CUDA kernel on the GPU). Convolutions
 and matmuls take the module's dtype, sum in float32 where PyTorch does, add
 their biases in float32 and cast back, as the JAX model does.
+
+``quantize_lstm_crf_w8a8`` turns the input projections into W8A8: a
+quantised layer holds ``w_ih_q`` (int8) and ``w_ih_s`` (float32 scales) in
+place of ``w_ih`` and projects through ``ops.int8_matmul.w8a8_matmul_fq``
+(a CUDA kernel on the GPU) with the bias added inside it.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dorado_tpu_torch.config import Activation, BasecallModelConfig
+from dorado_tpu_torch.ops.int8_matmul import quantize_weight_rows, w8a8_matmul_fq
 from dorado_tpu_torch.ops.lstm import lstm_scan_time_major
 
 
@@ -39,10 +46,17 @@ def _activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
     raise ValueError(f"unknown activation {act}")
 
 
-def _lstm_constants(layer: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """A layer's bias b_ih + b_hh summed in float32, and W_hh^T in dtype,
-    contiguous."""
-    return layer.b_ih.float() + layer.b_hh.float(), layer.w_hh.t().to(dtype).contiguous()
+def _lstm_constants(
+    layer: nn.Module, dtype: torch.dtype
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """A layer's bias b_ih + b_hh summed in float32, W_hh^T in dtype,
+    contiguous, and a quantised layer's float32 weight scales (else None)."""
+    scales = getattr(layer, "w_ih_s", None)
+    return (
+        layer.b_ih.float() + layer.b_hh.float(),
+        layer.w_hh.t().to(dtype).contiguous(),
+        None if scales is None else scales.float(),
+    )
 
 
 def _linear_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
@@ -100,15 +114,16 @@ class LSTMCRFModel(nn.Module):
                 else None
             )
             self.linear2_w = None
-        self._frozen_lstm: list[tuple[torch.Tensor, torch.Tensor]] | None = None
+        self._frozen_lstm: list[tuple] | None = None
 
     @torch.no_grad()
     def freeze_lstm_constants(self, dtype: torch.dtype) -> None:
-        """Make each layer's float32 bias sum and its W_hh^T in ``dtype``
-        once, on the module's current device, instead of on every forward
-        pass. Called before the module is cast to ``dtype``, it sums the
-        float32 biases, as the JAX model does. The weights must not change
-        afterwards."""
+        """Make each layer's float32 bias sum, its W_hh^T in ``dtype`` and a
+        quantised layer's float32 weight scales once, on the module's
+        current device, instead of on every forward pass. Called before the
+        module is cast to ``dtype``, it sums the float32 biases and keeps
+        the scales in float32, as the JAX model does. The weights must not
+        change afterwards."""
         self._frozen_lstm = [_lstm_constants(p, dtype) for p in self.lstms]
 
     def conv_stack(self, x: torch.Tensor) -> torch.Tensor:
@@ -121,10 +136,13 @@ class LSTMCRFModel(nn.Module):
     def lstm_stack(self, x: torch.Tensor) -> torch.Tensor:
         """[T, N, H] -> [T, N, H]; layer i runs reversed when i is even."""
         for i, p in enumerate(self.lstms):
-            bias, w_hh_t = (
+            bias, w_hh_t, scales = (
                 self._frozen_lstm[i] if self._frozen_lstm else _lstm_constants(p, x.dtype)
             )
-            xproj = _linear_f32(x, p.w_ih, bias).to(x.dtype)
+            if scales is not None:
+                xproj = w8a8_matmul_fq(x, p.w_ih_q.t(), scales, bias, out_dtype=x.dtype)
+            else:
+                xproj = _linear_f32(x, p.w_ih, bias).to(x.dtype)
             x = lstm_scan_time_major(xproj, w_hh_t, reverse=i % 2 == 0)
         return x
 
@@ -185,11 +203,38 @@ def init_lstm_crf_params(
     return model.to(device) if device is not None else model
 
 
+def _set_quantised(layer: nn.Module, wq: torch.Tensor, ws: torch.Tensor) -> None:
+    del layer.w_ih
+    layer.register_buffer("w_ih_q", wq.contiguous())
+    layer.register_buffer("w_ih_s", ws.contiguous())
+
+
+@torch.no_grad()
+def quantize_lstm_crf_w8a8(model: LSTMCRFModel) -> LSTMCRFModel:
+    """A copy of ``model`` with int8 input-projection weights.
+
+    Only ``w_ih`` is quantised (symmetric int8 per output channel); the
+    recurrent weights, biases, convolutions and the CRF head keep their
+    precision. Layers whose ``w_ih`` dims are not multiples of 128 (fast's
+    H = 96) and layers already quantised stay as they are. Quantise the
+    float32 model, before any cast to a narrower type."""
+    out = copy.deepcopy(model)
+    out._frozen_lstm = None
+    for layer in out.lstms:
+        w = getattr(layer, "w_ih", None)
+        if w is None or w.shape[0] % 128 or w.shape[1] % 128:
+            continue
+        _set_quantised(layer, *quantize_weight_rows(w))
+    return out
+
+
 def params_from_jax(params, config: BasecallModelConfig) -> LSTMCRFModel:
     """A float32 CPU model holding the weights of a JAX parameter pytree
     (``dorado_tpu.models.crf_model.init_lstm_crf_params`` layout, as numpy
     arrays or anything ``np.asarray`` takes), so both packages compute the
-    same function."""
+    same function. Layers that hold ``w_ih_q``/``w_ih_s`` in place of
+    ``w_ih`` (``quantize_lstm_crf_params_w8a8`` there) become quantised
+    layers here."""
     model = LSTMCRFModel(config, device="cpu")
 
     def t(x):
@@ -200,8 +245,14 @@ def params_from_jax(params, config: BasecallModelConfig) -> LSTMCRFModel:
             w.copy_(t(p["w"]).permute(2, 1, 0))  # HIO [K, C_in, C_out] -> [C_out, C_in, K]
             b.copy_(t(p["b"]))
         for p, layer in zip(params["lstms"], model.lstms):
-            for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            for name in ("w_hh", "b_ih", "b_hh"):
                 getattr(layer, name).copy_(t(p[name]))
+            if "w_ih_q" in p:
+                _set_quantised(
+                    layer, torch.from_numpy(np.array(p["w_ih_q"], dtype=np.int8)), t(p["w_ih_s"])
+                )
+            else:
+                layer.w_ih.copy_(t(p["w_ih"]))
         model.linear1_w.copy_(t(params["linear1"]["w"]))
         if model.linear1_b is not None:
             model.linear1_b.copy_(t(params["linear1"]["b"]))

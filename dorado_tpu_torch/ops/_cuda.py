@@ -23,7 +23,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNEL_SOURCES = ("lstm_scan", "crf_lse_backward", "crf_fused_forward", "crf_traceback")
+KERNEL_SOURCES = (
+    "lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward", "crf_traceback",
+    "crf_lse_scan", "beam_search",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

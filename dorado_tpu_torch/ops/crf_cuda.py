@@ -1,10 +1,13 @@
-"""The Viterbi decode's lattice kernels: backward LSE scan, fused forward
-pass and traceback.
+"""The decoders' lattice kernels: the Viterbi path's backward LSE scan,
+fused forward pass and traceback, and the full-history LSE scans that the
+beam path's posteriors and backward scores come from.
 
-Port of the decode path of ``dorado_tpu/ops/crf_pallas.py``
+Port of the decode paths of ``dorado_tpu/ops/crf_pallas.py``
 (``fused_viterbi_decode`` -> ``_lse_scan_pallas_blk`` +
-``_fused_forward_decode_blk``, then ``viterbi_traceback_pallas``). Scores stay
-in the raw layout c = s*4 + r; the TPU's block permutation is not used.
+``_fused_forward_decode_blk``, then ``viterbi_traceback_pallas``; and
+``forward_scores_pallas``/``backward_scores_pallas`` -> ``_lse_scan_pallas``).
+Scores stay in the raw layout c = s*4 + r; the TPU's block permutation is
+not used.
 
 Each wrapper launches its CUDA kernel (``csrc/crf_*.cu``) on CUDA tensors
 and runs its plain PyTorch version on CPU tensors.
@@ -18,7 +21,8 @@ import torch
 
 from dorado_tpu_torch.ops import _cuda
 from dorado_tpu_torch.ops.crf_scan import (
-    backward_scores,
+    backward_scores as backward_scores_plain,
+    forward_scores as forward_scores_plain,
     lse_step,
     predecessor_index,
     viterbi_step,
@@ -31,13 +35,15 @@ def _stream_dtype(scores: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if scores.dtype == torch.bfloat16 else torch.float32
 
 
-def _check_scores(scores: torch.Tensor) -> tuple[int, int, int]:
+def _check_scores(
+    scores: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+) -> tuple[int, int, int]:
     if scores.dim() != 3:
         raise ValueError(f"scores: expected [T, N, C], got {tuple(scores.shape)}")
     t_len, n, c = scores.shape
     if c // 4 not in (64, 256) or c % 4 or t_len == 0 or n == 0:
         raise ValueError(f"scores: unsupported shape {tuple(scores.shape)}")
-    _cuda.check_tensor(scores, "scores", torch.bfloat16, (t_len, n, c))
+    _cuda.check_tensor(scores, "scores", dtype, (t_len, n, c))
     return t_len, n, c // 4
 
 
@@ -49,7 +55,7 @@ def _check_scores(scores: torch.Tensor) -> tuple[int, int, int]:
 def backward_scores_shifted_plain(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
     """[T, N, C] scores -> [T, N, S] with row j = beta[j+1] - max(beta[j+1]),
     in the stream dtype."""
-    beta = backward_scores(scores, stay_score)[1:]
+    beta = backward_scores_plain(scores, stay_score)[1:]
     return (beta - beta.amax(dim=-1, keepdim=True)).to(_stream_dtype(scores))
 
 
@@ -75,6 +81,53 @@ def backward_scores_shifted(scores: torch.Tensor, stay_score: float) -> torch.Te
 
 
 backward_scores_shifted.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: full-history LSE scan on the raw layout, forward or backward
+# ---------------------------------------------------------------------------
+
+
+def _lse_scan(scores: torch.Tensor, stay_score: float, reverse: bool) -> torch.Tensor:
+    t_len, n, s = _check_scores(scores, torch.float32)
+    hist = torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
+    fn = _cuda.kernel_function(
+        "crf_lse_scan", "crf_lse_scan_f32",
+        [_cuda.VOIDP] * 2 + [_cuda.INT] * 4 + [_cuda.FLOAT, _cuda.VOIDP],
+    )
+    with torch.cuda.device(scores.device):
+        code = fn(
+            scores.data_ptr(), hist.data_ptr(), t_len, n, s, int(reverse),
+            math.exp(stay_score), _cuda.stream_ptr(scores.device),
+        )
+    _cuda.check_launch("crf_lse_scan", code)
+    return hist
+
+
+def forward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
+    """alpha over time: float32 [T, N, C] scores -> float32 [T+1, N, S],
+    row 0 the zero init row (``crf_scan.forward_scores``'s convention)."""
+    if scores.device.type == "cpu":
+        return forward_scores_plain(scores, stay_score)
+    hist = _lse_scan(scores, stay_score, reverse=False)
+    forward_scores.launches += 1
+    return hist
+
+
+forward_scores.launches = 0
+
+
+def backward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
+    """beta over time: float32 [T, N, C] scores -> float32 [T+1, N, S],
+    row T the zero init row (``crf_scan.backward_scores``'s convention)."""
+    if scores.device.type == "cpu":
+        return backward_scores_plain(scores, stay_score)
+    hist = _lse_scan(scores, stay_score, reverse=True)
+    backward_scores.launches += 1
+    return hist
+
+
+backward_scores.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -95,6 +95,8 @@ class BasecallerPipeline:
         overlap: int | None = None,
         emit_moves: bool = False,
         device: torch.device | str | None = None,
+        decoder: str = "viterbi",
+        lstm_precision: str | None = None,
     ):
         if config.is_rna_model:
             raise ValueError("RNA models are not supported by this pipeline yet")
@@ -107,6 +109,8 @@ class BasecallerPipeline:
             chunk_size=chunk_size,
             batch_size=batch_size,
             device=device,
+            decoder=decoder,
+            lstm_precision=lstm_precision,
         )
         self.overlap = int(overlap if overlap is not None else config.basecaller.overlap)
         self.overlap -= self.overlap % config.stride

@@ -1,7 +1,8 @@
 """The port's CRF lattice code against the JAX package: the plain versions
-of the three CUDA decode kernels (backward LSE scan, fused forward pass,
-traceback) against the Pallas kernels in interpret mode, and the raw-layout
-plain scans against ``dorado_tpu.ops.crf_scan``.
+of the CUDA decode kernels (backward LSE scan, fused forward pass,
+traceback, and the raw-layout full-history LSE scan in both directions)
+against the Pallas kernels in interpret mode, and the raw-layout plain scans
+against ``dorado_tpu.ops.crf_scan``.
 
 Scores are multiples of 1/8 in [-5, 5]: every Viterbi sum is then exact in
 float32 and in the Pallas kernel's hi/lo bf16 copy (``_dot2``), so choices,
@@ -18,6 +19,7 @@ import torch
 from dorado_tpu.ops import crf_scan as jax_scan
 from dorado_tpu.ops.crf_pallas import (
     _fused_forward_decode_blk,
+    _lse_scan_pallas,
     _lse_scan_pallas_blk,
     block_permutation,
     viterbi_traceback_pallas,
@@ -83,6 +85,22 @@ def test_traceback_matches_pallas(lattice):
     )
     np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
     np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("num_states", [64, 256])
+def test_lse_scan_wrappers_match_pallas(num_states, reverse):
+    """``forward_scores``/``backward_scores`` (K6's wrappers, on CPU tensors)
+    against the raw-layout Pallas scan in interpret mode: the same
+    [T+1, N, S] history, init row included."""
+    raw = _scores(num_states, seed=21 + num_states)
+    ref = np.asarray(_lse_scan_pallas(jnp.asarray(raw), STAY, reverse, True))
+    wrapper = crf_cuda.backward_scores if reverse else crf_cuda.forward_scores
+    out = wrapper(torch.from_numpy(raw), STAY)
+    assert wrapper.launches == 0
+    assert out.dtype == torch.float32 and out.shape == (T + 1, N, num_states)
+    assert not out[T if reverse else 0].any()
+    _lse_close(out.numpy(), ref)
 
 
 @pytest.mark.parametrize("num_states", [64, 256])

@@ -16,7 +16,7 @@ import dorado_tpu_torch
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
 from dorado_tpu_torch.models.presets import fast_v40_config, hac_v43_config
-from dorado_tpu_torch.ops import _cuda, crf_cuda, lstm
+from dorado_tpu_torch.ops import _cuda, beam, crf_cuda, int8_matmul, lstm
 from dorado_tpu_torch.pipeline import BasecallerPipeline
 
 PKG = Path(dorado_tpu_torch.__file__).parent
@@ -71,6 +71,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert TorchBasecallRunner(cfg, model, device="cpu").device.type == "cpu"
 
 
+# every kernel wrapper of the port
+WRAPPERS = (
+    lstm.lstm_scan_time_major,
+    int8_matmul.w8a8_matmul_fq,
+    crf_cuda.backward_scores_shifted,
+    crf_cuda.fused_forward_decode,
+    crf_cuda.viterbi_traceback,
+    crf_cuda.forward_scores,
+    crf_cuda.backward_scores,
+    beam.beam_forward,
+    beam.beam_traceback,
+)
+
+
 @pytest.fixture
 def no_kernels(monkeypatch):
     """Fail if anything tries to build or launch a CUDA kernel."""
@@ -80,12 +94,7 @@ def no_kernels(monkeypatch):
 
     monkeypatch.setattr(_cuda, "kernel_function", refuse)
     monkeypatch.setattr(_cuda, "build_kernels", refuse)
-    for wrapper in (
-        lstm.lstm_scan_time_major,
-        crf_cuda.backward_scores_shifted,
-        crf_cuda.fused_forward_decode,
-        crf_cuda.viterbi_traceback,
-    ):
+    for wrapper in WRAPPERS:
         monkeypatch.setattr(wrapper, "launches", 0)
 
 
@@ -106,32 +115,49 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     _spy(monkeypatch, calls, crf_cuda, "backward_scores_shifted_plain")
     _spy(monkeypatch, calls, crf_cuda, "fused_forward_decode_plain")
     _spy(monkeypatch, calls, crf_cuda, "viterbi_traceback_plain")
+    _spy(monkeypatch, calls, crf_cuda, "forward_scores_plain")
+    _spy(monkeypatch, calls, crf_cuda, "backward_scores_plain")
+    _spy(monkeypatch, calls, int8_matmul, "w8a8_matmul_fq_plain")
+    _spy(monkeypatch, calls, beam, "beam_forward_plain")
+    _spy(monkeypatch, calls, beam, "beam_traceback_plain")
     x = torch.from_numpy(rs.randn(5, 2, 16).astype(np.float32))
     lstm.lstm_scan_time_major(x, torch.from_numpy(rs.randn(4, 16).astype(np.float32)))
     scores = torch.from_numpy(rs.randn(5, 2, 256).astype(np.float32))
     beta = crf_cuda.backward_scores_shifted(scores, 2.0)
     _, choices, final = crf_cuda.fused_forward_decode(scores, beta, 2.0)
     crf_cuda.viterbi_traceback(choices, torch.argmax(final, -1).to(torch.int32))
-    assert sorted(calls) == sorted(
-        ["lstm_scan_plain", "backward_scores_shifted_plain",
-         "fused_forward_decode_plain", "viterbi_traceback_plain"]
+    crf_cuda.forward_scores(scores, 2.0)
+    beta = crf_cuda.backward_scores(scores, 2.0)
+    beam.beam_search_device(scores, beta, 32, 100.0, 2.0)
+    wq = torch.from_numpy(rs.randint(-127, 128, (128, 128)).astype(np.int8))
+    int8_matmul.w8a8_matmul_fq(
+        torch.from_numpy(rs.randn(3, 128).astype(np.float32)), wq.t(), torch.ones(128)
     )
-    assert lstm.lstm_scan_time_major.launches == 0
-    assert crf_cuda.backward_scores_shifted.launches == 0
-    assert crf_cuda.fused_forward_decode.launches == 0
-    assert crf_cuda.viterbi_traceback.launches == 0
+    # backward_scores_shifted's plain version runs the plain backward scan too
+    assert sorted(calls) == sorted(
+        ["lstm_scan_plain", "backward_scores_shifted_plain", "backward_scores_plain",
+         "fused_forward_decode_plain", "viterbi_traceback_plain", "forward_scores_plain",
+         "backward_scores_plain", "w8a8_matmul_fq_plain", "beam_forward_plain",
+         "beam_traceback_plain"]
+    )
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
-def test_cpu_runner_launches_no_kernel(no_kernels):
+@pytest.mark.parametrize("decoder,width", [("viterbi", 16), ("beam", 128)])
+def test_cpu_runner_launches_no_kernel(no_kernels, decoder, width):
     cfg = hac_v43_config()
-    cfg.lstm_size = 16
-    cfg.convs[2].size = 16
-    runner = TorchBasecallRunner(cfg, LSTMCRFModel(cfg), chunk_size=1200, batch_size=2, device="cpu")
+    cfg.lstm_size = width
+    cfg.convs[2].size = width
+    cfg.lstm_layers = 2
+    runner = TorchBasecallRunner(
+        cfg, LSTMCRFModel(cfg), chunk_size=1200, batch_size=2, device="cpu",
+        decoder=decoder, lstm_precision="w8a8",
+    )
+    assert hasattr(runner.model.lstms[0], "w_ih_q") == (width == 128)
     buf = runner.make_input_buffer(0)
     out = runner.call_chunks(buf, 1)
     assert len(out) == 1 and len(out[0].moves) == 1200 // cfg.stride
-    assert lstm.lstm_scan_time_major.launches == 0
-    assert crf_cuda.viterbi_traceback.launches == 0
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_kernel_sources_present():

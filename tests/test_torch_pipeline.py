@@ -1,5 +1,6 @@
 """The port's simplex pipeline (``run_reads``, CPU) against the JAX
-``BasecallerPipeline(split_reads=False).run`` on the same synthetic reads.
+``BasecallerPipeline(split_reads=False).run`` on the same synthetic reads,
+with the Viterbi and the beam decoder.
 
 The JAX pipeline reads POD5 files; the test hands it the same reads by
 replacing ``find_pod5_files`` and ``Pod5File`` in its module's namespace.
@@ -72,10 +73,11 @@ class _FakePod5File:
         return iter(_reads(jax_pod5))
 
 
-@pytest.fixture(scope="module")
-def records():
+def _run_both(decoder):
+    """The same reads through the JAX pipeline and the port's: (JAX records,
+    the port's records, the port's stats)."""
     params = jax_params_with_moves(2)
-    kw = dict(chunk_size=1200, batch_size=8, emit_moves=True)
+    kw = dict(chunk_size=1200, batch_size=8, emit_moves=True, decoder=decoder)
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_pipeline_module, "find_pod5_files", lambda *a, **k: [Path(FILENAME)])
     mp.setattr(jax_pipeline_module, "Pod5File", _FakePod5File)
@@ -95,8 +97,17 @@ def records():
     return ref.records, out.records, stats
 
 
-def test_records_match_jax(records):
-    ref, out, stats = records
+@pytest.fixture(scope="module")
+def records():
+    return _run_both("viterbi")
+
+
+@pytest.fixture(scope="module")
+def beam_records():
+    return _run_both("beam")
+
+
+def _assert_records_match(ref, out, stats):
     # both pipelines write reads in the order they complete
     assert [r.qname for r in out] == [r.qname for r in ref]
     assert sorted(r.qname for r in out) == [f"read-{i}" for i in range(4)]
@@ -119,6 +130,26 @@ def test_records_match_jax(records):
     assert counts[0] <= 0.01 * counts[1]
     assert stats.reads_called == 4 and stats.batches >= 2
     assert stats.bases_called == sum(len(r.seq) for r in out)
+
+
+def test_records_match_jax(records):
+    _assert_records_match(*records)
+
+
+def test_beam_records_match_jax(beam_records, records):
+    """``decoder="beam"`` writes the JAX beam pipeline's records, and they
+    are not the Viterbi pipeline's."""
+    _assert_records_match(*beam_records)
+    assert [r.seq for r in beam_records[1]] != [r.seq for r in records[1]]
+
+
+def test_pipeline_passes_decoder_and_precision_through():
+    cfg = _narrow_hac(hac_v43_config())
+    model = params_from_jax(jax_params_with_moves(2), cfg)
+    tp = BasecallerPipeline(cfg, model, device="cpu", decoder="beam", lstm_precision="w8a8")
+    assert (tp.runner.decoder, tp.runner.lstm_precision) == ("beam", "w8a8")
+    with pytest.raises(ValueError, match="unknown decoder"):
+        BasecallerPipeline(cfg, model, device="cpu", decoder="beam-host")
 
 
 def test_bam_output(records):
