@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Requires CUDA and prints the card's name and power limit.
-2. Builds the seven CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
+2. Builds the nine CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints their register and spill
    reports.
 3. Runs each kernel and its plain PyTorch version on the card at hac v4.3
@@ -18,20 +18,36 @@
    scans and traceback); K6 (full-history LSE scan) in both directions; K17
    (beam search) on outcomes against the plain beam at the full T (and at
    64 states at a short T), and its traceback exactly.
+   Then the same at sup v5.0 shapes (chunk 12288 -> T' = 1024 tokens and
+   T = 2048 decode steps, batch N = 128, d_model 512, 8 heads, ffn 2048,
+   S = 1024): K9 (banded attention with RoPE inside) at T' = 1024 and 700,
+   beside ``scaled_dot_product_attention`` with the same mask; K12 (fc1 +
+   SwiGLU + requantisation) and K13 (int8 fc2, bit for bit) at two row
+   counts, beside ``torch._int_mm`` routes; K2 at sup's qkv shape bit for
+   bit; K3, K4, K5 at 1024 states.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``) at hac v4.3's full width over 16 synthetic reads (14 of
    20k-60k samples, 2 of 3k-7k for the short-chunk lane) with seeded random
    weights, once with the Viterbi decoder and once with the beam decoder,
    both with W8A8 input projections (the default on the card). Every launch
    counter is set to 0 before each run, and each run must have launched every
-   kernel of its path.
+   kernel of its path. Then the same pipeline at sup v5.0's full width (18
+   layers, batch 128, chunk 12288, W8A8 encoder matmuls, Viterbi) over 15
+   reads (12 of 140k samples, which fill a batch, and 3 short ones for the
+   9216 lane): it must launch K2, K9, K12 and K13 18 times a batch, K3, K4
+   and K5 once a batch, and no other kernel.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
    back guide on both sides), and the beam decoder against the Viterbi decoder on
-   scores with a planted path.
-6. Profiles one more full batch of each decoder's device step and prints
-   its device time by kernel and the device's busy share.
+   scores with a planted path. For sup: the W8A8 model on the card against
+   the float32 W8A8 model on the CPU, W8A8 against bf16 on the card, the
+   device decode against the CPU's plain decode (sequences and moves exact,
+   low qual chars within a step), and the Viterbi decoder on a planted path
+   at 1024 states.
+6. Profiles one more full batch of each decoder's device step, and of the
+   sup device step, and prints its device time by kernel and the device's
+   busy share.
 7. Prints one JSON line of per-kernel numbers and, last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
@@ -52,6 +68,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 1234
 T, N, H, S = 1666, 128, 384, 256  # hac v4.3 at chunk 9996, batch 128
+# sup v5.0 at chunk 12288, batch 128: tokens, decode steps, states, widths
+SUP_TOK, SUP_T, SUP_S, SUP_D, SUP_HEADS, SUP_FFN = 1024, 2048, 1024, 512, 8, 2048
+SUP_M = N * SUP_TOK  # rows of each encoder matmul
+SUP_WINDOW = (127, 128)
+SUP_LONG_READS, SUP_SHORT_READS = 12, 3
 W = 32  # beam width
 BEAM_CUT = 100.0
 STAY = 2.0
@@ -115,7 +136,39 @@ MIN_BEAM_CPU_POSITIONS_EQUAL = 0.95
 # the decoders against each other (lowest sequence similarity of a row, on
 # scores with a planted path) and the precisions against each other
 MIN_BEAM_VITERBI_IDENTITY = 0.8
+# the Viterbi decoder at 1024 states against the path planted in its scores
+MIN_PLANTED_IDENTITY = 0.95
 MAX_W8A8_REL_ERR, MIN_W8A8_ARGMAX_AGREE = 0.02, 0.98
+# K9: the output is bf16 and the sums of the logits, of p and of p @ v run
+#     in another order than the plain version's: one bf16 step apart at most,
+#     |err| <= 1e-5 + 2^-7 * |value|, elementwise
+TOL_ATTN_ABS, TOL_ATTN_REL = 1e-5, 2.0**-7
+# K9 is also held at a T' that is no multiple of its 64-query blocks nor of
+# the TPU kernel's 256-query strips (N, T')
+ATTN_SHAPES = [(N, SUP_TOK), (8, 700)]
+# K12: expf and PyTorch's exp may differ in the last bit, which can move a
+#     value across an int8 rounding boundary: row scales within 1e-6
+#     relative, the int8 output equal but for +-1 at under 0.1% of elements
+# K13: bit for bit, like K2. Both at sup's rows and at a count that is no
+#     multiple of the 128-row tile
+TOL_SWIGLU_SCALE_REL, MAX_SWIGLU_SHARE_OFF_BY_ONE = 1e-6, 1e-3
+FFN_ROWS = [SUP_M, 5 * 128 + 37]
+# the sup model: bf16 on the card against float32 on the CPU, both W8A8
+# (mean abs error over the mean abs score; the head has no tanh or clamp, so
+# the scores are of size 4 on average and the bf16 residual stream's
+# rounding passes through 18 layers: measured 0.031), and W8A8 against bf16
+# on the card. Over the first 2 layers the relative norm error is under K2's
+# limit above and the argmax over the 4096 unclamped transitions agrees at
+# 0.95 or more, the limit of the JAX package's own test of its quantised
+# transformer at that depth (measured 0.012 and 0.972); over all 18 layers of
+# random weights each layer's int8 noise of about 0.8% adds in quadrature
+# (measured 0.035 and 0.923)
+MAX_SUP_BF16_MEAN_ERR = 0.06
+MAX_SUP_W8A8_REL_ERR, MIN_SUP_W8A8_ARGMAX_AGREE = 0.06, 0.88
+SUP_SHALLOW_DEPTH, MIN_SUP_SHALLOW_ARGMAX_AGREE = 2, 0.95
+# the sup decode's qual chars on the card against the CPU's are held (one
+# step apart at most) where the CPU's phred is under this
+SUP_QUAL_HELD_BELOW = 20
 
 
 def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -141,8 +194,11 @@ def main() -> None:
     from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
     from dorado_tpu_torch.io.sam import BamWriter
     from dorado_tpu_torch.models.crf_model import _linear_f32, init_lstm_crf_params
-    from dorado_tpu_torch.models.presets import hac_v43_config
-    from dorado_tpu_torch.ops import _cuda, beam, crf_cuda, crf_scan, int8_matmul, lstm
+    from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
+    from dorado_tpu_torch.models.tx_model import init_tx_params
+    from dorado_tpu_torch.ops import (
+        _cuda, attention, beam, crf_cuda, crf_scan, int8_matmul, lstm,
+    )
     from dorado_tpu_torch.pipeline import BasecallerPipeline
 
     smi = subprocess.run(
@@ -379,6 +435,218 @@ def main() -> None:
         del scores32, small
     torch.cuda.empty_cache()
 
+    # ---- the kernels at sup v5.0 shapes ------------------------------------
+    def sup_times(name, err, ms, plain_ms, ops, peak, nbytes):
+        """Add a kernel's numbers at sup's shape to its row (its hac-shape
+        numbers stay the row's own)."""
+        b_ms, b_by = bound_ms(ops, peak, nbytes)
+        row = next(r for r in rows if r["name"] == name)
+        row.update(sup_max_abs_err=err, sup_ms=ms, sup_plain_ms=plain_ms, sup_bound_ms=b_ms,
+                   sup_bound_by=b_by)
+        print(f"{name} at sup shapes: max_abs_err {err:.3g}  kernel {ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})  [{card}]", flush=True)
+
+    with torch.inference_mode():
+        # ---- K9: banded attention with RoPE inside ---------------------------
+        hd, d_head = SUP_D, SUP_D // SUP_HEADS
+        err = 0.0
+        for n, t_len in reversed(ATTN_SHAPES):  # the timed shape last
+            qkv = torch.randn(n, t_len, 3 * hd, generator=gen, device=dev).bfloat16()
+            cos, sin = attention.rope_tables(t_len, d_head, 10000.0, dev)
+            out_k = attention.windowed_attention_rope(qkv, cos, sin, SUP_HEADS, *SUP_WINDOW)
+            out_p = attention.windowed_attention_rope_plain(qkv, cos, sin, SUP_HEADS, *SUP_WINDOW)
+            torch.cuda.synchronize()
+            diff = (out_k.float() - out_p.float()).abs()
+            e = diff.max().item()
+            print(f"attention_banded N={n} T'={t_len}: max abs error {e:.3g}, "
+                  f"{(out_k != out_p).float().mean().item():.3%} of outputs differ (by one bf16 "
+                  f"step at most)", flush=True)
+            if not bool(torch.isfinite(out_k).all()) or not bool(
+                    (diff <= TOL_ATTN_ABS + TOL_ATTN_REL * out_p.float().abs()).all()):
+                raise AssertionError(f"attention_banded at N={n} T'={t_len}: max abs error {e}")
+            err = max(err, e)
+        # the library call: one scaled_dot_product_attention with the same mask
+        # on q and k rotated beforehand (the rotation is not in its time)
+        n, t_len = ATTN_SHAPES[0]
+        q4, k4, v4 = (qkv[..., i * hd:(i + 1) * hd].reshape(n, t_len, SUP_HEADS, d_head)
+                      for i in range(3))
+        q_r = attention.rope_rotate(q4, cos, sin).transpose(1, 2).contiguous()
+        k_r = attention.rope_rotate(k4, cos, sin).transpose(1, 2).contiguous()
+        v_r = v4.transpose(1, 2).contiguous()
+        pos = torch.arange(t_len, device=dev)
+        mask = attention.band_mask(pos[:, None], pos[None, :], t_len, *SUP_WINDOW,
+                                   attention.ref_strip_elems(t_len))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(q_r, k_r, v_r, attn_mask=mask).transpose(1, 2).reshape(n, t_len, hd)
+        lib_err = (lib.float() - out_p.float()).abs().max().item()
+        print(f"  scaled_dot_product_attention with the same mask: max abs {lib_err:.3g} from the "
+              f"plain version", flush=True)
+        pairs = float(mask.sum().item())  # (query, key) pairs inside the band
+        report(
+            "attention_banded", "dorado_tpu_torch/csrc/attention_banded.cu",
+            "dorado_tpu/ops/attention.py:398", err,
+            time_ms(lambda: attention.windowed_attention_rope(
+                qkv, cos, sin, SUP_HEADS, *SUP_WINDOW), 10),
+            time_ms(lambda: attention.windowed_attention_rope_plain(
+                qkv, cos, sin, SUP_HEADS, *SUP_WINDOW), 1),
+            # q.k and p.v over the band's pairs, every head and row
+            n * SUP_HEADS * pairs * 4.0 * d_head, PEAK_BF16,
+            2 * n * t_len * 3 * hd + 2 * n * t_len * hd + 2 * 4 * t_len * d_head // 2,
+            time_ms(lambda: sdpa(q_r, k_r, v_r, attn_mask=mask), 5),
+            "(scaled_dot_product_attention, dense T' x T' with a boolean mask, q and k "
+            "rotated beforehand)",
+        )
+        del qkv, out_k, out_p, diff, q_r, k_r, v_r, lib, mask
+
+        # ---- K12, K13: the W8A8 feed-forward ----------------------------------
+        k_in, ffn = SUP_D, SUP_FFN
+        wy_q, wy_s = int8_matmul.quantize_weight_rows(
+            torch.randn(ffn, k_in, generator=gen, device=dev) / k_in**0.5)
+        wg_q, wg_s = int8_matmul.quantize_weight_rows(
+            torch.randn(ffn, k_in, generator=gen, device=dev) / k_in**0.5)
+        w2_q, w2_s = int8_matmul.quantize_weight_rows(
+            torch.randn(k_in, ffn, generator=gen, device=dev) / ffn**0.5)
+        fc1 = (wy_q.t(), wy_s, wg_q.t(), wg_s)
+
+        def swiglu_int_mm(xq, xs):
+            # the same function through two torch._int_mm and elementwise passes
+            y = torch._int_mm(xq, wy_q.t()).float() * xs * wy_s
+            g = torch._int_mm(xq, wg_q.t()).float() * xs * wg_s
+            t = y * (g * torch.reciprocal(1.0 + torch.exp(-g)))
+            s = t.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) * (1.0 / 127.0)
+            return torch.round(t * torch.reciprocal(s)).to(torch.int8), s
+
+        def fc2_int_mm(tq, ts):
+            return (torch._int_mm(tq, w2_q.t()).float() * ts * w2_s).to(torch.bfloat16)
+
+        err12 = share12 = 0.0
+        for m in reversed(FFN_ROWS):  # the timed shape last
+            x = torch.randn(m, k_in, generator=gen, device=dev).bfloat16()
+            xq, xs = int8_matmul.quantize_rows(x)
+            tq_k, ts_k = int8_matmul.swiglu_w8a8(xq, xs, *fc1)
+            tq_p, ts_p = int8_matmul.swiglu_w8a8_plain(xq, xs, *fc1)
+            torch.cuda.synchronize()
+            rel = ((ts_k - ts_p).abs() / ts_p).max().item()
+            dq = (tq_k.int() - tq_p.int()).abs()
+            share = (dq > 0).float().mean().item()
+            print(f"swiglu_w8a8 M={m}: row scales within {rel:.3g} relative, int8 output off by "
+                  f"one at {share:.5%} of elements (max difference {dq.max().item()})", flush=True)
+            if not (rel <= TOL_SWIGLU_SCALE_REL and dq.max().item() <= 1
+                    and share <= MAX_SWIGLU_SHARE_OFF_BY_ONE):
+                raise AssertionError(f"swiglu_w8a8 at M={m}: differs from the plain version")
+            err12, share12 = max(err12, float(dq.max().item())), max(share12, share)
+            out_k = int8_matmul.w8a8_matmul(tq_k, ts_k, w2_q.t(), w2_s)
+            out_p = int8_matmul.w8a8_matmul_plain(tq_k, ts_k, w2_q.t(), w2_s)
+            torch.cuda.synchronize()
+            same = torch.equal(out_k, out_p)
+            if m % 8 == 0:  # and against an independent exact product
+                same = same and torch.equal(out_k, fc2_int_mm(tq_k, ts_k))
+            print(f"w8a8_matmul M={m}: bit for bit {same}", flush=True)
+            if not same:
+                raise AssertionError(
+                    f"w8a8_matmul at M={m}: {(out_k != out_p).float().mean().item():.3%} of "
+                    f"outputs differ from the plain version (or from the torch._int_mm route)")
+            del dq, tq_p, ts_p, out_p
+        lib_q, lib_s = swiglu_int_mm(xq, xs)
+        print(f"  the torch._int_mm route of swiglu_w8a8 differs from the kernel at "
+              f"{(lib_q != tq_k).float().mean().item():.5%} of elements", flush=True)
+        del lib_q, lib_s
+        m = FFN_ROWS[0]
+        report(
+            "swiglu_w8a8", "dorado_tpu_torch/csrc/w8a8_matmul.cu",
+            "dorado_tpu/ops/int8_matmul.py:119", err12,
+            time_ms(lambda: int8_matmul.swiglu_w8a8(xq, xs, *fc1), 10),
+            time_ms(lambda: int8_matmul.swiglu_w8a8_plain(xq, xs, *fc1), 2),
+            # one pass over both halves of fc1 is the function's work (the
+            # kernel makes two)
+            2.0 * m * k_in * 2 * ffn, PEAK_INT8,
+            m * k_in + 4 * m + 2 * ffn * k_in + 8 * ffn + m * ffn + 4 * m,
+            time_ms(lambda: swiglu_int_mm(xq, xs), 3),
+            "(two torch._int_mm and the elementwise passes)",
+            share_off_by_one=share12,
+        )
+        print("  (max_abs_err of swiglu_w8a8 is the largest difference of an int8 output)",
+              flush=True)
+        report(
+            "w8a8_matmul", "dorado_tpu_torch/csrc/w8a8_matmul.cu",
+            "dorado_tpu/ops/int8_matmul.py:218", 0.0,
+            time_ms(lambda: int8_matmul.w8a8_matmul(tq_k, ts_k, w2_q.t(), w2_s), 10),
+            time_ms(lambda: int8_matmul.w8a8_matmul_plain(tq_k, ts_k, w2_q.t(), w2_s), 2),
+            2.0 * m * ffn * k_in, PEAK_INT8,
+            m * ffn + 4 * m + ffn * k_in + 4 * k_in + 2 * m * k_in,
+            time_ms(lambda: fc2_int_mm(tq_k, ts_k), 5),
+            "(torch._int_mm and a dequantise pass)",
+        )
+        del xq, xs, tq_k, ts_k, out_k, wy_q, wg_q, w2_q
+
+        # ---- K2 at sup's qkv projection: K = 512, O = 1536 ---------------------
+        o_qkv = 3 * SUP_D
+        wq, ws = int8_matmul.quantize_weight_rows(
+            torch.randn(o_qkv, k_in, generator=gen, device=dev) / k_in**0.5)
+        out_k = int8_matmul.w8a8_matmul_fq(x, wq.t(), ws)
+        out_p = int8_matmul.w8a8_matmul_fq_plain(x, wq.t(), ws)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            raise AssertionError("w8a8_matmul_fq at sup's qkv shape differs from the plain version")
+        sup_times(
+            "w8a8_matmul_fq", 0.0,
+            time_ms(lambda: int8_matmul.w8a8_matmul_fq(x, wq.t(), ws), 10),
+            time_ms(lambda: int8_matmul.w8a8_matmul_fq_plain(x, wq.t(), ws), 2),
+            2.0 * m * k_in * o_qkv, PEAK_INT8, 2 * m * k_in + k_in * o_qkv + 8 * o_qkv + 2 * m * o_qkv,
+        )
+        del x, wq, out_k, out_p
+
+        # ---- K3, K4, K5 at 1024 states ------------------------------------------
+        t_s, s_s = SUP_T, SUP_S
+        scores = (torch.randn(t_s, N, 4 * s_s, generator=gen, device=dev) * 2).clamp(-5, 5)
+        scores = scores.bfloat16()
+        beta_k = crf_cuda.backward_scores_shifted(scores, STAY)
+        beta_p = crf_cuda.backward_scores_shifted_plain(scores, STAY)
+        torch.cuda.synchronize()
+        diff = (beta_k.float() - beta_p.float()).abs()
+        if not bool((diff <= TOL_BETA_ABS + TOL_BETA_REL * beta_p.float().abs()).all()):
+            raise AssertionError(f"crf_lse_backward at S=1024: max abs error {diff.max().item()}")
+        sup_times(
+            "crf_lse_backward", diff.max().item(),
+            time_ms(lambda: crf_cuda.backward_scores_shifted(scores, STAY), 3),
+            time_ms(lambda: crf_cuda.backward_scores_shifted_plain(scores, STAY), 1),
+            17.0 * t_s * N * s_s, PEAK_F32, 2 * t_s * N * 4 * s_s + 2 * t_s * N * s_s,
+        )
+        del beta_p
+        posts_k, ch_k, fin_k = crf_cuda.fused_forward_decode(scores, beta_k, STAY)
+        posts_p, ch_p, fin_p = crf_cuda.fused_forward_decode_plain(scores, beta_k, STAY)
+        torch.cuda.synchronize()
+        if not torch.equal(ch_k, ch_p) or not torch.equal(fin_k, fin_p):
+            raise AssertionError(
+                f"crf_fused_forward at S=1024: {(ch_k != ch_p).sum().item()} choices differ "
+                f"(or the final carry)")
+        diff = (posts_k.float() - posts_p.float()).abs()
+        if not bool((diff <= TOL_POSTS_ABS + TOL_POSTS_REL * posts_p.float().abs()).all()):
+            raise AssertionError(
+                f"crf_fused_forward at S=1024: posts max abs error {diff.max().item()}")
+        sup_times(
+            "crf_fused_forward", diff.max().item(),
+            time_ms(lambda: crf_cuda.fused_forward_decode(scores, beta_k, STAY), 3),
+            time_ms(lambda: crf_cuda.fused_forward_decode_plain(scores, beta_k, STAY), 1),
+            30.0 * t_s * N * s_s, PEAK_F32,
+            2 * t_s * N * 4 * s_s + 5 * t_s * N * s_s + 4 * N * s_s,
+        )
+        del posts_k, posts_p, ch_p, diff, beta_k
+        last = torch.argmax(fin_k, dim=-1).to(torch.int32)
+        st_k, mv_k = crf_cuda.viterbi_traceback(ch_k, last)
+        st_p, mv_p = crf_cuda.viterbi_traceback_plain(ch_k, last)
+        torch.cuda.synchronize()
+        if not torch.equal(st_k, st_p) or not torch.equal(mv_k, mv_p):
+            raise AssertionError("crf_traceback at S=1024: states or moves differ")
+        sup_times(
+            "crf_traceback", 0.0,
+            time_ms(lambda: crf_cuda.viterbi_traceback(ch_k, last), 3),
+            time_ms(lambda: crf_cuda.viterbi_traceback_plain(ch_k, last), 1),
+            4.0 * t_s * N, PEAK_F32, t_s * N * (1 + 4 + 1) + 4 * N,
+        )
+        del scores, ch_k, st_k, st_p, mv_k, mv_p
+    torch.cuda.empty_cache()
+
     # ---- the model and the pipelines at hac v4.3's full width ---------------
     cfg = hac_v43_config()
     cfg.normalise_basecaller_params()
@@ -402,13 +670,10 @@ def main() -> None:
         acquisition_start_time_ms=1_700_000_000_000, sample_id="smoke",
     )
 
-    reads = []
-    for i in range(N_READS):
-        # two short reads send chunks to the short-chunk lane too
-        n = int(rs.randint(3_000, 7_001) if i < 2 else rs.randint(20_000, 60_001))
-        # raw ADC around hac's standardisation mean (91.88 pA at 0.2 pA/ADC)
+    def make_read(i, n):
+        # raw ADC around the models' standardisation mean (92-94 pA at 0.2 pA/ADC)
         signal = np.clip(rs.normal(460, 113, n), -32768, 32767).astype(np.int16)
-        reads.append(Pod5Read(
+        return Pod5Read(
             read_id=f"read-{i}", signal=signal, read_number=i, start_sample=0,
             median_before=200.0, channel=i + 1, well=1, pore_type="not_set",
             calibration_offset=0.0, calibration_scale=0.2, end_reason="signal_positive",
@@ -418,8 +683,29 @@ def main() -> None:
             tracked_scaling_shift=float("nan"), predicted_scaling_scale=float("nan"),
             predicted_scaling_shift=float("nan"), run_info=run_info,
             filename="smoke.pod5",
-        ))
-    samples = sum(len(r.signal) for r in reads)
+        )
+
+    # two short reads send chunks to the short-chunk lane too
+    reads = [
+        make_read(i, int(rs.randint(3_000, 7_001) if i < 2 else rs.randint(20_000, 60_001)))
+        for i in range(N_READS)
+    ]
+
+    # sup v5.0 at full width, W8A8 encoder matmuls (the default on the card)
+    sup_cfg = sup_v50_config()
+    sup_cfg.normalise_basecaller_params()
+    sup_model = init_tx_params(sup_cfg, torch.Generator().manual_seed(SEED))
+    sup_pipe = BasecallerPipeline(sup_cfg, sup_model, batch_size=N, emit_moves=True)
+    sup_runner = sup_pipe.runner
+    if (sup_runner.chunk_sizes != [12 * SUP_TOK, 9 * SUP_TOK] or sup_runner.tx_precision != "w8a8"
+            or sup_cfg.num_states != SUP_S or len(sup_runner.model.layers) != 18):
+        raise AssertionError("the sup pipeline is not sup v5.0 at chunk 12288 with W8A8")
+    # 12 long reads of 12 chunks each fill one batch of the long lane and
+    # start a second; three short reads go to the 9216 lane
+    sup_reads = [
+        make_read(100 + i, int(rs.randint(4_000, 9_001)) if i < SUP_SHORT_READS else 140_000)
+        for i in range(SUP_SHORT_READS + SUP_LONG_READS)
+    ]
 
     # ---- K17: beam search, on the model's own scores ------------------------
     buf = runner.make_input_buffer(0)
@@ -508,19 +794,30 @@ def main() -> None:
         "crf_lse_scan_backward": crf_cuda.backward_scores,
         "beam_search": beam.beam_forward,
         "beam_traceback": beam.beam_traceback,
+        "attention_banded": attention.windowed_attention_rope,
+        "swiglu_w8a8": int8_matmul.swiglu_w8a8,
+        "w8a8_matmul": int8_matmul.w8a8_matmul,
     }
     path_kernels = {
         "viterbi": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward",
                     "crf_traceback"],
         "beam": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_scan_forward",
                  "crf_lse_scan_backward", "beam_search", "beam_traceback"],
+        "sup viterbi": ["w8a8_matmul_fq", "attention_banded", "swiglu_w8a8", "w8a8_matmul",
+                        "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
     }
+    hac_what = f"hac v4.3, batch {N}, bf16 with W8A8 projections"
+    sup_what = f"sup v5.0, 18 layers, batch {N}, bf16 with W8A8 encoder matmuls"
     launches = {}
-    for decoder, p in (("viterbi", pipe), ("beam", beam_pipe)):
+    for decoder, p, path_reads, what in (
+        ("viterbi", pipe, reads, hac_what), ("beam", beam_pipe, reads, hac_what),
+        ("sup viterbi", sup_pipe, sup_reads, sup_what),
+    ):
+        n_reads, samples = len(path_reads), sum(len(r.signal) for r in path_reads)
         # a first run over the same reads pays the one-time set-up of each new
         # batch shape (cuDNN and cuBLAS plans), which the measured run reuses
         t0 = time.perf_counter()
-        p.run_reads(reads, Discard())
+        p.run_reads(path_reads, Discard())
         torch.cuda.synchronize()
         print(f"{decoder}: first run, incl. per-shape set-up: {time.perf_counter() - t0:.3f} s",
               flush=True)
@@ -530,15 +827,15 @@ def main() -> None:
             w.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = p.run_reads(reads, writer)
+        stats = p.run_reads(path_reads, writer)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches[decoder] = {name: w.launches for name, w in wrappers.items()}
         writer.close()
 
         data = bam.getvalue()
-        if stats.reads_called != N_READS or writer.records_written != N_READS:
-            raise AssertionError(f"{decoder}: {writer.records_written} of {N_READS} reads written")
+        if stats.reads_called != n_reads or writer.records_written != n_reads:
+            raise AssertionError(f"{decoder}: {writer.records_written} of {n_reads} reads written")
         if data[:4] != b"\x1f\x8b\x08\x04":
             raise AssertionError(f"{decoder}: output does not start with the BGZF magic")
         for name, count in launches[decoder].items():
@@ -546,10 +843,19 @@ def main() -> None:
                 raise AssertionError(
                     f"{decoder} pipeline launched {name} {count} times: its path is "
                     f"{path_kernels[decoder]}")
+        if decoder == "sup viterbi":
+            # 18 encoder layers a batch, one decode a batch, a full batch among them
+            want = {name: stats.batches * (18 if i < 4 else 1)
+                    for i, name in enumerate(path_kernels[decoder])}
+            got = {name: launches[decoder][name] for name in want}
+            if got != want or stats.batches < 3 or stats.bases_called == 0:
+                raise AssertionError(
+                    f"sup pipeline: launches {got}, expected {want} over {stats.batches} batches "
+                    f"(at least 3), {stats.bases_called} bases")
         print(
-            f"{decoder} pipeline: {N_READS} reads, {samples} samples, {stats.batches} batches, "
+            f"{decoder} pipeline: {n_reads} reads, {samples} samples, {stats.batches} batches, "
             f"{stats.bases_called} bases in {elapsed:.3f} s = {samples / elapsed:.0f} samples/s "
-            f"(hac v4.3, batch {N}, bf16 with W8A8 projections) [{card}]; launches "
+            f"({what}) [{card}]; launches "
             f"{ {k: v for k, v in launches[decoder].items() if v} }; "
             f"device idle {stats.device_idle_s:.3f} s, host blocked in dispatch "
             f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s",
@@ -575,7 +881,7 @@ def main() -> None:
         ]
         return min(ratios), max(ratios)
 
-    def planted_scores(t_len, n):
+    def planted_scores(t_len, n, S=S):
         """Float32 scores [t_len, n, 4S] that favour one random path per row
         (half stays, half steps), and that path in the decode output's
         layout [3, n, t_len] (bases, unused, moves)."""
@@ -698,12 +1004,95 @@ def main() -> None:
             raise AssertionError("beam and Viterbi sequences disagree on a planted path")
     del bf16_runner, cpu_runner, scores, q_scores, b_scores
 
+    # ---- sup outputs against references on a small input --------------------
+    sup_cpu = TorchBasecallRunner(sup_cfg, sup_model, device="cpu", tx_precision="w8a8", **kw)
+    sig = np.stack([
+        sup_pipe.scaler.scale_read(r.signal, read_scale=0.2)[0][10 : 10 + sup_runner.chunk_size]
+        for r in sup_reads[SUP_SHORT_READS : SUP_SHORT_READS + 2]  # long reads
+    ]).astype(np.float16)
+    with torch.inference_mode():
+        on_dev = torch.from_numpy(sig).to(dev)
+        scores = sup_runner.model(on_dev)
+        t0 = time.perf_counter()
+        ref_scores = sup_cpu.model(torch.from_numpy(sig))
+        print(f"sup model on the CPU (float32, W8A8, plain versions of the kernels): 2 chunks in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if (scores.shape != (SUP_T, 2, sup_cfg.outsize) or scores.dtype != torch.float32
+                or not bool(torch.isfinite(scores).all())):
+            raise AssertionError("sup model scores are not finite or of the wrong shape")
+        score_err = (scores.cpu() - ref_scores).abs()
+        print(
+            f"sup W8A8 model, bf16 on the card vs float32 on the CPU: mean abs "
+            f"{score_err.mean():.4f} (max {score_err.max():.4f}) on scores of mean abs "
+            f"{ref_scores.abs().mean():.4f}", flush=True)
+        if not score_err.mean() <= MAX_SUP_BF16_MEAN_ERR * ref_scores.abs().mean():
+            raise AssertionError(f"sup bf16 vs float32: mean abs error {score_err.mean()}")
+
+        # W8A8 against bf16 encoder matmuls, on the card
+        sup_bf16 = TorchBasecallRunner(sup_cfg, sup_model, tx_precision="bf16", **kw)
+        b_scores = sup_bf16.model(on_dev)
+        rel = (torch.linalg.norm(scores - b_scores) / torch.linalg.norm(b_scores)).item()
+        agree = (scores.argmax(-1) == b_scores.argmax(-1)).float().mean().item()
+        print(f"sup W8A8 vs bf16 encoder matmuls on the card: relative norm error {rel:.4f}, "
+              f"argmax agreement {agree:.4f}", flush=True)
+        if not (rel < MAX_SUP_W8A8_REL_ERR and agree > MIN_SUP_W8A8_ARGMAX_AGREE):
+            raise AssertionError("sup W8A8 scores are too far from the bf16 model's")
+        # the same over the first layers only, under K2's limit on the norm
+        shallow = {}
+        for precision, r in (("w8a8", sup_runner), ("bf16", sup_bf16)):
+            layers = r.model.layers
+            r.model.layers = layers[:SUP_SHALLOW_DEPTH]
+            shallow[precision] = r.model(on_dev)
+            r.model.layers = layers
+        rel = (torch.linalg.norm(shallow["w8a8"] - shallow["bf16"])
+               / torch.linalg.norm(shallow["bf16"])).item()
+        agree = (shallow["w8a8"].argmax(-1) == shallow["bf16"].argmax(-1)).float().mean().item()
+        print(f"  over the first {SUP_SHALLOW_DEPTH} layers: relative norm error {rel:.4f}, argmax "
+              f"agreement {agree:.4f}", flush=True)
+        if not (rel < MAX_W8A8_REL_ERR and agree > MIN_SUP_SHALLOW_ARGMAX_AGREE):
+            raise AssertionError("sup W8A8 scores over the first layers are too far from bf16's")
+        del sup_bf16, b_scores, shallow
+
+        # the Viterbi decode at 1024 states on the card against the CPU's plain decode
+        vit_scores = scores.to(torch.bfloat16)
+        on_card = sup_runner.decode_scores(vit_scores).cpu().numpy()
+        on_cpu = sup_cpu.decode_scores(vit_scores.float().cpu()).numpy()
+        if not (np.array_equal(on_card[0], on_cpu[0]) and np.array_equal(on_card[2], on_cpu[2])):
+            raise AssertionError("sup device decode: sequences or moves differ from the CPU decode")
+        emit = on_card[2].astype(bool)
+        q = on_card[1][emit].astype(np.int32) - 33
+        if emit.sum() == 0 or q.min() < 1 or q.max() > 50:
+            raise AssertionError("sup device decode: no bases, or qual chars out of [1, 50]")
+        # The card keeps the posteriors in bf16 (as the TPU path does), the CPU
+        # in float32. A confident call's 1 - p then moves in steps of 2^-8, so
+        # above phred 24 the card's chars are sparse and far from the CPU's;
+        # under phred 20 the two are one step apart at most
+        q_cpu = on_cpu[1][emit].astype(np.int32) - 33
+        low = q_cpu < SUP_QUAL_HELD_BELOW
+        step = np.abs(q - q_cpu)
+        print(
+            f"sup Viterbi decode: {int(emit.sum())} bases equal to the CPU decode, qual chars "
+            f"differing at {np.mean(step > 0):.3%}; where the CPU's phred is under "
+            f"{SUP_QUAL_HELD_BELOW} ({int(low.sum())} bases) at {np.mean(step[low] > 0):.3%}, by "
+            f"{int(step[low].max())} at most; above it by {int(step[~low].max())} at most",
+            flush=True)
+        if low.sum() == 0 or step[low].max() > 1:
+            raise AssertionError("sup device decode: low qual chars differ from the CPU decode's")
+        planted, truth = planted_scores(SUP_T, 16, SUP_S)
+        vit = sup_runner.decode_scores(planted.to(torch.bfloat16)).cpu().numpy()
+        found = identity(vit, truth)
+        print("planted path at 1024 states, %d bases over 16 rows: Viterbi vs planted %.3f-%.3f"
+              % (int(truth[2].sum()), *found), flush=True)
+        if found[0] < MIN_PLANTED_IDENTITY:
+            raise AssertionError("sup Viterbi decode does not recover a planted path")
+    del sup_cpu, scores, ref_scores, planted
+
     # ---- where each device step's time goes (one full batch, profiled) ------
     from torch.profiler import ProfilerActivity, profile
 
-    buf = runner.make_input_buffer(0)
-    buf[:] = rs.randn(*buf.shape)
-    for decoder, r in (("viterbi", runner), ("beam", beam_runner)):
+    for decoder, r in (("viterbi", runner), ("beam", beam_runner), ("sup viterbi", sup_runner)):
+        buf = r.make_input_buffer(0)
+        buf[:] = rs.randn(*buf.shape)
         r.call_chunks(buf, buf.shape[0])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -722,8 +1111,26 @@ def main() -> None:
             f"busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}) [{card}]",
             flush=True,
         )
-        for key, ms in by_kernel[:10]:
+        for key, ms in by_kernel[:14 if decoder == "sup viterbi" else 10]:
             print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%}  {key[:90]}")
+        if decoder != "sup viterbi":
+            continue
+        # the same step by PyTorch operator and input shapes: which plain
+        # passes between the kernels take the rest of the time
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            r.call_chunks(buf, buf.shape[0])
+            torch.cuda.synchronize()
+        by_op = sorted(
+            ((e.key, str(e.input_shapes), e.count, e.self_device_time_total / 1e3)
+             for e in prof.key_averages(group_by_input_shape=True)
+             if e.self_device_time_total > 0),
+            key=lambda row: -row[3],
+        )
+        print(f"{decoder} device step by PyTorch operator (the hand-written kernels are not "
+              f"operators and do not show here):", flush=True)
+        for key, shapes, count, ms in by_op[:16]:
+            print(f"  {ms:9.3f} ms  x{count:<4d} {key} {shapes[:100]}")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

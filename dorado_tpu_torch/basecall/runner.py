@@ -14,7 +14,9 @@ dorado/basecall/decode/CUDADecoder.cpp:115 does).
     reference's own default decode).
 
 The LSTM input projections run W8A8 by default on the card
-(``lstm_precision``), as the JAX runner's do on the TPU.
+(``lstm_precision``), and so do a transformer (sup) model's qkv, fc1 and fc2
+matmuls (``tx_precision``), as the JAX runner's do on the TPU. A transformer
+model takes the ``viterbi`` decoder only, so far.
 
 The step is enqueued on the current CUDA stream and returns at once
 (``dispatch``); ``finish`` waits for it, so the host feeds and finishes
@@ -34,6 +36,7 @@ import torch
 from dorado_tpu_torch.config import BasecallModelConfig
 from dorado_tpu_torch.decode.common import DecodedChunk, DecoderOptions
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel, quantize_lstm_crf_w8a8
+from dorado_tpu_torch.models.tx_model import TxModel, quantize_tx_w8a8
 from dorado_tpu_torch.ops.beam import beam_search_device
 from dorado_tpu_torch.ops.crf_cuda import (
     backward_scores,
@@ -175,31 +178,51 @@ class TorchBasecallRunner:
 
     decoder: ``"viterbi"`` (exact best path) or ``"beam"`` (the reference's
     beam search, width and cut from ``DecoderOptions``).
-    lstm_precision: ``"w8a8"`` (int8 LSTM input projections where the
-    widths are multiples of 128) or ``"bf16"`` (unquantised); by default
-    ``"w8a8"`` on CUDA and ``"bf16"`` on the CPU."""
+    lstm_precision (conv + LSTM models): ``"w8a8"`` (int8 LSTM input
+    projections where the widths are multiples of 128) or ``"bf16"``
+    (unquantised); by default ``"w8a8"`` on CUDA and ``"bf16"`` on the CPU.
+    tx_precision (transformer models): ``"w8a8"`` (int8 qkv, fc1 and fc2
+    matmuls) or ``"bf16"`` (unquantised), with the same defaults."""
 
     def __init__(
         self,
         config: BasecallModelConfig,
-        model: LSTMCRFModel,
+        model: LSTMCRFModel | TxModel,
         chunk_size: int | None = None,
         batch_size: int | None = None,
         device: torch.device | str | None = None,
         decoder: str = "viterbi",
         lstm_precision: str | None = None,
+        tx_precision: str | None = None,
     ):
         self.device = resolve_device(device)
         if decoder not in ("viterbi", "beam"):
             raise ValueError(f"unknown decoder {decoder!r}: expected 'viterbi' or 'beam'")
-        self.decoder = decoder
-        if lstm_precision is None:
-            lstm_precision = "w8a8" if self.device.type == "cuda" else "bf16"
-        if lstm_precision not in ("w8a8", "bf16"):
-            raise ValueError(
-                f"unknown lstm_precision {lstm_precision!r}: expected 'w8a8' or 'bf16'"
+        if config.is_tx_model and decoder == "beam":
+            raise NotImplementedError(
+                "the beam decoder is not ported for transformer models yet (it needs the "
+                "lattice scans and the beam search at 1024 states); use decoder='viterbi'"
             )
-        self.lstm_precision = lstm_precision
+        self.decoder = decoder
+        if config.is_tx_model:
+            kind, given, other = "a transformer", "tx_precision", "lstm_precision"
+            chosen, unused = tx_precision, lstm_precision
+        else:
+            kind, given, other = "a conv + LSTM", "lstm_precision", "tx_precision"
+            chosen, unused = lstm_precision, tx_precision
+        if unused is not None:
+            raise ValueError(f"{other} does not apply to {kind} model: pass {given}")
+        if chosen is None:
+            chosen = "w8a8" if self.device.type == "cuda" else "bf16"
+        if config.is_tx_model and chosen == "int8":
+            raise NotImplementedError(
+                "tx_precision='int8' (int8 weights through plain dots) is not ported; "
+                "use 'w8a8' or 'bf16'"
+            )
+        if chosen not in ("w8a8", "bf16"):
+            raise ValueError(f"unknown {given} {chosen!r}: expected 'w8a8' or 'bf16'")
+        self.lstm_precision = None if config.is_tx_model else chosen
+        self.tx_precision = chosen if config.is_tx_model else None
         self.config = config
         self.chunk_size = int(chunk_size or config.basecaller.chunk_size)
         granularity = config.chunk_size_granularity
@@ -233,9 +256,17 @@ class TorchBasecallRunner:
 
             build_kernels()
         # quantised from the float32 weights, before the cast to bf16
-        own = quantize_lstm_crf_w8a8(model) if lstm_precision == "w8a8" else copy.deepcopy(model)
+        if chosen != "w8a8":
+            own = copy.deepcopy(model)
+        elif config.is_tx_model:
+            own = quantize_tx_w8a8(model)
+        else:
+            own = quantize_lstm_crf_w8a8(model)
         self.model = own.to(self.device).eval()
-        self.model.freeze_lstm_constants(self.compute_dtype)
+        if config.is_tx_model:
+            self.model.freeze_constants()
+        else:
+            self.model.freeze_lstm_constants(self.compute_dtype)
         self.model.to(self.compute_dtype)
         # device constants made once: creating them per step would copy from
         # the host, which waits for the stream and breaks async dispatch
@@ -289,6 +320,10 @@ class TorchBasecallRunner:
     def _device_step(self, sig: torch.Tensor) -> torch.Tensor:
         """f16 signal [N, T] on the device -> uint8 [3, N, T_out]: ASCII
         bases, phred chars and moves."""
+        if self.config.is_tx_model:
+            # the head writes the decoder's dtype itself: a float32 copy of a
+            # full batch's scores would be 4 GB at sup's 4096 transitions
+            return self.decode_scores(self.model(sig, score_dtype=self.compute_dtype))
         scores = self.model(sig)
         if self.decoder == "beam":
             return self.decode_scores_beam(scores)

@@ -34,10 +34,13 @@ __global__ void __launch_bounds__(S) fused_forward_kernel(
     int T, int N, float stay_score, float stay_factor) {
   constexpr int S4 = S / 4;
   constexpr int NW = S / 32;
-  __shared__ float sc[2][4 * S];  // score, block layout r*S + s
-  __shared__ float es[2][4 * S];  // exp(score), same layout
-  __shared__ float ec[S];         // exp(alpha - m)
-  __shared__ float vn[S];         // Viterbi carry minus its max
+  // 18 S floats: 72 KB at S = 1024, over the 48 KB a block may declare
+  // statically, so the launch asks for them as dynamic shared memory
+  extern __shared__ __align__(16) float dyn[];
+  float* sc = dyn;             // [2][4 * S] score, block layout r*S + s
+  float* es = dyn + 8 * S;     // [2][4 * S] exp(score), same layout
+  float* ec = dyn + 16 * S;    // [S] exp(alpha - m)
+  float* vn = dyn + 17 * S;    // [S] Viterbi carry minus its max
   __shared__ float red_carry[2][NW];
   __shared__ float red_pmax[NW];
   __shared__ float red_psum[NW];
@@ -55,8 +58,8 @@ __global__ void __launch_bounds__(S) fused_forward_kernel(
   __nv_bfloat16 beta_next = beta[own];
   float a = 0.f, v = 0.f;
   for (int t = 0; t < T; ++t) {
-    float* scb = sc[t & 1];
-    float* esb = es[t & 1];
+    float* scb = sc + (t & 1) * 4 * S;
+    float* esb = es + (t & 1) * 4 * S;
     {
       float x[4];
       unpack4(next, x);
@@ -137,14 +140,18 @@ template <int S>
 static int launch(const void* scores, const void* beta, void* posts, void* choices,
                   void* final_carry, int T, int N, float stay_score, float stay_factor,
                   cudaStream_t stream) {
-  fused_forward_kernel<S><<<N, S, 0, stream>>>(
+  constexpr int smem = 18 * S * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fused_forward_kernel<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_forward_kernel<S><<<N, S, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(scores), static_cast<const __nv_bfloat16*>(beta),
       static_cast<__nv_bfloat16*>(posts), static_cast<int8_t*>(choices),
       static_cast<float*>(final_carry), T, N, stay_score, stay_factor);
   return static_cast<int>(cudaGetLastError());
 }
 
-// S (states) must be 64 or 256 (state_len 3 or 4).
+// S (states) must be 64, 256 or 1024 (state_len 3, 4 or 5).
 DTT_EXPORT int crf_fused_forward_bf16(const void* scores, const void* beta, void* posts,
                                       void* choices, void* final_carry, int T, int N,
                                       int S, float stay_score, float stay_factor,
@@ -157,6 +164,9 @@ DTT_EXPORT int crf_fused_forward_bf16(const void* scores, const void* beta, void
     case 256:
       return launch<256>(scores, beta, posts, choices, final_carry, T, N, stay_score,
                          stay_factor, st);
+    case 1024:
+      return launch<1024>(scores, beta, posts, choices, final_carry, T, N, stay_score,
+                          stay_factor, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -81,13 +81,14 @@ static int launch(const void* scores, void* out, int T, int N, float stay_factor
   return static_cast<int>(cudaGetLastError());
 }
 
-// S (states) must be 64 or 256 (state_len 3 or 4).
+// S (states) must be 64, 256 or 1024 (state_len 3, 4 or 5).
 DTT_EXPORT int crf_lse_backward_bf16(const void* scores, void* out, int T, int N, int S,
                                      float stay_factor, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {
     case 64: return launch<64>(scores, out, T, N, stay_factor, st);
     case 256: return launch<256>(scores, out, T, N, stay_factor, st);
+    case 1024: return launch<1024>(scores, out, T, N, stay_factor, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

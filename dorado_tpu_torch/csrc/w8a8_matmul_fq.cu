@@ -1,5 +1,5 @@
 // W8A8 matmul with the activation quantisation fused in: the LSTM input
-// projection of a quantised layer.
+// projection of a quantised layer, and the transformer's qkv projection.
 //
 // Replaces dorado_tpu/ops/int8_matmul.py::w8a8_matmul_fq (Pallas body
 // _fq_kernel). Per row of x [M, K] (bf16), with wq [O, K] int8 (one row per
@@ -16,31 +16,19 @@
 // So x is read once: a block owns 128 rows, quantises them into shared
 // memory (one warp a row, amax by warp shuffles) and then walks over all
 // output tiles with the int8 rows resident; the weights (0.6 MB) come from L2
-// tile by tile. The products run on the tensor cores through
-// mma.sync.m16n8k32 (s8 x s8 -> s32): 8 warps as 4 x 2, a warp computing
-// 32 x 64 of the 128 x 128 output tile. Rows of both shared tiles are padded
-// by 16 bytes, which spreads the fragment loads of a warp over all 32 banks.
-// M is any number of rows: the last block zero-fills and does not store.
-#include "common.cuh"
+// in slabs of 128 output channels by 128 bytes of K through a two-stage
+// cp.async ring (int8_tile.cuh), the first slab loading while the rows are
+// quantised. Up to K = 512 two blocks fit an SM, so one block's epilogue
+// overlaps the other's products. M is any number of rows: the last block
+// zero-fills and does not store.
+#include "int8_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128;      // rows of x a block owns
-constexpr int BN = 128;      // output channels a tile
-constexpr int PAD = 16;      // bytes of padding a shared row
-constexpr int THREADS = 256;
-constexpr int MAX_K = 768;   // (BM + BN) * (K + PAD) must fit shared memory
+constexpr int MAX_K = 768;   // BM * (K + PAD) + the ring must fit shared memory
+constexpr int STAGES = 2;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(THREADS) w8a8_fq_kernel(
+__global__ void __launch_bounds__(THREADS, 2) w8a8_fq_kernel(
     const __nv_bfloat16* __restrict__ x,  // [M, K]
     const int8_t* __restrict__ wq,        // [O, K]
     const float* __restrict__ ws,         // [O]
@@ -49,14 +37,27 @@ __global__ void __launch_bounds__(THREADS) w8a8_fq_kernel(
     int M, int K, int O) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = K + PAD;                      // shared row stride, bytes
-  int8_t* a_tile = reinterpret_cast<int8_t*>(smem);              // [BM][ld]
-  int8_t* b_tile = a_tile + BM * ld;                             // [BN][ld]
-  float* row_scale = reinterpret_cast<float*>(b_tile + BN * ld); // [BM]
+  int8_t* a_tile = reinterpret_cast<int8_t*>(smem);                       // [BM][ld]
+  int8_t* b_ring = a_tile + BM * ld;                                      // [2][BN][LDT]
+  float* row_scale = reinterpret_cast<float*>(b_ring + STAGES * BN * LDT); // [BM]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * BM;
+  const int k_slabs = K / BK;
+  const int slabs = (O / BN) * k_slabs;
 
+  // slab q: output tile q / k_slabs, bytes (q % k_slabs) * BK of K
+  auto load_slab = [&](int q) {
+    int8_t* b = b_ring + (q % STAGES) * BN * LDT;
+    const int n0 = (q / k_slabs) * BN, k0 = (q % k_slabs) * BK;
+    for (int i = tid; i < BN * (BK / 16); i += THREADS) {
+      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
+      cp_async16(b + r * LDT + c, wq + (size_t)(n0 + r) * K + k0 + c);
+    }
+  };
+  load_slab(0);
+  cp_async_commit();
   // ---- quantise this block's rows, one warp a row ------------------------
   const int chunks = K / 128;  // 8-byte loads a lane makes for one row
   for (int r = warp; r < BM; r += THREADS / 32) {
@@ -95,51 +96,24 @@ __global__ void __launch_bounds__(THREADS) w8a8_fq_kernel(
     if (lane == 0) row_scale[r] = (m < M) ? s : 0.f;
   }
 
-  // ---- walk over the output tiles ---------------------------------------
+  // ---- walk over the output tiles, a slab of K at a time -------------------
   const int wm = (warp >> 1) * 32;  // the warp's rows within the block tile
   const int wn = (warp & 1) * 64;   // its columns within the output tile
   const int g = lane >> 2, t4 = lane & 3;
-  const int vec_per_row = K / 16;
-  for (int n0 = 0; n0 < O; n0 += BN) {
-    __syncthreads();  // a_tile written (first tile); b_tile free (later ones)
-    for (int i = tid; i < BN * vec_per_row; i += THREADS) {
-      const int r = i / vec_per_row, c = i - r * vec_per_row;
-      const uint4 w = *reinterpret_cast<const uint4*>(wq + (size_t)(n0 + r) * K + c * 16);
-      *reinterpret_cast<uint4*>(b_tile + r * ld + c * 16) = w;
-    }
-    __syncthreads();
-
-    int acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p = a_tile + (wm + i * 16 + g) * ld + k0 + t4 * 4;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int8_t* p = b_tile + (wn + j * 8 + g) * ld + k0 + t4 * 4;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
+  int acc[2][8][4];
+  for (int q = 0; q < slabs; ++q) {
+    const int ks = q % k_slabs;
+    cp_async_wait<0>();
+    __syncthreads();  // slab q landed (and a_tile is written); the other stage is free
+    if (q + 1 < slabs) load_slab(q + 1);
+    cp_async_commit();
+    if (ks == 0) clear(acc);
+    warp_product(acc, a_tile + ks * BK, ld, b_ring + (q % STAGES) * BN * LDT, LDT, BK, wm, wn,
+                 lane);
+    if (ks != k_slabs - 1) continue;
 
     // epilogue: dequantise, add the bias, store bf16 pairs
+    const int n0 = (q / k_slabs) * BN;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = n0 + wn + j * 8 + t4 * 2;
@@ -174,9 +148,9 @@ __global__ void __launch_bounds__(THREADS) w8a8_fq_kernel(
 DTT_EXPORT int w8a8_matmul_fq_bf16(const void* x, const void* wq, const void* ws,
                                    const void* bias, void* out, int M, int K, int O,
                                    void* stream) {
-  if (M <= 0 || K <= 0 || K > MAX_K || K % 128 || O <= 0 || O % BN)
+  if (M <= 0 || K <= 0 || K > MAX_K || K % BK || O <= 0 || O % BN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = (BM + BN) * (K + PAD) + BM * (int)sizeof(float);
+  const int smem = BM * (K + PAD) + STAGES * BN * LDT + BM * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       w8a8_fq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -59,6 +59,16 @@ def _lstm_constants(
     )
 
 
+def conv_stack(x: torch.Tensor, convs, weights, biases) -> torch.Tensor:
+    """[N, C_in, T] -> [N, C_out, T/stride] through the conv layers ``convs``
+    (``ConvParams``) with ``weights`` [C_out, C_in, K] and ``biases``: the
+    stack both model families start with."""
+    for cv, w, b in zip(convs, weights, biases):
+        y = F.conv1d(x, w, stride=cv.stride, padding=cv.padding)
+        x = _activation((y.float() + b.float()[:, None]).to(x.dtype), cv.activation)
+    return x
+
+
 def _linear_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     """x @ w^T in x's dtype, returned in float32 with the bias added there."""
     out = torch.matmul(x, w.t()).float()
@@ -128,10 +138,7 @@ class LSTMCRFModel(nn.Module):
 
     def conv_stack(self, x: torch.Tensor) -> torch.Tensor:
         """[N, C_in, T] -> [N, C_out, T/stride]."""
-        for cv, w, b in zip(self.config.convs, self.conv_w, self.conv_b):
-            y = F.conv1d(x, w, stride=cv.stride, padding=cv.padding)
-            x = _activation((y.float() + b.float()[:, None]).to(x.dtype), cv.activation)
-        return x
+        return conv_stack(x, self.config.convs, self.conv_w, self.conv_b)
 
     def lstm_stack(self, x: torch.Tensor) -> torch.Tensor:
         """[T, N, H] -> [T, N, H]; layer i runs reversed when i is even."""

@@ -13,10 +13,14 @@ from dorado_tpu_torch.config import (
     BasecallModelConfig,
     BatchParams,
     ConvParams,
+    CRFEncoderParams,
+    LinearUpsampleParams,
     SampleType,
     ScalingStrategy,
     SignalNormalisationParams,
     StandardisationParams,
+    TxEncoderParams,
+    TxStack,
 )
 
 
@@ -75,5 +79,59 @@ def fast_v40_config() -> BasecallModelConfig:
             ConvParams(16, 96, 19, 5, Activation.SWISH),
         ],
         basecaller=BatchParams(chunk_size=10000, overlap=500, batch_size=0),
+    )
+    return cfg
+
+
+def sup_v50_config() -> BasecallModelConfig:
+    """dna_r10.4.1_e8.2_400bps_sup@v5.0.0 transformer: conv stack stride 12,
+    18-layer TxEncoder (d_model 512, 8 heads, ff 2048, window [127,128]),
+    LinearUpsample x2, LinearScaledCRF state_len 5."""
+    tx = TxEncoderParams(
+        d_model=512,
+        nhead=8,
+        depth=18,
+        dim_feedforward=2048,
+        attn_window=(127, 128),
+        deepnorm_alpha=2.4494897,
+    )
+    cfg = BasecallModelConfig(
+        model_path=Path("dna_r10.4.1_e8.2_400bps_sup@v5.0.0"),
+        qscale=1.05,
+        qbias=-0.2,
+        stride=6,
+        state_len=5,
+        outsize=4**6,
+        blank_score=2.0,
+        scale=5.0,
+        sample_rate=5000,
+        sample_type=SampleType.DNA,
+        convs=[
+            ConvParams(1, 64, 5, 1, Activation.SWISH),
+            ConvParams(64, 64, 5, 1, Activation.SWISH),
+            ConvParams(64, 128, 9, 3, Activation.SWISH),
+            ConvParams(128, 128, 9, 2, Activation.SWISH),
+            ConvParams(128, 512, 5, 2, Activation.SWISH),
+        ],
+        tx=TxStack(
+            tx=tx,
+            upsample=LinearUpsampleParams(size=512, scale_factor=2),
+            crf=CRFEncoderParams(
+                insize=512,
+                n_base=4,
+                state_len=5,
+                scale=5.0,
+                blank_score=2.0,
+                expand_blanks=True,
+                permute=[],
+            ),
+        ),
+        signal_norm_params=SignalNormalisationParams(
+            strategy=ScalingStrategy.PA,
+            standardisation=StandardisationParams(
+                standardise=True, mean=93.6376, stdev=23.0741
+            ),
+        ),
+        basecaller=BatchParams(chunk_size=12288, overlap=600, batch_size=128),
     )
     return cfg

@@ -1,0 +1,291 @@
+"""Transformer (sup) basecalling model.
+
+Port of ``dorado_tpu/models/tx_model.py`` (architecture parity with the
+reference TxModel, dorado/basecall/model/TxModel.cpp:10-42,
+dorado/nn/TxModules.cpp):
+
+  signal [N, T] -> conv stack (stride 12) -> [N, T', d_model]
+  -> depth x TxEncoder (post-norm deepnorm):
+       attn = WindowedMHA(x)          # RoPE on q and k, banded window
+       x = RMSNorm1(out_proj(attn) + alpha * x)
+       f = SwiGLU-MLP(x)              # fc1 -> y * silu(gate) -> fc2
+       x = RMSNorm2(f + alpha * x)
+  -> LinearUpsample (T' -> scale * T')
+  -> LinearScaledCRF (weights scaled by crf.scale)
+  -> time-major scores [scale * T', N, outsize]
+
+The attention runs through ``ops.attention.windowed_attention_rope`` (a CUDA
+kernel on the GPU). ``quantize_tx_w8a8`` turns the encoder's three fat
+matmuls into W8A8: ``wqkv`` through ``ops.int8_matmul.w8a8_matmul_fq``, fc1
+with the SwiGLU product and the requantisation through ``swiglu_w8a8``, fc2
+through ``w8a8_matmul`` (CUDA kernels on the GPU); the residual stream, norms,
+attention, output projection, upsample and CRF head keep the module's dtype.
+Matmuls take the module's dtype and sum in float32 where PyTorch does; a
+bias is added inside the product, before its one rounding, as the JAX model
+adds it.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dorado_tpu_torch.config import BasecallModelConfig
+from dorado_tpu_torch.models.crf_model import conv_stack
+from dorado_tpu_torch.ops.attention import rope_tables, windowed_attention_rope
+from dorado_tpu_torch.ops.int8_matmul import (
+    quantize_rows,
+    quantize_weight_rows,
+    swiglu_w8a8,
+    w8a8_matmul,
+    w8a8_matmul_fq,
+)
+
+# the encoder matmuls W8A8 replaces; fc1 is held as its value and gate halves
+_W8A8_NAMES = ("wqkv", "fc1_y", "fc1_g", "fc2")
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * weight (nn/RMSNorm.cpp:11-15): the
+    statistics and the normalisation in float32, rounded to x's dtype, then
+    the weight multiplied in that dtype, as the JAX function does. PyTorch's
+    own RMS norm does the first part in one pass over x."""
+    return F.rms_norm(x, x.shape[-1:], None, eps) * weight.to(x.dtype)
+
+
+class TxModel(nn.Module):
+    """Parameters use the JAX model's names and layouts (linear weights
+    [out, in]) but for the convolutions, which take torch's [C_out, C_in, K].
+    A quantised layer holds ``<name>_q`` (int8) and ``<name>_s`` (float32
+    scales) for each name of ``wqkv``, ``fc1_y``, ``fc1_g``, ``fc2`` in place
+    of ``wqkv``, ``fc1`` and ``fc2``."""
+
+    def __init__(
+        self,
+        config: BasecallModelConfig,
+        device: torch.device | str | None = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if not config.is_tx_model:
+            raise ValueError("TxModel supports transformer models only")
+        self.config = config
+        tx = config.tx.tx
+        d, ff = tx.d_model, tx.dim_feedforward
+        kw = {"device": device, "dtype": dtype}
+        self.conv_w = nn.ParameterList(
+            nn.Parameter(torch.zeros(cv.size, cv.insize, cv.winlen, **kw))
+            for cv in config.convs
+        )
+        self.conv_b = nn.ParameterList(
+            nn.Parameter(torch.zeros(cv.size, **kw)) for cv in config.convs
+        )
+        self.layers = nn.ModuleList()
+        for _ in range(tx.depth):
+            layer = nn.Module()
+            layer.wqkv = nn.Parameter(torch.zeros(3 * d, d, **kw))
+            layer.out_proj_w = nn.Parameter(torch.zeros(d, d, **kw))
+            layer.out_proj_b = nn.Parameter(torch.zeros(d, **kw))
+            layer.fc1 = nn.Parameter(torch.zeros(2 * ff, d, **kw))
+            layer.fc2 = nn.Parameter(torch.zeros(d, ff, **kw))
+            layer.norm1 = nn.Parameter(torch.ones(d, **kw))
+            layer.norm2 = nn.Parameter(torch.ones(d, **kw))
+            self.layers.append(layer)
+        scale_factor = config.tx.upsample.scale_factor
+        self.upsample_w = nn.Parameter(torch.zeros(scale_factor * d, d, **kw))
+        self.upsample_b = nn.Parameter(torch.zeros(scale_factor * d, **kw))
+        self.crf_w = nn.Parameter(torch.zeros(config.tx.crf.outsize, d, **kw))
+        self._frozen_scales: list[dict[str, torch.Tensor]] | None = None
+        self._rope: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @torch.no_grad()
+    def freeze_constants(self) -> None:
+        """Keep each quantised layer's weight scales in float32, on the
+        module's current device. Called before the module is cast to a
+        narrower dtype, which would round the scale buffers; the weights
+        must not change afterwards."""
+        self._frozen_scales = [
+            {
+                name: getattr(layer, name + "_s").float().clone()
+                for name in _W8A8_NAMES
+                if hasattr(layer, name + "_s")
+            }
+            for layer in self.layers
+        ]
+
+    def rope(self, t_len: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The float32 cos and sin tables [T', D/2] for ``t_len`` tokens on
+        ``device``, made once per length (a copy from the host waits for
+        the stream, so a step must not make them anew)."""
+        key = (t_len, str(device))
+        if key not in self._rope:
+            tx = self.config.tx.tx
+            self._rope[key] = rope_tables(t_len, tx.d_model // tx.nhead, tx.theta, device)
+        return self._rope[key]
+
+    def encoder_layer(
+        self, index: int, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+    ) -> torch.Tensor:
+        """[N, T', d_model] -> [N, T', d_model] through encoder layer ``index``."""
+        tx = self.config.tx.tx
+        p = self.layers[index]
+        dtype = x.dtype
+        # alpha rounded to the stream dtype, as the JAX layer multiplies
+        alpha = torch.tensor(tx.deepnorm_alpha, dtype=dtype).item()
+        quantised = hasattr(p, "wqkv_q")
+        if quantised:
+            scales = (
+                self._frozen_scales[index]
+                if self._frozen_scales
+                else {name: getattr(p, name + "_s").float() for name in _W8A8_NAMES}
+            )
+            qkv = w8a8_matmul_fq(x, p.wqkv_q.t(), scales["wqkv"], out_dtype=dtype)
+        else:
+            qkv = F.linear(x, p.wqkv)
+        attn = windowed_attention_rope(
+            qkv, cos, sin, tx.nhead, tx.attn_window[0], tx.attn_window[1]
+        )
+        attn = F.linear(attn, p.out_proj_w, p.out_proj_b)
+        x = rms_norm(attn + x * alpha, p.norm1)
+
+        if quantised:
+            xq, xs = quantize_rows(x)
+            tq, ts = swiglu_w8a8(
+                xq, xs, p.fc1_y_q.t(), scales["fc1_y"], p.fc1_g_q.t(), scales["fc1_g"]
+            )
+            f = w8a8_matmul(tq, ts, p.fc2_q.t(), scales["fc2"], out_dtype=dtype)
+        else:
+            y, gate = F.linear(x, p.fc1).chunk(2, dim=-1)
+            f = F.linear(F.silu(gate.float()).to(dtype) * y, p.fc2)
+        return rms_norm(f + x * alpha, p.norm2)
+
+    def forward(
+        self, signal: torch.Tensor, score_dtype: torch.dtype = torch.float32
+    ) -> torch.Tensor:
+        """[N, T] (or [N, T, F]) normalised signal -> time-major scores
+        [T/stride, N, outsize] in ``score_dtype``, computed in the module's
+        dtype. (The JAX ``tx_forward`` returns them batch-major and its
+        runner swaps the axes; here the head writes them time-major.)"""
+        if signal.dim() == 2:
+            signal = signal[..., None]
+        dtype = self.conv_w[0].dtype
+        x = conv_stack(
+            signal.to(dtype).transpose(1, 2), self.config.convs, self.conv_w, self.conv_b
+        )
+        x = x.transpose(1, 2).contiguous()  # [N, T', d_model]
+        n, t_len, d = x.shape
+        cos, sin = self.rope(t_len, x.device)
+        for i in range(len(self.layers)):
+            x = self.encoder_layer(i, x, cos, sin)
+
+        # LinearUpsample: [N, T', d] -> [N, scale * T', d] (nn/LinearUpsample.cpp)
+        scale_factor = self.config.tx.upsample.scale_factor
+        x = F.linear(x, self.upsample_w, self.upsample_b)
+        x = x.reshape(n, scale_factor * t_len, d)
+
+        # LinearScaledCRF: weights scaled by crf.scale (TxModules.cpp:330-339)
+        w = (self.crf_w.float() * self.config.tx.crf.scale).to(dtype)
+        return F.linear(x.transpose(0, 1).contiguous(), w).to(score_dtype)
+
+
+def init_tx_params(
+    config: BasecallModelConfig,
+    generator: torch.Generator,
+    device: torch.device | str | None = None,
+) -> TxModel:
+    """A model with random weights of the reference shapes, drawn from
+    ``generator`` with the JAX package's distributions (the numbers differ:
+    the two frameworks' generators differ)."""
+    model = TxModel(config, device="cpu")
+    tx = config.tx.tx
+    d, ff = tx.d_model, tx.dim_feedforward
+
+    def normal(param, fan_in):
+        param.copy_(torch.randn(param.shape, generator=generator) / math.sqrt(fan_in))
+
+    with torch.no_grad():
+        for cv, w in zip(config.convs, model.conv_w):
+            normal(w, cv.insize * cv.winlen)
+        for p in model.layers:
+            normal(p.wqkv, d)
+            normal(p.out_proj_w, d)
+            normal(p.fc1, d)
+            normal(p.fc2, ff)
+        normal(model.upsample_w, d)
+        normal(model.crf_w, d)
+    return model.to(device) if device is not None else model
+
+
+def _set_quantised(layer: nn.Module, quantised: dict[str, tuple]) -> None:
+    """Replace a layer's wqkv, fc1 and fc2 by the int8 weights and float32
+    scales of ``quantised`` (one pair for each of ``_W8A8_NAMES``)."""
+    for name in ("wqkv", "fc1", "fc2"):
+        delattr(layer, name)
+    for name in _W8A8_NAMES:
+        wq, ws = quantised[name]
+        layer.register_buffer(name + "_q", wq.contiguous())
+        layer.register_buffer(name + "_s", ws.contiguous())
+
+
+@torch.no_grad()
+def quantize_tx_w8a8(model: TxModel) -> TxModel:
+    """A copy of ``model`` with each encoder layer's ``wqkv``, ``fc1`` (split
+    into its value rows and gate rows) and ``fc2`` as symmetric int8 per
+    output channel with float32 scales (``quantize_tx_params_w8a8`` of the
+    JAX package). The output projection, norms, upsample and CRF head keep
+    their precision; layers already quantised stay as they are. Quantise the
+    float32 model, before any cast to a narrower type."""
+    out = copy.deepcopy(model)
+    out._frozen_scales = None
+    for layer in out.layers:
+        if hasattr(layer, "wqkv_q"):
+            continue
+        ffn = layer.fc1.shape[0] // 2
+        _set_quantised(layer, {
+            "wqkv": quantize_weight_rows(layer.wqkv),
+            "fc1_y": quantize_weight_rows(layer.fc1[:ffn]),
+            "fc1_g": quantize_weight_rows(layer.fc1[ffn:]),
+            "fc2": quantize_weight_rows(layer.fc2),
+        })
+    return out
+
+
+def tx_params_from_jax(params, config: BasecallModelConfig) -> TxModel:
+    """A float32 CPU model holding the weights of a JAX parameter pytree
+    (``dorado_tpu.models.tx_model.init_tx_params`` layout, as numpy arrays or
+    anything ``np.asarray`` takes), so both packages compute the same
+    function. Layers that hold ``<name>_w8``/``<name>_w8s`` in place of
+    ``wqkv``, ``fc1`` and ``fc2`` (``quantize_tx_params_w8a8`` there) become
+    quantised layers here."""
+    model = TxModel(config, device="cpu")
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    with torch.no_grad():
+        for p, w, b in zip(params["convs"], model.conv_w, model.conv_b):
+            w.copy_(t(p["w"]).permute(2, 1, 0))  # HIO [K, C_in, C_out] -> [C_out, C_in, K]
+            b.copy_(t(p["b"]))
+        for p, layer in zip(params["layers"], model.layers):
+            for name in ("out_proj_w", "out_proj_b", "norm1", "norm2"):
+                getattr(layer, name).copy_(t(p[name]))
+            if "wqkv_w8" in p:
+                _set_quantised(layer, {
+                    name: (
+                        torch.from_numpy(np.array(p[name + "_w8"], dtype=np.int8)),
+                        t(p[name + "_w8s"]),
+                    )
+                    for name in _W8A8_NAMES
+                })
+            else:
+                for name in ("wqkv", "fc1", "fc2"):
+                    getattr(layer, name).copy_(t(p[name]))
+        model.upsample_w.copy_(t(params["upsample"]["w"]))
+        model.upsample_b.copy_(t(params["upsample"]["b"]))
+        model.crf_w.copy_(t(params["crf"]["w"]))
+    return model

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNEL_SOURCES = (
     "lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward", "crf_traceback",
-    "crf_lse_scan", "beam_search",
+    "crf_lse_scan", "beam_search", "attention_banded", "w8a8_matmul",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,7 +48,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    # every header: a kernel source may include any of them
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"

@@ -36,13 +36,19 @@ def _stream_dtype(scores: torch.Tensor) -> torch.dtype:
 
 
 def _check_scores(
-    scores: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+    scores: torch.Tensor,
+    dtype: torch.dtype = torch.bfloat16,
+    states: tuple[int, ...] = (64, 256, 1024),
 ) -> tuple[int, int, int]:
+    """(T, N, S) of a score tensor the kernels take; ``states`` are the
+    state counts the kernel at hand is built for."""
     if scores.dim() != 3:
         raise ValueError(f"scores: expected [T, N, C], got {tuple(scores.shape)}")
     t_len, n, c = scores.shape
-    if c // 4 not in (64, 256) or c % 4 or t_len == 0 or n == 0:
-        raise ValueError(f"scores: unsupported shape {tuple(scores.shape)}")
+    if c // 4 not in states or c % 4 or t_len == 0 or n == 0:
+        raise ValueError(
+            f"scores: unsupported shape {tuple(scores.shape)} (states {states})"
+        )
     _cuda.check_tensor(scores, "scores", dtype, (t_len, n, c))
     return t_len, n, c // 4
 
@@ -89,7 +95,7 @@ backward_scores_shifted.launches = 0
 
 
 def _lse_scan(scores: torch.Tensor, stay_score: float, reverse: bool) -> torch.Tensor:
-    t_len, n, s = _check_scores(scores, torch.float32)
+    t_len, n, s = _check_scores(scores, torch.float32, states=(64, 256))
     hist = torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
     fn = _cuda.kernel_function(
         "crf_lse_scan", "crf_lse_scan_f32",

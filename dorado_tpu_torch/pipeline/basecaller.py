@@ -27,6 +27,7 @@ from dorado_tpu_torch.config import BasecallModelConfig
 from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
 from dorado_tpu_torch.io.sam import SamHeader, SamRecord, SamTag
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
+from dorado_tpu_torch.models.tx_model import TxModel
 from dorado_tpu_torch.pipeline.host import OrderedPool, OrderedSink, default_host_threads
 from dorado_tpu_torch.signal.chunk import generate_chunks
 from dorado_tpu_torch.signal.scaling import Scaler
@@ -89,7 +90,7 @@ class BasecallerPipeline:
     def __init__(
         self,
         config: BasecallModelConfig,
-        model: LSTMCRFModel,
+        model: LSTMCRFModel | TxModel,
         chunk_size: int | None = None,
         batch_size: int | None = None,
         overlap: int | None = None,
@@ -97,6 +98,7 @@ class BasecallerPipeline:
         device: torch.device | str | None = None,
         decoder: str = "viterbi",
         lstm_precision: str | None = None,
+        tx_precision: str | None = None,
     ):
         if config.is_rna_model:
             raise ValueError("RNA models are not supported by this pipeline yet")
@@ -111,6 +113,7 @@ class BasecallerPipeline:
             device=device,
             decoder=decoder,
             lstm_precision=lstm_precision,
+            tx_precision=tx_precision,
         )
         self.overlap = int(overlap if overlap is not None else config.basecaller.overlap)
         self.overlap -= self.overlap % config.stride

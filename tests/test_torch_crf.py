@@ -134,3 +134,66 @@ def test_fused_decode_agrees_with_separate_scans():
     st_ref, mv_ref = crf_scan.viterbi_path(raw, STAY)
     np.testing.assert_array_equal(st.numpy(), st_ref.numpy())
     np.testing.assert_array_equal(mv.numpy(), mv_ref.numpy())
+
+
+# ---------------------------------------------------------------------------
+# sup's 1024 states (state_len 5), at a tiny T and N
+# ---------------------------------------------------------------------------
+
+T5, N5, S5 = 6, 2, 1024
+
+
+@pytest.fixture(scope="module")
+def lattice_1024():
+    from dorado_tpu.ops.crf_pallas import fused_viterbi_decode
+
+    rs = np.random.RandomState(1024)
+    raw = np.clip(np.round(rs.randn(T5, N5, 4 * S5) * 2.0 * 8) / 8, -5, 5).astype(np.float32)
+    blk = jnp.asarray(raw[..., block_permutation(S5)])
+    posts, choices, final = fused_viterbi_decode(blk, STAY, interpret=True, prepermuted=True)
+    return raw, np.array(posts), np.array(choices), np.array(final)
+
+
+def test_fused_viterbi_decode_matches_pallas_at_1024_states(lattice_1024):
+    """The whole Viterbi decode path on the CPU (K3's, K4's and K5's plain
+    versions) against ``fused_viterbi_decode`` and the traceback kernel in
+    interpret mode: choices, final carry, states and moves exact on the 1/8
+    score grid, posts to 1e-4 relative."""
+    raw, posts_jax, choices_jax, final_jax = lattice_1024
+    posts, choices, final = crf_cuda.fused_viterbi_decode(torch.from_numpy(raw), STAY)
+    assert posts.shape == (T5, N5, S5) and choices.dtype == torch.int8
+    np.testing.assert_array_equal(choices.numpy(), choices_jax)
+    np.testing.assert_array_equal(final.numpy(), final_jax)
+    np.testing.assert_allclose(posts.numpy(), posts_jax, rtol=1e-4, atol=1e-7)
+    last = torch.argmax(final, dim=-1).to(torch.int32)
+    st_ref, mv_ref = viterbi_traceback_pallas(
+        jnp.asarray(choices_jax), jnp.asarray(last.numpy()), interpret=True
+    )
+    st, mv = crf_cuda.viterbi_traceback(choices, last)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+    assert mv.numpy().sum() > T5  # the path moves
+
+
+def test_backward_scan_matches_pallas_at_1024_states(lattice_1024):
+    raw = lattice_1024[0]
+    blk = jnp.asarray(raw[..., block_permutation(S5)])
+    ref = _lse_scan_pallas_blk(blk, STAY, True, True, prepermuted=True, shifted=True)
+    out = crf_cuda.backward_scores_shifted(torch.from_numpy(raw), STAY)
+    assert out.shape == (T5, N5, S5)
+    _lse_close(out.numpy(), np.asarray(ref))
+
+
+def test_check_scores_takes_the_states_each_kernel_is_built_for():
+    """The wrappers' shape check (reached on CUDA tensors) takes 64, 256 and
+    1024 states for the Viterbi path's kernels and 64 and 256 for the
+    full-history scan; the device check comes after the shape check."""
+    for states in (64, 256, 1024):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            crf_cuda._check_scores(torch.zeros(2, 1, 4 * states, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        crf_cuda._check_scores(torch.zeros(2, 1, 4 * 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        crf_cuda._check_scores(
+            torch.zeros(2, 1, 4 * 1024), torch.float32, states=(64, 256)
+        )

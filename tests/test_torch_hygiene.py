@@ -15,8 +15,9 @@ import torch
 import dorado_tpu_torch
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
-from dorado_tpu_torch.models.presets import fast_v40_config, hac_v43_config
-from dorado_tpu_torch.ops import _cuda, beam, crf_cuda, int8_matmul, lstm
+from dorado_tpu_torch.models.presets import fast_v40_config, hac_v43_config, sup_v50_config
+from dorado_tpu_torch.models.tx_model import TxModel
+from dorado_tpu_torch.ops import _cuda, attention, beam, crf_cuda, int8_matmul, lstm
 from dorado_tpu_torch.pipeline import BasecallerPipeline
 
 PKG = Path(dorado_tpu_torch.__file__).parent
@@ -31,6 +32,7 @@ def _module_names():
 def test_package_imports_no_jax():
     names = _module_names()
     assert "dorado_tpu_torch.basecall.runner" in names and len(names) > 20
+    assert {"dorado_tpu_torch.models.tx_model", "dorado_tpu_torch.ops.attention"} <= set(names)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -69,6 +71,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchBasecallRunner(cfg, model, device="cuda")
     assert TorchBasecallRunner(cfg, model, device="cpu").device.type == "cpu"
+    sup = _small_sup()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchBasecallRunner(sup, TxModel(sup))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BasecallerPipeline(sup, TxModel(sup))
+
+
+def _small_sup():
+    """sup v5.0 at 2 layers and d_model 128 (2 heads of 64, ffn 256): the
+    widths the W8A8 kernels take, with narrow convolutions."""
+    cfg = sup_v50_config()
+    cfg.tx.tx.depth = 2
+    cfg.tx.tx.d_model = 128
+    cfg.tx.tx.nhead = 2
+    cfg.tx.tx.dim_feedforward = 256
+    cfg.tx.crf.insize = 128
+    conv = type(cfg.convs[2])
+    cfg.convs[1].size = 16
+    cfg.convs[0].size = 16
+    cfg.convs[1].insize = 16
+    cfg.convs[2] = conv(16, 16, 9, 3, cfg.convs[2].activation)
+    cfg.convs[3] = conv(16, 16, 9, 2, cfg.convs[3].activation)
+    cfg.convs[4] = conv(16, 128, 5, 2, cfg.convs[4].activation)
+    return cfg
 
 
 # every kernel wrapper of the port
@@ -82,6 +108,9 @@ WRAPPERS = (
     crf_cuda.backward_scores,
     beam.beam_forward,
     beam.beam_traceback,
+    attention.windowed_attention_rope,
+    int8_matmul.swiglu_w8a8,
+    int8_matmul.w8a8_matmul,
 )
 
 
@@ -120,6 +149,9 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     _spy(monkeypatch, calls, int8_matmul, "w8a8_matmul_fq_plain")
     _spy(monkeypatch, calls, beam, "beam_forward_plain")
     _spy(monkeypatch, calls, beam, "beam_traceback_plain")
+    _spy(monkeypatch, calls, attention, "windowed_attention_rope_plain")
+    _spy(monkeypatch, calls, int8_matmul, "swiglu_w8a8_plain")
+    _spy(monkeypatch, calls, int8_matmul, "w8a8_matmul_plain")
     x = torch.from_numpy(rs.randn(5, 2, 16).astype(np.float32))
     lstm.lstm_scan_time_major(x, torch.from_numpy(rs.randn(4, 16).astype(np.float32)))
     scores = torch.from_numpy(rs.randn(5, 2, 256).astype(np.float32))
@@ -133,12 +165,20 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     int8_matmul.w8a8_matmul_fq(
         torch.from_numpy(rs.randn(3, 128).astype(np.float32)), wq.t(), torch.ones(128)
     )
+    cos, sin = attention.rope_tables(7, 64, 10000.0)
+    attention.windowed_attention_rope(
+        torch.from_numpy(rs.randn(2, 7, 3 * 64).astype(np.float32)), cos, sin, 1, 127, 128
+    )
+    xq, xs = int8_matmul.quantize_rows(torch.from_numpy(rs.randn(3, 128).astype(np.float32)))
+    tq, ts = int8_matmul.swiglu_w8a8(xq, xs, wq.t(), torch.ones(128), wq.t(), torch.ones(128))
+    int8_matmul.w8a8_matmul(tq, ts, wq.t(), torch.ones(128))
     # backward_scores_shifted's plain version runs the plain backward scan too
     assert sorted(calls) == sorted(
         ["lstm_scan_plain", "backward_scores_shifted_plain", "backward_scores_plain",
          "fused_forward_decode_plain", "viterbi_traceback_plain", "forward_scores_plain",
          "backward_scores_plain", "w8a8_matmul_fq_plain", "beam_forward_plain",
-         "beam_traceback_plain"]
+         "beam_traceback_plain", "windowed_attention_rope_plain", "swiglu_w8a8_plain",
+         "w8a8_matmul_plain"]
     )
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
@@ -160,8 +200,22 @@ def test_cpu_runner_launches_no_kernel(no_kernels, decoder, width):
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
+def test_cpu_tx_runner_launches_no_kernel(no_kernels):
+    cfg = _small_sup()
+    runner = TorchBasecallRunner(
+        cfg, TxModel(cfg), chunk_size=768, batch_size=2, device="cpu", tx_precision="w8a8"
+    )
+    assert runner.model.layers[0].fc1_y_q.dtype == torch.int8
+    buf = runner.make_input_buffer(0)
+    out = runner.call_chunks(buf, 1)
+    assert len(out) == 1 and len(out[0].moves) == 768 // cfg.stride
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
 def test_kernel_sources_present():
     for name in _cuda.KERNEL_SOURCES:
         src = (_cuda.CSRC / f"{name}.cu").read_text()
         assert "Replaces dorado_tpu/ops/" in src and "What bounds it on the H100" in src
+    assert {"attention_banded", "w8a8_matmul"} <= set(_cuda.KERNEL_SOURCES)
+    assert len(_cuda.KERNEL_SOURCES) == len(list(_cuda.CSRC.glob("*.cu")))
     assert _cuda.library_path("lstm_scan").parent == _cuda.BUILD_DIR

@@ -1,6 +1,7 @@
-"""The port's W8A8 input projection (CPU, plain version) against the JAX
-package: the weight quantisation, ``w8a8_matmul_fq`` in Pallas interpret
-mode, the quantised model's layers, and the whole model's scores.
+"""The port's W8A8 matmuls (CPU, plain versions) against the JAX package:
+the weight and row quantisation, ``w8a8_matmul_fq``, ``swiglu_w8a8`` and
+``w8a8_matmul`` in Pallas interpret mode, the quantised LSTM model's layers,
+and the whole model's scores.
 
 The plain version follows the Pallas body (it multiplies by the row scale's
 reciprocal), so it is held against the interpret-mode kernel, not against the
@@ -145,3 +146,92 @@ def test_w8a8_model_scores_match_jax():
     # full width, and over these 120 positions at H = 128 one flip is 0.8%
     rel = np.linalg.norm(out - full) / np.linalg.norm(full)
     assert rel < 0.02 and (out.argmax(-1) == full.argmax(-1)).mean() > 0.95
+
+
+def test_quantize_rows_matches_jax():
+    x = np.random.RandomState(6).randn(4, 9, 128).astype(np.float32)
+    x[1, 2] = 0.0  # an all-zero row takes the 1e-12 floor
+    xq_ref, xs_ref = jax_int8.quantize_rows(jnp.asarray(x))
+    xq, xs = int8_matmul.quantize_rows(torch.from_numpy(x))
+    assert xq.dtype == torch.int8 and xs.dtype == torch.float32 and xs.shape == (4, 9, 1)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(xq_ref))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(xs_ref))
+
+
+def _quantised_rows_and_weights(m, k, f, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(m, k).astype(np.float32)
+    x[min(3, m - 1)] = 0.0
+    xq, xs = jax_int8.quantize_rows(jnp.asarray(x))
+    weights = [
+        jax_int8.quantize_weight(rs.randn(f, k).astype(np.float32) / np.sqrt(k))
+        for _ in range(2)
+    ]
+    return xq, xs, weights
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# (rows, K, F): rows that are no multiple of the interpret run's 8-row blocks,
+# and sup's own widths
+SWIGLU_SHAPES = [(21, 128, 256), (40, 512, 2048)]
+
+
+@pytest.mark.parametrize("m,k,f", SWIGLU_SHAPES)
+def test_swiglu_plain_matches_pallas_interpret(m, k, f):
+    """K12's plain version against the Pallas body: the int8 output equal but
+    for +-1 at no more than 0.1% of elements (the two ``exp`` may differ in
+    the last bit; measured: none differ), the row scales to 1e-6 relative."""
+    xq, xs, ((wy, wys), (wg, wgs)) = _quantised_rows_and_weights(m, k, f, 7)
+    tq_ref, ts_ref = jax_int8.swiglu_w8a8(xq, xs, wy, wys, wg, wgs, block_m=8, interpret=True)
+    calls = int8_matmul.swiglu_w8a8.launches
+    tq, ts = int8_matmul.swiglu_w8a8(_t(xq), _t(xs), _t(wy), _t(wys), _t(wg), _t(wgs))
+    assert int8_matmul.swiglu_w8a8.launches == calls  # a CPU tensor launches nothing
+    assert tq.dtype == torch.int8 and tq.shape == (m, f)
+    assert ts.dtype == torch.float32 and ts.shape == (m, 1)
+    diff = np.abs(tq.numpy().astype(np.int32) - np.asarray(tq_ref).astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ts_ref), rtol=1e-6, atol=0)
+    # the requantised product is the SwiGLU of the dequantised inputs
+    y = (np.asarray(xq, np.float32) * np.asarray(xs)) @ (np.asarray(wy, np.float32) * wys)
+    g = (np.asarray(xq, np.float32) * np.asarray(xs)) @ (np.asarray(wg, np.float32) * wgs)
+    want = y * g / (1.0 + np.exp(-g))
+    got = tq.numpy().astype(np.float32) * ts.numpy()
+    assert np.abs(got - want).max() <= 0.51 * ts.numpy().max() + 1e-4
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,o", [(21, 256, 128), (40, 2048, 512)])
+def test_w8a8_matmul_plain_matches_pallas_interpret(m, k, o, out_dtype):
+    """K13's plain version against the Pallas body: exact int32 sums and two
+    float32 roundings in both, so equal in float32 and in bf16."""
+    xq, xs, ((wq_t, ws), _) = _quantised_rows_and_weights(m, k, o, 8)
+    ref = jax_int8.w8a8_matmul(
+        xq, xs, wq_t, ws, block_m=8, out_dtype=getattr(jnp, out_dtype), interpret=True
+    ).astype(jnp.float32)
+    calls = int8_matmul.w8a8_matmul.launches
+    out = int8_matmul.w8a8_matmul(
+        _t(xq), _t(xs), _t(wq_t), _t(ws), out_dtype=getattr(torch, out_dtype)
+    )
+    assert int8_matmul.w8a8_matmul.launches == calls
+    assert out.shape == (m, o) and out.dtype == getattr(torch, out_dtype)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref))
+
+
+def test_w8a8_feed_forward_leading_dims():
+    """[N, T, K] rows go through both wrappers as the model passes them."""
+    xq, xs, ((wy, wys), (wg, wgs)) = _quantised_rows_and_weights(12, 128, 256, 9)
+    args = [_t(wy), _t(wys), _t(wg), _t(wgs)]
+    tq, ts = int8_matmul.swiglu_w8a8(_t(xq).reshape(3, 4, 128), _t(xs).reshape(3, 4, 1), *args)
+    flat_q, flat_s = int8_matmul.swiglu_w8a8_plain(_t(xq), _t(xs), *args)
+    assert tq.shape == (3, 4, 256) and ts.shape == (3, 4, 1)
+    assert torch.equal(tq.reshape(12, 256), flat_q) and torch.equal(ts.reshape(12, 1), flat_s)
+    w2, w2s = int8_matmul.quantize_weight_rows(torch.randn(128, 256))
+    out = int8_matmul.w8a8_matmul(tq, ts, w2.t(), w2s, out_dtype=torch.float32)
+    assert out.shape == (3, 4, 128)
+    assert torch.equal(
+        out.reshape(12, 128),
+        int8_matmul.w8a8_matmul_plain(flat_q, flat_s, w2.t(), w2s, torch.float32),
+    )

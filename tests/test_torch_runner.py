@@ -13,7 +13,13 @@ by one.
 The W8A8 cases run on one set of weights where all of that holds, and on
 further seeds and head gains where a wider, stated bound takes its place:
 see the two ``..._on_other_weights`` tests.
+
+The transformer (sup) cases at the end run the small sup configuration of
+``tests/test_torch_tx_model.py`` through both runners, in float32 and with
+W8A8 encoder matmuls.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,13 +31,16 @@ from dorado_tpu.basecall.runner import BasecallRunner
 from dorado_tpu.models.crf_model import init_lstm_crf_params as jax_init
 from dorado_tpu.models.crf_model import lstm_crf_forward
 from dorado_tpu.models.presets import hac_v43_config as jax_hac_config
+from dorado_tpu.models.presets import sup_v50_config as jax_sup_config
 from dorado_tpu.ops import beam as jax_beam
 from dorado_tpu.ops import crf_scan as jax_crf_scan
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.models.crf_model import params_from_jax
-from dorado_tpu_torch.models.presets import hac_v43_config
+from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
+from dorado_tpu_torch.models.tx_model import tx_params_from_jax
 from dorado_tpu_torch.ops import crf_scan
 from dorado_tpu_torch.ops.beam import beam_search_plain
+from tests.test_torch_tx_model import jax_tx_params, small_sup
 
 CHUNK = 1200
 # a multiple of the conftest's 8 virtual devices, so the JAX runner keeps it
@@ -289,3 +298,100 @@ def test_decoder_and_precision_arguments():
     # unquantised by default on the CPU, as the JAX runner is off the TPU
     runner = TorchBasecallRunner(cfg, model, **kw)
     assert (runner.decoder, runner.lstm_precision) == ("viterbi", "bf16")
+
+
+# ---------------------------------------------------------------------------
+# transformer (sup) models
+# ---------------------------------------------------------------------------
+
+TX_CHUNK = 1152  # 6 x the chunk granularity of 192: lanes of 1152 and 768 samples
+
+
+@functools.lru_cache(maxsize=None)
+def _tx_runners(precision, seed=3):
+    """Both runners on the small sup configuration with the same random
+    weights, float32 on the CPU, made once for each precision. The JAX runner
+    reads its precision from ``DORADO_TPU_TX_PRECISION`` when it is built;
+    off the TPU it runs the strip-loop attention and the int8 kernels' XLA
+    fallbacks."""
+    params = jax_tx_params(seed)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DORADO_TPU_TX_PRECISION", precision)
+        jr = BasecallRunner(
+            small_sup(jax_sup_config()), params, chunk_size=TX_CHUNK, batch_size=BATCH,
+            decoder="viterbi", compute_dtype=jnp.float32,
+        )
+    assert ("wqkv_w8" in jr.params["layers"][0]) == (precision == "w8a8")
+    cfg = small_sup(sup_v50_config())
+    tr = TorchBasecallRunner(
+        cfg, tx_params_from_jax(params, cfg), chunk_size=TX_CHUNK, batch_size=BATCH,
+        device="cpu", tx_precision=precision,
+    )
+    assert hasattr(tr.model.layers[0], "wqkv_q") == (precision == "w8a8")
+    assert tr.chunk_sizes == jr.chunk_sizes == [TX_CHUNK, TX_CHUNK * 2 // 3]
+    return jr, tr
+
+
+def _assert_tx_calls_match(jr, tr, lane, max_share_different):
+    """Sequences and moves equal; qual chars one step apart at most, but at
+    the top of the scale (both at phred 40 or more), where a block
+    probability within one bf16 step of 1 moves its char by up to 3 when it
+    rounds the other way (the note in this module's docstring and the hac
+    W8A8 test above); ``max_share_different`` of all positions may differ."""
+    ref, out = _call_both(jr, tr, lane)
+    different = total = 0
+    for x, y in zip(ref, out):
+        assert y.sequence == x.sequence
+        np.testing.assert_array_equal(y.moves, x.moves)
+        qa = np.frombuffer(x.qstring.encode(), np.uint8).astype(np.int32) - 33
+        qb = np.frombuffer(y.qstring.encode(), np.uint8).astype(np.int32) - 33
+        assert np.abs(qa - qb).max(initial=0) <= 3
+        assert np.all(np.minimum(qa, qb)[np.abs(qa - qb) > 1] >= 40)
+        different += int((qa != qb).sum())
+        total += len(qa)
+    assert total > 50 * len(out)  # the path emits bases
+    assert different <= max_share_different * total, (different, total)
+
+
+@pytest.mark.parametrize("lane", [0, 1])
+def test_tx_call_chunks_matches_jax(lane):
+    """The sup slice as a whole, unquantised: 1% of qual chars may differ
+    (measured 0.7%)."""
+    jr, tr = _tx_runners("bf16")
+    assert tr.tx_precision == "bf16" and tr.lstm_precision is None
+    _assert_tx_calls_match(jr, tr, lane, 0.01)
+
+
+@pytest.mark.parametrize("lane", [0, 1])
+def test_tx_w8a8_call_chunks_matches_jax(lane):
+    """The sup slice as a whole with W8A8 encoder matmuls. The scores of the
+    two packages part by 3e-4 on average where an activation's int8 rounding
+    flips (``tests/test_torch_tx_model.py``), which moves more posteriors
+    across a bf16 boundary than float32 sums alone do: 10% of qual chars may
+    differ by one step (measured 1.5% and 4.5% on the two lanes); sequences
+    and moves stay equal."""
+    jr, tr = _tx_runners("w8a8")
+    _assert_tx_calls_match(jr, tr, lane, 0.10)
+
+
+def test_tx_decoder_and_precision_arguments():
+    cfg = small_sup(sup_v50_config())
+    model = tx_params_from_jax(jax_tx_params(3), cfg)
+    kw = dict(chunk_size=TX_CHUNK, batch_size=BATCH, device="cpu")
+    with pytest.raises(NotImplementedError, match="beam decoder is not ported for transformer"):
+        TorchBasecallRunner(cfg, model, decoder="beam", **kw)
+    with pytest.raises(NotImplementedError, match="'int8'"):
+        TorchBasecallRunner(cfg, model, tx_precision="int8", **kw)
+    with pytest.raises(ValueError, match="unknown tx_precision"):
+        TorchBasecallRunner(cfg, model, tx_precision="fp8", **kw)
+    with pytest.raises(ValueError, match="lstm_precision does not apply"):
+        TorchBasecallRunner(cfg, model, lstm_precision="w8a8", **kw)
+    hac = _narrow_hac(hac_v43_config())
+    with pytest.raises(ValueError, match="tx_precision does not apply"):
+        TorchBasecallRunner(
+            hac, params_from_jax(jax_params_with_moves(2), hac), tx_precision="w8a8", **kw
+        )
+    # unquantised by default on the CPU, as the JAX runner is off the TPU
+    runner = TorchBasecallRunner(cfg, model, **kw)
+    assert (runner.decoder, runner.tx_precision) == ("viterbi", "bf16")
+    assert runner._qual_table.shape == (1024, 1024)
