@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Requires CUDA and prints the card's name and power limit.
-2. Builds the nine CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
+2. Builds the ten CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints their register and spill
    reports.
 3. Runs each kernel and its plain PyTorch version on the card at hac v4.3
@@ -20,11 +20,15 @@
    64 states at a short T), and its traceback exactly.
    Then the same at sup v5.0 shapes (chunk 12288 -> T' = 1024 tokens and
    T = 2048 decode steps, batch N = 128, d_model 512, 8 heads, ffn 2048,
-   S = 1024): K9 (banded attention with RoPE inside) at T' = 1024 and 700,
-   beside ``scaled_dot_product_attention`` with the same mask; K12 (fc1 +
-   SwiGLU + requantisation) and K13 (int8 fc2, bit for bit) at two row
-   counts, beside ``torch._int_mm`` routes; K2 at sup's qkv shape bit for
-   bit; K3, K4, K5 at 1024 states.
+   S = 1024): the banded attention on each layout, beside
+   ``scaled_dot_product_attention`` with the same mask: K9 (RoPE inside) at
+   T' = 1024 and 700, K10 (q and k rotated beforehand), K11a (halves-major q
+   and k rows, RoPE inside), K11b (separate q, k, v; also at window
+   (200, 256)); K14 (matmul + bias + scaled residual + RMS norm) at out_proj
+   and at fc2, beside ``F.linear`` and the unfused passes; K12 (fc1 + SwiGLU
+   + requantisation) and K13 (int8 fc2, bit for bit) at two row counts,
+   beside ``torch._int_mm`` routes; K2 at sup's qkv shape bit for bit; K3,
+   K4, K5 at 1024 states.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``) at hac v4.3's full width over 16 synthetic reads (14 of
    20k-60k samples, 2 of 3k-7k for the short-chunk lane) with seeded random
@@ -34,20 +38,28 @@
    kernel of its path. Then the same pipeline at sup v5.0's full width (18
    layers, batch 128, chunk 12288, W8A8 encoder matmuls, Viterbi) over 15
    reads (12 of 140k samples, which fill a batch, and 3 short ones for the
-   9216 lane): it must launch K2, K9, K12 and K13 18 times a batch, K3, K4
-   and K5 once a batch, and no other kernel.
+   9216 lane), twice: on the default attention route, where it must launch
+   K2, K9, K12 and K13 18 times a batch, K3, K4 and K5 once a batch, and no
+   other kernel; and with ``tx_attention="hp", tx_fused_norm=True``, where
+   K11a and K14 take K9's place and the norms' (18 times a batch each).
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
    back guide on both sides), and the beam decoder against the Viterbi decoder on
    scores with a planted path. For sup: the W8A8 model on the card against
    the float32 W8A8 model on the CPU, W8A8 against bf16 on the card, the
-   device decode against the CPU's plain decode (sequences and moves exact,
-   low qual chars within a step), and the Viterbi decoder on a planted path
-   at 1024 states.
-6. Profiles one more full batch of each decoder's device step, and of the
-   sup device step, and prints its device time by kernel and the device's
-   busy share.
+   other routes against the default route on the same weights ("hp" at
+   W8A8 and "ext" unquantised bit for bit over all layers; with the fused
+   norms over the first two layers, where two planted faults must fail), the
+   int8 model against the CPU's and against bf16, the device decode against
+   the CPU's plain decode (sequences and moves exact, low qual chars within
+   a step), and the Viterbi decoder on a planted path at 1024 states.
+6. Profiles one more full batch of each decoder's device step, and of each
+   sup route's device step (the default, "hp" with the fused norms, "ext"
+   with the fused norms unquantised, int8), and prints its device time by
+   kernel and by operator and the device's busy share. The "ext" and int8
+   steps are those routes' main paths: their launches are counted as the
+   pipelines' are (K10 18 times and K14 36 times a batch; K9 18 times).
 7. Prints one JSON line of per-kernel numbers and, last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
@@ -146,6 +158,27 @@ TOL_ATTN_ABS, TOL_ATTN_REL = 1e-5, 2.0**-7
 # K9 is also held at a T' that is no multiple of its 64-query blocks nor of
 # the TPU kernel's 256-query strips (N, T')
 ATTN_SHAPES = [(N, SUP_TOK), (8, 700)]
+# K10, K11a, K11b: the same arithmetic and tolerance as K9, on their layouts;
+# K11b also at a window above the others' 128 keys a side (its limit is 256)
+WIDE_WINDOW = (200, 256)
+# K14: the product's float32 sums run in another order than the plain
+#     version's, so now and then a sum near a bf16 rounding boundary rounds
+#     the other way. That moves h = bf16(bf16(acc) + bf16(res * alpha)) by a
+#     step of the product, which can flip h's own rounding by a step of h
+#     (one step of the output, since out ~ h * rstd * weight); the rounded
+#     h * rstd and the output may then each round the other way too. So an
+#     output stays within two bf16 steps of its value plus two steps at 1 (a
+#     step of the product, scaled by the row's rstd and weight, is under one
+#     at 1 here): |err| <= 2^-6 * (|value| + 1), elementwise, and at most
+#     0.1% of the outputs differ at all (measured on an H100 80GB HBM3 at
+#     sup's shapes: 0.0103 of that scale at most, 0.026% differing)
+TOL_NORM_REL, MAX_NORM_SHARE_DIFFERENT = 2.0**-6, 1e-3
+# the sup model's fused norms on the card against the unfused route on the
+# same weights, over the first SUP_SHALLOW_DEPTH layers (mean abs difference
+# over the mean abs score): K14 rounds where the unfused operators do, but
+# sums the product in another order (measured on an H100 80GB HBM3: 2.6e-4
+# and 5.9e-4; the two planted faults of the check 1.1e-2 and 7.8e-3)
+MAX_SUP_ROUTE_MEAN_ERR = 2.0**-8
 # K12: expf and PyTorch's exp may differ in the last bit, which can move a
 #     value across an int8 rounding boundary: row scales within 1e-6
 #     relative, the int8 output equal but for +-1 at under 0.1% of elements
@@ -195,9 +228,10 @@ def main() -> None:
     from dorado_tpu_torch.io.sam import BamWriter
     from dorado_tpu_torch.models.crf_model import _linear_f32, init_lstm_crf_params
     from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
+    from dorado_tpu_torch.models import tx_model
     from dorado_tpu_torch.models.tx_model import init_tx_params
     from dorado_tpu_torch.ops import (
-        _cuda, attention, beam, crf_cuda, crf_scan, int8_matmul, lstm,
+        _cuda, attention, beam, crf_cuda, crf_scan, fused_norm, int8_matmul, lstm,
     )
     from dorado_tpu_torch.pipeline import BasecallerPipeline
 
@@ -496,7 +530,162 @@ def main() -> None:
             "(scaled_dot_product_attention, dense T' x T' with a boolean mask, q and k "
             "rotated beforehand)",
         )
-        del qkv, out_k, out_p, diff, q_r, k_r, v_r, lib, mask
+        k9_out = out_k
+        del out_p, diff, lib
+
+        def hold_attention(what, out_k, out_p):
+            torch.cuda.synchronize()
+            diff = (out_k.float() - out_p.float()).abs()
+            e = diff.max().item()
+            print(f"{what}: max abs error {e:.3g}, {(out_k != out_p).float().mean().item():.3%} of "
+                  f"outputs differ (by one bf16 step at most)", flush=True)
+            if not bool(torch.isfinite(out_k).all()) or not bool(
+                    (diff <= TOL_ATTN_ABS + TOL_ATTN_REL * out_p.float().abs()).all()):
+                raise AssertionError(f"{what}: max abs error {e}")
+            return e
+
+        sdpa_ms = time_ms(lambda: sdpa(q_r, k_r, v_r, attn_mask=mask), 5)
+        sdpa_what = ("(scaled_dot_product_attention, dense T' x T' with the same boolean mask, "
+                     "q and k rotated beforehand)")
+        attn_ops = n * SUP_HEADS * pairs * 4.0 * d_head
+
+        # ---- K10: q and k rotated beforehand (the "ext" route) ---------------
+        qk = attention.rope_qk(qkv, cos, sin, SUP_HEADS)
+        out_k = attention.windowed_attention_prerotated(qk, qkv, SUP_HEADS, *SUP_WINDOW)
+        err = hold_attention(f"attention_prerotated N={n} T'={t_len}", out_k,
+                             attention.windowed_attention_prerotated_plain(
+                                 qk, qkv, SUP_HEADS, *SUP_WINDOW))
+        print(f"  equal to K9's output on the unrotated projection: {torch.equal(out_k, k9_out)}",
+              flush=True)
+        report(
+            "attention_prerotated", "dorado_tpu_torch/csrc/attention_banded.cu",
+            "dorado_tpu/ops/attention.py:700", err,
+            time_ms(lambda: attention.windowed_attention_prerotated(
+                qk, qkv, SUP_HEADS, *SUP_WINDOW), 10),
+            time_ms(lambda: attention.windowed_attention_prerotated_plain(
+                qk, qkv, SUP_HEADS, *SUP_WINDOW), 1),
+            # q | k and the v third read once, the output written once
+            attn_ops, PEAK_BF16, 2 * n * t_len * 2 * hd + 2 * n * t_len * hd + 2 * n * t_len * hd,
+            sdpa_ms, sdpa_what,
+            rope_qk_ms=time_ms(lambda: attention.rope_qk(qkv, cos, sin, SUP_HEADS), 3),
+        )
+        del qk, out_k
+
+        # ---- K11a: halves-major q and k rows, RoPE inside (the "hp" route) ----
+        rows_hp = torch.from_numpy(attention.wqkv_halfperm_rows(SUP_HEADS, hd)).to(dev)
+        qkv_hp = qkv[..., rows_hp].contiguous()
+        out_k = attention.windowed_attention_halfperm(qkv_hp, cos, sin, SUP_HEADS, *SUP_WINDOW)
+        err = hold_attention(f"attention_halfperm N={n} T'={t_len}", out_k,
+                             attention.windowed_attention_halfperm_plain(
+                                 qkv_hp, cos, sin, SUP_HEADS, *SUP_WINDOW))
+        print(f"  equal to K9's output on the natural projection: {torch.equal(out_k, k9_out)}",
+              flush=True)
+        report(
+            "attention_halfperm", "dorado_tpu_torch/csrc/attention_banded.cu",
+            "dorado_tpu/ops/attention.py:608", err,
+            time_ms(lambda: attention.windowed_attention_halfperm(
+                qkv_hp, cos, sin, SUP_HEADS, *SUP_WINDOW), 10),
+            time_ms(lambda: attention.windowed_attention_halfperm_plain(
+                qkv_hp, cos, sin, SUP_HEADS, *SUP_WINDOW), 1),
+            attn_ops, PEAK_BF16,
+            2 * n * t_len * 3 * hd + 2 * n * t_len * hd + 2 * 4 * t_len * d_head // 2,
+            sdpa_ms, sdpa_what,
+        )
+        del qkv_hp, out_k, k9_out
+
+        # ---- K11b: separate q, k, v, no rotation ------------------------------
+        q4, k4, v4 = (torch.randn(n, t_len, SUP_HEADS, d_head, generator=gen, device=dev).bfloat16()
+                      for _ in range(3))
+        errs = {}
+        for win in (WIDE_WINDOW, SUP_WINDOW):  # the timed window last
+            errs[win] = hold_attention(
+                f"attention_separate N={n} T'={t_len} window {win}",
+                attention.windowed_attention_fused(q4, k4, v4, *win),
+                attention.windowed_attention_fused_plain(q4, k4, v4, *win))
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q4, k4, v4))
+        wide_mask = attention.band_mask(pos[:, None], pos[None, :], t_len, *WIDE_WINDOW,
+                                        attention.ref_strip_elems(t_len))
+        wide_pairs = float(wide_mask.sum().item())
+        wide_ms = time_ms(lambda: attention.windowed_attention_fused(q4, k4, v4, *WIDE_WINDOW), 10)
+        wide_bound, _ = bound_ms(n * SUP_HEADS * wide_pairs * 4.0 * d_head, PEAK_BF16,
+                                 4 * 2 * n * t_len * hd)
+        print(f"attention_separate at window {WIDE_WINDOW}: {wide_ms:.3f} ms, bound "
+              f"{wide_bound:.3f} ms [{card}]", flush=True)
+        report(
+            "attention_separate", "dorado_tpu_torch/csrc/attention_banded.cu",
+            "dorado_tpu/ops/attention.py:88", max(errs.values()),
+            time_ms(lambda: attention.windowed_attention_fused(q4, k4, v4, *SUP_WINDOW), 10),
+            time_ms(lambda: attention.windowed_attention_fused_plain(q4, k4, v4, *SUP_WINDOW), 1),
+            attn_ops, PEAK_BF16, 4 * 2 * n * t_len * hd,
+            time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), 5),
+            "(scaled_dot_product_attention, dense T' x T' with the same boolean mask)",
+            on_path=False, wide_window=list(WIDE_WINDOW), wide_max_abs_err=errs[WIDE_WINDOW],
+            wide_ms=wide_ms, wide_bound_ms=wide_bound,
+            wide_library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=wide_mask), 5),
+        )
+        del qkv, q_r, k_r, v_r, mask, wide_mask, q4, k4, v4, qh, kh, vh
+
+        # ---- K14: out_proj or fc2 + bias + alpha * residual + RMS norm -------
+        alpha = sup_v50_config().tx.tx.deepnorm_alpha
+        site_numbers = {}
+        for site, k_in, with_bias in (("fc2", SUP_FFN, False), ("out_proj", SUP_D, True)):
+            x = torch.randn(SUP_M, k_in, generator=gen, device=dev).bfloat16()
+            w = (torch.randn(SUP_D, k_in, generator=gen, device=dev) / k_in**0.5).bfloat16()
+            b = torch.randn(SUP_D, generator=gen, device=dev) * 0.1 if with_bias else None
+            b = None if b is None else b.bfloat16()
+            res = torch.randn(SUP_M, SUP_D, generator=gen, device=dev).bfloat16()
+            nw = (1.0 + 0.1 * torch.randn(SUP_D, generator=gen, device=dev)).bfloat16()
+            args = (x, w, b, res, nw, alpha)
+            errs = []
+            for m in (5 * 64 + 37, SUP_M):  # a row count that is no multiple of the 64-row blocks
+                out_k = fused_norm.matmul_residual_rmsnorm(*(a[:m] if a is x or a is res else a
+                                                             for a in args))
+                out_p = fused_norm.matmul_residual_rmsnorm_plain(
+                    *(a[:m] if a is x or a is res else a for a in args))
+                torch.cuda.synchronize()
+                diff = (out_k.float() - out_p.float()).abs()
+                share = (out_k != out_p).float().mean().item()
+                worst = (diff / (out_p.float().abs() + 1.0)).max().item()
+                print(f"fused_norm {site} M={m} K={k_in}: max abs error {diff.max().item():.3g}, "
+                      f"{share:.3%} of outputs differ; the largest |err| / (|value| + 1) is "
+                      f"{worst:.3g} (limit {TOL_NORM_REL:.3g})", flush=True)
+                if (not bool(torch.isfinite(out_k).all()) or worst > TOL_NORM_REL
+                        or share > MAX_NORM_SHARE_DIFFERENT):
+                    raise AssertionError(f"fused_norm {site} at M={m}: max abs error "
+                                         f"{diff.max().item()}, {share:.3%} differ")
+                errs.append(diff.max().item())
+
+            def unfused():
+                return tx_model.rms_norm(
+                    torch.nn.functional.linear(x, w, b) + res * alpha, nw)
+
+            site_numbers[site] = dict(
+                err=max(errs),
+                ms=time_ms(lambda: fused_norm.matmul_residual_rmsnorm(*args), 10),
+                plain_ms=time_ms(lambda: fused_norm.matmul_residual_rmsnorm_plain(*args), 2),
+                ops=2.0 * SUP_M * k_in * SUP_D,
+                nbytes=2 * SUP_M * k_in + 2 * SUP_D * k_in + 2 * 2 * SUP_M * SUP_D
+                + 4 * SUP_D * with_bias + 2 * SUP_D,
+                library_ms=time_ms(unfused, 5),
+            )
+            del x, w, b, res, nw, args, out_k, out_p, diff
+        fc2 = site_numbers["fc2"]
+        fc2_bound, fc2_by = bound_ms(fc2["ops"], PEAK_BF16, fc2["nbytes"])
+        print(f"fused_norm at fc2 (K = {SUP_FFN}, no bias): kernel {fc2['ms']:.3f} ms  plain "
+              f"{fc2['plain_ms']:.3f} ms  bound {fc2_bound:.3f} ms ({fc2_by})  library "
+              f"{fc2['library_ms']:.3f} ms [{card}]", flush=True)
+        o = site_numbers["out_proj"]
+        report(
+            "fused_norm", "dorado_tpu_torch/csrc/fused_norm.cu",
+            "dorado_tpu/ops/fused_norm.py:55", max(o["err"], fc2["err"]), o["ms"], o["plain_ms"],
+            o["ops"], PEAK_BF16, o["nbytes"], o["library_ms"],
+            "(F.linear, then the residual add, rms_norm and weight passes of the unfused route)",
+            fc2_max_abs_err=fc2["err"], fc2_ms=fc2["ms"], fc2_plain_ms=fc2["plain_ms"],
+            fc2_bound_ms=fc2_bound, fc2_bound_by=fc2_by, fc2_library_ms=fc2["library_ms"],
+        )
+        print("  (the row's own numbers are at out_proj: K = 512 with a bias; fc2_* at fc2)",
+              flush=True)
+        torch.cuda.empty_cache()
 
         # ---- K12, K13: the W8A8 feed-forward ----------------------------------
         k_in, ffn = SUP_D, SUP_FFN
@@ -700,6 +889,13 @@ def main() -> None:
     if (sup_runner.chunk_sizes != [12 * SUP_TOK, 9 * SUP_TOK] or sup_runner.tx_precision != "w8a8"
             or sup_cfg.num_states != SUP_S or len(sup_runner.model.layers) != 18):
         raise AssertionError("the sup pipeline is not sup v5.0 at chunk 12288 with W8A8")
+    # the same model on the halves-major attention route (K11a) with the fused
+    # residual norms (K14), W8A8
+    hp_pipe = BasecallerPipeline(sup_cfg, sup_model, batch_size=N, emit_moves=True,
+                                 tx_attention="hp", tx_fused_norm=True)
+    hp_model = hp_pipe.runner.model
+    if (hp_model.attention, hp_model.fused_norm, hp_model.precision) != ("hp", True, "w8a8"):
+        raise AssertionError("the hp pipeline is not on the hp route with the fused norm, W8A8")
     # 12 long reads of 12 chunks each fill one batch of the long lane and
     # start a second; three short reads go to the 9216 lane
     sup_reads = [
@@ -797,7 +993,12 @@ def main() -> None:
         "attention_banded": attention.windowed_attention_rope,
         "swiglu_w8a8": int8_matmul.swiglu_w8a8,
         "w8a8_matmul": int8_matmul.w8a8_matmul,
+        "attention_prerotated": attention.windowed_attention_prerotated,
+        "attention_halfperm": attention.windowed_attention_halfperm,
+        "attention_separate": attention.windowed_attention_fused,
+        "fused_norm": fused_norm.matmul_residual_rmsnorm,
     }
+    # each path's kernels and, for the sup paths, their launches a batch
     path_kernels = {
         "viterbi": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward",
                     "crf_traceback"],
@@ -805,13 +1006,41 @@ def main() -> None:
                  "crf_lse_scan_backward", "beam_search", "beam_traceback"],
         "sup viterbi": ["w8a8_matmul_fq", "attention_banded", "swiglu_w8a8", "w8a8_matmul",
                         "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
+        "sup hp fused": ["w8a8_matmul_fq", "attention_halfperm", "fused_norm", "swiglu_w8a8",
+                         "w8a8_matmul", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
+        # one device step each, below
+        "sup ext bf16": ["attention_prerotated", "fused_norm", "crf_lse_backward",
+                         "crf_fused_forward", "crf_traceback"],
+        "sup int8": ["attention_banded", "crf_lse_backward", "crf_fused_forward",
+                     "crf_traceback"],
     }
+    per_batch = {
+        "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
+        "sup hp fused": [18, 18, 18, 18, 18, 1, 1, 1],
+        "sup ext bf16": [18, 36, 1, 1, 1],  # the fused norm at out_proj and at fc2
+        "sup int8": [18, 1, 1, 1],
+    }
+
+    def check_launches(path, counts, batches):
+        for name, count in counts.items():
+            if (count > 0) != (name in path_kernels[path]):
+                raise AssertionError(
+                    f"{path} launched {name} {count} times: its path is {path_kernels[path]}")
+        if path in per_batch:
+            want = {name: batches * k for name, k in zip(path_kernels[path], per_batch[path])}
+            got = {name: counts[name] for name in want}
+            if got != want:
+                raise AssertionError(f"{path}: launches {got}, expected {want} over {batches} "
+                                     f"batches")
+
     hac_what = f"hac v4.3, batch {N}, bf16 with W8A8 projections"
     sup_what = f"sup v5.0, 18 layers, batch {N}, bf16 with W8A8 encoder matmuls"
+    hp_what = sup_what + ", hp attention route, fused norms"
     launches = {}
     for decoder, p, path_reads, what in (
         ("viterbi", pipe, reads, hac_what), ("beam", beam_pipe, reads, hac_what),
         ("sup viterbi", sup_pipe, sup_reads, sup_what),
+        ("sup hp fused", hp_pipe, sup_reads, hp_what),
     ):
         n_reads, samples = len(path_reads), sum(len(r.signal) for r in path_reads)
         # a first run over the same reads pays the one-time set-up of each new
@@ -838,20 +1067,12 @@ def main() -> None:
             raise AssertionError(f"{decoder}: {writer.records_written} of {n_reads} reads written")
         if data[:4] != b"\x1f\x8b\x08\x04":
             raise AssertionError(f"{decoder}: output does not start with the BGZF magic")
-        for name, count in launches[decoder].items():
-            if (count > 0) != (name in path_kernels[decoder]):
-                raise AssertionError(
-                    f"{decoder} pipeline launched {name} {count} times: its path is "
-                    f"{path_kernels[decoder]}")
-        if decoder == "sup viterbi":
-            # 18 encoder layers a batch, one decode a batch, a full batch among them
-            want = {name: stats.batches * (18 if i < 4 else 1)
-                    for i, name in enumerate(path_kernels[decoder])}
-            got = {name: launches[decoder][name] for name in want}
-            if got != want or stats.batches < 3 or stats.bases_called == 0:
-                raise AssertionError(
-                    f"sup pipeline: launches {got}, expected {want} over {stats.batches} batches "
-                    f"(at least 3), {stats.bases_called} bases")
+        # the sup paths: 18 encoder layers a batch, one decode a batch, a full
+        # batch among them
+        check_launches(decoder, launches[decoder], stats.batches)
+        if decoder.startswith("sup") and (stats.batches < 3 or stats.bases_called == 0):
+            raise AssertionError(f"{decoder} pipeline: {stats.batches} batches (at least 3), "
+                                 f"{stats.bases_called} bases")
         print(
             f"{decoder} pipeline: {n_reads} reads, {samples} samples, {stats.batches} batches, "
             f"{stats.bases_called} bases in {elapsed:.3f} s = {samples / elapsed:.0f} samples/s "
@@ -861,12 +1082,6 @@ def main() -> None:
             f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s",
             flush=True,
         )
-    for row in rows:
-        by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches}
-        row["launches"] = sum(by_path.values())
-        row["launches_by_path"] = by_path
-        if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} was not launched by a main path")
 
     # ---- outputs against references on a small input ------------------------
     def sequences(out):
@@ -1005,6 +1220,11 @@ def main() -> None:
     del bf16_runner, cpu_runner, scores, q_scores, b_scores
 
     # ---- sup outputs against references on a small input --------------------
+    # the other routes and precision on the same weights: "ext" with the fused
+    # norms unquantised (K10, K14 at both sites), and int8 encoder matmuls
+    ext_runner = TorchBasecallRunner(sup_cfg, sup_model, tx_precision="bf16", tx_attention="ext",
+                                     tx_fused_norm=True, **kw)
+    int8_runner = TorchBasecallRunner(sup_cfg, sup_model, tx_precision="int8", **kw)
     sup_cpu = TorchBasecallRunner(sup_cfg, sup_model, device="cpu", tx_precision="w8a8", **kw)
     sig = np.stack([
         sup_pipe.scaler.scale_read(r.signal, read_scale=0.2)[0][10 : 10 + sup_runner.chunk_size]
@@ -1051,7 +1271,82 @@ def main() -> None:
               f"agreement {agree:.4f}", flush=True)
         if not (rel < MAX_W8A8_REL_ERR and agree > MIN_SUP_SHALLOW_ARGMAX_AGREE):
             raise AssertionError("sup W8A8 scores over the first layers are too far from bf16's")
-        del sup_bf16, b_scores, shallow
+        del shallow
+
+        # the routes against the default route on the same weights. The
+        # attention routes alone compute its function bit for bit (K10 and
+        # K11a round as K9 does; "hp" holds wqkv's rows permuted): all layers,
+        # unfused norms, held equal
+        for what, model, want in (
+                ("hp attention, W8A8", tx_model.with_routes(sup_runner.model, "hp"), scores),
+                ("ext attention, bf16", tx_model.with_routes(ext_runner.model, fused_norm=False),
+                 b_scores)):
+            got = model(on_dev)
+            diff = (got - want).abs().max().item() if got.shape == want.shape else float("inf")
+            print(f"sup {what} vs the default route on the card, all {len(model.layers)} layers: "
+                  f"max abs difference {diff}", flush=True)
+            if diff != 0:
+                raise AssertionError(f"sup {what}: scores differ from the default route's")
+            del model, got
+        # the fused norms sum the product in another order, so a sum near a
+        # bf16 boundary rounds the other way now and then; over many layers of
+        # random weights such steps grow, so they are held over the first
+        # layers, and a planted fault must fail the same limit
+        def shallow(model):
+            layers = model.layers
+            model.layers = layers[:SUP_SHALLOW_DEPTH]
+            try:
+                return model(on_dev)
+            finally:
+                model.layers = layers
+
+        def faulty(model, fault):
+            out = tx_model.with_routes(model)
+            with torch.no_grad():
+                fault(out)
+            return out
+
+        def unpermuted_scales(m):  # "hp" with wqkv's scales left in natural order
+            m._frozen_scales[0]["wqkv"] = sup_runner.model._frozen_scales[0]["wqkv"].clone()
+
+        base = {"w8a8": shallow(sup_runner.model), "bf16": shallow(sup_bf16.model)}
+        cases = [
+            ("hp attention + fused norms, W8A8", hp_model, "w8a8", True),
+            ("ext attention + fused norms, bf16", ext_runner.model, "bf16", True),
+            ("planted fault: the first norm1 weight x 1.01 (1.0078 in bf16)",
+             faulty(hp_model, lambda m: m.layers[0].norm1.mul_(1.01)), "w8a8", False),
+            ("planted fault: the first layer's wqkv scales unpermuted",
+             faulty(hp_model, unpermuted_scales), "w8a8", False),
+        ]
+        failed = []
+        for what, model, precision, within in cases:
+            got, want = shallow(model), base[precision]
+            err = (got - want).abs().mean().item() / want.abs().mean().item()
+            print(f"sup {what} vs the default route, first {SUP_SHALLOW_DEPTH} layers: mean abs "
+                  f"difference {err:.3e} of the mean abs score (limit {MAX_SUP_ROUTE_MEAN_ERR})",
+                  flush=True)
+            if (got.shape != want.shape or not bool(torch.isfinite(got).all())
+                    or (err <= MAX_SUP_ROUTE_MEAN_ERR) != within):
+                failed.append(what)
+        if failed:
+            raise AssertionError(f"sup routes: {failed} on the wrong side of the limit")
+        del cases, base
+        # int8 encoder matmuls: on the card against float32 on the CPU, and
+        # against bf16 matmuls on the card (the limits of the W8A8 checks)
+        i_scores = int8_runner.model(on_dev)
+        i_cpu = TorchBasecallRunner(sup_cfg, sup_model, device="cpu", tx_precision="int8", **kw)
+        i_ref = i_cpu.model(torch.from_numpy(sig))
+        i_err = (i_scores.cpu() - i_ref).abs()
+        rel = (torch.linalg.norm(i_scores - b_scores) / torch.linalg.norm(b_scores)).item()
+        agree = (i_scores.argmax(-1) == b_scores.argmax(-1)).float().mean().item()
+        print(f"sup int8 model, bf16 on the card vs float32 on the CPU: mean abs "
+              f"{i_err.mean():.4f} (max {i_err.max():.4f}); vs bf16 encoder matmuls on the card: "
+              f"relative norm error {rel:.4f}, argmax agreement {agree:.4f}", flush=True)
+        if not (bool(torch.isfinite(i_scores).all())
+                and i_err.mean() <= MAX_SUP_BF16_MEAN_ERR * i_ref.abs().mean()
+                and rel < MAX_SUP_W8A8_REL_ERR and agree > MIN_SUP_W8A8_ARGMAX_AGREE):
+            raise AssertionError("sup int8 scores are too far from the references")
+        del sup_bf16, b_scores, i_cpu, i_scores, i_ref, i_err
 
         # the Viterbi decode at 1024 states on the card against the CPU's plain decode
         vit_scores = scores.to(torch.bfloat16)
@@ -1090,30 +1385,39 @@ def main() -> None:
     # ---- where each device step's time goes (one full batch, profiled) ------
     from torch.profiler import ProfilerActivity, profile
 
-    for decoder, r in (("viterbi", runner), ("beam", beam_runner), ("sup viterbi", sup_runner)):
+    # the ext and int8 steps are their routes' main paths: their launches count
+    for decoder, r in (("viterbi", runner), ("beam", beam_runner), ("sup viterbi", sup_runner),
+                       ("sup hp fused", hp_pipe.runner), ("sup ext bf16", ext_runner),
+                       ("sup int8", int8_runner)):
         buf = r.make_input_buffer(0)
         buf[:] = rs.randn(*buf.shape)
         r.call_chunks(buf, buf.shape[0])
         torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             r.call_chunks(buf, buf.shape[0])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        if decoder not in launches:
+            launches[decoder] = {name: w.launches for name, w in wrappers.items()}
+            check_launches(decoder, launches[decoder], 1)
         by_kernel = sorted(
             ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
              if e.self_device_time_total > 0),
             key=lambda kv: -kv[1],
         )
         busy_ms = sum(ms for _, ms in by_kernel)
+        precision = r.tx_precision or r.lstm_precision
         print(
-            f"{decoder} device step (batch {buf.shape[0]}, W8A8): wall {wall_ms:.2f} ms, device "
-            f"busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}) [{card}]",
+            f"{decoder} device step (batch {buf.shape[0]}, {precision}): wall {wall_ms:.2f} ms, "
+            f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}) [{card}]",
             flush=True,
         )
-        for key, ms in by_kernel[:14 if decoder == "sup viterbi" else 10]:
+        for key, ms in by_kernel[:14 if decoder.startswith("sup") else 10]:
             print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%}  {key[:90]}")
-        if decoder != "sup viterbi":
+        if not decoder.startswith("sup"):
             continue
         # the same step by PyTorch operator and input shapes: which plain
         # passes between the kernels take the rest of the time
@@ -1129,8 +1433,15 @@ def main() -> None:
         )
         print(f"{decoder} device step by PyTorch operator (the hand-written kernels are not "
               f"operators and do not show here):", flush=True)
-        for key, shapes, count, ms in by_op[:16]:
+        for key, shapes, count, ms in by_op[:16 if decoder == "sup viterbi" else 10]:
             print(f"  {ms:9.3f} ms  x{count:<4d} {key} {shapes[:100]}")
+
+    for row in rows:
+        by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        if row["launches"] <= 0 and row.get("on_path", True):
+            raise AssertionError(f"{row['name']} was not launched by a main path")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

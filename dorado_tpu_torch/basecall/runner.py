@@ -16,7 +16,9 @@ dorado/basecall/decode/CUDADecoder.cpp:115 does).
 The LSTM input projections run W8A8 by default on the card
 (``lstm_precision``), and so do a transformer (sup) model's qkv, fc1 and fc2
 matmuls (``tx_precision``), as the JAX runner's do on the TPU. A transformer
-model takes the ``viterbi`` decoder only, so far.
+model takes the ``viterbi`` decoder only, so far, and its attention and norm
+routes as arguments (``tx_attention``, ``tx_fused_norm``) where the JAX
+runner reads environment variables.
 
 The step is enqueued on the current CUDA stream and returns at once
 (``dispatch``); ``finish`` waits for it, so the host feeds and finishes
@@ -36,7 +38,13 @@ import torch
 from dorado_tpu_torch.config import BasecallModelConfig
 from dorado_tpu_torch.decode.common import DecodedChunk, DecoderOptions
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel, quantize_lstm_crf_w8a8
-from dorado_tpu_torch.models.tx_model import TxModel, quantize_tx_w8a8
+from dorado_tpu_torch.models.tx_model import (
+    TxModel,
+    check_attention_route,
+    quantize_tx_int8,
+    quantize_tx_w8a8,
+    set_routes,
+)
 from dorado_tpu_torch.ops.beam import beam_search_device
 from dorado_tpu_torch.ops.crf_cuda import (
     backward_scores,
@@ -182,7 +190,17 @@ class TorchBasecallRunner:
     projections where the widths are multiples of 128) or ``"bf16"``
     (unquantised); by default ``"w8a8"`` on CUDA and ``"bf16"`` on the CPU.
     tx_precision (transformer models): ``"w8a8"`` (int8 qkv, fc1 and fc2
-    matmuls) or ``"bf16"`` (unquantised), with the same defaults."""
+    matmuls), ``"int8"`` (the same three as int8 weights times per-token
+    quantised activations through ``torch._int_mm``) or ``"bf16"``
+    (unquantised), with the same defaults as lstm_precision.
+    tx_attention (transformer models): the attention route, ``"extf"``
+    (the default), ``"ext"`` or ``"hp"`` (``models.tx_model``). All three
+    give the same scores; ``"ext"`` (a separate rotation pass, then K10) is
+    kept for parity with the JAX package and is slower than ``"extf"`` on an
+    H100, so pick it only to reproduce that route. tx_fused_norm:
+    whether the residual norms run fused into the matmuls in front of them
+    (default False). The two lstm and tx argument sets raise on the other
+    model family."""
 
     def __init__(
         self,
@@ -194,6 +212,8 @@ class TorchBasecallRunner:
         decoder: str = "viterbi",
         lstm_precision: str | None = None,
         tx_precision: str | None = None,
+        tx_attention: str | None = None,
+        tx_fused_norm: bool | None = None,
     ):
         self.device = resolve_device(device)
         if decoder not in ("viterbi", "beam"):
@@ -207,22 +227,27 @@ class TorchBasecallRunner:
         if config.is_tx_model:
             kind, given, other = "a transformer", "tx_precision", "lstm_precision"
             chosen, unused = tx_precision, lstm_precision
+            choices = ("w8a8", "int8", "bf16")
         else:
             kind, given, other = "a conv + LSTM", "lstm_precision", "tx_precision"
             chosen, unused = lstm_precision, tx_precision
+            choices = ("w8a8", "bf16")
+            for name, value in (("tx_attention", tx_attention), ("tx_fused_norm", tx_fused_norm)):
+                if value is not None:
+                    raise ValueError(f"{name} does not apply to {kind} model")
         if unused is not None:
             raise ValueError(f"{other} does not apply to {kind} model: pass {given}")
         if chosen is None:
             chosen = "w8a8" if self.device.type == "cuda" else "bf16"
-        if config.is_tx_model and chosen == "int8":
-            raise NotImplementedError(
-                "tx_precision='int8' (int8 weights through plain dots) is not ported; "
-                "use 'w8a8' or 'bf16'"
-            )
-        if chosen not in ("w8a8", "bf16"):
-            raise ValueError(f"unknown {given} {chosen!r}: expected 'w8a8' or 'bf16'")
+        if chosen not in choices:
+            raise ValueError(f"unknown {given} {chosen!r}: expected one of {choices}")
         self.lstm_precision = None if config.is_tx_model else chosen
         self.tx_precision = chosen if config.is_tx_model else None
+        if config.is_tx_model:
+            self.tx_attention = check_attention_route(tx_attention or "extf")
+            self.tx_fused_norm = bool(tx_fused_norm)
+        else:
+            self.tx_attention = self.tx_fused_norm = None
         self.config = config
         self.chunk_size = int(chunk_size or config.basecaller.chunk_size)
         granularity = config.chunk_size_granularity
@@ -256,12 +281,14 @@ class TorchBasecallRunner:
 
             build_kernels()
         # quantised from the float32 weights, before the cast to bf16
-        if chosen != "w8a8":
+        if chosen == "bf16":
             own = copy.deepcopy(model)
-        elif config.is_tx_model:
-            own = quantize_tx_w8a8(model)
-        else:
+        elif not config.is_tx_model:
             own = quantize_lstm_crf_w8a8(model)
+        else:
+            own = (quantize_tx_w8a8 if chosen == "w8a8" else quantize_tx_int8)(model)
+        if config.is_tx_model:
+            set_routes(own, self.tx_attention, self.tx_fused_norm)  # own is a private copy
         self.model = own.to(self.device).eval()
         if config.is_tx_model:
             self.model.freeze_constants()

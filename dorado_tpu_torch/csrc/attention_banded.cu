@@ -1,67 +1,74 @@
-// Banded (windowed) softmax attention of the sup transformer with the rotary
-// embedding of q and k inside.
+// Banded (windowed) softmax attention of the sup transformer, on four layouts
+// of q, k and v. One kernel body, instantiated for three ways of staging q
+// and k; four entry points.
 //
-// Replaces dorado_tpu/ops/attention.py::windowed_attention_ext_fused (Pallas
-// body _attn_ext_fused_kernel). For each batch row n, head h and query
-// position i of qkv [N, T, 3*H*64] (bf16; q | k | v thirds, head-major):
+// Replaces dorado_tpu/ops/attention.py's banded kernels, one entry point each:
+//   attention_banded_bf16     windowed_attention_ext_fused (Pallas body
+//                             _attn_ext_fused_kernel): q, k, v in one [N, T,
+//                             3*H*64] projection, head-major, rotated here (K9)
+//   attention_prerotated_bf16 _banded_attention_call (Pallas body
+//                             _attn_banded_kernel): q and k rotated already,
+//                             in a [N, T, 2*H*64] tensor; v at channel block 2
+//                             of the projection (K10)
+//   attention_halfperm_bf16   windowed_attention_halfperm (Pallas body
+//                             _attn_rope_kernel): the projection's q and k
+//                             rows halves-major, [first halves of all heads |
+//                             second halves of all heads], rotated here (K11a)
+//   attention_separate_bf16   windowed_attention_fused (Pallas body
+//                             _attn_kernel): separate q, k, v [N, T, H, 64],
+//                             no rotation, windows up to 256 keys a side (K11b)
+//
+// For each batch row n, head h and query position i (bf16 in and out):
 //   rot(x)[d] = bf16(cos[i][d%32] * x[d] + (d < 32 ? -sin : sin)[i][d%32] * x[d^32])
+//               on the rotating layouts, x[d] on the others
 //   logit[j]  = (rot(q_i) . rot(k_j)) * 1/8        (f32)
 //   valid(j)  = -wu <= j - i <= wl  and  rb - wl <= j < re + wu  and  0 <= j < T
 //               with [rb, re) the reference's query strip that holds i
 //               (strips of ref_elems queries, the last cut at T)
 //   p[j]      = exp(logit[j] - max over valid j)  (0 where not valid)
 //   out[i]    = bf16((sum_j p[j] * v_j) / sum_j p[j])
-// The TPU kernel takes an extended projection [q|k|v|q_swap|k_swap] so that
-// its rotation needs no lane shuffle; the swap columns are copies of q and k
-// columns, so here the plain projection is enough and the halves are swapped
-// while a tile is loaded.
+// The TPU kernels take an extended projection [q|k|v|q_swap|k_swap] or
+// [2, T, H*D] tables so that their rotation needs no lane shuffle; here the
+// halves are swapped while a tile is loaded, from the [T, D/2] tables. On
+// the halves-major layout the logits are the two half dots of the TPU kernel
+// summed; staged in natural order, they are one 64-channel dot.
 //
 // What bounds it on the H100: bytes. At sup's shape (N = 128, T = 1024,
 // H = 8) it reads 403 MB and writes 134 MB, while the band's useful products
-// are 69 GFLOP. A block owns 64 queries of one head and row: it rotates
-// them and the 320 keys their bands can reach into shared memory (k and v of
-// one head and row, 256 KB, are shared by 16 blocks that run side by side,
-// so they come from L2), and each of its 4 warps takes 16 queries over the
-// 272 keys their bands span, 16 keys at a time, on the tensor cores
+// are 69 GFLOP. A block owns 64 queries of one head and row: it stages them
+// (rotated, where the layout asks) and the 48 + 16 * chunks keys their bands
+// can reach into shared memory (k and v of one head and row are shared by
+// 16 blocks that run side by side, so they come from L2), and each of its 4
+// warps takes 16 queries over the 16 + wu + wl keys their bands span, 16
+// keys at a time ("chunks" of them), on the tensor cores
 // (mma.sync.m16n8k16 bf16): one pass for the row maxima, a second that
 // recomputes the logits, exponentiates and multiplies into v. The two passes
 // cost half as many products again and keep the arithmetic that of a plain
 // softmax (no running rescale). p stays f32-accurate through the bf16 tensor
 // cores as a sum of two bf16 terms (p = hi + lo, two products), since v is
 // bf16 already. Every rotation step is a single rounded operation, so the
-// rotated q and k equal the plain version's bit for bit.
+// rotated q and k equal the plain version's bit for bit, on either rotating
+// layout. Windows of up to 128 keys a side take a fixed span: 320 staged
+// keys from q0 - 128 and 17 chunks a warp, trip counts the compiler knows
+// (a span that followed the window at run time cost K9 12% at sup's
+// (127, 128) on an H100); wider ones (K11b) stage 48 + 16 * chunks keys from q0 - wu,
+// 576 at (256, 256), whose 175 KB of shared memory leave one block an SM.
 #include "common.cuh"
 
 namespace {
 
 constexpr int D = 64;            // head width
 constexpr int BQ = 64;           // queries a block
-constexpr int WIN_MAX = 128;     // widest window either side
-constexpr int SPAN = BQ + 2 * WIN_MAX;  // keys a block stages: [q0 - 128, q0 + 192)
-constexpr int WSPAN = 16 + 2 * WIN_MAX; // keys a warp's 16 queries span
+constexpr int WIN_MAX = 256;     // widest window either side
+constexpr int NARROW = 128;      // widest window of the fixed span
+constexpr int NARROW_CHUNKS = (16 + 2 * NARROW) / 16;  // 17
 constexpr int LD = D + 8;        // shared row stride in bf16 (144 bytes)
 constexpr int THREADS = 128;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// how q and k are staged
+constexpr int PLAIN = 0;          // copied: rotated already, or never rotated
+constexpr int ROPE_HEADS = 1;     // rotated; a head's halves at h*64 and h*64 + 32
+constexpr int ROPE_HALVES = 2;    // rotated; a head's halves at h*32 and H*32 + h*32
 
 __device__ __forceinline__ void unpack8(uint4 v, float out[8]) {
   unpack4(make_uint2(v.x, v.y), out);
@@ -69,13 +76,14 @@ __device__ __forceinline__ void unpack8(uint4 v, float out[8]) {
 }
 
 // Rotate 8 channels of the first half (lo) and their partners of the second
-// half (hi) of one q or k row and store both as bf16.
-__device__ __forceinline__ void rotate_store(const __nv_bfloat16* src, const float* cos_row,
+// half (hi) of one q or k row and store both as bf16, at dst and dst + 32.
+__device__ __forceinline__ void rotate_store(const __nv_bfloat16* lo_src,
+                                             const __nv_bfloat16* hi_src, const float* cos_row,
                                              const float* sin_row, int c8,
                                              __nv_bfloat16* dst) {
   float lo[8], hi[8];
-  unpack8(*reinterpret_cast<const uint4*>(src + c8 * 8), lo);
-  unpack8(*reinterpret_cast<const uint4*>(src + 32 + c8 * 8), hi);
+  unpack8(*reinterpret_cast<const uint4*>(lo_src + c8 * 8), lo);
+  unpack8(*reinterpret_cast<const uint4*>(hi_src + c8 * 8), hi);
   const float4 ca = *reinterpret_cast<const float4*>(cos_row + c8 * 8);
   const float4 cb = *reinterpret_cast<const float4*>(cos_row + c8 * 8 + 4);
   const float4 sa = *reinterpret_cast<const float4*>(sin_row + c8 * 8);
@@ -100,16 +108,53 @@ __device__ __forceinline__ void rotate_store(const __nv_bfloat16* src, const flo
       make_uint4(out_hi[0], out_hi[1], out_hi[2], out_hi[3]);
 }
 
+// Stage `rows` rows of q or k starting at position t0 (rows outside [0, T)
+// are zeros) into dst [rows][LD], rotated where MODE asks.
+template <int MODE>
+__device__ __forceinline__ void stage_qk(const __nv_bfloat16* src, size_t stride, int lo_off,
+                                         int hi_off, const float* cos_t, const float* sin_t,
+                                         int t0, int rows, int T, __nv_bfloat16* dst) {
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < rows * 4; i += THREADS) {
+    const int r = i >> 2, c8 = i & 3;
+    const int t = t0 + r;
+    __nv_bfloat16* row = dst + r * LD;
+    if (t < 0 || t >= T) {
+      *reinterpret_cast<uint4*>(row + c8 * 8) = zero;
+      *reinterpret_cast<uint4*>(row + 32 + c8 * 8) = zero;
+    } else if (MODE == PLAIN) {
+      const __nv_bfloat16* s = src + (size_t)t * stride;
+      *reinterpret_cast<uint4*>(row + c8 * 8) =
+          *reinterpret_cast<const uint4*>(s + lo_off + c8 * 8);
+      *reinterpret_cast<uint4*>(row + 32 + c8 * 8) =
+          *reinterpret_cast<const uint4*>(s + hi_off + c8 * 8);
+    } else {
+      const __nv_bfloat16* s = src + (size_t)t * stride;
+      rotate_store(s + lo_off, s + hi_off, cos_t + (size_t)t * (D / 2),
+                   sin_t + (size_t)t * (D / 2), c8, row);
+    }
+  }
+}
+
+// q, k, v: the batch row's position 0 of each ([T, q_stride] and so on, in
+// bf16 elements); a head's q and k halves at lo_off(h), hi_off(h) of a row
+// (MODE), its v and output channels at h * 64. FIXED: windows of at most
+// NARROW a side, NARROW_CHUNKS chunks (`chunks` is ignored).
+template <int MODE, bool FIXED>
 __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
-    const __nv_bfloat16* __restrict__ qkv,  // [N, T, 3*H*D]
-    const float* __restrict__ cos_t,        // [T, D/2]
+    const __nv_bfloat16* __restrict__ q, int q_stride,
+    const __nv_bfloat16* __restrict__ k, int k_stride,
+    const __nv_bfloat16* __restrict__ v, int v_stride,
+    const float* __restrict__ cos_t,        // [T, D/2] (rotating layouts)
     const float* __restrict__ sin_t,        // [T, D/2]
     __nv_bfloat16* __restrict__ out,        // [N, T, H*D]
-    int T, int H, int win_upper, int win_lower, int ref_elems) {
+    int T, int H, int win_upper, int win_lower, int ref_elems, int chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (FIXED) chunks = NARROW_CHUNKS;
+  const int span = 48 + 16 * chunks;  // staged keys: [kb, kb + span)
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][LD]
-  __nv_bfloat16* k_s = q_s + BQ * LD;                           // [SPAN][LD]
-  __nv_bfloat16* v_s = k_s + SPAN * LD;                         // [SPAN][LD]
+  __nv_bfloat16* k_s = q_s + BQ * LD;                           // [span][LD]
+  __nv_bfloat16* v_s = k_s + span * LD;                         // [span][LD]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -118,43 +163,23 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
   const int head = blockIdx.y;
   const int n = blockIdx.z;
   const int hd = H * D;
-  const size_t row_stride = (size_t)3 * hd;
-  const __nv_bfloat16* base = qkv + (size_t)n * T * row_stride + head * D;
-  const int kb = q0 - WIN_MAX;  // position of staged key 0
+  const int lo_off = MODE == ROPE_HALVES ? head * (D / 2) : head * D;
+  const int hi_off = MODE == ROPE_HALVES ? hd / 2 + head * (D / 2) : head * D + D / 2;
+  const int kb = q0 - (FIXED ? NARROW : win_upper);  // position of staged key 0
 
-  // ---- stage: rotated q, rotated k, v ------------------------------------
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < BQ * 4; i += THREADS) {
-    const int r = i >> 2, c8 = i & 3;
-    const int t = q0 + r;
-    __nv_bfloat16* dst = q_s + r * LD;
-    if (t < T) {
-      rotate_store(base + (size_t)t * row_stride, cos_t + (size_t)t * (D / 2),
-                   sin_t + (size_t)t * (D / 2), c8, dst);
-    } else {
-      *reinterpret_cast<uint4*>(dst + c8 * 8) = zero;
-      *reinterpret_cast<uint4*>(dst + 32 + c8 * 8) = zero;
-    }
-  }
-  for (int i = tid; i < SPAN * 4; i += THREADS) {
-    const int r = i >> 2, c8 = i & 3;
-    const int t = kb + r;
-    __nv_bfloat16* dst = k_s + r * LD;
-    if (t >= 0 && t < T) {
-      rotate_store(base + (size_t)t * row_stride + hd, cos_t + (size_t)t * (D / 2),
-                   sin_t + (size_t)t * (D / 2), c8, dst);
-    } else {
-      *reinterpret_cast<uint4*>(dst + c8 * 8) = zero;
-      *reinterpret_cast<uint4*>(dst + 32 + c8 * 8) = zero;
-    }
-  }
-  for (int i = tid; i < SPAN * 8; i += THREADS) {
+  // ---- stage q, k (rotated where MODE asks) and v ----------------------------
+  stage_qk<MODE>(q + (size_t)n * T * q_stride, q_stride, lo_off, hi_off, cos_t, sin_t, q0, BQ, T,
+                 q_s);
+  stage_qk<MODE>(k + (size_t)n * T * k_stride, k_stride, lo_off, hi_off, cos_t, sin_t, kb, span,
+                 T, k_s);
+  const __nv_bfloat16* v_base = v + (size_t)n * T * v_stride + head * D;
+  for (int i = tid; i < span * 8; i += THREADS) {
     const int r = i >> 3, c = i & 7;
     const int t = kb + r;
-    uint4 v = zero;
+    uint4 val = make_uint4(0, 0, 0, 0);
     if (t >= 0 && t < T)
-      v = *reinterpret_cast<const uint4*>(base + (size_t)t * row_stride + 2 * hd + c * 8);
-    *reinterpret_cast<uint4*>(v_s + r * LD + c * 8) = v;
+      val = *reinterpret_cast<const uint4*>(v_base + (size_t)t * v_stride + c * 8);
+    *reinterpret_cast<uint4*>(v_s + r * LD + c * 8) = val;
   }
   __syncthreads();
 
@@ -205,9 +230,10 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
     }
   };
 
-  // pass 1: row maxima
+  // pass 1: row maxima. The warp's chunks, staged rows [r0, r0 + 16 *
+  // chunks), hold every key its queries' bands reach
   float mx[2] = {masked, masked};
-  for (int c = 0; c < WSPAN / 16; ++c) {
+  for (int c = 0; c < chunks; ++c) {
     float s[2][4];
     logits(r0 + 16 * c, s);
 #pragma unroll
@@ -229,7 +255,7 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float sum[2] = {0.f, 0.f};
-  for (int c = 0; c < WSPAN / 16; ++c) {
+  for (int c = 0; c < chunks; ++c) {
     const int kl = r0 + 16 * c;
     float s[2][4];
     logits(kl, s);
@@ -285,23 +311,83 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
   }
 }
 
-}  // namespace
-
-// Heads of 64 channels, windows of at most 128 keys either side.
-DTT_EXPORT int attention_banded_bf16(const void* qkv, const void* cos_t, const void* sin_t,
-                                     void* out, int N, int T, int H, int head_dim,
-                                     int win_upper, int win_lower, int ref_elems, void* stream) {
-  if (N <= 0 || T <= 0 || H <= 0 || head_dim != D || win_upper < 0 || win_lower < 0 ||
-      win_upper > WIN_MAX || win_lower > WIN_MAX || ref_elems <= 0 || N > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = (BQ + 2 * SPAN) * LD * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(attention_banded_kernel,
+template <int MODE, bool FIXED>
+int launch_span(const void* q, int q_stride, const void* k, int k_stride, const void* v,
+                int v_stride, const void* cos_t, const void* sin_t, void* out, int N, int T, int H,
+                int win_upper, int win_lower, int ref_elems, void* stream) {
+  const int chunks = FIXED ? NARROW_CHUNKS : (16 + win_upper + win_lower + 15) / 16;
+  const int smem = (BQ + 2 * (48 + 16 * chunks)) * LD * (int)sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(attention_banded_kernel<MODE, FIXED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + BQ - 1) / BQ, H, N);
-  attention_banded_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(out), T, H, win_upper,
-      win_lower, ref_elems);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  attention_banded_kernel<MODE, FIXED><<<grid, THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), q_stride, static_cast<const __nv_bfloat16*>(k),
+      k_stride, static_cast<const __nv_bfloat16*>(v), v_stride,
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<__nv_bfloat16*>(out), T, H, win_upper, win_lower, ref_elems, chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch(const void* q, int q_stride, const void* k, int k_stride, const void* v, int v_stride,
+           const void* cos_t, const void* sin_t, void* out, int N, int T, int H, int head_dim,
+           int win_upper, int win_lower, int ref_elems, void* stream) {
+  if (N <= 0 || T <= 0 || H <= 0 || head_dim != D || win_upper < 0 || win_lower < 0 ||
+      win_upper > WIN_MAX || win_lower > WIN_MAX || ref_elems <= 0 || N > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (win_upper <= NARROW && win_lower <= NARROW)
+    return launch_span<MODE, true>(q, q_stride, k, k_stride, v, v_stride, cos_t, sin_t, out, N, T,
+                                   H, win_upper, win_lower, ref_elems, stream);
+  return launch_span<MODE, false>(q, q_stride, k, k_stride, v, v_stride, cos_t, sin_t, out, N, T,
+                                  H, win_upper, win_lower, ref_elems, stream);
+}
+
+const __nv_bfloat16* at(const void* p, size_t offset) {
+  return static_cast<const __nv_bfloat16*>(p) + offset;
+}
+
+}  // namespace
+
+// All four: heads of 64 channels, windows of at most 256 keys either side
+// (the wrappers hold K9, K10 and K11a to the TPU kernels' 128).
+
+// K9: qkv [N, T, 3*H*D], q | k | v head-major; cos, sin [T, D/2] float32.
+DTT_EXPORT int attention_banded_bf16(const void* qkv, const void* cos_t, const void* sin_t,
+                                     void* out, int N, int T, int H, int head_dim,
+                                     int win_upper, int win_lower, int ref_elems, void* stream) {
+  const int hd = H * head_dim;
+  return launch<ROPE_HEADS>(qkv, 3 * hd, at(qkv, hd), 3 * hd, at(qkv, 2 * hd), 3 * hd, cos_t,
+                            sin_t, out, N, T, H, head_dim, win_upper, win_lower, ref_elems,
+                            stream);
+}
+
+// K11a: qkv [N, T, 3*H*D] with the q and k rows halves-major, v head-major.
+DTT_EXPORT int attention_halfperm_bf16(const void* qkv, const void* cos_t, const void* sin_t,
+                                       void* out, int N, int T, int H, int head_dim,
+                                       int win_upper, int win_lower, int ref_elems,
+                                       void* stream) {
+  const int hd = H * head_dim;
+  return launch<ROPE_HALVES>(qkv, 3 * hd, at(qkv, hd), 3 * hd, at(qkv, 2 * hd), 3 * hd, cos_t,
+                             sin_t, out, N, T, H, head_dim, win_upper, win_lower, ref_elems,
+                             stream);
+}
+
+// K10: qk [N, T, 2*H*D] rotated q | k; v from the projection qkv [N, T, 3*H*D].
+DTT_EXPORT int attention_prerotated_bf16(const void* qk, const void* qkv, void* out, int N,
+                                         int T, int H, int head_dim, int win_upper,
+                                         int win_lower, int ref_elems, void* stream) {
+  const int hd = H * head_dim;
+  return launch<PLAIN>(qk, 2 * hd, at(qk, hd), 2 * hd, at(qkv, 2 * hd), 3 * hd, nullptr,
+                       nullptr, out, N, T, H, head_dim, win_upper, win_lower, ref_elems, stream);
+}
+
+// K11b: q, k, v [N, T, H, D] each.
+DTT_EXPORT int attention_separate_bf16(const void* q, const void* k, const void* v, void* out,
+                                       int N, int T, int H, int head_dim, int win_upper,
+                                       int win_lower, int ref_elems, void* stream) {
+  const int hd = H * head_dim;
+  return launch<PLAIN>(q, hd, k, hd, v, hd, nullptr, nullptr, out, N, T, H, head_dim, win_upper,
+                       win_lower, ref_elems, stream);
 }

@@ -80,11 +80,6 @@ __device__ __forceinline__ float lse2(float x, float y) {
   return __fadd_rn(fmaxf(x, y), d < 17.0f ? log1pf(expf(-d)) : 0.0f);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
 template <int S>
 __global__ void __launch_bounds__(W) beam_forward_kernel(
     const float* __restrict__ scores,      // [T, N, 4S]

@@ -25,6 +25,56 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// cp.async of 16 bytes from global to shared memory (L2 only), its commit
+// and its wait for all but the N most recent groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each (of each transposed matrix with .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a . b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col),
+// c 16 x 8 float32. Fragments: a[0] row g, k 2t..2t+1; a[1] row g + 8; a[2]
+// and a[3] the same rows at k + 8; b0 k 2t..2t+1 of column g, b1 at k + 8;
+// c[0..1] row g, columns 2t..2t+1, c[2..3] row g + 8 (g = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Four consecutive bf16 values (8 bytes) of one score row, as floats.
 __device__ __forceinline__ void unpack4(uint2 v, float out[4]) {
   __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&v.x);

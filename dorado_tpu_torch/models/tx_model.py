@@ -14,15 +14,29 @@ dorado/nn/TxModules.cpp):
   -> LinearScaledCRF (weights scaled by crf.scale)
   -> time-major scores [scale * T', N, outsize]
 
-The attention runs through ``ops.attention.windowed_attention_rope`` (a CUDA
-kernel on the GPU). ``quantize_tx_w8a8`` turns the encoder's three fat
-matmuls into W8A8: ``wqkv`` through ``ops.int8_matmul.w8a8_matmul_fq``, fc1
-with the SwiGLU product and the requantisation through ``swiglu_w8a8``, fc2
-through ``w8a8_matmul`` (CUDA kernels on the GPU); the residual stream, norms,
-attention, output projection, upsample and CRF head keep the module's dtype.
-Matmuls take the module's dtype and sum in float32 where PyTorch does; a
-bias is added inside the product, before its one rounding, as the JAX model
-adds it.
+Each layer's attention takes one of three routes (``attention``), which
+compute one function: ``"extf"`` (the default) through
+``ops.attention.windowed_attention_rope`` (K9, RoPE inside); ``"ext"``
+through ``rope_qk`` (a plain PyTorch rotation pass) and
+``windowed_attention_prerotated`` (K10), which stands for both of the JAX
+package's ``ext`` and ``qkv_rope`` routes; ``"hp"`` through
+``windowed_attention_halfperm`` (K11a) over q and k rows held halves-major.
+With ``fused_norm`` the output projection, the bias, the scaled residual and
+the first RMS norm run as one kernel (``ops.fused_norm``, K14), and so do fc2
+and the second norm when the encoder matmuls are unquantised. The JAX package
+picks these routes with environment variables; here they are arguments.
+
+``quantize_tx_w8a8`` turns the encoder's three fat matmuls into W8A8:
+``wqkv`` through ``ops.int8_matmul.w8a8_matmul_fq``, fc1 with the SwiGLU
+product and the requantisation through ``swiglu_w8a8``, fc2 through
+``w8a8_matmul`` (CUDA kernels on the GPU). ``quantize_tx_int8`` holds the
+same three as int8 weights whose products take per-token quantised
+activations and an int32 dot (``torch._int_mm`` on the GPU, the exact
+float64 product on the CPU), as the JAX package's ``quantize_tx_params``
+path does through XLA. The residual stream, norms, attention, output
+projection, upsample and CRF head keep the module's dtype. Matmuls take the
+module's dtype and sum in float32 where PyTorch does; a bias is added inside
+the product, before its one rounding, as the JAX model adds it.
 """
 
 from __future__ import annotations
@@ -37,8 +51,17 @@ from torch import nn
 
 from dorado_tpu_torch.config import BasecallModelConfig
 from dorado_tpu_torch.models.crf_model import conv_stack
-from dorado_tpu_torch.ops.attention import rope_tables, windowed_attention_rope
+from dorado_tpu_torch.ops.attention import (
+    rope_qk,
+    rope_tables,
+    windowed_attention_halfperm,
+    windowed_attention_prerotated,
+    windowed_attention_rope,
+    wqkv_halfperm_rows,
+)
+from dorado_tpu_torch.ops.fused_norm import matmul_residual_rmsnorm
 from dorado_tpu_torch.ops.int8_matmul import (
+    _int_product,
     quantize_rows,
     quantize_weight_rows,
     swiglu_w8a8,
@@ -46,8 +69,22 @@ from dorado_tpu_torch.ops.int8_matmul import (
     w8a8_matmul_fq,
 )
 
-# the encoder matmuls W8A8 replaces; fc1 is held as its value and gate halves
-_W8A8_NAMES = ("wqkv", "fc1_y", "fc1_g", "fc2")
+ATTENTION_ROUTES = ("extf", "ext", "hp")
+# the quantised matrices of each precision: W8A8 holds fc1 as its value and
+# gate halves, int8 whole
+_QUANTISED_NAMES = {
+    "float": (),
+    "w8a8": ("wqkv", "fc1_y", "fc1_g", "fc2"),
+    "int8": ("wqkv", "fc1", "fc2"),
+}
+
+
+def check_attention_route(attention: str) -> str:
+    if attention not in ATTENTION_ROUTES:
+        raise ValueError(
+            f"unknown attention route {attention!r}: expected one of {ATTENTION_ROUTES}"
+        )
+    return attention
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -61,9 +98,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
 class TxModel(nn.Module):
     """Parameters use the JAX model's names and layouts (linear weights
     [out, in]) but for the convolutions, which take torch's [C_out, C_in, K].
-    A quantised layer holds ``<name>_q`` (int8) and ``<name>_s`` (float32
-    scales) for each name of ``wqkv``, ``fc1_y``, ``fc1_g``, ``fc2`` in place
-    of ``wqkv``, ``fc1`` and ``fc2``."""
+
+    ``precision`` says what the encoder layers hold: ``"float"`` (``wqkv``,
+    ``fc1``, ``fc2`` in the module's dtype), ``"w8a8"`` or ``"int8"``
+    (``<name>_q`` int8 and ``<name>_s`` float32 scales in their place, for
+    each name of ``_QUANTISED_NAMES[precision]``). Every model starts on
+    the ``"extf"`` route without fused norms; ``set_routes`` moves it to
+    another, and on ``"hp"`` the rows of ``wqkv`` (and of its quantised
+    weights and scales) are held halves-major
+    (``ops.attention.wqkv_halfperm_rows``)."""
 
     def __init__(
         self,
@@ -75,6 +118,9 @@ class TxModel(nn.Module):
         if not config.is_tx_model:
             raise ValueError("TxModel supports transformer models only")
         self.config = config
+        self.attention = "extf"
+        self.fused_norm = False
+        self.precision = "float"
         tx = config.tx.tx
         d, ff = tx.d_model, tx.dim_feedforward
         kw = {"device": device, "dtype": dtype}
@@ -112,8 +158,7 @@ class TxModel(nn.Module):
         self._frozen_scales = [
             {
                 name: getattr(layer, name + "_s").float().clone()
-                for name in _W8A8_NAMES
-                if hasattr(layer, name + "_s")
+                for name in _QUANTISED_NAMES[self.precision]
             }
             for layer in self.layers
         ]
@@ -131,37 +176,57 @@ class TxModel(nn.Module):
     def encoder_layer(
         self, index: int, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     ) -> torch.Tensor:
-        """[N, T', d_model] -> [N, T', d_model] through encoder layer ``index``."""
+        """[N, T', d_model] -> [N, T', d_model] through encoder layer ``index``
+        (``tx_encoder_layer`` of the JAX package)."""
         tx = self.config.tx.tx
         p = self.layers[index]
         dtype = x.dtype
         # alpha rounded to the stream dtype, as the JAX layer multiplies
         alpha = torch.tensor(tx.deepnorm_alpha, dtype=dtype).item()
-        quantised = hasattr(p, "wqkv_q")
-        if quantised:
-            scales = (
-                self._frozen_scales[index]
-                if self._frozen_scales
-                else {name: getattr(p, name + "_s").float() for name in _W8A8_NAMES}
-            )
+        names = _QUANTISED_NAMES[self.precision]
+        scales = (
+            self._frozen_scales[index]
+            if self._frozen_scales
+            else {name: getattr(p, name + "_s").float() for name in names}
+        )
+        if self.precision == "w8a8":
             qkv = w8a8_matmul_fq(x, p.wqkv_q.t(), scales["wqkv"], out_dtype=dtype)
+        elif self.precision == "int8":
+            qkv = _int8_linear(x, p.wqkv_q, scales["wqkv"])
         else:
             qkv = F.linear(x, p.wqkv)
-        attn = windowed_attention_rope(
-            qkv, cos, sin, tx.nhead, tx.attn_window[0], tx.attn_window[1]
-        )
-        attn = F.linear(attn, p.out_proj_w, p.out_proj_b)
-        x = rms_norm(attn + x * alpha, p.norm1)
+        win = tx.attn_window
+        if self.attention == "extf":
+            attn = windowed_attention_rope(qkv, cos, sin, tx.nhead, *win)
+        elif self.attention == "ext":
+            qk_rot = rope_qk(qkv, cos, sin, tx.nhead)
+            attn = windowed_attention_prerotated(qk_rot, qkv, tx.nhead, *win)
+        else:
+            attn = windowed_attention_halfperm(qkv, cos, sin, tx.nhead, *win)
+        if self.fused_norm:
+            x = matmul_residual_rmsnorm(attn, p.out_proj_w, p.out_proj_b, x, p.norm1, alpha)
+        else:
+            attn = F.linear(attn, p.out_proj_w, p.out_proj_b)
+            x = rms_norm(attn + x * alpha, p.norm1)
 
-        if quantised:
+        if self.precision == "w8a8":
             xq, xs = quantize_rows(x)
             tq, ts = swiglu_w8a8(
                 xq, xs, p.fc1_y_q.t(), scales["fc1_y"], p.fc1_g_q.t(), scales["fc1_g"]
             )
             f = w8a8_matmul(tq, ts, p.fc2_q.t(), scales["fc2"], out_dtype=dtype)
+            return rms_norm(f + x * alpha, p.norm2)
+        if self.precision == "int8":
+            y, gate = _int8_linear(x, p.fc1_q, scales["fc1"]).chunk(2, dim=-1)
         else:
             y, gate = F.linear(x, p.fc1).chunk(2, dim=-1)
-            f = F.linear(F.silu(gate.float()).to(dtype) * y, p.fc2)
+        t_act = F.silu(gate.float()).to(dtype) * y
+        if self.precision == "int8":
+            f = _int8_linear(t_act, p.fc2_q, scales["fc2"])
+        elif self.fused_norm:
+            return matmul_residual_rmsnorm(t_act, p.fc2, None, x, p.norm2, alpha)
+        else:
+            f = F.linear(t_act, p.fc2)
         return rms_norm(f + x * alpha, p.norm2)
 
     def forward(
@@ -221,15 +286,43 @@ def init_tx_params(
     return model.to(device) if device is not None else model
 
 
+def _int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ int8 wq [O, K].T with float32 row scales ``ws`` -> [..., O]
+    in x's dtype: x quantised per token (``quantize_rows``, the JAX package's
+    ``_q8_act``), the int32 product dequantised as ``(acc * x_scale) *
+    w_scale`` (its ``_mm_q8``). The product is ``torch._int_mm`` on the GPU
+    and the exact float64 one on the CPU."""
+    k = x.shape[-1]
+    xq, xs = quantize_rows(x)
+    xq = xq.reshape(-1, k)
+    if x.device.type == "cuda":
+        acc = torch._int_mm(xq, wq.t()).float()
+    else:
+        acc = _int_product(xq, wq.t())
+    out = acc * xs.reshape(-1, 1) * ws.reshape(1, -1)
+    return out.to(x.dtype).reshape(*x.shape[:-1], wq.shape[0])
+
+
 def _set_quantised(layer: nn.Module, quantised: dict[str, tuple]) -> None:
     """Replace a layer's wqkv, fc1 and fc2 by the int8 weights and float32
-    scales of ``quantised`` (one pair for each of ``_W8A8_NAMES``)."""
+    scales of ``quantised`` (a pair for each name of the precision)."""
     for name in ("wqkv", "fc1", "fc2"):
         delattr(layer, name)
-    for name in _W8A8_NAMES:
-        wq, ws = quantised[name]
+    for name, (wq, ws) in quantised.items():
         layer.register_buffer(name + "_q", wq.contiguous())
         layer.register_buffer(name + "_s", ws.contiguous())
+
+
+def _quantised_copy(model: TxModel, precision: str) -> tuple[TxModel, bool]:
+    """A copy of ``model`` for quantising to ``precision``, and whether its
+    layers still need it (a model of that precision stays as it is)."""
+    if model.precision not in ("float", precision):
+        raise ValueError(f"the model holds {model.precision} weights, not float ones")
+    out = copy.deepcopy(model)
+    out._frozen_scales = None
+    todo = out.precision == "float"
+    out.precision = precision
+    return out, todo
 
 
 @torch.no_grad()
@@ -238,13 +331,10 @@ def quantize_tx_w8a8(model: TxModel) -> TxModel:
     into its value rows and gate rows) and ``fc2`` as symmetric int8 per
     output channel with float32 scales (``quantize_tx_params_w8a8`` of the
     JAX package). The output projection, norms, upsample and CRF head keep
-    their precision; layers already quantised stay as they are. Quantise the
-    float32 model, before any cast to a narrower type."""
-    out = copy.deepcopy(model)
-    out._frozen_scales = None
-    for layer in out.layers:
-        if hasattr(layer, "wqkv_q"):
-            continue
+    their precision; a W8A8 model stays as it is. Quantise the float32
+    model, before any cast to a narrower type."""
+    out, todo = _quantised_copy(model, "w8a8")
+    for layer in out.layers if todo else ():
         ffn = layer.fc1.shape[0] // 2
         _set_quantised(layer, {
             "wqkv": quantize_weight_rows(layer.wqkv),
@@ -255,14 +345,71 @@ def quantize_tx_w8a8(model: TxModel) -> TxModel:
     return out
 
 
+@torch.no_grad()
+def quantize_tx_int8(model: TxModel) -> TxModel:
+    """A copy of ``model`` with each encoder layer's ``wqkv``, ``fc1`` and
+    ``fc2`` as symmetric int8 per output channel with float32 scales, for
+    products with per-token quantised activations (``quantize_tx_params`` of
+    the JAX package, its ``tx_precision="int8"``). The rest keeps its
+    precision; an int8 model stays as it is. Quantise the float32 model."""
+    out, todo = _quantised_copy(model, "int8")
+    for layer in out.layers if todo else ():
+        _set_quantised(layer, {
+            name: quantize_weight_rows(getattr(layer, name)) for name in ("wqkv", "fc1", "fc2")
+        })
+    return out
+
+
+@torch.no_grad()
+def set_routes(
+    model: TxModel, attention: str | None = None, fused_norm: bool | None = None
+) -> TxModel:
+    """Move ``model``, in place, to another attention route or norm route
+    (None: as it is), and return it. The rows of ``wqkv``, or of its int8
+    weights and their scales (the permutation commutes with row-wise
+    quantisation), are re-ordered once, here, for the halves-major layout
+    of ``"hp"`` or back from it."""
+    attention = check_attention_route(attention or model.attention)
+    if fused_norm is not None:
+        model.fused_norm = bool(fused_norm)
+    if (attention == "hp") != (model.attention == "hp"):
+        tx = model.config.tx.tx
+        rows = torch.from_numpy(wqkv_halfperm_rows(tx.nhead, tx.d_model))
+        if model.attention == "hp":
+            rows = torch.argsort(rows)  # back to natural order
+        quantised = model.precision != "float"
+        for i, layer in enumerate(model.layers):
+            for name in ("wqkv_q", "wqkv_s") if quantised else ("wqkv",):
+                t = getattr(layer, name)
+                t.copy_(t[rows.to(t.device)])
+            if quantised and model._frozen_scales:
+                scales = model._frozen_scales[i]
+                scales["wqkv"] = scales["wqkv"][rows.to(scales["wqkv"].device)]
+    model.attention = attention
+    return model
+
+
+def with_routes(
+    model: TxModel, attention: str | None = None, fused_norm: bool | None = None
+) -> TxModel:
+    """A copy of ``model`` moved to another route (``set_routes``)."""
+    return set_routes(copy.deepcopy(model), attention, fused_norm)
+
+
 def tx_params_from_jax(params, config: BasecallModelConfig) -> TxModel:
-    """A float32 CPU model holding the weights of a JAX parameter pytree
-    (``dorado_tpu.models.tx_model.init_tx_params`` layout, as numpy arrays or
-    anything ``np.asarray`` takes), so both packages compute the same
-    function. Layers that hold ``<name>_w8``/``<name>_w8s`` in place of
-    ``wqkv``, ``fc1`` and ``fc2`` (``quantize_tx_params_w8a8`` there) become
-    quantised layers here."""
+    """A float32 CPU model on the ``"extf"`` route holding the weights of a
+    JAX parameter pytree (``dorado_tpu.models.tx_model.init_tx_params``
+    layout, as numpy arrays or anything ``np.asarray`` takes), so both
+    packages compute the same function. Layers that hold
+    ``<name>_w8``/``<name>_w8s`` in place of ``wqkv``, ``fc1`` and ``fc2``
+    (``quantize_tx_params_w8a8`` there) make a W8A8 model, layers that hold
+    ``<name>_q``/``<name>_s`` (``quantize_tx_params``) an int8 one."""
     model = TxModel(config, device="cpu")
+    first = params["layers"][0]
+    if "wqkv_w8" in first:
+        model.precision, suffixes = "w8a8", ("_w8", "_w8s")
+    elif "wqkv_q" in first:
+        model.precision, suffixes = "int8", ("_q", "_s")
 
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32))
@@ -274,17 +421,17 @@ def tx_params_from_jax(params, config: BasecallModelConfig) -> TxModel:
         for p, layer in zip(params["layers"], model.layers):
             for name in ("out_proj_w", "out_proj_b", "norm1", "norm2"):
                 getattr(layer, name).copy_(t(p[name]))
-            if "wqkv_w8" in p:
-                _set_quantised(layer, {
-                    name: (
-                        torch.from_numpy(np.array(p[name + "_w8"], dtype=np.int8)),
-                        t(p[name + "_w8s"]),
-                    )
-                    for name in _W8A8_NAMES
-                })
-            else:
+            if model.precision == "float":
                 for name in ("wqkv", "fc1", "fc2"):
                     getattr(layer, name).copy_(t(p[name]))
+            else:
+                _set_quantised(layer, {
+                    name: (
+                        torch.from_numpy(np.array(p[name + suffixes[0]], dtype=np.int8)),
+                        t(p[name + suffixes[1]]),
+                    )
+                    for name in _QUANTISED_NAMES[model.precision]
+                })
         model.upsample_w.copy_(t(params["upsample"]["w"]))
         model.upsample_b.copy_(t(params["upsample"]["b"]))
         model.crf_w.copy_(t(params["crf"]["w"]))

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNEL_SOURCES = (
     "lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward", "crf_traceback",
-    "crf_lse_scan", "beam_search", "attention_banded", "w8a8_matmul",
+    "crf_lse_scan", "beam_search", "attention_banded", "w8a8_matmul", "fused_norm",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -99,6 +99,8 @@ class BasecallerPipeline:
         decoder: str = "viterbi",
         lstm_precision: str | None = None,
         tx_precision: str | None = None,
+        tx_attention: str | None = None,
+        tx_fused_norm: bool | None = None,
     ):
         if config.is_rna_model:
             raise ValueError("RNA models are not supported by this pipeline yet")
@@ -114,6 +116,8 @@ class BasecallerPipeline:
             decoder=decoder,
             lstm_precision=lstm_precision,
             tx_precision=tx_precision,
+            tx_attention=tx_attention,
+            tx_fused_norm=tx_fused_norm,
         )
         self.overlap = int(overlap if overlap is not None else config.basecaller.overlap)
         self.overlap -= self.overlap % config.stride

@@ -1,7 +1,11 @@
-"""The port's banded attention with RoPE inside (CPU, plain version) against
-the JAX package: ``windowed_attention_ext_fused`` (the Pallas kernel, in
+"""The port's banded attention (CPU, plain versions) against the JAX
+package: K9 against ``windowed_attention_ext_fused`` (the Pallas kernel, in
 interpret mode, on the extended projection built from the same arrays) and
-the strip loop ``windowed_attention`` that the JAX model runs off the TPU.
+the strip loop ``windowed_attention`` that the JAX model runs off the TPU;
+K10 against ``windowed_attention_qkv_rope`` and ``windowed_attention_ext``
+(both into ``_banded_attention_call``), K11a against
+``windowed_attention_halfperm`` and K11b against
+``windowed_attention_fused``, all in interpret mode.
 
 All in float32: the three compute the same sums in other orders, and the strip
 loop rounds p to the stream dtype before p @ v, which in float32 is no
@@ -15,6 +19,7 @@ import torch
 
 from dorado_tpu.models.tx_model import apply_rope, rope_ext_tables, windowed_attention
 from dorado_tpu.models.tx_model import rope_tables as jax_rope_tables
+from dorado_tpu.ops import attention as jax_attention
 from dorado_tpu.ops.attention import _band_bias_at, windowed_attention_ext_fused
 from dorado_tpu_torch.ops import attention
 
@@ -118,3 +123,112 @@ def test_stream_dtype_rounds_the_rotation():
     assert torch.equal(rot, full.bfloat16())
     ref = attention.windowed_attention_rope(qkv.float(), cos, sin, H, *SUP_WINDOW)
     assert (out.float() - ref).abs().max() < 0.05
+
+
+# ---------------------------------------------------------------------------
+# K10, K11a, K11b
+# ---------------------------------------------------------------------------
+
+ROUTE_T = (100, 300, 700)
+
+
+def _assert_plain(out, ref, shape):
+    assert out.shape == shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("jax_route", ["qkv_rope", "ext"])
+@pytest.mark.parametrize("t_len", ROUTE_T)
+def test_prerotated_matches_pallas_interpret(t_len, jax_route):
+    """One port route for both JAX routes into ``_banded_attention_call``:
+    the rotation pass ``rope_qk`` then K10's plain version."""
+    qkv = _qkv(t_len, 2000 + t_len)
+    if jax_route == "qkv_rope":
+        cos, sin = jax_rope_tables(t_len, D, THETA)
+        ref = jax_attention.windowed_attention_qkv_rope(
+            jnp.asarray(qkv), cos, sin, H, *SUP_WINDOW, interpret=True
+        )
+    else:
+        ct, st, perm = rope_ext_tables(t_len, D, H, THETA)
+        ext = np.concatenate([qkv, qkv[..., : 2 * H * D][..., perm]], axis=-1)
+        ref = jax_attention.windowed_attention_ext(
+            jnp.asarray(ext), ct, st, H, *SUP_WINDOW, interpret=True
+        )
+    cos, sin = attention.rope_tables(t_len, D, THETA)
+    qkv_t = torch.from_numpy(qkv)
+    launches = attention.windowed_attention_prerotated.launches
+    out = attention.windowed_attention_prerotated(
+        attention.rope_qk(qkv_t, cos, sin, H), qkv_t, H, *SUP_WINDOW
+    )
+    assert attention.windowed_attention_prerotated.launches == launches
+    _assert_plain(out, ref, (N, t_len, H * D))
+
+
+@pytest.mark.parametrize("t_len", ROUTE_T)
+def test_halfperm_matches_pallas_interpret(t_len):
+    """The same projection with its q and k rows halves-major (the JAX
+    package's permutation), JAX's [2, T, H*D] tables against the port's
+    [T, D/2] ones."""
+    qkv = _qkv(t_len, 3000 + t_len)
+    rows = attention.wqkv_halfperm_rows(H, H * D)
+    hp = np.ascontiguousarray(qkv[..., rows])
+    ref = jax_attention.windowed_attention_halfperm(
+        jnp.asarray(hp), jax_attention.rope_half_tables(t_len, D, H, THETA), H, *SUP_WINDOW,
+        interpret=True,
+    )
+    cos, sin = attention.rope_tables(t_len, D, THETA)
+    launches = attention.windowed_attention_halfperm.launches
+    out = attention.windowed_attention_halfperm(torch.from_numpy(hp), cos, sin, H, *SUP_WINDOW)
+    assert attention.windowed_attention_halfperm.launches == launches
+    _assert_plain(out, ref, (N, t_len, H * D))
+
+
+@pytest.mark.parametrize("win", [SUP_WINDOW, (200, 256)])
+@pytest.mark.parametrize("t_len", ROUTE_T)
+def test_separate_qkv_matches_pallas_interpret(t_len, win):
+    """K11b at sup's window and at one above 128 keys a side (its limit is
+    256)."""
+    rs = np.random.RandomState(4000 + t_len)
+    q, k, v = (rs.randn(N, t_len, H, D).astype(np.float32) for _ in range(3))
+    ref = jax_attention.windowed_attention_fused(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), *win, interpret=True
+    )
+    launches = attention.windowed_attention_fused.launches
+    out = attention.windowed_attention_fused(*(torch.from_numpy(a) for a in (q, k, v)), *win)
+    assert attention.windowed_attention_fused.launches == launches
+    _assert_plain(out, ref, (N, t_len, H, D))
+
+
+def test_rope_halfperm_matches_jax():
+    for nhead, d in ((2, 64), (8, 64), (4, 16)):
+        np.testing.assert_array_equal(
+            attention.rope_halfperm(nhead, d), jax_attention.rope_halfperm(nhead, d)
+        )
+    # JAX's halves-major tables hold the [T, D/2] tables' cos and -sin | sin
+    cos, sin = attention.rope_tables(50, D, THETA)
+    ct, st = np.asarray(jax_attention.rope_half_tables(50, D, H, THETA))
+    i = np.arange(H * D) % (D // 2)
+    np.testing.assert_array_equal(ct, cos.numpy()[:, i])
+    np.testing.assert_array_equal(st[:, : H * D // 2], -sin.numpy()[:, i[: H * D // 2]])
+    np.testing.assert_array_equal(st[:, H * D // 2 :], sin.numpy()[:, i[H * D // 2 :]])
+
+
+@pytest.mark.parametrize("win", [SUP_WINDOW, (5, 6)])
+def test_routes_equal_k9_in_bf16(win):
+    """The four layouts carry one function: in bf16 the plain versions of
+    K10 (after ``rope_qk``), K11a (on the permuted projection) and K11b (on
+    the rotated q, k and v) give K9's output bit for bit, as the kernels'
+    staged tiles are bit-equal on the card."""
+    t_len = 300
+    qkv = torch.from_numpy(_qkv(t_len, 7)).bfloat16()
+    cos, sin = attention.rope_tables(t_len, D, THETA)
+    want = attention.windowed_attention_rope(qkv, cos, sin, H, *win)
+    qk = attention.rope_qk(qkv, cos, sin, H)
+    assert qk.dtype == torch.bfloat16
+    assert torch.equal(attention.windowed_attention_prerotated(qk, qkv, H, *win), want)
+    hp = qkv[..., torch.from_numpy(attention.wqkv_halfperm_rows(H, H * D))]
+    assert torch.equal(attention.windowed_attention_halfperm(hp, cos, sin, H, *win), want)
+    q, k = qk.reshape(N, t_len, 2, H, D).unbind(2)
+    v = qkv[..., 2 * H * D :].reshape(N, t_len, H, D)
+    out = attention.windowed_attention_fused(q, k, v, *win)
+    assert torch.equal(out.reshape(N, t_len, H * D), want)

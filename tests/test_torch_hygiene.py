@@ -17,7 +17,7 @@ from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
 from dorado_tpu_torch.models.presets import fast_v40_config, hac_v43_config, sup_v50_config
 from dorado_tpu_torch.models.tx_model import TxModel
-from dorado_tpu_torch.ops import _cuda, attention, beam, crf_cuda, int8_matmul, lstm
+from dorado_tpu_torch.ops import _cuda, attention, beam, crf_cuda, fused_norm, int8_matmul, lstm
 from dorado_tpu_torch.pipeline import BasecallerPipeline
 
 PKG = Path(dorado_tpu_torch.__file__).parent
@@ -111,6 +111,10 @@ WRAPPERS = (
     attention.windowed_attention_rope,
     int8_matmul.swiglu_w8a8,
     int8_matmul.w8a8_matmul,
+    attention.windowed_attention_prerotated,
+    attention.windowed_attention_halfperm,
+    attention.windowed_attention_fused,
+    fused_norm.matmul_residual_rmsnorm,
 )
 
 
@@ -152,6 +156,10 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     _spy(monkeypatch, calls, attention, "windowed_attention_rope_plain")
     _spy(monkeypatch, calls, int8_matmul, "swiglu_w8a8_plain")
     _spy(monkeypatch, calls, int8_matmul, "w8a8_matmul_plain")
+    _spy(monkeypatch, calls, attention, "windowed_attention_prerotated_plain")
+    _spy(monkeypatch, calls, attention, "windowed_attention_halfperm_plain")
+    _spy(monkeypatch, calls, attention, "windowed_attention_fused_plain")
+    _spy(monkeypatch, calls, fused_norm, "matmul_residual_rmsnorm_plain")
     x = torch.from_numpy(rs.randn(5, 2, 16).astype(np.float32))
     lstm.lstm_scan_time_major(x, torch.from_numpy(rs.randn(4, 16).astype(np.float32)))
     scores = torch.from_numpy(rs.randn(5, 2, 256).astype(np.float32))
@@ -172,13 +180,22 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     xq, xs = int8_matmul.quantize_rows(torch.from_numpy(rs.randn(3, 128).astype(np.float32)))
     tq, ts = int8_matmul.swiglu_w8a8(xq, xs, wq.t(), torch.ones(128), wq.t(), torch.ones(128))
     int8_matmul.w8a8_matmul(tq, ts, wq.t(), torch.ones(128))
+    qkv = torch.from_numpy(rs.randn(2, 7, 3 * 64).astype(np.float32))
+    attention.windowed_attention_prerotated(attention.rope_qk(qkv, cos, sin, 1), qkv, 1, 127, 128)
+    attention.windowed_attention_halfperm(qkv, cos, sin, 1, 127, 128)
+    q = torch.from_numpy(rs.randn(2, 7, 1, 64).astype(np.float32))
+    attention.windowed_attention_fused(q, q, q, 200, 256)
+    x = torch.from_numpy(rs.randn(3, 128).astype(np.float32))
+    fused_norm.matmul_residual_rmsnorm(x, wq.float(), None, x, torch.ones(128), 2.0)
     # backward_scores_shifted's plain version runs the plain backward scan too
     assert sorted(calls) == sorted(
         ["lstm_scan_plain", "backward_scores_shifted_plain", "backward_scores_plain",
          "fused_forward_decode_plain", "viterbi_traceback_plain", "forward_scores_plain",
          "backward_scores_plain", "w8a8_matmul_fq_plain", "beam_forward_plain",
          "beam_traceback_plain", "windowed_attention_rope_plain", "swiglu_w8a8_plain",
-         "w8a8_matmul_plain"]
+         "w8a8_matmul_plain", "windowed_attention_prerotated_plain",
+         "windowed_attention_halfperm_plain", "windowed_attention_fused_plain",
+         "matmul_residual_rmsnorm_plain"]
     )
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
@@ -212,10 +229,31 @@ def test_cpu_tx_runner_launches_no_kernel(no_kernels):
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
+@pytest.mark.parametrize(
+    "precision,attention_route,fused",
+    [("int8", "ext", True), ("w8a8", "hp", True), ("bf16", "hp", True), ("int8", "extf", False)],
+)
+def test_cpu_tx_runner_routes_launch_no_kernel(no_kernels, precision, attention_route, fused):
+    """The runner's transformer arguments (``tx_precision="int8"``,
+    ``tx_attention``, ``tx_fused_norm``) on the CPU: the model takes them and
+    runs every kernel's plain version."""
+    cfg = _small_sup()
+    runner = TorchBasecallRunner(
+        cfg, TxModel(cfg), chunk_size=768, batch_size=2, device="cpu", tx_precision=precision,
+        tx_attention=attention_route, tx_fused_norm=fused,
+    )
+    model = runner.model
+    assert (model.attention, model.fused_norm) == (attention_route, fused)
+    assert model.precision == {"bf16": "float"}.get(precision, precision)
+    out = runner.call_chunks(runner.make_input_buffer(0), 1)
+    assert len(out) == 1 and len(out[0].moves) == 768 // cfg.stride
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
 def test_kernel_sources_present():
     for name in _cuda.KERNEL_SOURCES:
         src = (_cuda.CSRC / f"{name}.cu").read_text()
         assert "Replaces dorado_tpu/ops/" in src and "What bounds it on the H100" in src
-    assert {"attention_banded", "w8a8_matmul"} <= set(_cuda.KERNEL_SOURCES)
+    assert {"attention_banded", "w8a8_matmul", "fused_norm"} <= set(_cuda.KERNEL_SOURCES)
     assert len(_cuda.KERNEL_SOURCES) == len(list(_cuda.CSRC.glob("*.cu")))
     assert _cuda.library_path("lstm_scan").parent == _cuda.BUILD_DIR

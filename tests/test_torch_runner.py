@@ -15,8 +15,9 @@ further seeds and head gains where a wider, stated bound takes its place:
 see the two ``..._on_other_weights`` tests.
 
 The transformer (sup) cases at the end run the small sup configuration of
-``tests/test_torch_tx_model.py`` through both runners, in float32 and with
-W8A8 encoder matmuls.
+``tests/test_torch_tx_model.py`` through both runners, in float32, with W8A8
+and with int8 encoder matmuls, and on the port's other attention and norm
+routes.
 """
 
 import functools
@@ -308,26 +309,35 @@ TX_CHUNK = 1152  # 6 x the chunk granularity of 192: lanes of 1152 and 768 sampl
 
 
 @functools.lru_cache(maxsize=None)
-def _tx_runners(precision, seed=3):
-    """Both runners on the small sup configuration with the same random
-    weights, float32 on the CPU, made once for each precision. The JAX runner
-    reads its precision from ``DORADO_TPU_TX_PRECISION`` when it is built;
-    off the TPU it runs the strip-loop attention and the int8 kernels' XLA
-    fallbacks."""
-    params = jax_tx_params(seed)
+def _jax_tx_runner(precision, seed=3):
+    """The JAX runner on the small sup configuration, made once for each
+    precision: it reads its precision from ``DORADO_TPU_TX_PRECISION`` when
+    it is built; off the TPU it runs the strip-loop attention, the unfused
+    norms and the int8 kernels' XLA fallbacks."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DORADO_TPU_TX_PRECISION", precision)
         jr = BasecallRunner(
-            small_sup(jax_sup_config()), params, chunk_size=TX_CHUNK, batch_size=BATCH,
-            decoder="viterbi", compute_dtype=jnp.float32,
+            small_sup(jax_sup_config()), jax_tx_params(seed), chunk_size=TX_CHUNK,
+            batch_size=BATCH, decoder="viterbi", compute_dtype=jnp.float32,
         )
-    assert ("wqkv_w8" in jr.params["layers"][0]) == (precision == "w8a8")
+    quantised = {"w8a8": "wqkv_w8", "int8": "wqkv_q"}
+    assert all((key in jr.params["layers"][0]) == (precision == p) for p, key in quantised.items())
+    return jr
+
+
+@functools.lru_cache(maxsize=None)
+def _tx_runners(precision, seed=3, attention=None, fused_norm=None):
+    """Both runners on the small sup configuration with the same random
+    weights, float32 on the CPU; the port's on the given routes."""
+    jr = _jax_tx_runner(precision, seed)
     cfg = small_sup(sup_v50_config())
     tr = TorchBasecallRunner(
-        cfg, tx_params_from_jax(params, cfg), chunk_size=TX_CHUNK, batch_size=BATCH,
-        device="cpu", tx_precision=precision,
+        cfg, tx_params_from_jax(jax_tx_params(seed), cfg), chunk_size=TX_CHUNK,
+        batch_size=BATCH, device="cpu", tx_precision=precision, tx_attention=attention,
+        tx_fused_norm=fused_norm,
     )
-    assert hasattr(tr.model.layers[0], "wqkv_q") == (precision == "w8a8")
+    assert tr.model.precision == {"bf16": "float"}.get(precision, precision)
+    assert (tr.model.attention, tr.model.fused_norm) == (attention or "extf", bool(fused_norm))
     assert tr.chunk_sizes == jr.chunk_sizes == [TX_CHUNK, TX_CHUNK * 2 // 3]
     return jr, tr
 
@@ -374,24 +384,58 @@ def test_tx_w8a8_call_chunks_matches_jax(lane):
     _assert_tx_calls_match(jr, tr, lane, 0.10)
 
 
+@pytest.mark.parametrize("lane", [0, 1])
+def test_tx_int8_call_chunks_matches_jax(lane):
+    """``tx_precision="int8"`` against the JAX runner's: the tolerance of the
+    W8A8 case above (measured: 1.0% and 5.0% of qual chars differ on the two
+    lanes)."""
+    jr, tr = _tx_runners("int8")
+    assert tr.tx_precision == "int8" and tr.model.layers[0].fc1_q.dtype == torch.int8
+    _assert_tx_calls_match(jr, tr, lane, 0.10)
+
+
+@pytest.mark.parametrize(
+    "precision,attention,fused_norm",
+    [("w8a8", "extf", True), ("w8a8", "ext", False), ("w8a8", "ext", True),
+     ("w8a8", "hp", False), ("w8a8", "hp", True),
+     ("bf16", "ext", True), ("int8", "hp", False), ("int8", "ext", True)],
+)
+def test_tx_routes_call_chunks_match_jax(precision, attention, fused_norm):
+    """The port's other routes through the runner against the JAX runner's
+    default route: they compute the same function, so the tolerances are
+    the precision's own (1% of qual chars unquantised, 10% quantised;
+    measured 0.7% and 1.0%: on the CPU the routes' scores are equal)."""
+    jr, tr = _tx_runners(precision, attention=attention, fused_norm=fused_norm)
+    _assert_tx_calls_match(jr, tr, 0, 0.01 if precision == "bf16" else 0.10)
+
+
 def test_tx_decoder_and_precision_arguments():
     cfg = small_sup(sup_v50_config())
     model = tx_params_from_jax(jax_tx_params(3), cfg)
     kw = dict(chunk_size=TX_CHUNK, batch_size=BATCH, device="cpu")
     with pytest.raises(NotImplementedError, match="beam decoder is not ported for transformer"):
         TorchBasecallRunner(cfg, model, decoder="beam", **kw)
-    with pytest.raises(NotImplementedError, match="'int8'"):
-        TorchBasecallRunner(cfg, model, tx_precision="int8", **kw)
     with pytest.raises(ValueError, match="unknown tx_precision"):
         TorchBasecallRunner(cfg, model, tx_precision="fp8", **kw)
+    with pytest.raises(ValueError, match="unknown attention route"):
+        TorchBasecallRunner(cfg, model, tx_attention="qkv_rope", **kw)
     with pytest.raises(ValueError, match="lstm_precision does not apply"):
         TorchBasecallRunner(cfg, model, lstm_precision="w8a8", **kw)
     hac = _narrow_hac(hac_v43_config())
-    with pytest.raises(ValueError, match="tx_precision does not apply"):
-        TorchBasecallRunner(
-            hac, params_from_jax(jax_params_with_moves(2), hac), tx_precision="w8a8", **kw
-        )
-    # unquantised by default on the CPU, as the JAX runner is off the TPU
+    hac_model = params_from_jax(jax_params_with_moves(2), hac)
+    for name, value in (("tx_precision", "w8a8"), ("tx_attention", "hp"), ("tx_fused_norm", True)):
+        with pytest.raises(ValueError, match=f"{name} does not apply"):
+            TorchBasecallRunner(hac, hac_model, **{name: value}, **kw)
+    # unquantised by default on the CPU, as the JAX runner is off the TPU,
+    # on the JAX runner's default routes
     runner = TorchBasecallRunner(cfg, model, **kw)
     assert (runner.decoder, runner.tx_precision) == ("viterbi", "bf16")
+    assert (runner.tx_attention, runner.tx_fused_norm) == ("extf", False)
     assert runner._qual_table.shape == (1024, 1024)
+    # int8 is taken: the quantisation, the routes and the precision are the model's
+    runner = TorchBasecallRunner(
+        cfg, model, tx_precision="int8", tx_attention="hp", tx_fused_norm=True, **kw
+    )
+    assert (runner.model.precision, runner.model.attention, runner.model.fused_norm) == (
+        "int8", "hp", True)
+    assert model.precision == "float" and model.attention == "extf"  # the caller's model stays

@@ -4,10 +4,16 @@ layers, d_model 64, 4 heads, ffn 128, window (5, 6), the full conv stack's
 stride 12 and the full 4096-transition CRF head), through the weight carrier
 ``tx_params_from_jax``.
 
-Off the TPU ``tx_forward`` takes the strip-loop attention and, for W8A8
-parameters, the XLA fallbacks of the int8 kernels; the port takes the plain
-versions of its kernels. Float32 throughout.
+Off the TPU ``tx_forward`` takes the strip-loop attention and the unfused
+norms whatever its environment variables say, and, for W8A8 parameters, the
+XLA fallbacks of the int8 kernels; the port takes the plain versions of its
+kernels. Every attention and norm route of the port computes that one
+function, so each is held against it. Float32 throughout.
 """
+
+import copy
+import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -17,16 +23,21 @@ import torch
 
 from dorado_tpu.models.presets import sup_v50_config as jax_sup_config
 from dorado_tpu.models.tx_model import init_tx_params as jax_init
-from dorado_tpu.models.tx_model import quantize_tx_params_w8a8, tx_forward
+from dorado_tpu.models.tx_model import quantize_tx_params, quantize_tx_params_w8a8, tx_forward
 from dorado_tpu.models.tx_model import rms_norm as jax_rms_norm
 from dorado_tpu_torch.models.presets import sup_v50_config
 from dorado_tpu_torch.models.tx_model import (
+    ATTENTION_ROUTES,
     TxModel,
     init_tx_params,
+    quantize_tx_int8,
     quantize_tx_w8a8,
     rms_norm,
+    set_routes,
     tx_params_from_jax,
+    with_routes,
 )
+from dorado_tpu_torch.ops.attention import wqkv_halfperm_rows
 
 CHUNK = 1152  # 6 x the transformer's chunk granularity of 192: T' = 96, T = 192
 
@@ -170,3 +181,115 @@ def test_init_and_score_dtype():
         from dorado_tpu_torch.models.presets import hac_v43_config
 
         TxModel(hac_v43_config())
+
+
+# ---------------------------------------------------------------------------
+# attention and norm routes, int8
+# ---------------------------------------------------------------------------
+
+JAX_QUANTISE = {"float": None, "w8a8": quantize_tx_params_w8a8, "int8": quantize_tx_params}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(precision, seed=3):
+    """(JAX parameters of ``precision`` as numpy, the signal, tx_forward's
+    scores on them, tx_forward's float32 scores)."""
+    params = jax_tx_params(seed)
+    sig = _signal(seed)
+    jcfg = small_sup(jax_sup_config())
+    full = np.asarray(tx_forward(params, jnp.asarray(sig), jcfg))
+    if JAX_QUANTISE[precision] is None:
+        return params, sig, full, full
+    qp = jax.tree_util.tree_map(np.array, JAX_QUANTISE[precision](params))
+    return qp, sig, np.asarray(tx_forward(qp, jnp.asarray(sig), jcfg)), full
+
+
+@pytest.mark.parametrize(
+    "precision,attention,fused_norm",
+    list(itertools.product(("float", "w8a8", "int8"), ATTENTION_ROUTES, (False, True))),
+)
+def test_routes_match_jax(precision, attention, fused_norm):
+    """Each attention route with and without the fused norms, at each
+    precision, carried from the JAX parameters, against ``tx_forward``.
+    Float32: 2e-4 absolute, as above. Quantised: the tolerance of the W8A8
+    test above (the int8 path rounds three activations per token too: the
+    inputs of wqkv, fc1 and fc2), and far inside the quantisation's own
+    error. On the CPU every route gives the same scores as the default."""
+    params, sig, ref, full = _jax_reference(precision)
+    carried = tx_params_from_jax(params, small_sup(sup_v50_config()))
+    assert carried.precision == precision
+    model = with_routes(carried, attention, fused_norm)
+    assert (model.attention, model.fused_norm) == (attention, fused_norm)
+    out = _scores(model, sig)
+    if precision == "float":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=2e-4)
+        return
+    err = np.abs(out - ref)
+    assert err.mean() < 2e-3 and err.max() < 0.5
+    assert err.mean() < 0.1 * np.abs(ref - full).mean()
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_int8_scores_match_jax(seed):
+    """``quantize_tx_int8`` on the carried float model holds the weights
+    that ``tx_params_from_jax`` carries from ``quantize_tx_params``, and its
+    scores match ``tx_forward``'s on those (the tolerance of the W8A8 test
+    above; measured mean 1.5e-4 and 1.5e-3, max 0.05 and 0.12 on the two
+    seeds, against a quantisation error of 0.028 on average)."""
+    tcfg = small_sup(sup_v50_config())
+    params, sig, ref, full = _jax_reference("int8", seed)
+    carried = tx_params_from_jax(params, tcfg)
+    float_params = jax_tx_params(seed)
+    own = quantize_tx_int8(tx_params_from_jax(float_params, tcfg))
+    assert own.precision == carried.precision == "int8"
+    for a, b in zip(own.layers, carried.layers):
+        assert not hasattr(a, "wqkv") and not hasattr(a, "fc1_y_q")
+        for name in ("wqkv", "fc1", "fc2"):
+            assert getattr(a, name + "_q").dtype == torch.int8
+            assert torch.equal(getattr(a, name + "_q"), getattr(b, name + "_q"))
+            np.testing.assert_allclose(
+                getattr(a, name + "_s").numpy(), getattr(b, name + "_s").numpy(), rtol=1e-7, atol=0
+            )
+    out = _scores(own, sig)
+    err = np.abs(out - ref)
+    assert err.mean() < 2e-3 and err.max() < 0.5
+    assert err.mean() < 0.1 * np.abs(ref - full).mean()
+    # quantising twice changes nothing; the two schemes do not mix
+    assert torch.equal(quantize_tx_int8(own).layers[0].fc2_q, own.layers[0].fc2_q)
+    with pytest.raises(ValueError, match="holds int8 weights"):
+        quantize_tx_w8a8(own)
+    with pytest.raises(ValueError, match="holds w8a8 weights"):
+        quantize_tx_int8(quantize_tx_w8a8(tx_params_from_jax(float_params, tcfg)))
+
+
+@pytest.mark.parametrize("precision", ["float", "w8a8", "int8"])
+def test_halfperm_route_permutes_wqkv_rows_once(precision):
+    """``with_routes(..., "hp")`` permutes the rows of wqkv (and of its int8
+    weights and scales, which commutes with quantising them), and back."""
+    cfg = small_sup(sup_v50_config())
+    model = init_tx_params(cfg, torch.Generator().manual_seed(2))
+    quantise = {"float": lambda m: m, "w8a8": quantize_tx_w8a8, "int8": quantize_tx_int8}[precision]
+    natural = quantise(model)
+    hp = with_routes(natural, "hp", True)
+    rows = torch.from_numpy(wqkv_halfperm_rows(cfg.tx.tx.nhead, cfg.tx.tx.d_model))
+    names = ("wqkv",) if precision == "float" else ("wqkv_q", "wqkv_s")
+    for a, b in zip(natural.layers, hp.layers):
+        for name in names:
+            assert torch.equal(getattr(b, name), getattr(a, name)[rows])
+    if precision != "float":
+        assert torch.equal(quantise(with_routes(model, "hp")).layers[1].wqkv_q, hp.layers[1].wqkv_q)
+    back = with_routes(hp, "ext")
+    assert back.attention == "ext" and back.fused_norm
+    for a, b in zip(natural.layers, back.layers):
+        assert all(torch.equal(getattr(a, name), getattr(b, name)) for name in names)
+    # in place, as the runner moves its private copy
+    inplace = copy.deepcopy(natural)
+    assert set_routes(inplace, "hp", True) is inplace and inplace.attention == "hp"
+    for a, b in zip(hp.layers, inplace.layers):
+        assert all(torch.equal(getattr(a, name), getattr(b, name)) for name in names)
+    with pytest.raises(ValueError, match="unknown attention route"):
+        with_routes(natural, "flash")
+    with pytest.raises(ValueError, match="unknown attention route"):
+        set_routes(natural, "qkv_rope")
+    assert (natural.attention, natural.fused_norm) == ("extf", False)
+    assert (TxModel(cfg).attention, TxModel(cfg).fused_norm) == ("extf", False)
