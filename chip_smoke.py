@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Requires CUDA and prints the card's name and power limit.
-2. Builds the ten CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
+2. Builds the eleven CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints their register and spill
    reports.
 3. Runs each kernel and its plain PyTorch version on the card at hac v4.3
@@ -15,9 +15,13 @@
    beside cuDNN's LSTM; K2 (W8A8 projection) bit for bit at three row
    counts, beside the bf16 matmul it replaces and ``torch._int_mm`` with
    separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
-   scans and traceback); K6 (full-history LSE scan) in both directions; K17
-   (beam search) on outcomes against the plain beam at the full T (and at
-   64 states at a short T), and its traceback exactly.
+   scans and traceback); K6 (full-history LSE scan) in both directions; K7a
+   (the Viterbi forward pass alone, also at 64 states), equal to K4's choices,
+   with ``viterbi_path`` equal to K4 + K5's path; K8 (K4's pass on float32
+   streams and the unshifted beta, also at 64 states), its choices equal to
+   K7a's and, on K4's inputs, its posts a bf16 step from K4's; K17 (beam
+   search) on outcomes against the plain beam at the full T (and at 64
+   states at a short T), and its traceback exactly.
    Then the same at sup v5.0 shapes (chunk 12288 -> T' = 1024 tokens and
    T = 2048 decode steps, batch N = 128, d_model 512, 8 heads, ffn 2048,
    S = 1024): the banded attention on each layout, beside
@@ -28,7 +32,10 @@
    and at fc2, beside ``F.linear`` and the unfused passes; K12 (fc1 + SwiGLU
    + requantisation) and K13 (int8 fc2, bit for bit) at two row counts,
    beside ``torch._int_mm`` routes; K2 at sup's qkv shape bit for bit; K3,
-   K4, K5 at 1024 states.
+   K4, K5 at 1024 states; the full-history scans at 1024 states (K3's
+   forward and unshifted backward outputs); K7b, with the cross-checks of
+   K7a; K17 and its traceback at 1024 states on the sup model's float32
+   scores, against the plain beam on all 128 rows at the full T.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``) at hac v4.3's full width over 16 synthetic reads (14 of
    20k-60k samples, 2 of 3k-7k for the short-chunk lane) with seeded random
@@ -38,10 +45,13 @@
    kernel of its path. Then the same pipeline at sup v5.0's full width (18
    layers, batch 128, chunk 12288, W8A8 encoder matmuls, Viterbi) over 15
    reads (12 of 140k samples, which fill a batch, and 3 short ones for the
-   9216 lane), twice: on the default attention route, where it must launch
-   K2, K9, K12 and K13 18 times a batch, K3, K4 and K5 once a batch, and no
-   other kernel; and with ``tx_attention="hp", tx_fused_norm=True``, where
-   K11a and K14 take K9's place and the norms' (18 times a batch each).
+   9216 lane), three times: on the default attention route, where it must
+   launch K2, K9, K12 and K13 18 times a batch, K3, K4 and K5 once a batch,
+   and no other kernel; with ``tx_attention="hp", tx_fused_norm=True``, where
+   K11a and K14 take K9's place and the norms' (18 times a batch each); and
+   with ``decoder="beam"``, where the forward and backward full-history
+   scans, K17 and the beam traceback take K3's, K4's and K5's place (once a
+   batch each). K7a, K7b and K8 are on no path (``"on_path": false``).
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
@@ -53,10 +63,13 @@
    norms over the first two layers, where two planted faults must fail), the
    int8 model against the CPU's and against bf16, the device decode against
    the CPU's plain decode (sequences and moves exact, low qual chars within
-   a step), and the Viterbi decoder on a planted path at 1024 states.
+   a step), the beam decode against the CPU's plain beam decode (on the
+   card's back guide and on each side's own), and the Viterbi decoder on a
+   planted path at 1024 states, which the beam decoder must follow.
 6. Profiles one more full batch of each decoder's device step, and of each
-   sup route's device step (the default, "hp" with the fused norms, "ext"
-   with the fused norms unquantised, int8), and prints its device time by
+   sup route's device step (the default, "hp" with the fused norms, the beam
+   decoder, "ext" with the fused norms unquantised, int8), and prints its
+   device time by
    kernel and by operator and the device's busy share. The "ext" and int8
    steps are those routes' main paths: their launches are counted as the
    pipelines' are (K10 18 times and K14 36 times a batch; K9 18 times).
@@ -123,9 +136,18 @@ TOL_BETA_ABS, TOL_BETA_REL = 0.05, 2.0**-7
 #     carry must be identical
 TOL_POSTS_ABS, TOL_POSTS_REL = 1e-5, 2.0**-7
 # K6: float32 history; the four-term sums and exp/log run in another order
-#     and through other library functions over up to 1666 chained steps:
-#     |err| <= 1e-3 + 1e-5 * |value| (values reach about 1e4)
+#     and through other library functions over up to 2048 chained steps:
+#     |err| <= 1e-3 + 1e-5 * |value| (values reach about 1e4). The same at
+#     1024 states (K3's full-history outputs)
 TOL_LSE_ABS, TOL_LSE_REL = 1e-3, 1e-5
+# K7 (K7a, K7b): choices and final carry identical to the plain version's
+#     (single f32 adds in the same order, maxima exact) and to K4's on the
+#     same score values. Its operations per state and step: four adds, three
+#     compares, the stay's add and compare, the row max
+VITERBI_OPS = 10.0
+# K8: choices and final carry identical to the plain version's and to K7's;
+#     posts (float32) held as K4's (TOL_POSTS_*): alpha's sums run in another
+#     order over up to 2048 steps, and a post is an exp of their difference
 # K17: held on outcomes, at the full T the pipeline gives it. CUDA's
 #     log1pf/expf and PyTorch's differ in the last bit, so a merged score can
 #     differ in its last bit and a near-tie in the merge, the cutoff or the
@@ -148,8 +170,11 @@ MIN_BEAM_CPU_POSITIONS_EQUAL = 0.95
 # the decoders against each other (lowest sequence similarity of a row, on
 # scores with a planted path) and the precisions against each other
 MIN_BEAM_VITERBI_IDENTITY = 0.8
-# the Viterbi decoder at 1024 states against the path planted in its scores
+# the Viterbi decoder at 1024 states against the path planted in its scores,
+# and the beam decoder against the Viterbi decoder there (at 256 states the
+# two gave 0.999-1.000 on a planted path in every run)
 MIN_PLANTED_IDENTITY = 0.95
+MIN_SUP_BEAM_VITERBI_IDENTITY = 0.999
 MAX_W8A8_REL_ERR, MIN_W8A8_ARGMAX_AGREE = 0.02, 0.98
 # K9: the output is bf16 and the sums of the logits, of p and of p @ v run
 #     in another order than the plain version's: one bf16 step apart at most,
@@ -272,13 +297,14 @@ def main() -> None:
     rows = []
 
     def report(name, source, replaces, err, ms, plain_ms, ops, peak, nbytes, library_ms,
-               library_what="", wrappers=None, **extra):
+               library_what="", wrappers=None, paths=None, **extra):
         """One row of the ``kernels`` line. ``wrappers`` names the launch
         counters (keys of ``wrappers`` below) whose sum is the row's
-        ``launches``: the row's own name unless given."""
+        ``launches``: the row's own name unless given; ``paths`` the main
+        paths whose launches count for the row: all unless given."""
         b_ms, b_by = bound_ms(ops, peak, nbytes)
         rows.append({
-            "wrappers": wrappers or [name],
+            "wrappers": wrappers or [name], "paths": paths,
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, **extra,
@@ -289,6 +315,52 @@ def main() -> None:
             f"  bound {b_ms:.3f} ms ({b_by})  library {lib}  [{card}]",
             flush=True,
         )
+
+    def hold_viterbi(sc, what):
+        """K7 against its plain version: (choices, final carry), both exact."""
+        ch, fin = crf_cuda.viterbi_forward(sc, STAY)
+        ch_p, fin_p = crf_cuda.viterbi_forward_plain(sc, STAY)
+        torch.cuda.synchronize()
+        if not torch.equal(ch, ch_p) or not torch.equal(fin, fin_p):
+            raise AssertionError(
+                f"crf_viterbi_forward {what}: {(ch != ch_p).sum().item()} choices differ from the "
+                f"plain version's (or the final carry)")
+        print(f"crf_viterbi_forward {what}: choices and final carry equal to the plain version's",
+              flush=True)
+        return ch, fin
+
+    def cross_check_viterbi(ch7, fin7, ch4, fin4, path45, sc, what):
+        """K7 against K4 on the same score values, and ``viterbi_path``
+        against the Viterbi states and moves of K4 + K5: all exact."""
+        if not torch.equal(ch7, ch4) or not torch.equal(fin7, fin4):
+            raise AssertionError(f"crf_viterbi_forward at {what}: {(ch7 != ch4).sum().item()} "
+                                 f"choices differ from K4's (or the final carry)")
+        st, mv = crf_cuda.viterbi_path(sc, STAY)
+        if not torch.equal(st, path45[0]) or not torch.equal(mv, path45[1]):
+            raise AssertionError(f"viterbi_path at {what}: states or moves differ from K4 + K5's")
+        print(f"  K7 at {what}: choices and final carry equal to K4's; viterbi_path equal to "
+              f"K4 + K5's states and moves", flush=True)
+
+    def hold_full(sc, beta_full, what, vit=None):
+        """K8 against its plain version (choices and final carry exact, posts
+        within TOL_POSTS_*) and, given K7's outputs, against those: (posts,
+        the posts' max abs error)."""
+        posts, ch, fin = crf_cuda.fused_forward_decode_full(sc, beta_full, STAY)
+        posts_p, ch_p, fin_p = crf_cuda.fused_forward_decode_full_plain(sc, beta_full, STAY)
+        torch.cuda.synchronize()
+        if not torch.equal(ch, ch_p) or not torch.equal(fin, fin_p):
+            raise AssertionError(f"crf_fused_forward_f32 {what}: {(ch != ch_p).sum().item()} "
+                                 f"choices differ from the plain version's (or the final carry)")
+        diff = (posts - posts_p).abs()
+        if not bool((diff <= TOL_POSTS_ABS + TOL_POSTS_REL * posts_p.abs()).all()):
+            raise AssertionError(f"crf_fused_forward_f32 {what}: posts max abs error "
+                                 f"{diff.max().item()}")
+        if vit is not None and not (torch.equal(ch, vit[0]) and torch.equal(fin, vit[1])):
+            raise AssertionError(f"crf_fused_forward_f32 {what}: choices differ from K7's")
+        print(f"crf_fused_forward_f32 {what}: posts max abs error {diff.max().item():.3g}; choices "
+              f"and final carry equal to the plain version's"
+              + (" and to K7's" if vit is not None else ""), flush=True)
+        return posts, diff.max().item()
 
     # ---- K1: LSTM recurrence ---------------------------------------------
     with torch.inference_mode():
@@ -428,7 +500,7 @@ def main() -> None:
             # one choice byte read per step and row, states and moves written
             4.0 * T * N, PEAK_F32, T * N * (1 + 4 + 1) + 4 * N, None,
         )
-        del beta_k, beta_p, diff, posts_k, posts_p, ch_k, ch_p, st_k, st_p
+        del beta_p, diff, posts_p, ch_p, st_p
 
         # ---- K6: full-history LSE scan, both directions --------------------
         def hold_lse(sc, what):
@@ -464,9 +536,51 @@ def main() -> None:
             (fwd_ms + bwd_ms) / 2, plain_ms,
             17.0 * T * N * S, PEAK_F32, 4 * T * N * 4 * S + 4 * (T + 1) * N * S, None,
             wrappers=["crf_lse_scan_forward", "crf_lse_scan_backward"],
-            forward_ms=fwd_ms, backward_ms=bwd_ms,
+            paths=["viterbi", "beam"], forward_ms=fwd_ms, backward_ms=bwd_ms,
         )
-        del scores32, small
+
+        # ---- K7a: the Viterbi forward pass alone, and viterbi_path -----------
+        hold_viterbi(small, "T=64 N=8 S=64")
+        ch7, fin7 = hold_viterbi(scores32, f"T={T} N={N} S={S}")
+        cross_check_viterbi(ch7, fin7, ch_k, fin_k, (st_k, mv_k), scores32, f"S={S}")
+        report(
+            "crf_viterbi_forward", "dorado_tpu_torch/csrc/crf_viterbi_forward.cu",
+            "dorado_tpu/ops/crf_pallas.py:242", 0.0,
+            time_ms(lambda: crf_cuda.viterbi_forward(scores32, STAY), 3),
+            time_ms(lambda: crf_cuda.viterbi_forward_plain(scores32, STAY), 1),
+            VITERBI_OPS * T * N * S, PEAK_F32, 4 * T * N * 4 * S + T * N * S + 4 * N * S, None,
+            on_path=False,
+        )
+
+        # ---- K8: the fused forward pass on float32 streams --------------------
+        hold_full(small, crf_cuda.backward_scores(small, STAY), "T=64 N=8 S=64")
+        beta32 = crf_cuda.backward_scores(scores32, STAY)
+        posts8, err8 = hold_full(scores32, beta32, f"T={T} N={N} S={S}", (ch7, fin7))
+        # K4 on the same score values and K3's bf16 beta, handed to K8 as the
+        # rows 1..T of its beta history: the same float32 posts before K4
+        # rounds them, so one bf16 step apart at most
+        beta_hist = torch.cat([torch.zeros_like(beta_k[:1]), beta_k]).float()
+        posts_same = crf_cuda.fused_forward_decode_full(scores32, beta_hist, STAY)[0]
+        torch.cuda.synchronize()
+        step = (posts_same - posts_k.float()).abs()
+        rounds_to = torch.equal(posts_same.bfloat16(), posts_k)
+        print(f"crf_fused_forward_f32 vs K4 on K4's inputs: max abs difference "
+              f"{step.max().item():.3g}, bf16 of K8's posts equal to K4's: {rounds_to}; on its "
+              f"own float32 beta: max abs {(posts8 - posts_k.float()).abs().max().item():.3g}",
+              flush=True)
+        if not bool((step <= TOL_POSTS_ABS + TOL_POSTS_REL * posts_k.float().abs()).all()):
+            raise AssertionError("crf_fused_forward_f32: posts more than a bf16 step from K4's")
+        report(
+            "crf_fused_forward_f32", "dorado_tpu_torch/csrc/crf_fused_forward.cu",
+            "dorado_tpu/ops/crf_pallas.py:688", err8,
+            time_ms(lambda: crf_cuda.fused_forward_decode_full(scores32, beta32, STAY), 3),
+            time_ms(lambda: crf_cuda.fused_forward_decode_full_plain(scores32, beta32, STAY), 1),
+            30.0 * T * N * S, PEAK_F32,
+            4 * T * N * 4 * S + 4 * (T + 1) * N * S + 4 * T * N * S + T * N * S + 4 * N * S, None,
+            on_path=False,
+        )
+        del scores32, small, beta32, beta_hist, beta_k, posts_k, posts_same, posts8, step
+        del ch_k, ch7, st_k
     torch.cuda.empty_cache()
 
     # ---- the kernels at sup v5.0 shapes ------------------------------------
@@ -833,7 +947,38 @@ def main() -> None:
             time_ms(lambda: crf_cuda.viterbi_traceback_plain(ch_k, last), 1),
             4.0 * t_s * N, PEAK_F32, t_s * N * (1 + 4 + 1) + 4 * N,
         )
-        del scores, ch_k, st_k, st_p, mv_k, mv_p
+        del st_p, mv_p
+
+        # ---- K3's full-history outputs: the scans at 1024 states ----------------
+        scores32 = scores.float()
+        del scores
+        errs = hold_lse(scores32, f"T={t_s} N={N} S={s_s}")
+        fwd_ms = time_ms(lambda: crf_cuda.forward_scores(scores32, STAY), 3)
+        bwd_ms = time_ms(lambda: crf_cuda.backward_scores(scores32, STAY), 3)
+        print(f"crf_lse_scan at S={s_s}: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms",
+              flush=True)
+        report(
+            "crf_lse_scan_1024", "dorado_tpu_torch/csrc/crf_lse_scan.cu",
+            "dorado_tpu/ops/crf_pallas.py:461", max(errs.values()),
+            (fwd_ms + bwd_ms) / 2, time_ms(lambda: crf_scan.backward_scores(scores32, STAY), 1),
+            17.0 * t_s * N * s_s, PEAK_F32, 4 * t_s * N * 4 * s_s + 4 * (t_s + 1) * N * s_s, None,
+            wrappers=["crf_lse_scan_forward", "crf_lse_scan_backward"], paths=["sup beam"],
+            forward_ms=fwd_ms, backward_ms=bwd_ms,
+        )
+
+        # ---- K7b: the Viterbi forward pass alone at 1024 states ---------------
+        ch7, fin7 = hold_viterbi(scores32, f"T={t_s} N={N} S={s_s}")
+        cross_check_viterbi(ch7, fin7, ch_k, fin_k, (st_k, mv_k), scores32, f"S={s_s}")
+        report(
+            "crf_viterbi_forward_1024", "dorado_tpu_torch/csrc/crf_viterbi_forward.cu",
+            "dorado_tpu/ops/crf_pallas.py:576", 0.0,
+            time_ms(lambda: crf_cuda.viterbi_forward(scores32, STAY), 3),
+            time_ms(lambda: crf_cuda.viterbi_forward_plain(scores32, STAY), 1),
+            VITERBI_OPS * t_s * N * s_s, PEAK_F32,
+            4 * t_s * N * 4 * s_s + t_s * N * s_s + 4 * N * s_s, None,
+            wrappers=["crf_viterbi_forward"], on_path=False,
+        )
+        del scores32, ch_k, ch7, st_k, mv_k
     torch.cuda.empty_cache()
 
     # ---- the model and the pipelines at hac v4.3's full width ---------------
@@ -896,6 +1041,12 @@ def main() -> None:
     hp_model = hp_pipe.runner.model
     if (hp_model.attention, hp_model.fused_norm, hp_model.precision) != ("hp", True, "w8a8"):
         raise AssertionError("the hp pipeline is not on the hp route with the fused norm, W8A8")
+    # the same model with the beam decoder, W8A8
+    sup_beam_pipe = BasecallerPipeline(sup_cfg, sup_model, batch_size=N, emit_moves=True,
+                                       decoder="beam")
+    sup_beam_runner = sup_beam_pipe.runner
+    if (sup_beam_runner.decoder, sup_beam_runner.tx_precision) != ("beam", "w8a8"):
+        raise AssertionError("the sup beam pipeline is not W8A8 with the beam decoder")
     # 12 long reads of 12 chunks each fill one batch of the long lane and
     # start a second; three short reads go to the 9216 lane
     sup_reads = [
@@ -973,6 +1124,34 @@ def main() -> None:
             4.0 * T * N, PEAK_F32, T * N * (4 + 1 + 4 + 1) + 4 * N * W, None,
         )
         del scores, beta, hist, small
+        torch.cuda.empty_cache()
+
+        # K17 and the beam traceback at 1024 states, on the sup model's own
+        # float32 scores (the beam route's head output)
+        buf = sup_runner.make_input_buffer(0)
+        buf[:] = rs.randn(*buf.shape)
+        scores = sup_runner.model(torch.from_numpy(buf).to(dev), score_dtype=torch.float32)
+        if scores.shape != (SUP_T, N, 4 * SUP_S) or scores.dtype != torch.float32:
+            raise AssertionError(f"sup model scores: {tuple(scores.shape)} {scores.dtype}")
+        beta = crf_cuda.backward_scores(scores, STAY)
+        positions_different, rows_different, hist, mv_k, plain_fwd_ms = hold_beam(
+            scores, beta, f"T={SUP_T} N={N} S={SUP_S}")
+        if not mv_k.float().mean().item() > 0.05:
+            raise AssertionError("beam_search at 1024 states: the paths emit no bases")
+        c = 4 * SUP_S
+        sup_times(
+            "beam_search", positions_different,
+            time_ms(lambda: beam.beam_forward(scores, beta, W, BEAM_CUT, STAY), 3), plain_fwd_ms,
+            float(SUP_T * N * W * (8 * W + 115)), PEAK_F32,
+            4 * SUP_T * N * c + 4 * SUP_T * N * SUP_S + SUP_T * N * W * 5 + N * W * 12,
+        )
+        sup_times(
+            "beam_traceback", 0.0,
+            time_ms(lambda: beam.beam_traceback(*hist), 3),
+            time_ms(lambda: beam.beam_traceback_plain(*hist), 1),
+            4.0 * SUP_T * N, PEAK_F32, SUP_T * N * (4 + 1 + 4 + 1) + 4 * N * W,
+        )
+        del scores, beta, hist
     torch.cuda.empty_cache()
 
     # ---- main paths: the simplex pipeline with each decoder -----------------
@@ -997,6 +1176,8 @@ def main() -> None:
         "attention_halfperm": attention.windowed_attention_halfperm,
         "attention_separate": attention.windowed_attention_fused,
         "fused_norm": fused_norm.matmul_residual_rmsnorm,
+        "crf_viterbi_forward": crf_cuda.viterbi_forward,
+        "crf_fused_forward_f32": crf_cuda.fused_forward_decode_full,
     }
     # each path's kernels and, for the sup paths, their launches a batch
     path_kernels = {
@@ -1008,6 +1189,9 @@ def main() -> None:
                         "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
         "sup hp fused": ["w8a8_matmul_fq", "attention_halfperm", "fused_norm", "swiglu_w8a8",
                          "w8a8_matmul", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
+        "sup beam": ["w8a8_matmul_fq", "attention_banded", "swiglu_w8a8", "w8a8_matmul",
+                     "crf_lse_scan_forward", "crf_lse_scan_backward", "beam_search",
+                     "beam_traceback"],
         # one device step each, below
         "sup ext bf16": ["attention_prerotated", "fused_norm", "crf_lse_backward",
                          "crf_fused_forward", "crf_traceback"],
@@ -1017,6 +1201,7 @@ def main() -> None:
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
         "sup hp fused": [18, 18, 18, 18, 18, 1, 1, 1],
+        "sup beam": [18, 18, 18, 18, 1, 1, 1, 1],
         "sup ext bf16": [18, 36, 1, 1, 1],  # the fused norm at out_proj and at fc2
         "sup int8": [18, 1, 1, 1],
     }
@@ -1036,11 +1221,13 @@ def main() -> None:
     hac_what = f"hac v4.3, batch {N}, bf16 with W8A8 projections"
     sup_what = f"sup v5.0, 18 layers, batch {N}, bf16 with W8A8 encoder matmuls"
     hp_what = sup_what + ", hp attention route, fused norms"
+    sup_beam_what = sup_what + ", beam decoder"
     launches = {}
     for decoder, p, path_reads, what in (
         ("viterbi", pipe, reads, hac_what), ("beam", beam_pipe, reads, hac_what),
         ("sup viterbi", sup_pipe, sup_reads, sup_what),
         ("sup hp fused", hp_pipe, sup_reads, hp_what),
+        ("sup beam", sup_beam_pipe, sup_reads, sup_beam_what),
     ):
         n_reads, samples = len(path_reads), sum(len(r.signal) for r in path_reads)
         # a first run over the same reads pays the one-time set-up of each new
@@ -1373,13 +1560,45 @@ def main() -> None:
             flush=True)
         if low.sum() == 0 or step[low].max() > 1:
             raise AssertionError("sup device decode: low qual chars differ from the CPU decode's")
+        # the beam decode at 1024 states on the card against the CPU's plain
+        # decode of the same scores: on the card's back guide (K17's limits),
+        # then through the runners, each with its own back guide
+        back_guide = crf_cuda.backward_scores(scores, STAY)
+        st_k, mv_k = beam.beam_search_device(scores, back_guide, W, BEAM_CUT, STAY)
+        st_c, mv_c = beam.beam_search_plain(scores.cpu(), back_guide.cpu(), W, BEAM_CUT, STAY)
+        per_row = ((st_k.cpu() != st_c) | (mv_k.cpu() != mv_c)).sum(dim=1).tolist()
+        print(f"sup beam search on the card vs the CPU's plain beam, the card's back guide on "
+              f"both: differing steps by row {per_row} of {SUP_T}", flush=True)
+        if (sum(c > 0 for c in per_row) > BEAM_MAX_ROWS_DIFFERENT
+                or max(per_row) > BEAM_MAX_ROW_SHARE_DIFFERENT * SUP_T):
+            raise AssertionError(
+                "sup beam search: far from the CPU's plain beam on the same back guide")
+        back_guide_err = (back_guide.cpu() - crf_scan.backward_scores(scores.cpu(), STAY)).abs()
+        beam_card = sup_beam_runner.decode_scores_beam(scores).cpu().numpy()
+        beam_cpu = sup_cpu.decode_scores_beam(scores.cpu()).numpy()
+        equal = (beam_card[0] == beam_cpu[0]) & (beam_card[2] == beam_cpu[2])
+        emit_b = beam_card[2].astype(bool)
+        qb = beam_card[1][emit_b].astype(np.int32) - 33
+        print(f"sup beam decode: {int(emit_b.sum())} bases; {equal.mean():.3%} of positions equal "
+              f"to the CPU's plain beam decode with its own back guide (the back guides differ by "
+              f"up to {back_guide_err.max().item():.3g}); differing steps by row "
+              f"{(~equal).sum(axis=1).tolist()} of {SUP_T}", flush=True)
+        if (emit_b.sum() == 0 or qb.min() < 1 or qb.max() > 50
+                or equal.mean() < MIN_BEAM_CPU_POSITIONS_EQUAL):
+            raise AssertionError("sup beam decode: no bases, bad qual chars, or far from the CPU's")
+        del back_guide, back_guide_err
+
         planted, truth = planted_scores(SUP_T, 16, SUP_S)
         vit = sup_runner.decode_scores(planted.to(torch.bfloat16)).cpu().numpy()
-        found = identity(vit, truth)
-        print("planted path at 1024 states, %d bases over 16 rows: Viterbi vs planted %.3f-%.3f"
-              % (int(truth[2].sum()), *found), flush=True)
+        bm = sup_beam_runner.decode_scores_beam(planted).cpu().numpy()
+        found, both = identity(vit, truth), identity(vit, bm)
+        print("planted path at 1024 states, %d bases over 16 rows: Viterbi vs planted %.3f-%.3f, "
+              "beam vs Viterbi %.3f-%.3f, beam vs planted %.3f-%.3f"
+              % (int(truth[2].sum()), *found, *both, *identity(bm, truth)), flush=True)
         if found[0] < MIN_PLANTED_IDENTITY:
             raise AssertionError("sup Viterbi decode does not recover a planted path")
+        if both[0] < MIN_SUP_BEAM_VITERBI_IDENTITY:
+            raise AssertionError("sup beam and Viterbi sequences disagree on a planted path")
     del sup_cpu, scores, ref_scores, planted
 
     # ---- where each device step's time goes (one full batch, profiled) ------
@@ -1387,8 +1606,8 @@ def main() -> None:
 
     # the ext and int8 steps are their routes' main paths: their launches count
     for decoder, r in (("viterbi", runner), ("beam", beam_runner), ("sup viterbi", sup_runner),
-                       ("sup hp fused", hp_pipe.runner), ("sup ext bf16", ext_runner),
-                       ("sup int8", int8_runner)):
+                       ("sup hp fused", hp_pipe.runner), ("sup beam", sup_beam_runner),
+                       ("sup ext bf16", ext_runner), ("sup int8", int8_runner)):
         buf = r.make_input_buffer(0)
         buf[:] = rs.randn(*buf.shape)
         r.call_chunks(buf, buf.shape[0])
@@ -1433,11 +1652,12 @@ def main() -> None:
         )
         print(f"{decoder} device step by PyTorch operator (the hand-written kernels are not "
               f"operators and do not show here):", flush=True)
-        for key, shapes, count, ms in by_op[:16 if decoder == "sup viterbi" else 10]:
+        for key, shapes, count, ms in by_op[:16 if decoder in ("sup viterbi", "sup beam") else 10]:
             print(f"  {ms:9.3f} ms  x{count:<4d} {key} {shapes[:100]}")
 
     for row in rows:
-        by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches}
+        by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches
+                   if row["paths"] is None or d in row["paths"]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] <= 0 and row.get("on_path", True):

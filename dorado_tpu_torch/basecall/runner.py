@@ -16,9 +16,11 @@ dorado/basecall/decode/CUDADecoder.cpp:115 does).
 The LSTM input projections run W8A8 by default on the card
 (``lstm_precision``), and so do a transformer (sup) model's qkv, fc1 and fc2
 matmuls (``tx_precision``), as the JAX runner's do on the TPU. A transformer
-model takes the ``viterbi`` decoder only, so far, and its attention and norm
-routes as arguments (``tx_attention``, ``tx_fused_norm``) where the JAX
-runner reads environment variables.
+model takes either decoder, and its attention and norm routes as arguments
+(``tx_attention``, ``tx_fused_norm``) where the JAX runner reads environment
+variables. Its head writes the scores in the decoder's type: bf16 for
+``viterbi`` on the card, float32 for ``beam`` (as the JAX runner's
+``device_beam`` takes the head's float32 output).
 
 The step is enqueued on the current CUDA stream and returns at once
 (``dispatch``); ``finish`` waits for it, so the host feeds and finishes
@@ -185,7 +187,8 @@ class TorchBasecallRunner:
     fixed-size chunk batches, one batch shape per lane.
 
     decoder: ``"viterbi"`` (exact best path) or ``"beam"`` (the reference's
-    beam search, width and cut from ``DecoderOptions``).
+    beam search, width and cut from ``DecoderOptions``), for either model
+    family.
     lstm_precision (conv + LSTM models): ``"w8a8"`` (int8 LSTM input
     projections where the widths are multiples of 128) or ``"bf16"``
     (unquantised); by default ``"w8a8"`` on CUDA and ``"bf16"`` on the CPU.
@@ -218,11 +221,6 @@ class TorchBasecallRunner:
         self.device = resolve_device(device)
         if decoder not in ("viterbi", "beam"):
             raise ValueError(f"unknown decoder {decoder!r}: expected 'viterbi' or 'beam'")
-        if config.is_tx_model and decoder == "beam":
-            raise NotImplementedError(
-                "the beam decoder is not ported for transformer models yet (it needs the "
-                "lattice scans and the beam search at 1024 states); use decoder='viterbi'"
-            )
         self.decoder = decoder
         if config.is_tx_model:
             kind, given, other = "a transformer", "tx_precision", "lstm_precision"
@@ -348,8 +346,11 @@ class TorchBasecallRunner:
         """f16 signal [N, T] on the device -> uint8 [3, N, T_out]: ASCII
         bases, phred chars and moves."""
         if self.config.is_tx_model:
-            # the head writes the decoder's dtype itself: a float32 copy of a
-            # full batch's scores would be 4 GB at sup's 4096 transitions
+            # the head writes the decoder's dtype itself: a copy of a full
+            # batch's scores would be 2 GB (bf16) to 4 GB (float32) at sup's
+            # 4096 transitions
+            if self.decoder == "beam":
+                return self.decode_scores_beam(self.model(sig, score_dtype=torch.float32))
             return self.decode_scores(self.model(sig, score_dtype=self.compute_dtype))
         scores = self.model(sig)
         if self.decoder == "beam":

@@ -91,8 +91,12 @@ __global__ void __launch_bounds__(W) beam_forward_kernel(
     int T, int N, float log_beam_cut, float stay) {
   constexpr int C = 4 * S;
   constexpr int BITS = S == 64 ? 6 : S == 256 ? 8 : 10;
-  __shared__ __align__(16) float sc[2][C];
-  __shared__ __align__(16) float bt[2][S];
+  // the staged score and guide rows, two of each: 40 KB at S = 1024, which
+  // with the arrays below would sit at the 48 KB a block may declare
+  // statically, so the launch asks for them as dynamic shared memory
+  extern __shared__ __align__(16) float staged[];
+  float* const sc = staged;          // [2][C]
+  float* const bt = staged + 2 * C;  // [2][S]
   __shared__ float sh_step[4 * W];
   __shared__ float sh_stay[W];
   __shared__ __align__(16) uint32_t sh_hash[W];
@@ -111,8 +115,8 @@ __global__ void __launch_bounds__(W) beam_forward_kernel(
   auto prefetch = [&](int t, int buf) {
     const float* s_src = scores + ((size_t)t * N + n) * C;
     const float* b_src = beta + ((size_t)(t + 1) * N + n) * S;
-    for (int i = lane; i < C / 4; i += W) cp_async16(&sc[buf][i * 4], s_src + i * 4);
-    for (int i = lane; i < S / 4; i += W) cp_async16(&bt[buf][i * 4], b_src + i * 4);
+    for (int i = lane; i < C / 4; i += W) cp_async16(&sc[buf * C + i * 4], s_src + i * 4);
+    for (int i = lane; i < S / 4; i += W) cp_async16(&bt[buf * S + i * 4], b_src + i * 4);
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
@@ -127,8 +131,8 @@ __global__ void __launch_bounds__(W) beam_forward_kernel(
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
     if (t + 1 < T) prefetch(t + 1, buf ^ 1);
-    const float* srow = sc[buf];
-    const float* brow = bt[buf];
+    const float* srow = sc + buf * C;
+    const float* brow = bt + buf * S;
 
     // ---- candidates ------------------------------------------------------
     const uint32_t prev = static_cast<uint32_t>(state);
@@ -342,14 +346,19 @@ template <int S>
 int launch_forward(const float* scores, const float* beta, const int32_t* init_state,
                    int32_t* hist_state, uint8_t* hist_ps, float* final_score, int T, int N,
                    float log_beam_cut, float stay, cudaStream_t stream) {
-  beam_forward_kernel<S><<<N, W, 0, stream>>>(scores, beta, init_state, hist_state, hist_ps,
-                                              final_score, T, N, log_beam_cut, stay);
+  constexpr int smem = 2 * (4 * S + S) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(beam_forward_kernel<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  beam_forward_kernel<S><<<N, W, smem, stream>>>(scores, beta, init_state, hist_state,
+                                                 hist_ps, final_score, T, N, log_beam_cut,
+                                                 stay);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Beam width 32; S (states) 64 or 256 (state_len 3 or 4).
+// Beam width 32; S (states) 64, 256 or 1024 (state_len 3, 4 or 5).
 DTT_EXPORT int beam_forward_f32(const void* scores, const void* beta, const void* init_state,
                                 void* hist_state, void* hist_ps, void* final_score, int T,
                                 int N, int S, float log_beam_cut, float stay, void* stream) {
@@ -364,6 +373,8 @@ DTT_EXPORT int beam_forward_f32(const void* scores, const void* beta, const void
   switch (S) {
     case 64: return launch_forward<64>(sc, bt, is, hs, hp, fs, T, N, log_beam_cut, stay, st);
     case 256: return launch_forward<256>(sc, bt, is, hs, hp, fs, T, N, log_beam_cut, stay, st);
+    case 1024:
+      return launch_forward<1024>(sc, bt, is, hs, hp, fs, T, N, log_beam_cut, stay, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

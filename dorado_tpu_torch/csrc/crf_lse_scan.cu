@@ -2,7 +2,11 @@
 // (alpha) or backward (beta), with the whole float32 history written out.
 //
 // Replaces dorado_tpu/ops/crf_pallas.py::_lse_scan_pallas (Pallas body
-// _lse_kernel), reached through forward_scores_pallas/backward_scores_pallas.
+// _lse_kernel) at 64 and 256 states, and at sup's 1024 the full-history
+// outputs of _lse_scan_pallas_blk (bodies _lse_fwd_blk_kernel and
+// _lse_bwd_blk_kernel with shifted=False), which the JAX package takes there
+// on the block layout; both are reached through
+// forward_scores_pallas/backward_scores_pallas.
 // With carry the previous row (zeros at the start) and m its row max:
 //   forward,  t = 0..T-1, hist[0] = 0, hist[t+1] = new carry:
 //     new[s] = m + log(sum_r exp(carry[pred(s,r)] - m) * exp(score[t][s*4 + r])
@@ -23,7 +27,9 @@
 // forward terms are its own 16 bytes of the score row, so the forward
 // direction stages only exp(carry - m); the backward direction also stages
 // exp(score) in the block layout r*S + s, so that a thread reads its four
-// successors' terms as one 16-byte vector.
+// successors' terms as one 16-byte vector. At 1024 states a block is 1024
+// threads and the backward staging 32 KB (36 KB of static shared memory in
+// all, under the 48 KB a block may declare statically).
 #include "common.cuh"
 
 template <int S, bool REV>
@@ -97,7 +103,7 @@ static int launch(const float* scores, float* hist, int T, int N, int reverse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// S (states) must be 64 or 256 (state_len 3 or 4).
+// S (states) must be 64, 256 or 1024 (state_len 3, 4 or 5).
 DTT_EXPORT int crf_lse_scan_f32(const void* scores, void* hist, int T, int N, int S,
                                 int reverse, float stay_factor, void* stream) {
   const float* sc = static_cast<const float*>(scores);
@@ -106,6 +112,7 @@ DTT_EXPORT int crf_lse_scan_f32(const void* scores, void* hist, int T, int N, in
   switch (S) {
     case 64: return launch<64>(sc, h, T, N, reverse, stay_factor, st);
     case 256: return launch<256>(sc, h, T, N, reverse, stay_factor, st);
+    case 1024: return launch<1024>(sc, h, T, N, reverse, stay_factor, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -235,7 +235,10 @@ class TxModel(nn.Module):
         """[N, T] (or [N, T, F]) normalised signal -> time-major scores
         [T/stride, N, outsize] in ``score_dtype``, computed in the module's
         dtype. (The JAX ``tx_forward`` returns them batch-major and its
-        runner swaps the axes; here the head writes them time-major.)"""
+        runner swaps the axes; here the head writes them time-major.) A
+        bf16 module on the card asked for float32 scores writes them from
+        the head's float32 sums, as the JAX head does
+        (``preferred_element_type``), with no bf16 rounding or copy between."""
         if signal.dim() == 2:
             signal = signal[..., None]
         dtype = self.conv_w[0].dtype
@@ -255,7 +258,11 @@ class TxModel(nn.Module):
 
         # LinearScaledCRF: weights scaled by crf.scale (TxModules.cpp:330-339)
         w = (self.crf_w.float() * self.config.tx.crf.scale).to(dtype)
-        return F.linear(x.transpose(0, 1).contiguous(), w).to(score_dtype)
+        x = x.transpose(0, 1).contiguous()  # [T, N, d]
+        if dtype == score_dtype or x.device.type != "cuda":
+            return F.linear(x, w).to(score_dtype)
+        scores = torch.mm(x.reshape(-1, d), w.t(), out_dtype=score_dtype)
+        return scores.reshape(*x.shape[:2], -1)
 
 
 def init_tx_params(

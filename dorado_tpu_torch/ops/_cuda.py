@@ -26,6 +26,7 @@ BUILD_DIR = CSRC / "build"
 KERNEL_SOURCES = (
     "lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward", "crf_traceback",
     "crf_lse_scan", "beam_search", "attention_banded", "w8a8_matmul", "fused_norm",
+    "crf_viterbi_forward",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -34,8 +34,9 @@ from dorado_tpu_torch.ops import _cuda
 _POLY = 0x82F63B78
 _CRC_SEED = 0x12345678
 NEG = float(np.finfo(np.float32).min)
-# the kernel's beam is one warp
+# the kernel's beam is one warp; the state counts it is built for
 KERNEL_BEAM_WIDTH = 32
+KERNEL_STATES = (64, 256, 1024)
 
 
 def _crc_table(nbits: int) -> np.ndarray:
@@ -220,15 +221,15 @@ def beam_forward(
     hist_ps [T, N, W] uint8 = parent | stay << 7, final raw scores [N, W]).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (float32, beam width 32, 64 or 256 states); the initial beam's
+    (float32, beam width 32, 64, 256 or 1024 states); the initial beam's
     states are picked in PyTorch, with nothing copied from the host, so the
     call does not wait for the stream."""
     if scores.device.type == "cpu":
         return beam_forward_plain(scores, back_guide, beam_width, beam_cut, fixed_stay_score)
     w = int(beam_width)
     t_len, n, s = _check_inputs(scores, back_guide, w)
-    if w != KERNEL_BEAM_WIDTH or s not in (64, 256):
-        raise ValueError(f"beam_forward: the kernel takes beam width 32 and 64 or 256 "
+    if w != KERNEL_BEAM_WIDTH or s not in KERNEL_STATES:
+        raise ValueError(f"beam_forward: the kernel takes beam width 32 and {KERNEL_STATES} "
                          f"states, not width {w} and {s} states")
     _cuda.check_tensor(scores, "scores", torch.float32, (t_len, n, 4 * s))
     _cuda.check_tensor(back_guide, "back_guide", torch.float32, (t_len + 1, n, s))

@@ -1,13 +1,17 @@
 """The decoders' lattice kernels: the Viterbi path's backward LSE scan,
-fused forward pass and traceback, and the full-history LSE scans that the
-beam path's posteriors and backward scores come from.
+fused forward pass and traceback, the full-history LSE scans that the
+beam path's posteriors and backward scores come from, and the standalone
+Viterbi forward pass and float32 fused forward pass.
 
-Port of the decode paths of ``dorado_tpu/ops/crf_pallas.py``
+Port of the decode kernels of ``dorado_tpu/ops/crf_pallas.py``
 (``fused_viterbi_decode`` -> ``_lse_scan_pallas_blk`` +
-``_fused_forward_decode_blk``, then ``viterbi_traceback_pallas``; and
-``forward_scores_pallas``/``backward_scores_pallas`` -> ``_lse_scan_pallas``).
-Scores stay in the raw layout c = s*4 + r; the TPU's block permutation is
-not used.
+``_fused_forward_decode_blk``, then ``viterbi_traceback_pallas``;
+``forward_scores_pallas``/``backward_scores_pallas`` -> ``_lse_scan_pallas``,
+or ``_lse_scan_pallas_blk`` at 1024 states; ``viterbi_path_pallas`` ->
+``_viterbi_fwd_pallas`` or ``_viterbi_fwd_pallas_blk``, then the traceback;
+``fused_forward_decode_pallas``). Scores stay in the raw layout
+c = s*4 + r; the TPU's block permutation is not used, so one kernel serves
+where the JAX package has a dense and a block-layout one.
 
 Each wrapper launches its CUDA kernel (``csrc/crf_*.cu``) on CUDA tensors
 and runs its plain PyTorch version on CPU tensors.
@@ -35,19 +39,20 @@ def _stream_dtype(scores: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if scores.dtype == torch.bfloat16 else torch.float32
 
 
+# the state counts every kernel of this module is built for
+KERNEL_STATES = (64, 256, 1024)
+
+
 def _check_scores(
-    scores: torch.Tensor,
-    dtype: torch.dtype = torch.bfloat16,
-    states: tuple[int, ...] = (64, 256, 1024),
+    scores: torch.Tensor, dtype: torch.dtype = torch.bfloat16
 ) -> tuple[int, int, int]:
-    """(T, N, S) of a score tensor the kernels take; ``states`` are the
-    state counts the kernel at hand is built for."""
+    """(T, N, S) of a score tensor the kernels take."""
     if scores.dim() != 3:
         raise ValueError(f"scores: expected [T, N, C], got {tuple(scores.shape)}")
     t_len, n, c = scores.shape
-    if c // 4 not in states or c % 4 or t_len == 0 or n == 0:
+    if c // 4 not in KERNEL_STATES or c % 4 or t_len == 0 or n == 0:
         raise ValueError(
-            f"scores: unsupported shape {tuple(scores.shape)} (states {states})"
+            f"scores: unsupported shape {tuple(scores.shape)} (states {KERNEL_STATES})"
         )
     _cuda.check_tensor(scores, "scores", dtype, (t_len, n, c))
     return t_len, n, c // 4
@@ -90,12 +95,13 @@ backward_scores_shifted.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K6: full-history LSE scan on the raw layout, forward or backward
+# K6 (and K3's full-history outputs at 1024 states): LSE scan on the raw
+# layout, forward or backward
 # ---------------------------------------------------------------------------
 
 
 def _lse_scan(scores: torch.Tensor, stay_score: float, reverse: bool) -> torch.Tensor:
-    t_len, n, s = _check_scores(scores, torch.float32, states=(64, 256))
+    t_len, n, s = _check_scores(scores, torch.float32)
     hist = torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
     fn = _cuda.kernel_function(
         "crf_lse_scan", "crf_lse_scan_f32",
@@ -141,6 +147,24 @@ backward_scores.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def viterbi_forward_plain(
+    scores: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(choices [T, N, S] int8, final carry [N, S] float32): the max-plus
+    forward pass with the carry normalised by its row max before each step."""
+    t_len, n, c = scores.shape
+    s = c // 4
+    dev = scores.device
+    ms = scores.float().reshape(t_len, n, s, 4)
+    idx = torch.as_tensor(predecessor_index(s), device=dev)
+    vit = torch.zeros(n, s, dtype=torch.float32, device=dev)
+    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=dev)
+    for t in range(t_len):
+        vit = vit - vit.amax(dim=-1, keepdim=True)
+        vit, choices[t] = viterbi_step(vit, ms[t], idx, stay_score)
+    return choices, vit
+
+
 def fused_forward_decode_plain(
     scores: torch.Tensor, beta_shift: torch.Tensor, stay_score: float
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -149,22 +173,16 @@ def fused_forward_decode_plain(
     t_len, n, c = scores.shape
     s = c // 4
     dev = scores.device
-    sc = scores.float()
-    es = torch.exp(sc)
-    ms = sc.reshape(t_len, n, s, 4)
+    es = torch.exp(scores.float())
     idx = torch.as_tensor(predecessor_index(s), device=dev)
     flat = torch.arange(c, device=dev).reshape(s, 4)
     stay_factor = math.exp(stay_score)
     alpha = torch.zeros(n, s, dtype=torch.float32, device=dev)
-    vit = torch.zeros(n, s, dtype=torch.float32, device=dev)
     posts = torch.empty(t_len, n, s, dtype=_stream_dtype(scores), device=dev)
-    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=dev)
     for t in range(t_len):
         alpha = lse_step(alpha, es[t], idx, flat, stay_factor)
         posts[t] = torch.softmax(alpha + beta_shift[t].float(), dim=-1).to(posts.dtype)
-        vit = vit - vit.amax(dim=-1, keepdim=True)
-        vit, choices[t] = viterbi_step(vit, ms[t], idx, stay_score)
-    return posts, choices, vit
+    return (posts, *viterbi_forward_plain(scores, stay_score))
 
 
 def fused_forward_decode(
@@ -206,6 +224,96 @@ def fused_viterbi_decode(
     LSE scan, then the fused forward pass."""
     beta_shift = backward_scores_shifted(scores, stay_score)
     return fused_forward_decode(scores, beta_shift, stay_score)
+
+
+# ---------------------------------------------------------------------------
+# K8: the fused forward pass on float32 streams and the unshifted beta
+# ---------------------------------------------------------------------------
+
+
+def fused_forward_decode_full_plain(
+    scores: torch.Tensor, beta_full: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's plain version: K4's on the beta history's rows 1..T."""
+    return fused_forward_decode_plain(scores.float(), beta_full[1:].float(), stay_score)
+
+
+def fused_forward_decode_full(
+    scores: torch.Tensor, beta_full: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pass over float32 scores [T, N, C] and the float32 beta history
+    [T+1, N, S] (``backward_scores``): (posts [T, N, S] float32 with
+    posts[t] = softmax(alpha[t+1] + beta_full[t+1]), choices [T, N, S] int8,
+    final Viterbi carry [N, S] float32). The choices and final carry are
+    ``viterbi_forward``'s."""
+    if scores.device.type == "cpu":
+        return fused_forward_decode_full_plain(scores, beta_full, stay_score)
+    t_len, n, s = _check_scores(scores, torch.float32)
+    _cuda.check_tensor(beta_full, "beta_full", torch.float32, (t_len + 1, n, s))
+    if beta_full.device != scores.device:
+        raise ValueError("fused_forward_decode_full: inputs are on different devices")
+    posts = torch.empty(t_len, n, s, dtype=torch.float32, device=scores.device)
+    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
+    final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
+    fn = _cuda.kernel_function(
+        "crf_fused_forward", "crf_fused_forward_f32",
+        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2 + [_cuda.VOIDP],
+    )
+    with torch.cuda.device(scores.device):
+        code = fn(
+            scores.data_ptr(), beta_full.data_ptr(), posts.data_ptr(),
+            choices.data_ptr(), final.data_ptr(), t_len, n, s,
+            float(stay_score), math.exp(stay_score), _cuda.stream_ptr(scores.device),
+        )
+    _cuda.check_launch("crf_fused_forward", code)
+    fused_forward_decode_full.launches += 1
+    return posts, choices, final
+
+
+fused_forward_decode_full.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7a, K7b: the Viterbi forward pass alone
+# ---------------------------------------------------------------------------
+
+
+def viterbi_forward(
+    scores: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max-plus forward pass over float32 scores [T, N, C]: (choices
+    [T, N, S] int8, 0..3 the predecessor slot and 4 a stay; final carry
+    [N, S] float32), the carry normalised by its row max before each step."""
+    if scores.device.type == "cpu":
+        return viterbi_forward_plain(scores, stay_score)
+    t_len, n, s = _check_scores(scores, torch.float32)
+    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
+    final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
+    fn = _cuda.kernel_function(
+        "crf_viterbi_forward", "crf_viterbi_forward_f32",
+        [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.FLOAT, _cuda.VOIDP],
+    )
+    with torch.cuda.device(scores.device):
+        code = fn(
+            scores.data_ptr(), choices.data_ptr(), final.data_ptr(), t_len, n, s,
+            float(stay_score), _cuda.stream_ptr(scores.device),
+        )
+    _cuda.check_launch("crf_viterbi_forward", code)
+    viterbi_forward.launches += 1
+    return choices, final
+
+
+viterbi_forward.launches = 0
+
+
+def viterbi_path(
+    scores: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact Viterbi path of float32 scores [T, N, C]: (states [T, N]
+    int32, moves [T, N] uint8, moves[0] = 1), by the Viterbi forward pass
+    and the traceback from each row's best final state."""
+    choices, final = viterbi_forward(scores, stay_score)
+    return viterbi_traceback(choices, torch.argmax(final, dim=-1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

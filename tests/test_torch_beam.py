@@ -107,6 +107,26 @@ def test_crc32_is_32_bitwise_steps():
     assert torch.equal(crc, beam._crc32(torch.full_like(word, beam._CRC_SEED), word, table))
 
 
+@pytest.mark.parametrize("num_states", [64, 256, 1024])
+def test_kernel_takes_its_state_counts(num_states):
+    """The kernel's wrapper takes 64, 256 and 1024 states at width 32: a
+    tensor off the CPU passes its state check and reaches the device check
+    (a meta tensor here, which is no CUDA tensor)."""
+    t = 4
+    scores = torch.empty(t, 2, 4 * num_states, device="meta")
+    guide = torch.empty(t + 1, 2, num_states, device="meta")
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        beam.beam_forward(scores, guide, 32)
+    with pytest.raises(ValueError, match="the kernel takes beam width 32"):
+        beam.beam_forward(scores, guide, 16)
+
+
+def test_kernel_refuses_other_state_counts():
+    with pytest.raises(ValueError, match="the kernel takes beam width 32"):
+        beam.beam_forward(torch.empty(4, 2, 4 * 4096, device="meta"),
+                          torch.empty(5, 2, 4096, device="meta"), 32)
+
+
 def test_bad_arguments_raise():
     scores = torch.zeros(5, 2, 256)
     with pytest.raises(ValueError, match="back_guide"):

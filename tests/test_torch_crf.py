@@ -1,8 +1,9 @@
 """The port's CRF lattice code against the JAX package: the plain versions
 of the CUDA decode kernels (backward LSE scan, fused forward pass,
-traceback, and the raw-layout full-history LSE scan in both directions)
-against the Pallas kernels in interpret mode, and the raw-layout plain scans
-against ``dorado_tpu.ops.crf_scan``.
+traceback, the raw-layout full-history LSE scan in both directions, the
+standalone Viterbi forward pass and the float32 fused forward pass) against
+the Pallas kernels in interpret mode, and the raw-layout plain scans against
+``dorado_tpu.ops.crf_scan``.
 
 Scores are multiples of 1/8 in [-5, 5]: every Viterbi sum is then exact in
 float32 and in the Pallas kernel's hi/lo bf16 copy (``_dot2``), so choices,
@@ -21,7 +22,13 @@ from dorado_tpu.ops.crf_pallas import (
     _fused_forward_decode_blk,
     _lse_scan_pallas,
     _lse_scan_pallas_blk,
+    _viterbi_fwd_pallas,
+    _viterbi_fwd_pallas_blk,
+    backward_scores_pallas,
     block_permutation,
+    forward_scores_pallas,
+    fused_forward_decode_pallas,
+    viterbi_path_pallas,
     viterbi_traceback_pallas,
 )
 from dorado_tpu_torch.ops import crf_cuda, crf_scan
@@ -186,14 +193,97 @@ def test_backward_scan_matches_pallas_at_1024_states(lattice_1024):
 
 def test_check_scores_takes_the_states_each_kernel_is_built_for():
     """The wrappers' shape check (reached on CUDA tensors) takes 64, 256 and
-    1024 states for the Viterbi path's kernels and 64 and 256 for the
-    full-history scan; the device check comes after the shape check."""
+    1024 states, in either stream type, for every kernel of the module, the
+    full-history scan included; the device check comes after the shape
+    check."""
     for states in (64, 256, 1024):
-        with pytest.raises(ValueError, match="expected a CUDA tensor"):
-            crf_cuda._check_scores(torch.zeros(2, 1, 4 * states, dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="unsupported shape"):
-        crf_cuda._check_scores(torch.zeros(2, 1, 4 * 16, dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="unsupported shape"):
-        crf_cuda._check_scores(
-            torch.zeros(2, 1, 4 * 1024), torch.float32, states=(64, 256)
-        )
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="expected a CUDA tensor"):
+                crf_cuda._check_scores(torch.zeros(2, 1, 4 * states, dtype=dtype), dtype)
+    for states in (16, 4096):
+        with pytest.raises(ValueError, match="unsupported shape"):
+            crf_cuda._check_scores(torch.zeros(2, 1, 4 * states), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the full-history scans at 1024 states (K3's block kernels in JAX), the
+# standalone Viterbi forward pass (K7a, K7b) and the float32 fused forward
+# pass (K8)
+# ---------------------------------------------------------------------------
+
+T6, N6 = 16, 4
+
+
+def _small_scores(num_states, seed):
+    rs = np.random.RandomState(seed)
+    x = np.round(rs.randn(T6, N6, 4 * num_states) * 2.0 * 8) / 8
+    return np.clip(x, -5, 5).astype(np.float32)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+def test_lse_scan_wrappers_match_block_kernels_at_1024_states(reverse):
+    """``forward_scores``/``backward_scores`` at C = 4096 against
+    ``forward_scores_pallas``/``backward_scores_pallas``, which take the
+    block-layout kernel there (K3's ``_lse_fwd_blk_kernel`` and the
+    unshifted ``_lse_bwd_blk_kernel``): the same [T+1, N, S] history, init
+    row included, to 1e-4 relative."""
+    raw = _small_scores(1024, seed=44 + reverse)
+    ref_fn = backward_scores_pallas if reverse else forward_scores_pallas
+    ref = np.asarray(ref_fn(jnp.asarray(raw), STAY, interpret=True))
+    wrapper = crf_cuda.backward_scores if reverse else crf_cuda.forward_scores
+    out = wrapper(torch.from_numpy(raw), STAY)
+    assert wrapper.launches == 0
+    assert out.dtype == torch.float32 and out.shape == (T6 + 1, N6, 1024)
+    assert not out[T6 if reverse else 0].any()
+    _lse_close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("num_states", [64, 256, 1024])
+def test_viterbi_forward_matches_pallas(num_states):
+    """``viterbi_forward`` against ``_viterbi_fwd_pallas`` (K7a, dense raw
+    layout) at 64 and 256 states and ``_viterbi_fwd_pallas_blk`` (K7b, which
+    permutes to the block layout inside) at 1024: choices identical, the
+    final carry within 1e-5 (equal on the 1/8 score grid)."""
+    raw = _small_scores(num_states, seed=3 * num_states)
+    pallas = _viterbi_fwd_pallas_blk if num_states == 1024 else _viterbi_fwd_pallas
+    ch_ref, fin_ref = pallas(jnp.asarray(raw), STAY, True)
+    choices, final = crf_cuda.viterbi_forward(torch.from_numpy(raw), STAY)
+    assert crf_cuda.viterbi_forward.launches == 0
+    assert choices.dtype == torch.int8 and choices.shape == (T6, N6, num_states)
+    np.testing.assert_array_equal(choices.numpy(), np.asarray(ch_ref))
+    np.testing.assert_allclose(final.numpy(), np.asarray(fin_ref), rtol=0, atol=1e-5)
+    assert (choices.numpy() == 4).any() and (choices.numpy() < 4).any()
+
+
+@pytest.mark.parametrize("num_states", [256, 1024])
+def test_viterbi_path_matches_pallas(num_states):
+    """``viterbi_path`` (the Viterbi forward pass, then the traceback)
+    against ``viterbi_path_pallas``: states and moves identical."""
+    raw = _small_scores(num_states, seed=5 + num_states)
+    st_ref, mv_ref = viterbi_path_pallas(jnp.asarray(raw), STAY, interpret=True)
+    st, mv = crf_cuda.viterbi_path(torch.from_numpy(raw), STAY)
+    assert st.dtype == torch.int32 and mv.dtype == torch.uint8 and st.shape == (T6, N6)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+    assert 0 < int(mv.numpy()[1:].sum()) < (T6 - 1) * N6  # the path both steps and stays
+
+
+@pytest.mark.parametrize("num_states", [64, 256])
+def test_fused_forward_decode_full_matches_pallas(num_states):
+    """``fused_forward_decode_full`` (K8's plain version) against
+    ``fused_forward_decode_pallas`` on the beta history of the JAX backward
+    scan: posts within 1e-5, choices identical and equal to
+    ``viterbi_forward``'s, the final carry within 1e-5."""
+    raw = _small_scores(num_states, seed=9 + num_states)
+    beta = _lse_scan_pallas(jnp.asarray(raw), STAY, True, True)
+    posts_ref, ch_ref, fin_ref = fused_forward_decode_pallas(jnp.asarray(raw), beta, STAY, True)
+    posts, choices, final = crf_cuda.fused_forward_decode_full(
+        torch.from_numpy(raw), torch.from_numpy(np.array(beta)), STAY
+    )
+    assert crf_cuda.fused_forward_decode_full.launches == 0
+    assert posts.dtype == torch.float32 and posts.shape == (T6, N6, num_states)
+    np.testing.assert_allclose(posts.numpy(), np.asarray(posts_ref), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(choices.numpy(), np.asarray(ch_ref))
+    np.testing.assert_allclose(final.numpy(), np.asarray(fin_ref), rtol=0, atol=1e-5)
+    ch_vit, fin_vit = crf_cuda.viterbi_forward(torch.from_numpy(raw), STAY)
+    assert torch.equal(choices, ch_vit) and torch.equal(final, fin_vit)

@@ -115,6 +115,8 @@ WRAPPERS = (
     attention.windowed_attention_halfperm,
     attention.windowed_attention_fused,
     fused_norm.matmul_residual_rmsnorm,
+    crf_cuda.viterbi_forward,
+    crf_cuda.fused_forward_decode_full,
 )
 
 
@@ -250,10 +252,53 @@ def test_cpu_tx_runner_routes_launch_no_kernel(no_kernels, precision, attention_
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
+def test_decode_wrappers_at_1024_states_take_plain_version_on_cpu(no_kernels, monkeypatch):
+    """The standalone decode kernels' wrappers (``viterbi_forward``,
+    ``viterbi_path``, ``fused_forward_decode_full``) and the full-history
+    scans and the beam at sup's 1024 states run their plain versions on CPU
+    tensors and launch nothing."""
+    rs = np.random.RandomState(1)
+    calls = []
+    for module, name in (
+        (crf_cuda, "viterbi_forward_plain"), (crf_cuda, "viterbi_traceback_plain"),
+        (crf_cuda, "fused_forward_decode_full_plain"), (crf_cuda, "forward_scores_plain"),
+        (crf_cuda, "backward_scores_plain"), (beam, "beam_forward_plain"),
+        (beam, "beam_traceback_plain"),
+    ):
+        _spy(monkeypatch, calls, module, name)
+    scores = torch.from_numpy(rs.randn(6, 2, 4 * 1024).astype(np.float32))
+    crf_cuda.forward_scores(scores, 2.0)
+    beta = crf_cuda.backward_scores(scores, 2.0)
+    beam.beam_search_device(scores, beta, 32, 100.0, 2.0)
+    crf_cuda.viterbi_path(scores, 2.0)
+    _, choices, _ = crf_cuda.fused_forward_decode_full(scores, beta, 2.0)
+    assert choices.shape == (6, 2, 1024)
+    # K8's plain version runs K7's for its choices
+    assert calls == [
+        "forward_scores_plain", "backward_scores_plain", "beam_forward_plain",
+        "beam_traceback_plain", "viterbi_forward_plain", "viterbi_traceback_plain",
+        "fused_forward_decode_full_plain", "viterbi_forward_plain",
+    ]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+def test_cpu_tx_beam_runner_launches_no_kernel(no_kernels):
+    cfg = _small_sup()
+    runner = TorchBasecallRunner(
+        cfg, TxModel(cfg), chunk_size=768, batch_size=2, device="cpu", tx_precision="w8a8",
+        decoder="beam",
+    )
+    assert runner.decoder == "beam" and cfg.num_states == 1024
+    out = runner.call_chunks(runner.make_input_buffer(0), 1)
+    assert len(out) == 1 and len(out[0].moves) == 768 // cfg.stride
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
 def test_kernel_sources_present():
     for name in _cuda.KERNEL_SOURCES:
         src = (_cuda.CSRC / f"{name}.cu").read_text()
         assert "Replaces dorado_tpu/ops/" in src and "What bounds it on the H100" in src
-    assert {"attention_banded", "w8a8_matmul", "fused_norm"} <= set(_cuda.KERNEL_SOURCES)
+    assert {"attention_banded", "w8a8_matmul", "fused_norm", "crf_viterbi_forward"} <= set(
+        _cuda.KERNEL_SOURCES)
     assert len(_cuda.KERNEL_SOURCES) == len(list(_cuda.CSRC.glob("*.cu")))
     assert _cuda.library_path("lstm_scan").parent == _cuda.BUILD_DIR

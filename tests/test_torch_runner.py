@@ -16,8 +16,8 @@ see the two ``..._on_other_weights`` tests.
 
 The transformer (sup) cases at the end run the small sup configuration of
 ``tests/test_torch_tx_model.py`` through both runners, in float32, with W8A8
-and with int8 encoder matmuls, and on the port's other attention and norm
-routes.
+and with int8 encoder matmuls, on the port's other attention and norm
+routes, and with the beam decoder at its 1024 states.
 """
 
 import functools
@@ -39,7 +39,7 @@ from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.models.crf_model import params_from_jax
 from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
 from dorado_tpu_torch.models.tx_model import tx_params_from_jax
-from dorado_tpu_torch.ops import crf_scan
+from dorado_tpu_torch.ops import beam, crf_cuda, crf_scan
 from dorado_tpu_torch.ops.beam import beam_search_plain
 from tests.test_torch_tx_model import jax_tx_params, small_sup
 
@@ -309,16 +309,17 @@ TX_CHUNK = 1152  # 6 x the chunk granularity of 192: lanes of 1152 and 768 sampl
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_tx_runner(precision, seed=3):
+def _jax_tx_runner(precision, seed=3, decoder="viterbi"):
     """The JAX runner on the small sup configuration, made once for each
-    precision: it reads its precision from ``DORADO_TPU_TX_PRECISION`` when
-    it is built; off the TPU it runs the strip-loop attention, the unfused
-    norms and the int8 kernels' XLA fallbacks."""
+    precision and decoder: it reads its precision from
+    ``DORADO_TPU_TX_PRECISION`` when it is built; off the TPU it runs the
+    strip-loop attention, the unfused norms and the int8 kernels' XLA
+    fallbacks."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DORADO_TPU_TX_PRECISION", precision)
         jr = BasecallRunner(
             small_sup(jax_sup_config()), jax_tx_params(seed), chunk_size=TX_CHUNK,
-            batch_size=BATCH, decoder="viterbi", compute_dtype=jnp.float32,
+            batch_size=BATCH, decoder=decoder, compute_dtype=jnp.float32,
         )
     quantised = {"w8a8": "wqkv_w8", "int8": "wqkv_q"}
     assert all((key in jr.params["layers"][0]) == (precision == p) for p, key in quantised.items())
@@ -326,15 +327,15 @@ def _jax_tx_runner(precision, seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _tx_runners(precision, seed=3, attention=None, fused_norm=None):
+def _tx_runners(precision, seed=3, attention=None, fused_norm=None, decoder="viterbi"):
     """Both runners on the small sup configuration with the same random
     weights, float32 on the CPU; the port's on the given routes."""
-    jr = _jax_tx_runner(precision, seed)
+    jr = _jax_tx_runner(precision, seed, decoder)
     cfg = small_sup(sup_v50_config())
     tr = TorchBasecallRunner(
         cfg, tx_params_from_jax(jax_tx_params(seed), cfg), chunk_size=TX_CHUNK,
         batch_size=BATCH, device="cpu", tx_precision=precision, tx_attention=attention,
-        tx_fused_norm=fused_norm,
+        tx_fused_norm=fused_norm, decoder=decoder,
     )
     assert tr.model.precision == {"bf16": "float"}.get(precision, precision)
     assert (tr.model.attention, tr.model.fused_norm) == (attention or "extf", bool(fused_norm))
@@ -409,12 +410,33 @@ def test_tx_routes_call_chunks_match_jax(precision, attention, fused_norm):
     _assert_tx_calls_match(jr, tr, 0, 0.01 if precision == "bf16" else 0.10)
 
 
+@pytest.mark.parametrize("precision", ["bf16", "w8a8"])
+@pytest.mark.parametrize("lane", [0, 1])
+def test_tx_beam_call_chunks_matches_jax(precision, lane):
+    """``decoder="beam"`` on the sup slice (1024 states: the forward and
+    backward scans, their posteriors and the beam over the head's float32
+    scores) against the JAX runner's ``device_beam`` on the same weights:
+    sequences and moves equal, qual chars to the precision's tolerance of
+    the Viterbi cases above (1% unquantised, 10% with W8A8; measured 0.6-0.7%
+    and 0.9-5.1%)."""
+    jr, tr = _tx_runners(precision, decoder="beam")
+    assert tr.decoder == jr.decoder == "beam"
+    _assert_tx_calls_match(jr, tr, lane, 0.01 if precision == "bf16" else 0.10)
+
+
 def test_tx_decoder_and_precision_arguments():
     cfg = small_sup(sup_v50_config())
     model = tx_params_from_jax(jax_tx_params(3), cfg)
     kw = dict(chunk_size=TX_CHUNK, batch_size=BATCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="beam decoder is not ported for transformer"):
-        TorchBasecallRunner(cfg, model, decoder="beam", **kw)
+    # the beam decoder is taken on a transformer and, on the CPU, runs the
+    # plain versions of its kernels: nothing is launched
+    beam_runner = TorchBasecallRunner(cfg, model, decoder="beam", **kw)
+    wrappers = (crf_cuda.forward_scores, crf_cuda.backward_scores, beam.beam_forward,
+                beam.beam_traceback)
+    before = [w.launches for w in wrappers]
+    out = beam_runner.call_chunks(beam_runner.make_input_buffer(1), 1)
+    assert beam_runner.decoder == "beam" and len(out) == 1
+    assert [w.launches for w in wrappers] == before
     with pytest.raises(ValueError, match="unknown tx_precision"):
         TorchBasecallRunner(cfg, model, tx_precision="fp8", **kw)
     with pytest.raises(ValueError, match="unknown attention route"):
