@@ -12,7 +12,9 @@
    them against each other and times both, beside a PyTorch call that
    computes the same function where there is one (the port never calls it):
    K1 (LSTM recurrence) at each rows-per-block variant and both directions,
-   beside cuDNN's LSTM; K2 (W8A8 projection) bit for bit at three row
+   beside cuDNN's LSTM; K15 (the recurrence with int8 W_hh) and K16 (input
+   projection inside the recurrence, beside cuDNN's LSTM), both directions,
+   on no path; K2 (W8A8 projection) bit for bit at three row
    counts, beside the bf16 matmul it replaces and ``torch._int_mm`` with
    separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
    scans and traceback); K6 (full-history LSE scan) in both directions; K7a
@@ -52,6 +54,17 @@
    with ``decoder="beam"``, where the forward and backward full-history
    scans, K17 and the beam traceback take K3's, K4's and K5's place (once a
    batch each). K7a, K7b and K8 are on no path (``"on_path": false``).
+   Then the command line, ``dorado_tpu_torch.cli.main`` in this process, on
+   the committed POD5 fixture (16 reads, 502k samples) with model
+   directories the port writes (hac v4.3 and sup v5.0 at full width, the
+   weights above): hac with the defaults (Viterbi, BAM), with ``--decoder
+   beam --emit-fastq`` and with ``--emit-sam``, and sup with ``--emit-sam``.
+   Each run starts with the counters at 0, must launch every kernel of its
+   path, and must write what ``run_reads`` writes for the reads of the
+   port's ``Pod5File`` with the same weights and header. One
+   ``python -m dorado_tpu_torch basecaller ... --emit-sam`` subprocess must
+   write the in-process SAM but for @PG. Then the ``-b 0`` sweep at hac with
+   its cache off: each batch size's device step and the chosen one.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
@@ -121,6 +134,15 @@ TOL_LSTM = 0.05
 # forward, as every second layer runs) and of a 512-row batch (4 a block;
 # short T keeps the plain version's step loop quick)
 LSTM_SHAPES = [(T, N, True), (1249, 2 * N, False), (64, 4 * N, True)]
+# K15 (int8 W_hh): the int32 sums are exact and the float steps after them
+#     are the plain version's operation for operation, but CUDA's expf and
+#     tanhf and PyTorch's may differ in the last bit; h * 127 near a rounding
+#     tie can then quantise the other way and later steps carry the change:
+#     outputs more than one bf16 step (of the larger of the two values) apart
+#     at under 0.1% of positions
+MAX_INT8_LSTM_SHARE_OFF = 1e-3
+# K16 (input projection inside): held as K1 (TOL_LSTM); both at hac's shapes
+# in both directions
 # K2: bit for bit (the int32 sums are exact and every float step is a single
 #     rounded operation in the kernel and in the plain version), at the long
 #     lane's rows, the short lane's, and a count that is no multiple of the
@@ -235,6 +257,141 @@ def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
     the HBM rate."""
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels, launches,
+              card) -> None:
+    """``python -m dorado_tpu_torch basecaller`` on the card: model
+    directories written by the port (hac v4.3 and sup v5.0 at full width,
+    this run's seeded weights), the committed POD5 fixture. Each in-process
+    run starts with every launch counter at 0 and must launch every kernel of
+    its path (``check_launches``); its output must equal, record for record,
+    ``BasecallerPipeline.run_reads`` on the reads the port's ``Pod5File``
+    returns, with the same weights, written with the same header. One more
+    run in a subprocess must write the in-process run's SAM but for @PG."""
+    import gzip
+    import shlex
+    import tempfile
+
+    import torch
+
+    from dorado_tpu_torch.cli.main import main as cli_main
+    from dorado_tpu_torch.io import vbz
+    from dorado_tpu_torch.io.pod5 import Pod5File
+    from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
+    from dorado_tpu_torch.models.load import build_model, load_model, save_model
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+    fixture = ROOT / "tests" / "data" / "torch_port" / "fixture.pod5"
+    print(f"libzstd: {vbz.libzstd_version()}", flush=True)
+    t0 = time.perf_counter()
+    fixture_reads = list(Pod5File(fixture).reads(strict=True))
+    decode_s = time.perf_counter() - t0
+    samples = sum(len(r.signal) for r in fixture_reads)
+    print(f"POD5 decode of {fixture.name}: {len(fixture_reads)} reads, {samples} samples, "
+          f"{fixture.stat().st_size} bytes in {decode_s:.4f} s (host) [{card}]", flush=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        hac_dir = save_model(cfg, model, tmp / cfg.model_name)
+        sup_dir = save_model(sup_cfg, sup_model, tmp / sup_cfg.model_name)
+        print(f"model directories written in {time.perf_counter() - t0:.1f} s", flush=True)
+        loaded = {}
+        for kind, path in (("hac", hac_dir), ("sup", sup_dir)):
+            config, params = load_model(path)
+            loaded[kind] = (config, build_model(config, params))
+        cases = [
+            # (path, model directory, kind, extra arguments, format, launch path)
+            ("cli hac", hac_dir, "hac", [], "bam", "viterbi"),
+            ("cli beam", hac_dir, "hac", ["--decoder", "beam", "--emit-fastq"], "fastq", "beam"),
+            ("cli hac sam", hac_dir, "hac", ["--emit-sam"], "sam", "viterbi"),
+            ("cli sup", sup_dir, "sup", ["--emit-sam"], "sam", "sup viterbi"),
+        ]
+        for path, model_dir, kind, extra, fmt, launch_path in cases:
+            out = tmp / f"{path.replace(' ', '_')}.{fmt}"
+            argv = ["basecaller", str(model_dir), str(fixture), "--disable-read-splitting",
+                    *extra, "-o", str(out)]
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"{path}: exit code {rc}")
+            launches[path] = {name: w.launches for name, w in wrappers.items()}
+            path_kernels[path] = path_kernels[launch_path]
+            check_launches(path, launches[path], 1)
+            # the same reads through run_reads with the same weights and header
+            config, ref_model = loaded[kind]
+            pipe = BasecallerPipeline(config, ref_model, decoder="beam" if "beam" in path
+                                      else "viterbi")
+            header = pipe.build_header([fixture], cli_line=shlex.join(["dorado_tpu_torch", *argv]))
+            buf = io.StringIO() if fmt != "bam" else io.BytesIO()
+            writer = {"sam": SamWriter, "fastq": FastqWriter, "bam": BamWriter}[fmt](buf, header)
+            reads = list(Pod5File(fixture).reads(strict=True))
+            for r in reads:
+                r.filename = fixture.name
+            stats = pipe.run_reads(reads, writer)
+            writer.close()
+            got = out.read_bytes()
+            want = buf.getvalue()
+            if fmt == "bam":
+                got, want = gzip.decompress(got), gzip.decompress(want)
+            else:
+                want = want.encode()
+            if got != want:
+                g, w = got.splitlines(), want.splitlines()
+                bad = sum(a != b for a, b in zip(g, w)) + abs(len(g) - len(w))
+                raise AssertionError(f"{path}: output differs from run_reads' at {bad} lines")
+            n_records = stats.reads_called
+            if n_records != len(fixture_reads) or stats.bases_called == 0:
+                raise AssertionError(f"{path}: {n_records} reads, {stats.bases_called} bases")
+            runs[path] = (out, wall)
+            print(f"{path}: {' '.join(argv[3:])} -> {fmt}; {n_records} reads, {samples} samples "
+                  f"in {wall:.3f} s wall (incl. the runner's set-up: quantisation, first "
+                  f"batch shapes) = {samples / wall:.0f} samples/s [{card}]; output equal to "
+                  f"run_reads' ({len(got)} bytes{' decompressed' if fmt == 'bam' else ''}); "
+                  f"launches { {k: v for k, v in launches[path].items() if v} }", flush=True)
+        # one real subprocess: python -m dorado_tpu_torch, SAM on stdout
+        argv = ["basecaller", str(hac_dir), str(fixture), "--disable-read-splitting", "--emit-sam"]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "dorado_tpu_torch", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"python -m dorado_tpu_torch: exit {res.returncode}\n{res.stderr}")
+
+        def body(text):
+            return [line for line in text.splitlines() if not line.startswith("@PG")]
+
+        in_process = runs["cli hac sam"][0].read_text()
+        if body(res.stdout) != body(in_process) or not body(in_process):
+            raise AssertionError("python -m dorado_tpu_torch: SAM differs from the in-process run's")
+        print(f"python -m dorado_tpu_torch {' '.join(argv[3:])}: {wall:.3f} s wall (a fresh "
+              f"process: imports, CUDA context, runner set-up); SAM equal to the in-process run's "
+              f"but for @PG; its summary: "
+              f"{[l for l in res.stderr.splitlines() if l.startswith('> ')][:2]}", flush=True)
+
+
+def batch_sweep(cfg, model, card) -> None:
+    """``-b 0`` at hac: the sweep of ``auto_batch_size`` with the cache off."""
+    from dorado_tpu_torch.basecall.batch_size import auto_batch_size
+
+    timings = []
+    t0 = time.perf_counter()
+    chosen = auto_batch_size(cfg, model, cfg.basecaller.chunk_size, use_cache=False,
+                             timings=timings)
+    bench = 288 * cfg.stride
+    for n, step_s in timings:
+        print(f"-b 0 sweep, hac, chunk {bench}: batch {n}: {step_s * 1e3:.3f} ms a device step, "
+              f"{n * bench / step_s:.4g} samples/s [{card}]", flush=True)
+    print(f"-b 0 sweep chose batch {chosen} (of {[n for n, _ in timings]}) in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if chosen not in [n for n, _ in timings]:
+        raise AssertionError(f"-b 0 chose {chosen}, which it did not time")
 
 
 def main() -> None:
@@ -393,7 +550,60 @@ def main() -> None:
             time_ms(lambda: cudnn(x_in), 3),
             "(cuDNN nn.LSTM, one layer, incl. its input projection)",
         )
-        del xproj, cudnn
+        del xproj
+
+        # ---- K15, K16: the LSTM variants on no path, at hac's shapes ---------
+        w_i8, w_scale = lstm.quantize_lstm_weights(w_hh_t.float())
+        xproj = (torch.randn(T, N, 4 * H, generator=gen, device=dev) * 0.8).bfloat16()
+        w_ih_t = ((torch.rand(H, 4 * H, generator=gen, device=dev) * 2 - 1) / H**0.5).bfloat16()
+        lstm_bias = torch.randn(4 * H, generator=gen, device=dev) * 0.1
+        err15 = err16 = 0.0
+        for reverse in (False, True):
+            out_k = lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale, reverse=reverse)
+            out_p = lstm.lstm_scan_int8_plain(xproj, w_i8, w_scale, reverse=reverse)
+            torch.cuda.synchronize()
+            a, b = out_k.float(), out_p.float()
+            diff = (a - b).abs()
+            # one bf16 step at the larger magnitude: 2^(exponent - 7)
+            big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0**-126)
+            step = torch.exp2(torch.floor(torch.log2(big)) - 7)
+            off = (diff > step).float().mean().item()
+            print(f"lstm_scan_int8 T={T} N={N} reverse={reverse}: max abs error "
+                  f"{diff.max().item():.3g}; {(diff > 0).float().mean().item():.4%} of outputs "
+                  f"differ, {off:.4%} by more than one bf16 step", flush=True)
+            if not off < MAX_INT8_LSTM_SHARE_OFF:
+                raise AssertionError(f"lstm_scan_int8 reverse={reverse}: {off:.4%} of outputs "
+                                     f"more than one bf16 step off")
+            err15 = max(err15, diff.max().item())
+            out_k = lstm.lstm_fused_time_major(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=reverse)
+            out_p = lstm.lstm_fused_plain(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=reverse)
+            torch.cuda.synchronize()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            print(f"lstm_fused T={T} N={N} reverse={reverse}: max abs error {e:.3g}", flush=True)
+            if not e <= TOL_LSTM:
+                raise AssertionError(f"lstm_fused reverse={reverse}: max abs error {e} > {TOL_LSTM}")
+            err16 = max(err16, e)
+        del out_k, out_p, a, b, diff, big, step
+        report(
+            "lstm_scan_int8", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:291",
+            err15,
+            time_ms(lambda: lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale, reverse=True), 3),
+            time_ms(lambda: lstm.lstm_scan_int8_plain(xproj, w_i8, w_scale, reverse=True), 1),
+            2.0 * T * N * H * 4 * H, PEAK_INT8,
+            2 * T * N * 4 * H + H * 4 * H + 4 * 4 * H + 2 * T * N * H, None, on_path=False,
+        )
+        report(
+            "lstm_fused", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:184",
+            err16,
+            time_ms(lambda: lstm.lstm_fused_time_major(x_in, w_ih_t, w_hh_t, lstm_bias,
+                                                       reverse=True), 3),
+            time_ms(lambda: lstm.lstm_fused_plain(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=True), 1),
+            2.0 * 2 * T * N * H * 4 * H, PEAK_BF16,
+            2 * T * N * H + 2 * 2 * H * 4 * H + 4 * 4 * H + 2 * T * N * H,
+            time_ms(lambda: cudnn(x_in), 3),
+            "(cuDNN nn.LSTM, one layer of input size H: the same function)", on_path=False,
+        )
+        del xproj, cudnn, w_i8, w_scale, w_ih_t, lstm_bias
 
         # ---- K2: W8A8 input projection -------------------------------------
         w_ih = (torch.rand(4 * H, H, generator=gen, device=dev) * 2 - 1) / H**0.5
@@ -536,7 +746,7 @@ def main() -> None:
             (fwd_ms + bwd_ms) / 2, plain_ms,
             17.0 * T * N * S, PEAK_F32, 4 * T * N * 4 * S + 4 * (T + 1) * N * S, None,
             wrappers=["crf_lse_scan_forward", "crf_lse_scan_backward"],
-            paths=["viterbi", "beam"], forward_ms=fwd_ms, backward_ms=bwd_ms,
+            paths=["viterbi", "beam", "cli beam"], forward_ms=fwd_ms, backward_ms=bwd_ms,
         )
 
         # ---- K7a: the Viterbi forward pass alone, and viterbi_path -----------
@@ -1178,6 +1388,8 @@ def main() -> None:
         "fused_norm": fused_norm.matmul_residual_rmsnorm,
         "crf_viterbi_forward": crf_cuda.viterbi_forward,
         "crf_fused_forward_f32": crf_cuda.fused_forward_decode_full,
+        "lstm_scan_int8": lstm.lstm_scan_time_major_int8,
+        "lstm_fused": lstm.lstm_fused_time_major,
     }
     # each path's kernels and, for the sup paths, their launches a batch
     path_kernels = {
@@ -1269,6 +1481,11 @@ def main() -> None:
             f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s",
             flush=True,
         )
+
+    # ---- main paths: the command line on a POD5 file and model directories --
+    cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels, launches, card)
+    batch_sweep(cfg, model, card)
+    torch.cuda.empty_cache()
 
     # ---- outputs against references on a small input ------------------------
     def sequences(out):

@@ -1,0 +1,190 @@
+"""Command line of the port: ``python -m dorado_tpu_torch basecaller``.
+
+Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
+the port's pipeline does: simplex basecalling of POD5 files with a model
+directory, to BAM, SAM or FASTQ. Every other option of the JAX command is
+left out, so argparse rejects it, and two are refused with exit code 1
+instead of doing something else than the JAX command would:
+
+  - read splitting, on by default there, needs the aligner the port does not
+    have yet: the command runs only with ``--disable-read-splitting``;
+  - a model name or ``{fast,hac,sup}[@version]`` needs the model
+    downloader: the model must be a directory.
+
+The device is CUDA unless ``-x cpu`` is given (``auto`` means CUDA); without
+CUDA the command raises rather than falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import re
+import shlex
+import sys
+import time
+from pathlib import Path
+
+# a registry model name (dna_r10.4.1_e8.2_400bps_hac@v4.3.0) or the variant
+# grammar ({auto,fast,hac,sup}[@version], with modified-base variants after
+# a comma), as dorado_tpu/models/registry.py parses them
+_MODEL_NAME = re.compile(r"^((dna|rna)[\w.]*@v[\d.]+|(auto|fast|hac|sup)(@[\w.]+)?)(,.*)?$", re.I)
+
+
+def _add_basecaller(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("basecaller", help="Run simplex basecalling")
+    p.add_argument("model", help="Model directory")
+    p.add_argument("data", help="POD5 file or directory")
+    p.add_argument("-r", "--recursive", action="store_true")
+    p.add_argument("-o", "--output", default="-",
+                   help="Output file, directory (gets calls_<timestamp>.<ext>) or - for stdout")
+    p.add_argument("--emit-sam", action="store_true", help="Emit SAM instead of BAM")
+    p.add_argument("--emit-fastq", action="store_true")
+    p.add_argument("--emit-moves", action="store_true")
+    p.add_argument("-c", "--chunksize", type=int, default=None)
+    p.add_argument("-b", "--batchsize", type=int, default=None,
+                   help="0 = auto (memory cap + benchmark sweep, cached)")
+    p.add_argument("--overlap", type=int, default=None)
+    p.add_argument("--decoder", choices=["viterbi", "beam", "beam-host"], default="viterbi",
+                   help="viterbi = exact max-scoring path (default); beam = the reference's "
+                        "beam search; beam-host is not supported by the port")
+    p.add_argument("--trim", choices=["none"], default="none",
+                   help="Trimming is not supported by the port: only 'none'")
+    p.add_argument("--no-trim", action="store_true", help="Alias for --trim none")
+    p.add_argument("--disable-read-splitting", action="store_true",
+                   help="Required: the port does not split reads yet")
+    p.add_argument("--run-for", type=int, default=None,
+                   help="Stop basecalling after N seconds")
+    p.add_argument("-x", "--device", default="cuda",
+                   help="'cuda' (the default; 'auto' means it), 'cuda:N' or 'cpu'")
+    p.set_defaults(func=_run_basecaller)
+
+
+def _resolve_model_dir(arg: str) -> Path | None:
+    path = Path(arg)
+    if path.is_dir():
+        return path
+    if os.sep not in arg and _MODEL_NAME.match(arg):
+        print(f"> {arg!r} is a model name: the port has no model downloader yet, so pass "
+              f"the path of a model directory", file=sys.stderr)
+        return None
+    print(f"> Model directory not found: {arg}", file=sys.stderr)
+    return None
+
+
+def _summarise(stats, elapsed_s: float) -> None:
+    """The final summary lines of the JAX command (utils/stats.py)."""
+    def p(s):
+        print(s, file=sys.stderr)
+
+    p(f"> Reads basecalled: {stats.reads_called}")
+    if elapsed_s > 0:
+        p(f"> Basecalled @ Samples/s: {stats.samples_processed / elapsed_s:.3e}")
+        p(f"> Basecalled @ Bases/s: {stats.bases_called / elapsed_s:.3e}")
+        if stats.samples_incl_padding:
+            p(f"> Basecalled @ Samples/s incl. padding: "
+              f"{stats.samples_incl_padding / elapsed_s:.3e}")
+    if stats.samples_incl_padding:
+        pct = 100.0 * (1.0 - stats.samples_processed / stats.samples_incl_padding)
+        p(f"> Padding percentage: {pct:.1f}%")
+    if elapsed_s > 0:
+        p(f"> Device idle: {100.0 * stats.device_idle_s / elapsed_s:.1f}%")
+        p(
+            f"> Stage times: dispatch-wait {stats.dispatch_wait_s:.1f}s / device-fetch "
+            f"{stats.device_fetch_s:.1f}s / host-decode {stats.host_decode_s:.1f}s / "
+            f"host-finish {stats.host_finish_s:.1f} thread-s (wall {elapsed_s:.1f}s)"
+        )
+    if stats.reads_skipped:
+        p(f"> Reads skipped (POD5 decode faults): {stats.reads_skipped}")
+
+
+def _run_basecaller(args: argparse.Namespace) -> int:
+    from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.io.pod5 import find_pod5_files
+    from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
+    from dorado_tpu_torch.models.load import build_model, load_model
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+    if not args.disable_read_splitting:
+        print("> Read splitting is not supported by the port yet: pass "
+              "--disable-read-splitting", file=sys.stderr)
+        return 1
+    if args.decoder == "beam-host":
+        print("> --decoder beam-host is not supported by the port: use viterbi or beam",
+              file=sys.stderr)
+        return 1
+    model_dir = _resolve_model_dir(args.model)
+    if model_dir is None:
+        return 1
+    device = resolve_device("cuda" if args.device == "auto" else args.device)
+    config, params = load_model(model_dir)
+    model = build_model(config, params)
+
+    batchsize = args.batchsize
+    if batchsize == 0:
+        from dorado_tpu_torch.basecall.batch_size import auto_batch_size
+
+        chunk = args.chunksize or config.basecaller.chunk_size
+        batchsize = auto_batch_size(config, model, chunk, device=device, decoder=args.decoder)
+        print(f"> Auto batch size: {batchsize}", file=sys.stderr)
+
+    pipeline = BasecallerPipeline(
+        config, model, chunk_size=args.chunksize, batch_size=batchsize, overlap=args.overlap,
+        emit_moves=args.emit_moves, device=device, decoder=args.decoder,
+    )
+    try:
+        files = find_pod5_files(args.data, recursive=args.recursive)
+    except RuntimeError as exc:  # FAST5 input
+        print(f"> {exc}", file=sys.stderr)
+        return 1
+    if not files:
+        print(f"> No POD5 files found under {args.data}", file=sys.stderr)
+        return 1
+    header = pipeline.build_header(files, cli_line=args.cli_line)
+
+    out_is_stdout = args.output == "-"
+    output = args.output
+    if not out_is_stdout and (Path(output).is_dir() or output.endswith(("/", os.sep))):
+        # a directory: calls_<timestamp>.<ext> inside it (hts_writer/Structure.cpp:44-55)
+        Path(output).mkdir(parents=True, exist_ok=True)
+        ts = datetime.datetime.now(datetime.timezone.utc).strftime("%Y-%m-%d_T%H-%M-%S")
+        ext = ".fastq" if args.emit_fastq else ".sam" if args.emit_sam else ".bam"
+        output = str(Path(output) / f"calls_{ts}{ext}")
+        print(f"> Output: {output}", file=sys.stderr)
+    text = args.emit_fastq or args.emit_sam
+    if out_is_stdout:
+        fh = sys.stdout if text else sys.stdout.buffer
+    else:
+        fh = open(output, "w" if text else "wb")
+    try:
+        if args.emit_fastq:
+            writer = FastqWriter(fh, header)
+        elif args.emit_sam:
+            writer = SamWriter(fh, header)
+        else:
+            writer = BamWriter(fh, header)
+        t0 = time.perf_counter()
+        stats = pipeline.run(args.data, writer, recursive=args.recursive,
+                             max_seconds=args.run_for)
+        writer.close()
+    finally:
+        if not out_is_stdout:
+            fh.close()
+    _summarise(stats, time.perf_counter() - t0)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="dorado_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    _add_basecaller(sub)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parser.parse_args(argv)
+    # the @PG CL line: the command as given, shell-quoted
+    args.cli_line = shlex.join(["dorado_tpu_torch", *argv])
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

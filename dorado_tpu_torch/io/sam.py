@@ -6,7 +6,8 @@ dorado/hts_utils header handling): per-read tags qs/du/ns/ts/mx/ch/st/rn/fn/
 sm/sd/sv/dx, RG, optional mv (move table, stride-first), pi/sp (split reads),
 MM/ML/MN (modified bases), pt (poly-A).
 
-BAM encoding is a from-scratch binary serialiser over the BGZF writer.
+BAM encoding is a from-scratch binary serialiser over the BGZF writer; SAM and
+FASTQ writers share the same record model.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass, field
-from typing import BinaryIO
+from typing import BinaryIO, TextIO
 
 import numpy as np
 
@@ -50,6 +51,36 @@ class SamRecord:
     seq: str = "*"
     qual: str = "*"
     tags: list[SamTag] = field(default_factory=list)
+
+    def tag_string(self, t: SamTag) -> str:
+        if t.type == "B":
+            vals = ",".join(str(int(v)) for v in t.value)
+            return f"{t.tag}:B:{t.subtype},{vals}"
+        if t.type in "cCsSiI":
+            return f"{t.tag}:i:{int(t.value)}"
+        if t.type == "f":
+            v = float(t.value)
+            return f"{t.tag}:f:{v:g}"
+        if t.type == "A":
+            return f"{t.tag}:A:{t.value}"
+        return f"{t.tag}:{t.type}:{t.value}"
+
+    def to_sam_line(self) -> str:
+        fields = [
+            self.qname,
+            str(self.flag),
+            self.rname,
+            str(self.pos),
+            str(self.mapq),
+            self.cigar,
+            self.rnext,
+            str(self.pnext),
+            str(self.tlen),
+            self.seq,
+            self.qual,
+        ]
+        fields.extend(self.tag_string(t) for t in self.tags)
+        return "\t".join(fields)
 
 
 def _encode_aux(tags: list[SamTag]) -> bytes:
@@ -219,3 +250,36 @@ class BamWriter:
 
     def close(self) -> None:
         self._bgzf.close()
+
+
+class SamWriter:
+    def __init__(self, fileobj: TextIO, header: SamHeader):
+        self._fh = fileobj
+        self._fh.write(header.to_text())
+        self.records_written = 0
+
+    def write(self, rec: SamRecord) -> None:
+        self._fh.write(rec.to_sam_line() + "\n")
+        self.records_written += 1
+
+    def close(self) -> None:
+        self._fh.flush()
+
+
+class FastqWriter:
+    """FASTQ with the read-level tags dorado puts in the description line."""
+
+    _TAGS = ("qs", "du", "ns", "ts", "ch", "st", "RG")
+
+    def __init__(self, fileobj: TextIO, header: SamHeader | None = None):
+        self._fh = fileobj
+        self.records_written = 0
+
+    def write(self, rec: SamRecord) -> None:
+        tags = [rec.tag_string(t) for t in rec.tags if t.tag in self._TAGS]
+        desc = ("\t" + "\t".join(tags)) if tags else ""
+        self._fh.write(f"@{rec.qname}{desc}\n{rec.seq}\n+\n{rec.qual}\n")
+        self.records_written += 1
+
+    def close(self) -> None:
+        self._fh.flush()

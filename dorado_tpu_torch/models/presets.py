@@ -135,3 +135,95 @@ def sup_v50_config() -> BasecallModelConfig:
         basecaller=BatchParams(chunk_size=12288, overlap=600, batch_size=128),
     )
     return cfg
+
+
+def _toml_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    if isinstance(v, str):
+        return f'"{v}"'
+    return repr(v)
+
+
+def _toml_table(name: str, values: dict, array: bool = False) -> list[str]:
+    head = f"[[{name}]]" if array else f"[{name}]"
+    return [head] + [f"{k} = {_toml_value(v)}" for k, v in values.items()] + [""]
+
+
+def config_toml(config: BasecallModelConfig) -> str:
+    """The ``config.toml`` of a model directory for ``config``, in the
+    reference's schema (v4 encoder sublayers for conv + LSTM models, the
+    ``model.encoder`` tables for transformers), such that
+    ``load_model_config`` of the directory gives ``config`` back (a
+    directory named after ``config.model_name``)."""
+    lines: list[str] = []
+
+    def conv(cv):
+        return {"type": "convolution", "insize": cv.insize, "size": cv.size,
+                "winlen": cv.winlen, "stride": cv.stride, "activation": cv.activation.value}
+
+    if config.is_tx_model:
+        tx, ups, crf = config.tx.tx, config.tx.upsample, config.tx.crf
+        for cv in config.convs:
+            lines += _toml_table("model.encoder.conv.sublayers", conv(cv), array=True)
+        lines += _toml_table("model.encoder.transformer_encoder", {"depth": tx.depth})
+        lines += _toml_table("model.encoder.transformer_encoder.layer", {
+            "d_model": tx.d_model, "nhead": tx.nhead, "dim_feedforward": tx.dim_feedforward,
+            "attn_window": list(tx.attn_window), "deepnorm_alpha": tx.deepnorm_alpha,
+            "theta": tx.theta, "max_seq_len": tx.max_seq_len,
+        })
+        lines += _toml_table("model.encoder.upsample",
+                             {"d_model": ups.size, "scale_factor": ups.scale_factor})
+        lines += _toml_table("model.encoder.crf", {
+            "insize": crf.insize, "n_base": crf.n_base, "state_len": crf.state_len,
+            "scale": crf.scale, "blank_score": crf.blank_score,
+            "expand_blanks": crf.expand_blanks, "permute": list(crf.permute),
+        })
+    else:
+        lines += _toml_table("input", {"features": config.num_features})
+        lines += _toml_table("encoder", {"type": "serial"})
+        for cv in config.convs:
+            lines += _toml_table("encoder.sublayers", conv(cv), array=True)
+        lines += _toml_table("encoder.sublayers", {"type": "permute"}, array=True)
+        for i in range(config.lstm_layers):
+            lines += _toml_table("encoder.sublayers", {
+                "type": "lstm", "size": config.lstm_size, "insize": config.lstm_size,
+                "reverse": i % 2 == 0,
+            }, array=True)
+        if config.out_features is not None:
+            lines += _toml_table("encoder.sublayers", {
+                "type": "linear", "in_features": config.lstm_size,
+                "out_features": config.out_features, "bias": config.bias,
+            }, array=True)
+        lines += _toml_table("encoder.sublayers", {
+            "type": "linearcrfencoder", "insize": config.lstm_size, "n_base": 4,
+            "state_len": config.state_len, "bias": config.bias,
+            "scale": config.scale, "blank_score": config.blank_score,
+        }, array=True)
+        if config.clamp:
+            lines += _toml_table("encoder.sublayers", {"type": "clamp"}, array=True)
+        lines += _toml_table("global_norm", {"state_len": config.state_len})
+    qscore = {"bias": config.qbias, "scale": config.qscale}
+    if config.mean_qscore_start_pos >= 0:
+        qscore["mean_qscore_start_pos"] = config.mean_qscore_start_pos
+    lines += _toml_table("qscore", qscore)
+    norm = config.signal_norm_params
+    lines += _toml_table("scaling", {"strategy": norm.strategy.value})
+    q = norm.quantile
+    lines += _toml_table("normalisation", {
+        "quantile_a": q.quantile_a, "quantile_b": q.quantile_b,
+        "shift_multiplier": q.shift_multiplier, "scale_multiplier": q.scale_multiplier,
+    })
+    st = norm.standardisation
+    lines += _toml_table("standardisation", {
+        "standardise": int(st.standardise), "mean": st.mean, "stdev": st.stdev,
+    })
+    lines += _toml_table("run_info", {
+        "sample_rate": config.sample_rate, "sample_type": config.sample_type.value,
+    })
+    lines += _toml_table("basecaller", {
+        "chunksize": config.basecaller.chunk_size, "overlap": config.basecaller.overlap,
+    })
+    return "\n".join(lines)

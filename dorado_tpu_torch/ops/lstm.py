@@ -6,8 +6,18 @@ time-parallel matmul. Each step computes ``gates = xproj[t] + h @ W_hh^T``
 (gate order i, f, g, o), keeps ``c`` in float32 and ``h`` in the input dtype;
 ``reverse=True`` walks time backwards without flipping any data.
 
-On a CUDA tensor the wrapper launches ``csrc/lstm_scan.cu`` (bf16); on a CPU
-tensor it runs the plain version below.
+Two variants of it, each a kernel of ``csrc/lstm_scan.cu`` too, are on no
+pipeline path (the JAX package calls neither from its model):
+
+  - ``lstm_scan_time_major_int8`` (``lstm_scan_time_major_int8`` there): the
+    recurrent product in int8, ``h`` quantised as ``round(h * 127)``, with
+    ``quantize_lstm_weights`` making the int8 weights and their scale;
+  - ``lstm_fused_time_major`` (``lstm_fused_time_major`` there): the whole
+    layer, the input projection ``x[t] @ W_ih^T + bias`` inside the
+    recurrence.
+
+On a CUDA tensor each wrapper launches its kernel (bf16); on a CPU tensor it
+runs its plain version below.
 """
 
 from __future__ import annotations
@@ -79,3 +89,155 @@ def lstm_scan_time_major(
 
 
 lstm_scan_time_major.launches = 0
+
+
+def quantize_lstm_weights(w_hh_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-column symmetric int8 quantisation of the recurrent weights
+    [H, 4H]: (w_i8 [H, 4H], scale [4H] float32) with
+    ``round(h * 127) @ w_i8 * scale ~= h @ w_hh_t`` for h in [-1, 1]. Bit
+    for bit the JAX ``quantize_lstm_weights``."""
+    w = w_hh_t.float()
+    col_max = torch.clamp(w.abs().amax(dim=0), min=1e-8)
+    w_i8 = torch.round(w / col_max * 127.0).to(torch.int8)
+    return w_i8, (col_max / 127.0) / 127.0
+
+
+def lstm_scan_int8_plain(
+    xproj: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor, reverse: bool = False
+) -> torch.Tensor:
+    """[T, N, 4H] gates + int8 [H, 4H] weights + [4H] scale -> [T, N, H], one
+    step at a time: the product of the int8 h and W summed exactly (float64
+    holds every partial sum of at most H * 127 * 127), then
+    ``gates = xproj[t] + acc * scale`` in float32."""
+    t_len, n, g4 = xproj.shape
+    hidden = g4 // 4
+    w = w_i8.double()
+    s = scale.float()
+    h_i8 = torch.zeros(n, hidden, dtype=torch.float64, device=xproj.device)
+    c = torch.zeros(n, hidden, dtype=torch.float32, device=xproj.device)
+    out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
+    for step in range(t_len):
+        t = t_len - 1 - step if reverse else step
+        gates = xproj[t].float() + (h_i8 @ w).float() * s
+        i, f, g, o = gates.split(hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        h_i8 = torch.round(h * 127.0).double()
+        out[t] = h.to(xproj.dtype)
+    return out
+
+
+def _pack_k4(w_i8: torch.Tensor) -> torch.Tensor:
+    """int8 [H, 4H] -> int32 [H/4, 4H]: word (kg, c) holds W[4kg .. 4kg+3][c]
+    in its bytes 0..3, the operand layout of the kernel's ``__dp4a``."""
+    hidden, g4 = w_i8.shape
+    packed = w_i8.reshape(hidden // 4, 4, g4).transpose(1, 2).contiguous()
+    return packed.view(torch.int32).reshape(hidden // 4, g4)
+
+
+def lstm_scan_time_major_int8(
+    xproj: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor, reverse: bool = False
+) -> torch.Tensor:
+    """[T, N, 4H] pre-projected gates + int8 [H, 4H] recurrent weights + [4H]
+    float32 scale (``quantize_lstm_weights``) -> [T, N, H].
+
+    A CPU tensor takes the plain version; a CUDA tensor (bf16, H a multiple
+    of 16 up to 512: the kernel's four slices of k in groups of four)
+    launches the kernel."""
+    if xproj.device.type == "cpu":
+        return lstm_scan_int8_plain(xproj, w_i8, scale, reverse)
+    t_len, n, g4 = xproj.shape
+    hidden = g4 // 4
+    if g4 != 4 * hidden or hidden % 16 or not 0 < hidden <= 512 or t_len == 0 or n == 0:
+        raise ValueError(f"lstm_scan_int8: unsupported gate shape {tuple(xproj.shape)}")
+    _cuda.check_tensor(xproj, "xproj", torch.bfloat16, (t_len, n, g4))
+    _cuda.check_tensor(w_i8, "w_i8", torch.int8, (hidden, g4))
+    _cuda.check_tensor(scale, "scale", torch.float32, (g4,))
+    if w_i8.device != xproj.device or scale.device != xproj.device:
+        raise ValueError("lstm_scan_int8: xproj, w_i8 and scale are on different devices")
+    w4 = _pack_k4(w_i8)
+    out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
+    fn = _cuda.kernel_function(
+        "lstm_scan", "lstm_scan_int8", [_cuda.VOIDP] * 4 + [_cuda.INT] * 5 + [_cuda.VOIDP]
+    )
+    with torch.cuda.device(xproj.device):
+        code = fn(
+            xproj.data_ptr(), w4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            t_len, n, hidden, int(reverse), _rows_per_block(n, xproj.device),
+            _cuda.stream_ptr(xproj.device),
+        )
+    _cuda.check_launch("lstm_scan", code)
+    lstm_scan_time_major_int8.launches += 1
+    return out
+
+
+lstm_scan_time_major_int8.launches = 0
+
+
+def lstm_fused_plain(
+    x: torch.Tensor,
+    w_ih_t: torch.Tensor,
+    w_hh_t: torch.Tensor,
+    bias: torch.Tensor,
+    reverse: bool = False,
+) -> torch.Tensor:
+    """[T, N, H] inputs + [H, 4H] input and recurrent weights + [4H] bias ->
+    [T, N, H], one step at a time: ``gates = x[t] @ W_ih^T + h @ W_hh^T +
+    bias`` in float32, ``c`` in float32, ``h`` in the input dtype."""
+    t_len, n, hidden = x.shape
+    wi, wh, b = w_ih_t.float(), w_hh_t.float(), bias.float()
+    h = torch.zeros(n, hidden, dtype=x.dtype, device=x.device)
+    c = torch.zeros(n, hidden, dtype=torch.float32, device=x.device)
+    out = torch.empty(t_len, n, hidden, dtype=x.dtype, device=x.device)
+    for step in range(t_len):
+        t = t_len - 1 - step if reverse else step
+        gates = x[t].float() @ wi + h.float() @ wh + b
+        i, f, g, o = gates.split(hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(x.dtype)
+        out[t] = h
+    return out
+
+
+def lstm_fused_time_major(
+    x: torch.Tensor,
+    w_ih_t: torch.Tensor,
+    w_hh_t: torch.Tensor,
+    bias: torch.Tensor,
+    reverse: bool = False,
+) -> torch.Tensor:
+    """[T, N, H] activations + [H, 4H] weights + [4H] bias -> [T, N, H]: a
+    whole LSTM layer whose input width is H.
+
+    A CPU tensor takes the plain version; a CUDA tensor (bf16 x and weights,
+    H a multiple of 4 up to 512) launches the kernel, with the bias in
+    float32."""
+    if x.device.type == "cpu":
+        return lstm_fused_plain(x, w_ih_t, w_hh_t, bias, reverse)
+    t_len, n, hidden = x.shape
+    g4 = 4 * hidden
+    if hidden % 4 or not 0 < hidden <= 512 or t_len == 0 or n == 0:
+        raise ValueError(f"lstm_fused: unsupported input shape {tuple(x.shape)}")
+    bias = bias.to(torch.float32).contiguous()
+    _cuda.check_tensor(x, "x", torch.bfloat16, (t_len, n, hidden))
+    _cuda.check_tensor(w_ih_t, "w_ih_t", torch.bfloat16, (hidden, g4))
+    _cuda.check_tensor(w_hh_t, "w_hh_t", torch.bfloat16, (hidden, g4))
+    _cuda.check_tensor(bias, "bias", torch.float32, (g4,))
+    if any(t.device != x.device for t in (w_ih_t, w_hh_t, bias)):
+        raise ValueError("lstm_fused: x, the weights and the bias are on different devices")
+    out = torch.empty(t_len, n, hidden, dtype=x.dtype, device=x.device)
+    fn = _cuda.kernel_function(
+        "lstm_scan", "lstm_fused_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 5 + [_cuda.VOIDP]
+    )
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), w_ih_t.data_ptr(), w_hh_t.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            t_len, n, hidden, int(reverse), _rows_per_block(n, x.device),
+            _cuda.stream_ptr(x.device),
+        )
+    _cuda.check_launch("lstm_scan", code)
+    lstm_fused_time_major.launches += 1
+    return out
+
+
+lstm_fused_time_major.launches = 0

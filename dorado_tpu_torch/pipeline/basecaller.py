@@ -3,7 +3,8 @@
 Port of ``dorado_tpu/pipeline/basecaller.py::BasecallerPipeline`` for
 simplex DNA basecalling without read splitting, modified bases, barcoding or
 poly(A) estimation (the JAX pipeline with ``split_reads=False`` and none of
-those set). Host code is a *feeder* (scale + trim + chunk + batch fill) and
+those set). ``run`` basecalls the POD5 files under a path, ``run_reads`` any
+iterable of reads. Host code is a *feeder* (scale + trim + chunk + batch fill) and
 a *finisher* (stitch + tags + write) around ``TorchBasecallRunner``; the
 device computes batch k+1 while the host finishes batch k.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Iterable
 
 import numpy as np
@@ -24,7 +26,7 @@ import torch
 
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.config import BasecallModelConfig
-from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
+from dorado_tpu_torch.io.pod5 import Pod5File, Pod5Read, RunInfo, find_pod5_files
 from dorado_tpu_torch.io.sam import SamHeader, SamRecord, SamTag
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
 from dorado_tpu_torch.models.tx_model import TxModel
@@ -41,6 +43,7 @@ from dorado_tpu_torch.utils.time_utils import timestamp_from_unix_ms
 @dataclass
 class PipelineStats:
     reads_called: int = 0
+    reads_skipped: int = 0  # POD5 rows that failed to decode (``run``)
     samples_processed: int = 0  # real samples fed to the model (excl. padding)
     samples_incl_padding: int = 0  # incl. the repeat-padding of short chunks
     bases_called: int = 0
@@ -142,8 +145,15 @@ class BasecallerPipeline:
     # header
     # ------------------------------------------------------------------
 
-    def build_header(self, run_infos: Iterable[RunInfo], cli_line: str = "") -> SamHeader:
-        """@PG plus one @RG per distinct protocol run."""
+    def build_header(
+        self, sources: Iterable[RunInfo | Path | str], cli_line: str = ""
+    ) -> SamHeader:
+        """@PG plus one @RG per distinct protocol run, in order of first
+        appearance. ``sources`` are run infos or POD5 files, whose run infos
+        are read (as the JAX pipeline's ``build_header`` takes files)."""
+        run_infos = []
+        for src in sources:
+            run_infos += [src] if isinstance(src, RunInfo) else Pod5File(src).run_infos
         header = SamHeader()
         header.programs.append(
             {
@@ -364,6 +374,40 @@ class BasecallerPipeline:
     # ------------------------------------------------------------------
     # run
     # ------------------------------------------------------------------
+
+    def run(
+        self,
+        input_path: Path | str,
+        writer,
+        recursive: bool = False,
+        max_seconds: float | None = None,
+    ) -> PipelineStats:
+        """Basecall every read of every POD5 file under ``input_path`` (a
+        file or a directory, searched recursively when asked) into
+        ``writer``. Each read's ``fn`` tag names its file; rows that fail to
+        decode are skipped and counted in ``reads_skipped``. ``max_seconds``
+        as for ``run_reads``."""
+        files = find_pod5_files(input_path, recursive=recursive)
+        skipped = 0
+
+        def reads():
+            nonlocal skipped
+            for f in files:
+                reader = Pod5File(f)
+                try:
+                    for read in reader.reads():
+                        read.filename = f.name
+                        yield read
+                finally:
+                    skipped += reader.reads_skipped
+
+        source = reads()
+        try:
+            stats = self.run_reads(source, writer, max_seconds=max_seconds)
+        finally:
+            source.close()  # a deadline leaves the generator open: count its skips
+        stats.reads_skipped = skipped
+        return stats
 
     def run_reads(
         self,

@@ -1,0 +1,199 @@
+"""``python -m dorado_tpu_torch basecaller`` on the CPU against the JAX
+command (``dorado_tpu.cli.main``) on the same model directory and POD5 file,
+for SAM, FASTQ and BAM output, and the cases where it exits with 1.
+
+The file holds white-noise reads, as ``tests/test_torch_pipeline.py`` feeds
+the pipelines. (On the smooth signal of the committed fixture this narrow
+random model calls long repeats, where the Viterbi path has near-ties that
+the two frameworks' float32 sums break differently for 2 of 16 reads.)"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dorado_tpu.cli.main import main as jax_main
+from dorado_tpu.io.bam_reader import read_records
+from dorado_tpu.models.load import save_lstm_params as jax_save_lstm_params
+from dorado_tpu.models.presets import hac_v43_config as jax_hac_config
+from dorado_tpu_torch.cli.main import main
+from dorado_tpu_torch.io.sam import SamRecord, SamTag
+from dorado_tpu_torch.models.presets import config_toml, hac_v43_config
+from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
+from tests.torch_pod5_writer import make_reads, run_info, write_pod5
+
+REPO = Path(__file__).resolve().parent.parent
+COMMON = ["--disable-read-splitting", "-c", "1200", "-b", "8", "--emit-moves"]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread in this process and in the subprocess: the runs
+    are many small operators, whose thread-pool barriers crawl when the test
+    workers oversubscribe the CPU; one thread count on both sides also keeps
+    their float sums in one order."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    model = d / "dna_r10.4.1_e8.2_400bps_hac@v4.3.0"
+    model.mkdir()
+    (model / "config.toml").write_text(config_toml(_narrow_hac(hac_v43_config())))
+    jax_save_lstm_params(_narrow_hac(jax_hac_config()), jax_params_with_moves(2), model)
+    data = d / "pod5"
+    data.mkdir()
+    infos = [run_info(3)]
+    write_pod5(data / "calls.pod5",
+               make_reads(7, [3000, 890, 5200, 1700, 2500], infos, noise=True), infos)
+    return model, data
+
+
+def _fastq_records(path: Path) -> list[SamRecord]:
+    lines = path.read_text().splitlines()
+    out = []
+    for i in range(0, len(lines), 4):
+        name, *tags = lines[i][1:].split("\t")
+        assert lines[i + 2] == "+"
+        parsed = []
+        for t in tags:
+            tag, typ, val = t.split(":", 2)
+            parsed.append(SamTag(tag, typ, float(val) if typ == "f" else val))
+        out.append(SamRecord(qname=name, seq=lines[i + 1], qual=lines[i + 3], tags=parsed))
+    return out
+
+
+def _records(path: Path, fmt: str) -> tuple[list[str], list]:
+    """(@RG lines, records) of an output file."""
+    if fmt == "fastq":
+        return [], _fastq_records(path)
+    header, records = read_records(path)
+    return [l for l in header.splitlines() if l.startswith("@RG")], records
+
+
+def _assert_records_match(ref, out):
+    """``tests/test_torch_pipeline.py``'s rule: records in the same order,
+    sequences, flags and every tag equal but ``qs`` (within 1%) and the
+    quality string (chars a step apart at most, at under 1% of bases)."""
+    assert [r.qname for r in out] == [r.qname for r in ref] and len(out) == 5
+    counts = [0, 0]
+    for a, b in zip(ref, out):
+        assert b.seq == a.seq and b.flag == a.flag
+        assert_qstrings_close(b.qual, a.qual, counts)
+        assert [t.tag for t in b.tags] == [t.tag for t in a.tags]
+        for ta, tb in zip(a.tags, b.tags):
+            if ta.tag == "qs":
+                assert float(tb.value) == pytest.approx(float(ta.value), rel=1e-2)
+            elif ta.tag == "mv":
+                np.testing.assert_array_equal(tb.value, ta.value)
+            else:
+                assert (tb.type, tb.value, tb.subtype) == (ta.type, ta.value, ta.subtype), ta.tag
+    assert counts[1] > 500
+    assert counts[0] <= 0.01 * counts[1]
+
+
+@pytest.mark.parametrize("fmt", ["sam", "fastq", "bam"])
+def test_cli_matches_jax_cli(inputs, tmp_path, fmt):
+    model, data = inputs
+    flags = {"sam": ["--emit-sam"], "fastq": ["--emit-fastq"], "bam": []}[fmt]
+    ours, theirs = tmp_path / f"ours.{fmt}", tmp_path / f"theirs.{fmt}"
+    assert jax_main(["basecaller", str(model), str(data), *COMMON, *flags, "--dtype", "float32",
+                     "-x", "cpu", "-o", str(theirs)]) == 0
+    assert main(["basecaller", str(model), str(data), *COMMON, *flags, "-x", "cpu",
+                 "-o", str(ours)]) == 0
+    rg_ref, ref = _records(theirs, fmt)
+    rg_out, out = _records(ours, fmt)
+    assert rg_out == rg_ref
+    if fmt != "fastq":
+        assert len(rg_out) == 1 and "basecall_model=dna_r10.4.1_e8.2_400bps_hac@v4.3.0" in rg_out[0]
+    _assert_records_match(ref, out)
+    if fmt != "fastq":
+        assert all(dict((t.tag, t.value) for t in r.tags)["fn"] == "calls.pod5" for r in out)
+
+
+def test_cli_writes_into_a_directory_and_counts_skipped_reads(inputs, tmp_path, capsys):
+    model, _ = inputs
+    infos = [run_info(4)]
+    data = tmp_path / "in"
+    data.mkdir()
+    write_pod5(data / "x.pod5", make_reads(8, [2000, 1500, 2500], infos, noise=True), infos,
+               corrupt_reads=(1,))
+    out_dir = tmp_path / "out"
+    out_dir.mkdir()
+    assert main(["basecaller", str(model), str(data), *COMMON, "--emit-sam", "-x", "cpu",
+                 "-o", str(out_dir), "--no-trim", "--decoder", "beam"]) == 0
+    written = list(out_dir.glob("calls_*.sam"))
+    assert len(written) == 1
+    _, records = read_records(written[0])
+    assert len(records) == 2
+    err = capsys.readouterr().err
+    assert "> Reads basecalled: 2" in err and "> Basecalled @ Samples/s:" in err
+    assert "> Reads skipped (POD5 decode faults): 1" in err
+
+
+@pytest.mark.parametrize("case", ["missing-dir", "no-pod5", "model-name", "variant", "split",
+                                  "beam-host", "fast5"])
+def test_cli_exits_1(inputs, tmp_path, capsys, case):
+    model, data = inputs
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    args = {
+        "missing-dir": [str(tmp_path / "nope"), str(data), *COMMON],
+        "no-pod5": [str(model), str(empty), *COMMON],
+        "model-name": ["dna_r10.4.1_e8.2_400bps_hac@v4.3.0", str(data), *COMMON],
+        "variant": ["hac@v4.3", str(data), *COMMON],
+        "split": [str(model), str(data), "-c", "1200"],
+        "beam-host": [str(model), str(data), *COMMON, "--decoder", "beam-host"],
+        "fast5": [str(model), str(empty), *COMMON],
+    }[case]
+    if case == "fast5":
+        (empty / "old.fast5").write_bytes(b"")
+    assert main(["basecaller", *args, "-x", "cpu", "-o", str(tmp_path / "o.bam")]) == 1
+    err = capsys.readouterr().err
+    want = {
+        "missing-dir": f"> Model directory not found: {tmp_path / 'nope'}",
+        "no-pod5": f"> No POD5 files found under {empty}",
+        "model-name": "the port has no model downloader yet",
+        "variant": "the port has no model downloader yet",
+        "split": "--disable-read-splitting",
+        "beam-host": "beam-host is not supported",
+        "fast5": "FAST5 files are not supported",
+    }[case]
+    assert want in err
+
+
+def test_cli_rejects_options_it_does_not_have(inputs):
+    model, data = inputs
+    for extra in (["--kit-name", "SQK-NBD114-24"], ["--trim", "adapters"], ["--dtype", "float32"],
+                  ["--reference", "ref.fa"]):
+        with pytest.raises(SystemExit) as exc:
+            main(["basecaller", str(model), str(data), *COMMON, "-x", "cpu", *extra])
+        assert exc.value.code == 2
+
+
+def test_python_m_entry_point(inputs, tmp_path):
+    """``python -m dorado_tpu_torch`` in a fresh process writes the SAM that
+    ``main`` writes in this one, but for the @PG command line."""
+    model, data = inputs
+    args = ["basecaller", str(model), str(data), *COMMON, "--emit-sam", "-x", "cpu"]
+    assert main([*args, "-o", str(tmp_path / "in.sam")]) == 0
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-m", "dorado_tpu_torch", *args], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "> Reads basecalled: 5" in res.stderr
+
+    def body(text):
+        return [l for l in text.splitlines() if not l.startswith("@PG")]
+
+    assert body(res.stdout) == body((tmp_path / "in.sam").read_text())

@@ -117,6 +117,8 @@ WRAPPERS = (
     fused_norm.matmul_residual_rmsnorm,
     crf_cuda.viterbi_forward,
     crf_cuda.fused_forward_decode_full,
+    lstm.lstm_scan_time_major_int8,
+    lstm.lstm_fused_time_major,
 )
 
 
@@ -302,3 +304,69 @@ def test_kernel_sources_present():
         _cuda.KERNEL_SOURCES)
     assert len(_cuda.KERNEL_SOURCES) == len(list(_cuda.CSRC.glob("*.cu")))
     assert _cuda.library_path("lstm_scan").parent == _cuda.BUILD_DIR
+
+
+def test_package_imports_no_pyarrow_zstandard_or_ml_dtypes():
+    """The port reads POD5 and weight files with its own Arrow reader, a
+    ctypes binding of libzstd and torch's bf16: importing every module, the
+    CLI included, loads none of the JAX package's file libraries."""
+    names = _module_names()
+    assert {"dorado_tpu_torch.cli.main", "dorado_tpu_torch.io.arrow_ipc",
+            "dorado_tpu_torch.io.vbz", "dorado_tpu_torch.models.load"} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted({m.split('.')[0] for m in sys.modules}\n"
+        "             & {'pyarrow', 'zstandard', 'ml_dtypes', 'jax', 'dorado_tpu'})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.replace(",", " ").split()
+            if words[:1] in (["import"], ["from"]):
+                assert not {"pyarrow", "zstandard", "ml_dtypes"} & {
+                    w.split(".")[0] for w in words[1:2]
+                }, f"{path}: {line}"
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from dorado_tpu_torch.cli import main as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parser_args = ["basecaller", str(tmp_path), str(tmp_path), "--disable-read-splitting"]
+    for extra in ([], ["-x", "auto"], ["-x", "cuda"], ["--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(parser_args + extra)
+
+
+def test_k15_k16_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
+    rs = np.random.RandomState(2)
+    calls = []
+    _spy(monkeypatch, calls, lstm, "lstm_scan_int8_plain")
+    _spy(monkeypatch, calls, lstm, "lstm_fused_plain")
+    w = torch.from_numpy(rs.randn(16, 64).astype(np.float32))
+    wq, scale = lstm.quantize_lstm_weights(w)
+    x = torch.from_numpy(rs.randn(5, 2, 64).astype(np.float32))
+    assert lstm.lstm_scan_time_major_int8(x, wq, scale, reverse=True).shape == (5, 2, 16)
+    x = torch.from_numpy(rs.randn(5, 2, 16).astype(np.float32)).bfloat16()
+    out = lstm.lstm_fused_time_major(x, w.bfloat16(), w.bfloat16(), torch.zeros(64))
+    assert out.shape == (5, 2, 16) and out.dtype == torch.bfloat16
+    assert calls == ["lstm_scan_int8_plain", "lstm_fused_plain"]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+def test_lstm_scan_source_has_k15_and_k16():
+    src = (_cuda.CSRC / "lstm_scan.cu").read_text()
+    for entry in ("DTT_EXPORT int lstm_scan_bf16(", "DTT_EXPORT int lstm_scan_int8(",
+                  "DTT_EXPORT int lstm_fused_bf16("):
+        assert entry in src
+    for tpu_kernel in ("lstm_scan_time_major_int8", "lstm_fused_time_major"):
+        assert f"Replaces dorado_tpu/ops/lstm.py::{tpu_kernel}" in src
+    assert "__dp4a" in src

@@ -1,13 +1,22 @@
-"""The port's LSTM recurrence (plain version of the CUDA kernel) against the
-JAX package's Pallas kernel in interpret mode."""
+"""The port's LSTM recurrences (the plain versions of the CUDA kernels: K1,
+K15 with int8 recurrent weights, K16 with the input projection inside)
+against the JAX package's Pallas kernels in interpret mode."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dorado_tpu.ops.lstm import lstm_fused_time_major as jax_lstm_fused
 from dorado_tpu.ops.lstm import lstm_scan_time_major as jax_lstm_scan
-from dorado_tpu_torch.ops.lstm import lstm_scan_time_major
+from dorado_tpu.ops.lstm import lstm_scan_time_major_int8 as jax_lstm_int8
+from dorado_tpu.ops.lstm import quantize_lstm_weights as jax_quantize
+from dorado_tpu_torch.ops.lstm import (
+    lstm_fused_time_major,
+    lstm_scan_time_major,
+    lstm_scan_time_major_int8,
+    quantize_lstm_weights,
+)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -23,3 +32,78 @@ def test_lstm_scan_matches_pallas(reverse):
     assert out.dtype == torch.float32 and out.shape == (t, n, h)
     # float32 both sides; only the summation order of h @ W differs
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+
+
+# K15 and K16 at two widths and both directions, float32 and bf16. The
+# tolerances: float32 both sides, only the summation order of the products
+# differs (K15's int32 sums are exact on both, so only its float steps), as
+# above; in bf16 each output is rounded to bf16 and a rounding near a tie can
+# go the other way, which later steps carry on: one bf16 step (2^-8 below 1)
+# plus that once carried, at no more than 1% of outputs.
+K_CASES = [(24, 8, 32), (16, 4, 64)]
+
+
+def _k15_inputs(t, n, h, seed):
+    rs = np.random.RandomState(seed)
+    xproj = (rs.randn(t, n, 4 * h) * 0.8).astype(np.float32)
+    w_hh_t = (rs.uniform(-1, 1, (h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    return xproj, w_hh_t
+
+
+def _close(out: np.ndarray, ref: np.ndarray, dtype) -> None:
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    else:
+        diff = np.abs(out - ref)
+        assert diff.max() <= 2.0**-7
+        assert (diff > 0).mean() <= 0.01
+
+
+def test_quantize_lstm_weights_bit_equal_to_jax():
+    _, w = _k15_inputs(1, 1, 64, 5)
+    wq_j, sc_j = jax_quantize(jnp.asarray(w))
+    wq_t, sc_t = quantize_lstm_weights(torch.from_numpy(w))
+    assert wq_t.dtype == torch.int8 and sc_t.dtype == torch.float32
+    np.testing.assert_array_equal(wq_t.numpy(), np.asarray(wq_j))
+    np.testing.assert_array_equal(sc_t.numpy(), np.asarray(sc_j))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,n,h", K_CASES)
+def test_lstm_scan_int8_matches_pallas(t, n, h, reverse, dtype):
+    """K15's plain version against its Pallas kernel in interpret mode."""
+    xproj, w = _k15_inputs(t, n, h, 11 + h)
+    wq, sc = jax_quantize(jnp.asarray(w))
+    ref = jax_lstm_int8(jnp.asarray(xproj, dtype), wq, sc, reverse=reverse, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    x_t = torch.from_numpy(xproj).to(getattr(torch, dtype))
+    out = lstm_scan_time_major_int8(
+        x_t, torch.from_numpy(np.array(wq)), torch.from_numpy(np.array(sc)), reverse=reverse
+    )
+    assert out.dtype == x_t.dtype and out.shape == (t, n, h)
+    _close(out.float().numpy(), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,n,h", K_CASES)
+def test_lstm_fused_matches_pallas(t, n, h, reverse, dtype):
+    """K16's plain version against its Pallas kernel in interpret mode."""
+    rs = np.random.RandomState(3 + h)
+    x = rs.randn(t, n, h).astype(np.float32)
+    w_ih_t = (rs.uniform(-1, 1, (h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    w_hh_t = (rs.uniform(-1, 1, (h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    bias = (rs.randn(4 * h) * 0.1).astype(np.float32)
+    ref = jax_lstm_fused(
+        jnp.asarray(x, dtype), jnp.asarray(w_ih_t, dtype), jnp.asarray(w_hh_t, dtype),
+        jnp.asarray(bias), reverse=reverse, interpret=True,
+    )
+    ref = np.asarray(ref.astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    out = lstm_fused_time_major(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(w_ih_t).to(tdt),
+        torch.from_numpy(w_hh_t).to(tdt), torch.from_numpy(bias), reverse=reverse,
+    )
+    assert out.dtype == tdt and out.shape == (t, n, h)
+    _close(out.float().numpy(), ref, dtype)
