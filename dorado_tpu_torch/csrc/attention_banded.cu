@@ -35,35 +35,53 @@
 //
 // What bounds it on the H100: bytes. At sup's shape (N = 128, T = 1024,
 // H = 8) it reads 403 MB and writes 134 MB, while the band's useful products
-// are 69 GFLOP. A block owns 64 queries of one head and row: it stages them
-// (rotated, where the layout asks) and the 48 + 16 * chunks keys their bands
-// can reach into shared memory (k and v of one head and row are shared by
-// 16 blocks that run side by side, so they come from L2), and each of its 4
-// warps takes 16 queries over the 16 + wu + wl keys their bands span, 16
-// keys at a time ("chunks" of them), on the tensor cores
-// (mma.sync.m16n8k16 bf16): one pass for the row maxima, a second that
-// recomputes the logits, exponentiates and multiplies into v. The two passes
-// cost half as many products again and keep the arithmetic that of a plain
-// softmax (no running rescale). p stays f32-accurate through the bf16 tensor
-// cores as a sum of two bf16 terms (p = hi + lo, two products), since v is
-// bf16 already. Every rotation step is a single rounded operation, so the
-// rotated q and k equal the plain version's bit for bit, on either rotating
-// layout. Windows of up to 128 keys a side take a fixed span: 320 staged
-// keys from q0 - 128 and 17 chunks a warp, trip counts the compiler knows
-// (a span that followed the window at run time cost K9 12% at sup's
-// (127, 128) on an H100); wider ones (K11b) stage 48 + 16 * chunks keys from q0 - wu,
-// 576 at (256, 256), whose 175 KB of shared memory leave one block an SM.
+// are 69 GFLOP. The first design staged a block's 64 queries and all 320
+// keys their bands reach at once (101 KB of shared memory, two blocks an
+// SM, nothing overlapping the loads), staged and rotated every key five
+// times over, and computed the logits twice (a max pass, then the exp
+// pass): 1.41 ms, slower than dense SDPA over 4x the work.
+//
+// Design: a block of 8 warps owns 128 queries of one head and row, each
+// warp 16 of them. Their bands reach 112 + 16 * chunks keys from kb = q0 -
+// 128 (384 at windows up to 128 a side), so each key is staged and rotated
+// 3 times over the blocks. They stream through a two-tile ring of 64 keys
+// in shared memory: while the warps compute tile i, the next tile's v rows
+// are in flight by cp.async and its k rows by loads into registers, rotated
+// and stored once tile i's products are done (the rotation's tables read
+// then, so that they hold no registers meanwhile); one barrier a tile. Each
+// warp walks the 16-key chunks of its own band, [warp, warp + chunks) of
+// the block's, two at a time where the tile holds two (two independent
+// chains of products for the scheduler, and half the max and rescale work a
+// key), on the tensor cores (mma.sync.m16n8k16 bf16, operands by ldmatrix)
+// in one pass with a running max (online softmax): the chunks' logits raise
+// the rows' max, the sums and p . v so far are scaled by exp(old max - new
+// max), and p = exp(logit - max) is added. p stays f32-accurate through the
+// bf16 tensor cores as a sum of two bf16 terms (p = hi + lo, two products),
+// since v is bf16 already. Every rotation step is a single rounded
+// operation, so the rotated q and k equal the plain version's bit for bit,
+// on either rotating layout. Windows of up to 128 keys a side take a fixed
+// span (17 chunks a warp, trip counts the compiler knows); wider ones (K11b,
+// up to 256) take ceil((16 + wu + wl) / 16) chunks a warp and more tiles,
+// with the same 55 KB of shared memory. Warps idle at the band's ends (a
+// tile holds none of their chunks); the second block on each SM fills those
+// slots, so a design that keeps every warp busy at the price of more
+// barriers and registers does not pay.
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int D = 64;            // head width
-constexpr int BQ = 64;           // queries a block
+constexpr int BQ = 128;          // queries a block
+constexpr int BK = 64;           // keys a tile of the ring
 constexpr int WIN_MAX = 256;     // widest window either side
 constexpr int NARROW = 128;      // widest window of the fixed span
 constexpr int NARROW_CHUNKS = (16 + 2 * NARROW) / 16;  // 17
 constexpr int LD = D + 8;        // shared row stride in bf16 (144 bytes)
-constexpr int THREADS = 128;
+constexpr int WARPS = BQ / 16;
+constexpr int THREADS = 32 * WARPS;
 
 // how q and k are staged
 constexpr int PLAIN = 0;          // copied: rotated already, or never rotated
@@ -75,64 +93,78 @@ __device__ __forceinline__ void unpack8(uint4 v, float out[8]) {
   unpack4(make_uint2(v.z, v.w), out + 4);
 }
 
-// Rotate 8 channels of the first half (lo) and their partners of the second
-// half (hi) of one q or k row and store both as bf16, at dst and dst + 32.
-__device__ __forceinline__ void rotate_store(const __nv_bfloat16* lo_src,
-                                             const __nv_bfloat16* hi_src, const float* cos_row,
-                                             const float* sin_row, int c8,
-                                             __nv_bfloat16* dst) {
-  float lo[8], hi[8];
-  unpack8(*reinterpret_cast<const uint4*>(lo_src + c8 * 8), lo);
-  unpack8(*reinterpret_cast<const uint4*>(hi_src + c8 * 8), hi);
-  const float4 ca = *reinterpret_cast<const float4*>(cos_row + c8 * 8);
-  const float4 cb = *reinterpret_cast<const float4*>(cos_row + c8 * 8 + 4);
-  const float4 sa = *reinterpret_cast<const float4*>(sin_row + c8 * 8);
-  const float4 sb = *reinterpret_cast<const float4*>(sin_row + c8 * 8 + 4);
-  const float c[8] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
-  const float s[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-  uint32_t out_lo[4], out_hi[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float rl[2], rh[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = 2 * i + e;
-      rl[e] = __fadd_rn(__fmul_rn(c[d], lo[d]), __fmul_rn(-s[d], hi[d]));
-      rh[e] = __fadd_rn(__fmul_rn(c[d], hi[d]), __fmul_rn(s[d], lo[d]));
-    }
-    out_lo[i] = pack_bf16(rl[0], rl[1]);
-    out_hi[i] = pack_bf16(rh[0], rh[1]);
-  }
-  *reinterpret_cast<uint4*>(dst + c8 * 8) = make_uint4(out_lo[0], out_lo[1], out_lo[2], out_lo[3]);
-  *reinterpret_cast<uint4*>(dst + 32 + c8 * 8) =
-      make_uint4(out_hi[0], out_hi[1], out_hi[2], out_hi[3]);
+// 8 channels of a q or k row's first half (lo) and their partners of the
+// second half (hi), in registers between their load and their store to
+// shared memory.
+struct RowPart {
+  uint4 lo, hi;
+};
+
+__device__ __forceinline__ RowPart load_part(const __nv_bfloat16* src, size_t stride, int lo_off,
+                                             int hi_off, int t, int T, int c8) {
+  RowPart p;
+  p.lo = p.hi = make_uint4(0, 0, 0, 0);
+  if (t < 0 || t >= T) return p;
+  const __nv_bfloat16* s = src + (size_t)t * stride;
+  p.lo = *reinterpret_cast<const uint4*>(s + lo_off + c8 * 8);
+  p.hi = *reinterpret_cast<const uint4*>(s + hi_off + c8 * 8);
+  return p;
 }
 
-// Stage `rows` rows of q or k starting at position t0 (rows outside [0, T)
-// are zeros) into dst [rows][LD], rotated where MODE asks.
+// Store a RowPart of position t into a staged row, at channels 8 c8 and 32
+// + 8 c8, rotated where MODE asks (the tables read here: small, and in L1
+// or L2 after the first block): every step a single rounded operation, so
+// the staged values equal the plain version's bit for bit. Rows outside
+// [0, T) were loaded as zeros and stay zeros.
 template <int MODE>
-__device__ __forceinline__ void stage_qk(const __nv_bfloat16* src, size_t stride, int lo_off,
-                                         int hi_off, const float* cos_t, const float* sin_t,
-                                         int t0, int rows, int T, __nv_bfloat16* dst) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < rows * 4; i += THREADS) {
-    const int r = i >> 2, c8 = i & 3;
-    const int t = t0 + r;
-    __nv_bfloat16* row = dst + r * LD;
-    if (t < 0 || t >= T) {
-      *reinterpret_cast<uint4*>(row + c8 * 8) = zero;
-      *reinterpret_cast<uint4*>(row + 32 + c8 * 8) = zero;
-    } else if (MODE == PLAIN) {
-      const __nv_bfloat16* s = src + (size_t)t * stride;
-      *reinterpret_cast<uint4*>(row + c8 * 8) =
-          *reinterpret_cast<const uint4*>(s + lo_off + c8 * 8);
-      *reinterpret_cast<uint4*>(row + 32 + c8 * 8) =
-          *reinterpret_cast<const uint4*>(s + hi_off + c8 * 8);
-    } else {
-      const __nv_bfloat16* s = src + (size_t)t * stride;
-      rotate_store(s + lo_off, s + hi_off, cos_t + (size_t)t * (D / 2),
-                   sin_t + (size_t)t * (D / 2), c8, row);
+__device__ __forceinline__ void store_part(const RowPart& p, const float* cos_t,
+                                           const float* sin_t, int t, int T, int c8,
+                                           __nv_bfloat16* row) {
+  uint4 out_lo = p.lo, out_hi = p.hi;
+  if (MODE != PLAIN && t >= 0 && t < T) {
+    float lo[8], hi[8];
+    unpack8(p.lo, lo);
+    unpack8(p.hi, hi);
+    const float* cp = cos_t + (size_t)t * (D / 2) + c8 * 8;
+    const float* sp = sin_t + (size_t)t * (D / 2) + c8 * 8;
+    const float4 ca = *reinterpret_cast<const float4*>(cp);
+    const float4 cb = *reinterpret_cast<const float4*>(cp + 4);
+    const float4 sa = *reinterpret_cast<const float4*>(sp);
+    const float4 sb = *reinterpret_cast<const float4*>(sp + 4);
+    const float c[8] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+    const float s[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+    uint32_t l[4], h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float rl[2], rh[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 2 * i + e;
+        rl[e] = __fadd_rn(__fmul_rn(c[d], lo[d]), __fmul_rn(-s[d], hi[d]));
+        rh[e] = __fadd_rn(__fmul_rn(c[d], hi[d]), __fmul_rn(s[d], lo[d]));
+      }
+      l[i] = pack_bf16(rl[0], rl[1]);
+      h[i] = pack_bf16(rh[0], rh[1]);
     }
+    out_lo = make_uint4(l[0], l[1], l[2], l[3]);
+    out_hi = make_uint4(h[0], h[1], h[2], h[3]);
+  }
+  *reinterpret_cast<uint4*>(row + c8 * 8) = out_lo;
+  *reinterpret_cast<uint4*>(row + 32 + c8 * 8) = out_hi;
+}
+
+// cp.async of a tile of BK v rows from position t0 into dst [BK][LD]; rows
+// outside [0, T) are zero-filled (the copy reads no byte of them).
+__device__ __forceinline__ void copy_v(const __nv_bfloat16* v_base, size_t stride, int t0, int T,
+                                       __nv_bfloat16* dst) {
+  for (int i = threadIdx.x; i < BK * 8; i += THREADS) {
+    const int r = i >> 3, c = i & 7;
+    const int t = t0 + r;
+    const bool ok = t >= 0 && t < T;
+    const __nv_bfloat16* src = v_base + (size_t)(ok ? t : 0) * stride + c * 8;
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * LD + c * 8));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+                 "r"(ok ? 16 : 0));
   }
 }
 
@@ -141,7 +173,7 @@ __device__ __forceinline__ void stage_qk(const __nv_bfloat16* src, size_t stride
 // (MODE), its v and output channels at h * 64. FIXED: windows of at most
 // NARROW a side, NARROW_CHUNKS chunks (`chunks` is ignored).
 template <int MODE, bool FIXED>
-__global__ void __launch_bounds__(THREADS) attention_banded_kernel(
+__global__ void __launch_bounds__(THREADS, 2) attention_banded_kernel(
     const __nv_bfloat16* __restrict__ q, int q_stride,
     const __nv_bfloat16* __restrict__ k, int k_stride,
     const __nv_bfloat16* __restrict__ v, int v_stride,
@@ -151,10 +183,11 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
     int T, int H, int win_upper, int win_lower, int ref_elems, int chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (FIXED) chunks = NARROW_CHUNKS;
-  const int span = 48 + 16 * chunks;  // staged keys: [kb, kb + span)
+  // the block's keys [kb, kb + 16 (WARPS - 1) + 16 chunks), in tiles of BK
+  const int tiles = (16 * (WARPS - 1) + 16 * chunks + BK - 1) / BK;
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][LD]
-  __nv_bfloat16* k_s = q_s + BQ * LD;                           // [span][LD]
-  __nv_bfloat16* v_s = k_s + span * LD;                         // [span][LD]
+  __nv_bfloat16* k_s = q_s + BQ * LD;                           // [2][BK][LD]
+  __nv_bfloat16* v_s = k_s + 2 * BK * LD;                       // [2][BK][LD]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -165,22 +198,26 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
   const int hd = H * D;
   const int lo_off = MODE == ROPE_HALVES ? head * (D / 2) : head * D;
   const int hi_off = MODE == ROPE_HALVES ? hd / 2 + head * (D / 2) : head * D + D / 2;
-  const int kb = q0 - (FIXED ? NARROW : win_upper);  // position of staged key 0
-
-  // ---- stage q, k (rotated where MODE asks) and v ----------------------------
-  stage_qk<MODE>(q + (size_t)n * T * q_stride, q_stride, lo_off, hi_off, cos_t, sin_t, q0, BQ, T,
-                 q_s);
-  stage_qk<MODE>(k + (size_t)n * T * k_stride, k_stride, lo_off, hi_off, cos_t, sin_t, kb, span,
-                 T, k_s);
+  const int kb = q0 - (FIXED ? NARROW : win_upper);  // position of the block's key 0
+  const __nv_bfloat16* q_base = q + (size_t)n * T * q_stride;
+  const __nv_bfloat16* k_base = k + (size_t)n * T * k_stride;
   const __nv_bfloat16* v_base = v + (size_t)n * T * v_stride + head * D;
-  for (int i = tid; i < span * 8; i += THREADS) {
-    const int r = i >> 3, c = i & 7;
-    const int t = kb + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t >= 0 && t < T)
-      val = *reinterpret_cast<const uint4*>(v_base + (size_t)t * v_stride + c * 8);
-    *reinterpret_cast<uint4*>(v_s + r * LD + c * 8) = val;
+  // thread tid stages part c8 of row kr of each k tile
+  const int kr = tid >> 2, c8 = tid & 3;
+
+  // ---- q (rotated where MODE asks), the first k and v tile -----------------
+  for (int i = tid; i < BQ * 4; i += THREADS) {
+    const int r = i >> 2, c = i & 3;
+    const RowPart p = load_part(q_base, q_stride, lo_off, hi_off, q0 + r, T, c);
+    store_part<MODE>(p, cos_t, sin_t, q0 + r, T, c, q_s + r * LD);
   }
+  copy_v(v_base, v_stride, kb, T, v_s);
+  cp_async_commit();
+  {
+    const RowPart p = load_part(k_base, k_stride, lo_off, hi_off, kb + kr, T, c8);
+    store_part<MODE>(p, cos_t, sin_t, kb + kr, T, c8, k_s + kr * LD);
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
   // ---- this warp's 16 queries ---------------------------------------------
@@ -207,87 +244,124 @@ __global__ void __launch_bounds__(THREADS) attention_banded_kernel(
   const float scale = 0.125f;  // 1 / sqrt(D)
   const float masked = -1e30f;
 
-  // logits of 16 keys from staged row kl: s[j][2h + e] is row g + 8h, key
-  // kb + kl + 8j + 2*t4 + e
-  auto logits = [&](int kl, float (&s)[2][4]) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      const __nv_bfloat16* p = k_s + (kl + 8 * j + g) * LD + 2 * t4;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + kk * 16 + 8);
-        mma_bf16(s[j], qa[kk], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kb + kl + 8 * j + 2 * t4 + (e & 1);
-        const int h = e >> 1;
-        s[j][e] = (key >= lo[h] && key <= hi[h]) ? __fmul_rn(s[j][e], scale) : masked;
-      }
-    }
-  };
-
-  // pass 1: row maxima. The warp's chunks, staged rows [r0, r0 + 16 *
-  // chunks), hold every key its queries' bands reach
+  // one pass with a running max: m the rows' max so far, sum and o their
+  // sums scaled to it
   float mx[2] = {masked, masked};
-  for (int c = 0; c < chunks; ++c) {
-    float s[2][4];
-    logits(r0 + 16 * c, s);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-  }
-
-  // pass 2: p = exp(logit - max), row sums, p . v
+  float sum[2] = {0.f, 0.f};
   float o[8][4];
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-  float sum[2] = {0.f, 0.f};
-  for (int c = 0; c < chunks; ++c) {
-    const int kl = r0 + 16 * c;
-    float s[2][4];
-    logits(kl, s);
-    uint32_t p_hi[4], p_lo[4];
+
+  // NC chunks of 16 keys from staged row kl of a tile (two give the
+  // scheduler two independent chains of products and halve the max and
+  // rescale work a key): s[j][2h + e] is row g + 8h, key key0 + 8j + 2 t4 + e
+  auto run = [&](auto nc_tag, const __nv_bfloat16* kt, const __nv_bfloat16* vt, int kl,
+                 int key0) {
+    constexpr int NC = decltype(nc_tag)::value;
+    float s[2 * NC][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // b-fragments of keys 8j .. 8j + 7, channels 0-31 and 32-63
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t kb4[4];
+        ldmatrix_x4(kb4, kt + (kl + 8 * j + (lane & 7)) * LD + half * 32 + (lane >> 3) * 8);
+        mma_bf16(s[j], qa[2 * half], kb4[0], kb4[1]);
+        mma_bf16(s[j], qa[2 * half + 1], kb4[2], kb4[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * j + 2 * t4 + (e & 1);
+        const int h = e >> 1;
+        s[j][e] = (key >= lo[h] && key <= hi[h]) ? __fmul_rn(s[j][e], scale) : masked;
+      }
+    }
+    float rescale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = masked;
+#pragma unroll
+      for (int j = 0; j < 2 * NC; ++j) m = fmaxf(m, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(mx[h], m);
+      rescale[h] = __expf(mx[h] - m_new);
+      mx[h] = m_new;
+      sum[h] *= rescale[h];
+    }
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      o[dt][0] *= rescale[0];
+      o[dt][1] *= rescale[0];
+      o[dt][2] *= rescale[1];
+      o[dt][3] *= rescale[1];
+    }
+    // p = exp(logit - max) (__expf: under 1e-6 relative error for the p
+    // that count) as hi + lo, two bf16 terms: f32-accurate through the bf16
+    // tensor cores
+    uint32_t p_hi[NC][4], p_lo[NC][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float p[2], top[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float x = s[j][2 * h + e];
-          p[e] = (x == masked) ? 0.f : expf(x - mx[h]);
+          p[e] = (x == masked) ? 0.f : __expf(x - mx[h]);
           sum[h] += p[e];
           top[e] = __bfloat162float(__float2bfloat16_rn(p[e]));
         }
         // a-fragment order: (row g, keys 0-7), (row g+8, keys 0-7),
         // (row g, keys 8-15), (row g+8, keys 8-15)
-        p_hi[2 * j + h] = pack_bf16(top[0], top[1]);
-        p_lo[2 * j + h] = pack_bf16(p[0] - top[0], p[1] - top[1]);
+        p_hi[j >> 1][2 * (j & 1) + h] = pack_bf16(top[0], top[1]);
+        p_lo[j >> 1][2 * (j & 1) + h] = pack_bf16(p[0] - top[0], p[1] - top[1]);
       }
     }
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t vb[4];
-      ldmatrix_x4_trans(
-          vb, v_s + (kl + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * dp], p_hi, vb[0], vb[1]);
-      mma_bf16(o[2 * dp], p_lo, vb[0], vb[1]);
-      mma_bf16(o[2 * dp + 1], p_hi, vb[2], vb[3]);
-      mma_bf16(o[2 * dp + 1], p_lo, vb[2], vb[3]);
+    for (int ch = 0; ch < NC; ++ch) {
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (kl + 16 * ch + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], p_hi[ch], vb[0], vb[1]);
+        mma_bf16(o[2 * dp], p_lo[ch], vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], p_hi[ch], vb[2], vb[3]);
+        mma_bf16(o[2 * dp + 1], p_lo[ch], vb[2], vb[3]);
+      }
     }
+  };
+
+  // ---- the key tiles: tile i + 1's loads in flight during tile i's products
+  for (int i = 0; i < tiles; ++i) {
+    const int buf = i & 1;
+    const bool next = i + 1 < tiles;
+    const int t_next = kb + (i + 1) * BK + kr;
+    RowPart part;
+    if (next) {
+      copy_v(v_base, v_stride, kb + (i + 1) * BK, T, v_s + (buf ^ 1) * BK * LD);
+      cp_async_commit();
+      part = load_part(k_base, k_stride, lo_off, hi_off, t_next, T, c8);
+    }
+    // the warp's chunks, block chunks [warp, warp + chunks), that lie in
+    // this tile, two at a time
+    const __nv_bfloat16* kt = k_s + buf * BK * LD;
+    const __nv_bfloat16* vt = v_s + buf * BK * LD;
+    const int c_end = min((i + 1) * (BK / 16), warp + chunks);
+    int c = max(i * (BK / 16), warp);
+    for (; c + 1 < c_end; c += 2)
+      run(std::integral_constant<int, 2>{}, kt, vt, 16 * (c - i * (BK / 16)), kb + 16 * c);
+    if (c < c_end)
+      run(std::integral_constant<int, 1>{}, kt, vt, 16 * (c - i * (BK / 16)), kb + 16 * c);
+    if (next)
+      store_part<MODE>(part, cos_t, sin_t, t_next, T, c8, k_s + ((buf ^ 1) * BK + kr) * LD);
+    cp_async_wait<0>();
+    __syncthreads();
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -316,7 +390,7 @@ int launch_span(const void* q, int q_stride, const void* k, int k_stride, const 
                 int v_stride, const void* cos_t, const void* sin_t, void* out, int N, int T, int H,
                 int win_upper, int win_lower, int ref_elems, void* stream) {
   const int chunks = FIXED ? NARROW_CHUNKS : (16 + win_upper + win_lower + 15) / 16;
-  const int smem = (BQ + 2 * (48 + 16 * chunks)) * LD * (int)sizeof(__nv_bfloat16);
+  const int smem = (BQ + 4 * BK) * LD * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(attention_banded_kernel<MODE, FIXED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -16,32 +16,44 @@
 //                      + exp(carry[s] - m) * e^stay)
 //     succ(s,b) = (s mod S/4)*4 + b,  q(s) = s / (S/4)
 //
+// Each step's log-sum-exp runs in float64 from the float32 carry and is
+// rounded to the float32 carry and history: exp of the scores, exp(carry -
+// m), the sums and the log, as the plain version (ops/crf_scan.py) does. The
+// two then agree bit for bit but where a float64 result lies within a few
+// float64 rounding errors of a float32 rounding boundary. In float32
+// throughout, their different exp, log and summation orders left one float32
+// step between them at values of thousands, and the beam search, which
+// takes this backward history as its guide, turned such steps into a
+// different path on the card than on the CPU over long stretches of a chunk
+// on many inputs.
+//
 // The TPU kernel copies states with one-hot matrix products split into
 // bf16 halves; here a thread indexes what it needs, which is exact.
 // What bounds it on the H100: each direction is a serial chain of T steps
 // per chunk row, and the bytes (one read of the float32 scores, one write of
-// the history) are small beside it. The structure is that of
-// crf_lse_backward.cu: one block a chunk row, one thread a state, the carry
-// in a register, one block max and two barriers a step, the next score row
-// loaded into registers while the current one is consumed. A thread's four
-// forward terms are its own 16 bytes of the score row, so the forward
-// direction stages only exp(carry - m); the backward direction also stages
-// exp(score) in the block layout r*S + s, so that a thread reads its four
-// successors' terms as one 16-byte vector. At 1024 states a block is 1024
-// threads and the backward staging 32 KB (36 KB of static shared memory in
-// all, under the 48 KB a block may declare statically).
+// the history) are small beside it; the float64 exp and log now weigh on
+// each step too. The structure is that of crf_lse_backward.cu: one block a
+// chunk row, one thread a state, the carry in a register, one block max and
+// two barriers a step, the next score row loaded into registers while the
+// current one is consumed. A thread's four forward terms are its own 16
+// bytes of the score row, so the forward direction stages only exp(carry -
+// m); the backward direction also stages exp(score) in the block layout
+// r*S + s, so that a thread reads its four successors' terms at once. At
+// 1024 states a block is 1024 threads and the backward staging 64 KB of
+// dynamic shared memory.
 #include "common.cuh"
 
 template <int S, bool REV>
 __global__ void __launch_bounds__(S) lse_scan_kernel(
     const float* __restrict__ scores,  // [T, N, 4S]
     float* __restrict__ hist,          // [T+1, N, S]
-    int T, int N, float stay_factor) {
+    int T, int N, double stay_factor) {
   constexpr int S4 = S / 4;
   constexpr int NW = S / 32;
-  __shared__ __align__(16) float es[REV ? 2 : 1][REV ? 4 * S : 4];
-  __shared__ __align__(16) float ec[S];  // exp(carry - m)
-  __shared__ float wmax[NW];
+  extern __shared__ __align__(16) double smem_d[];
+  double* es = smem_d;                          // [2][4S] exp(score), backward only
+  double* ec = smem_d + (REV ? 2 * 4 * S : 0);  // [S] exp(carry - m)
+  float* wmax = reinterpret_cast<float*>(ec + S);
 
   const int n = blockIdx.x;
   const int s = threadIdx.x;
@@ -62,11 +74,11 @@ __global__ void __launch_bounds__(S) lse_scan_kernel(
     const float4 cur = next;
     if (i + 1 < T)
       next = *reinterpret_cast<const float4*>(sc + (size_t)(REV ? t - 1 : t + 1) * row);
-    float4 x;
-    x.x = expf(cur.x); x.y = expf(cur.y); x.z = expf(cur.z); x.w = expf(cur.w);
-    float* e = es[REV ? (i & 1) : 0];
+    const double x0 = exp((double)cur.x), x1 = exp((double)cur.y), x2 = exp((double)cur.z),
+                 x3 = exp((double)cur.w);
+    double* e = es + (REV ? (i & 1) * 4 * S : 0);
     if (REV) {
-      e[0 * S + s] = x.x; e[1 * S + s] = x.y; e[2 * S + s] = x.z; e[3 * S + s] = x.w;
+      e[0 * S + s] = x0; e[1 * S + s] = x1; e[2 * S + s] = x2; e[3 * S + s] = x3;
     }
 
     const float wm = warp_max(carry);
@@ -75,37 +87,42 @@ __global__ void __launch_bounds__(S) lse_scan_kernel(
     float m = wmax[0];
 #pragma unroll
     for (int w = 1; w < NW; ++w) m = fmaxf(m, wmax[w]);
-    const float own = expf(carry - m);
+    const double own = exp((double)carry - (double)m);
     ec[s] = own;
     __syncthreads();
 
-    float red;
+    double red;
     if (REV) {
-      const float4 b = *reinterpret_cast<const float4*>(&ec[succ0]);
-      x = *reinterpret_cast<const float4*>(&e[q * S + succ0]);
-      red = b.x * x.x + b.y * x.y + b.z * x.z + b.w * x.w;
+      const double* eq = e + q * S + succ0;
+      red = ec[succ0] * eq[0] + ec[succ0 + 1] * eq[1] + ec[succ0 + 2] * eq[2] +
+            ec[succ0 + 3] * eq[3];
     } else {
-      red = ec[pred0] * x.x + ec[S4 + pred0] * x.y + ec[2 * S4 + pred0] * x.z +
-            ec[3 * S4 + pred0] * x.w;
+      red = ec[pred0] * x0 + ec[S4 + pred0] * x1 + ec[2 * S4 + pred0] * x2 +
+            ec[3 * S4 + pred0] * x3;
     }
-    carry = m + logf(red + own * stay_factor);
+    carry = (float)((double)m + log(red + own * stay_factor));
     out[(size_t)(REV ? t : t + 1) * hrow] = carry;
   }
 }
 
 template <int S>
 static int launch(const float* scores, float* hist, int T, int N, int reverse,
-                  float stay_factor, cudaStream_t stream) {
-  if (reverse)
-    lse_scan_kernel<S, true><<<N, S, 0, stream>>>(scores, hist, T, N, stay_factor);
-  else
-    lse_scan_kernel<S, false><<<N, S, 0, stream>>>(scores, hist, T, N, stay_factor);
+                  double stay_factor, cudaStream_t stream) {
+  const int smem = (int)sizeof(double) * ((reverse ? 2 * 4 * S : 0) + S) + (S / 32) * 4;
+  if (reverse) {
+    cudaError_t e = cudaFuncSetAttribute(lse_scan_kernel<S, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    lse_scan_kernel<S, true><<<N, S, smem, stream>>>(scores, hist, T, N, stay_factor);
+  } else {
+    lse_scan_kernel<S, false><<<N, S, smem, stream>>>(scores, hist, T, N, stay_factor);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // S (states) must be 64, 256 or 1024 (state_len 3, 4 or 5).
 DTT_EXPORT int crf_lse_scan_f32(const void* scores, void* hist, int T, int N, int S,
-                                int reverse, float stay_factor, void* stream) {
+                                int reverse, double stay_factor, void* stream) {
   const float* sc = static_cast<const float*>(scores);
   float* h = static_cast<float*>(hist);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,4 @@
-// LSTM recurrences, bf16 in and out, f32 state: three kernels of one design.
+// LSTM recurrences, bf16 in and out, f32 state.
 //
 //   lstm_scan_bf16 (K1): gates = xproj[t] + h @ W_hh^T, W_hh bf16;
 //   lstm_scan_int8 (K15): the same with W_hh int8 and h quantised to int8;
@@ -12,154 +12,467 @@
 //   gates = xproj[t] + h @ W_hh^T      (gate order i, f, g, o)
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = bf16(sigmoid(o) * tanh(c))
 //
-// What bounds it on the H100: each step needs all of W_hh^T ([H, 4H] bf16,
-// 1.18 MB at hac's H = 384), which does not fit one SM's 227 KB of shared
-// memory. This simple design reads W_hh from global memory on every step;
-// it stays resident in the 50 MB L2, so a step costs one L2 read of W per
-// block plus BN * H * 4H FMAs on the CUDA cores, and the step's latency is
-// set by how many W bytes each SM keeps in flight. Each block owns BN batch
-// rows and every hidden unit (one launch per layer, the time loop inside, no
-// exchange between blocks). A step has two phases:
-//   1. thread (q, ks) computes 8 adjacent gate columns 8q .. 8q+7 for the
-//      block's rows over the ks-th of KS = 4 slices of k, reading W as
-//      16-byte vectors (8 bf16) and h from shared memory, and stores the
-//      partial sums in shared memory; the four slices put 2H threads, and so
-//      four times the W bytes, in flight on the SM;
-//   2. the thread owning hidden unit j adds the KS partial sums of its four
-//      gate columns (j, H + j, 2H + j, 3H + j) in order, adds the input
-//      projection and updates c (registers) and h (shared memory, output).
-// BN > 1 reuses each W element for BN rows, trading the L2 traffic of more
-// blocks against FMAs per block. Splitting the gate columns across a
-// thread-block cluster (W in distributed shared memory, one cluster barrier
-// per step) is the next step.
+// What bounds it on the H100: T dependent steps, each of which needs all of
+// W_hh ([H, 4H] bf16, 1.18 MB at hac's H = 384). That does not fit one SM's
+// 227 KB of shared memory, and a design that reads it from L2 every step is
+// bound by that traffic (the first version: 151 MB of L2 reads a step at
+// N = 128, 17 us a step). The floor is the chain of steps: a product of
+// [N, H] by [H, 4H], the cell update and the exchange of h, T times over.
+//
+// Design: W_hh resident in a thread-block cluster's shared memory. A cluster
+// of C CTAs owns R batch rows (R = 8 NT: NT n-tiles of 8); CTA `rank` owns
+// U hidden units (u0 = rank * U, U a multiple of 16, C * U >= H) with all
+// four of their gate columns, so the cell update stays inside the CTA;
+// units past H (whole CTAs, at some widths) hold zero weights and stay 0.
+// The wrapper lays W_hh out as [C][4U][Kp] (Kp = C * U rounded up to 32,
+// two k-tiles; row 4 jl + gate holds W_hh^T's column gate * H + u0 + jl, k
+// past H zero), and each CTA copies its slice into shared memory once per
+// launch: 147 KB at H = 384, C = 8. Per step:
+//   1. the products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//      sums): the CTA's 4U gate rows are M (U / 4 m-tiles spread over its
+//      warps, MTW each), the rows' h the N side, H the depth. A comes from
+//      the resident slice, B from the CTA's full copy of h (ldmatrix, a pair
+//      of k-tiles at a time, the next pair's fragments loaded before this
+//      pair's products). Reading both from shared memory every step bounds
+//      the step (24.6 KB a pair at 16 rows), so each warp keeps the A
+//      fragments of as many pairs in registers for the whole launch as its
+//      accumulators leave room for (reg_pairs: 8 of hac's 12 at 16 rows);
+//   2. an m-tile holds the four gates of four units (row 4 jl + gate), so a
+//      lane gathers the gates of one (unit, row) from three other lanes
+//      with shuffles and updates c (registers) and h;
+//   3. the CTA's new h slice is staged in shared memory and copied whole
+//      into every peer's other h buffer by the bulk copy engine
+//      (cp.async.bulk shared::cta -> shared::cluster, one copy a peer: h is
+//      held as C blocks [R][U + 8], one for each CTA's slice, so a slice is
+//      contiguous), each copy completing as transaction bytes on that
+//      buffer's mbarrier in the peer; the step's output goes to global
+//      memory, and the lane's x[t + 1] into registers;
+//   4. no barrier: step t + 1 waits on its h buffer's mbarrier for the C
+//      slices of its h. h and the staging are double buffered, and the
+//      data order the rest: a peer sends step t + 2's h into the buffer step
+//      t read only after it has all of step t + 1's h, and this CTA sent its
+//      slice of that after its products of step t. A cluster barrier a step
+//      would hold every CTA until the slowest arrived; here a CTA waits
+//      only for the bytes it needs.
+// Shared memory bounds C and R: the wrapper takes the smallest cluster
+// whose slice fits (C = 8 at H = 384, 1 at fast's 96, 16 at 512, a
+// non-portable size) and R from N over the clusters the card runs at once
+// (cudaOccupancyMaxActiveClusters), at most 48 rows.
 #include "common.cuh"
 
-constexpr int KS = 4;  // slices of k; the block has KS * H / 2 = 2H threads
+constexpr int KS = 4;  // slices of k of K15 and K16; their blocks have KS * H / 2 = 2H threads
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
-template <int BN>
-__global__ void __launch_bounds__(1024)
-    lstm_scan_kernel(const __nv_bfloat16* __restrict__ xproj,  // [T, N, 4H]
-                     const __nv_bfloat16* __restrict__ w,      // [H, 4H]
-                     __nv_bfloat16* __restrict__ out,          // [T, N, H]
-                     int T, int N, int H, int reverse) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  float* h_s = smem;           // [H][BN]: h of the block's rows, k-major
-  float* g_s = smem + H * BN;  // [KS][BN][4H]: partial h @ W_hh^T of this step
-  const int tid = threadIdx.x;
-  const int q = tid % (G / 8);
-  const int ks = tid / (G / 8);
-  const int k_len = H / KS;
-  const int n0 = blockIdx.x * BN;
-  const bool owns_unit = tid < H;  // thread tid updates hidden unit j = tid
+namespace k1 {
 
-  for (int i = tid; i < H * BN; i += blockDim.x) h_s[i] = 0.f;
-  float c[BN];
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can have
+constexpr int MAX_WARPS = 12;
+constexpr int MAX_NT = 6;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The same shared-memory offset in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// The bulk copy engine: `bytes` (a multiple of 16) from this CTA's shared
+// memory to a CTA of the cluster, completing as transaction bytes on the
+// mbarrier `mbar` there (both shared::cluster addresses).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, int bytes,
+                                                  uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t mbar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mbar), "r"(count) : "memory");
+}
+
+// This phase's one arrival, with the bytes its copies bring.
+__device__ __forceinline__ void mbar_expect(uint32_t mbar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete (acquire). A phase that
+// never completes would hang the card: after about 4 s the kernel traps.
+__device__ __forceinline__ void mbar_wait(uint32_t mbar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1 << 22)) __trap();
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ float pick4(float a, float b, float c, float d, int i) {
+  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+// The depth of the products: Hp rounded up to a multiple of 32, two k-tiles.
+__host__ __device__ constexpr int depth(int hp) { return (hp + 31) / 32 * 32; }
+
+// h as blocks of U units, one for each CTA's slice (and zero ones to the
+// depth): [blocks][R][U + 8].
+__host__ __device__ constexpr int h_blocks(int units, int cluster) {
+  return (depth(cluster * units) + units - 1) / units;
+}
+
+// Shared memory of one CTA, in bytes: the W slice, two h buffers (the
+// cluster's R rows, all units), two stagings of the CTA's new h slice and
+// the two h buffers' mbarriers.
+__host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows) {
+  return 2 * (4 * units * (depth(cluster * units) + 8) +
+              2 * (h_blocks(units, cluster) + 1) * rows * (units + 8)) +
+         16;
+}
+
+// Pairs of k-tiles whose A fragments (the W slice) a warp keeps in
+// registers for the whole launch, by what the accumulators of MTW m-tiles
+// and NT n-tiles leave of 168 registers a thread (12 warps); the rest come
+// from shared memory every step.
+__host__ __device__ constexpr int reg_pairs(int mtw, int nt) {
+  return mtw == 1 ? (nt == 1 ? 12 : nt == 2 ? 8 : nt == 3 ? 4 : nt == 4 ? 2 : 0)
+                  : (nt == 1 ? 4 : nt == 2 ? 2 : 0);
+}
+
+// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster).
+template <int MTW, int NT>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+    lstm_cluster_kernel(const __nv_bfloat16* __restrict__ xproj,  // [T, N, 4H]
+                        const __nv_bfloat16* __restrict__ w_sl,   // [C][4U][depth]
+                        __nv_bfloat16* __restrict__ out,          // [T, N, H]
+                        int T, int N, int H, int C, int U, int reverse) {
+  constexpr int R = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hk = depth(C * U), hs = hk + 8;  // row stride of the W slice, in bf16
+  const int up = U + 8, hb = h_blocks(U, C);  // row stride of h's blocks, blocks
+  const int h_elems = hb * R * up;            // one h buffer
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [4U][hs]
+  __nv_bfloat16* h_s = w_s + 4 * U * hs;                        // [2][hb][R][up]
+  __nv_bfloat16* st_s = h_s + 2 * h_elems;                      // [2][R][up]
+  const uint32_t mbar0 = smem_u32(st_s + 2 * R * up);           // [2] 8-byte mbarriers
+  const int slice_bytes = R * up * 2;  // one CTA's h block: what a phase takes from each peer
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int g = lane >> 2, t4 = lane & 3, q = g & 3;
+  const uint32_t rank = cluster_rank();
+  const int u0 = rank * U;
+  const int n0 = (blockIdx.x / C) * R;
+  const int G = 4 * H;
+
+  // ---- once per launch: the W slice, zeroed h buffers -----------------------
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(w_sl + (size_t)rank * 4 * U * hk);
+    const int per_row = hk / 8;
+    for (int i = tid; i < 4 * U * per_row; i += nthreads) {
+      const int r = i / per_row, c = i % per_row;
+      *reinterpret_cast<uint4*>(w_s + r * hs + c * 8) = src[i];
+    }
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    uint4* hz = reinterpret_cast<uint4*>(h_s);
+    for (int i = tid; i < 2 * h_elems / 8; i += nthreads) hz[i] = zero;
+  }
+  // h buffer b's mbarrier: h of step j lands in buffer j & 1, phase (j - 1)
+  // / 2 there, as C slices. h of step 0 is the zeros above; the phases of
+  // steps 1 and 2 are armed here, each later one once its buffer's previous
+  // phase has been waited for
+  if (tid == 0) {
+    mbar_init(mbar0, 1);
+    mbar_init(mbar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (T > 1) mbar_expect(mbar0 + 8, C * slice_bytes);
+    if (T > 2) mbar_expect(mbar0, C * slice_bytes);
+  }
+  // The lane's cell updates: m-tile warp + i * nwarps, n-tile nt; it takes
+  // the (unit, row) combination number q of the lane group that shares g / 4
+  // and t4 (see step 2). Their x[t] (gates i | f and g | o) are loaded into
+  // registers while the cluster barrier of step t - 1 completes; rows past N
+  // and units past H stay zero.
+  __nv_bfloat162 x[MTW][NT][2];
+  auto load_x = [&](int t) {
 #pragma unroll
-  for (int r = 0; r < BN; ++r) c[r] = 0.f;
-  __syncthreads();
+    for (int i = 0; i < MTW; ++i) {
+      const int unit = u0 + 4 * (warp + i * nwarps) + (g >> 2) + 2 * (q >> 1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int row = n0 + nt * 8 + 2 * t4 + (q & 1);
+        const bool ok = row < N && unit < H;
+        const __nv_bfloat16* src = xproj + ((size_t)t * N + (ok ? row : 0)) * G + (ok ? unit : 0);
+        const __nv_bfloat16 zero = __float2bfloat16(0.f);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          x[i][nt][p].x = ok ? src[2 * p * H] : zero;
+          x[i][nt][p].y = ok ? src[(2 * p + 1) * H] : zero;
+        }
+      }
+    }
+  };
+  load_x(reverse ? T - 1 : 0);
+  cluster_sync();  // every CTA of the cluster has zeroed its h and armed its mbarriers
+
+  float c_state[MTW][NT];
+#pragma unroll
+  for (int i = 0; i < MTW; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) c_state[i][nt] = 0.f;
+  const int kp_n = hk / 32;  // pairs of k-tiles
+  const int ku = U / 16;     // k-tiles a block of h
+  const float inv_ku = 1.f / ku;
+  const __nv_bfloat16* a_row =
+      w_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hs + (lane >> 4) * 8;
+  auto load_a = [&](int kp, uint32_t (&a)[MTW][2][4]) {
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        ldmatrix_x4(a[i][h2], a_row + i * nwarps * 16 * hs + kp * 32 + h2 * 16);
+  };
+  // pairs [0, kr_n) of the A fragments in registers, read from the slice
+  // that the cluster barrier above made visible
+  constexpr int KR = reg_pairs(MTW, NT);
+  static_assert(KR % 2 == 0, "the register pairs are taken two at a time");
+  const int kr_n = min(KR, kp_n);
+  uint32_t w_reg[KR > 0 ? KR : 1][MTW][2][4];
+#pragma unroll
+  for (int p = 0; p < KR; ++p)
+    if (p < kr_n) load_a(p, w_reg[p]);
 
   for (int step = 0; step < T; ++step) {
     const int t = reverse ? T - 1 - step : step;
-    // input projection of this thread's unit: loads complete during phase 1
-    float x[BN][4];
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-      const __nv_bfloat16* xr = xproj + ((size_t)t * N + n0 + r) * G;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) x[r][g] = owns_unit ? __bfloat162float(xr[g * H + tid]) : 0.f;
+    const int buf = step & 1;
+    if (step > 0) {
+      mbar_wait(mbar0 + 8 * buf, ((step - 1) >> 1) & 1);  // every slice of this step's h
+      if (tid == 0 && step + 2 < T) mbar_expect(mbar0 + 8 * buf, C * slice_bytes);
     }
 
-    // phase 1: acc[r][i] = sum over this slice of k of h[r][k] * W[k][8q + i]
-    float acc[BN][8];
+    // 1. acc = W_slice . h, a pair of k-tiles at a time, the next pair's
+    //    fragments loaded before this pair's products: first the pairs whose
+    //    A comes from shared memory, then those held in registers. With one
+    //    m-tile a warp the two accumulators are the pair's two k-tiles, with
+    //    two they are the two m-tiles
+    float acc[2][NT][4];
 #pragma unroll
-    for (int r = 0; r < BN; ++r) {
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
-    }
-    const int k0 = ks * k_len;
-    const uint4* wq = reinterpret_cast<const uint4*>(w + (size_t)k0 * G) + q;
-    const float* hq = h_s + k0 * BN;
-#pragma unroll 8
-    for (int k = 0; k < k_len; ++k) {
-      const uint4 wv = __ldg(wq + (size_t)k * (G / 8));
-      float wf[8];
-      const __nv_bfloat162* wp = reinterpret_cast<const __nv_bfloat162*>(&wv);
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(wp[i]);
-        wf[2 * i] = f.x;
-        wf[2 * i + 1] = f.y;
+        for (int e = 0; e < 4; ++e) acc[a][nt][e] = 0.f;
+    // B: rows nt * 8 .. + 7 of h, k 0-7, 8-15 of the pair's first k-tile
+    //    (lanes 0-15) and of its second (lanes 16-31), each k-tile inside one
+    //    block of U units: block kt / (U / 16) (a float product, exact at
+    //    these sizes), k-tile kt % (U / 16) there
+    const __nv_bfloat16* b_base =
+        h_s + buf * h_elems + (lane & 7) * up + ((lane >> 3) & 1) * 8;
+    auto load_b = [&](int kp, uint32_t (&b)[NT][4]) {
+      const int kt = 2 * kp + (lane >> 4);
+      const int blk = __float2int_rz((kt + 0.5f) * inv_ku);
+      const __nv_bfloat16* p = b_base + blk * R * up + (kt - blk * ku) * 16;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) ldmatrix_x4(b[nt], p + nt * 8 * up);
+    };
+    auto mma_pair = [&](const uint32_t (&a)[MTW][2][4], const uint32_t (&b)[NT][4]) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+        for (int i = 0; i < MTW; ++i)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
+    };
+    {
+      uint32_t a0[MTW][2][4], a1[MTW][2][4], b0[NT][4], b1[NT][4];
+      int kp = kr_n;
+      if (kp < kp_n) {
+        load_a(kp, a0);
+        load_b(kp, b0);
       }
-#pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        const float hk = hq[k * BN + r];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] += hk * wf[i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-      float4* dst = reinterpret_cast<float4*>(g_s + ((size_t)ks * BN + r) * G + 8 * q);
-      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    }
-    __syncthreads();  // gate sums complete; every read of this step's h done
-
-    // phase 2: cell update of the thread's unit j = tid
-    if (owns_unit) {
-      const int j = tid;
-#pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        float gate[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          float sum = g_s[(size_t)r * G + g * H + j];
-#pragma unroll
-          for (int s = 1; s < KS; ++s) sum += g_s[((size_t)s * BN + r) * G + g * H + j];
-          gate[g] = x[r][g] + sum;
+      for (; kp + 2 <= kp_n; kp += 2) {
+        load_a(kp + 1, a1);
+        load_b(kp + 1, b1);
+        mma_pair(a0, b0);
+        if (kp + 2 < kp_n) {
+          load_a(kp + 2, a0);
+          load_b(kp + 2, b0);
         }
-        const float ig = sigmoidf_(gate[0]);
-        const float fg = sigmoidf_(gate[1]);
-        const float gg = tanhf(gate[2]);
-        const float og = sigmoidf_(gate[3]);
-        c[r] = fg * c[r] + ig * gg;
-        const __nv_bfloat16 hb = __float2bfloat16(og * tanhf(c[r]));
-        h_s[j * BN + r] = __bfloat162float(hb);
-        out[((size_t)t * N + n0 + r) * H + j] = hb;
+        mma_pair(a1, b1);
+      }
+      if (kp < kp_n) mma_pair(a0, b0);
+      if (kr_n > 0) load_b(0, b0);
+#pragma unroll
+      for (int p = 0; p < KR; p += 2) {
+        if (p < kr_n) {
+          if (p + 1 < kr_n) load_b(p + 1, b1);
+          mma_pair(w_reg[p], b0);
+          if (p + 2 < kr_n) load_b(p + 2, b0);
+          if (p + 1 < kr_n) mma_pair(w_reg[p + 1], b1);
+        }
       }
     }
-    __syncthreads();  // the new h is visible; g_s may be overwritten
+
+    // 2. cell update: lane (g, t4) holds rows g, g + 8 of an m-tile (units
+    //    g / 4 and 2 + g / 4 of its four, gate q = g % 4) at rows 2 t4,
+    //    2 t4 + 1; it takes the (unit, row) combination number q and fetches
+    //    that combination's other three gates from lanes 4, 8, 12 away
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+      const int mt = warp + i * nwarps;
+      const int jl = 4 * mt + (g >> 2) + 2 * (q >> 1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = MTW == 1 ? acc[0][nt][e] + acc[1][nt][e] : acc[i][nt][e];
+        const float r0 = pick4(v[0], v[1], v[2], v[3], q);
+        const float r1 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 1), 4);
+        const float r2 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 2), 8);
+        const float r3 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 3), 12);
+        const int row = nt * 8 + 2 * t4 + (q & 1);
+        const float2 xif = __bfloat1622float2(x[i][nt][0]);
+        const float2 xgo = __bfloat1622float2(x[i][nt][1]);
+        // gate k of the combination came from the lane with q ^ k: r[k ^ q]
+        const float gi = xif.x + pick4(r0, r1, r2, r3, q);
+        const float gf = xif.y + pick4(r0, r1, r2, r3, q ^ 1);
+        const float gg = xgo.x + pick4(r0, r1, r2, r3, q ^ 2);
+        const float go = xgo.y + pick4(r0, r1, r2, r3, q ^ 3);
+        float& c = c_state[i][nt];
+        c = sigmoidf_(gf) * c + sigmoidf_(gi) * tanhf(gg);
+        st_s[(buf * R + row) * up + jl] = __float2bfloat16(sigmoidf_(go) * tanhf(c));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the bulk copies
+    __syncthreads();  // the CTA's new h slice is staged
+
+    // 3. the slice's rows into every peer's other h buffer (the bulk copy
+    //    engine, completing on the peer's mbarrier), and out[t]. Nothing
+    //    else orders the steps: a peer copies step t + 2's h into the buffer
+    //    step t read only once it has all of step t + 1's h, this CTA's
+    //    slice included, which this CTA copied after its products of step t;
+    //    and the staging written at step t + 2 was read by copies that had
+    //    to land before any peer could send step t + 2's h
+    const __nv_bfloat16* st = st_s + buf * R * up;
+    if (step + 1 < T && tid < C) {
+      const uint32_t next = smem_u32(h_s + (buf ^ 1) * h_elems + rank * R * up);
+      bulk_copy_cluster(map_rank(next, tid), smem_u32(st), slice_bytes,
+                        map_rank(mbar0 + 8 * (buf ^ 1), tid));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    const int per_row4 = U / 4;
+    for (int i = tid; i < R * per_row4; i += nthreads) {
+      const int r = i / per_row4, j4 = (i % per_row4) * 4;
+      if (n0 + r < N && u0 + j4 < H)
+        *reinterpret_cast<uint2*>(out + ((size_t)t * N + n0 + r) * H + u0 + j4) =
+            *reinterpret_cast<const uint2*>(st + r * up + j4);
+    }
+    if (step + 1 < T) load_x(reverse ? t - 1 : t + 1);
   }
+  // every copy out of this CTA has landed; no CTA leaves while a peer may
+  // still write into it
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  cluster_sync();
 }
 
-template <int BN>
-static int launch(const void* xproj, const void* w, void* out, int T, int N, int H,
-                  int reverse, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)BN * H * (1 + 4 * KS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_scan_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int MTW, int NT>
+int launch_k1(const void* xproj, const void* w_sl, void* out, int T, int N, int H, int C, int U,
+              int reverse, cudaStream_t stream, int* active) {
+  auto kernel = lstm_cluster_kernel<MTW, NT>;
+  const int smem = smem_bytes(U, C, 8 * NT);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (C > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  lstm_scan_kernel<BN><<<N / BN, KS * H / 2, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(xproj), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(out), T, N, H, reverse);
+  const int warps = U / 4 / MTW;
+  const int clusters = (N + 8 * NT - 1) / (8 * NT);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(active, (void*)kernel, &cfg));
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(xproj),
+                         static_cast<const __nv_bfloat16*>(w_sl), static_cast<__nv_bfloat16*>(out),
+                         T, N, H, C, U, reverse);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows_per_block (1, 2 or 4) must divide N; H must be a multiple of 4 (each
-// k slice H / 4 long; 16-byte W rows and shared-memory vectors) and at most
-// 512 (2H threads a block); w_hh_t must be 16-byte aligned.
-DTT_EXPORT int lstm_scan_bf16(const void* xproj, const void* w_hh_t, void* out, int T,
-                              int N, int H, int reverse, int rows_per_block, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows_per_block == 1) return launch<1>(xproj, w_hh_t, out, T, N, H, reverse, s);
-  if (rows_per_block == 2) return launch<2>(xproj, w_hh_t, out, T, N, H, reverse, s);
-  if (rows_per_block == 4) return launch<4>(xproj, w_hh_t, out, T, N, H, reverse, s);
+// One of the twelve instantiations, or the launch's refusal.
+int dispatch_k1(const void* xproj, const void* w_sl, void* out, int T, int N, int H, int C, int U,
+                int rows, int warps, int reverse, cudaStream_t s, int* active) {
+  if (T < 0 || N <= 0 || H <= 0 || H % 4 || U % 16 || C < 1 || C > 16 || (C & (C - 1)) ||
+      C * U < H || rows % 8 || rows < 8 || rows > 8 * MAX_NT || warps < 1 ||
+      warps > MAX_WARPS || (U / 4) % warps || smem_bytes(U, C, rows) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mtw = U / 4 / warps;
+  const int nt = rows / 8;
+#define DTT_K1(M, NT_)                                                                        \
+  if (mtw == M && nt == NT_) return launch_k1<M, NT_>(xproj, w_sl, out, T, N, H, C, U, reverse, \
+                                                      s, active);
+  DTT_K1(1, 1) DTT_K1(1, 2) DTT_K1(1, 3) DTT_K1(1, 4) DTT_K1(1, 5) DTT_K1(1, 6)
+  DTT_K1(2, 1) DTT_K1(2, 2) DTT_K1(2, 3) DTT_K1(2, 4) DTT_K1(2, 5) DTT_K1(2, 6)
+#undef DTT_K1
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace k1
+
+// xproj [T, N, 4H] bf16; w_sl [C][4U][Kp] bf16 (Kp = C * U rounded up to
+// 32), the wrapper's slices of W_hh^T (see the note above); out [T, N, H].
+// cluster C a power of two up to 16, U a multiple of 16 with H <= C * U,
+// rows a multiple of 8 up to 48 a cluster, warps dividing U / 4 into one or
+// two m-tiles each; H a multiple of 4; 16-byte aligned pointers.
+DTT_EXPORT int lstm_scan_bf16(const void* xproj, const void* w_sl, void* out, int T, int N,
+                              int H, int reverse, int cluster, int units, int rows, int warps,
+                              void* stream) {
+  if (T == 0) return 0;
+  return k1::dispatch_k1(xproj, w_sl, out, T, N, H, cluster, units, rows, warps, reverse,
+                         static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of K1's launch at this shape the card runs at once.
+DTT_EXPORT int lstm_scan_active_clusters(int H, int cluster, int units, int rows, int warps,
+                                         int* active) {
+  *active = 0;
+  return k1::dispatch_k1(nullptr, nullptr, nullptr, 1, rows, H, cluster, units, rows, warps, 0,
+                         nullptr, active);
 }
 
 // ---------------------------------------------------------------------------
@@ -173,11 +486,12 @@ DTT_EXPORT int lstm_scan_bf16(const void* xproj, const void* w_hh_t, void* out, 
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
 //   out[t] = bf16(h);  h_i8 = round_half_even(h * 127)
 //
-// What bounds it on the H100: as K1, the L2 read of the recurrent weights
-// every step, now int8: 0.59 MB a step at hac's H = 384, half of K1's. The
-// design is K1's (BN rows a block, thread (q, ks) owns 8 gate columns over
-// the ks-th of KS slices of k, the owner of hidden unit j does the cell
-// update); the products are __dp4a on four k at once, so the wrapper hands
+// What bounds it on the H100: the L2 read of the recurrent weights every
+// step, int8: 0.59 MB a step at hac's H = 384 for every block. Each block
+// owns BN batch rows and every hidden unit (one launch per layer, the time
+// loop inside); thread (q, ks) owns 8 gate columns over the ks-th of KS
+// slices of k, and the owner of hidden unit j does the cell update. The
+// products are __dp4a on four k at once, so the wrapper hands
 // W in a k4-packed layout: word (kg, c) holds W[4kg .. 4kg+3][c], and a
 // thread's 8 columns of one k group are 32 contiguous bytes. h stays int8
 // in shared memory in the same packing (word (kg, r): h[r][4kg .. 4kg+3]),
@@ -293,14 +607,14 @@ __global__ void __launch_bounds__(1024)
 //   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = bf16(sigmoid(o) * tanh(c))
 // The input width is H, so both weights are [H, 4H].
 //
-// What bounds it on the H100: K1's L2 read of W_hh every step plus the
-// same for W_ih, 2.4 MB a step at H = 384, and twice K1's FMAs on the CUDA
-// cores. Only the H-wide x streams from HBM (not K1's 4H-wide gates). The
-// design is K1's; each thread's k slice runs both products into one f32
-// sum per column, reading a row of W_hh and the same row of W_ih as 16-byte
-// vectors, h and x[t] from shared memory. x[t + 1] is staged into shared
-// memory during the cell update of step t, between the step's two
-// barriers, so the step needs no third one.
+// What bounds it on the H100: the L2 read of W_hh and W_ih every step, 2.4
+// MB a step at H = 384 for every block, and 2 BN H 4H FMAs a step on the
+// CUDA cores. Only the H-wide x streams from HBM (not K1's 4H-wide gates).
+// The design is K15's, with bf16 weights; each thread's k slice runs both
+// products into one f32 sum per column, reading a row of W_hh and the same
+// row of W_ih as 16-byte vectors, h and x[t] from shared memory. x[t + 1]
+// is staged into shared memory during the cell update of step t, between
+// the step's two barriers, so the step needs no third one.
 // ---------------------------------------------------------------------------
 
 template <int BN>

@@ -135,3 +135,4 @@ def stream_ptr(device: torch.device) -> int:
 VOIDP = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+DOUBLE = ctypes.c_double

@@ -25,9 +25,11 @@ win_upper)``, which drops one key of each strip's last query at sup's
 window): ``band_mask``, the JAX package's ``_band_bias_at``.
 
 On a CUDA tensor each wrapper launches ``csrc/attention_banded.cu`` (bf16,
-heads of 64 channels); on a CPU tensor it runs its plain version below, which
-follows the same arithmetic: rotation in float32 rounded to the stream dtype,
-float32 logits, softmax and p @ v, one rounding of the output.
+heads of 64 channels): blocks of 128 queries over a ring of 64-key tiles,
+one pass with a running max. On a CPU tensor it runs its plain version
+below, which follows the same arithmetic but for the order of the sums:
+rotation in float32 rounded to the stream dtype, float32 logits, softmax
+(the max first) and p @ v, one rounding of the output.
 """
 
 from __future__ import annotations

@@ -105,7 +105,7 @@ def _lse_scan(scores: torch.Tensor, stay_score: float, reverse: bool) -> torch.T
     hist = torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
     fn = _cuda.kernel_function(
         "crf_lse_scan", "crf_lse_scan_f32",
-        [_cuda.VOIDP] * 2 + [_cuda.INT] * 4 + [_cuda.FLOAT, _cuda.VOIDP],
+        [_cuda.VOIDP] * 2 + [_cuda.INT] * 4 + [_cuda.DOUBLE, _cuda.VOIDP],
     )
     with torch.cuda.device(scores.device):
         code = fn(

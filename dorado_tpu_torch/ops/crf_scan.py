@@ -81,6 +81,13 @@ def viterbi_step(
 
 
 def _scan(scores_tnc: torch.Tensor, stay_score: float, reverse: bool) -> torch.Tensor:
+    """The full-history LSE scan: each step's log-sum-exp in float64 from the
+    float32 carry, rounded to the float32 carry and history. So any two
+    implementations that do the same (K6 does) agree bit for bit but in the
+    rare case of a float64 result within a few float64 rounding errors of a
+    float32 rounding boundary; in float32 throughout, their different exp,
+    log and summation orders leave one float32 step between them at values of
+    thousands, which the beam search amplifies."""
     t_len, n, c = scores_tnc.shape
     num_states = c // 4
     dev = scores_tnc.device
@@ -91,12 +98,12 @@ def _scan(scores_tnc: torch.Tensor, stay_score: float, reverse: bool) -> torch.T
     idx = torch.as_tensor(idx, device=dev)
     flat = torch.as_tensor(flat, device=dev)
     stay_factor = math.exp(stay_score)
-    es = torch.exp(scores_tnc.float())
+    es = torch.exp(scores_tnc.float().double())
     hist = torch.zeros(t_len + 1, n, num_states, dtype=torch.float32, device=dev)
     carry = hist[0 if not reverse else t_len]
     for i in range(t_len):
         t = t_len - 1 - i if reverse else i
-        carry = lse_step(carry, es[t], idx, flat, stay_factor)
+        carry = lse_step(carry.double(), es[t], idx, flat, stay_factor).float()
         hist[t if reverse else t + 1] = carry
     return hist
 

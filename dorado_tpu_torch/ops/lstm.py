@@ -17,10 +17,18 @@ pipeline path (the JAX package calls neither from its model):
     recurrence.
 
 On a CUDA tensor each wrapper launches its kernel (bf16); on a CPU tensor it
-runs its plain version below.
+runs its plain version below. K1 keeps W_hh in the shared memory of a
+thread-block cluster, each CTA a slice of the gate columns (``slice_w_hh``),
+and exchanges h between the CTAs every step; ``k1_cluster_shape`` and
+``k1_plan`` choose the cluster, the units a CTA and the batch rows a
+cluster. K15 and K16 read their weights from L2 every step, a block per
+``_rows_per_block`` batch rows.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -47,13 +55,122 @@ def lstm_scan_plain(xproj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
 
 
 def _rows_per_block(n: int, device: torch.device) -> int:
-    """Batch rows per block. Every block re-reads W_hh from L2 each step,
-    and with one row per block the step is bound by that L2 traffic; so take
-    the fewest rows per block that still fit the batch in one wave of blocks
-    (one per SM)."""
+    """Batch rows per block of K15 and K16, which read the recurrent weights
+    from L2 every step: the fewest rows per block that still fit the batch
+    in one wave of blocks (one per SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fitting = [r for r in (1, 2, 4) if n % r == 0 and n // r <= sms]
     return fitting[0] if fitting else max(r for r in (1, 2, 4) if n % r == 0)
+
+
+# K1's limits: dynamic shared memory a block can have on Hopper, warps a
+# CTA, m-tiles (16 gate columns) a warp, batch rows a cluster
+_K1_SMEM_MAX = 232448
+_K1_MAX_WARPS = 12
+_K1_MAX_TILES_A_WARP = 2
+_K1_MAX_ROWS = 48
+
+
+class ClusterPlan(NamedTuple):
+    """How K1 splits a launch: ``cluster`` CTAs a cluster, each owning
+    ``units`` hidden units (all four gate columns) with ``warps`` warps;
+    ``rows`` batch rows a cluster, ``clusters`` clusters."""
+
+    cluster: int
+    units: int
+    warps: int
+    rows: int
+    clusters: int
+
+
+def _k1_smem(units: int, cluster: int, rows: int) -> int:
+    """Shared memory of one K1 CTA in bytes (``smem_bytes`` in the source):
+    its W slice, two h buffers and two h stagings, bf16, and two 8-byte
+    mbarriers."""
+    kp = _k1_depth(cluster, units)
+    blocks = -(-kp // units)  # h held as blocks of one CTA's units
+    return 2 * (4 * units * (kp + 8) + 2 * (blocks + 1) * rows * (units + 8)) + 16
+
+
+def _k1_depth(cluster: int, units: int) -> int:
+    """The products' depth: the cluster's units rounded up to 32 (two
+    k-tiles)."""
+    return -(-cluster * units // 32) * 32
+
+
+def k1_cluster_shape(hidden: int) -> tuple[int, int, int]:
+    """(cluster, units, warps) for hidden width H: the smallest cluster
+    (1 to 16 CTAs) whose CTAs' W slices fit shared memory at 8 rows and
+    whose m-tiles (four units each) split over at most 12 warps, one or two
+    a warp; each CTA's unit count rounded up to 16 (whole k-tiles of h),
+    and the most warps that split them."""
+    for cluster in (1, 2, 4, 8, 16):
+        units = -(-hidden // cluster)
+        units += -units % 16
+        tiles = units // 4
+        warps = [
+            w for w in range(1, _K1_MAX_WARPS + 1)
+            if tiles % w == 0 and tiles // w <= _K1_MAX_TILES_A_WARP
+        ]
+        if warps and _k1_smem(units, cluster, 8) <= _K1_SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"lstm_scan: no cluster of up to 16 CTAs holds W_hh at H = {hidden}")
+    return cluster, units, max(warps)
+
+
+def k1_plan(hidden: int, n: int, active_clusters: int) -> ClusterPlan:
+    """K1's split of a batch of ``n`` rows, given how many clusters of its
+    shape the card runs at once: rows a cluster spread the batch over those
+    clusters (a multiple of 8, the mma's n-tile), at most 48 and what shared
+    memory holds; a batch beyond that takes more clusters than run at once."""
+    cluster, units, warps = k1_cluster_shape(hidden)
+    fit = [
+        r for r in range(8, _K1_MAX_ROWS + 1, 8) if _k1_smem(units, cluster, r) <= _K1_SMEM_MAX
+    ]
+    per_cluster = -(-n // max(active_clusters, 1))
+    rows = min(max(8, per_cluster + -per_cluster % 8), fit[-1])
+    return ClusterPlan(cluster, units, warps, rows, -(-n // rows))
+
+
+def slice_w_hh(w_hh_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
+    """[H, 4H] recurrent weights -> [cluster, 4 * units, Kp] (Kp = cluster *
+    units rounded up to 32): CTA c's row 4 j + gate holds the weights of gate
+    column gate * H + c * units + j over k, zero where the unit or k is past
+    H. K1 copies slice c into CTA c's shared memory."""
+    hidden = w_hh_t.shape[0]
+    hp, kp = cluster * units, _k1_depth(cluster, units)
+    w = w_hh_t.new_zeros(kp, 4, hp)  # [k, gate, unit]
+    w[:hidden, :, :hidden] = w_hh_t.reshape(hidden, 4, hidden)
+    return w.reshape(kp, 4, cluster, units).permute(2, 3, 1, 0).reshape(cluster, 4 * units, kp)
+
+
+_active: dict[tuple, int] = {}
+
+
+def _active_clusters(device: torch.device, hidden: int, shape: tuple[int, int, int]) -> int:
+    """Clusters of K1's shape at 8 rows the card runs at once
+    (``cudaOccupancyMaxActiveClusters``), once per device and width."""
+    key = (device, hidden)
+    if key not in _active:
+        cluster, units, warps = shape
+        fn = _cuda.kernel_function(
+            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 5 + [_cuda.VOIDP]
+        )
+        count = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            code = fn(hidden, cluster, units, 8, warps, ctypes.addressof(count))
+        _cuda.check_launch("lstm_scan", code)
+        if count.value < 1:
+            raise RuntimeError(f"lstm_scan: the card runs no cluster of {cluster} CTAs at H = {hidden}")
+        _active[key] = count.value
+    return _active[key]
+
+
+def k1_launch_plan(hidden: int, n: int, device: torch.device) -> ClusterPlan:
+    """The split K1 launches with on ``device`` for width H and N rows."""
+    shape = k1_cluster_shape(hidden)
+    return k1_plan(hidden, n, _active_clusters(device, hidden, shape))
 
 
 def lstm_scan_time_major(
@@ -62,7 +179,7 @@ def lstm_scan_time_major(
     """[T, N, 4H] pre-projected gates + [H, 4H] recurrent weights -> [T, N, H].
 
     A CPU tensor takes the plain version; a CUDA tensor (bf16, H a multiple
-    of 4 up to 512, the kernel's four slices of k) launches the kernel."""
+    of 4 up to 512) launches the kernel, split by ``k1_launch_plan``."""
     if xproj.device.type == "cpu":
         return lstm_scan_plain(xproj, w_hh_t, reverse)
     t_len, n, g4 = xproj.shape
@@ -73,15 +190,16 @@ def lstm_scan_time_major(
     _cuda.check_tensor(w_hh_t, "w_hh_t", torch.bfloat16, (hidden, g4))
     if w_hh_t.device != xproj.device:
         raise ValueError("lstm_scan: xproj and w_hh_t are on different devices")
+    plan = k1_launch_plan(hidden, n, xproj.device)
+    w_sl = slice_w_hh(w_hh_t, plan.cluster, plan.units)
     out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
     fn = _cuda.kernel_function(
-        "lstm_scan", "lstm_scan_bf16", [_cuda.VOIDP] * 3 + [_cuda.INT] * 5 + [_cuda.VOIDP]
+        "lstm_scan", "lstm_scan_bf16", [_cuda.VOIDP] * 3 + [_cuda.INT] * 8 + [_cuda.VOIDP]
     )
     with torch.cuda.device(xproj.device):
         code = fn(
-            xproj.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(),
-            t_len, n, hidden, int(reverse), _rows_per_block(n, xproj.device),
-            _cuda.stream_ptr(xproj.device),
+            xproj.data_ptr(), w_sl.data_ptr(), out.data_ptr(), t_len, n, hidden, int(reverse),
+            plan.cluster, plan.units, plan.rows, plan.warps, _cuda.stream_ptr(xproj.device),
         )
     _cuda.check_launch("lstm_scan", code)
     lstm_scan_time_major.launches += 1

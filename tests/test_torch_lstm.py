@@ -12,10 +12,14 @@ from dorado_tpu.ops.lstm import lstm_scan_time_major as jax_lstm_scan
 from dorado_tpu.ops.lstm import lstm_scan_time_major_int8 as jax_lstm_int8
 from dorado_tpu.ops.lstm import quantize_lstm_weights as jax_quantize
 from dorado_tpu_torch.ops.lstm import (
+    _k1_smem,
+    k1_cluster_shape,
+    k1_plan,
     lstm_fused_time_major,
     lstm_scan_time_major,
     lstm_scan_time_major_int8,
     quantize_lstm_weights,
+    slice_w_hh,
 )
 
 
@@ -107,3 +111,70 @@ def test_lstm_fused_matches_pallas(t, n, h, reverse, dtype):
     )
     assert out.dtype == tdt and out.shape == (t, n, h)
     _close(out.float().numpy(), ref, dtype)
+
+
+# K1's host-side helpers: the cluster shape and rows a cluster it launches
+# with, and the per-CTA slices of W_hh it copies into shared memory.
+
+
+@pytest.mark.parametrize("h", range(4, 513, 4))
+def test_k1_cluster_shape_fits_every_width(h):
+    """Every width the wrapper takes gets a cluster whose CTAs hold their W
+    slice, two h buffers and the staging at 8 rows, whose units cover H, and
+    whose m-tiles split over the warps one or two a warp."""
+    cluster, units, warps = k1_cluster_shape(h)
+    assert cluster in (1, 2, 4, 8, 16) and units % 16 == 0
+    assert cluster * units >= h
+    assert 1 <= warps <= 12 and (units // 4) % warps == 0 and units // 4 // warps <= 2
+    assert _k1_smem(units, cluster, 8) <= 232448
+    # the smallest cluster that fits: half of it would not hold W
+    if cluster > 1:
+        half = -(-h // (cluster // 2))
+        half += -half % 16
+        assert _k1_smem(half, cluster // 2, 8) > 232448 or (half // 4) > 24
+
+
+@pytest.mark.parametrize(
+    "h,shape", [(384, (8, 48, 12)), (96, (1, 96, 12)), (512, (16, 32, 8)), (32, (1, 32, 8))]
+)
+def test_k1_cluster_shape_at_the_models_widths(h, shape):
+    """hac's H = 384 takes clusters of 8 (147 KB of W a CTA), fast's 96 one
+    CTA, 512 a non-portable cluster of 16."""
+    assert k1_cluster_shape(h) == shape
+
+
+@pytest.mark.parametrize(
+    "h,n,active,rows,clusters",
+    [
+        (384, 128, 15, 16, 8),  # 15 clusters of 8 at once: 16 rows, one wave
+        (384, 128, 16, 8, 16),
+        (384, 512, 15, 40, 13),  # the -b 0 sweep's choice, still one wave
+        (384, 256, 15, 24, 11),
+        (384, 100, 15, 8, 13),  # a ragged batch: the last cluster part full
+        (384, 1, 15, 8, 1),
+        (384, 2000, 15, 40, 50),  # beyond what shared memory holds: more waves
+        (512, 1024, 7, 32, 32),
+        (96, 512, 132, 8, 64),
+    ],
+)
+def test_k1_plan_rows_a_cluster(h, n, active, rows, clusters):
+    plan = k1_plan(h, n, active)
+    assert (plan.rows, plan.clusters) == (rows, clusters)
+    assert plan.rows * plan.clusters >= n > plan.rows * (plan.clusters - 1)
+    assert _k1_smem(plan.units, plan.cluster, plan.rows) <= 232448
+
+
+@pytest.mark.parametrize("h", [384, 96, 512, 36, 324])
+def test_slice_w_hh_reassembles_w_hh(h):
+    """The slices hold every weight once, at CTA c's row 4 j + gate and k,
+    and zeros where the unit or k is past H."""
+    rs = np.random.RandomState(h)
+    w = torch.from_numpy(rs.randn(h, 4 * h).astype(np.float32)).bfloat16()
+    cluster, units, _ = k1_cluster_shape(h)
+    sl = slice_w_hh(w, cluster, units)
+    kp = -(-cluster * units // 32) * 32
+    assert sl.shape == (cluster, 4 * units, kp) and sl.dtype == w.dtype
+    # [c, j, gate, k] -> [k, gate, c * units + j]
+    back = sl.reshape(cluster, units, 4, kp).permute(3, 2, 0, 1).reshape(kp, 4, cluster * units)
+    assert torch.equal(back[:h, :, :h].reshape(h, 4 * h), w)
+    assert not back[h:].any() and not back[:, :, h:].any()
