@@ -14,9 +14,11 @@
    K1 (LSTM recurrence, W_hh resident in a thread-block cluster) at the
    pipeline's shapes, at each rows-a-cluster choice and at three other
    widths, both directions, timed at N = 128 and 512 each beside cuDNN's
-   LSTM at the same N, with its split and microseconds a step; K15 (the recurrence with int8 W_hh) and K16 (input
-   projection inside the recurrence, beside cuDNN's LSTM), both directions,
-   on no path; K2 (W8A8 projection) bit for bit at three row
+   LSTM at the same N, with its split and microseconds a step; K15 (the
+   recurrence with int8 W_hh), both directions, on no path; K16 (the input
+   projection inside the recurrence, on K1's kernel) at K1's widths and
+   batches in both directions, timed at N = 128 and 512 beside cuDNN's LSTM
+   with its split, on no path; K2 (W8A8 projection) bit for bit at three row
    counts, beside the bf16 matmul it replaces and ``torch._int_mm`` with
    separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
    scans and traceback); K6 (full-history LSE scan) in both directions; K7a
@@ -33,7 +35,7 @@
    T' = 1024 and 700, K10 (q and k rotated beforehand), K11a (halves-major q
    and k rows, RoPE inside), K11b (separate q, k, v; also at window
    (200, 256)); K14 (matmul + bias + scaled residual + RMS norm) at out_proj
-   and at fc2, beside ``F.linear`` and the unfused passes; K12 (fc1 + SwiGLU
+   and at fc2, each at three row counts, beside the unfused passes; K12 (fc1 + SwiGLU
    + requantisation) and K13 (int8 fc2, bit for bit) at two row counts,
    beside ``torch._int_mm`` routes; K2 at sup's qkv shape bit for bit; K3,
    K4, K5 at 1024 states; the full-history scans at 1024 states (K3's
@@ -150,8 +152,8 @@ LSTM_TIMED_N = [N, 4 * N]
 #     outputs more than one bf16 step (of the larger of the two values) apart
 #     at under 0.1% of positions
 MAX_INT8_LSTM_SHARE_OFF = 1e-3
-# K16 (input projection inside): held as K1 (TOL_LSTM); both at hac's shapes
-# in both directions
+# K16 (input projection inside): held as K1 (TOL_LSTM), at K1's widths and
+# batches in both directions
 # K2: bit for bit (the int32 sums are exact and every float step is a single
 #     rounded operation in the kernel and in the plain version), at the long
 #     lane's rows, the short lane's, and a count that is no multiple of the
@@ -233,6 +235,10 @@ WIDE_WINDOW = (200, 256)
 #     0.1% of the outputs differ at all (measured on an H100 80GB HBM3 at
 #     sup's shapes: 0.0103 of that scale at most, 0.026% differing)
 TOL_NORM_REL, MAX_NORM_SHARE_DIFFERENT = 2.0**-6, 1e-3
+# K14 is held at sup's rows, at a count that is no multiple of its 128-row
+# tiles, and at one that is a multiple of them but not of a cluster's two
+# (the cluster's second CTA then has no rows in its last tile)
+K14_ROWS = [5 * 64 + 37, 3 * 128, SUP_M]
 # the sup model's fused norms on the card against the unfused route on the
 # same weights, over the first SUP_SHALLOW_DEPTH layers (mean abs difference
 # over the mean abs score): K14 rounds where the unfused operators do, but
@@ -538,11 +544,11 @@ def main() -> None:
         return posts, diff.max().item()
 
     # ---- K1: LSTM recurrence ---------------------------------------------
-    def k1_split(h, n) -> str:
-        p = lstm.k1_launch_plan(h, n, dev)
+    def k1_split(h, n, fused=False) -> str:
+        p = lstm.k1_launch_plan(h, n, dev, fused)
         return (f"cluster {p.cluster}, {p.units} units a CTA, {p.warps} warps, {p.rows} rows a "
-                f"cluster, {p.clusters} clusters, {lstm._k1_smem(p.units, p.cluster, p.rows)} "
-                f"bytes of shared memory a CTA")
+                f"cluster, {p.clusters} clusters, "
+                f"{lstm._k1_smem(p.units, p.cluster, p.rows, fused)} bytes of shared memory a CTA")
 
     with torch.inference_mode():
         def lstm_weights(h):
@@ -568,7 +574,7 @@ def main() -> None:
             w_other = lstm_weights(h_other)
             err = max(err, *(hold_k1(w_other, 64, n, reverse) for reverse in (False, True)))
         print(f"  clusters the card runs at once, by width: "
-              f"{ {h: c for (_, h), c in lstm._active.items()} }", flush=True)
+              f"{ {h: c for (_, h, fused), c in lstm._active.items() if not fused} }", flush=True)
         # the timed shapes: hac's long lane, reversed as the first layer runs,
         # and a 512-row batch (the -b 0 sweep's choice), each beside cuDNN
         timed = {}
@@ -586,12 +592,10 @@ def main() -> None:
             print(f"lstm_scan T={T} N={n}: {k_ms:.3f} ms, {k_ms / T * 1e3:.3f} us a step "
                   f"({k1_split(H, n)}); cuDNN nn.LSTM at the same N {lib_ms:.3f} ms [{card}]",
                   flush=True)
-        # the row's own numbers at N = 128; x_in, xproj and cudnn stay at N = 128
-        # for K15 and K16 below
+        # the row's own numbers at N = 128; x_in stays at N = 128 for K16 and
+        # K2 below
         xproj = (torch.randn(T, N, 4 * H, generator=gen, device=dev) * 0.8).bfloat16()
         x_in = torch.randn(T, N, H, generator=gen, device=dev).bfloat16()
-        cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
-        cudnn.flatten_parameters()
         n512 = timed[LSTM_TIMED_N[1]]
         report(
             "lstm_scan", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:65",
@@ -606,12 +610,10 @@ def main() -> None:
         )
         del xproj
 
-        # ---- K15, K16: the LSTM variants on no path, at hac's shapes ---------
+        # ---- K15, K16: the LSTM variants on no path ------------------------
         w_i8, w_scale = lstm.quantize_lstm_weights(w_hh_t.float())
         xproj = (torch.randn(T, N, 4 * H, generator=gen, device=dev) * 0.8).bfloat16()
-        w_ih_t = ((torch.rand(H, 4 * H, generator=gen, device=dev) * 2 - 1) / H**0.5).bfloat16()
-        lstm_bias = torch.randn(4 * H, generator=gen, device=dev) * 0.1
-        err15 = err16 = 0.0
+        err15 = 0.0
         for reverse in (False, True):
             out_k = lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale, reverse=reverse)
             out_p = lstm.lstm_scan_int8_plain(xproj, w_i8, w_scale, reverse=reverse)
@@ -629,14 +631,6 @@ def main() -> None:
                 raise AssertionError(f"lstm_scan_int8 reverse={reverse}: {off:.4%} of outputs "
                                      f"more than one bf16 step off")
             err15 = max(err15, diff.max().item())
-            out_k = lstm.lstm_fused_time_major(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=reverse)
-            out_p = lstm.lstm_fused_plain(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=reverse)
-            torch.cuda.synchronize()
-            e = (out_k.float() - out_p.float()).abs().max().item()
-            print(f"lstm_fused T={T} N={N} reverse={reverse}: max abs error {e:.3g}", flush=True)
-            if not e <= TOL_LSTM:
-                raise AssertionError(f"lstm_fused reverse={reverse}: max abs error {e} > {TOL_LSTM}")
-            err16 = max(err16, e)
         del out_k, out_p, a, b, diff, big, step
         report(
             "lstm_scan_int8", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:291",
@@ -646,18 +640,69 @@ def main() -> None:
             2.0 * T * N * H * 4 * H, PEAK_INT8,
             2 * T * N * 4 * H + H * 4 * H + 4 * 4 * H + 2 * T * N * H, None, on_path=False,
         )
+        del xproj, w_i8, w_scale
+
+        # K16 at every width and batch K1 is held at, both directions: hac's H
+        # at N = 128 (the full T) and 512, and LSTM_WIDTHS
+        def hold_k16(w_ih, w_hh, bias, x_in, reverse):
+            h, (t_len, n) = w_hh.shape[0], x_in.shape[:2]
+            out_k = lstm.lstm_fused_time_major(x_in, w_ih, w_hh, bias, reverse=reverse)
+            out_p = lstm.lstm_fused_plain(x_in, w_ih, w_hh, bias, reverse=reverse)
+            torch.cuda.synchronize()
+            e = (out_k.float() - out_p.float()).abs().max().item()
+            print(f"lstm_fused H={h} T={t_len} N={n} reverse={reverse} "
+                  f"({k1_split(h, n, fused=True)}): max abs error {e:.3g}", flush=True)
+            if not e <= TOL_LSTM:
+                raise AssertionError(f"lstm_fused at H={h} T={t_len} N={n} reverse={reverse}: max "
+                                     f"abs error {e} > {TOL_LSTM}")
+            return e
+
+        w_ih_t = lstm_weights(H)
+        lstm_bias = torch.randn(4 * H, generator=gen, device=dev) * 0.1
+        x_wide = torch.randn(64, 4 * N, H, generator=gen, device=dev).bfloat16()
+        err16 = max(hold_k16(w_ih_t, w_hh_t, lstm_bias, x, reverse)
+                    for x in (x_in, x_wide) for reverse in (False, True))
+        for h_other, n in LSTM_WIDTHS:
+            w_ih_o, w_hh_o = lstm_weights(h_other), lstm_weights(h_other)
+            bias_o = torch.randn(4 * h_other, generator=gen, device=dev) * 0.1
+            x_o = torch.randn(64, n, h_other, generator=gen, device=dev).bfloat16()
+            err16 = max(err16, *(hold_k16(w_ih_o, w_hh_o, bias_o, x_o, reverse)
+                                 for reverse in (False, True)))
+        del x_wide, w_ih_o, w_hh_o, bias_o, x_o
+        # timed as K1 is, at N = 128 and 512, each beside cuDNN at the same N
+        timed16 = {}
+        for n in LSTM_TIMED_N:
+            x_n = x_in if n == N else torch.randn(T, n, H, generator=gen, device=dev).bfloat16()
+            cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
+            cudnn.flatten_parameters()
+            k_ms = time_ms(lambda: lstm.lstm_fused_time_major(x_n, w_ih_t, w_hh_t, lstm_bias,
+                                                              reverse=True), 3)
+            lib_ms = time_ms(lambda: cudnn(x_n), 3)
+            b_ms, _ = bound_ms(2.0 * 2 * T * n * H * 4 * H, PEAK_BF16,
+                               2 * T * n * H + 2 * 2 * H * 4 * H + 4 * 4 * H + 2 * T * n * H)
+            timed16[n] = dict(ms=k_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              us_per_step=k_ms / T * 1e3,
+                              split=lstm.k1_launch_plan(H, n, dev, fused=True)._asdict())
+            print(f"lstm_fused T={T} N={n}: {k_ms:.3f} ms, {k_ms / T * 1e3:.3f} us a step "
+                  f"({k1_split(H, n, fused=True)}); cuDNN nn.LSTM at the same N {lib_ms:.3f} ms "
+                  f"[{card}]", flush=True)
+        del x_n, cudnn
+        n512 = timed16[LSTM_TIMED_N[1]]
         report(
             "lstm_fused", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:184",
-            err16,
-            time_ms(lambda: lstm.lstm_fused_time_major(x_in, w_ih_t, w_hh_t, lstm_bias,
-                                                       reverse=True), 3),
-            time_ms(lambda: lstm.lstm_fused_plain(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=True), 1),
+            err16, timed16[N]["ms"],
+            time_ms(lambda: lstm.lstm_fused_plain(x_in, w_ih_t, w_hh_t, lstm_bias, reverse=True),
+                    1),
             2.0 * 2 * T * N * H * 4 * H, PEAK_BF16,
             2 * T * N * H + 2 * 2 * H * 4 * H + 4 * 4 * H + 2 * T * N * H,
-            time_ms(lambda: cudnn(x_in), 3),
-            "(cuDNN nn.LSTM, one layer of input size H: the same function)", on_path=False,
+            timed16[N]["library_ms"],
+            "(cuDNN nn.LSTM, one layer of input size H: the same function)",
+            on_path=False, us_per_step=timed16[N]["us_per_step"], split=timed16[N]["split"],
+            n512_ms=n512["ms"], n512_library_ms=n512["library_ms"],
+            n512_bound_ms=n512["bound_ms"], n512_us_per_step=n512["us_per_step"],
+            n512_split=n512["split"],
         )
-        del xproj, cudnn, w_i8, w_scale, w_ih_t, lstm_bias
+        del w_ih_t, lstm_bias
 
         # ---- K2: W8A8 input projection -------------------------------------
         w_ih = (torch.rand(4 * H, H, generator=gen, device=dev) * 2 - 1) / H**0.5
@@ -1019,7 +1064,7 @@ def main() -> None:
             nw = (1.0 + 0.1 * torch.randn(SUP_D, generator=gen, device=dev)).bfloat16()
             args = (x, w, b, res, nw, alpha)
             errs = []
-            for m in (5 * 64 + 37, SUP_M):  # a row count that is no multiple of the 64-row blocks
+            for m in K14_ROWS:
                 out_k = fused_norm.matmul_residual_rmsnorm(*(a[:m] if a is x or a is res else a
                                                              for a in args))
                 out_p = fused_norm.matmul_residual_rmsnorm_plain(

@@ -32,6 +32,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
 }
 
+// cp.async of 8 bytes (through L1), for rows that are 8-byte aligned only.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(addr), "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -83,4 +89,220 @@ __device__ __forceinline__ void unpack4(uint2 v, float out[4]) {
   out[1] = __high2float(lo);
   out[2] = __low2float(hi);
   out[3] = __high2float(hi);
+}
+
+// ---- thread-block clusters, mbarriers and the bulk copy engine ------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The same shared-memory offset in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t mbar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mbar), "r"(count) : "memory");
+}
+
+// Makes the initialised mbarriers visible to the cluster (and to the async
+// proxy) before any CTA uses them; a cluster barrier follows.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// This phase's one arrival, with the bytes its copies bring.
+__device__ __forceinline__ void mbar_expect(uint32_t mbar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival on this CTA's mbarrier.
+__device__ __forceinline__ void mbar_arrive_local(uint32_t mbar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mbar) : "memory");
+}
+
+// One arrival on the mbarrier at this offset in CTA `rank` of the cluster
+// (this CTA's own included), with the default (CTA-scope) release: a
+// cluster-scope release fences every earlier access of the thread, and cost
+// K14 much of its time.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t mbar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(map_rank(mbar, rank))
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete (acquire). A phase that
+// never completes would hang the card: after about 4 s the kernel traps.
+__device__ __forceinline__ void mbar_wait(uint32_t mbar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1 << 22)) __trap();
+  }
+}
+
+// The bulk copy engine: `bytes` (a multiple of 16) from this CTA's shared
+// memory to a CTA of the cluster, completing as transaction bytes on the
+// mbarrier `mbar` there (both shared::cluster addresses).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, int bytes,
+                                                  uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+// ---- TMA tensor copies ------------------------------------------------------
+// `map` is the generic address of a CUtensorMap kernel parameter
+// (__grid_constant__); c0 is the inner (contiguous) coordinate, c1 the row.
+// The box lands at `dst` in the map's swizzle and completes as transaction
+// bytes on `mbar`; boxes past the tensor's edge are filled with zeros.
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mbar)
+      : "memory");
+}
+
+// The same box into this offset of every CTA in `mask` (bit r: cluster rank
+// r), each completing on its own mbarrier at `mbar`'s offset.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const void* map, int c0,
+                                                      int c1, uint32_t mbar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::"
+      "cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mbar), "h"(mask)
+      : "memory");
+}
+
+// A box from this CTA's shared memory (in the map's swizzle) to global
+// memory; the part past the tensor's edge is not written. Completion is
+// tracked by bulk groups: bulk_commit, then bulk_wait_read<N> until the
+// source may be overwritten.
+__device__ __forceinline__ void tma_store_2d(const void* map, int c0, int c1, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- warpgroup matrix multiply (wgmma) ------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that writes it.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Shared-memory matrix descriptor of a K-major operand whose rows are one
+// swizzle span long (SW = 128 or 64 bytes: 64 or 32 bf16), in the TMA's
+// swizzle of that span: 8-row atoms of 8 SW bytes, aligned to their size;
+// start address, stride between 8-row groups 8 SW bytes, layout 1 (128-byte
+// swizzle) or 2 (64-byte). A step of 16 along K adds 32 bytes to the start.
+template <int SW>
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
+  static_assert(SW == 128 || SW == 64, "a 128- or 64-byte swizzle");
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * SW >> 4) << 32) | ((uint64_t)(SW == 128 ? 1 : 2) << 62);
+}
+
+// d (+)= A . B^T for a 64 x 256 tile, k = 16: A [64][16] and B [256][16],
+// both bf16 and K-major in shared memory (descriptors above), d f32; d is
+// overwritten when `accumulate` is 0. Thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8), columns 8 j + 2 (t % 4) (+ 1):
+// d[4 j + 2 h + e] is row + 8 h, column 8 j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// Registers a warpgroup's threads may hold (setmaxnreg): a producer gives
+// some back, the consumers take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }

@@ -8,207 +8,358 @@
 //   rstd = 1 / sqrt(sum_o h^2 / O + eps)                 f32
 //   out  = bf16(bf16(h * rstd) * nw[o])
 // exactly the JAX kernel's order of roundings. The TPU kernel multiplies a
-// 512-row tile by the whole weight in VMEM; here the bf16 product is written
-// out on the tensor cores (mma.sync.m16n8k16, f32 accumulators).
-//
-// The norm needs the whole output row (O = 512), so a block owns BM = 64 rows
-// and all 512 columns: 8 warps of 64 rows x 64 columns each, 128 f32
-// accumulators a thread. K comes in slabs of 32 through a three-stage
-// cp.async ring (x rows and all 512 weight rows of the slab: 46 KB a stage),
-// so the next slabs load while this one is multiplied; the weights come from
-// L2 for every block. The epilogue rounds and adds the residual in registers,
-// sums each row's squares across the warp's lanes by shuffles and across the
-// 8 warps through shared memory, in a fixed order.
+// 512-row tile by the whole weight in VMEM; here the norm needs a row's 512
+// sums on one SM, so a CTA owns 64 rows and all 512 columns.
 //
 // What bounds it on the H100: at sup's out_proj (M = 131072, K = 512, with a
 // bias) bytes: 403 MB (x, residual, output; 0.12 ms) against 69 GFLOP
 // (0.07 ms at the bf16 peak); at fc2 (K = 2048, no bias) operations:
-// 275 GFLOP (0.28 ms) against 807 MB (0.24 ms). One block an SM (138 KB of
-// ring): the epilogue does not overlap the next block's loads.
+// 275 GFLOP (0.28 ms) against 807 MB (0.24 ms). The norm needs a row's 512
+// sums in one CTA, and 512 f32 accumulators a row leave room for 64 rows a
+// warpgroup: the weight's traffic into the SMs is large beside the
+// products. The first version (mma.sync from a cp.async ring, one 64-row
+// block a CTA) read the whole weight from L2 for every block, 4.3 GB at fc2,
+// and overlapped no epilogue with any load (1.509 ms at fc2, the unfused
+// route 0.902).
+//
+// Design:
+//   - a CTA owns 128 rows: two consumer warpgroups of 64 rows, each running
+//     wgmma m64n256k16 (bf16 in, f32 sums in registers, 128 a thread) over
+//     all of K twice, once for columns 0-255 and once for 256-511, so that a
+//     weight slab serves 128 rows;
+//   - the tile's residual [128][512] comes into shared memory by TMA (boxes
+//     of 64 rows x 64 columns, 128-byte swizzle) while the first pass runs;
+//     each pass's epilogue rounds its sums with the bias, adds the rounded
+//     residual and writes h over the residual in place, summing the rows'
+//     squares in registers (a row's four lanes join by shuffles: no
+//     exchange between the warpgroups); the last step scales h in place and
+//     a TMA store writes the tile (rows past M are not written);
+//   - one producer thread (its warpgroup gives registers back with
+//     setmaxnreg) keeps TMA loads of the x and W k-slabs (32 k: one 64-byte
+//     swizzle row; 8 KB of x + 16 KB of W) in flight through a ring of four
+//     stages with full and empty mbarriers; the wgmma descriptors read the
+//     TMA's swizzle; a slab's products may run while the next slab's are
+//     issued;
+//   - a cluster of two CTAs on neighbouring row blocks: each loads half of
+//     every W slab and multicasts it to both, halving W's L2 reads; a stage
+//     is refilled only when the consumers of both CTAs have released it (the
+//     empty barrier counts their remote arrivals);
+//   - persistent CTAs, as many clusters as run at once, striding over pairs
+//     of row blocks: the ring runs on from one tile into the next. Rows past
+//     M come in as zeros.
+// Every mbarrier wait traps after about 4 s instead of hanging the card.
+// The epilogue's roundings are paired (one conversion instruction for two
+// values), and its code is written once for both passes: two unrolled
+// copies overflowed the instruction cache and slowed the kernel sharply.
+// CUtensorMap and the driver's types; the encoder itself comes from
+// cudaGetDriverEntryPoint (no libcuda link)
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int O = 512;          // output width: sup's d_model
-constexpr int BM = 64;          // rows a block
-constexpr int BK = 32;          // K a slab, in bf16
-constexpr int LDS = BK + 8;     // shared row stride (80 bytes: 8 rows of an ldmatrix on 32 banks)
-constexpr int STAGES = 3;
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int WN = O / WARPS;   // columns a warp: 64
+constexpr int O = 512;         // output width: sup's d_model
+constexpr int BM = 128;        // rows a tile: 64 a consumer warpgroup (a wgmma's M)
+constexpr int HALF = 256;      // columns a pass (a wgmma's N): two passes a tile
+constexpr int BK = 32;         // k a slab: one 64-byte swizzle row of bf16
+constexpr int STAGES = 4;
+constexpr int INFLIGHT = 1;    // slabs whose products may run while the next slab's are issued
+constexpr int CS = 2;          // CTAs a cluster
+constexpr int WBOX = HALF / CS;  // W rows of a pass each CTA of a cluster loads and multicasts
+constexpr int CONSUMERS = 2;   // warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int X_TILE = BM * BK, W_TILE = HALF * BK;  // bf16 elements a stage
+constexpr int STAGE_BYTES = 2 * (X_TILE + W_TILE);
+constexpr int RBOX = 64;       // columns a box of the residual and output tiles (128 bytes)
+constexpr int TILE_BYTES = 2 * BM * O;
+// the ring and the residual / h / output tile (1024-byte aligned for the
+// swizzles), the ring's full and empty mbarriers and the tile's two, and the
+// norm weight [O] bf16
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + TILE_BYTES + (2 * STAGES + 2) * 8 + O * 2;
 
-__global__ void __launch_bounds__(THREADS) fused_norm_kernel(
-    const __nv_bfloat16* __restrict__ x,    // [M, K]
-    const __nv_bfloat16* __restrict__ w,    // [O, K]
-    const float* __restrict__ bias,         // [O] or null
-    const __nv_bfloat16* __restrict__ res,  // [M, O]
-    const __nv_bfloat16* __restrict__ nw,   // [O]
-    __nv_bfloat16* __restrict__ out,        // [M, O]
+__global__ void __launch_bounds__(THREADS, 1) fused_norm_kernel(
+    const __grid_constant__ CUtensorMap map_x,  // x [M, K]: boxes of BM rows x BK
+    const __grid_constant__ CUtensorMap map_w,  // w [O, K]: boxes of WBOX rows x BK
+    const __grid_constant__ CUtensorMap map_r,  // residual [M, O]: boxes of 64 rows x RBOX
+    const __grid_constant__ CUtensorMap map_o,  // out [M, O]: the same boxes
+    const float* __restrict__ bias,             // [O] or null
+    const __nv_bfloat16* __restrict__ nw,       // [O]
     int M, int K, float alpha, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* x_ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][LDS]
-  __nv_bfloat16* w_ring = x_ring + STAGES * BM * LDS;               // [STAGES][O][LDS]
-  float* red = reinterpret_cast<float*>(w_ring + STAGES * O * LDS);  // [WARPS][BM]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* x_ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][BK]
+  __nv_bfloat16* w_ring = x_ring + STAGES * X_TILE;                 // [STAGES][HALF][BK]
+  // the tile, [2 warpgroups][O / RBOX boxes][64 rows][RBOX]: the residual,
+  // then h in its place, then the output in h's
+  unsigned char* tile_s = reinterpret_cast<unsigned char*>(w_ring + STAGES * W_TILE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tile_s + TILE_BYTES);
+  __nv_bfloat16* nw_s = reinterpret_cast<__nv_bfloat16*>(bars + 2 * STAGES + 2);  // [O]
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + STAGES);
+  // the tile's residual is in; its output has left it
+  const uint32_t res_full = smem_u32(bars + 2 * STAGES), res_empty = res_full + 8;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int m0 = blockIdx.x * BM;
-  const int wn = warp * WN;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const uint32_t rank = cluster_rank();
+  const int k_tiles = (K + BK - 1) / BK;
+  const int groups = ((M + BM - 1) / BM + CS - 1) / CS;  // pairs of row blocks
+  const int cid = blockIdx.x / CS, nclusters = gridDim.x / CS;
 
-  auto load_stage = [&](int stage, int kt) {
-    __nv_bfloat16* xs = x_ring + stage * BM * LDS;
-    __nv_bfloat16* ws = w_ring + stage * O * LDS;
-    const int k0 = kt * BK;
-    for (int i = tid; i < (BM + O) * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      if (r < BM) {
-        if (m0 + r < M)
-          cp_async16(xs + r * LDS + c, x + (size_t)(m0 + r) * K + k0 + c);
-        else
-          *reinterpret_cast<uint4*>(xs + r * LDS + c) = make_uint4(0, 0, 0, 0);
-      } else {
-        cp_async16(ws + (r - BM) * LDS + c, w + (size_t)(r - BM) * K + k0 + c);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                // the producer's arrival + the bytes
+      mbar_init(empty0 + 8 * s, CONSUMERS * CS);  // every consumer of the cluster
+    }
+    mbar_init(res_full, 1);
+    mbar_init(res_empty, CONSUMERS);  // each warpgroup's output has left the tile
+    mbar_init_fence();
+  }
+  for (int i = tid; i < O; i += THREADS) nw_s[i] = nw[i];
+  cluster_sync();  // the cluster's mbarriers are initialised; the norm weight is in
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every load -----------------------------
+    setmaxnreg_dec<40>();
+    if (tid == CONSUMERS * 128) {
+      int stage = 0, phase = 0, tile = 0;
+      for (int grp = cid; grp < groups; grp += nclusters, ++tile) {
+        const int m0 = (grp * CS + rank) * BM;
+        for (int pass = 0; pass < 2; ++pass)
+          for (int kt = 0; kt < k_tiles; ++kt) {
+            mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the whole cluster released the stage
+            mbar_expect(full0 + 8 * stage, STAGE_BYTES);
+            tma_load_2d(smem_u32(x_ring + stage * X_TILE), &map_x, kt * BK, m0,
+                        full0 + 8 * stage);
+            tma_load_2d_multicast(smem_u32(w_ring + stage * W_TILE + rank * WBOX * BK), &map_w,
+                                  kt * BK, pass * HALF + rank * WBOX, full0 + 8 * stage,
+                                  (1 << CS) - 1);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+            // the tile's residual once the ring is full, after the last
+            // tile's output has left the tile buffer
+            if (pass == 0 && kt == (k_tiles < STAGES ? k_tiles : STAGES) - 1) {
+              mbar_wait(res_empty, (tile & 1) ^ 1);
+              mbar_expect(res_full, TILE_BYTES);
+              for (int b = 0; b < 2 * O / RBOX; ++b)
+                tma_load_2d(smem_u32(tile_s + b * 64 * RBOX * 2), &map_r, (b % (O / RBOX)) * RBOX,
+                            m0 + 64 * (b / (O / RBOX)), res_full);
+            }
+          }
+      }
+      // the peers' consumers have released every stage: their arrivals on
+      // this CTA's empty barriers are in before it exits
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-  };
-
-  const int k_tiles = K / BK;
+  } else {
+    // ---- consumers: wgmma over the ring, then the epilogue -------------------
+    setmaxnreg_inc<232>();
+    const int lt = tid % 128, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = (lt >> 5) * 16 + g;  // the thread's rows r0, r0 + 8 of its warpgroup's 64
+    unsigned char* my_tile = tile_s + wg * (O / RBOX) * 64 * RBOX * 2;
+    // column col's pair at row `row` of the warpgroup's boxes [O / RBOX][64
+    // rows][RBOX]: box col / 64, 16-byte chunk (col % 64) / 8 XOR row % 8 (the
+    // 128-byte swizzle: the 8 rows of a warp's access fall on distinct banks)
+    auto at = [&](int row, int col) {
+      return reinterpret_cast<__nv_bfloat162*>(
+          my_tile + ((col / RBOX) * 64 + row) * RBOX * 2 +
+          ((((col % RBOX) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+    };
+    const __nv_bfloat162 alpha2 = __float2bfloat162_rn(alpha);  // alpha is a bf16 value
+    float acc[128];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  // acc[i][j][2h + e]: row 16i + g + 8h, column wn + 8j + 2*t4 + e
-  float acc[4][8][4];
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int stage = 0, phase = 0, tile = 0;
+    for (int grp = cid; grp < groups; grp += nclusters, ++tile) {
+      const int m0 = (grp * CS + rank) * BM;
+      float ss[2] = {0.f, 0.f};  // the rows' sums of squares
+      for (int pass = 0; pass < 2; ++pass) {
+        int held = -1;  // the stage whose products may still run
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint32_t xa = smem_u32(x_ring + stage * X_TILE + wg * 64 * BK);
+          const uint32_t wb = smem_u32(w_ring + stage * W_TILE);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+          wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // lane l gives the row address of matrix l / 8, row l % 8 (common.cuh)
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab kt landed; the stage consumed last round is free
-    const int ahead = kt + STAGES - 1;
-    if (ahead < k_tiles) load_stage(ahead % STAGES, ahead);
-    cp_async_commit();
-    const __nv_bfloat16* xs = x_ring + (kt % STAGES) * BM * LDS;
-    const __nv_bfloat16* ws = w_ring + (kt % STAGES) * O * LDS + wn * LDS;
-#pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 16) {
-      uint32_t a[4][4], b[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldmatrix_x4(a[i], xs + (16 * i + a_row) * LDS + a_col + k0);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) ldmatrix_x4(b[jj], ws + (16 * jj + b_row) * LDS + b_col + k0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          mma_bf16(acc[i][2 * jj], a[i], b[jj][0], b[jj][1]);
-          mma_bf16(acc[i][2 * jj + 1], a[i], b[jj][2], b[jj][3]);
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_m64n256k16(acc, wgmma_desc<2 * BK>(xa + 32 * kk),
+                             wgmma_desc<2 * BK>(wb + 32 * kk), kt > 0 || kk > 0);
+          wgmma_commit();
+          wgmma_wait<INFLIGHT>();
+          // the slab before is consumed: release its stage in every CTA of the
+          // cluster
+          if (held >= 0 && lt < CS) mbar_arrive_cluster(empty0 + 8 * held, lt);
+          held = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
-    }
-  }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+        if (lt < CS) mbar_arrive_cluster(empty0 + 8 * held, lt);
+        // the pass's h in place of its residual, and the rows' squares (one
+        // copy of this code for both passes: unrolled twice, the epilogues
+        // overflow the instruction cache)
+        if (pass == 0) mbar_wait(res_full, tile & 1);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int col = pass * HALF + 8 * j + 2 * t4;
+          const float2 b = bias ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                                : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162* p = at(r0 + 8 * h, col);
+            // the column pair's roundings two at a time: bf16(sum + bias) by
+            // one conversion; bf16(res * alpha) and bf16(ab + ra) in bf16x2
+            // arithmetic, the same values (a product of two bf16 is exact in
+            // f32, and a f32 sum of two bf16 is inexact only where one is
+            // under 2^-16 of the other, far from a bf16 tie)
+            const float s0 = acc[4 * j + 2 * h], s1 = acc[4 * j + 2 * h + 1];
+            const __nv_bfloat162 ab = __floats2bfloat162_rn(bias ? __fadd_rn(s0, b.x) : s0,
+                                                            bias ? __fadd_rn(s1, b.y) : s1);
+            // (_rn: no contraction of the two into one fused multiply-add)
+            const __nv_bfloat162 hv = __hadd2_rn(ab, __hmul2_rn(*p, alpha2));
+            *p = hv;
+            const float2 hf = __bfloat1622float2(hv);
+            ss[h] = __fadd_rn(__fadd_rn(ss[h], __fmul_rn(hf.x, hf.x)), __fmul_rn(hf.y, hf.y));
+          }
+        }
+      }
 
-  // ---- epilogue: h in place of the sums, and the rows' sums of squares ------
-  float ss[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) ss[i][0] = ss[i][1] = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = wn + 8 * j + 2 * t4;
-    const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      // the rows' scales (a row's 512 squares: the thread's 128 and those of
+      // the three lanes that share its rows), the normalised rows times the
+      // weight in place of h
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 16 * i + g + 8 * h;
-        float r[2] = {0.f, 0.f};
-        if (m < M) {
-          const __nv_bfloat162 rv =
-              *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)m * O + col);
-          r[0] = __low2float(rv);
-          r[1] = __high2float(rv);
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float sum = acc[i][j][2 * h + e];
-          const float a = bias ? __fadd_rn(sum, e ? b1 : b0) : sum;
-          const float ab = __bfloat162float(__float2bfloat16_rn(a));
-          const float ra = __bfloat162float(__float2bfloat16_rn(__fmul_rn(r[e], alpha)));
-          const float hv = __bfloat162float(__float2bfloat16_rn(__fadd_rn(ab, ra)));
-          acc[i][j][2 * h + e] = hv;
-          ss[i][h] = __fadd_rn(ss[i][h], __fmul_rn(hv, hv));
+        float v = ss[h];
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(v, (float)O), eps)));
+#pragma unroll 8
+        for (int j = 0; j < O / 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          __nv_bfloat162* p = at(r0 + 8 * h, col);
+          const float2 hf = __bfloat1622float2(*p);
+          // bf16(h * rstd), then bf16(hr * nw) in bf16x2 (exact as above)
+          *p = __hmul2_rn(__floats2bfloat162_rn(__fmul_rn(hf.x, rstd), __fmul_rn(hf.y, rstd)),
+                       *reinterpret_cast<const __nv_bfloat162*>(nw_s + col));
         }
       }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = ss[i][h];
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      if (t4 == 0) red[warp * BM + 16 * i + g + 8 * h] = v;
-    }
-  __syncthreads();
-
-  // ---- the rows' scales, the normalised rows times the weight ---------------
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * i + g + 8 * h;
-      const int m = m0 + row;
-      float total = 0.f;
-#pragma unroll
-      for (int w8 = 0; w8 < WARPS; ++w8) total = __fadd_rn(total, red[w8 * BM + row]);
-      const float rstd =
-          __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(total, (float)O), eps)));
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = wn + 8 * j + 2 * t4;
-        const __nv_bfloat162 wv = *reinterpret_cast<const __nv_bfloat162*>(nw + col);
-        __nv_bfloat162 y;
-        y.x = __float2bfloat16_rn(__fmul_rn(
-            __bfloat162float(__float2bfloat16_rn(__fmul_rn(acc[i][j][2 * h], rstd))),
-            __low2float(wv)));
-        y.y = __float2bfloat16_rn(__fmul_rn(
-            __bfloat162float(__float2bfloat16_rn(__fmul_rn(acc[i][j][2 * h + 1], rstd))),
-            __high2float(wv)));
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * O + col) = y;
+      // the warpgroup's 64 rows to the output by TMA (rows past M are not
+      // written), then the tile buffer is free for the next residual
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (lt == 0) {
+        const unsigned char* boxes = tile_s + wg * (O / RBOX) * 64 * RBOX * 2;
+        for (int b = 0; b < O / RBOX; ++b)
+          tma_store_2d(&map_o, b * RBOX, m0 + 64 * wg, smem_u32(boxes + b * 64 * RBOX * 2));
+        bulk_commit();
+        bulk_wait_read<0>();
+        mbar_arrive_local(res_empty);
       }
     }
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, without linking libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 [rows][cols] tensor (cols contiguous) in boxes of box_rows x
+// box_cols (32 or 64), swizzled over the box's row of 2 box_cols bytes;
+// reads past its edges give zeros.
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+              int box_cols) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
-// O = 512, K a multiple of 32, M >= 1; bias may be null.
+// O = 512, K a multiple of 32, M >= 1; bias may be null (else 8-byte
+// aligned); x, w, res and out 16-byte aligned.
 DTT_EXPORT int matmul_residual_rmsnorm_bf16(const void* x, const void* w, const void* bias,
                                             const void* res, const void* nw, void* out, int M,
                                             int K, int out_width, float alpha, float eps,
                                             void* stream) {
-  if (M <= 0 || K <= 0 || K % BK || out_width != O)
+  if (M <= 0 || K <= 0 || K % 32 || out_width != O)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = STAGES * (BM + O) * LDS * (int)sizeof(__nv_bfloat16) +
-                   WARPS * BM * (int)sizeof(float);
+  CUtensorMap map_x, map_w, map_r, map_o;
+  if (!make_map(&map_x, x, M, K, BM, BK) || !make_map(&map_w, w, O, K, WBOX, BK) ||
+      !make_map(&map_r, res, M, O, 64, RBOX) || !make_map(&map_o, out, M, O, 64, RBOX))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(fused_norm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_norm_kernel<<<(M + BM - 1) / BM, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res),
-      static_cast<const __nv_bfloat16*>(nw), static_cast<__nv_bfloat16*>(out), M, K, alpha, eps);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent: as many clusters as the card runs at once (once per device)
+  static int active[64] = {0};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err ? err : cudaErrorInvalidDevice);
+  if (active[dev] == 0) {
+    cfg.gridDim = dim3(CS);
+    err = cudaOccupancyMaxActiveClusters(&active[dev], (void*)fused_norm_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active[dev] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int groups = ((M + BM - 1) / BM + CS - 1) / CS;
+  cfg.gridDim = dim3(CS * (groups < active[dev] ? groups : active[dev]));
+  err = cudaLaunchKernelEx(&cfg, fused_norm_kernel, map_x, map_w, map_r, map_o,
+                           static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(nw),
+                           M, K, alpha, eps);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
 // LSTM recurrences, bf16 in and out, f32 state.
 //
 //   lstm_scan_bf16 (K1): gates = xproj[t] + h @ W_hh^T, W_hh bf16;
-//   lstm_scan_int8 (K15): the same with W_hh int8 and h quantised to int8;
-//   lstm_fused_bf16 (K16): the input projection inside the recurrence,
-//     gates = x[t] @ W_ih^T + h @ W_hh^T + bias.
+//   lstm_fused_bf16 (K16): the whole layer, the input projection inside the
+//     recurrence, gates = x[t] @ W_ih^T + h @ W_hh^T + bias, on K1's kernel;
+//   lstm_scan_int8 (K15): the recurrence with W_hh int8 and h quantised to int8.
 //
-// K1 first, then K15 and K16 below, each with its note.
+// K1 first, then K16 (the same kernel template), then K15, each with its note.
 //
 // Replaces dorado_tpu/ops/lstm.py::lstm_scan_time_major (Pallas body
 // _lstm_kernel). Per step t (walked backwards when reverse != 0):
@@ -58,9 +58,47 @@
 // whose slice fits (C = 8 at H = 384, 1 at fast's 96, 16 at 512, a
 // non-portable size) and R from N over the clusters the card runs at once
 // (cudaOccupancyMaxActiveClusters), at most 48 rows.
+//
+// ---------------------------------------------------------------------------
+// K16: the whole layer, on K1's kernel (FUSED).
+//
+// Replaces dorado_tpu/ops/lstm.py::lstm_fused_time_major (Pallas body
+// _lstm_fused_kernel). Per step t (walked backwards when reverse != 0):
+//   gates = x[t] @ W_ih^T + h @ W_hh^T + bias      (float32 sums)
+//   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = bf16(sigmoid(o) * tanh(c))
+// The input width is H, so both weights are [H, 4H].
+//
+// What bounds it on the H100: K1's chain of steps, plus a second product of
+// the same size every step, and a second weight of 1.18 MB at H = 384. The
+// first version read both weights from L2 every step, a block per batch row
+// on the CUDA cores: 2.36 MB a block a step, 302 MB of L2 reads a step at
+// N = 128, bound by L2 (35.9 us a step, 59.82 ms at T = 1666).
+//
+// Design: K1's cluster and W_hh slices, with x[t] in place of xproj[t]. The
+// cluster's R rows of x[t] come into shared memory ([R][Kp + 8], double
+// buffered, by cp.async two steps ahead: x is H wide, not 4H), and each CTA
+// computes the input product of its gate rows, x[t + 1] @ W_ih_slice^T, on
+// the tensor cores in the recurrent product's fragments, between sending
+// step t's h slice and waiting for its peers' slices: the product does not
+// depend on h, so it fills the exchange's latency, off the critical chain.
+// Each lane keeps the sums of its own (gate row, batch row) pairs for the
+// next step and adds them and the bias (registers, loaded once) to the
+// recurrent sums. W_ih stays in L2: every step each CTA reads its slice
+// (147 KB at H = 384, C = 8; 9.4 MB a step over the 64 CTAs of N = 128) in
+// the order of the mma fragments (the wrapper's w_ih_fragments: a lane's 16
+// bytes of an m-tile and k-tile contiguous, a warp's 512 bytes coalesced),
+// straight into registers a pair of k-tiles ahead.
+// The alternative, W_ih's slice resident beside W_hh's, needs a cluster of
+// 16 CTAs of 24 units at H = 384 (6 warps a CTA, 16 peers to exchange with,
+// 24 rows a cluster at most) and holds both weights only up to H = 432.
+// Both designs were built and run side by side on the card (NVIDIA H100
+// 80GB HBM3, 700 W): the resident one was no faster at N = 128 and slower
+// at N = 512 (22 clusters of 16, 7 at a time, against 32 of 8 at 16 rows,
+// 15 at a time), so it was dropped; nor did the reads of W_ih need chunks
+// of several steps to hide at N = 128.
 #include "common.cuh"
 
-constexpr int KS = 4;  // slices of k of K15 and K16; their blocks have KS * H / 2 = 2H threads
+constexpr int KS = 4;  // slices of k of K15; its blocks have KS * H / 2 = 2H threads
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -69,67 +107,6 @@ namespace k1 {
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can have
 constexpr int MAX_WARPS = 12;
 constexpr int MAX_NT = 6;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The same shared-memory offset in CTA `rank` of the cluster.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// The bulk copy engine: `bytes` (a multiple of 16) from this CTA's shared
-// memory to a CTA of the cluster, completing as transaction bytes on the
-// mbarrier `mbar` there (both shared::cluster addresses).
-__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, int bytes,
-                                                  uint32_t mbar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "r"(src), "r"(bytes), "r"(mbar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t mbar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mbar), "r"(count) : "memory");
-}
-
-// This phase's one arrival, with the bytes its copies bring.
-__device__ __forceinline__ void mbar_expect(uint32_t mbar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete (acquire). A phase that
-// never completes would hang the card: after about 4 s the kernel traps.
-__device__ __forceinline__ void mbar_wait(uint32_t mbar, int parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 1000;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(mbar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i > (1 << 22)) __trap();
-  }
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
 
 __device__ __forceinline__ float pick4(float a, float b, float c, float d, int i) {
   return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
@@ -145,39 +122,44 @@ __host__ __device__ constexpr int h_blocks(int units, int cluster) {
 }
 
 // Shared memory of one CTA, in bytes: the W slice, two h buffers (the
-// cluster's R rows, all units), two stagings of the CTA's new h slice and
-// the two h buffers' mbarriers.
-__host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows) {
+// cluster's R rows, all units), two stagings of the CTA's new h slice, with
+// K16 two x buffers [R][Kp + 8], and the two h buffers' mbarriers.
+__host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows, bool fused) {
   return 2 * (4 * units * (depth(cluster * units) + 8) +
-              2 * (h_blocks(units, cluster) + 1) * rows * (units + 8)) +
+              2 * (h_blocks(units, cluster) + 1) * rows * (units + 8) +
+              (fused ? 2 * rows * (depth(cluster * units) + 8) : 0)) +
          16;
 }
 
-// Pairs of k-tiles whose A fragments (the W slice) a warp keeps in
+// Pairs of k-tiles whose A fragments (the W_hh slice) a warp keeps in
 // registers for the whole launch, by what the accumulators of MTW m-tiles
 // and NT n-tiles leave of 168 registers a thread (12 warps); the rest come
-// from shared memory every step.
+// from shared memory every step. K16 also carries the next step's input
+// sums: it keeps what one more n-tile would leave.
 __host__ __device__ constexpr int reg_pairs(int mtw, int nt) {
   return mtw == 1 ? (nt == 1 ? 12 : nt == 2 ? 8 : nt == 3 ? 4 : nt == 4 ? 2 : 0)
                   : (nt == 1 ? 4 : nt == 2 ? 2 : 0);
 }
 
-// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster).
-template <int MTW, int NT>
+// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster); FUSED: K16.
+template <int MTW, int NT, bool FUSED>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-    lstm_cluster_kernel(const __nv_bfloat16* __restrict__ xproj,  // [T, N, 4H]
-                        const __nv_bfloat16* __restrict__ w_sl,   // [C][4U][depth]
-                        __nv_bfloat16* __restrict__ out,          // [T, N, H]
+    lstm_cluster_kernel(const __nv_bfloat16* __restrict__ xin,   // xproj [T, N, 4H] or x [T, N, H]
+                        const __nv_bfloat16* __restrict__ w_sl,  // [C][4U][depth] W_hh^T slices
+                        const __nv_bfloat16* __restrict__ w_ih,  // K16: W_ih^T's fragments
+                        const float* __restrict__ bias,          // K16: [4H]
+                        __nv_bfloat16* __restrict__ out,         // [T, N, H]
                         int T, int N, int H, int C, int U, int reverse) {
   constexpr int R = 8 * NT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hk = depth(C * U), hs = hk + 8;  // row stride of the W slice, in bf16
-  const int up = U + 8, hb = h_blocks(U, C);  // row stride of h's blocks, blocks
-  const int h_elems = hb * R * up;            // one h buffer
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [4U][hs]
-  __nv_bfloat16* h_s = w_s + 4 * U * hs;                        // [2][hb][R][up]
-  __nv_bfloat16* st_s = h_s + 2 * h_elems;                      // [2][R][up]
-  const uint32_t mbar0 = smem_u32(st_s + 2 * R * up);           // [2] 8-byte mbarriers
+  const int hk = depth(C * U), hs = hk + 8;    // row stride of the W slices and x, in bf16
+  const int up = U + 8, hb = h_blocks(U, C);       // row stride of h's blocks, blocks
+  const int h_elems = hb * R * up;                  // one h buffer
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [4U][hs]
+  __nv_bfloat16* h_s = w_s + 4 * U * hs;                          // [2][hb][R][up]
+  __nv_bfloat16* st_s = h_s + 2 * h_elems;                         // [2][R][up]
+  __nv_bfloat16* x_s = st_s + 2 * R * up;                          // K16: [2][R][hs]
+  const uint32_t mbar0 = smem_u32(x_s + (FUSED ? 2 * R * hs : 0));  // [2] 8-byte mbarriers
   const int slice_bytes = R * up * 2;  // one CTA's h block: what a phase takes from each peer
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -187,8 +169,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   const int u0 = rank * U;
   const int n0 = (blockIdx.x / C) * R;
   const int G = 4 * H;
+  auto time_of = [&](int step) { return reverse ? T - 1 - step : step; };
 
-  // ---- once per launch: the W slice, zeroed h buffers -----------------------
+  // ---- once per launch: the W slice, zeroed h (and x) buffers ---------------
   {
     const uint4* src = reinterpret_cast<const uint4*>(w_sl + (size_t)rank * 4 * U * hk);
     const int per_row = hk / 8;
@@ -199,6 +182,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     const uint4 zero = make_uint4(0, 0, 0, 0);
     uint4* hz = reinterpret_cast<uint4*>(h_s);
     for (int i = tid; i < 2 * h_elems / 8; i += nthreads) hz[i] = zero;
+    uint4* xz = reinterpret_cast<uint4*>(x_s);
+    for (int i = tid; i < (FUSED ? 2 * R * hs / 8 : 0); i += nthreads) xz[i] = zero;
   }
   // h buffer b's mbarrier: h of step j lands in buffer j & 1, phase (j - 1)
   // / 2 there, as C slices. h of step 0 is the zeros above; the phases of
@@ -207,25 +192,27 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   if (tid == 0) {
     mbar_init(mbar0, 1);
     mbar_init(mbar0 + 8, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     if (T > 1) mbar_expect(mbar0 + 8, C * slice_bytes);
     if (T > 2) mbar_expect(mbar0, C * slice_bytes);
   }
   // The lane's cell updates: m-tile warp + i * nwarps, n-tile nt; it takes
   // the (unit, row) combination number q of the lane group that shares g / 4
-  // and t4 (see step 2). Their x[t] (gates i | f and g | o) are loaded into
-  // registers while the cluster barrier of step t - 1 completes; rows past N
-  // and units past H stay zero.
+  // and t4 (see step 2). K1: their xproj[t] (gates i | f and g | o) are
+  // loaded into registers a step ahead; rows past N and units past H stay
+  // zero. K16: their bias, once.
   __nv_bfloat162 x[MTW][NT][2];
-  auto load_x = [&](int t) {
+  float bg[MTW][4];
+  auto unit_of = [&](int i) { return u0 + 4 * (warp + i * nwarps) + (g >> 2) + 2 * (q >> 1); };
+  auto load_xproj = [&](int t) {
 #pragma unroll
     for (int i = 0; i < MTW; ++i) {
-      const int unit = u0 + 4 * (warp + i * nwarps) + (g >> 2) + 2 * (q >> 1);
+      const int unit = unit_of(i);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int row = n0 + nt * 8 + 2 * t4 + (q & 1);
         const bool ok = row < N && unit < H;
-        const __nv_bfloat16* src = xproj + ((size_t)t * N + (ok ? row : 0)) * G + (ok ? unit : 0);
+        const __nv_bfloat16* src = xin + ((size_t)t * N + (ok ? row : 0)) * G + (ok ? unit : 0);
         const __nv_bfloat16 zero = __float2bfloat16(0.f);
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
@@ -235,7 +222,31 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       }
     }
   };
-  load_x(reverse ? T - 1 : 0);
+  // K16: the cluster's rows of x[t] into x buffer b, 8 bytes a copy (H is a
+  // multiple of 4); k past H and rows past N keep the zeros above
+  auto load_x = [&](int t, int b) {
+    const int per_row = H / 4;
+    __nv_bfloat16* dst = x_s + b * R * hs;
+    for (int i = tid; i < R * per_row; i += nthreads) {
+      const int r = i / per_row, c = (i - r * per_row) * 4;
+      if (n0 + r < N) cp_async8(dst + r * hs + c, xin + ((size_t)t * N + n0 + r) * H + c);
+    }
+    cp_async_commit();
+  };
+  if constexpr (FUSED) {
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+      const int unit = unit_of(i);
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) bg[i][gate] = unit < H ? bias[gate * H + unit] : 0.f;
+    }
+    __syncthreads();  // the zeros are written before any copy lands
+    load_x(time_of(0), 0);
+    if (T > 1) load_x(time_of(1), 1);
+    cp_async_wait<0>();
+  } else {
+    load_xproj(time_of(0));
+  }
   cluster_sync();  // every CTA of the cluster has zeroed its h and armed its mbarriers
 
   float c_state[MTW][NT];
@@ -255,9 +266,26 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       for (int h2 = 0; h2 < 2; ++h2)
         ldmatrix_x4(a[i][h2], a_row + i * nwarps * 16 * hs + kp * 32 + h2 * 16);
   };
-  // pairs [0, kr_n) of the A fragments in registers, read from the slice
+  // K16's A: W_ih's fragments from L2, [C][U / 4][Kp / 16][32 lanes] x 16
+  // bytes
+  auto load_a_ih = [&](int kp, uint32_t (&a)[MTW][2][4]) {
+    const uint4* frag = reinterpret_cast<const uint4*>(w_ih);
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const uint4 v = __ldg(
+            frag + (((size_t)rank * (U / 4) + warp + i * nwarps) * (hk / 16) + 2 * kp + h2) * 32 +
+            lane);
+        a[i][h2][0] = v.x;
+        a[i][h2][1] = v.y;
+        a[i][h2][2] = v.z;
+        a[i][h2][3] = v.w;
+      }
+  };
+  // pairs [0, kr_n) of W_hh's A fragments in registers, read from the slice
   // that the cluster barrier above made visible
-  constexpr int KR = reg_pairs(MTW, NT);
+  constexpr int KR = reg_pairs(MTW, FUSED ? NT + 1 : NT);
   static_assert(KR % 2 == 0, "the register pairs are taken two at a time");
   const int kr_n = min(KR, kp_n);
   uint32_t w_reg[KR > 0 ? KR : 1][MTW][2][4];
@@ -265,8 +293,64 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   for (int p = 0; p < KR; ++p)
     if (p < kr_n) load_a(p, w_reg[p]);
 
+  // acc += A . B over a pair of k-tiles. With one m-tile a warp the two
+  // accumulators are the pair's two k-tiles, with two they are the two m-tiles
+  auto mma_pair = [&](float (&acc)[2][NT][4], const uint32_t (&a)[MTW][2][4],
+                      const uint32_t (&b)[NT][4]) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+      for (int i = 0; i < MTW; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
+  };
+  // K16: x[t + 1] @ W_ih_slice^T from x buffer xb, as the lane's sums; B as
+  // in the recurrent product below, from x's rows
+  auto input_product = [&](int xb, float (&xg)[MTW][NT][4]) {
+    float xa[2][NT][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xa[a][nt][e] = 0.f;
+    const __nv_bfloat16* xb_base = x_s + xb * R * hs + (lane & 7) * hs + ((lane >> 3) & 1) * 8;
+    auto load_bx = [&](int kp, uint32_t (&b)[NT][4]) {
+      const __nv_bfloat16* p = xb_base + (2 * kp + (lane >> 4)) * 16;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) ldmatrix_x4(b[nt], p + nt * 8 * hs);
+    };
+    // the pairs in order, the next pair's fragments loaded before this pair's
+    // products (as the recurrent product's loop below)
+    uint32_t a0[MTW][2][4], a1[MTW][2][4], b0[NT][4], b1[NT][4];
+    load_a_ih(0, a0);
+    load_bx(0, b0);
+    int kp = 0;
+    for (; kp + 2 <= kp_n; kp += 2) {
+      load_a_ih(kp + 1, a1);
+      load_bx(kp + 1, b1);
+      mma_pair(xa, a0, b0);
+      if (kp + 2 < kp_n) {
+        load_a_ih(kp + 2, a0);
+        load_bx(kp + 2, b0);
+      }
+      mma_pair(xa, a1, b1);
+    }
+    if (kp < kp_n) mma_pair(xa, a0, b0);
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xg[i][nt][e] = MTW == 1 ? xa[0][nt][e] + xa[1][nt][e] : xa[i][nt][e];
+  };
+  float xg[MTW][NT][4];  // K16: the input sums of this step
+  if constexpr (FUSED) input_product(0, xg);
+
   for (int step = 0; step < T; ++step) {
-    const int t = reverse ? T - 1 - step : step;
+    const int t = time_of(step);
     const int buf = step & 1;
     if (step > 0) {
       mbar_wait(mbar0 + 8 * buf, ((step - 1) >> 1) & 1);  // every slice of this step's h
@@ -275,9 +359,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
     // 1. acc = W_slice . h, a pair of k-tiles at a time, the next pair's
     //    fragments loaded before this pair's products: first the pairs whose
-    //    A comes from shared memory, then those held in registers. With one
-    //    m-tile a warp the two accumulators are the pair's two k-tiles, with
-    //    two they are the two m-tiles
+    //    A comes from shared memory, then those held in registers
     float acc[2][NT][4];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -298,15 +380,6 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) ldmatrix_x4(b[nt], p + nt * 8 * up);
     };
-    auto mma_pair = [&](const uint32_t (&a)[MTW][2][4], const uint32_t (&b)[NT][4]) {
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2)
-#pragma unroll
-        for (int i = 0; i < MTW; ++i)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            mma_bf16(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
-    };
     {
       uint32_t a0[MTW][2][4], a1[MTW][2][4], b0[NT][4], b1[NT][4];
       int kp = kr_n;
@@ -317,22 +390,22 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       for (; kp + 2 <= kp_n; kp += 2) {
         load_a(kp + 1, a1);
         load_b(kp + 1, b1);
-        mma_pair(a0, b0);
+        mma_pair(acc, a0, b0);
         if (kp + 2 < kp_n) {
           load_a(kp + 2, a0);
           load_b(kp + 2, b0);
         }
-        mma_pair(a1, b1);
+        mma_pair(acc, a1, b1);
       }
-      if (kp < kp_n) mma_pair(a0, b0);
+      if (kp < kp_n) mma_pair(acc, a0, b0);
       if (kr_n > 0) load_b(0, b0);
 #pragma unroll
       for (int p = 0; p < KR; p += 2) {
         if (p < kr_n) {
           if (p + 1 < kr_n) load_b(p + 1, b1);
-          mma_pair(w_reg[p], b0);
+          mma_pair(acc, w_reg[p], b0);
           if (p + 2 < kr_n) load_b(p + 2, b0);
-          if (p + 1 < kr_n) mma_pair(w_reg[p + 1], b1);
+          if (p + 1 < kr_n) mma_pair(acc, w_reg[p + 1], b1);
         }
       }
     }
@@ -349,27 +422,40 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       for (int nt = 0; nt < NT; ++nt) {
         float v[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < 4; ++e) {
           v[e] = MTW == 1 ? acc[0][nt][e] + acc[1][nt][e] : acc[i][nt][e];
+          if constexpr (FUSED) v[e] += xg[i][nt][e];
+        }
         const float r0 = pick4(v[0], v[1], v[2], v[3], q);
         const float r1 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 1), 4);
         const float r2 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 2), 8);
         const float r3 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 3), 12);
         const int row = nt * 8 + 2 * t4 + (q & 1);
-        const float2 xif = __bfloat1622float2(x[i][nt][0]);
-        const float2 xgo = __bfloat1622float2(x[i][nt][1]);
+        float base[4];  // xproj[t]'s gates (K1) or the bias (K16)
+        if constexpr (FUSED) {
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) base[gate] = bg[i][gate];
+        } else {
+          const float2 xif = __bfloat1622float2(x[i][nt][0]);
+          const float2 xgo = __bfloat1622float2(x[i][nt][1]);
+          base[0] = xif.x;
+          base[1] = xif.y;
+          base[2] = xgo.x;
+          base[3] = xgo.y;
+        }
         // gate k of the combination came from the lane with q ^ k: r[k ^ q]
-        const float gi = xif.x + pick4(r0, r1, r2, r3, q);
-        const float gf = xif.y + pick4(r0, r1, r2, r3, q ^ 1);
-        const float gg = xgo.x + pick4(r0, r1, r2, r3, q ^ 2);
-        const float go = xgo.y + pick4(r0, r1, r2, r3, q ^ 3);
+        const float gi = base[0] + pick4(r0, r1, r2, r3, q);
+        const float gf = base[1] + pick4(r0, r1, r2, r3, q ^ 1);
+        const float gg = base[2] + pick4(r0, r1, r2, r3, q ^ 2);
+        const float go = base[3] + pick4(r0, r1, r2, r3, q ^ 3);
         float& c = c_state[i][nt];
         c = sigmoidf_(gf) * c + sigmoidf_(gi) * tanhf(gg);
         st_s[(buf * R + row) * up + jl] = __float2bfloat16(sigmoidf_(go) * tanhf(c));
       }
     }
+    if constexpr (FUSED) cp_async_wait<0>();  // this thread's copies of x[t + 1]
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the bulk copies
-    __syncthreads();  // the CTA's new h slice is staged
+    __syncthreads();  // the CTA's new h slice is staged (K16: x[t + 1] is in)
 
     // 3. the slice's rows into every peer's other h buffer (the bulk copy
     //    engine, completing on the peer's mbarrier), and out[t]. Nothing
@@ -392,7 +478,15 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
         *reinterpret_cast<uint2*>(out + ((size_t)t * N + n0 + r) * H + u0 + j4) =
             *reinterpret_cast<const uint2*>(st + r * up + j4);
     }
-    if (step + 1 < T) load_x(reverse ? t - 1 : t + 1);
+    if constexpr (FUSED) {
+      // x[t + 2] into the buffer that held x[t], which every warp finished
+      // with (last step's input product) before the barrier above; then the
+      // input product of step t + 1 while the peers' slices come in
+      if (step + 2 < T) load_x(time_of(step + 2), buf);
+      if (step + 1 < T) input_product(buf ^ 1, xg);
+    } else {
+      if (step + 1 < T) load_xproj(time_of(step + 1));
+    }
   }
   // every copy out of this CTA has landed; no CTA leaves while a peer may
   // still write into it
@@ -400,11 +494,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   cluster_sync();
 }
 
-template <int MTW, int NT>
-int launch_k1(const void* xproj, const void* w_sl, void* out, int T, int N, int H, int C, int U,
-              int reverse, cudaStream_t stream, int* active) {
-  auto kernel = lstm_cluster_kernel<MTW, NT>;
-  const int smem = smem_bytes(U, C, 8 * NT);
+template <int MTW, int NT, bool FUSED>
+int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* bias, void* out,
+              int T, int N, int H, int C, int U, int reverse, cudaStream_t stream, int* active) {
+  auto kernel = lstm_cluster_kernel<MTW, NT, FUSED>;
+  const int smem = smem_bytes(U, C, 8 * NT, FUSED);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (C > 8) {
@@ -427,29 +521,43 @@ int launch_k1(const void* xproj, const void* w_sl, void* out, int T, int N, int 
   cfg.numAttrs = 1;
   if (active != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveClusters(active, (void*)kernel, &cfg));
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(xproj),
-                         static_cast<const __nv_bfloat16*>(w_sl), static_cast<__nv_bfloat16*>(out),
-                         T, N, H, C, U, reverse);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(xin),
+                         static_cast<const __nv_bfloat16*>(w_sl),
+                         static_cast<const __nv_bfloat16*>(w_ih), static_cast<const float*>(bias),
+                         static_cast<__nv_bfloat16*>(out), T, N, H, C, U, reverse);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One of the twelve instantiations, or the launch's refusal.
-int dispatch_k1(const void* xproj, const void* w_sl, void* out, int T, int N, int H, int C, int U,
-                int rows, int warps, int reverse, cudaStream_t s, int* active) {
-  if (T < 0 || N <= 0 || H <= 0 || H % 4 || U % 16 || C < 1 || C > 16 || (C & (C - 1)) ||
-      C * U < H || rows % 8 || rows < 8 || rows > 8 * MAX_NT || warps < 1 ||
-      warps > MAX_WARPS || (U / 4) % warps || smem_bytes(U, C, rows) > SMEM_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int mtw = U / 4 / warps;
-  const int nt = rows / 8;
-#define DTT_K1(M, NT_)                                                                        \
-  if (mtw == M && nt == NT_) return launch_k1<M, NT_>(xproj, w_sl, out, T, N, H, C, U, reverse, \
-                                                      s, active);
+// One of the twelve instantiations of K1 or of K16, or the launch's refusal.
+template <bool FUSED>
+int dispatch_nt(const void* xin, const void* w_sl, const void* w_ih, const void* bias, void* out,
+                int T, int N, int H, int C, int U, int mtw, int nt, int reverse, cudaStream_t s,
+                int* active) {
+#define DTT_K1(M, NT_)                                                                    \
+  if (mtw == M && nt == NT_)                                                              \
+    return launch_k1<M, NT_, FUSED>(xin, w_sl, w_ih, bias, out, T, N, H, C, U, reverse, s, \
+                                    active);
   DTT_K1(1, 1) DTT_K1(1, 2) DTT_K1(1, 3) DTT_K1(1, 4) DTT_K1(1, 5) DTT_K1(1, 6)
   DTT_K1(2, 1) DTT_K1(2, 2) DTT_K1(2, 3) DTT_K1(2, 4) DTT_K1(2, 5) DTT_K1(2, 6)
 #undef DTT_K1
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_k1(bool fused, const void* xin, const void* w_sl, const void* w_ih, const void* bias,
+                void* out, int T, int N, int H, int C, int U, int rows, int warps, int reverse,
+                cudaStream_t s, int* active) {
+  if (T < 0 || N <= 0 || H <= 0 || H % 4 || U % 16 || C < 1 || C > 16 || (C & (C - 1)) ||
+      C * U < H || rows % 8 || rows < 8 || rows > 8 * MAX_NT || warps < 1 ||
+      warps > MAX_WARPS || (U / 4) % warps || smem_bytes(U, C, rows, fused) > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mtw = U / 4 / warps;
+  const int nt = rows / 8;
+  if (fused)
+    return dispatch_nt<true>(xin, w_sl, w_ih, bias, out, T, N, H, C, U, mtw, nt, reverse, s,
+                             active);
+  return dispatch_nt<false>(xin, w_sl, w_ih, bias, out, T, N, H, C, U, mtw, nt, reverse, s,
+                            active);
 }
 
 }  // namespace k1
@@ -463,16 +571,28 @@ DTT_EXPORT int lstm_scan_bf16(const void* xproj, const void* w_sl, void* out, in
                               int H, int reverse, int cluster, int units, int rows, int warps,
                               void* stream) {
   if (T == 0) return 0;
-  return k1::dispatch_k1(xproj, w_sl, out, T, N, H, cluster, units, rows, warps, reverse,
-                         static_cast<cudaStream_t>(stream), nullptr);
+  return k1::dispatch_k1(false, xproj, w_sl, nullptr, nullptr, out, T, N, H, cluster,
+                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many clusters of K1's launch at this shape the card runs at once.
-DTT_EXPORT int lstm_scan_active_clusters(int H, int cluster, int units, int rows, int warps,
-                                         int* active) {
+// x [T, N, H] bf16; w_hh_sl as lstm_scan_bf16's w_sl; w_ih_frag the mma
+// fragments of W_ih^T's slices in the same layout, [C][U / 4][Kp / 16][32]
+// x 8 bf16; bias [4H] float32; out [T, N, H]; the limits of lstm_scan_bf16.
+DTT_EXPORT int lstm_fused_bf16(const void* x, const void* w_hh_sl, const void* w_ih_frag,
+                               const void* bias, void* out, int T, int N, int H, int reverse,
+                               int cluster, int units, int rows, int warps, void* stream) {
+  if (T == 0) return 0;
+  return k1::dispatch_k1(true, x, w_hh_sl, w_ih_frag, bias, out, T, N, H, cluster, units, rows, warps,
+                         reverse, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of K1's (fused = 0) or K16's (1) launch at this shape
+// the card runs at once.
+DTT_EXPORT int lstm_scan_active_clusters(int H, int fused, int cluster, int units, int rows,
+                                         int warps, int* active) {
   *active = 0;
-  return k1::dispatch_k1(nullptr, nullptr, nullptr, 1, rows, H, cluster, units, rows, warps, 0,
-                         nullptr, active);
+  return k1::dispatch_k1(fused != 0, nullptr, nullptr, nullptr, nullptr, nullptr, 1, rows, H, cluster,
+                         units, rows, warps, 0, nullptr, active);
 }
 
 // ---------------------------------------------------------------------------
@@ -598,132 +718,6 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// ---------------------------------------------------------------------------
-// K16: the whole layer, input projection inside the recurrence.
-//
-// Replaces dorado_tpu/ops/lstm.py::lstm_fused_time_major (Pallas body
-// _lstm_fused_kernel). Per step t (walked backwards when reverse != 0):
-//   gates = x[t] @ W_ih^T + h @ W_hh^T + bias      (float32 sums)
-//   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = bf16(sigmoid(o) * tanh(c))
-// The input width is H, so both weights are [H, 4H].
-//
-// What bounds it on the H100: the L2 read of W_hh and W_ih every step, 2.4
-// MB a step at H = 384 for every block, and 2 BN H 4H FMAs a step on the
-// CUDA cores. Only the H-wide x streams from HBM (not K1's 4H-wide gates).
-// The design is K15's, with bf16 weights; each thread's k slice runs both
-// products into one f32 sum per column, reading a row of W_hh and the same
-// row of W_ih as 16-byte vectors, h and x[t] from shared memory. x[t + 1]
-// is staged into shared memory during the cell update of step t, between
-// the step's two barriers, so the step needs no third one.
-// ---------------------------------------------------------------------------
-
-template <int BN>
-__global__ void __launch_bounds__(1024)
-    lstm_fused_kernel(const __nv_bfloat16* __restrict__ x,     // [T, N, H]
-                      const __nv_bfloat16* __restrict__ w_ih,  // [H, 4H]
-                      const __nv_bfloat16* __restrict__ w_hh,  // [H, 4H]
-                      const float* __restrict__ bias,          // [4H]
-                      __nv_bfloat16* __restrict__ out,         // [T, N, H]
-                      int T, int N, int H, int reverse) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  float* h_s = smem;               // [H][BN]: h of the block's rows, k-major
-  float* x_s = smem + H * BN;      // [H][BN]: x[t] of the block's rows, k-major
-  float* g_s = smem + 2 * H * BN;  // [KS][BN][4H]: partial sums of this step
-  const int tid = threadIdx.x;
-  const int q = tid % (G / 8);
-  const int ks = tid / (G / 8);
-  const int k_len = H / KS;
-  const int n0 = blockIdx.x * BN;
-  const bool owns_unit = tid < H;
-
-  auto stage_x = [&](int t) {
-    for (int i = tid; i < H * BN; i += blockDim.x) {
-      const int r = i / H, k = i % H;  // neighbouring threads read neighbouring k
-      x_s[k * BN + r] = __bfloat162float(x[((size_t)t * N + n0 + r) * H + k]);
-    }
-  };
-  for (int i = tid; i < H * BN; i += blockDim.x) h_s[i] = 0.f;
-  stage_x(reverse ? T - 1 : 0);
-  float c[BN], b[4];
-#pragma unroll
-  for (int r = 0; r < BN; ++r) c[r] = 0.f;
-#pragma unroll
-  for (int g = 0; g < 4; ++g) b[g] = owns_unit ? bias[g * H + tid] : 0.f;
-  __syncthreads();
-
-  for (int step = 0; step < T; ++step) {
-    const int t = reverse ? T - 1 - step : step;
-    float acc[BN][8];
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
-    }
-    const int k0 = ks * k_len;
-    const uint4* whq = reinterpret_cast<const uint4*>(w_hh + (size_t)k0 * G) + q;
-    const uint4* wiq = reinterpret_cast<const uint4*>(w_ih + (size_t)k0 * G) + q;
-    const float* hq = h_s + k0 * BN;
-    const float* xq = x_s + k0 * BN;
-#pragma unroll 4
-    for (int k = 0; k < k_len; ++k) {
-      const uint4 hv = __ldg(whq + (size_t)k * (G / 8));
-      const uint4 iv = __ldg(wiq + (size_t)k * (G / 8));
-      float wh[8], wi[8];
-      const __nv_bfloat162* hp = reinterpret_cast<const __nv_bfloat162*>(&hv);
-      const __nv_bfloat162* ip = reinterpret_cast<const __nv_bfloat162*>(&iv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 fh = __bfloat1622float2(hp[i]);
-        const float2 fi = __bfloat1622float2(ip[i]);
-        wh[2 * i] = fh.x;
-        wh[2 * i + 1] = fh.y;
-        wi[2 * i] = fi.x;
-        wi[2 * i + 1] = fi.y;
-      }
-#pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        const float hk = hq[k * BN + r];
-        const float xk = xq[k * BN + r];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] += xk * wi[i] + hk * wh[i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-      float4* dst = reinterpret_cast<float4*>(g_s + ((size_t)ks * BN + r) * G + 8 * q);
-      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    }
-    __syncthreads();  // sums complete; every read of this step's h and x done
-
-    if (step + 1 < T) stage_x(reverse ? t - 1 : t + 1);
-    if (owns_unit) {
-      const int j = tid;
-#pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        float gate[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          float sum = g_s[(size_t)r * G + g * H + j];
-#pragma unroll
-          for (int s = 1; s < KS; ++s) sum += g_s[((size_t)s * BN + r) * G + g * H + j];
-          gate[g] = sum + b[g];
-        }
-        const float ig = sigmoidf_(gate[0]);
-        const float fg = sigmoidf_(gate[1]);
-        const float gg = tanhf(gate[2]);
-        const float og = sigmoidf_(gate[3]);
-        c[r] = fg * c[r] + ig * gg;
-        const __nv_bfloat16 hb = __float2bfloat16(og * tanhf(c[r]));
-        h_s[j * BN + r] = __bfloat162float(hb);
-        out[((size_t)t * N + n0 + r) * H + j] = hb;
-      }
-    }
-    __syncthreads();  // the new h and x are visible; g_s may be overwritten
-  }
-}
-
 template <int BN>
 static int launch_int8(const void* xproj, const void* w4, const void* scale, void* out, int T,
                        int N, int H, int reverse, cudaStream_t stream) {
@@ -736,22 +730,6 @@ static int launch_int8(const void* xproj, const void* w4, const void* scale, voi
   lstm_scan_int8_kernel<BN><<<N / BN, KS * H / 2, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(xproj), static_cast<const int*>(w4),
       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), T, N, H, reverse);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int BN>
-static int launch_fused(const void* x, const void* w_ih, const void* w_hh, const void* bias,
-                        void* out, int T, int N, int H, int reverse, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)BN * H * (2 + 4 * KS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_fused_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  lstm_fused_kernel<BN><<<N / BN, KS * H / 2, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w_ih),
-      static_cast<const __nv_bfloat16*>(w_hh), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), T, N, H, reverse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -768,17 +746,3 @@ DTT_EXPORT int lstm_scan_int8(const void* xproj, const void* w4, const void* sca
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x [T, N, H] bf16, w_ih_t and w_hh_t [H, 4H] bf16, bias [4H] float32; the
-// limits of lstm_scan_bf16 on H and rows_per_block.
-DTT_EXPORT int lstm_fused_bf16(const void* x, const void* w_ih_t, const void* w_hh_t,
-                               const void* bias, void* out, int T, int N, int H, int reverse,
-                               int rows_per_block, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows_per_block == 1)
-    return launch_fused<1>(x, w_ih_t, w_hh_t, bias, out, T, N, H, reverse, s);
-  if (rows_per_block == 2)
-    return launch_fused<2>(x, w_ih_t, w_hh_t, bias, out, T, N, H, reverse, s);
-  if (rows_per_block == 4)
-    return launch_fused<4>(x, w_ih_t, w_hh_t, bias, out, T, N, H, reverse, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}

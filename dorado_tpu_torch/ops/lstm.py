@@ -21,7 +21,11 @@ runs its plain version below. K1 keeps W_hh in the shared memory of a
 thread-block cluster, each CTA a slice of the gate columns (``slice_w_hh``),
 and exchanges h between the CTAs every step; ``k1_cluster_shape`` and
 ``k1_plan`` choose the cluster, the units a CTA and the batch rows a
-cluster. K15 and K16 read their weights from L2 every step, a block per
+cluster. K16 runs on K1's kernel and plan (``fused=True``) with x[t] in
+place of xproj[t]: each CTA computes its gate rows' input product of the
+next step while the h slices of this one are exchanged, reading its slice
+of W_ih from L2 every step in the order of the mma fragments
+(``w_ih_fragments``). K15 reads its weights from L2 every step, a block per
 ``_rows_per_block`` batch rows.
 """
 
@@ -55,9 +59,9 @@ def lstm_scan_plain(xproj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
 
 
 def _rows_per_block(n: int, device: torch.device) -> int:
-    """Batch rows per block of K15 and K16, which read the recurrent weights
-    from L2 every step: the fewest rows per block that still fit the batch
-    in one wave of blocks (one per SM)."""
+    """Batch rows per block of K15, which reads the recurrent weights from
+    L2 every step: the fewest rows per block that still fit the batch in one
+    wave of blocks (one per SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fitting = [r for r in (1, 2, 4) if n % r == 0 and n // r <= sms]
     return fitting[0] if fitting else max(r for r in (1, 2, 4) if n % r == 0)
@@ -70,11 +74,10 @@ _K1_MAX_WARPS = 12
 _K1_MAX_TILES_A_WARP = 2
 _K1_MAX_ROWS = 48
 
-
 class ClusterPlan(NamedTuple):
-    """How K1 splits a launch: ``cluster`` CTAs a cluster, each owning
-    ``units`` hidden units (all four gate columns) with ``warps`` warps;
-    ``rows`` batch rows a cluster, ``clusters`` clusters."""
+    """How K1's kernel splits a launch: ``cluster`` CTAs a cluster, each
+    owning ``units`` hidden units (all four gate columns) with ``warps``
+    warps; ``rows`` batch rows a cluster, ``clusters`` clusters."""
 
     cluster: int
     units: int
@@ -83,13 +86,14 @@ class ClusterPlan(NamedTuple):
     clusters: int
 
 
-def _k1_smem(units: int, cluster: int, rows: int) -> int:
-    """Shared memory of one K1 CTA in bytes (``smem_bytes`` in the source):
-    its W slice, two h buffers and two h stagings, bf16, and two 8-byte
-    mbarriers."""
+def _k1_smem(units: int, cluster: int, rows: int, fused: bool = False) -> int:
+    """Shared memory of one CTA of K1's kernel in bytes (``smem_bytes`` in
+    the source): its W slice, two h buffers and two h stagings, with K16
+    (``fused``) two x buffers, bf16, and two 8-byte mbarriers."""
     kp = _k1_depth(cluster, units)
     blocks = -(-kp // units)  # h held as blocks of one CTA's units
-    return 2 * (4 * units * (kp + 8) + 2 * (blocks + 1) * rows * (units + 8)) + 16
+    x_bufs = 2 * rows * (kp + 8) if fused else 0
+    return 2 * (4 * units * (kp + 8) + 2 * (blocks + 1) * rows * (units + 8) + x_bufs) + 16
 
 
 def _k1_depth(cluster: int, units: int) -> int:
@@ -98,12 +102,12 @@ def _k1_depth(cluster: int, units: int) -> int:
     return -(-cluster * units // 32) * 32
 
 
-def k1_cluster_shape(hidden: int) -> tuple[int, int, int]:
-    """(cluster, units, warps) for hidden width H: the smallest cluster
-    (1 to 16 CTAs) whose CTAs' W slices fit shared memory at 8 rows and
-    whose m-tiles (four units each) split over at most 12 warps, one or two
-    a warp; each CTA's unit count rounded up to 16 (whole k-tiles of h),
-    and the most warps that split them."""
+def k1_cluster_shape(hidden: int, fused: bool = False) -> tuple[int, int, int]:
+    """(cluster, units, warps) for hidden width H (K16's launch: ``fused``):
+    the smallest cluster (1 to 16 CTAs) whose CTAs' W slices fit shared
+    memory at 8 rows and whose m-tiles (four units each) split over at most
+    12 warps, one or two a warp; each CTA's unit count rounded up to 16
+    (whole k-tiles of h), and the most warps that split them."""
     for cluster in (1, 2, 4, 8, 16):
         units = -(-hidden // cluster)
         units += -units % 16
@@ -112,21 +116,22 @@ def k1_cluster_shape(hidden: int) -> tuple[int, int, int]:
             w for w in range(1, _K1_MAX_WARPS + 1)
             if tiles % w == 0 and tiles // w <= _K1_MAX_TILES_A_WARP
         ]
-        if warps and _k1_smem(units, cluster, 8) <= _K1_SMEM_MAX:
+        if warps and _k1_smem(units, cluster, 8, fused) <= _K1_SMEM_MAX:
             break
     else:
         raise ValueError(f"lstm_scan: no cluster of up to 16 CTAs holds W_hh at H = {hidden}")
     return cluster, units, max(warps)
 
 
-def k1_plan(hidden: int, n: int, active_clusters: int) -> ClusterPlan:
-    """K1's split of a batch of ``n`` rows, given how many clusters of its
+def k1_plan(hidden: int, n: int, active_clusters: int, fused: bool = False) -> ClusterPlan:
+    """The split of a batch of ``n`` rows, given how many clusters of the
     shape the card runs at once: rows a cluster spread the batch over those
     clusters (a multiple of 8, the mma's n-tile), at most 48 and what shared
     memory holds; a batch beyond that takes more clusters than run at once."""
-    cluster, units, warps = k1_cluster_shape(hidden)
+    cluster, units, warps = k1_cluster_shape(hidden, fused)
     fit = [
-        r for r in range(8, _K1_MAX_ROWS + 1, 8) if _k1_smem(units, cluster, r) <= _K1_SMEM_MAX
+        r for r in range(8, _K1_MAX_ROWS + 1, 8)
+        if _k1_smem(units, cluster, r, fused) <= _K1_SMEM_MAX
     ]
     per_cluster = -(-n // max(active_clusters, 1))
     rows = min(max(8, per_cluster + -per_cluster % 8), fit[-1])
@@ -145,21 +150,41 @@ def slice_w_hh(w_hh_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
     return w.reshape(kp, 4, cluster, units).permute(2, 3, 1, 0).reshape(cluster, 4 * units, kp)
 
 
+# lane l's 8 bf16 of an m16 x k16 A tile, as ldmatrix_x4 gives them from a
+# row-major tile: (row, k) of its registers a[0] to a[3], two values each
+_LANE = torch.arange(32)
+_FRAG_ROWS = torch.stack([_LANE // 4 + d for d in (0, 0, 8, 8, 0, 0, 8, 8)], 1)
+_FRAG_COLS = torch.stack([2 * (_LANE % 4) + d for d in (0, 1, 0, 1, 8, 9, 8, 9)], 1)
+
+
+def w_ih_fragments(w_ih_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
+    """[H, 4H] input weights -> [cluster, units // 4, Kp // 16, 32, 8]: W_ih
+    sliced over the cluster as ``slice_w_hh`` slices W_hh (K16's input is H
+    wide too), then cut into the mma A fragments K16 reads from L2: those of
+    CTA c's m-tile mt (16 rows) and k-tile kt (16 k) that lane l holds, rows
+    l // 4 and l // 4 + 8 at k 2 (l % 4) + (0, 1) and + 8. A lane reads its
+    16 bytes, a warp 512 contiguous bytes."""
+    sl = slice_w_hh(w_ih_t, cluster, units)
+    kp = sl.shape[2]
+    tiles = sl.reshape(cluster, units // 4, 16, kp // 16, 16).permute(0, 1, 3, 2, 4)
+    return tiles[..., _FRAG_ROWS, _FRAG_COLS].contiguous()
+
+
 _active: dict[tuple, int] = {}
 
 
-def _active_clusters(device: torch.device, hidden: int, shape: tuple[int, int, int]) -> int:
-    """Clusters of K1's shape at 8 rows the card runs at once
+def _active_clusters(device: torch.device, hidden: int, fused: bool = False) -> int:
+    """Clusters of K1's (or K16's) shape at 8 rows the card runs at once
     (``cudaOccupancyMaxActiveClusters``), once per device and width."""
-    key = (device, hidden)
+    key = (device, hidden, fused)
     if key not in _active:
-        cluster, units, warps = shape
+        cluster, units, warps = k1_cluster_shape(hidden, fused)
         fn = _cuda.kernel_function(
-            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 5 + [_cuda.VOIDP]
+            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 6 + [_cuda.VOIDP]
         )
         count = ctypes.c_int(0)
         with torch.cuda.device(device):
-            code = fn(hidden, cluster, units, 8, warps, ctypes.addressof(count))
+            code = fn(hidden, int(fused), cluster, units, 8, warps, ctypes.addressof(count))
         _cuda.check_launch("lstm_scan", code)
         if count.value < 1:
             raise RuntimeError(f"lstm_scan: the card runs no cluster of {cluster} CTAs at H = {hidden}")
@@ -167,10 +192,10 @@ def _active_clusters(device: torch.device, hidden: int, shape: tuple[int, int, i
     return _active[key]
 
 
-def k1_launch_plan(hidden: int, n: int, device: torch.device) -> ClusterPlan:
-    """The split K1 launches with on ``device`` for width H and N rows."""
-    shape = k1_cluster_shape(hidden)
-    return k1_plan(hidden, n, _active_clusters(device, hidden, shape))
+def k1_launch_plan(hidden: int, n: int, device: torch.device, fused: bool = False) -> ClusterPlan:
+    """The split K1 (or K16: ``fused``) launches with on ``device`` for width
+    H and N rows."""
+    return k1_plan(hidden, n, _active_clusters(device, hidden, fused), fused)
 
 
 def lstm_scan_time_major(
@@ -329,7 +354,7 @@ def lstm_fused_time_major(
 
     A CPU tensor takes the plain version; a CUDA tensor (bf16 x and weights,
     H a multiple of 4 up to 512) launches the kernel, with the bias in
-    float32."""
+    float32, split by ``k1_launch_plan(..., fused=True)``."""
     if x.device.type == "cpu":
         return lstm_fused_plain(x, w_ih_t, w_hh_t, bias, reverse)
     t_len, n, hidden = x.shape
@@ -343,14 +368,17 @@ def lstm_fused_time_major(
     _cuda.check_tensor(bias, "bias", torch.float32, (g4,))
     if any(t.device != x.device for t in (w_ih_t, w_hh_t, bias)):
         raise ValueError("lstm_fused: x, the weights and the bias are on different devices")
+    plan = k1_launch_plan(hidden, n, x.device, fused=True)
+    w_hh = slice_w_hh(w_hh_t, plan.cluster, plan.units)
+    w_ih = w_ih_fragments(w_ih_t, plan.cluster, plan.units)
     out = torch.empty(t_len, n, hidden, dtype=x.dtype, device=x.device)
     fn = _cuda.kernel_function(
-        "lstm_scan", "lstm_fused_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 5 + [_cuda.VOIDP]
+        "lstm_scan", "lstm_fused_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 8 + [_cuda.VOIDP]
     )
     with torch.cuda.device(x.device):
         code = fn(
-            x.data_ptr(), w_ih_t.data_ptr(), w_hh_t.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            t_len, n, hidden, int(reverse), _rows_per_block(n, x.device),
+            x.data_ptr(), w_hh.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            t_len, n, hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps,
             _cuda.stream_ptr(x.device),
         )
     _cuda.check_launch("lstm_scan", code)

@@ -20,6 +20,7 @@ from dorado_tpu_torch.ops.lstm import (
     lstm_scan_time_major_int8,
     quantize_lstm_weights,
     slice_w_hh,
+    w_ih_fragments,
 )
 
 
@@ -178,3 +179,77 @@ def test_slice_w_hh_reassembles_w_hh(h):
     back = sl.reshape(cluster, units, 4, kp).permute(3, 2, 0, 1).reshape(kp, 4, cluster * units)
     assert torch.equal(back[:h, :, :h].reshape(h, 4 * h), w)
     assert not back[h:].any() and not back[:, :, h:].any()
+
+
+# K16's host-side helpers: it launches on K1's kernel and plan with two x
+# buffers beside K1's shared memory (``fused=True``), and reads W_ih from L2
+# as the mma fragments of its slices.
+
+
+@pytest.mark.parametrize(
+    "h,shape",
+    # hac, fast, the widest the wrapper takes, a padded one, and the JAX
+    # kernel test widths (K_CASES)
+    [(384, (8, 48, 12)), (96, (1, 96, 12)), (512, (16, 32, 8)), (36, (1, 48, 12)),
+     (32, (1, 32, 8)), (64, (1, 64, 8))],
+)
+def test_k16_cluster_shape_at_the_models_widths(h, shape):
+    """K16 keeps K1's cluster at every width the models use: the x buffers
+    fit beside the W_hh slice at 8 rows."""
+    assert k1_cluster_shape(h, fused=True) == shape == k1_cluster_shape(h)
+    cluster, units, _ = shape
+    assert _k1_smem(units, cluster, 8, fused=True) <= 232448
+
+
+@pytest.mark.parametrize("h", range(4, 513, 4))
+def test_k16_cluster_shape_fits_every_width(h):
+    """Every width K16's wrapper takes gets a cluster whose CTAs hold the
+    W_hh slice and the x buffers at 8 rows: K1's, or a larger one where the
+    x buffers leave K1's short of room (H = 260 to 320)."""
+    cluster, units, warps = k1_cluster_shape(h, fused=True)
+    assert cluster in (1, 2, 4, 8, 16) and units % 16 == 0 and cluster * units >= h
+    assert 1 <= warps <= 12 and (units // 4) % warps == 0 and units // 4 // warps <= 2
+    assert _k1_smem(units, cluster, 8, fused=True) <= 232448
+    assert cluster >= k1_cluster_shape(h)[0]
+
+
+@pytest.mark.parametrize(
+    "h,n,active,rows,clusters",
+    [
+        (384, 128, 15, 16, 8),  # hac's batch: one wave, as K1
+        (384, 512, 15, 16, 32),  # x's buffers hold the rows a cluster at 16
+        (384, 37, 15, 8, 5),
+        (96, 128, 132, 8, 16),
+        (512, 128, 7, 16, 8),
+        (36, 37, 132, 8, 5),
+    ],
+)
+def test_k16_plan_rows_a_cluster(h, n, active, rows, clusters):
+    plan = k1_plan(h, n, active, fused=True)
+    assert (plan.rows, plan.clusters) == (rows, clusters)
+    assert plan.rows * plan.clusters >= n > plan.rows * (plan.clusters - 1)
+    assert _k1_smem(plan.units, plan.cluster, plan.rows, fused=True) <= 232448
+    assert _k1_smem(plan.units, plan.cluster, plan.rows, fused=True) > _k1_smem(
+        plan.units, plan.cluster, plan.rows)
+
+
+@pytest.mark.parametrize("h", [384, 96, 512, 36, 32, 64])
+def test_w_ih_fragments_reassemble_w_ih(h):
+    """Lane l's 8 values of CTA c's m-tile mt and k-tile kt are rows l // 4
+    and l // 4 + 8 of the tile at k 2 (l % 4), + 1, + 8, + 9 in the order of
+    mma.sync's A fragment; put back, they give ``slice_w_hh``'s layout of
+    W_ih, and so W_ih."""
+    rs = np.random.RandomState(h)
+    w = torch.from_numpy(rs.randn(h, 4 * h).astype(np.float32)).bfloat16()
+    cluster, units, _ = k1_cluster_shape(h, fused=True)
+    frag = w_ih_fragments(w, cluster, units)
+    kp = -(-cluster * units // 32) * 32
+    assert frag.shape == (cluster, units // 4, kp // 16, 32, 8) and frag.is_contiguous()
+    tiles = torch.zeros(cluster, units // 4, kp // 16, 16, 16, dtype=w.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for e, (dr, dk) in enumerate([(0, 0), (0, 1), (8, 0), (8, 1),
+                                      (0, 8), (0, 9), (8, 8), (8, 9)]):
+            tiles[..., g + dr, 2 * t + dk] = frag[..., lane, e]
+    back = tiles.permute(0, 1, 3, 2, 4).reshape(cluster, 4 * units, kp)
+    assert torch.equal(back, slice_w_hh(w, cluster, units))
