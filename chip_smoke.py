@@ -19,8 +19,9 @@
    projection inside the recurrence, on K1's kernel) at K1's widths and
    batches in both directions, timed at N = 128 and 512 beside cuDNN's LSTM
    with its split, on no path; K2 (W8A8 projection) bit for bit at three row
-   counts, beside the bf16 matmul it replaces and ``torch._int_mm`` with
-   separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
+   counts and at 357 rows of its widest (K = 768, O = 3072) and narrowest
+   (128, 128) weights, beside the bf16 matmul it replaces and
+   ``torch._int_mm`` with separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
    scans and traceback); K6 (full-history LSE scan) in both directions; K7a
    (the Viterbi forward pass alone, also at 64 states), equal to K4's choices,
    with ``viterbi_path`` equal to K4 + K5's path; K8 (K4's pass on float32
@@ -36,8 +37,11 @@
    and k rows, RoPE inside), K11b (separate q, k, v; also at window
    (200, 256)); K14 (matmul + bias + scaled residual + RMS norm) at out_proj
    and at fc2, each at three row counts, beside the unfused passes; K12 (fc1 + SwiGLU
-   + requantisation) and K13 (int8 fc2, bit for bit) at two row counts,
-   beside ``torch._int_mm`` routes; K2 at sup's qkv shape bit for bit; K3,
+   + requantisation) and K13 (int8 fc2, bit for bit) at four row counts,
+   beside ``torch._int_mm`` routes, K12 also at its narrowest shape, at one
+   that takes its two-pass form, and in the two-pass form at sup's shape
+   (timed beside the one pass), and its branch-free reciprocal against
+   ``__frcp_rn`` at every float of its range; K2 at sup's qkv shape bit for bit; K3,
    K4, K5 at 1024 states; the full-history scans at 1024 states (K3's
    forward and unshifted backward outputs); K7b, with the cross-checks of
    K7a; K17 and its traceback at 1024 states on the sup model's float32
@@ -157,8 +161,10 @@ MAX_INT8_LSTM_SHARE_OFF = 1e-3
 # K2: bit for bit (the int32 sums are exact and every float step is a single
 #     rounded operation in the kernel and in the plain version), at the long
 #     lane's rows, the short lane's, and a count that is no multiple of the
-#     kernel's 128-row tile
+#     kernel's 128-row tile; and (rows, K, O) at the widest weight the kernel
+#     takes (the LSTM width of sup, one A buffer) and the narrowest
 W8A8_ROWS = [T * N, 1249 * 2 * N, 5 * 128 + 37]
+W8A8_OTHER = [(357, 768, 3072), (357, 128, 128)]
 # K3: the carry's f32 LSE sums run in another order; rows are bf16, whose
 #     spacing is 2^-7 relative: |err| <= 0.05 + 2^-7 * |value|
 TOL_BETA_ABS, TOL_BETA_REL = 0.05, 2.0**-7
@@ -248,10 +254,14 @@ MAX_SUP_ROUTE_MEAN_ERR = 2.0**-8
 # K12: expf and PyTorch's exp may differ in the last bit, which can move a
 #     value across an int8 rounding boundary: row scales within 1e-6
 #     relative, the int8 output equal but for +-1 at under 0.1% of elements
-# K13: bit for bit, like K2. Both at sup's rows and at a count that is no
-#     multiple of the 128-row tile
+# K13: bit for bit, like K2. Both at sup's rows, at counts that are no
+#     multiple of the 128-row tile and at one row; K12 also at (rows, K, F)
+#     of its narrowest shape and of one that takes its two-pass form (F / 64
+#     = 11 has no divisor up to 8 that leaves at most 4 tiles a CTA), and in
+#     the two-pass form at sup's shape (timed beside the one-pass form)
 TOL_SWIGLU_SCALE_REL, MAX_SWIGLU_SHARE_OFF_BY_ONE = 1e-6, 1e-3
-FFN_ROWS = [SUP_M, 5 * 128 + 37]
+FFN_ROWS = [SUP_M, 5 * 128 + 37, 357, 1]
+SWIGLU_OTHER = [(357, 128, 64), (1000, 256, 704)]
 # the sup model: bf16 on the card against float32 on the CPU, both W8A8
 # (mean abs error over the mean abs score; the head has no tanh or clamp, so
 # the scores are of size 4 on average and the bf16 residual stream's
@@ -449,7 +459,8 @@ def main() -> None:
     libs = _cuda.build_kernels()
     print(f"built {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s", flush=True)
     # each kernel's registers, spills and static shared memory, under its
-    # (mangled) name; K1's and the attention's dynamic shared memory are
+    # (mangled) name, and ptxas's notes of lost performance (such as wgmma
+    # serialised); K1's and the attention's dynamic shared memory are
     # printed where they launch
     for name, path in libs.items():
         log = path.with_suffix(".so.log")
@@ -457,7 +468,7 @@ def main() -> None:
             for line in log.read_text().splitlines():
                 if "Compiling entry function" in line:
                     print(f"  {name}: {line.split(chr(39))[1]}")
-                elif "registers" in line or "spill" in line:
+                elif "registers" in line or "spill" in line or "Performance Loss" in line:
                     print(f"    {line.strip()}")
 
     dev = torch.device("cuda")
@@ -726,6 +737,21 @@ def main() -> None:
                 )
             err = max(err, e)
             del x, out_k, out_p
+        for m, k_o, o_o in W8A8_OTHER:
+            wq_o, ws_o = int8_matmul.quantize_weight_rows(
+                (torch.rand(o_o, k_o, generator=gen, device=dev) * 2 - 1) / k_o**0.5)
+            b_o = torch.randn(o_o, generator=gen, device=dev) * 0.1
+            x = torch.randn(m, k_o, generator=gen, device=dev).bfloat16()
+            out_k = int8_matmul.w8a8_matmul_fq(x, wq_o.t(), ws_o, b_o)
+            out_p = int8_matmul.w8a8_matmul_fq_plain(x, wq_o.t(), ws_o, b_o)
+            torch.cuda.synchronize()
+            print(f"w8a8_matmul_fq M={m} K={k_o} O={o_o} ({int8_matmul.w8a8_fq_plan(k_o, o_o)}): "
+                  f"bit for bit {torch.equal(out_k, out_p)}", flush=True)
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(
+                    f"w8a8_matmul_fq at M={m}, K={k_o}, O={o_o}: "
+                    f"{(out_k != out_p).float().mean().item():.3%} of outputs differ")
+            del wq_o, ws_o, b_o, x, out_k, out_p
         x_flat = x_in.reshape(T * N, H)
         w_bf16 = w_ih.bfloat16()
 
@@ -750,7 +776,7 @@ def main() -> None:
             2.0 * m * k * o, PEAK_INT8, 2 * m * k + k * o + 8 * o + 2 * m * o,
             time_ms(int_mm_path, 5),
             "(torch._int_mm with separate quantise and dequantise passes)",
-            bf16_matmul_ms=bf16_ms,
+            bf16_matmul_ms=bf16_ms, plan=str(int8_matmul.w8a8_fq_plan(k, o)),
         )
         print(f"  the bf16 torch.matmul + float32 bias + cast it replaces: {bf16_ms:.3f} ms",
               flush=True)
@@ -1135,22 +1161,26 @@ def main() -> None:
         def fc2_int_mm(tq, ts):
             return (torch._int_mm(tq, w2_q.t()).float() * ts * w2_s).to(torch.bfloat16)
 
+        def hold_swiglu(what, tq_k, ts_k, tq_p, ts_p):
+            rel = ((ts_k - ts_p).abs() / ts_p).max().item()
+            dq = (tq_k.int() - tq_p.int()).abs()
+            share = (dq > 0).float().mean().item()
+            print(f"swiglu_w8a8 {what}: row scales within {rel:.3g} relative, int8 output off "
+                  f"by one at {share:.5%} of elements (max difference {dq.max().item()})",
+                  flush=True)
+            if not (rel <= TOL_SWIGLU_SCALE_REL and dq.max().item() <= 1
+                    and share <= MAX_SWIGLU_SHARE_OFF_BY_ONE):
+                raise AssertionError(f"swiglu_w8a8 {what}: differs from the plain version")
+            return float(dq.max().item()), share
+
         err12 = share12 = 0.0
         for m in reversed(FFN_ROWS):  # the timed shape last
             x = torch.randn(m, k_in, generator=gen, device=dev).bfloat16()
             xq, xs = int8_matmul.quantize_rows(x)
             tq_k, ts_k = int8_matmul.swiglu_w8a8(xq, xs, *fc1)
             tq_p, ts_p = int8_matmul.swiglu_w8a8_plain(xq, xs, *fc1)
-            torch.cuda.synchronize()
-            rel = ((ts_k - ts_p).abs() / ts_p).max().item()
-            dq = (tq_k.int() - tq_p.int()).abs()
-            share = (dq > 0).float().mean().item()
-            print(f"swiglu_w8a8 M={m}: row scales within {rel:.3g} relative, int8 output off by "
-                  f"one at {share:.5%} of elements (max difference {dq.max().item()})", flush=True)
-            if not (rel <= TOL_SWIGLU_SCALE_REL and dq.max().item() <= 1
-                    and share <= MAX_SWIGLU_SHARE_OFF_BY_ONE):
-                raise AssertionError(f"swiglu_w8a8 at M={m}: differs from the plain version")
-            err12, share12 = max(err12, float(dq.max().item())), max(share12, share)
+            e_o, s_o = hold_swiglu(f"M={m}", tq_k, ts_k, tq_p, ts_p)
+            err12, share12 = max(err12, e_o), max(share12, s_o)
             out_k = int8_matmul.w8a8_matmul(tq_k, ts_k, w2_q.t(), w2_s)
             out_p = int8_matmul.w8a8_matmul_plain(tq_k, ts_k, w2_q.t(), w2_s)
             torch.cuda.synchronize()
@@ -1162,7 +1192,35 @@ def main() -> None:
                 raise AssertionError(
                     f"w8a8_matmul at M={m}: {(out_k != out_p).float().mean().item():.3%} of "
                     f"outputs differ from the plain version (or from the torch._int_mm route)")
-            del dq, tq_p, ts_p, out_p
+            del tq_p, ts_p, out_p
+        for m_o, k_o, f_o in SWIGLU_OTHER:
+            plan = int8_matmul.swiglu_plan(k_o, f_o)
+            wy_o, wys_o = int8_matmul.quantize_weight_rows(
+                torch.randn(f_o, k_o, generator=gen, device=dev) / k_o**0.5)
+            wg_o, wgs_o = int8_matmul.quantize_weight_rows(
+                torch.randn(f_o, k_o, generator=gen, device=dev) / k_o**0.5)
+            xq_o, xs_o = int8_matmul.quantize_rows(
+                torch.randn(m_o, k_o, generator=gen, device=dev).bfloat16())
+            fc1_o = (wy_o.t(), wys_o, wg_o.t(), wgs_o)
+            e_o, s_o = hold_swiglu(
+                f"M={m_o} K={k_o} F={f_o} ({plan})", *int8_matmul.swiglu_w8a8(xq_o, xs_o, *fc1_o),
+                *int8_matmul.swiglu_w8a8_plain(xq_o, xs_o, *fc1_o))
+            err12, share12 = max(err12, e_o), max(share12, s_o)
+            del wy_o, wg_o, xq_o, xs_o, fc1_o
+        # the two-pass form at sup's shape, held and timed beside the one pass
+        tq_2, ts_2 = int8_matmul._swiglu_cuda(xq, xs, *fc1, two_pass=True)
+        tq_p, ts_p = int8_matmul.swiglu_w8a8_plain(xq, xs, *fc1)
+        e_o, s_o = hold_swiglu(f"M={xq.shape[0]} in the two-pass form", tq_2, ts_2, tq_p, ts_p)
+        err12, share12 = max(err12, e_o), max(share12, s_o)
+        del tq_2, ts_2, tq_p, ts_p
+        two_pass_ms = time_ms(lambda: int8_matmul._swiglu_cuda(xq, xs, *fc1, two_pass=True), 10)
+        # the branch-free reciprocal of K12's one-pass epilogue at every float
+        # of its range
+        rcp_bad = int8_matmul.rcp_near_mismatches(dev)
+        print(f"  swiglu_w8a8's branch-free reciprocal differs from __frcp_rn at {rcp_bad} of "
+              f"the floats in [1, 2^126)", flush=True)
+        if rcp_bad:
+            raise AssertionError("swiglu_w8a8: the branch-free reciprocal is not exact")
         lib_q, lib_s = swiglu_int_mm(xq, xs)
         print(f"  the torch._int_mm route of swiglu_w8a8 differs from the kernel at "
               f"{(lib_q != tq_k).float().mean().item():.5%} of elements", flush=True)
@@ -1173,16 +1231,16 @@ def main() -> None:
             "dorado_tpu/ops/int8_matmul.py:119", err12,
             time_ms(lambda: int8_matmul.swiglu_w8a8(xq, xs, *fc1), 10),
             time_ms(lambda: int8_matmul.swiglu_w8a8_plain(xq, xs, *fc1), 2),
-            # one pass over both halves of fc1 is the function's work (the
-            # kernel makes two)
+            # one pass over both halves of fc1 is the function's work
             2.0 * m * k_in * 2 * ffn, PEAK_INT8,
             m * k_in + 4 * m + 2 * ffn * k_in + 8 * ffn + m * ffn + 4 * m,
             time_ms(lambda: swiglu_int_mm(xq, xs), 3),
             "(two torch._int_mm and the elementwise passes)",
-            share_off_by_one=share12,
+            share_off_by_one=share12, plan=str(int8_matmul.swiglu_plan(k_in, ffn)),
+            two_pass_ms=two_pass_ms, rcp_near_mismatches=rcp_bad,
         )
-        print("  (max_abs_err of swiglu_w8a8 is the largest difference of an int8 output)",
-              flush=True)
+        print("  (max_abs_err of swiglu_w8a8 is the largest difference of an int8 output; "
+              f"the same kernel's two-pass form: {two_pass_ms:.3f} ms)", flush=True)
         report(
             "w8a8_matmul", "dorado_tpu_torch/csrc/w8a8_matmul.cu",
             "dorado_tpu/ops/int8_matmul.py:218", 0.0,

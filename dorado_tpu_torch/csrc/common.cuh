@@ -91,6 +91,15 @@ __device__ __forceinline__ void unpack4(uint2 v, float out[4]) {
   out[3] = __high2float(hi);
 }
 
+// rint(x) as an int for |x| < 2^22 (0 for NaN, as the conversion gives), on
+// the FMA pipe: in [2^23, 2^24) the floats are the integers, so 1.5 * 2^23 +
+// x rounds x to an integer, ties to even, as rint does. rintf and the
+// conversion to int run on the quarter-rate pipe that exp2 and the
+// reciprocal also need.
+__device__ __forceinline__ int rint_small(float x) {
+  return x == x ? __float_as_int(__fadd_rn(x, 12582912.0f)) - 0x4B400000 : 0;
+}
+
 // ---- thread-block clusters, mbarriers and the bulk copy engine ------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -162,6 +171,48 @@ __device__ __forceinline__ void mbar_wait(uint32_t mbar, int parity) {
   }
 }
 
+// mbar_wait with cluster scope, for data that other CTAs of the cluster
+// published (a fence.acq_rel.cluster before their arrivals here): the wait
+// acquires it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t mbar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2, "
+        "1000;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1 << 22)) __trap();
+  }
+}
+
+// A float at a shared::cluster address (map_rank).
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `count` threads (a multiple of 32) on named barrier `id` (1-15).
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The dynamic shared memory rounded up to 1024 bytes, the 128-byte swizzle's
+// alignment.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
 // The bulk copy engine: `bytes` (a multiple of 16) from this CTA's shared
 // memory to a CTA of the cluster, completing as transaction bytes on the
 // mbarrier `mbar` there (both shared::cluster addresses).
@@ -218,6 +269,39 @@ template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
+// Until this thread's bulk stores are complete (written, not only read).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- data that streams through once -----------------------------------------
+// An L2 policy that evicts the lines it touches first: for inputs read once
+// and outputs written once, so that they do not push out of L2 what the
+// kernel reads again (its weights).
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// 16 bytes read once: not kept in L1, first out of L2.
+__device__ __forceinline__ uint4 ld_stream16(const void* p, uint64_t policy) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+// tma_store_2d under an L2 policy.
+__device__ __forceinline__ void tma_store_2d_hint(const void* map, int c0, int c1, uint32_t src,
+                                                  uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2}], [%3], "
+      "%4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src), "l"(policy)
+      : "memory");
+}
 
 // ---- warpgroup matrix multiply (wgmma) ------------------------------------
 
@@ -235,12 +319,14 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keeps the compiler from moving reads or writes of an accumulator register
 // across the asynchronous wgmma that writes it.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // Shared-memory matrix descriptor of a K-major operand whose rows are one
-// swizzle span long (SW = 128 or 64 bytes: 64 or 32 bf16), in the TMA's
-// swizzle of that span: 8-row atoms of 8 SW bytes, aligned to their size;
-// start address, stride between 8-row groups 8 SW bytes, layout 1 (128-byte
-// swizzle) or 2 (64-byte). A step of 16 along K adds 32 bytes to the start.
+// swizzle span long (SW = 128 or 64 bytes: 64 or 32 bf16, 128 or 64 int8),
+// in the TMA's swizzle of that span: 8-row atoms of 8 SW bytes, aligned to
+// their size; start address, stride between 8-row groups 8 SW bytes, layout
+// 1 (128-byte swizzle) or 2 (64-byte). A step of 16 bf16 (or 32 int8) along
+// K adds 32 bytes to the start.
 template <int SW>
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
   static_assert(SW == 128 || SW == 64, "a 128- or 64-byte swizzle");
@@ -293,6 +379,34 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (+)= A . B^T for a 64 x 128 tile, k = 32: A [64][32] and B [128][32],
+// both int8 and K-major in shared memory (the same descriptors: a k32 step of
+// int8 is the 32 bytes of a k16 step of bf16), d int32 and exact (no
+// .satfinite: |d| <= K * 127^2 stays far from 2^31); d is overwritten when
+// `accumulate` is 0. The same register layout as the bf16 form: d[4 j + 2 h +
+// e] is row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -51,11 +51,8 @@
 // The epilogue's roundings are paired (one conversion instruction for two
 // values), and its code is written once for both passes: two unrolled
 // copies overflowed the instruction cache and slowed the kernel sharply.
-// CUtensorMap and the driver's types; the encoder itself comes from
-// cudaGetDriverEntryPoint (no libcuda link)
-#include <cuda.h>
-
 #include "common.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -87,8 +84,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_norm_kernel(
     const __nv_bfloat16* __restrict__ nw,       // [O]
     int M, int K, float alpha, float eps) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = align1024(smem_raw);
   __nv_bfloat16* x_ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][BK]
   __nv_bfloat16* w_ring = x_ring + STAGES * X_TILE;                 // [STAGES][HALF][BK]
   // the tile, [2 warpgroups][O / RBOX boxes][64 rows][RBOX]: the residual,
@@ -260,8 +256,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_norm_kernel(
       }
       // the warpgroup's 64 rows to the output by TMA (rows past M are not
       // written), then the tile buffer is free for the next residual
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
       if (lt == 0) {
         const unsigned char* boxes = tile_s + wg * (O / RBOX) * 64 * RBOX * 2;
         for (int b = 0; b < O / RBOX; ++b)
@@ -272,48 +268,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_norm_kernel(
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 [rows][cols] tensor (cols contiguous) in boxes of box_rows x
-// box_cols (32 or 64), swizzled over the box's row of 2 box_cols bytes;
-// reads past its edges give zeros.
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-              int box_cols) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -327,8 +281,8 @@ DTT_EXPORT int matmul_residual_rmsnorm_bf16(const void* x, const void* w, const 
   if (M <= 0 || K <= 0 || K % 32 || out_width != O)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w, map_r, map_o;
-  if (!make_map(&map_x, x, M, K, BM, BK) || !make_map(&map_w, w, O, K, WBOX, BK) ||
-      !make_map(&map_r, res, M, O, 64, RBOX) || !make_map(&map_o, out, M, O, 64, RBOX))
+  if (!make_map(&map_x, x, 2, M, K, BM, BK) || !make_map(&map_w, w, 2, O, K, WBOX, BK) ||
+      !make_map(&map_r, res, 2, M, O, 64, RBOX) || !make_map(&map_o, out, 2, M, O, 64, RBOX))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(fused_norm_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -344,19 +298,12 @@ DTT_EXPORT int matmul_residual_rmsnorm_bf16(const void* x, const void* w, const 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // persistent: as many clusters as the card runs at once (once per device)
-  static int active[64] = {0};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err ? err : cudaErrorInvalidDevice);
-  if (active[dev] == 0) {
-    cfg.gridDim = dim3(CS);
-    err = cudaOccupancyMaxActiveClusters(&active[dev], (void*)fused_norm_kernel, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (active[dev] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+  // persistent: as many clusters as the card runs at once
+  int active = 0;
+  err = active_clusters((const void*)fused_norm_kernel, CS, THREADS, SMEM_BYTES, &active);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = ((M + BM - 1) / BM + CS - 1) / CS;
-  cfg.gridDim = dim3(CS * (groups < active[dev] ? groups : active[dev]));
+  cfg.gridDim = dim3(CS * (groups < active ? groups : active));
   err = cudaLaunchKernelEx(&cfg, fused_norm_kernel, map_x, map_w, map_r, map_o,
                            static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(nw),
                            M, K, alpha, eps);

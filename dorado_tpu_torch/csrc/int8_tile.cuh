@@ -1,8 +1,8 @@
-// The int8 tile product shared by the W8A8 matmul kernels of this directory
-// (w8a8_matmul_fq.cu, w8a8_matmul.cu): a block of 256 threads multiplies a
-// 128-row tile of int8 activations by a 128-row tile of int8 weights (one
-// output channel a row) on the tensor cores, mma.sync.m16n8k32 (s8 x s8 ->
-// s32), 8 warps as 4 x 2, a warp computing 32 x 64 of the 128 x 128 tile.
+// The int8 tile product of K13 (w8a8_matmul.cu; K2 and K12 run on wgmma
+// instead): a block of 256 threads multiplies a 128-row tile of int8
+// activations by a 128-row tile of int8 weights (one output channel a row)
+// on the tensor cores, mma.sync.m16n8k32 (s8 x s8 -> s32), 8 warps as 4 x
+// 2, a warp computing 32 x 64 of the 128 x 128 tile.
 // Rows of the shared tiles are padded by 16 bytes, which spreads the 8 rows
 // of an ldmatrix over all 32 banks. K comes in slabs of 128 bytes through
 // cp.async, so that the next slab loads while this one is multiplied.

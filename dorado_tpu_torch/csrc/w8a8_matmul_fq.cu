@@ -11,152 +11,354 @@
 // contraction), so the result equals the plain PyTorch version bit for bit.
 //
 // What bounds it on the H100: bytes. At hac's shape (M = 213248, K = 384,
-// O = 1536) it reads 164 MB of activations and writes 655 MB of gates, while
-// its 2.5e11 int8 operations are a small share of the tensor cores' rate.
-// So x is read once: a block owns 128 rows, quantises them into shared
-// memory (one warp a row, amax by warp shuffles) and then walks over all
-// output tiles with the int8 rows resident; the weights (0.6 MB) come from L2
-// in slabs of 128 output channels by 128 bytes of K through a two-stage
-// cp.async ring (int8_tile.cuh), the first slab loading while the rows are
-// quantised. Up to K = 512 two blocks fit an SM, so one block's epilogue
-// overlaps the other's products. M is any number of rows: the last block
-// zero-fills and does not store.
-#include "int8_tile.cuh"
+// O = 1536) it reads 164 MB of activations and writes 655 MB of gates
+// (0.245 ms at 3.35 TB/s), while its 2.5e11 int8 operations take 0.127 ms
+// at the tensor cores' peak. So the output has to leave in full lines while
+// the products, the quantisation and the epilogue all hide under its
+// stores. The first version (mma.sync from a two-stage cp.async ring, each
+// block quantising its rows before its first product, the output stored as
+// 4-byte pairs from the fragments) took 1.199 ms.
+//
+// Design (persistent CTAs of three warpgroups, in clusters of two on
+// neighbouring 128-row blocks):
+//   - three quantiser warps read the next block's bf16 rows (16-byte loads,
+//     half a warp a row, twelve loads a lane in flight; the row's amax by
+//     shuffles) and write the int8 rows straight into the 128-byte swizzle
+//     that the wgmma descriptor reads, into the free one of two A buffers
+//     (one where two do not fit: K > 512, `abuf`), each row's scale beside;
+//   - one producer thread streams the weight slabs (128 output channels x
+//     128 bytes of K, 16 KB) through a TMA ring; each CTA of the cluster
+//     loads half of every slab and multicasts it to both, so the weights
+//     are read from L2 once for 256 rows; a stage is refilled once the
+//     consumers of both CTAs have released it;
+//   - two consumer warpgroups of 64 rows run wgmma m64n128k32 .s32.s8.s8
+//     over an output tile's K, then its epilogue. Issuing the next tile's
+//     products into a second set of accumulators before this tile's
+//     epilogue needs 128 accumulator registers a thread: at the 168 that 384
+//     threads allow, ptxas spilled and waited on the wgmma, and that form
+//     was slower on the card;
+//   - the epilogue writes the bf16 tile into shared memory in the output
+//     map's swizzle and a TMA store sends it out in full lines; rows past M
+//     are not written. Rows past M come in as zeros;
+//   - x and the output pass through once: their loads and stores carry an
+//     evict-first L2 policy, so that they do not push the weights out of L2
+//     (with the default policy, reading the weights again took a large share
+//     of the kernel's time at hac).
+// Every mbarrier wait traps after about 4 s instead of hanging the card.
+#include "common.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
-constexpr int MAX_K = 768;   // BM * (K + PAD) + the ring must fit shared memory
-constexpr int STAGES = 2;
+constexpr int BM = 128;         // rows a block: 64 a consumer warpgroup (a wgmma's M)
+constexpr int BN = 128;         // output channels a tile (a wgmma's N)
+constexpr int KB = 128;         // bytes of K a slab and a column of A: one 128-byte swizzle row
+constexpr int CS = 2;           // CTAs a cluster
+constexpr int CONSUMERS = 2;    // warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_WARP = 4 * CONSUMERS;  // its lane 0 issues every weight load
+constexpr int QUANT_WARPS = 3;  // the other warps of the last warpgroup
+constexpr int MAX_K = 768;
+constexpr int MAX_STAGES = 8;
+constexpr int SLAB = BN * KB;   // 16 KB
+constexpr int A_COL = BM * KB;  // one 128-byte column of an A buffer
+constexpr int OUT_BYTES = CONSUMERS * 64 * BN * 2;  // a bf16 tile for each consumer
+constexpr int SMEM_LIMIT = 232448;
 
-__global__ void __launch_bounds__(THREADS, 2) w8a8_fq_kernel(
-    const __nv_bfloat16* __restrict__ x,  // [M, K]
-    const int8_t* __restrict__ wq,        // [O, K]
-    const float* __restrict__ ws,         // [O]
-    const float* __restrict__ bias,       // [O]
-    __nv_bfloat16* __restrict__ out,      // [M, O]
-    int M, int K, int O) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = K + PAD;                      // shared row stride, bytes
-  int8_t* a_tile = reinterpret_cast<int8_t*>(smem);                       // [BM][ld]
-  int8_t* b_ring = a_tile + BM * ld;                                      // [2][BN][LDT]
-  float* row_scale = reinterpret_cast<float*>(b_ring + STAGES * BN * LDT); // [BM]
+// Dynamic shared memory of a launch (ops/int8_matmul.py::w8a8_fq_plan says
+// the same): the 1024-byte alignment, the A buffers, the ring, the output
+// tiles, the rows' scales [2][BM] and the mbarriers.
+constexpr int smem_bytes(int K, int abuf, int stages) {
+  return 1024 + abuf * BM * K + stages * SLAB + OUT_BYTES + 2 * BM * 4 + 8 * (2 * MAX_STAGES + 4);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM;
-  const int k_slabs = K / BK;
-  const int slabs = (O / BN) * k_slabs;
-
-  // slab q: output tile q / k_slabs, bytes (q % k_slabs) * BK of K
-  auto load_slab = [&](int q) {
-    int8_t* b = b_ring + (q % STAGES) * BN * LDT;
-    const int n0 = (q / k_slabs) * BN, k0 = (q % k_slabs) * BK;
-    for (int i = tid; i < BN * (BK / 16); i += THREADS) {
-      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      cp_async16(b + r * LDT + c, wq + (size_t)(n0 + r) * K + k0 + c);
+// Quantiser warp q's share of a block's rows (K = 128 KBS): half a warp a
+// row, 8 values a lane; the row pairs q, q + 3, .. taken PAIRS at a time so
+// that each lane has 10 to 12 loads of 16 bytes in flight. The rows are
+// read once, so they neither stay in L1 nor push the weights out of L2.
+// Row r's int8 values go to A's 128-byte column c, row r, in the 128-byte
+// swizzle (16-byte chunk hl / 2 XOR r % 8, its half hl % 2); its scale to
+// scale[r] (0 past M, where the values are 0).
+template <int KBS>
+__device__ __forceinline__ void quantise_rows(const __nv_bfloat16* __restrict__ x,
+                                              unsigned char* a, float* scale, int m0, int M,
+                                              int q, int lane) {
+  constexpr int PAIRS = 12 / KBS;
+  constexpr int K = KBS * KB;
+  const uint64_t stream = l2_evict_first();  // x is read once
+  const int half = lane >> 4, hl = lane & 15;
+  const float inv127 = (float)(1.0 / 127.0);
+  for (int p0 = q; p0 < BM / 2; p0 += QUANT_WARPS * PAIRS) {
+    uint4 v[PAIRS][KBS];
+#pragma unroll
+    for (int u = 0; u < PAIRS; ++u) {
+      const int r = 2 * (p0 + u * QUANT_WARPS) + half, m = m0 + r;
+      const bool live = r < BM && m < M;
+      const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)m * K) + hl;
+#pragma unroll
+      for (int c = 0; c < KBS; ++c)
+        v[u][c] = live ? ld_stream16(src + c * 16, stream) : make_uint4(0, 0, 0, 0);
     }
-  };
-  load_slab(0);
-  cp_async_commit();
-  // ---- quantise this block's rows, one warp a row ------------------------
-  const int chunks = K / 128;  // 8-byte loads a lane makes for one row
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int m = m0 + r;
-    float v[MAX_K / 128][4];
-    float amax = 0.f;
-    if (m < M) {
-      const uint2* src = reinterpret_cast<const uint2*>(x + (size_t)m * K);
 #pragma unroll
-      for (int c = 0; c < MAX_K / 128; ++c) {
-        if (c < chunks) {
-          unpack4(src[c * 32 + lane], v[c]);
+    for (int u = 0; u < PAIRS; ++u) {
+      const int r = 2 * (p0 + u * QUANT_WARPS) + half, m = m0 + r;
+      float amax = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(v[c][i]));
+      for (int c = 0; c < KBS; ++c) {
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v[u][c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(h2[i]);
+          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
         }
       }
-    }
-    amax = warp_max(amax);
-    const float s = __fmul_rn(fmaxf(amax, 1e-12f), (float)(1.0 / 127.0));
-    const float inv = __fdiv_rn(1.0f, s);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(a_tile + r * ld);
 #pragma unroll
-    for (int c = 0; c < MAX_K / 128; ++c) {
-      if (c < chunks) {
-        uint32_t packed = 0;
-        if (m < M) {
+      for (int o = 8; o > 0; o >>= 1)  // within the half-warp
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float s = __fmul_rn(fmaxf(amax, 1e-12f), inv127);
+      const float inv = __fdiv_rn(1.0f, s);
+      if (r < BM) {
+#pragma unroll
+        for (int c = 0; c < KBS; ++c) {
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v[u][c]);
+          uint32_t w[2] = {0, 0};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int q = __float2int_rn(rintf(__fmul_rn(v[c][i], inv)));
-            packed |= (uint32_t)(q & 0xFF) << (8 * i);
+            const float2 f = __bfloat1622float2(h2[i]);
+            const int q0 = __float2int_rn(__fmul_rn(f.x, inv));
+            const int q1 = __float2int_rn(__fmul_rn(f.y, inv));
+            w[i >> 1] |= ((uint32_t)(q0 & 0xFF) | ((uint32_t)(q1 & 0xFF) << 8)) << (16 * (i & 1));
           }
+          *reinterpret_cast<uint2*>(a + c * A_COL + r * KB + (((hl >> 1) ^ (r & 7)) << 4) +
+                                    (hl & 1) * 8) = make_uint2(w[0], w[1]);
         }
-        dst[c * 32 + lane] = packed;
-      }
-    }
-    if (lane == 0) row_scale[r] = (m < M) ? s : 0.f;
-  }
-
-  // ---- walk over the output tiles, a slab of K at a time -------------------
-  const int wm = (warp >> 1) * 32;  // the warp's rows within the block tile
-  const int wn = (warp & 1) * 64;   // its columns within the output tile
-  const int g = lane >> 2, t4 = lane & 3;
-  int acc[2][8][4];
-  for (int q = 0; q < slabs; ++q) {
-    const int ks = q % k_slabs;
-    cp_async_wait<0>();
-    __syncthreads();  // slab q landed (and a_tile is written); the other stage is free
-    if (q + 1 < slabs) load_slab(q + 1);
-    cp_async_commit();
-    if (ks == 0) clear(acc);
-    warp_product(acc, a_tile + ks * BK, ld, b_ring + (q % STAGES) * BN * LDT, LDT, BK, wm, wn,
-                 lane);
-    if (ks != k_slabs - 1) continue;
-
-    // epilogue: dequantise, add the bias, store bf16 pairs
-    const int n0 = (q / k_slabs) * BN;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + wn + j * 8 + t4 * 2;
-      const float w0 = ws[col], w1 = ws[col + 1];
-      const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm + i * 16 + g + h * 8;
-          const int m = m0 + r;
-          if (m < M) {
-            const float s = row_scale[r];
-            const float y0 = __fadd_rn(
-                __fmul_rn(__fmul_rn((float)acc[i][j][2 * h], s), w0), b0);
-            const float y1 = __fadd_rn(
-                __fmul_rn(__fmul_rn((float)acc[i][j][2 * h + 1], s), w1), b1);
-            __nv_bfloat162 y;
-            y.x = __float2bfloat16_rn(y0);
-            y.y = __float2bfloat16_rn(y1);
-            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * O + col) = y;
-          }
-        }
+        if (hl == 0) scale[r] = m < M ? s : 0.f;
       }
     }
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 1) w8a8_fq_kernel(
+    const __grid_constant__ CUtensorMap map_w,  // wq [O, K] int8: boxes of 64 rows x KB
+    const __grid_constant__ CUtensorMap map_o,  // out [M, O] bf16: boxes of 64 rows x 64
+    const __nv_bfloat16* __restrict__ x,        // [M, K]
+    const float* __restrict__ ws,               // [O]
+    const float* __restrict__ bias,             // [O]
+    int M, int K, int O, int abuf, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* a_s = smem;                             // [abuf][K / KB][BM][KB], swizzled
+  unsigned char* ring = a_s + abuf * BM * K;             // [stages][BN][KB], swizzled
+  unsigned char* out_s = ring + stages * SLAB;           // [CONSUMERS][2 boxes][64][128 B]
+  float* row_scale = reinterpret_cast<float*>(out_s + OUT_BYTES);  // [2][BM]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(row_scale + 2 * BM);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + MAX_STAGES);
+  // an A buffer holds a block's int8 rows; its rows have left it
+  const uint32_t a_full0 = smem_u32(bars + 2 * MAX_STAGES), a_empty0 = a_full0 + 16;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's and warpgroup's indices through a shuffle, so that ptxas
+  // knows them uniform across the warp: with a branch on tid / 128 it took
+  // the consumers' code for divergent and serialised every wgmma
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), wg = warp / 4;
+  const uint32_t rank = cluster_rank();
+  const int kbs = K / KB;  // slabs a tile
+  const int n_tiles = O / BN;
+  const int groups = ((M + BM - 1) / BM + CS - 1) / CS;  // pairs of row blocks
+  const int cid = blockIdx.x / CS, nclusters = gridDim.x / CS;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                // the producer's arrival + the bytes
+      mbar_init(empty0 + 8 * s, CONSUMERS * CS);  // every consumer of the cluster
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(a_full0 + 8 * b, QUANT_WARPS);
+      mbar_init(a_empty0 + 8 * b, CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();  // the cluster's mbarriers are initialised
+
+  if (wg == CONSUMERS) {
+    if (warp == PRODUCER_WARP) {
+      // ---- producer: one thread streams the weight slabs ------------------
+      if (lane == 0) {
+        int stage = 0, phase = 0;
+        for (int grp = cid; grp < groups; grp += nclusters)
+          for (int nt = 0; nt < n_tiles; ++nt)
+            for (int kb = 0; kb < kbs; ++kb) {
+              mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the whole cluster released it
+              mbar_expect(full0 + 8 * stage, SLAB);
+              tma_load_2d_multicast(smem_u32(ring + stage * SLAB + rank * 64 * KB), &map_w,
+                                    kb * KB, nt * BN + rank * 64, full0 + 8 * stage,
+                                    (1 << CS) - 1);
+              if (++stage == stages) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+        // the peers' consumers have released every stage: their arrivals on
+        // this CTA's empty barriers are in before it exits
+        for (int s = 0; s < stages; ++s) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      __syncwarp();
+    } else {
+      // ---- quantisers: the next block's int8 rows into a free A buffer -----
+      const int q = warp - PRODUCER_WARP - 1;
+      int it = 0;
+      for (int grp = cid; grp < groups; grp += nclusters, ++it) {
+        const int buf = abuf == 2 ? (it & 1) : 0;
+        const int use = abuf == 2 ? (it >> 1) : it;  // earlier fills of this buffer
+        mbar_wait(a_empty0 + 8 * buf, (use & 1) ^ 1);
+        const int m0 = (grp * CS + rank) * BM;
+        unsigned char* a = a_s + buf * BM * K;
+        float* scale = row_scale + buf * BM;
+        switch (kbs) {
+          case 1: quantise_rows<1>(x, a, scale, m0, M, q, lane); break;
+          case 2: quantise_rows<2>(x, a, scale, m0, M, q, lane); break;
+          case 3: quantise_rows<3>(x, a, scale, m0, M, q, lane); break;
+          case 4: quantise_rows<4>(x, a, scale, m0, M, q, lane); break;
+          case 5: quantise_rows<5>(x, a, scale, m0, M, q, lane); break;
+          default: quantise_rows<6>(x, a, scale, m0, M, q, lane); break;
+        }
+        fence_proxy_async();  // the int8 rows are read by wgmma (the async proxy)
+        __syncwarp();
+        if (lane == 0) mbar_arrive_local(a_full0 + 8 * buf);
+      }
+    }
+  } else {
+    // ---- consumers: wgmma over the ring, then the epilogue -----------------
+    const int lt = tid % 128;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = (lt >> 5) * 16 + g;  // the thread's rows r0, r0 + 8 of its warpgroup's 64
+    unsigned char* my_out = out_s + wg * (OUT_BYTES / CONSUMERS);
+    // column col's pair at row `row` of the warpgroup's two boxes [64][64]:
+    // box col / 64, 16-byte chunk (col % 64) / 8 XOR row % 8
+    auto at = [&](int row, int col) {
+      return reinterpret_cast<__nv_bfloat162*>(my_out + ((col >> 6) * 64 + row) * 128 +
+                                               ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+                                               (col & 7) * 2);
+    };
+    int acc[64];
+    int stage = 0, phase = 0, it = 0;
+    for (int grp = cid; grp < groups; grp += nclusters, ++it) {
+      const int buf = abuf == 2 ? (it & 1) : 0;
+      const int use = abuf == 2 ? (it >> 1) : it;
+      const int m0 = (grp * CS + rank) * BM;
+      mbar_wait(a_full0 + 8 * buf, use & 1);
+      const float rs[2] = {row_scale[buf * BM + 64 * wg + r0],
+                           row_scale[buf * BM + 64 * wg + r0 + 8]};
+      const uint32_t a_wg = smem_u32(a_s + buf * BM * K + wg * 64 * KB);
+      for (int nt = 0; nt < n_tiles; ++nt) {
+        // the tile's products over its K slabs, at the ring's head
+        const int first = stage;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        wgmma_fence();
+        for (int kb = 0; kb < kbs; ++kb) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint32_t wb = smem_u32(ring + stage * SLAB);
+#pragma unroll
+          for (int kk = 0; kk < KB / 32; ++kk)
+            wgmma_m64n128k32_s8(acc, wgmma_desc<KB>(a_wg + kb * A_COL + 32 * kk),
+                                wgmma_desc<KB>(wb + 32 * kk), kb > 0 || kk > 0);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        // the tile's slabs are free in every CTA of the cluster, and after
+        // the block's last tile its A buffer
+        if (lt < CS)
+          for (int kb = 0; kb < kbs; ++kb) {
+            const int s = first + kb < stages ? first + kb : first + kb - stages;
+            mbar_arrive_cluster(empty0 + 8 * s, lt);
+          }
+        if (nt == n_tiles - 1 && lt == 0) mbar_arrive_local(a_empty0 + 8 * buf);
+
+        // the dequantised sums plus the bias, to the output by TMA
+        if (lt == 0) bulk_wait_read<0>();  // the last tile's store has read the buffer
+        named_bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          const float2 w2 = __ldg(reinterpret_cast<const float2*>(ws + nt * BN + col));
+          const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + nt * BN + col));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float y0 =
+                __fadd_rn(__fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h], rs[h]), w2.x), b2.x);
+            const float y1 =
+                __fadd_rn(__fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + 1], rs[h]), w2.y), b2.y);
+            *at(r0 + 8 * h, col) = __floats2bfloat162_rn(y0, y1);
+          }
+        }
+        fence_proxy_async();  // the tile is read by the TMA store (the async proxy)
+        named_bar_sync(1 + wg, 128);
+        if (lt == 0) {
+          // the output is written once: first out of L2, so that the weights
+          // stay
+          const uint64_t stream = l2_evict_first();
+          tma_store_2d_hint(&map_o, nt * BN, m0 + 64 * wg, smem_u32(my_out), stream);
+          tma_store_2d_hint(&map_o, nt * BN + 64, m0 + 64 * wg, smem_u32(my_out + 64 * 128),
+                            stream);
+          bulk_commit();
+        }
+      }
+    }
+    if (lt == 0) bulk_wait_all();
+  }
+}
+
 }  // namespace
 
-// K a multiple of 128 up to 768, O a multiple of 128, M >= 1.
+// K a multiple of 128 up to 768, O a multiple of 128, M >= 1; abuf (1 or 2)
+// and stages (K / 128 to 8) from ops/int8_matmul.py::w8a8_fq_plan.
 DTT_EXPORT int w8a8_matmul_fq_bf16(const void* x, const void* wq, const void* ws,
-                                   const void* bias, void* out, int M, int K, int O,
-                                   void* stream) {
-  if (M <= 0 || K <= 0 || K > MAX_K || K % BK || O <= 0 || O % BN)
+                                   const void* bias, void* out, int M, int K, int O, int abuf,
+                                   int stages, void* stream) {
+  if (M <= 0 || K <= 0 || K > MAX_K || K % KB || O <= 0 || O % BN || abuf < 1 || abuf > 2 ||
+      stages < K / KB || stages > MAX_STAGES || smem_bytes(K, abuf, stages) > SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = BM * (K + PAD) + STAGES * BN * LDT + BM * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      w8a8_fq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  CUtensorMap map_w, map_o;
+  if (!make_map(&map_w, wq, 1, O, K, 64, KB) || !make_map(&map_o, out, 2, M, O, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(K, abuf, stages);
+  cudaError_t err = cudaFuncSetAttribute(w8a8_fq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  w8a8_fq_kernel<<<(M + BM - 1) / BM, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(ws), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), M, K, O);
+  int active = 0;
+  err = active_clusters((const void*)w8a8_fq_kernel, CS, THREADS, smem, &active);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent: as many clusters as the card runs at once
+  const int groups = ((M + BM - 1) / BM + CS - 1) / CS;
+  cfg.gridDim = dim3(CS * (groups < active ? groups : active));
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const float* wsp = static_cast<const float*>(ws);
+  const float* bp = static_cast<const float*>(bias);
+  err = cudaLaunchKernelEx(&cfg, w8a8_fq_kernel, map_w, map_o, xp, wsp, bp, M, K, O, abuf, stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,12 @@ int32 and are rescaled in float32.
 
 - ``w8a8_matmul_fq`` (Pallas body ``_fq_kernel``): bf16 rows quantised inside
   the kernel, the bias added in its epilogue: the LSTM input projections and
-  the transformer's qkv projection. ``csrc/w8a8_matmul_fq.cu``.
+  the transformer's qkv projection. ``csrc/w8a8_matmul_fq.cu``, launched as
+  ``w8a8_fq_plan`` says.
 - ``swiglu_w8a8`` (``_swiglu_kernel``): the transformer's fc1 on quantised
   rows, both SwiGLU halves, ``y * silu(g)`` and the per-row requantisation of
-  the result in one kernel. ``csrc/w8a8_matmul.cu``.
+  the result in one kernel. ``csrc/w8a8_matmul.cu``, launched as
+  ``swiglu_plan`` says.
 - ``w8a8_matmul`` (``_a8_kernel``): quantised rows times int8 weights, the
   transformer's fc2. ``csrc/w8a8_matmul.cu``.
 - ``quantize_rows`` is plain PyTorch, as it is plain XLA there.
@@ -23,9 +25,19 @@ last bit of ``exp``.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from dorado_tpu_torch.ops import _cuda
+
+# shared memory a block may use on the H100 (232,448 bytes of the SM's 256 KB)
+SMEM_LIMIT = 232_448
+ROWS_A_BLOCK = 128  # the rows a CTA (or, for K12, a cluster) takes at a time
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def quantize_weight_rows(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,6 +102,58 @@ def w8a8_matmul_fq_plain(
     return out.to(out_dtype).reshape(*x.shape[:-1], o)
 
 
+@dataclass(frozen=True)
+class FqPlan:
+    """How K2 launches at one weight shape [K, O]: its quantised rows in one
+    or two A buffers (two, so that the next block's rows are quantised while
+    this block's products run, where they fit: K <= 512), weight slabs of 128
+    output channels by 128 bytes of K in a ring of ``stages`` (at least one
+    output tile's K / 128), and clusters of two CTAs on neighbouring row
+    blocks that share each slab."""
+
+    k: int
+    o: int
+    a_buffers: int
+    stages: int
+    cluster = 2  # CTAs a cluster (not a field: every shape takes two)
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a CTA, as ``csrc/w8a8_matmul_fq.cu::smem_bytes``:
+        the 1024-byte alignment, the A buffers, the ring, the two bf16 output
+        tiles, the rows' scales and the mbarriers."""
+        return _fq_smem(self.k, self.a_buffers, self.stages)
+
+    def grid(self, m: int, active_clusters: int) -> int:
+        """CTAs of a launch over m rows when the card runs ``active_clusters``
+        clusters at once: persistent clusters over pairs of row blocks."""
+        pairs = _cdiv(_cdiv(m, ROWS_A_BLOCK), self.cluster)
+        return self.cluster * min(pairs, active_clusters)
+
+
+_FQ_SLAB = 128 * 128  # bytes of a weight slab
+_FQ_MAX_STAGES = 8
+
+
+def _fq_smem(k: int, a_buffers: int, stages: int) -> int:
+    return 1024 + a_buffers * 128 * k + stages * _FQ_SLAB + 2 * 64 * 128 * 2 + 2 * 128 * 4 + 8 * (
+        2 * _FQ_MAX_STAGES + 4
+    )
+
+
+def w8a8_fq_plan(k: int, o: int) -> FqPlan:
+    """K2's launch for a [K, O] weight (K a multiple of 128 up to 768, O a
+    multiple of 128); raises ValueError on any other shape."""
+    if k % 128 or not 0 < k <= 768 or o % 128 or o <= 0:
+        raise ValueError(f"w8a8_matmul_fq: unsupported weight shape {(k, o)}")
+    tile = k // 128
+    a_buffers = 2 if _fq_smem(k, 2, tile) <= SMEM_LIMIT else 1
+    stages = tile
+    while stages < _FQ_MAX_STAGES and _fq_smem(k, a_buffers, stages + 1) <= SMEM_LIMIT:
+        stages += 1
+    return FqPlan(k, o, a_buffers, stages)
+
+
 def w8a8_matmul_fq(
     x: torch.Tensor,
     wq_t: torch.Tensor,
@@ -100,18 +164,18 @@ def w8a8_matmul_fq(
     """[..., K] activations @ [K, O] int8 weights (``ws`` [O] float32 scales,
     ``bias`` [O] float32 added in the epilogue) -> [..., O].
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
-    bf16 in and out, K a multiple of 128 up to 768, O a multiple of 128, any
-    number of rows. The kernels read the weights one output channel a row, so
-    ``wq_t`` given as the transposed view of a contiguous [O, K] tensor (as
-    the models hold it) is used as it is; any other layout is copied."""
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    as ``w8a8_fq_plan(K, O)`` says: bf16 in and out, K a multiple of 128 up
+    to 768, O a multiple of 128, any number of rows. The kernels read the
+    weights one output channel a row, so ``wq_t`` given as the transposed
+    view of a contiguous [O, K] tensor (as the models hold it) is used as it
+    is; any other layout is copied."""
     if x.device.type == "cpu":
         return w8a8_matmul_fq_plain(x, wq_t, ws, bias, out_dtype)
     if wq_t.dim() != 2:
         raise ValueError(f"wq_t: expected [K, O], got {tuple(wq_t.shape)}")
     k, o = wq_t.shape
-    if k % 128 or not 0 < k <= 768 or o % 128 or o == 0:
-        raise ValueError(f"w8a8_matmul_fq: unsupported weight shape {(k, o)}")
+    plan = w8a8_fq_plan(k, o)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"w8a8_matmul_fq: the kernel writes bf16, not {out_dtype}")
     if x.dim() < 1 or x.shape[-1] != k or x.numel() == 0:
@@ -128,12 +192,12 @@ def w8a8_matmul_fq(
     out = torch.empty(*lead, o, dtype=torch.bfloat16, device=x.device)
     fn = _cuda.kernel_function(
         "w8a8_matmul_fq", "w8a8_matmul_fq_bf16",
-        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.VOIDP],
+        [_cuda.VOIDP] * 5 + [_cuda.INT] * 5 + [_cuda.VOIDP],
     )
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            m, k, o, _cuda.stream_ptr(x.device),
+            m, k, o, plan.a_buffers, plan.stages, _cuda.stream_ptr(x.device),
         )
     _cuda.check_launch("w8a8_matmul_fq", code)
     w8a8_matmul_fq.launches += 1
@@ -170,6 +234,72 @@ def swiglu_w8a8_plain(
     return tq.reshape(*lead, f), s.reshape(*lead, 1)
 
 
+@dataclass(frozen=True)
+class SwigluPlan:
+    """How K12 launches at one weight shape [K, F].
+
+    One pass (``one_pass``): a cluster of ``cluster`` CTAs shares a 128-row
+    block, CTA r owning features [r * features, (r + 1) * features), at most
+    256 (four tiles of 64: their float32 t, 128 KB, stays in shared memory
+    until the cluster has the rows' maxima). The two-pass form (one CTA a
+    block, all F, t computed twice) where F / 64 has no divisor C <= 8 with
+    F / C <= 256. Weight slabs of 8 KB in a ring of ``stages``."""
+
+    k: int
+    f: int
+    one_pass: bool
+    cluster: int
+    stages: int
+
+    @property
+    def features(self) -> int:
+        """The features a CTA owns: F / cluster (all F in the two-pass form)."""
+        return self.f // self.cluster
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a CTA, as ``csrc/w8a8_matmul.cu::smem_bytes``."""
+        return _swiglu_smem(self.k, self.one_pass, self.features, self.stages)
+
+    def grid(self, m: int, active_clusters: int) -> int:
+        """CTAs of a launch over m rows when the card runs ``active_clusters``
+        such clusters at once: persistent clusters over the row blocks."""
+        return self.cluster * min(_cdiv(m, ROWS_A_BLOCK), active_clusters)
+
+
+_SWIGLU_SLAB = 2 * 64 * 64  # 64 features of each half by 64 bytes of K
+_SWIGLU_MAX_STAGES = 8
+_SWIGLU_MAX_CLUSTER = 8
+_SWIGLU_MAX_TILES = 4  # 64-feature tiles a CTA holds t for
+
+
+def _swiglu_smem(k: int, one_pass: bool, features: int, stages: int) -> int:
+    t = 128 * features * 4 if one_pass else 0
+    return 1024 + 128 * k + t + stages * _SWIGLU_SLAB + 3 * 128 * 4 + 8 * (
+        2 * _SWIGLU_MAX_STAGES + 5 + _SWIGLU_MAX_TILES
+    )
+
+
+def swiglu_plan(k: int, f: int, two_pass: bool = False) -> SwigluPlan:
+    """K12's launch for [K, F] halves of fc1 (K a multiple of 128 up to 512,
+    F a multiple of 64); raises ValueError on any other shape. One pass with
+    the largest cluster C <= 8 that divides F / 64 into at most four tiles a
+    CTA (deeper rings), else the two-pass form; ``two_pass`` asks for that
+    form at any shape (to time the two against each other)."""
+    if k % 128 or not 0 < k <= 512 or f % 64 or f <= 0:
+        raise ValueError(f"swiglu_w8a8: unsupported weight shape {(k, f)}")
+    tiles = f // 64
+    fits = [c for c in range(1, _SWIGLU_MAX_CLUSTER + 1)
+            if tiles % c == 0 and tiles // c <= _SWIGLU_MAX_TILES]
+    one_pass = bool(fits) and not two_pass
+    cluster = max(fits) if one_pass else 1
+    features = f // cluster
+    stages = 2
+    while stages < _SWIGLU_MAX_STAGES and _swiglu_smem(k, one_pass, features, stages + 1) <= SMEM_LIMIT:
+        stages += 1
+    return SwigluPlan(k, f, one_pass, cluster, stages)
+
+
 def swiglu_w8a8(
     xq: torch.Tensor,
     xs: torch.Tensor,
@@ -182,17 +312,23 @@ def swiglu_w8a8(
     halves of fc1 as [K, F] int8 with [F] float32 scales -> (int8
     ``(x @ Wy) * silu(x @ Wg)`` [..., F], its float32 row scales [..., 1]).
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
-    K a multiple of 128 up to 512, F a multiple of 64, any number of rows."""
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    as ``swiglu_plan(K, F)`` says: K a multiple of 128 up to 512, F a
+    multiple of 64, any number of rows."""
     if xq.device.type == "cpu":
         return swiglu_w8a8_plain(xq, xs, wy_t, wys, wg_t, wgs)
+    return _swiglu_cuda(xq, xs, wy_t, wys, wg_t, wgs)
+
+
+def _swiglu_cuda(xq, xs, wy_t, wys, wg_t, wgs, two_pass: bool = False):
+    """K12's launch on a CUDA tensor; ``two_pass`` asks for the two-pass form
+    at any shape (to time the two forms against each other)."""
     if wy_t.dim() != 2 or wy_t.shape != wg_t.shape:
         raise ValueError(
             f"wy_t, wg_t: expected two [K, F], got {tuple(wy_t.shape)}, {tuple(wg_t.shape)}"
         )
     k, f = wy_t.shape
-    if k % 128 or not 0 < k <= 512 or f % 64 or f == 0:
-        raise ValueError(f"swiglu_w8a8: unsupported weight shape {(k, f)}")
+    plan = swiglu_plan(k, f, two_pass)
     if xq.dim() < 1 or xq.shape[-1] != k or xq.numel() == 0:
         raise ValueError(f"xq: expected [..., {k}], got {tuple(xq.shape)}")
     lead = xq.shape[:-1]
@@ -206,13 +342,13 @@ def swiglu_w8a8(
     tq = torch.empty(*lead, f, dtype=torch.int8, device=xq.device)
     ts = torch.empty(*lead, 1, dtype=torch.float32, device=xq.device)
     fn = _cuda.kernel_function(
-        "w8a8_matmul", "swiglu_w8a8_i8", [_cuda.VOIDP] * 8 + [_cuda.INT] * 3 + [_cuda.VOIDP]
+        "w8a8_matmul", "swiglu_w8a8_i8", [_cuda.VOIDP] * 8 + [_cuda.INT] * 6 + [_cuda.VOIDP]
     )
     with torch.cuda.device(xq.device):
         code = fn(
             xq.data_ptr(), xs.data_ptr(), wy.data_ptr(), wys.data_ptr(), wg.data_ptr(),
-            wgs.data_ptr(), tq.data_ptr(), ts.data_ptr(), m, k, f,
-            _cuda.stream_ptr(xq.device),
+            wgs.data_ptr(), tq.data_ptr(), ts.data_ptr(), m, k, f, int(plan.one_pass),
+            plan.cluster, plan.stages, _cuda.stream_ptr(xq.device),
         )
     _cuda.check_launch("w8a8_matmul", code)
     swiglu_w8a8.launches += 1
@@ -220,6 +356,18 @@ def swiglu_w8a8(
 
 
 swiglu_w8a8.launches = 0
+
+
+def rcp_near_mismatches(device: torch.device) -> int:
+    """How many floats x in [1, 2^126) K12's branch-free reciprocal gets
+    wrong against the correctly rounded ``__frcp_rn``, counted on the card
+    (K12 takes it for 1 + exp(-g) in that range and ``__frcp_rn`` outside)."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    fn = _cuda.kernel_function("w8a8_matmul", "rcp_near_mismatches", [_cuda.VOIDP] * 2)
+    with torch.cuda.device(device):
+        code = fn(bad.data_ptr(), _cuda.stream_ptr(device))
+    _cuda.check_launch("w8a8_matmul", code)
+    return int(bad.item())
 
 
 # ---------------------------------------------------------------------------

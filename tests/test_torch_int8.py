@@ -1,12 +1,15 @@
 """The port's W8A8 matmuls (CPU, plain versions) against the JAX package:
 the weight and row quantisation, ``w8a8_matmul_fq``, ``swiglu_w8a8`` and
 ``w8a8_matmul`` in Pallas interpret mode, the quantised LSTM model's layers,
-and the whole model's scores.
+and the whole model's scores; and the launch plans of K2 and K12 at every
+weight shape their wrappers take.
 
 The plain version follows the Pallas body (it multiplies by the row scale's
 reciprocal), so it is held against the interpret-mode kernel, not against the
 off-TPU fallback (which divides).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -235,3 +238,112 @@ def test_w8a8_feed_forward_leading_dims():
         out.reshape(12, 128),
         int8_matmul.w8a8_matmul_plain(flat_q, flat_s, w2.t(), w2s, torch.float32),
     )
+
+
+# ---------------------------------------------------------------------------
+# K2's and K12's launch plans: the host side of the kernels, checked at every
+# weight shape the wrappers take (the kernels themselves run on the card)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # shared memory a block may use on the H100
+PLAN_ROWS = [1, 127, 128, 357, 131072, 213248]
+ACTIVE_CLUSTERS = [1, 7, 15, 66]  # clusters a card might run at once
+
+
+def _check_grid(plan, m):
+    """The grid is whole clusters, no more than the card runs at once;
+    returns the 128-row blocks of m rows."""
+    for active in ACTIVE_CLUSTERS:
+        grid = plan.grid(m, active)
+        assert grid > 0 and grid % plan.cluster == 0
+        assert grid // plan.cluster <= active
+    return -(-m // 128)
+
+
+@pytest.mark.parametrize("k", [128, 256, 384, 512, 640, 768])
+def test_fq_plan_every_output_width(k):
+    """Two A buffers up to K = 512, one above; at least one output tile's
+    slabs in the ring; within the card's shared memory; clusters of two over
+    pairs of row blocks, every pair covered."""
+    for o in range(128, 3072 + 1, 128):
+        plan = int8_matmul.w8a8_fq_plan(k, o)
+        assert (plan.k, plan.o, plan.cluster) == (k, o, 2)
+        assert plan.a_buffers == (2 if k <= 512 else 1)
+        assert k // 128 <= plan.stages <= 8
+        assert plan.smem <= SMEM_LIMIT
+        for m in PLAN_ROWS:
+            _check_grid(plan, m)
+            pairs = -(-(-(-m // 128)) // 2)
+            assert plan.grid(m, 10**6) == 2 * pairs  # enough clusters: one a pair
+
+
+def test_fq_plan_at_the_main_paths():
+    """hac's input projections and sup's qkv: two A buffers, the deepest
+    ring that fits (six and four 16 KB stages), 231,584 bytes a CTA."""
+    hac, sup = int8_matmul.w8a8_fq_plan(384, 1536), int8_matmul.w8a8_fq_plan(512, 1536)
+    assert (hac.a_buffers, hac.stages, hac.smem) == (2, 6, 231_584)
+    assert (sup.a_buffers, sup.stages, sup.smem) == (2, 4, 231_584)
+
+
+@pytest.mark.parametrize("k", [128, 256, 384, 512])
+def test_swiglu_plan_every_feature_width(k):
+    """One pass exactly where F / 64 has a divisor C <= 8 with F / C <= 256
+    (the largest such C), the two-pass form elsewhere; within the card's
+    shared memory; the CTAs of a cluster own F's features once each; the
+    cluster size divides the grid."""
+    for f in range(64, 4096 + 1, 64):
+        plan = int8_matmul.swiglu_plan(k, f)
+        tiles = f // 64
+        fits = [c for c in range(1, 9) if tiles % c == 0 and tiles // c <= 4]
+        assert plan.one_pass == bool(fits)
+        if plan.one_pass:
+            assert plan.cluster == max(fits) and plan.features <= 256
+        else:
+            assert plan.cluster == 1 and plan.features == f
+        assert 1 <= plan.cluster <= 8 and plan.features % 64 == 0
+        # CTA r of a cluster owns features [r * features, (r + 1) * features)
+        owned = [i for r in range(plan.cluster)
+                 for i in range(r * plan.features, (r + 1) * plan.features)]
+        assert owned == list(range(f))
+        assert 2 <= plan.stages <= 8 and plan.smem <= SMEM_LIMIT
+        for m in PLAN_ROWS:
+            blocks = _check_grid(plan, m)
+            assert plan.grid(m, 10**6) == plan.cluster * blocks  # one cluster a block
+        two = int8_matmul.swiglu_plan(k, f, two_pass=True)
+        assert not two.one_pass and two.cluster == 1 and two.smem <= SMEM_LIMIT
+
+
+def test_swiglu_plan_at_sup():
+    """sup's fc1 (K = 512, F = 2048): one pass, clusters of 8 CTAs of 256
+    features, four 8 KB stages beside x (64 KB) and t (128 KB)."""
+    plan = int8_matmul.swiglu_plan(512, 2048)
+    assert (plan.one_pass, plan.cluster, plan.features, plan.stages) == (True, 8, 256, 4)
+    assert plan.smem == 232_136
+
+
+@pytest.mark.parametrize("k,o", [(0, 128), (64, 128), (100, 128), (896, 128), (128, 0), (128, 64),
+                                 (384, 1000)])
+def test_fq_refuses_what_it_refused(k, o):
+    """The same shapes are refused with the same error, by the plan and by
+    the wrapper before anything reaches a card (a tensor on the meta device
+    takes the CUDA path)."""
+    msg = re.escape(f"w8a8_matmul_fq: unsupported weight shape {(k, o)}")
+    with pytest.raises(ValueError, match=msg):
+        int8_matmul.w8a8_fq_plan(k, o)
+    x = torch.empty(4, max(k, 1), dtype=torch.bfloat16, device="meta")
+    w = torch.empty(max(o, 1), max(k, 1), dtype=torch.int8, device="meta")[:o, :k]
+    with pytest.raises(ValueError, match=msg):
+        int8_matmul.w8a8_matmul_fq(x[:, :k], w.t(), torch.empty(o, device="meta"))
+
+
+@pytest.mark.parametrize("k,f", [(0, 64), (64, 64), (640, 64), (128, 0), (128, 32), (256, 100)])
+def test_swiglu_refuses_what_it_refused(k, f):
+    msg = re.escape(f"swiglu_w8a8: unsupported weight shape {(k, f)}")
+    with pytest.raises(ValueError, match=msg):
+        int8_matmul.swiglu_plan(k, f)
+    xq = torch.empty(4, k, dtype=torch.int8, device="meta")
+    xs = torch.empty(4, 1, device="meta")
+    w = torch.empty(k, f, dtype=torch.int8, device="meta")
+    s = torch.empty(f, device="meta")
+    with pytest.raises(ValueError, match=msg):
+        int8_matmul.swiglu_w8a8(xq, xs, w, s, w, s)
