@@ -6,7 +6,7 @@
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the eleven CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints their register and spill
-   reports.
+   reports; fails if ptxas serialised the ``wgmma`` of any kernel.
 3. Runs each kernel and its plain PyTorch version on the card at hac v4.3
    shapes (chunk 9996 -> T = 1666, batch N = 128, H = 384, S = 256), holds
    them against each other and times both, beside a PyTorch call that
@@ -22,7 +22,9 @@
    counts and at 357 rows of its widest (K = 768, O = 3072) and narrowest
    (128, 128) weights, beside the bf16 matmul it replaces and
    ``torch._int_mm`` with separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
-   scans and traceback); K6 (full-history LSE scan) in both directions; K7a
+   scans and traceback; K4 also at the fast model's 64 states, timed at its
+   full chunk, and at T and N that are no multiple of its ring or its warps,
+   each with K7's choices equal to K4's); K6 (full-history LSE scan) in both directions; K7a
    (the Viterbi forward pass alone, also at 64 states), equal to K4's choices,
    with ``viterbi_path`` equal to K4 + K5's path; K8 (K4's pass on float32
    streams and the unshifted beta, also at 64 states), its choices equal to
@@ -38,13 +40,15 @@
    (200, 256)); K14 (matmul + bias + scaled residual + RMS norm) at out_proj
    and at fc2, each at three row counts, beside the unfused passes; K12 (fc1 + SwiGLU
    + requantisation) and K13 (int8 fc2, bit for bit) at four row counts,
-   beside ``torch._int_mm`` routes, K12 also at its narrowest shape, at one
+   beside ``torch._int_mm`` routes, K13 also at three other weight shapes
+   (clusters of 1 and 2 CTAs, K = 128), each against the plain version and
+   the ``torch._int_mm`` route, printing its plan, K12 also at its narrowest shape, at one
    that takes its two-pass form, and in the two-pass form at sup's shape
    (timed beside the one pass), and its branch-free reciprocal against
    ``__frcp_rn`` at every float of its range; K2 at sup's qkv shape bit for bit; K3,
    K4, K5 at 1024 states; the full-history scans at 1024 states (K3's
    forward and unshifted backward outputs); K7b, with the cross-checks of
-   K7a; K17 and its traceback at 1024 states on the sup model's float32
+   K7a; K8, its choices equal to K7b's; K17 and its traceback at 1024 states on the sup model's float32
    scores, against the plain beam on all 128 rows at the full T.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``) at hac v4.3's full width over 16 synthetic reads (14 of
@@ -173,6 +177,11 @@ TOL_BETA_ABS, TOL_BETA_REL = 0.05, 2.0**-7
 #     for the f32 sums near the smallest values:
 #     |err| <= 1e-5 + 2^-7 * |value|, elementwise; choices and the final
 #     carry must be identical
+# K4 is also held, with K7 on the same score values, at (T, N, S) whose T and
+# N are no multiples of anything the kernel works in (its register ring of
+# eight rows, four at 1024 states; its warps), at T below the ring's depth,
+# and at the fast model's 64 states and full chunk (timed there)
+K4_SHAPES = [(301, 37, 64), (3, 5, 64), (77, 5, 256), (33, 3, 1024), (T, N, 64)]
 TOL_POSTS_ABS, TOL_POSTS_REL = 1e-5, 2.0**-7
 # K6: float32 history; the four-term sums and exp/log run in another order
 #     and through other library functions over up to 2048 chained steps:
@@ -254,6 +263,10 @@ MAX_SUP_ROUTE_MEAN_ERR = 2.0**-8
 # K12: expf and PyTorch's exp may differ in the last bit, which can move a
 #     value across an int8 rounding boundary: row scales within 1e-6
 #     relative, the int8 output equal but for +-1 at under 0.1% of elements
+# K13 is also held at (rows, K, O) of the other cluster sizes (O = 128 and
+# 384, whose 128-channel tiles no cluster of 2 or 4 divides, and 768, in
+# clusters of 2) and at K = 128, one stage a tile
+K13_OTHER = [(360, 128, 128), (1000, 2048, 384), (680, 256, 768)]
 # K13: bit for bit, like K2. Both at sup's rows, at counts that are no
 #     multiple of the 128-row tile and at one row; K12 also at (rows, K, F)
 #     of its narrowest shape and of one that takes its two-pass form (F / 64
@@ -461,7 +474,8 @@ def main() -> None:
     # each kernel's registers, spills and static shared memory, under its
     # (mangled) name, and ptxas's notes of lost performance (such as wgmma
     # serialised); K1's and the attention's dynamic shared memory are
-    # printed where they launch
+    # printed where they launch. A serialised wgmma fails the run.
+    serialised = []
     for name, path in libs.items():
         log = path.with_suffix(".so.log")
         if log.exists():
@@ -470,6 +484,10 @@ def main() -> None:
                     print(f"  {name}: {line.split(chr(39))[1]}")
                 elif "registers" in line or "spill" in line or "Performance Loss" in line:
                     print(f"    {line.strip()}")
+                if "wgmma" in line and "serialized" in line:
+                    serialised.append(name)
+    if serialised:
+        raise AssertionError(f"ptxas serialised the wgmma of a kernel in {sorted(set(serialised))}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -809,6 +827,39 @@ def main() -> None:
         if not bool((diff <= TOL_POSTS_ABS + TOL_POSTS_REL * posts_p.float().abs()).all()):
             raise AssertionError(f"crf_fused_forward: posts max abs error {diff.max().item()}")
         err = diff.max().item()
+
+        def hold_fused(t_len, n, s):
+            """K4 at (T, N, S) against its plain version (choices and final
+            carry exact, posts within TOL_POSTS_*) and K7 on the same score
+            values (exact): (scores, beta, the posts' max abs error)."""
+            sc = (torch.randn(t_len, n, 4 * s, generator=gen, device=dev) * 2).clamp(-5, 5)
+            sc = sc.bfloat16()
+            beta = crf_cuda.backward_scores_shifted(sc, STAY)
+            posts, ch, fin = crf_cuda.fused_forward_decode(sc, beta, STAY)
+            posts_p, ch_p, fin_p = crf_cuda.fused_forward_decode_plain(sc, beta, STAY)
+            ch7, fin7 = crf_cuda.viterbi_forward(sc.float(), STAY)
+            torch.cuda.synchronize()
+            what = f"T={t_len} N={n} S={s}"
+            if not torch.equal(ch, ch_p) or not torch.equal(fin, fin_p):
+                raise AssertionError(f"crf_fused_forward at {what}: {(ch != ch_p).sum().item()} "
+                                     f"choices differ (or the final carry)")
+            d = (posts.float() - posts_p.float()).abs()
+            if not bool((d <= TOL_POSTS_ABS + TOL_POSTS_REL * posts_p.float().abs()).all()):
+                raise AssertionError(f"crf_fused_forward at {what}: posts max abs error "
+                                     f"{d.max().item()}")
+            if not torch.equal(ch7, ch) or not torch.equal(fin7, fin):
+                raise AssertionError(f"crf_viterbi_forward at {what}: choices differ from K4's "
+                                     f"(or the final carry)")
+            print(f"crf_fused_forward {what}: posts max abs error {d.max().item():.3g}; choices "
+                  f"and final carry equal to the plain version's and to K7's", flush=True)
+            return sc, beta, d.max().item()
+
+        for shape in K4_SHAPES:
+            sc64, beta64, e = hold_fused(*shape)
+            err = max(err, e)
+        # the last shape is the fast model's chunk: timed there
+        fast_ms = time_ms(lambda: crf_cuda.fused_forward_decode(sc64, beta64, STAY), 3)
+        del sc64, beta64
         report(
             "crf_fused_forward", "dorado_tpu_torch/csrc/crf_fused_forward.cu",
             "dorado_tpu/ops/crf_pallas.py:937", err,
@@ -816,7 +867,12 @@ def main() -> None:
             time_ms(lambda: crf_cuda.fused_forward_decode_plain(scores, beta_k, STAY), 1),
             30.0 * T * N * S, PEAK_F32,
             2 * T * N * 4 * S + 2 * T * N * S + 2 * T * N * S + T * N * S + 4 * N * S, None,
+            fast_ms=fast_ms, fast_bound_ms=bound_ms(
+                30.0 * T * N * 64, PEAK_F32,
+                2 * T * N * 4 * 64 + 5 * T * N * 64 + 4 * N * 64)[0],
         )
+        print(f"  crf_fused_forward at the fast model's 64 states (T={T} N={N}): {fast_ms:.3f} ms",
+              flush=True)
 
         # ---- K5: traceback ----------------------------------------------
         last = torch.argmax(fin_k, dim=-1).to(torch.int32)
@@ -1158,8 +1214,17 @@ def main() -> None:
             s = t.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) * (1.0 / 127.0)
             return torch.round(t * torch.reciprocal(s)).to(torch.int8), s
 
+        def int_mm(xq, wq_t):
+            # torch._int_mm takes more than 16 rows, a multiple of 8: other
+            # counts are padded with zero rows, cut off again
+            m = xq.shape[0]
+            pad = max(24, -(-m // 8) * 8) - m
+            if pad == 0:
+                return torch._int_mm(xq, wq_t)
+            return torch._int_mm(torch.nn.functional.pad(xq, (0, 0, 0, pad)), wq_t)[:m]
+
         def fc2_int_mm(tq, ts):
-            return (torch._int_mm(tq, w2_q.t()).float() * ts * w2_s).to(torch.bfloat16)
+            return (int_mm(tq, w2_q.t()).float() * ts * w2_s).to(torch.bfloat16)
 
         def hold_swiglu(what, tq_k, ts_k, tq_p, ts_p):
             rel = ((ts_k - ts_p).abs() / ts_p).max().item()
@@ -1184,15 +1249,31 @@ def main() -> None:
             out_k = int8_matmul.w8a8_matmul(tq_k, ts_k, w2_q.t(), w2_s)
             out_p = int8_matmul.w8a8_matmul_plain(tq_k, ts_k, w2_q.t(), w2_s)
             torch.cuda.synchronize()
-            same = torch.equal(out_k, out_p)
-            if m % 8 == 0:  # and against an independent exact product
-                same = same and torch.equal(out_k, fc2_int_mm(tq_k, ts_k))
-            print(f"w8a8_matmul M={m}: bit for bit {same}", flush=True)
+            # against the plain version and an independent exact product
+            same = torch.equal(out_k, out_p) and torch.equal(out_k, fc2_int_mm(tq_k, ts_k))
+            print(f"w8a8_matmul M={m}: bit for bit with the plain version and the torch._int_mm "
+                  f"route {same}", flush=True)
             if not same:
                 raise AssertionError(
                     f"w8a8_matmul at M={m}: {(out_k != out_p).float().mean().item():.3%} of "
                     f"outputs differ from the plain version (or from the torch._int_mm route)")
             del tq_p, ts_p, out_p
+        print(f"  w8a8_matmul's plan at sup's fc2: {int8_matmul.w8a8_plan(ffn, k_in)}", flush=True)
+        for m_o, k_o, o_o in K13_OTHER:
+            xq_o, xs_o = int8_matmul.quantize_rows(
+                torch.randn(m_o, k_o, generator=gen, device=dev).bfloat16())
+            wq_o, ws_o = int8_matmul.quantize_weight_rows(
+                torch.randn(o_o, k_o, generator=gen, device=dev) / k_o**0.5)
+            out_o = int8_matmul.w8a8_matmul(xq_o, xs_o, wq_o.t(), ws_o)
+            lib_o = (int_mm(xq_o, wq_o.t()).float() * xs_o * ws_o).to(torch.bfloat16)
+            same = (torch.equal(out_o, int8_matmul.w8a8_matmul_plain(xq_o, xs_o, wq_o.t(), ws_o))
+                    and torch.equal(out_o, lib_o))
+            plan = int8_matmul.w8a8_plan(k_o, o_o)
+            print(f"w8a8_matmul M={m_o} K={k_o} O={o_o} ({plan}): bit for bit with the plain "
+                  f"version and the torch._int_mm route {same}", flush=True)
+            if not same:
+                raise AssertionError(f"w8a8_matmul at M={m_o} K={k_o} O={o_o}: differs")
+            del xq_o, xs_o, wq_o, ws_o, out_o, lib_o
         for m_o, k_o, f_o in SWIGLU_OTHER:
             plan = int8_matmul.swiglu_plan(k_o, f_o)
             wy_o, wys_o = int8_matmul.quantize_weight_rows(
@@ -1250,6 +1331,7 @@ def main() -> None:
             m * ffn + 4 * m + ffn * k_in + 4 * k_in + 2 * m * k_in,
             time_ms(lambda: fc2_int_mm(tq_k, ts_k), 5),
             "(torch._int_mm and a dequantise pass)",
+            plan=str(int8_matmul.w8a8_plan(ffn, k_in)),
         )
         del xq, xs, tq_k, ts_k, out_k, wy_q, wg_q, w2_q
 
@@ -1349,7 +1431,18 @@ def main() -> None:
             4 * t_s * N * 4 * s_s + t_s * N * s_s + 4 * N * s_s, None,
             wrappers=["crf_viterbi_forward"], on_path=False,
         )
-        del scores32, ch_k, ch7, st_k, mv_k
+        # ---- K8 at 1024 states: against its plain version and K7b -------------
+        beta32 = crf_cuda.backward_scores(scores32, STAY)
+        _, err8 = hold_full(scores32, beta32, f"T={t_s} N={N} S={s_s}", (ch7, fin7))
+        sup_times(
+            "crf_fused_forward_f32", err8,
+            time_ms(lambda: crf_cuda.fused_forward_decode_full(scores32, beta32, STAY), 3),
+            time_ms(lambda: crf_cuda.fused_forward_decode_full_plain(scores32, beta32, STAY), 1),
+            30.0 * t_s * N * s_s, PEAK_F32,
+            4 * t_s * N * 4 * s_s + 4 * (t_s + 1) * N * s_s + 4 * t_s * N * s_s + t_s * N * s_s
+            + 4 * N * s_s,
+        )
+        del scores32, beta32, ch_k, ch7, st_k, mv_k
     torch.cuda.empty_cache()
 
     # ---- the model and the pipelines at hac v4.3's full width ---------------

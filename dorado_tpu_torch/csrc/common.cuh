@@ -293,6 +293,25 @@ __device__ __forceinline__ uint4 ld_stream16(const void* p, uint64_t policy) {
   return v;
 }
 
+// tma_load_2d and tma_load_2d_multicast under an L2 policy.
+__device__ __forceinline__ void tma_load_2d_hint(uint32_t dst, const void* map, int c0, int c1,
+                                                 uint32_t mbar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mbar), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d_multicast_hint(uint32_t dst, const void* map, int c0,
+                                                           int c1, uint32_t mbar, uint16_t mask,
+                                                           uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::"
+      "cluster.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5, %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mbar), "h"(mask), "l"(policy)
+      : "memory");
+}
+
 // tma_store_2d under an L2 policy.
 __device__ __forceinline__ void tma_store_2d_hint(const void* map, int c0, int c1, uint32_t src,
                                                   uint64_t policy) {

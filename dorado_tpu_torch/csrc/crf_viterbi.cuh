@@ -4,29 +4,27 @@
 // bit on the same score values.
 #pragma once
 
-// vn: the block's carry minus its row max, in shared memory; x: this state's
-// four scores score[s*4 + r]; v: this state's carry, replaced by the new one.
-// Predecessors pred(s,r) = r*(S/4) + (s>>2); the lowest r wins a tie, and the
-// stay wins a tie with the best step. Every add is a single f32 operation, in
-// the order of the plain version (crf_scan.viterbi_step). Returns the choice:
-// the predecessor slot r, or 4 for a stay.
-template <int S>
-__device__ __forceinline__ int viterbi_update(const float* __restrict__ vn, int s,
+// vp: the normalised carry (the carry minus its row max) of the state's four
+// predecessors pred(s,r) = r*(S/4) + (s>>2), r = 0..3; vs: the state's own
+// normalised carry; x: its four scores score[s*4 + r]; v: its carry,
+// replaced by the new one. The lowest r wins a tie, and the stay wins a tie
+// with the best step. Every add is a single f32 operation, in the order of
+// the plain version (crf_scan.viterbi_step). Returns the choice: the
+// predecessor slot r, or 4 for a stay.
+__device__ __forceinline__ int viterbi_update(const float (&vp)[4], float vs,
                                               const float (&x)[4], float stay_score,
                                               float& v) {
-  constexpr int S4 = S / 4;
-  const int p0 = s >> 2;
-  float best = vn[p0] + x[0];
+  float best = vp[0] + x[0];
   int best_r = 0;
 #pragma unroll
   for (int r = 1; r < 4; ++r) {
-    const float cand = vn[r * S4 + p0] + x[r];
+    const float cand = vp[r] + x[r];
     if (cand > best) {
       best = cand;
       best_r = r;
     }
   }
-  const float stay = vn[s] + stay_score;
+  const float stay = vs + stay_score;
   const bool is_stay = stay >= best;
   v = is_stay ? stay : best;
   return is_stay ? 4 : best_r;

@@ -61,8 +61,11 @@ __global__ void __launch_bounds__(S) viterbi_forward_kernel(
     vn[s] = v - m;
     __syncthreads();
 
+    float vp[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) vp[r] = vn[r * (S / 4) + (s >> 2)];
     choices[(size_t)t * row + own] =
-        static_cast<int8_t>(viterbi_update<S>(vn, s, x, stay_score, v));
+        static_cast<int8_t>(viterbi_update(vp, vn[s], x, stay_score, v));
   }
   final_carry[own] = v;
 }

@@ -65,13 +65,50 @@
 //
 // w8a8_matmul_kernel (K13). Replaces dorado_tpu/ops/int8_matmul.py::
 // w8a8_matmul (Pallas body _a8_kernel): out = bf16((float(xq . wq[o]) * xs)
-// * ws[o]) for xq [M, K] int8, wq [O, K] int8, on the tile product of
-// int8_tile.cuh (128 x 128 tiles on mma.sync.m16n8k32, 128-byte slabs of K
-// brought in with cp.async while the previous one is multiplied). K = 2048
-// is too deep to keep a block's rows resident, so K streams through a
-// three-stage ring of 128-byte tiles. Bounded by operations (275 GOP,
-// 0.14 ms) just ahead of bytes (403 MB, 0.12 ms) at sup's fc2 shape.
-#include "int8_tile.cuh"
+// * ws[o]) for xq [M, K] int8 with row scales xs, wq [O, K] int8 with
+// channel scales ws; the int32 sums are exact and the two products single
+// rounded operations, so it equals the plain version bit for bit.
+//
+// What bounds it on the H100: operations, just ahead of bytes. At sup's fc2
+// (M = 131072, K = 2048, O = 512) it is 275 GOP (0.139 ms at the int8 peak)
+// against 403 MB of x in and the output out (0.120 ms); the 1 MB weight
+// stays in L2 but is read from it for every 128-row block, 1 GB in all
+// with one CTA a tile. The first version (mma.sync from a three-stage
+// cp.async ring, every thread issuing copies, 4096 short-lived 128 x 128
+// CTAs fetching each row block once for each of the four column tiles, the
+// epilogue storing 4-byte pairs from the fragments) took 0.516 ms.
+//
+// Design (persistent CTAs in clusters of up to four along O, from
+// ops/int8_matmul.py::w8a8_plan: the largest of 4, 2, 1 that divides O / 128):
+//   - CTA r of a cluster computes the 128 x 128 tile of column tile r of the
+//     cluster's work unit (a row block and the cluster's column tiles); K
+//     streams through a ring of six 32 KB stages (128 rows of x and 128
+//     channels of w by 128 bytes of K, in the 128-byte swizzle the wgmma
+//     descriptors read);
+//   - one producer warp's lane fills the ring by TMA: its CTA's w slab, and
+//     its 1 / cluster share of the row block's x slab multicast to every CTA
+//     of the cluster, so x leaves memory once for all the column tiles; x
+//     passes through once, under an evict-first L2 policy, so that it does
+//     not push the weight (1 MB at sup, read for every row block) out of L2.
+//     A stage is refilled once every consumer of the cluster has released it;
+//   - two consumer warpgroups of 64 rows run wgmma m64n128k32 .s32.s8.s8,
+//     one stage's group in flight while the next is issued, and release
+//     each stage as its products complete; their warp index comes through a
+//     shuffle, so that ptxas does not take their code for divergent and
+//     serialise the wgmma;
+//   - the epilogue (float(acc) * xs, then * ws, then bf16) writes the tile
+//     into shared memory in the output map's swizzle, and a TMA store sends
+//     it out under an evict-first policy while the consumers go on with the
+//     next tile, whose first stages the producer has loaded meanwhile. A
+//     second accumulator set, to issue the next tile's products before this
+//     tile's epilogue, would not fit beside the first (it spilled in K2).
+//     Rows past M come in as zeros and are not stored.
+// On the card moving x and w holds it, not its products: without them it
+// took nearly as long. Tiles 256 channels wide (m64n256k32, four 48 KB
+// stages), clusters that also multicast w to a pair of row blocks, and an
+// L2 prefetch of x ahead of the ring were each slower.
+// Every mbarrier wait traps after about 4 s instead of hanging the card.
+#include "common.cuh"
 #include "tma_map.cuh"
 
 // ---------------------------------------------------------------------------
@@ -494,91 +531,216 @@ int launch(const void* xq, const void* xs, const void* wy, const void* wys, cons
 
 }  // namespace k12
 
-namespace {
-
 // ---------------------------------------------------------------------------
-// K13: int8 matmul of pre-quantised rows (fc2)
+// K13: int8 matmul of quantised rows (fc2)
 // ---------------------------------------------------------------------------
 
-constexpr int STAGES = 3;
+namespace k13 {
 
-__global__ void __launch_bounds__(THREADS) w8a8_matmul_kernel(
-    const int8_t* __restrict__ xq,   // [M, K]
-    const float* __restrict__ xs,    // [M]
-    const int8_t* __restrict__ wq,   // [O, K]
-    const float* __restrict__ ws,    // [O]
-    __nv_bfloat16* __restrict__ out, // [M, O]
-    int M, int K, int O) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* a_ring = reinterpret_cast<int8_t*>(smem);  // [STAGES][BM][LDT]
-  int8_t* b_ring = a_ring + STAGES * BM * LDT;       // [STAGES][BN][LDT]
+constexpr int BM = 128;            // rows a tile: 64 a consumer warpgroup (a wgmma's M)
+constexpr int BN = 128;            // output channels a tile (a wgmma's N)
+constexpr int KB = 128;            // bytes of K a stage: one 128-byte swizzle row
+constexpr int STAGE = (BM + BN) * KB;  // 32 KB: the x slab, then the w slab
+constexpr int CONSUMERS = 2;       // warpgroups
+constexpr int THREADS = 128 * CONSUMERS + 32;  // and one producer warp
+constexpr int PRODUCER_WARP = 4 * CONSUMERS;   // its lane 0 issues every load
+constexpr int OUT_BYTES = CONSUMERS * 64 * BN * 2;  // a bf16 tile for each consumer
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_CLUSTER = 4;
+constexpr int SMEM_LIMIT = 232448;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  // the output tiles of one row block are neighbours in the grid, so the
-  // blocks that share its x rows run together and find them in L2
-  const int n_tiles = O / BN;
-  const int m0 = (blockIdx.x / n_tiles) * BM;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
+// Dynamic shared memory of a launch (ops/int8_matmul.py::w8a8_plan says the
+// same): the 1024-byte alignment, the ring, the output tiles, the mbarriers.
+constexpr int smem_bytes(int stages) {
+  return 1024 + stages * STAGE + OUT_BYTES + 8 * 2 * MAX_STAGES;
+}
 
-  auto load_stage = [&](int stage, int kt) {
-    int8_t* a = a_ring + stage * BM * LDT;
-    int8_t* b = b_ring + stage * BN * LDT;
-    for (int i = tid; i < BM * (BK / 16); i += THREADS) {
-      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      if (m0 + r < M)
-        cp_async16(a + r * LDT + c, xq + (size_t)(m0 + r) * K + kt * BK + c);
-      else
-        *reinterpret_cast<uint4*>(a + r * LDT + c) = make_uint4(0, 0, 0, 0);
-      cp_async16(b + r * LDT + c, wq + (size_t)(n0 + r) * K + kt * BK + c);
+__global__ void __launch_bounds__(THREADS, 1) w8a8_matmul_kernel(
+    const __grid_constant__ CUtensorMap map_x,  // xq [M, K]: boxes of BM / cluster rows x KB
+    const __grid_constant__ CUtensorMap map_w,  // wq [O, K]: boxes of BN rows x KB
+    const __grid_constant__ CUtensorMap map_o,  // out [M, O] bf16: boxes of 64 rows x 64
+    const float* __restrict__ xs,               // [M]
+    const float* __restrict__ ws,               // [O]
+    int M, int K, int O, int cluster, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem;                    // [stages][BM + BN][KB], swizzled
+  unsigned char* out_s = ring + stages * STAGE;  // [CONSUMERS][2 boxes][64][128 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(out_s + OUT_BYTES);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + MAX_STAGES);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's and warpgroup's indices through a shuffle (see the header)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), wg = warp / 4;
+  const int rank = (int)cluster_rank();  // the CTA's column tile in the cluster's
+  const int kbs = K / KB;
+  const int col_groups = O / BN / cluster;
+  const int units = (M + BM - 1) / BM * col_groups;  // (row block, column group)
+  const int cid = blockIdx.x / cluster, nclusters = gridDim.x / cluster;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                     // the producer's arrival + the bytes
+      mbar_init(empty0 + 8 * s, CONSUMERS * cluster);  // every consumer of the cluster
     }
-  };
-
-  const int k_tiles = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();
+    mbar_init_fence();
   }
+  cluster_sync();  // the cluster's mbarriers are initialised
 
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 64;
-  int acc[2][8][4];
-  clear(acc);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt landed; the stage consumed last round is free
-    const int ahead = kt + STAGES - 1;
-    if (ahead < k_tiles) load_stage(ahead % STAGES, ahead);
-    cp_async_commit();
-    const int stage = kt % STAGES;
-    warp_product(acc, a_ring + stage * BM * LDT, LDT, b_ring + stage * BN * LDT, LDT, BK, wm,
-                 wn, lane);
-  }
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + wn + j * 8 + t4 * 2;
-    const float w0 = ws[col], w1 = ws[col + 1];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + i * 16 + g + h * 8;
-        if (m < M) {
-          const float s = xs[m];
-          __nv_bfloat162 y;
-          y.x = __float2bfloat16_rn(__fmul_rn(__fmul_rn((float)acc[i][j][2 * h], s), w0));
-          y.y = __float2bfloat16_rn(__fmul_rn(__fmul_rn((float)acc[i][j][2 * h + 1], s), w1));
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * O + col) = y;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread fills the ring -----------------------------
+    if (lane == 0) {
+      const uint64_t stream = l2_evict_first();  // x is read once
+      const uint16_t all = (uint16_t)((1 << cluster) - 1);
+      const int xrows = BM / cluster;
+      int stage = 0, phase = 0;
+      for (int u = cid; u < units; u += nclusters) {
+        const int m0 = u / col_groups * BM;
+        const int n0 = (u % col_groups * cluster + rank) * BN;
+        for (int kb = 0; kb < kbs; ++kb) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the whole cluster released it
+          mbar_expect(full0 + 8 * stage, STAGE);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t xd = smem_u32(ring + stage * STAGE + rank * xrows * KB);
+          const uint32_t wd = smem_u32(ring + stage * STAGE + BM * KB);
+          // this CTA's share of the x slab, to every CTA of the cluster
+          if (cluster > 1)
+            tma_load_2d_multicast_hint(xd, &map_x, kb * KB, m0 + rank * xrows, full, all, stream);
+          else
+            tma_load_2d_hint(xd, &map_x, kb * KB, m0, full, stream);
+          tma_load_2d(wd, &map_w, kb * KB, n0, full);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // the peers' consumers have released every stage: their arrivals on
+      // this CTA's empty barriers, and this CTA's multicasts into theirs,
+      // are complete before it exits
+      for (int s = 0; s < stages; ++s) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
+    __syncwarp();
+  } else {
+    // ---- consumers: wgmma over the ring, then the epilogue -----------------
+    const int lt = tid % 128;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = (lt >> 5) * 16 + g;  // the thread's rows r0, r0 + 8 of its warpgroup's 64
+    unsigned char* my_out = out_s + wg * (OUT_BYTES / CONSUMERS);
+    // column col's pair at row `row` of the warpgroup's two boxes [64][64]:
+    // box col / 64, 16-byte chunk (col % 64) / 8 XOR row % 8
+    auto at = [&](int row, int col) {
+      return reinterpret_cast<__nv_bfloat162*>(my_out + ((col >> 6) * 64 + row) * 128 +
+                                               ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+                                               (col & 7) * 2);
+    };
+    int acc[64];
+    int stage = 0, phase = 0;
+    for (int u = cid; u < units; u += nclusters) {
+      const int m0 = u / col_groups * BM;
+      const int n0 = (u % col_groups * cluster + rank) * BN;
+      const int rows[2] = {m0 + 64 * wg + r0, m0 + 64 * wg + r0 + 8};
+      float rs[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rs[h] = rows[h] < M ? __ldg(xs + rows[h]) : 0.f;
+      int held = -1;  // the stage whose products may still run
+      for (int kb = 0; kb < kbs; ++kb) {
+        mbar_wait(full0 + 8 * stage, phase);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        wgmma_fence();
+        const uint32_t xa = smem_u32(ring + stage * STAGE + wg * 64 * KB);
+        const uint32_t wb = smem_u32(ring + stage * STAGE + BM * KB);
+#pragma unroll
+        for (int kk = 0; kk < KB / 32; ++kk)
+          wgmma_m64n128k32_s8(acc, wgmma_desc<KB>(xa + 32 * kk), wgmma_desc<KB>(wb + 32 * kk),
+                              kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (held >= 0 && lt < cluster) mbar_arrive_cluster(empty0 + 8 * held, lt);
+        held = stage;
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+      if (lt < cluster) mbar_arrive_cluster(empty0 + 8 * held, lt);
+
+      // the dequantised sums, to the output by TMA
+      if (lt == 0) bulk_wait_read<0>();  // the last tile's store has read the buffer
+      named_bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        const float2 w2 = __ldg(reinterpret_cast<const float2*>(ws + n0 + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float y0 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h], rs[h]), w2.x);
+          const float y1 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + 1], rs[h]), w2.y);
+          *at(r0 + 8 * h, col) = __floats2bfloat162_rn(y0, y1);
+        }
+      }
+      fence_proxy_async();  // the tile is read by the TMA store (the async proxy)
+      named_bar_sync(1 + wg, 128);
+      if (lt == 0) {
+        const uint64_t stream = l2_evict_first();  // written once
+        tma_store_2d_hint(&map_o, n0, m0 + 64 * wg, smem_u32(my_out), stream);
+        tma_store_2d_hint(&map_o, n0 + 64, m0 + 64 * wg, smem_u32(my_out + 64 * 128), stream);
+        bulk_commit();
+      }
+    }
+    if (lt == 0) bulk_wait_all();
   }
 }
 
-}  // namespace
+int launch(const void* xq, const void* xs, const void* wq, const void* ws, void* out, int M,
+           int K, int O, int cluster, int stages, void* stream) {
+  if (M <= 0 || K <= 0 || K % KB || O <= 0 || O % BN || cluster < 1 || cluster > MAX_CLUSTER ||
+      BM % cluster || (O / BN) % cluster || stages < 2 || stages > MAX_STAGES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(stages);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w, map_o;
+  if (!make_map(&map_x, xq, 1, M, K, BM / cluster, KB) || !make_map(&map_w, wq, 1, O, K, BN, KB) ||
+      !make_map(&map_o, out, 2, M, O, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(w8a8_matmul_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int active = 0;
+  err = active_clusters((const void*)w8a8_matmul_kernel, cluster, THREADS, smem, &active);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent: as many clusters as the card runs at once
+  const long long units = (long long)((M + BM - 1) / BM) * (O / BN / cluster);
+  cfg.gridDim = dim3(cluster * (int)(units < active ? units : active));
+  err = cudaLaunchKernelEx(&cfg, w8a8_matmul_kernel, map_x, map_w, map_o,
+                           static_cast<const float*>(xs), static_cast<const float*>(ws), M, K, O,
+                           cluster, stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k13
 
 // The check of rcp_near over its whole range: bad is one zeroed
 // unsigned 64-bit counter on the card.
@@ -596,20 +758,10 @@ DTT_EXPORT int swiglu_w8a8_i8(const void* xq, const void* xs, const void* wy, co
   return k12::launch(xq, xs, wy, wys, wg, wgs, tq, ts, M, K, F, one_pass, cluster, stages, stream);
 }
 
-// K and O multiples of 128, M >= 1.
+// K and O multiples of 128, M >= 1; the cluster (column tiles that share x)
+// and stages from ops/int8_matmul.py::w8a8_plan.
 DTT_EXPORT int w8a8_matmul_bf16(const void* xq, const void* xs, const void* wq, const void* ws,
-                                void* out, int M, int K, int O, void* stream) {
-  if (M <= 0 || K <= 0 || K % BK || O <= 0 || O % BN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (long long)((M + BM - 1) / BM) * (O / BN);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = STAGES * (BM + BN) * LDT;
-  cudaError_t err = cudaFuncSetAttribute(
-      w8a8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  w8a8_matmul_kernel<<<(unsigned)blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(wq), static_cast<const float*>(ws),
-      static_cast<__nv_bfloat16*>(out), M, K, O);
-  return static_cast<int>(cudaGetLastError());
+                                void* out, int M, int K, int O, int cluster, int stages,
+                                void* stream) {
+  return k13::launch(xq, xs, wq, ws, out, M, K, O, cluster, stages, stream);
 }

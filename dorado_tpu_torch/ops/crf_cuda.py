@@ -185,6 +185,36 @@ def fused_forward_decode_plain(
     return (posts, *viterbi_forward_plain(scores, stay_score))
 
 
+def _fused_forward_cuda(
+    scores: torch.Tensor, beta: torch.Tensor, stay_score: float, full: bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's launch (``full`` False: bf16 scores and the shifted beta stream)
+    or K8's (float32 scores and the beta history [T+1, N, S]) on CUDA
+    tensors."""
+    dtype = torch.float32 if full else torch.bfloat16
+    t_len, n, s = _check_scores(scores, dtype)
+    _cuda.check_tensor(
+        beta, "beta_full" if full else "beta_shift", dtype, (t_len + int(full), n, s)
+    )
+    if beta.device != scores.device:
+        name = "fused_forward_decode_full" if full else "fused_forward_decode"
+        raise ValueError(f"{name}: inputs are on different devices")
+    posts = torch.empty(t_len, n, s, dtype=dtype, device=scores.device)
+    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
+    final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
+    fn = _cuda.kernel_function(
+        "crf_fused_forward", "crf_fused_forward_f32" if full else "crf_fused_forward_bf16",
+        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT, _cuda.VOIDP],
+    )
+    with torch.cuda.device(scores.device):
+        code = fn(
+            scores.data_ptr(), beta.data_ptr(), posts.data_ptr(), choices.data_ptr(),
+            final.data_ptr(), t_len, n, s, float(stay_score), _cuda.stream_ptr(scores.device),
+        )
+    _cuda.check_launch("crf_fused_forward", code)
+    return posts, choices, final
+
+
 def fused_forward_decode(
     scores: torch.Tensor, beta_shift: torch.Tensor, stay_score: float
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -192,26 +222,9 @@ def fused_forward_decode(
     choices (4 = stay). Returns (posts, choices, final carry)."""
     if scores.device.type == "cpu":
         return fused_forward_decode_plain(scores, beta_shift, stay_score)
-    t_len, n, s = _check_scores(scores)
-    _cuda.check_tensor(beta_shift, "beta_shift", torch.bfloat16, (t_len, n, s))
-    if beta_shift.device != scores.device:
-        raise ValueError("fused_forward_decode: inputs are on different devices")
-    posts = torch.empty(t_len, n, s, dtype=torch.bfloat16, device=scores.device)
-    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
-    final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
-    fn = _cuda.kernel_function(
-        "crf_fused_forward", "crf_fused_forward_bf16",
-        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2 + [_cuda.VOIDP],
-    )
-    with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), beta_shift.data_ptr(), posts.data_ptr(),
-            choices.data_ptr(), final.data_ptr(), t_len, n, s,
-            float(stay_score), math.exp(stay_score), _cuda.stream_ptr(scores.device),
-        )
-    _cuda.check_launch("crf_fused_forward", code)
+    out = _fused_forward_cuda(scores, beta_shift, stay_score, full=False)
     fused_forward_decode.launches += 1
-    return posts, choices, final
+    return out
 
 
 fused_forward_decode.launches = 0
@@ -248,26 +261,9 @@ def fused_forward_decode_full(
     ``viterbi_forward``'s."""
     if scores.device.type == "cpu":
         return fused_forward_decode_full_plain(scores, beta_full, stay_score)
-    t_len, n, s = _check_scores(scores, torch.float32)
-    _cuda.check_tensor(beta_full, "beta_full", torch.float32, (t_len + 1, n, s))
-    if beta_full.device != scores.device:
-        raise ValueError("fused_forward_decode_full: inputs are on different devices")
-    posts = torch.empty(t_len, n, s, dtype=torch.float32, device=scores.device)
-    choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
-    final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
-    fn = _cuda.kernel_function(
-        "crf_fused_forward", "crf_fused_forward_f32",
-        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2 + [_cuda.VOIDP],
-    )
-    with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), beta_full.data_ptr(), posts.data_ptr(),
-            choices.data_ptr(), final.data_ptr(), t_len, n, s,
-            float(stay_score), math.exp(stay_score), _cuda.stream_ptr(scores.device),
-        )
-    _cuda.check_launch("crf_fused_forward", code)
+    out = _fused_forward_cuda(scores, beta_full, stay_score, full=True)
     fused_forward_decode_full.launches += 1
-    return posts, choices, final
+    return out
 
 
 fused_forward_decode_full.launches = 0

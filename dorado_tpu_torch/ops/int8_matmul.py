@@ -13,7 +13,8 @@ int32 and are rescaled in float32.
   the result in one kernel. ``csrc/w8a8_matmul.cu``, launched as
   ``swiglu_plan`` says.
 - ``w8a8_matmul`` (``_a8_kernel``): quantised rows times int8 weights, the
-  transformer's fc2. ``csrc/w8a8_matmul.cu``.
+  transformer's fc2. ``csrc/w8a8_matmul.cu``, launched as ``w8a8_plan``
+  says.
 - ``quantize_rows`` is plain PyTorch, as it is plain XLA there.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
@@ -390,6 +391,54 @@ def w8a8_matmul_plain(
     return out.to(out_dtype).reshape(*xq.shape[:-1], o)
 
 
+@dataclass(frozen=True)
+class W8a8Plan:
+    """How K13 launches at one weight shape [K, O]: 128 x 128 output tiles, a
+    CTA each, in persistent clusters of ``cluster`` CTAs on neighbouring
+    column tiles of one row block, which share each x slab by multicast; K
+    streams through a ring of ``stages`` 32 KB stages."""
+
+    k: int
+    o: int
+    cluster: int
+    stages: int
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a CTA, as ``csrc/w8a8_matmul.cu::k13::smem_bytes``:
+        the 1024-byte alignment, the ring, the two bf16 output tiles and the
+        mbarriers."""
+        return _w8a8_smem(self.stages)
+
+    def grid(self, m: int, active_clusters: int) -> int:
+        """CTAs of a launch over m rows when the card runs ``active_clusters``
+        clusters at once: persistent clusters over the work units (a row
+        block by the cluster's column tiles)."""
+        units = _cdiv(m, ROWS_A_BLOCK) * (self.o // 128 // self.cluster)
+        return self.cluster * min(units, active_clusters)
+
+
+_W8A8_STAGE = 2 * 128 * 128  # 128 rows of x and 128 channels of w by 128 bytes of K
+_W8A8_MAX_STAGES = 8
+
+
+def _w8a8_smem(stages: int) -> int:
+    return 1024 + stages * _W8A8_STAGE + 2 * 64 * 128 * 2 + 8 * 2 * _W8A8_MAX_STAGES
+
+
+def w8a8_plan(k: int, o: int) -> W8a8Plan:
+    """K13's launch for a [K, O] weight (K and O multiples of 128); raises
+    ValueError on any other shape. The cluster is the largest of 4, 2 and 1
+    that divides O / 128; the ring the deepest that fits."""
+    if k % 128 or k <= 0 or o % 128 or o <= 0:
+        raise ValueError(f"w8a8_matmul: unsupported weight shape {(k, o)}")
+    cluster = next(c for c in (4, 2, 1) if (o // 128) % c == 0)
+    stages = 2
+    while stages < _W8A8_MAX_STAGES and _w8a8_smem(stages + 1) <= SMEM_LIMIT:
+        stages += 1
+    return W8a8Plan(k, o, cluster, stages)
+
+
 def w8a8_matmul(
     xq: torch.Tensor,
     xs: torch.Tensor,
@@ -400,15 +449,15 @@ def w8a8_matmul(
     """int8 rows [..., K] with scales ``xs`` [..., 1] @ [K, O] int8 weights
     (``ws`` [O] float32 scales) -> [..., O].
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
-    bf16 out, K and O multiples of 128, any number of rows."""
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    as ``w8a8_plan(K, O)`` says: bf16 out, K and O multiples of 128, any
+    number of rows."""
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, xs, wq_t, ws, out_dtype)
     if wq_t.dim() != 2:
         raise ValueError(f"wq_t: expected [K, O], got {tuple(wq_t.shape)}")
     k, o = wq_t.shape
-    if k % 128 or k == 0 or o % 128 or o == 0:
-        raise ValueError(f"w8a8_matmul: unsupported weight shape {(k, o)}")
+    plan = w8a8_plan(k, o)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"w8a8_matmul: the kernel writes bf16, not {out_dtype}")
     if xq.dim() < 1 or xq.shape[-1] != k or xq.numel() == 0:
@@ -422,12 +471,12 @@ def w8a8_matmul(
         raise ValueError("w8a8_matmul: inputs are on different devices")
     out = torch.empty(*lead, o, dtype=torch.bfloat16, device=xq.device)
     fn = _cuda.kernel_function(
-        "w8a8_matmul", "w8a8_matmul_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.VOIDP]
+        "w8a8_matmul", "w8a8_matmul_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 5 + [_cuda.VOIDP]
     )
     with torch.cuda.device(xq.device):
         code = fn(
             xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            m, k, o, _cuda.stream_ptr(xq.device),
+            m, k, o, plan.cluster, plan.stages, _cuda.stream_ptr(xq.device),
         )
     _cuda.check_launch("w8a8_matmul", code)
     w8a8_matmul.launches += 1

@@ -241,8 +241,8 @@ def test_w8a8_feed_forward_leading_dims():
 
 
 # ---------------------------------------------------------------------------
-# K2's and K12's launch plans: the host side of the kernels, checked at every
-# weight shape the wrappers take (the kernels themselves run on the card)
+# K2's, K12's and K13's launch plans: the host side of the kernels, checked at
+# every weight shape the wrappers take (the kernels themselves run on the card)
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232_448  # shared memory a block may use on the H100
@@ -347,3 +347,50 @@ def test_swiglu_refuses_what_it_refused(k, f):
     s = torch.empty(f, device="meta")
     with pytest.raises(ValueError, match=msg):
         int8_matmul.swiglu_w8a8(xq, xs, w, s, w, s)
+
+
+@pytest.mark.parametrize("k", [128, 256, 384, 512, 1024, 2048])
+def test_w8a8_plan_every_output_width(k):
+    """Clusters of the most column tiles up to four that divide O / 128 (so
+    the clusters' tiles cover O's once each, and a cluster's CTAs split a
+    128-row x slab evenly); the deepest ring of 32 KB stages that fits the
+    card's shared memory; the grid whole clusters, one a work unit when
+    enough run at once."""
+    for o in range(128, 3072 + 1, 128):
+        plan = int8_matmul.w8a8_plan(k, o)
+        tiles = o // 128
+        assert (plan.k, plan.o) == (k, o)
+        assert plan.cluster == max(c for c in (1, 2, 4) if tiles % c == 0)
+        assert 128 % plan.cluster == 0
+        assert plan.smem <= SMEM_LIMIT
+        assert plan.stages == 8 or plan.smem + 2 * 128 * 128 > SMEM_LIMIT
+        # cluster c of a row block owns column tiles [c * cluster, (c + 1) * cluster)
+        owned = [c * plan.cluster + r for c in range(tiles // plan.cluster)
+                 for r in range(plan.cluster)]
+        assert owned == list(range(tiles))
+        for m in PLAN_ROWS:
+            blocks = _check_grid(plan, m)
+            assert plan.grid(m, 10**6) == blocks * tiles  # one CTA a tile
+
+
+def test_w8a8_plan_at_sup():
+    """sup's fc2 (K = 2048, O = 512): clusters of the four column tiles of a
+    row block, six 32 KB stages beside the two 16 KB output tiles."""
+    plan = int8_matmul.w8a8_plan(2048, 512)
+    assert (plan.cluster, plan.stages, plan.smem) == (4, 6, 230_528)
+
+
+@pytest.mark.parametrize("k,o", [(0, 128), (64, 128), (100, 128), (128, 0), (128, 64),
+                                 (2048, 500)])
+def test_w8a8_refuses_what_it_refused(k, o):
+    """The same shapes are refused with the same error, by the plan and by
+    the wrapper before anything reaches a card (a tensor on the meta device
+    takes the CUDA path)."""
+    msg = re.escape(f"w8a8_matmul: unsupported weight shape {(k, o)}")
+    with pytest.raises(ValueError, match=msg):
+        int8_matmul.w8a8_plan(k, o)
+    xq = torch.empty(4, k, dtype=torch.int8, device="meta")
+    xs = torch.empty(4, 1, device="meta")
+    w = torch.empty(k, o, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match=msg):
+        int8_matmul.w8a8_matmul(xq, xs, w, torch.empty(o, device="meta"))
