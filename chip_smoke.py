@@ -22,15 +22,19 @@
    counts and at 357 rows of its widest (K = 768, O = 3072) and narrowest
    (128, 128) weights, beside the bf16 matmul it replaces and
    ``torch._int_mm`` with separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
-   scans and traceback; K4 also at the fast model's 64 states, timed at its
-   full chunk, and at T and N that are no multiple of its ring or its warps,
-   each with K7's choices equal to K4's); K6 (full-history LSE scan) in both directions; K7a
+   scans and traceback; K3 and K4 also at the fast model's 64 states, K4
+   timed at its full chunk, and at T and N that are no multiple of their
+   rings or warps, at 64, 256 and 1024 states, each with K7's choices equal
+   to K4's); K6 (full-history LSE scans) in each direction and both in one
+   launch (the runner's call; also at those T and N), timed beside a float64
+   operation bound; K7a
    (the Viterbi forward pass alone, also at 64 states), equal to K4's choices,
    with ``viterbi_path`` equal to K4 + K5's path; K8 (K4's pass on float32
    streams and the unshifted beta, also at 64 states), its choices equal to
    K7a's and, on K4's inputs, its posts a bf16 step from K4's; K17 (beam
    search) on outcomes against the plain beam at the full T (and at 64
-   states at a short T), and its traceback exactly.
+   states at a short T, and at T below its ring's depth and ragged T and N
+   at 64, 256 and 1024 states), and its traceback exactly.
    Then the same at sup v5.0 shapes (chunk 12288 -> T' = 1024 tokens and
    T = 2048 decode steps, batch N = 128, d_model 512, 8 heads, ffn 2048,
    S = 1024): the banded attention on each layout, beside
@@ -63,9 +67,9 @@
    launch K2, K9, K12 and K13 18 times a batch, K3, K4 and K5 once a batch,
    and no other kernel; with ``tx_attention="hp", tx_fused_norm=True``, where
    K11a and K14 take K9's place and the norms' (18 times a batch each); and
-   with ``decoder="beam"``, where the forward and backward full-history
-   scans, K17 and the beam traceback take K3's, K4's and K5's place (once a
-   batch each). K7a, K7b and K8 are on no path (``"on_path": false``).
+   with ``decoder="beam"``, where the full-history scans (both directions
+   in one launch), K17 and the beam traceback take K3's, K4's and K5's place
+   (once a batch each). K7a, K7b and K8 are on no path (``"on_path": false``).
    Then the command line, ``dorado_tpu_torch.cli.main`` in this process, on
    the committed POD5 fixture (16 reads, 502k samples) with model
    directories the port writes (hac v4.3 and sup v5.0 at full width, the
@@ -135,6 +139,7 @@ HEAD_GAIN = 64.0
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12  # float64 outside the tensor cores
 HBM_BYTES_S = 3.35e12
 # kernel vs plain version on the card (max abs error):
 # K1: the f32 sums of h @ W_hh run in another order, so h can round to the
@@ -188,6 +193,11 @@ TOL_POSTS_ABS, TOL_POSTS_REL = 1e-5, 2.0**-7
 #     |err| <= 1e-3 + 1e-5 * |value| (values reach about 1e4). The same at
 #     1024 states (K3's full-history outputs)
 TOL_LSE_ABS, TOL_LSE_REL = 1e-3, 1e-5
+# their float64 operations a state and step (a DFMA two, a DADD or DMUL
+# one), from the source of crf_lse_scan.cu: five exps (10 DFMA, 1 DADD, 1
+# DMUL each: four of the scores, one of the carry), one log (12 DFMA, 1 DMUL,
+# 1 DADD), the sum's four FMAs, the stay's multiply and four adds
+LSE_F64_FLOPS = 5 * (10 * 2 + 1 + 1) + (12 * 2 + 1 + 1) + 4 * 2 + 1 + 4
 # K7 (K7a, K7b): choices and final carry identical to the plain version's
 #     (single f32 adds in the same order, maxima exact) and to K4's on the
 #     same score values. Its operations per state and step: four adds, three
@@ -206,6 +216,9 @@ VITERBI_OPS = 10.0
 #     steps (a tie moves a stretch of one path, not the rest of the row).
 BEAM_MAX_ROWS_DIFFERENT = 1
 BEAM_MAX_ROW_SHARE_DIFFERENT = 0.02
+# K17 is also held at T below its ring's depth (16 steps, 8 at 1024 states)
+# and at T and N that are no multiple of anything it works in
+BEAM_SHAPES = [(3, 5, 64), (77, 37, 256), (33, 3, 1024)]
 # the beam decode on the card against the plain beam on the CPU, over four
 # chunks. With the card's back guide copied over, the limits are K17's above
 # (every run: no step differs). With the CPU's own back guide, any difference
@@ -829,17 +842,23 @@ def main() -> None:
         err = diff.max().item()
 
         def hold_fused(t_len, n, s):
-            """K4 at (T, N, S) against its plain version (choices and final
+            """K3 (shifted) at (T, N, S) against its plain version (within
+            TOL_BETA_*), K4 on it against its plain version (choices and final
             carry exact, posts within TOL_POSTS_*) and K7 on the same score
             values (exact): (scores, beta, the posts' max abs error)."""
             sc = (torch.randn(t_len, n, 4 * s, generator=gen, device=dev) * 2).clamp(-5, 5)
             sc = sc.bfloat16()
             beta = crf_cuda.backward_scores_shifted(sc, STAY)
+            beta_p = crf_cuda.backward_scores_shifted_plain(sc, STAY)
             posts, ch, fin = crf_cuda.fused_forward_decode(sc, beta, STAY)
             posts_p, ch_p, fin_p = crf_cuda.fused_forward_decode_plain(sc, beta, STAY)
             ch7, fin7 = crf_cuda.viterbi_forward(sc.float(), STAY)
             torch.cuda.synchronize()
             what = f"T={t_len} N={n} S={s}"
+            d = (beta.float() - beta_p.float()).abs()
+            if not bool((d <= TOL_BETA_ABS + TOL_BETA_REL * beta_p.float().abs()).all()):
+                raise AssertionError(f"crf_lse_backward at {what}: max abs error {d.max().item()}")
+            print(f"crf_lse_backward {what}: max abs error {d.max().item():.3g}", flush=True)
             if not torch.equal(ch, ch_p) or not torch.equal(fin, fin_p):
                 raise AssertionError(f"crf_fused_forward at {what}: {(ch != ch_p).sum().item()} "
                                      f"choices differ (or the final carry)")
@@ -893,42 +912,67 @@ def main() -> None:
         )
         del beta_p, diff, posts_p, ch_p, st_p
 
-        # ---- K6: full-history LSE scan, both directions --------------------
+        # ---- K6: full-history LSE scans, each direction and both in one launch
         def hold_lse(sc, what):
+            """The scans against their plain versions (TOL_LSE_*), each
+            direction alone and both in one launch (equal to the two alone)."""
             errs = {}
-            for direction, kernel, plain in (
-                ("forward", crf_cuda.forward_scores, crf_scan.forward_scores),
-                ("backward", crf_cuda.backward_scores, crf_scan.backward_scores),
+            pair = crf_cuda.forward_backward_scores(sc, STAY)
+            for direction, kernel, plain, out_2 in (
+                ("forward", crf_cuda.forward_scores, crf_scan.forward_scores, pair[0]),
+                ("backward", crf_cuda.backward_scores, crf_scan.backward_scores, pair[1]),
             ):
                 out_k, out_p = kernel(sc, STAY), plain(sc, STAY)
                 torch.cuda.synchronize()
                 d = (out_k - out_p).abs()
                 e = d.max().item()
                 print(f"crf_lse_scan {direction} {what}: max abs error {e:.3g} on values up to "
-                      f"{out_p.abs().max().item():.4g}", flush=True)
+                      f"{out_p.abs().max().item():.4g}; the one-launch pair's equal: "
+                      f"{torch.equal(out_2, out_k)}", flush=True)
                 if not bool((d <= TOL_LSE_ABS + TOL_LSE_REL * out_p.abs()).all()):
                     raise AssertionError(f"crf_lse_scan {direction} {what}: max abs error {e}")
+                if not torch.equal(out_2, out_k):
+                    raise AssertionError(f"crf_lse_scans {what}: the {direction} history of the "
+                                         f"one-launch pair differs from the {direction} scan's")
                 errs[direction] = e
             return errs
+
+        def lse_report(name, replaces, sc, errs, paths):
+            """The row of the scans at sc's shape: one launch is both
+            directions (the runner's call); each direction alone beside it."""
+            t_len, n, c = sc.shape
+            fwd_ms = time_ms(lambda: crf_cuda.forward_scores(sc, STAY), 3)
+            bwd_ms = time_ms(lambda: crf_cuda.backward_scores(sc, STAY), 3)
+            pair_ms = time_ms(lambda: crf_cuda.forward_backward_scores(sc, STAY), 3)
+            plain_ms = time_ms(lambda: (crf_scan.forward_scores(sc, STAY),
+                                        crf_scan.backward_scores(sc, STAY)), 1)
+            # float64 operations and bytes of both directions: the scores
+            # read once, two histories written
+            ops = 2 * LSE_F64_FLOPS * t_len * n * (c // 4)
+            nbytes = 4 * t_len * n * c + 2 * 4 * (t_len + 1) * n * (c // 4)
+            print(f"{name}: forward alone {fwd_ms:.3f} ms, backward alone {bwd_ms:.3f} ms, both "
+                  f"in one launch {pair_ms:.3f} ms; float64 operation bound "
+                  f"{ops / PEAK_F64 * 1e3:.3f} ms, byte bound {nbytes / HBM_BYTES_S * 1e3:.3f} ms "
+                  f"[{card}]", flush=True)
+            report(
+                name, "dorado_tpu_torch/csrc/crf_lse_scan.cu", replaces, max(errs.values()),
+                pair_ms, plain_ms, ops, PEAK_F64, nbytes, None, wrappers=["crf_lse_scans"],
+                paths=paths, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                f64_bound_ms=ops / PEAK_F64 * 1e3, byte_bound_ms=nbytes / HBM_BYTES_S * 1e3,
+            )
 
         scores32 = scores.float()
         del scores
         small = (torch.randn(64, 8, 4 * 64, generator=gen, device=dev) * 2).clamp(-5, 5)
         hold_lse(small, "T=64 N=8 S=64")
+        # T below the register ring's depth and T, N no multiple of anything
+        # the kernel works in, at 64, 256 and 1024 states
+        for t_len, n, s in K4_SHAPES[:-1]:
+            hold_lse((torch.randn(t_len, n, 4 * s, generator=gen, device=dev) * 2).clamp(-5, 5),
+                     f"T={t_len} N={n} S={s}")
         errs = hold_lse(scores32, f"T={T} N={N} S={S}")
-        fwd_ms = time_ms(lambda: crf_cuda.forward_scores(scores32, STAY), 3)
-        bwd_ms = time_ms(lambda: crf_cuda.backward_scores(scores32, STAY), 3)
-        plain_ms = time_ms(lambda: crf_scan.backward_scores(scores32, STAY), 1)
-        print(f"crf_lse_scan: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms", flush=True)
-        report(
-            "crf_lse_scan", "dorado_tpu_torch/csrc/crf_lse_scan.cu",
-            "dorado_tpu/ops/crf_pallas.py:152", max(errs.values()),
-            # one launch is one direction: the mean of the two
-            (fwd_ms + bwd_ms) / 2, plain_ms,
-            17.0 * T * N * S, PEAK_F32, 4 * T * N * 4 * S + 4 * (T + 1) * N * S, None,
-            wrappers=["crf_lse_scan_forward", "crf_lse_scan_backward"],
-            paths=["viterbi", "beam", "cli beam"], forward_ms=fwd_ms, backward_ms=bwd_ms,
-        )
+        lse_report("crf_lse_scan", "dorado_tpu/ops/crf_pallas.py:152", scores32, errs,
+                   ["viterbi", "beam", "cli beam"])
 
         # ---- K7a: the Viterbi forward pass alone, and viterbi_path -----------
         hold_viterbi(small, "T=64 N=8 S=64")
@@ -1406,18 +1450,8 @@ def main() -> None:
         scores32 = scores.float()
         del scores
         errs = hold_lse(scores32, f"T={t_s} N={N} S={s_s}")
-        fwd_ms = time_ms(lambda: crf_cuda.forward_scores(scores32, STAY), 3)
-        bwd_ms = time_ms(lambda: crf_cuda.backward_scores(scores32, STAY), 3)
-        print(f"crf_lse_scan at S={s_s}: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms",
-              flush=True)
-        report(
-            "crf_lse_scan_1024", "dorado_tpu_torch/csrc/crf_lse_scan.cu",
-            "dorado_tpu/ops/crf_pallas.py:461", max(errs.values()),
-            (fwd_ms + bwd_ms) / 2, time_ms(lambda: crf_scan.backward_scores(scores32, STAY), 1),
-            17.0 * t_s * N * s_s, PEAK_F32, 4 * t_s * N * 4 * s_s + 4 * (t_s + 1) * N * s_s, None,
-            wrappers=["crf_lse_scan_forward", "crf_lse_scan_backward"], paths=["sup beam"],
-            forward_ms=fwd_ms, backward_ms=bwd_ms,
-        )
+        lse_report("crf_lse_scan_1024", "dorado_tpu/ops/crf_pallas.py:461", scores32, errs,
+                   ["sup beam"])
 
         # ---- K7b: the Viterbi forward pass alone at 1024 states ---------------
         ch7, fin7 = hold_viterbi(scores32, f"T={t_s} N={N} S={s_s}")
@@ -1558,9 +1592,14 @@ def main() -> None:
                     f"beam_traceback at {what}: states or moves differ from the plain version")
             return positions_different, rows_different, hist_k, mv_k, plain_ms
 
-        # 64 states (the kernel's other instantiation) at a short T
+        # 64 states (the kernel's other instantiation) at a short T, and T
+        # below the ring's depth and T, N no multiple of anything the kernel
+        # works in, at 64, 256 and 1024 states
         small = (torch.randn(64, 8, 4 * 64, generator=gen, device=dev) * 2).clamp(-5, 5)
         hold_beam(small, crf_cuda.backward_scores(small, STAY), "T=64 N=8 S=64")
+        for t_len, n, s in BEAM_SHAPES:
+            sc = (torch.randn(t_len, n, 4 * s, generator=gen, device=dev) * 2).clamp(-5, 5)
+            hold_beam(sc, crf_cuda.backward_scores(sc, STAY), f"T={t_len} N={n} S={s}")
         beta = crf_cuda.backward_scores(scores, STAY)
         positions_different, rows_different, hist, mv_k, plain_fwd_ms = hold_beam(
             scores, beta, f"T={T} N={N} S={S}")
@@ -1631,6 +1670,7 @@ def main() -> None:
         "crf_traceback": crf_cuda.viterbi_traceback,
         "crf_lse_scan_forward": crf_cuda.forward_scores,
         "crf_lse_scan_backward": crf_cuda.backward_scores,
+        "crf_lse_scans": crf_cuda.forward_backward_scores,
         "beam_search": beam.beam_forward,
         "beam_traceback": beam.beam_traceback,
         "attention_banded": attention.windowed_attention_rope,
@@ -1649,15 +1689,14 @@ def main() -> None:
     path_kernels = {
         "viterbi": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward",
                     "crf_traceback"],
-        "beam": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_scan_forward",
-                 "crf_lse_scan_backward", "beam_search", "beam_traceback"],
+        "beam": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_scans", "beam_search",
+                 "beam_traceback"],
         "sup viterbi": ["w8a8_matmul_fq", "attention_banded", "swiglu_w8a8", "w8a8_matmul",
                         "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
         "sup hp fused": ["w8a8_matmul_fq", "attention_halfperm", "fused_norm", "swiglu_w8a8",
                          "w8a8_matmul", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
         "sup beam": ["w8a8_matmul_fq", "attention_banded", "swiglu_w8a8", "w8a8_matmul",
-                     "crf_lse_scan_forward", "crf_lse_scan_backward", "beam_search",
-                     "beam_traceback"],
+                     "crf_lse_scans", "beam_search", "beam_traceback"],
         # one device step each, below
         "sup ext bf16": ["attention_prerotated", "fused_norm", "crf_lse_backward",
                          "crf_fused_forward", "crf_traceback"],
@@ -1667,7 +1706,7 @@ def main() -> None:
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
         "sup hp fused": [18, 18, 18, 18, 18, 1, 1, 1],
-        "sup beam": [18, 18, 18, 18, 1, 1, 1, 1],
+        "sup beam": [18, 18, 18, 18, 1, 1, 1],
         "sup ext bf16": [18, 36, 1, 1, 1],  # the fused norm at out_proj and at fc2
         "sup int8": [18, 1, 1, 1],
     }

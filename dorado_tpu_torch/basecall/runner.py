@@ -49,8 +49,7 @@ from dorado_tpu_torch.models.tx_model import (
 )
 from dorado_tpu_torch.ops.beam import beam_search_device
 from dorado_tpu_torch.ops.crf_cuda import (
-    backward_scores,
-    forward_scores,
+    forward_backward_scores,
     fused_viterbi_decode,
     viterbi_traceback,
 )
@@ -374,8 +373,7 @@ class TorchBasecallRunner:
         bases, phred chars and moves of each row's beam search path."""
         blank = float(self.options.blank_score)
         scores = scores.contiguous()
-        alpha = forward_scores(scores, blank)
-        beta = backward_scores(scores, blank)
+        alpha, beta = forward_backward_scores(scores, blank)
         posts = torch.softmax(alpha + beta, dim=-1)
         states_nt, moves_nt = beam_search_device(
             scores, beta, int(self.options.beam_width), float(self.options.beam_cut), blank

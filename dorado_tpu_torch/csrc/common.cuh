@@ -91,6 +91,35 @@ __device__ __forceinline__ void unpack4(uint2 v, float out[4]) {
   out[3] = __high2float(hi);
 }
 
+// The special-function unit's approximations: 2^x, log2 x and 1 / x (denormal
+// inputs and results flushed to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A float's bits as an int whose signed order is the floats' order
+// (negative floats have their magnitude bits flipped), and back: a warp's
+// float maximum in one redux.sync.
+__device__ __forceinline__ int ordered(float x) {
+  const int b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
 // rint(x) as an int for |x| < 2^22 (0 for NaN, as the conversion gives), on
 // the FMA pipe: in [2^23, 2^24) the floats are the integers, so 1.5 * 2^23 +
 // x rounds x to an integer, ties to even, as rint does. rintf and the
@@ -222,6 +251,18 @@ __device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, in
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
       "[%3];\n" ::"r"(dst),
       "r"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+// The bulk copy engine: `bytes` (a multiple of 16) of contiguous global memory
+// (16-byte aligned) to this CTA's shared memory at `dst`, completing as
+// transaction bytes on the mbarrier `mbar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(mbar)
       : "memory");
 }
 

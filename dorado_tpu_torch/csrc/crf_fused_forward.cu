@@ -65,33 +65,6 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A float's bits as an int whose signed order is the floats' order
-// (negative floats have their magnitude bits flipped), and back: a warp's
-// float maximum in one redux.sync.
-__device__ __forceinline__ int ordered(float x) {
-  const int b = __float_as_int(x);
-  return b >= 0 ? b : b ^ 0x7fffffff;
-}
-__device__ __forceinline__ float unordered(int k) {
-  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
-}
-
 // A stream element type: its four-value row vector (loaded as one 8- or
 // 16-byte access) and the conversions to and from float32.
 template <typename T>

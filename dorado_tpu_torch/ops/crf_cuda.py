@@ -95,25 +95,44 @@ backward_scores_shifted.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K6 (and K3's full-history outputs at 1024 states): LSE scan on the raw
-# layout, forward or backward
+# K6 (and K3's full-history outputs at 1024 states): LSE scans on the raw
+# layout, forward and backward, each alone or both in one launch
 # ---------------------------------------------------------------------------
 
 
-def _lse_scan(scores: torch.Tensor, stay_score: float, reverse: bool) -> torch.Tensor:
+def _lse_scans(
+    scores: torch.Tensor, stay_score: float, directions: tuple[bool, ...]
+) -> list[torch.Tensor]:
+    """The histories [T+1, N, S] of the scans in ``directions`` (False
+    forward, True backward): one direction alone, or (False, True) in one
+    launch."""
     t_len, n, s = _check_scores(scores, torch.float32)
-    hist = torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
-    fn = _cuda.kernel_function(
-        "crf_lse_scan", "crf_lse_scan_f32",
-        [_cuda.VOIDP] * 2 + [_cuda.INT] * 4 + [_cuda.DOUBLE, _cuda.VOIDP],
-    )
+    hists = [
+        torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
+        for _ in directions
+    ]
+    stream = _cuda.stream_ptr(scores.device)
     with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), hist.data_ptr(), t_len, n, s, int(reverse),
-            math.exp(stay_score), _cuda.stream_ptr(scores.device),
-        )
+        if len(directions) == 2:
+            fn = _cuda.kernel_function(
+                "crf_lse_scan", "crf_lse_scans_f32",
+                [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.DOUBLE, _cuda.VOIDP],
+            )
+            code = fn(
+                scores.data_ptr(), hists[0].data_ptr(), hists[1].data_ptr(), t_len, n, s,
+                math.exp(stay_score), stream,
+            )
+        else:
+            fn = _cuda.kernel_function(
+                "crf_lse_scan", "crf_lse_scan_f32",
+                [_cuda.VOIDP] * 2 + [_cuda.INT] * 4 + [_cuda.DOUBLE, _cuda.VOIDP],
+            )
+            code = fn(
+                scores.data_ptr(), hists[0].data_ptr(), t_len, n, s, int(directions[0]),
+                math.exp(stay_score), stream,
+            )
     _cuda.check_launch("crf_lse_scan", code)
-    return hist
+    return hists
 
 
 def forward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
@@ -121,7 +140,7 @@ def forward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
     row 0 the zero init row (``crf_scan.forward_scores``'s convention)."""
     if scores.device.type == "cpu":
         return forward_scores_plain(scores, stay_score)
-    hist = _lse_scan(scores, stay_score, reverse=False)
+    (hist,) = _lse_scans(scores, stay_score, (False,))
     forward_scores.launches += 1
     return hist
 
@@ -134,12 +153,27 @@ def backward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
     row T the zero init row (``crf_scan.backward_scores``'s convention)."""
     if scores.device.type == "cpu":
         return backward_scores_plain(scores, stay_score)
-    hist = _lse_scan(scores, stay_score, reverse=True)
+    (hist,) = _lse_scans(scores, stay_score, (True,))
     backward_scores.launches += 1
     return hist
 
 
 backward_scores.launches = 0
+
+
+def forward_backward_scores(
+    scores: torch.Tensor, stay_score: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(alpha, beta): ``forward_scores`` and ``backward_scores`` of float32
+    scores [T, N, C], both directions in one launch on a CUDA tensor."""
+    if scores.device.type == "cpu":
+        return forward_scores_plain(scores, stay_score), backward_scores_plain(scores, stay_score)
+    alpha, beta = _lse_scans(scores, stay_score, (False, True))
+    forward_backward_scores.launches += 1
+    return alpha, beta
+
+
+forward_backward_scores.launches = 0
 
 
 # ---------------------------------------------------------------------------

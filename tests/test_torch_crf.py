@@ -287,3 +287,47 @@ def test_fused_forward_decode_full_matches_pallas(num_states):
     np.testing.assert_allclose(final.numpy(), np.asarray(fin_ref), rtol=0, atol=1e-5)
     ch_vit, fin_vit = crf_cuda.viterbi_forward(torch.from_numpy(raw), STAY)
     assert torch.equal(choices, ch_vit) and torch.equal(final, fin_vit)
+
+
+# ---------------------------------------------------------------------------
+# ragged shapes: T below the kernels' register rings (eight rows, four at
+# 1024 states) and N no multiple of 8, at 64, 256 and 1024 states
+# ---------------------------------------------------------------------------
+
+RAGGED = [(3, 5, 64), (7, 3, 256), (3, 3, 1024)]
+
+
+def _ragged_scores(t_len, n, num_states):
+    rs = np.random.RandomState(t_len * n + num_states)
+    x = np.round(rs.randn(t_len, n, 4 * num_states) * 2.0 * 8) / 8
+    return np.clip(x, -5, 5).astype(np.float32)
+
+
+@pytest.mark.parametrize("t_len,n,num_states", RAGGED)
+def test_backward_scan_shifted_matches_pallas_at_ragged_shapes(t_len, n, num_states):
+    """K3's shifted stream (its plain version, on a CPU tensor) against
+    ``_lse_scan_pallas_blk`` with ``shifted=True`` in interpret mode."""
+    raw = _ragged_scores(t_len, n, num_states)
+    blk = jnp.asarray(raw[..., block_permutation(num_states)])
+    ref = _lse_scan_pallas_blk(blk, STAY, True, True, prepermuted=True, shifted=True)
+    out = crf_cuda.backward_scores_shifted(torch.from_numpy(raw), STAY)
+    assert out.shape == (t_len, n, num_states)
+    _lse_close(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("t_len,n,num_states", RAGGED)
+def test_lse_scans_match_pallas_at_ragged_shapes(t_len, n, num_states):
+    """The full histories (K6, and K3's at 1024 states) on CPU tensors: the
+    one-launch pair ``forward_backward_scores`` equals ``forward_scores`` and
+    ``backward_scores``, and both match ``forward_scores_pallas`` and
+    ``backward_scores_pallas`` in interpret mode, init rows included."""
+    raw = _ragged_scores(t_len, n, num_states)
+    sc = torch.from_numpy(raw)
+    alpha, beta = crf_cuda.forward_backward_scores(sc, STAY)
+    assert crf_cuda.forward_backward_scores.launches == 0
+    assert torch.equal(alpha, crf_cuda.forward_scores(sc, STAY))
+    assert torch.equal(beta, crf_cuda.backward_scores(sc, STAY))
+    assert alpha.shape == beta.shape == (t_len + 1, n, num_states)
+    assert not alpha[0].any() and not beta[t_len].any()
+    for out, ref_fn in ((alpha, forward_scores_pallas), (beta, backward_scores_pallas)):
+        _lse_close(out.numpy(), np.asarray(ref_fn(jnp.asarray(raw), STAY, interpret=True)))

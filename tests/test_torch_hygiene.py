@@ -106,6 +106,7 @@ WRAPPERS = (
     crf_cuda.viterbi_traceback,
     crf_cuda.forward_scores,
     crf_cuda.backward_scores,
+    crf_cuda.forward_backward_scores,
     beam.beam_forward,
     beam.beam_traceback,
     attention.windowed_attention_rope,
@@ -172,6 +173,7 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     crf_cuda.viterbi_traceback(choices, torch.argmax(final, -1).to(torch.int32))
     crf_cuda.forward_scores(scores, 2.0)
     beta = crf_cuda.backward_scores(scores, 2.0)
+    crf_cuda.forward_backward_scores(scores, 2.0)
     beam.beam_search_device(scores, beta, 32, 100.0, 2.0)
     wq = torch.from_numpy(rs.randint(-127, 128, (128, 128)).astype(np.int8))
     int8_matmul.w8a8_matmul_fq(
@@ -191,11 +193,13 @@ def test_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch):
     attention.windowed_attention_fused(q, q, q, 200, 256)
     x = torch.from_numpy(rs.randn(3, 128).astype(np.float32))
     fused_norm.matmul_residual_rmsnorm(x, wq.float(), None, x, torch.ones(128), 2.0)
-    # backward_scores_shifted's plain version runs the plain backward scan too
+    # backward_scores_shifted's plain version runs the plain backward scan too,
+    # forward_backward_scores' both plain scans
     assert sorted(calls) == sorted(
         ["lstm_scan_plain", "backward_scores_shifted_plain", "backward_scores_plain",
          "fused_forward_decode_plain", "viterbi_traceback_plain", "forward_scores_plain",
-         "backward_scores_plain", "w8a8_matmul_fq_plain", "beam_forward_plain",
+         "backward_scores_plain", "forward_scores_plain", "backward_scores_plain",
+         "w8a8_matmul_fq_plain", "beam_forward_plain",
          "beam_traceback_plain", "windowed_attention_rope_plain", "swiglu_w8a8_plain",
          "w8a8_matmul_plain", "windowed_attention_prerotated_plain",
          "windowed_attention_halfperm_plain", "windowed_attention_fused_plain",
