@@ -1,6 +1,6 @@
 // Log-sum-exp scans of the CRF lattice on the raw score layout, forward
-// (alpha) and backward (beta), with the whole float32 history written out:
-// both directions in one launch, or one of them.
+// (alpha) and backward (beta), with the whole float32 history written out,
+// both directions in one launch.
 //
 // Replaces dorado_tpu/ops/crf_pallas.py::_lse_scan_pallas (Pallas body
 // _lse_kernel) at 64 and 256 states, and at sup's 1024 the full-history
@@ -232,56 +232,38 @@ __device__ __forceinline__ void scan(const float* __restrict__ scores,  // [T, N
 
 }  // namespace
 
-// blockIdx.y + first_dir: 0 the forward scan into alpha, 1 the backward scan
-// into beta
+// blockIdx.y: 0 the forward scan into alpha, 1 the backward scan into beta
 template <int S>
 __global__ void __launch_bounds__(S) lse_scans_kernel(const float* __restrict__ scores,
                                                       float* __restrict__ alpha,
                                                       float* __restrict__ beta, int T, int N,
-                                                      double stay_factor, int first_dir) {
+                                                      double stay_factor) {
   __shared__ __align__(16) double ec[2][S + 16];
   __shared__ int part[2][S / 32];
   __shared__ Tables tab;
   fill_tables(tab);
   __syncthreads();
-  if (first_dir + (int)blockIdx.y == 0)
+  if (blockIdx.y == 0)
     scan<S, false>(scores, alpha, T, N, stay_factor, ec, part, tab);
   else
     scan<S, true>(scores, beta, T, N, stay_factor, ec, part, tab);
 }
 
-namespace {
-
-int dispatch(const void* scores, void* alpha, void* beta, int T, int N, int S, double stay_factor,
-             int first_dir, int dirs, void* stream) {
+// Both directions in one launch: float32 scores [T, N, 4S] -> alpha and
+// beta [T+1, N, S]. S (states) must be 64, 256 or 1024 (state_len 3, 4 or 5).
+DTT_EXPORT int crf_lse_scans_f32(const void* scores, void* alpha, void* beta, int T, int N, int S,
+                                 double stay_factor, void* stream) {
   const float* sc = static_cast<const float*>(scores);
   float* a = static_cast<float*>(alpha);
   float* b = static_cast<float*>(beta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N, dirs);
+  const dim3 grid(N, 2);
   switch (S) {
-    case 64: lse_scans_kernel<64><<<grid, 64, 0, st>>>(sc, a, b, T, N, stay_factor, first_dir); break;
-    case 256: lse_scans_kernel<256><<<grid, 256, 0, st>>>(sc, a, b, T, N, stay_factor, first_dir); break;
-    case 1024:
-      lse_scans_kernel<1024><<<grid, 1024, 0, st>>>(sc, a, b, T, N, stay_factor, first_dir);
-      break;
+    case 64: lse_scans_kernel<64><<<grid, 64, 0, st>>>(sc, a, b, T, N, stay_factor); break;
+    case 256: lse_scans_kernel<256><<<grid, 256, 0, st>>>(sc, a, b, T, N, stay_factor); break;
+    case 1024: lse_scans_kernel<1024><<<grid, 1024, 0, st>>>(sc, a, b, T, N, stay_factor); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// One direction: float32 scores [T, N, 4S] -> the history [T+1, N, S].
-// S (states) must be 64, 256 or 1024 (state_len 3, 4 or 5).
-DTT_EXPORT int crf_lse_scan_f32(const void* scores, void* hist, int T, int N, int S, int reverse,
-                                double stay_factor, void* stream) {
-  return dispatch(scores, hist, hist, T, N, S, stay_factor, reverse ? 1 : 0, 1, stream);
-}
-
-// Both directions in one launch: alpha and beta [T+1, N, S].
-DTT_EXPORT int crf_lse_scans_f32(const void* scores, void* alpha, void* beta, int T, int N, int S,
-                                 double stay_factor, void* stream) {
-  return dispatch(scores, alpha, beta, T, N, S, stay_factor, 0, 2, stream);
 }

@@ -103,33 +103,6 @@ def beam_init(back0: torch.Tensor, w: int) -> torch.Tensor:
     return torch.sort(key, dim=1).values[:, :w] % s
 
 
-def beam_cutoff(cand_score: torch.Tensor, log_cut: float, w: int) -> torch.Tensor:
-    """Each row's cutoff [N] over its candidate scores [N, 5W]: c0 = max -
-    log(beam_cut); if more than ``w`` candidates pass c0, up to nine rounds,
-    each counting at the cutoff and moving it half way towards hi (too many:
-    lo = cutoff) or lo (fewer than 0.8 w: hi = cutoff), stopping when the
-    count is in range; hi if no round stopped."""
-    min_width = (w * 8) // 10
-    max_score = cand_score.amax(dim=1)
-    cutoff = max_score - log_cut
-
-    def count_ge(cut):
-        return (cand_score >= cut[:, None]).sum(dim=1)
-
-    lo, hi = cutoff, max_score
-    done = ~(count_ge(cutoff) > w)
-    for _ in range(9):
-        cnt = count_ge(cutoff)
-        too_many = cnt > w
-        need = (too_many | (cnt < min_width)) & ~done
-        mid = torch.where(too_many, (cutoff + hi) / 2.0, (cutoff + lo) / 2.0)
-        lo = torch.where(too_many & need, cutoff, lo)
-        hi = torch.where(~too_many & need, cutoff, hi)
-        cutoff = torch.where(need, mid, cutoff)
-        done = done | ~need
-    return torch.where(done, cutoff, hi)
-
-
 def beam_forward_plain(
     scores: torch.Tensor,
     back_guide: torch.Tensor,
@@ -147,6 +120,7 @@ def beam_forward_plain(
     dev = scores.device
     bits = s.bit_length() - 1
     log_cut = _log_beam_cut(beam_cut)
+    min_width = (w * 8) // 10
     crc2_table = torch.as_tensor(_CRC2, device=dev)
     base = torch.arange(4, device=dev)
     elem = torch.arange(w, device=dev)
@@ -198,7 +172,25 @@ def beam_forward_plain(
         )
         cand_score = torch.cat([new_step, new_stay], dim=1)  # [N, 5W]
 
-        cutoff = beam_cutoff(cand_score, log_cut, w)
+        # cutoff with bisection width control (at most 9 rounds)
+        max_score = cand_score.amax(dim=1)
+        cutoff = max_score - log_cut
+
+        def count_ge(cut):
+            return (cand_score >= cut[:, None]).sum(dim=1)
+
+        lo, hi = cutoff, max_score
+        done = ~(count_ge(cutoff) > w)
+        for _ in range(9):
+            cnt = count_ge(cutoff)
+            too_many = cnt > w
+            need = (too_many | (cnt < min_width)) & ~done
+            mid = torch.where(too_many, (cutoff + hi) / 2.0, (cutoff + lo) / 2.0)
+            lo = torch.where(too_many & need, cutoff, lo)
+            hi = torch.where(~too_many & need, cutoff, hi)
+            cutoff = torch.where(need, mid, cutoff)
+            done = done | ~need
+        cutoff = torch.where(done, cutoff, hi)
 
         # the first W candidates at or above the cutoff, in candidate order
         keep = cand_score >= cutoff[:, None]

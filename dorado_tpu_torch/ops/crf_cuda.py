@@ -96,53 +96,40 @@ backward_scores_shifted.launches = 0
 
 # ---------------------------------------------------------------------------
 # K6 (and K3's full-history outputs at 1024 states): LSE scans on the raw
-# layout, forward and backward, each alone or both in one launch
+# layout, forward and backward in one launch
 # ---------------------------------------------------------------------------
 
 
-def _lse_scans(
-    scores: torch.Tensor, stay_score: float, directions: tuple[bool, ...]
-) -> list[torch.Tensor]:
-    """The histories [T+1, N, S] of the scans in ``directions`` (False
-    forward, True backward): one direction alone, or (False, True) in one
-    launch."""
+def _lse_scans(scores: torch.Tensor, stay_score: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The histories (alpha, beta) [T+1, N, S] of float32 scores on a CUDA
+    tensor, both directions in one launch."""
     t_len, n, s = _check_scores(scores, torch.float32)
-    hists = [
+    alpha, beta = (
         torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
-        for _ in directions
-    ]
-    stream = _cuda.stream_ptr(scores.device)
+        for _ in range(2)
+    )
+    fn = _cuda.kernel_function(
+        "crf_lse_scan", "crf_lse_scans_f32",
+        [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.DOUBLE, _cuda.VOIDP],
+    )
     with torch.cuda.device(scores.device):
-        if len(directions) == 2:
-            fn = _cuda.kernel_function(
-                "crf_lse_scan", "crf_lse_scans_f32",
-                [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.DOUBLE, _cuda.VOIDP],
-            )
-            code = fn(
-                scores.data_ptr(), hists[0].data_ptr(), hists[1].data_ptr(), t_len, n, s,
-                math.exp(stay_score), stream,
-            )
-        else:
-            fn = _cuda.kernel_function(
-                "crf_lse_scan", "crf_lse_scan_f32",
-                [_cuda.VOIDP] * 2 + [_cuda.INT] * 4 + [_cuda.DOUBLE, _cuda.VOIDP],
-            )
-            code = fn(
-                scores.data_ptr(), hists[0].data_ptr(), t_len, n, s, int(directions[0]),
-                math.exp(stay_score), stream,
-            )
+        code = fn(
+            scores.data_ptr(), alpha.data_ptr(), beta.data_ptr(), t_len, n, s,
+            math.exp(stay_score), _cuda.stream_ptr(scores.device),
+        )
     _cuda.check_launch("crf_lse_scan", code)
-    return hists
+    return alpha, beta
 
 
 def forward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
     """alpha over time: float32 [T, N, C] scores -> float32 [T+1, N, S],
-    row 0 the zero init row (``crf_scan.forward_scores``'s convention)."""
+    row 0 the zero init row (``crf_scan.forward_scores``'s convention). On a
+    CUDA tensor it is the forward half of the one-launch pair."""
     if scores.device.type == "cpu":
         return forward_scores_plain(scores, stay_score)
-    (hist,) = _lse_scans(scores, stay_score, (False,))
+    alpha, _ = _lse_scans(scores, stay_score)
     forward_scores.launches += 1
-    return hist
+    return alpha
 
 
 forward_scores.launches = 0
@@ -150,12 +137,13 @@ forward_scores.launches = 0
 
 def backward_scores(scores: torch.Tensor, stay_score: float) -> torch.Tensor:
     """beta over time: float32 [T, N, C] scores -> float32 [T+1, N, S],
-    row T the zero init row (``crf_scan.backward_scores``'s convention)."""
+    row T the zero init row (``crf_scan.backward_scores``'s convention). On
+    a CUDA tensor it is the backward half of the one-launch pair."""
     if scores.device.type == "cpu":
         return backward_scores_plain(scores, stay_score)
-    (hist,) = _lse_scans(scores, stay_score, (True,))
+    _, beta = _lse_scans(scores, stay_score)
     backward_scores.launches += 1
-    return hist
+    return beta
 
 
 backward_scores.launches = 0
@@ -168,9 +156,9 @@ def forward_backward_scores(
     scores [T, N, C], both directions in one launch on a CUDA tensor."""
     if scores.device.type == "cpu":
         return forward_scores_plain(scores, stay_score), backward_scores_plain(scores, stay_score)
-    alpha, beta = _lse_scans(scores, stay_score, (False, True))
+    out = _lse_scans(scores, stay_score)
     forward_backward_scores.launches += 1
-    return alpha, beta
+    return out
 
 
 forward_backward_scores.launches = 0

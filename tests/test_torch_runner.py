@@ -431,8 +431,7 @@ def test_tx_decoder_and_precision_arguments():
     # the beam decoder is taken on a transformer and, on the CPU, runs the
     # plain versions of its kernels: nothing is launched
     beam_runner = TorchBasecallRunner(cfg, model, decoder="beam", **kw)
-    wrappers = (crf_cuda.forward_scores, crf_cuda.backward_scores, beam.beam_forward,
-                beam.beam_traceback)
+    wrappers = (crf_cuda.forward_backward_scores, beam.beam_forward, beam.beam_traceback)
     before = [w.launches for w in wrappers]
     out = beam_runner.call_chunks(beam_runner.make_input_buffer(1), 1)
     assert beam_runner.decoder == "beam" and len(out) == 1
