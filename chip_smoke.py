@@ -34,7 +34,14 @@
    K7a's and, on K4's inputs, its posts a bf16 step from K4's; K17 (beam
    search) on outcomes against the plain beam at the full T (and at 64
    states at a short T, and at T below its ring's depth and ragged T and N
-   at 64, 256 and 1024 states), and its traceback exactly.
+   at 64, 256 and 1024 states), and its traceback exactly. K5 and the beam
+   traceback are also held at T = 1, T one below and one above their rings'
+   depths and N of 1, 3 and 37 (K5 at 64, 256 and 1024 states on K7's
+   choices, timed at the fast model's 64 states), each written into outputs
+   filled with a sentinel first, so that every position must be written;
+   each prints the design floor of streaming its whole history beside its
+   bound. The two tracebacks take about as long as a host launch, so their
+   times are the profiler's device times.
    Then the same at sup v5.0 shapes (chunk 12288 -> T' = 1024 tokens and
    T = 2048 decode steps, batch N = 128, d_model 512, 8 heads, ffn 2048,
    S = 1024): the banded attention on each layout, beside
@@ -217,8 +224,20 @@ VITERBI_OPS = 10.0
 BEAM_MAX_ROWS_DIFFERENT = 1
 BEAM_MAX_ROW_SHARE_DIFFERENT = 0.02
 # K17 is also held at T below its ring's depth (16 steps, 8 at 1024 states)
-# and at T and N that are no multiple of anything it works in
-BEAM_SHAPES = [(3, 5, 64), (77, 37, 256), (33, 3, 1024)]
+# and at T and N that are no multiple of anything it works in; the beam
+# traceback, on each of these histories, also at T = 1 and one step below
+# and above its ring of 4 chunks of 32 steps
+BEAM_SHAPES = [(3, 5, 64), (77, 37, 256), (33, 3, 1024), (1, 1, 64), (127, 3, 256),
+               (129, 37, 1024)]
+# K5 (exact, on K7's choices from random scores) at T = 1, T one below and one
+# above its ring's depth (4 chunks of 32 steps, 3 at 1024 states), T that is no
+# multiple of its 32-step chunk, N of 1, 3 and 37, at 64, 256 and 1024 states,
+# and at the fast model's full chunk (timed there)
+TRACEBACK_SHAPES = [(1, 1, 64), (127, 37, 64), (129, 3, 256), (1, 37, 256), (33, 1, 256),
+                    (95, 3, 1024), (97, 37, 1024), (T, N, 64)]
+# written into both tracebacks' outputs before a launch: no state is negative
+# and every move is 0 or 1
+SENTINEL_STATE, SENTINEL_MOVE = -7, 0xAB
 # the beam decode on the card against the plain beam on the CPU, over four
 # chunks. With the card's back guide copied over, the limits are K17's above
 # (every run: no step differs). With the CPU's own back guide, any difference
@@ -516,6 +535,23 @@ def main() -> None:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def device_ms(fn, reps: int, kernel: str) -> float:
+        """The mean device time a call of ``fn`` spends in kernels whose name
+        holds ``kernel``, from the profiler: for kernels about as short as a
+        host launch, where events around the calls time the host as well."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
+        if total <= 0:
+            raise AssertionError(f"the profiler saw no kernel named like {kernel}")
+        return total / 1e3 / reps
 
     rows = []
 
@@ -894,23 +930,59 @@ def main() -> None:
               flush=True)
 
         # ---- K5: traceback ----------------------------------------------
+        def hold_traceback(ch, last, what):
+            """K5 against its plain version, exact: through the wrapper, and
+            launched into [N, T] outputs filled with a sentinel first. Returns
+            the wrapper's (states, moves)."""
+            t_len, n, _ = ch.shape
+            st_s = torch.full((n, t_len), SENTINEL_STATE, dtype=torch.int32, device=dev)
+            mv_s = torch.full((n, t_len), SENTINEL_MOVE, dtype=torch.uint8, device=dev)
+            crf_cuda._launch_traceback(ch, last, st_s, mv_s)
+            st, mv = crf_cuda.viterbi_traceback(ch, last)
+            st_p, mv_p = crf_cuda.viterbi_traceback_plain(ch, last)
+            torch.cuda.synchronize()
+            if not (torch.equal(st, st_p) and torch.equal(mv, mv_p)
+                    and torch.equal(st_s.t(), st_p) and torch.equal(mv_s.t(), mv_p)):
+                raise AssertionError(f"crf_traceback at {what}: states or moves differ from the "
+                                     f"plain version's (or a position was not written)")
+            print(f"crf_traceback {what}: states and moves equal to the plain version's, every "
+                  f"position written", flush=True)
+            return st, mv
+
+        def traceback_floor_ms(t_len, n, s):
+            """The design floor of K5: each step's whole row of S choices read
+            once, the states and moves written once."""
+            return (t_len * n * s + t_len * n * (4 + 1) + 4 * n) / HBM_BYTES_S * 1e3
+
+        for t_len, n, s in TRACEBACK_SHAPES:
+            sc = (torch.randn(t_len, n, 4 * s, generator=gen, device=dev) * 2).clamp(-5, 5)
+            ch7, fin7 = crf_cuda.viterbi_forward(sc, STAY)
+            last7 = torch.argmax(fin7, dim=-1).to(torch.int32)
+            hold_traceback(ch7, last7, f"T={t_len} N={n} S={s}")
+        # the last shape is the fast model's chunk: timed there. The
+        # tracebacks take about as long as a host launch: their times are the
+        # profiler's device times (events around 20 launches beside them)
+        fast_ms = device_ms(lambda: crf_cuda.viterbi_traceback(ch7, last7), 20,
+                            "traceback_kernel")
+        del sc, ch7, fin7
         last = torch.argmax(fin_k, dim=-1).to(torch.int32)
-        st_k, mv_k = crf_cuda.viterbi_traceback(ch_k, last)
-        st_p, mv_p = crf_cuda.viterbi_traceback_plain(ch_k, last)
-        torch.cuda.synchronize()
-        if not torch.equal(st_k, st_p) or not torch.equal(mv_k, mv_p):
-            raise AssertionError("crf_traceback: states or moves differ from the plain version")
-        err = max((st_k - st_p).abs().max().item(),
-                  (mv_k.int() - mv_p.int()).abs().max().item())
+        st_k, mv_k = hold_traceback(ch_k, last, f"T={T} N={N} S={S}")
         report(
             "crf_traceback", "dorado_tpu_torch/csrc/crf_traceback.cu",
-            "dorado_tpu/ops/crf_pallas.py:762", float(err),
-            time_ms(lambda: crf_cuda.viterbi_traceback(ch_k, last), 3),
+            "dorado_tpu/ops/crf_pallas.py:762", 0.0,
+            device_ms(lambda: crf_cuda.viterbi_traceback(ch_k, last), 20, "traceback_kernel"),
             time_ms(lambda: crf_cuda.viterbi_traceback_plain(ch_k, last), 1),
             # one choice byte read per step and row, states and moves written
             4.0 * T * N, PEAK_F32, T * N * (1 + 4 + 1) + 4 * N, None,
+            fast_ms=fast_ms,
+            event_ms=time_ms(lambda: crf_cuda.viterbi_traceback(ch_k, last), 20),
         )
-        del beta_p, diff, posts_p, ch_p, st_p
+        print(f"  crf_traceback: device time from the profiler; events around 20 launches "
+              f"{rows[-1]['event_ms']:.4f} ms; at the fast model's 64 states (T={T} N={N}) "
+              f"{fast_ms:.4f} ms; design floor (each step's whole row of S choices read once) "
+              f"{traceback_floor_ms(T, N, S):.4f} ms, at 64 states "
+              f"{traceback_floor_ms(T, N, 64):.4f} ms  [{card}]", flush=True)
+        del beta_p, diff, posts_p, ch_p, last7
 
         # ---- K6: full-history LSE scans, both directions in one launch -------
         def hold_lse(sc, what):
@@ -1426,18 +1498,15 @@ def main() -> None:
         )
         del posts_k, posts_p, ch_p, diff, beta_k
         last = torch.argmax(fin_k, dim=-1).to(torch.int32)
-        st_k, mv_k = crf_cuda.viterbi_traceback(ch_k, last)
-        st_p, mv_p = crf_cuda.viterbi_traceback_plain(ch_k, last)
-        torch.cuda.synchronize()
-        if not torch.equal(st_k, st_p) or not torch.equal(mv_k, mv_p):
-            raise AssertionError("crf_traceback at S=1024: states or moves differ")
+        st_k, mv_k = hold_traceback(ch_k, last, f"T={t_s} N={N} S={s_s}")
         sup_times(
             "crf_traceback", 0.0,
-            time_ms(lambda: crf_cuda.viterbi_traceback(ch_k, last), 3),
+            device_ms(lambda: crf_cuda.viterbi_traceback(ch_k, last), 20, "traceback_kernel"),
             time_ms(lambda: crf_cuda.viterbi_traceback_plain(ch_k, last), 1),
             4.0 * t_s * N, PEAK_F32, t_s * N * (1 + 4 + 1) + 4 * N,
         )
-        del st_p, mv_p
+        print(f"  crf_traceback design floor at sup shapes: "
+              f"{traceback_floor_ms(t_s, N, s_s):.4f} ms  [{card}]", flush=True)
 
         # ---- K3's full-history outputs: the scans at 1024 states ----------------
         scores32 = scores.float()
@@ -1578,16 +1647,27 @@ def main() -> None:
                     or per_row.max().item() > BEAM_MAX_ROW_SHARE_DIFFERENT * sc.shape[0]):
                 raise AssertionError(
                     f"beam_search at {what}: outcomes differ from the plain beam's")
-            # the traceback kernel against its plain version on the same history
+            # the traceback kernel against its plain version on the same
+            # history, also launched into outputs filled with a sentinel first
+            st_s = torch.full(st_k.shape, SENTINEL_STATE, dtype=torch.int32, device=dev)
+            mv_s = torch.full(mv_k.shape, SENTINEL_MOVE, dtype=torch.uint8, device=dev)
+            beam._launch_traceback(*hist_k, st_s, mv_s)
             tb_p = beam.beam_traceback_plain(*hist_k)
-            if not torch.equal(st_k, tb_p[0]) or not torch.equal(mv_k, tb_p[1]):
-                raise AssertionError(
-                    f"beam_traceback at {what}: states or moves differ from the plain version")
+            if not (torch.equal(st_k, tb_p[0]) and torch.equal(mv_k, tb_p[1])
+                    and torch.equal(st_s, tb_p[0]) and torch.equal(mv_s, tb_p[1])):
+                raise AssertionError(f"beam_traceback at {what}: states or moves differ from the "
+                                     f"plain version's (or a position was not written)")
             return positions_different, rows_different, hist_k, mv_k, plain_ms
+
+        def beam_traceback_floor_ms(t_len, n):
+            """The design floor of the beam traceback: each step's whole state
+            and ps rows read once, the states and moves written once."""
+            return (t_len * n * W * (4 + 1) + t_len * n * (4 + 1) + 4 * n * W) / HBM_BYTES_S * 1e3
 
         # 64 states (the kernel's other instantiation) at a short T, and T
         # below the ring's depth and T, N no multiple of anything the kernel
-        # works in, at 64, 256 and 1024 states
+        # works in, at 64, 256 and 1024 states; the traceback also at T = 1
+        # and one step below and above its ring's depth
         small = (torch.randn(64, 8, 4 * 64, generator=gen, device=dev) * 2).clamp(-5, 5)
         hold_beam(small, crf_cuda.backward_scores(small, STAY), "T=64 N=8 S=64")
         for t_len, n, s in BEAM_SHAPES:
@@ -1615,10 +1695,14 @@ def main() -> None:
         report(
             "beam_traceback", "dorado_tpu_torch/csrc/beam_search.cu",
             "dorado_tpu/ops/beam.py:303", 0.0,
-            time_ms(lambda: beam.beam_traceback(*hist), 3),
+            device_ms(lambda: beam.beam_traceback(*hist), 20, "traceback_kernel"),
             time_ms(lambda: beam.beam_traceback_plain(*hist), 1),
             4.0 * T * N, PEAK_F32, T * N * (4 + 1 + 4 + 1) + 4 * N * W, None,
+            event_ms=time_ms(lambda: beam.beam_traceback(*hist), 20),
         )
+        print(f"  beam_traceback: device time from the profiler; events around 20 launches "
+              f"{rows[-1]['event_ms']:.4f} ms; design floor (each step's whole state and ps "
+              f"rows read once) {beam_traceback_floor_ms(T, N):.4f} ms  [{card}]", flush=True)
         del scores, beta, hist, small
         torch.cuda.empty_cache()
 
@@ -1643,10 +1727,12 @@ def main() -> None:
         )
         sup_times(
             "beam_traceback", 0.0,
-            time_ms(lambda: beam.beam_traceback(*hist), 3),
+            device_ms(lambda: beam.beam_traceback(*hist), 20, "traceback_kernel"),
             time_ms(lambda: beam.beam_traceback_plain(*hist), 1),
             4.0 * SUP_T * N, PEAK_F32, SUP_T * N * (4 + 1 + 4 + 1) + 4 * N * W,
         )
+        print(f"  beam_traceback design floor at sup shapes: "
+              f"{beam_traceback_floor_ms(SUP_T, N):.4f} ms  [{card}]", flush=True)
         del scores, beta, hist
     torch.cuda.empty_cache()
 
@@ -2180,6 +2266,9 @@ def main() -> None:
         )
         for key, ms in by_kernel[:14 if decoder.startswith("sup") else 10]:
             print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%}  {key[:90]}")
+        for key, ms in by_kernel:
+            if "traceback_kernel" in key:
+                print(f"  the traceback in this step: {ms:.4f} ms {ms / busy_ms:6.2%}  {key[:90]}")
         if not decoder.startswith("sup"):
             continue
         # the same step by PyTorch operator and input shapes: which plain

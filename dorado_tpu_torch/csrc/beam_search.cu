@@ -65,6 +65,7 @@
 // mbarrier.test_wait in place of try_wait was 2% faster (2.011 against
 // 2.051 ms), too little for a second wait helper beside common.cuh's.
 #include "common.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -391,29 +392,89 @@ __global__ void __launch_bounds__(W, 1) beam_forward_kernel(
   final_score[n * W + lane] = raw;
 }
 
-__global__ void beam_traceback_kernel(const int32_t* __restrict__ hist_state,  // [T, N, W]
-                                      const uint8_t* __restrict__ hist_ps,     // [T, N, W]
-                                      const float* __restrict__ final_score,   // [N, W]
-                                      int32_t* __restrict__ states,            // [N, T]
-                                      uint8_t* __restrict__ moves,             // [N, T]
-                                      int T, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  int elem = 0;
-  float best = final_score[n * W];
-  for (int w = 1; w < W; ++w) {
-    const float v = final_score[n * W + w];
-    if (v > best) {
-      best = v;
-      elem = w;
-    }
+// The traceback: from the best final element (the first of equal maxima),
+// walking t from T-1 down to 0:
+//   states[t] = hist_state[t][elem]; ps = hist_ps[t][elem];
+//   moves[t] = (ps & 0x80) && t > 0 ? 0 : 1; elem = ps & 0x7F
+// What bounds it on the H100: as K5's, a chain of T steps whose addresses
+// are the previous step's result; the rows that hold the chain's next
+// element are 160 bytes a step (34 MB at hac's shape, 10 us at 3.35 TB/s).
+// The first version (one thread a row in blocks of 64, two dependent loads
+// from device memory a step) took 0.603 ms at hac and 0.766 at sup (NVIDIA
+// H100 80GB HBM3, 700 W).
+// Design: K5's (crf_traceback.cu). One warp a row, alone in its block;
+// chunk c, the steps T-32(c+1) .. T-1-32c, comes in as two TMA boxes (32
+// steps of the row's state rows, 128 bytes each, and of its ps rows, 32
+// bytes) into a ring of TB_STAGES stages, the box of the last chunk
+// starting below t = 0, where TMA fills zeros. Every lane walks the chunk's
+// chain, one shared-memory byte a step, and lane k then reads the state of
+// the chunk's k-th step from its top beside its element, so the warp stores
+// 32 states and 32 moves contiguously into the [N, T] outputs. Parents are
+// below W: the element is masked to W - 1, which keeps any byte inside the
+// stage. A step of the chain is one shared-memory load and one mask, 30
+// cycles. Measured on the card and slower: each lane bringing its step's
+// rows by its own two cp.async.bulk (0.125 ms at hac and 0.153 at sup,
+// against 0.039 and 0.047).
+constexpr int TB_STEPS = 32;
+constexpr int TB_STAGES = 4;
+
+__global__ void __launch_bounds__(W) beam_traceback_kernel(
+    const __grid_constant__ CUtensorMap map_state,  // hist_state [T, N, W]: 32 steps of a row
+    const __grid_constant__ CUtensorMap map_ps,     // hist_ps [T, N, W]: the same
+    const float* __restrict__ final_score,          // [N, W]
+    int32_t* __restrict__ states,                   // [N, T]
+    uint8_t* __restrict__ moves,                    // [N, T]
+    int T) {
+  __shared__ __align__(128) int32_t ring_state[TB_STAGES][TB_STEPS][W];
+  __shared__ __align__(128) uint8_t ring_ps[TB_STAGES][TB_STEPS][W];
+  __shared__ __align__(8) uint64_t full[TB_STAGES];
+  const int n = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int chunks = (T + TB_STEPS - 1) / TB_STEPS;
+
+  // lane 0: chunk c into stage c % TB_STAGES, row j the step T-32(c+1)+j
+  auto fetch = [&](int c) {
+    const int st = c % TB_STAGES;
+    const uint32_t mb = smem_u32(&full[st]);
+    const int t0 = T - TB_STEPS * (c + 1);
+    mbar_expect(mb, TB_STEPS * W * 5);
+    tma_load_4d(smem_u32(ring_state[st]), &map_state, 0, 0, n, t0, mb);
+    tma_load_4d(smem_u32(ring_ps[st]), &map_ps, 0, 0, n, t0, mb);
+  };
+  if (lane == 0) {
+    for (int st = 0; st < TB_STAGES; ++st) mbar_init(smem_u32(&full[st]), 1);
+    mbar_init_fence();
+    for (int c = 0; c < TB_STAGES && c < chunks; ++c) fetch(c);
   }
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t o = ((size_t)t * N + n) * W + elem;
-    const int ps = hist_ps[o];
-    states[(size_t)n * T + t] = hist_state[o];
-    moves[(size_t)n * T + t] = ((ps & 0x80) && t > 0) ? 0 : 1;
-    elem = ps & 0x7F;
+  __syncwarp();
+
+  // the best final element, the first of equal maxima
+  const float v = final_score[n * W + lane];
+  const uint32_t at_max = __ballot_sync(FULL, v == warp_max(v));
+  int elem = at_max ? __ffs(at_max) - 1 : 0;
+  int32_t* st_row = states + (size_t)n * T;
+  uint8_t* mv_row = moves + (size_t)n * T;
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c % TB_STAGES;
+    mbar_wait(smem_u32(&full[st]), (c / TB_STAGES) & 1);
+    int my_elem = 0, my_ps = 0;
+#pragma unroll
+    for (int k = 0; k < TB_STEPS; ++k) {
+      const int ps = ring_ps[st][TB_STEPS - 1 - k][elem];
+      if (lane == k) {
+        my_elem = elem;
+        my_ps = ps;
+      }
+      elem = ps & (W - 1);
+    }
+    const int32_t state = ring_state[st][TB_STEPS - 1 - lane][my_elem];
+    __syncwarp();
+    if (lane == 0 && c + TB_STAGES < chunks) fetch(c + TB_STAGES);
+    const int t = T - 1 - TB_STEPS * c - lane;
+    if (t >= 0) {
+      st_row[t] = state;
+      mv_row[t] = ((my_ps & 0x80) && t > 0) ? 0 : 1;
+    }
   }
 }
 
@@ -458,11 +519,12 @@ DTT_EXPORT int beam_traceback(const void* hist_state, const void* hist_ps,
                               const void* final_score, void* states, void* moves, int T, int N,
                               void* stream) {
   if (T <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  beam_traceback_kernel<<<(N + threads - 1) / threads, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(hist_state), static_cast<const uint8_t*>(hist_ps),
-      static_cast<const float*>(final_score), static_cast<int32_t*>(states),
-      static_cast<uint8_t*>(moves), T, N);
+  CUtensorMap map_state, map_ps;
+  if (!make_history_map(&map_state, hist_state, 4, T, N, W, TB_STEPS) ||
+      !make_history_map(&map_ps, hist_ps, 1, T, N, W, TB_STEPS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  beam_traceback_kernel<<<N, W, 0, static_cast<cudaStream_t>(stream)>>>(
+      map_state, map_ps, static_cast<const float*>(final_score), static_cast<int32_t*>(states),
+      static_cast<uint8_t*>(moves), T);
   return static_cast<int>(cudaGetLastError());
 }

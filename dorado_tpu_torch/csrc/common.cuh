@@ -281,6 +281,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c
       : "memory");
 }
 
+// A box of a 4-D map (make_history_map's), coordinates inner first.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, int c0, int c1, int c2,
+                                            int c3, uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(mbar)
+      : "memory");
+}
+
 // The same box into this offset of every CTA in `mask` (bit r: cluster rank
 // r), each completing on its own mbarrier at `mbar`'s offset.
 __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const void* map, int c0,

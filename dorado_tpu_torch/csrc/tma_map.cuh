@@ -1,6 +1,6 @@
 // TMA tensor maps, built on the host for the kernels of this directory that
-// load or store tiles by TMA (fused_norm.cu, w8a8_matmul.cu,
-// w8a8_matmul_fq.cu). The encoder is looked up at run time through
+// load or store tiles by TMA (fused_norm.cu, w8a8_matmul.cu, w8a8_matmul_fq.cu,
+// crf_traceback.cu, beam_search.cu). The encoder is looked up at run time through
 // cudaGetDriverEntryPoint, so no library links libcuda.
 #pragma once
 
@@ -51,6 +51,31 @@ inline bool make_map(CUtensorMap* map, const void* base, int elem_bytes, int row
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                             : (span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B),
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [T][N][R] history of 1- or 4-byte elements (R * elem_bytes a multiple of
+// 16), read in boxes of `steps` consecutive t of one n, each landing as a
+// dense [steps][R] block in shared memory. R is cut as (min(R, 256), the
+// rest) for TMA's limit of 256 elements on a box's side. Reads past t's
+// edges (a negative first t included) give zeros.
+inline bool make_history_map(CUtensorMap* map, const void* base, int elem_bytes, int T, int N,
+                             int R, int steps) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const int inner = R < 256 ? R : 256;
+  if (R % inner || (inner * elem_bytes) % 16) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)(R / inner), (cuuint64_t)N,
+                              (cuuint64_t)T};
+  const cuuint64_t strides[3] = {(cuuint64_t)inner * elem_bytes, (cuuint64_t)R * elem_bytes,
+                                 (cuuint64_t)N * R * elem_bytes};
+  const cuuint32_t box[4] = {(cuuint32_t)inner, (cuuint32_t)(R / inner), 1, (cuuint32_t)steps};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map,
+                elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

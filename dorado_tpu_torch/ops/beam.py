@@ -288,15 +288,31 @@ def beam_traceback(
         return beam_traceback_plain(hist_state, hist_ps, final_score)
     if hist_state.dim() != 3 or 0 in hist_state.shape or hist_state.shape[2] != KERNEL_BEAM_WIDTH:
         raise ValueError(f"hist_state: unsupported shape {tuple(hist_state.shape)}")
+    t_len, n, _ = hist_state.shape
+    states = torch.empty(n, t_len, dtype=torch.int32, device=hist_state.device)
+    moves = torch.empty(n, t_len, dtype=torch.uint8, device=hist_state.device)
+    _launch_traceback(hist_state, hist_ps, final_score, states, moves)
+    return states, moves
+
+
+def _launch_traceback(
+    hist_state: torch.Tensor,
+    hist_ps: torch.Tensor,
+    final_score: torch.Tensor,
+    states: torch.Tensor,
+    moves: torch.Tensor,
+) -> None:
+    """The beam traceback kernel on CUDA tensors into states [N, T] int32 and
+    moves [N, T] uint8."""
     t_len, n, w = hist_state.shape
     _cuda.check_tensor(hist_state, "hist_state", torch.int32, (t_len, n, w))
     _cuda.check_tensor(hist_ps, "hist_ps", torch.uint8, (t_len, n, w))
     _cuda.check_tensor(final_score, "final_score", torch.float32, (n, w))
+    _cuda.check_tensor(states, "states", torch.int32, (n, t_len))
+    _cuda.check_tensor(moves, "moves", torch.uint8, (n, t_len))
     dev = hist_state.device
-    if not (hist_ps.device == final_score.device == dev):
+    if not (hist_ps.device == final_score.device == states.device == moves.device == dev):
         raise ValueError("beam_traceback: inputs are on different devices")
-    states = torch.empty(n, t_len, dtype=torch.int32, device=dev)
-    moves = torch.empty(n, t_len, dtype=torch.uint8, device=dev)
     fn = _cuda.kernel_function(
         "beam_search", "beam_traceback", [_cuda.VOIDP] * 5 + [_cuda.INT] * 2 + [_cuda.VOIDP]
     )
@@ -307,7 +323,6 @@ def beam_traceback(
         )
     _cuda.check_launch("beam_search", code)
     beam_traceback.launches += 1
-    return states, moves
 
 
 beam_traceback.launches = 0

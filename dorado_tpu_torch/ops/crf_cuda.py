@@ -343,18 +343,33 @@ def viterbi_traceback(
     choices: torch.Tensor, last_state: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(states [T, N] int32, moves [T, N] uint8, moves[0] = 1) from the
-    choices [T, N, S] and the final states [N]."""
+    choices [T, N, S] and the final states [N]. On the card the kernel
+    writes each row's steps contiguously: the two are [T, N] views of
+    [N, T] tensors."""
     if choices.device.type == "cpu":
         return viterbi_traceback_plain(choices, last_state)
-    if choices.dim() != 3 or 0 in choices.shape or choices.shape[2] % 4:
-        raise ValueError(f"choices: unsupported shape {tuple(choices.shape)}")
+    if choices.dim() != 3 or 0 in choices.shape or choices.shape[2] not in KERNEL_STATES:
+        raise ValueError(
+            f"choices: unsupported shape {tuple(choices.shape)} (states {KERNEL_STATES})"
+        )
+    t_len, n, _ = choices.shape
+    states = torch.empty(n, t_len, dtype=torch.int32, device=choices.device)
+    moves = torch.empty(n, t_len, dtype=torch.uint8, device=choices.device)
+    _launch_traceback(choices, last_state, states, moves)
+    return states.t(), moves.t()
+
+
+def _launch_traceback(
+    choices: torch.Tensor, last_state: torch.Tensor, states: torch.Tensor, moves: torch.Tensor
+) -> None:
+    """K5 on CUDA tensors into states [N, T] int32 and moves [N, T] uint8."""
     t_len, n, s = choices.shape
     _cuda.check_tensor(choices, "choices", torch.int8, (t_len, n, s))
     _cuda.check_tensor(last_state, "last_state", torch.int32, (n,))
-    if last_state.device != choices.device:
+    _cuda.check_tensor(states, "states", torch.int32, (n, t_len))
+    _cuda.check_tensor(moves, "moves", torch.uint8, (n, t_len))
+    if not (last_state.device == states.device == moves.device == choices.device):
         raise ValueError("viterbi_traceback: inputs are on different devices")
-    states = torch.empty(t_len, n, dtype=torch.int32, device=choices.device)
-    moves = torch.empty(t_len, n, dtype=torch.uint8, device=choices.device)
     fn = _cuda.kernel_function(
         "crf_traceback", "crf_traceback",
         [_cuda.VOIDP] * 4 + [_cuda.INT] * 3 + [_cuda.VOIDP],
@@ -366,7 +381,6 @@ def viterbi_traceback(
         )
     _cuda.check_launch("crf_traceback", code)
     viterbi_traceback.launches += 1
-    return states, moves
 
 
 viterbi_traceback.launches = 0

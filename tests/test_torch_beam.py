@@ -112,6 +112,37 @@ def test_history_and_traceback_are_consistent():
     assert bool(((cur[stepped] >> 2) == (prev[stepped] & 15)).all())
 
 
+# T below the kernel's chunk of 32 steps and between chunks, N that fills no
+# warp
+@pytest.mark.parametrize("t_len,n", [(1, 1), (17, 3), (45, 5)])
+def test_traceback_matches_jax_on_one_history(t_len, n):
+    """``beam_traceback`` on CPU tensors (its plain version) against the JAX
+    package's ``_traceback`` on one history made from a seed: the ps byte is
+    the parent with the stay in bit 7. ``final_score`` ties two elements
+    for the best, and the first index wins."""
+    rs = np.random.RandomState(10 * t_len + n)
+    hist_state = rs.randint(0, 256, (t_len, n, 32)).astype(np.int32)
+    parent = rs.randint(0, 32, (t_len, n, 32)).astype(np.int8)
+    stay = rs.rand(t_len, n, 32) < 0.3
+    final = rs.randn(n, 32).astype(np.float32)
+    final[:, 7] = final.max(axis=1) + 1.0
+    final[:, 20] = final[:, 7]
+    st_ref, mv_ref = jax_beam._traceback(
+        jnp.asarray(hist_state), jnp.asarray(parent), jnp.asarray(stay), jnp.asarray(final)
+    )
+    ps = parent.astype(np.uint8) | (stay.astype(np.uint8) << 7)
+    launches = beam.beam_traceback.launches
+    st, mv = beam.beam_traceback(
+        torch.from_numpy(hist_state), torch.from_numpy(ps), torch.from_numpy(final)
+    )
+    assert beam.beam_traceback.launches == launches
+    assert st.dtype == torch.int32 and mv.dtype == torch.uint8 and st.shape == (n, t_len)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+    np.testing.assert_array_equal(st[:, -1].numpy(), hist_state[-1, :, 7])
+    assert bool((mv[:, 0] == 1).all())
+
+
 def test_crc_helpers_match_jax():
     rs = np.random.RandomState(3)
     np.testing.assert_array_equal(beam._CRC2.astype(np.uint32), np.asarray(jax_beam._CRC2))

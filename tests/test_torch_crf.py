@@ -94,6 +94,33 @@ def test_traceback_matches_pallas(lattice):
     np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
 
 
+# T below the kernel's chunk of 32 steps and between chunks, N that fills no
+# warp, and each state count the kernel takes
+@pytest.mark.parametrize("num_states", [64, 256, 1024])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("t_len", [1, 17])
+def test_traceback_matches_pallas_at_ragged_shapes(t_len, n, num_states):
+    """K5's wrapper on CPU tensors (its plain version) against the Pallas
+    traceback in interpret mode, on choices in 0..4 made from a seed: states
+    and moves exact. Every choice at t = 0 is a stay, whose move is 1 all
+    the same."""
+    rs = np.random.RandomState(100 * t_len + 10 * n + num_states)
+    choices = rs.randint(0, 5, (t_len, n, num_states)).astype(np.int8)
+    choices[0] = 4
+    last = rs.randint(0, num_states, n).astype(np.int32)
+    st_ref, mv_ref = viterbi_traceback_pallas(
+        jnp.asarray(choices), jnp.asarray(last), interpret=True
+    )
+    launches = crf_cuda.viterbi_traceback.launches
+    st, mv = crf_cuda.viterbi_traceback(torch.from_numpy(choices), torch.from_numpy(last))
+    assert crf_cuda.viterbi_traceback.launches == launches
+    assert st.dtype == torch.int32 and mv.dtype == torch.uint8 and st.shape == (t_len, n)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+    np.testing.assert_array_equal(st[-1].numpy(), last)
+    assert bool((mv[0] == 1).all())
+
+
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
 @pytest.mark.parametrize("num_states", [64, 256])
 def test_lse_scan_wrappers_match_pallas(num_states, reverse):
