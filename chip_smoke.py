@@ -15,7 +15,10 @@
    pipeline's shapes, at each rows-a-cluster choice and at three other
    widths, both directions, timed at N = 128 and 512 each beside cuDNN's
    LSTM at the same N, with its split and microseconds a step; K15 (the
-   recurrence with int8 W_hh), both directions, on no path; K16 (the input
+   recurrence with int8 W_hh, on K1's kernel with int8 elements), both
+   directions, at hac's shapes, ragged batches, T = 1 and 3 and two other
+   widths, timed at N = 128 and 512 on its split and on clusters of 4, with its
+   split and microseconds a step, on no path; K16 (the input
    projection inside the recurrence, on K1's kernel) at K1's widths and
    batches in both directions, timed at N = 128 and 512 beside cuDNN's LSTM
    with its split, on no path; K2 (W8A8 projection) bit for bit at three row
@@ -25,7 +28,9 @@
    scans and traceback; K3 and K4 also at the fast model's 64 states, K4
    timed at its full chunk, and at T and N that are no multiple of their
    rings or warps, at 64, 256 and 1024 states, each with K7's choices equal
-   to K4's); K6 (full-history LSE scans) in each direction and both in one
+   to K4's, launched into choices filled with a sentinel first, and so at
+   one step of one row at each state count); K6 (full-history LSE scans) in
+   each direction and both in one
    launch (the runner's call; also at those T and N), timed beside a float64
    operation bound; K7a
    (the Viterbi forward pass alone, also at 64 states), equal to K4's choices,
@@ -172,6 +177,18 @@ LSTM_TIMED_N = [N, 4 * N]
 #     outputs more than one bf16 step (of the larger of the two values) apart
 #     at under 0.1% of positions
 MAX_INT8_LSTM_SHARE_OFF = 1e-3
+# K15 is held in both directions at (T, N, H) of hac's chunk and batch, of
+# batches that are no multiple of the mma's 8 rows nor of any rows a cluster
+# (37, 100), of T = 1 and 3 (the exchange's first phases alone), and of the
+# fast model's width and the widest the wrapper takes (a cluster of one CTA,
+# of 8 with two m-tiles a warp); and timed at LSTM_TIMED_N
+K15_SHAPES = [(T, N, H), (64, 37, H), (64, 100, H), (1, 5, H), (3, 37, H), (64, N, 96),
+              (64, N, 512)]
+# K15 runs on K1's clusters; it is also timed on the smallest cluster that
+# holds its int8 slices at hac's H (4 CTAs of 96 units, two m-tiles a warp;
+# the card runs 30 such clusters at once) at the rows that gives: 8 at N =
+# 128, 24 at 512
+K15_SMALL_CLUSTER, K15_SMALL_ROWS = (4, 96, 12), {N: 8, 4 * N: 24}
 # K16 (input projection inside): held as K1 (TOL_LSTM), at K1's widths and
 # batches in both directions
 # K2: bit for bit (the int32 sums are exact and every float step is a single
@@ -238,6 +255,11 @@ TRACEBACK_SHAPES = [(1, 1, 64), (127, 37, 64), (129, 3, 256), (1, 37, 256), (33,
 # written into both tracebacks' outputs before a launch: no state is negative
 # and every move is 0 or 1
 SENTINEL_STATE, SENTINEL_MOVE = -7, 0xAB
+# written into K7's choices before a launch (every choice is 0 to 4), and NaN
+# into its final carry; K7 is held so at K4_SHAPES and at one step of one row
+# at each state count
+SENTINEL_CHOICE = -7
+K7_EDGE_SHAPES = [(1, 1, 64), (1, 1, 256), (1, 1, 1024)]
 # the beam decode on the card against the plain beam on the CPU, over four
 # chunks. With the card's back guide copied over, the limits are K17's above
 # (every run: no step differs). With the CPU's own back guide, any difference
@@ -575,17 +597,30 @@ def main() -> None:
             flush=True,
         )
 
+    def viterbi_sentinel(sc):
+        """K7 launched into choices filled with SENTINEL_CHOICE and a final
+        carry of NaNs: (choices, final carry)."""
+        t_len, n, c = sc.shape
+        ch = torch.full((t_len, n, c // 4), SENTINEL_CHOICE, dtype=torch.int8, device=dev)
+        fin = torch.full((n, c // 4), float("nan"), device=dev)
+        crf_cuda._launch_viterbi_forward(sc, STAY, ch, fin)
+        return ch, fin
+
     def hold_viterbi(sc, what):
-        """K7 against its plain version: (choices, final carry), both exact."""
+        """K7 against its plain version: (choices, final carry), both exact,
+        through the wrapper and into sentinel-filled outputs (every position
+        written)."""
         ch, fin = crf_cuda.viterbi_forward(sc, STAY)
+        ch_s, fin_s = viterbi_sentinel(sc)
         ch_p, fin_p = crf_cuda.viterbi_forward_plain(sc, STAY)
         torch.cuda.synchronize()
-        if not torch.equal(ch, ch_p) or not torch.equal(fin, fin_p):
+        if not (torch.equal(ch, ch_p) and torch.equal(fin, fin_p) and torch.equal(ch_s, ch_p)
+                and torch.equal(fin_s, fin_p)):
             raise AssertionError(
                 f"crf_viterbi_forward {what}: {(ch != ch_p).sum().item()} choices differ from the "
-                f"plain version's (or the final carry)")
-        print(f"crf_viterbi_forward {what}: choices and final carry equal to the plain version's",
-              flush=True)
+                f"plain version's (or the final carry, or a position was not written)")
+        print(f"crf_viterbi_forward {what}: choices and final carry equal to the plain version's, "
+              f"every position written", flush=True)
         return ch, fin
 
     def cross_check_viterbi(ch7, fin7, ch4, fin4, path45, sc, what):
@@ -622,11 +657,12 @@ def main() -> None:
         return posts, diff.max().item()
 
     # ---- K1: LSTM recurrence ---------------------------------------------
-    def k1_split(h, n, fused=False) -> str:
-        p = lstm.k1_launch_plan(h, n, dev, fused)
+    def k1_split(h, n, fused=False, elem_bytes=2, p=None) -> str:
+        p = p or lstm.k1_launch_plan(h, n, dev, fused, elem_bytes)
         return (f"cluster {p.cluster}, {p.units} units a CTA, {p.warps} warps, {p.rows} rows a "
                 f"cluster, {p.clusters} clusters, "
-                f"{lstm._k1_smem(p.units, p.cluster, p.rows, fused)} bytes of shared memory a CTA")
+                f"{lstm._k1_smem(p.units, p.cluster, p.rows, fused, elem_bytes)} bytes of shared "
+                f"memory a CTA")
 
     with torch.inference_mode():
         def lstm_weights(h):
@@ -652,7 +688,7 @@ def main() -> None:
             w_other = lstm_weights(h_other)
             err = max(err, *(hold_k1(w_other, 64, n, reverse) for reverse in (False, True)))
         print(f"  clusters the card runs at once, by width: "
-              f"{ {h: c for (_, h, fused), c in lstm._active.items() if not fused} }", flush=True)
+              f"{ {k[1]: c for k, c in lstm._active.items() if k[2:] == (False, 2)} }", flush=True)
         # the timed shapes: hac's long lane, reversed as the first layer runs,
         # and a 512-row batch (the -b 0 sweep's choice), each beside cuDNN
         timed = {}
@@ -689,10 +725,13 @@ def main() -> None:
         del xproj
 
         # ---- K15, K16: the LSTM variants on no path ------------------------
-        w_i8, w_scale = lstm.quantize_lstm_weights(w_hh_t.float())
-        xproj = (torch.randn(T, N, 4 * H, generator=gen, device=dev) * 0.8).bfloat16()
-        err15 = 0.0
-        for reverse in (False, True):
+        def hold_k15(w, t_len, n, reverse):
+            """K15 against its plain version on the same int8 weights: at most
+            MAX_INT8_LSTM_SHARE_OFF of the outputs more than one bf16 step
+            apart. Returns the max abs error."""
+            h = w.shape[0]
+            w_i8, w_scale = lstm.quantize_lstm_weights(w.float())
+            xproj = (torch.randn(t_len, n, 4 * h, generator=gen, device=dev) * 0.8).bfloat16()
             out_k = lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale, reverse=reverse)
             out_p = lstm.lstm_scan_int8_plain(xproj, w_i8, w_scale, reverse=reverse)
             torch.cuda.synchronize()
@@ -702,21 +741,60 @@ def main() -> None:
             big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0**-126)
             step = torch.exp2(torch.floor(torch.log2(big)) - 7)
             off = (diff > step).float().mean().item()
-            print(f"lstm_scan_int8 T={T} N={N} reverse={reverse}: max abs error "
-                  f"{diff.max().item():.3g}; {(diff > 0).float().mean().item():.4%} of outputs "
-                  f"differ, {off:.4%} by more than one bf16 step", flush=True)
+            print(f"lstm_scan_int8 H={h} T={t_len} N={n} reverse={reverse} "
+                  f"({k1_split(h, n, elem_bytes=1)}): max abs error {diff.max().item():.3g}; "
+                  f"{(diff > 0).float().mean().item():.4%} of outputs differ, {off:.4%} by more "
+                  f"than one bf16 step", flush=True)
             if not off < MAX_INT8_LSTM_SHARE_OFF:
-                raise AssertionError(f"lstm_scan_int8 reverse={reverse}: {off:.4%} of outputs "
-                                     f"more than one bf16 step off")
-            err15 = max(err15, diff.max().item())
-        del out_k, out_p, a, b, diff, big, step
+                raise AssertionError(f"lstm_scan_int8 at H={h} T={t_len} N={n} reverse={reverse}: "
+                                     f"{off:.4%} of outputs more than one bf16 step off")
+            return diff.max().item()
+
+        err15 = 0.0
+        for t_len, n, h in K15_SHAPES:
+            w = w_hh_t if h == H else lstm_weights(h)
+            err15 = max(err15, *(hold_k15(w, t_len, n, reverse) for reverse in (False, True)))
+        print(f"  K15's clusters the card runs at once, by width: "
+              f"{ {k[1]: c for k, c in lstm._active.items() if k[3] == 1} }", flush=True)
+        # timed as K1 is, at N = 128 and 512, on its own split and on clusters
+        # of 4 (the same sums in another order: equal)
+        w_i8, w_scale = lstm.quantize_lstm_weights(w_hh_t.float())
+        timed15 = {}
+        for n in LSTM_TIMED_N:
+            xproj = (torch.randn(T, n, 4 * H, generator=gen, device=dev) * 0.8).bfloat16()
+            k_ms = time_ms(lambda: lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale,
+                                                                  reverse=True), 3)
+            rows4 = K15_SMALL_ROWS[n]
+            p4 = lstm.ClusterPlan(*K15_SMALL_CLUSTER, rows4, -(-n // rows4))
+            w_sl4 = lstm.slice_w_hh(w_i8, p4.cluster, p4.units)
+            out4 = torch.empty(T, n, H, dtype=torch.bfloat16, device=dev)
+            c4_ms = time_ms(lambda: lstm._launch_int8(xproj, w_sl4, w_scale, out4, True, p4), 3)
+            if not torch.equal(out4, lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale,
+                                                                    reverse=True)):
+                raise AssertionError(f"lstm_scan_int8 at N={n}: clusters of 4 give other outputs")
+            b_ms, _ = bound_ms(2.0 * T * n * H * 4 * H, PEAK_INT8,
+                               2 * T * n * 4 * H + H * 4 * H + 4 * 4 * H + 2 * T * n * H)
+            timed15[n] = dict(ms=k_ms, bound_ms=b_ms, us_per_step=k_ms / T * 1e3,
+                              split=lstm.k1_launch_plan(H, n, dev, elem_bytes=1)._asdict(),
+                              cluster4_ms=c4_ms, cluster4_split=p4._asdict())
+            print(f"lstm_scan_int8 T={T} N={n}: {k_ms:.3f} ms, {k_ms / T * 1e3:.3f} us a step "
+                  f"({k1_split(H, n, elem_bytes=1)}); on clusters of 4 "
+                  f"({k1_split(H, n, elem_bytes=1, p=p4)}) {c4_ms:.3f} ms; K1 (bf16) at the same "
+                  f"N {timed[n]['ms']:.3f} ms [{card}]", flush=True)
+        del out4, w_sl4
+        xproj = xproj[:, :N].contiguous()  # the plain version is timed at N = 128
+        n512 = timed15[LSTM_TIMED_N[1]]
         report(
             "lstm_scan_int8", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:291",
-            err15,
-            time_ms(lambda: lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale, reverse=True), 3),
+            err15, timed15[N]["ms"],
             time_ms(lambda: lstm.lstm_scan_int8_plain(xproj, w_i8, w_scale, reverse=True), 1),
             2.0 * T * N * H * 4 * H, PEAK_INT8,
             2 * T * N * 4 * H + H * 4 * H + 4 * 4 * H + 2 * T * N * H, None, on_path=False,
+            us_per_step=timed15[N]["us_per_step"], split=timed15[N]["split"],
+            cluster4_ms=timed15[N]["cluster4_ms"], cluster4_split=timed15[N]["cluster4_split"],
+            n512_ms=n512["ms"], n512_bound_ms=n512["bound_ms"],
+            n512_us_per_step=n512["us_per_step"], n512_split=n512["split"],
+            n512_cluster4_ms=n512["cluster4_ms"], n512_cluster4_split=n512["cluster4_split"],
         )
         del xproj, w_i8, w_scale
 
@@ -888,7 +966,7 @@ def main() -> None:
             beta_p = crf_cuda.backward_scores_shifted_plain(sc, STAY)
             posts, ch, fin = crf_cuda.fused_forward_decode(sc, beta, STAY)
             posts_p, ch_p, fin_p = crf_cuda.fused_forward_decode_plain(sc, beta, STAY)
-            ch7, fin7 = crf_cuda.viterbi_forward(sc.float(), STAY)
+            ch7, fin7 = viterbi_sentinel(sc.float())
             torch.cuda.synchronize()
             what = f"T={t_len} N={n} S={s}"
             d = (beta.float() - beta_p.float()).abs()
@@ -906,9 +984,12 @@ def main() -> None:
                 raise AssertionError(f"crf_viterbi_forward at {what}: choices differ from K4's "
                                      f"(or the final carry)")
             print(f"crf_fused_forward {what}: posts max abs error {d.max().item():.3g}; choices "
-                  f"and final carry equal to the plain version's and to K7's", flush=True)
+                  f"and final carry equal to the plain version's and to K7's (K7 into "
+                  f"sentinel-filled outputs: every position written)", flush=True)
             return sc, beta, d.max().item()
 
+        for shape in K7_EDGE_SHAPES:
+            err = max(err, hold_fused(*shape)[2])
         for shape in K4_SHAPES:
             sc64, beta64, e = hold_fused(*shape)
             err = max(err, e)

@@ -1,7 +1,7 @@
-// The Viterbi max-plus step of one state, shared by the fused forward pass
-// (crf_fused_forward.cu) and the standalone Viterbi forward pass
-// (crf_viterbi_forward.cu), so that the two give the same choices bit for
-// bit on the same score values.
+// The Viterbi max-plus step of one state, in the forward pass's template
+// (crf_forward.cuh) that the fused forward pass (crf_fused_forward.cu) and the
+// standalone Viterbi forward pass (crf_viterbi_forward.cu) instantiate, so
+// that the two give the same choices bit for bit on the same score values.
 #pragma once
 
 // vp: the normalised carry (the carry minus its row max) of the state's four

@@ -3,9 +3,10 @@
 //   lstm_scan_bf16 (K1): gates = xproj[t] + h @ W_hh^T, W_hh bf16;
 //   lstm_fused_bf16 (K16): the whole layer, the input projection inside the
 //     recurrence, gates = x[t] @ W_ih^T + h @ W_hh^T + bias, on K1's kernel;
-//   lstm_scan_int8 (K15): the recurrence with W_hh int8 and h quantised to int8.
+//   lstm_scan_int8 (K15): the recurrence with W_hh int8 and h quantised to
+//     int8, on K1's kernel with int8 elements.
 //
-// K1 first, then K16 (the same kernel template), then K15, each with its note.
+// K1 first, then K16 and K15 (the same kernel template), each with its note.
 //
 // Replaces dorado_tpu/ops/lstm.py::lstm_scan_time_major (Pallas body
 // _lstm_kernel). Per step t (walked backwards when reverse != 0):
@@ -96,9 +97,57 @@
 // at N = 512 (22 clusters of 16, 7 at a time, against 32 of 8 at 16 rows,
 // 15 at a time), so it was dropped; nor did the reads of W_ih need chunks
 // of several steps to hide at N = 128.
-#include "common.cuh"
+//
+// ---------------------------------------------------------------------------
+// K15: the recurrence with an int8 W_hh, on K1's kernel (W = int8_t).
+//
+// Replaces dorado_tpu/ops/lstm.py::lstm_scan_time_major_int8 (Pallas body
+// _lstm_int8_kernel). Per step t (walked backwards when reverse != 0):
+//   acc = h_i8 @ W_i8           (int32, exact)
+//   gates = xproj[t] + acc * scale   (scale [4H]: the weight column's scale
+//                                     over 127, the activations' static scale)
+//   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
+//   out[t] = bf16(h);  h_i8 = round_half_even(h * 127)
+//
+// What bounds it on the H100: K1's chain of steps, on half the bytes (W_i8
+// is 0.59 MB at H = 384). The first version gave each block 1-4 batch rows
+// and every unit, read all of W_i8 from L2 every step into __dp4a products
+// on the CUDA cores, and passed the partial int32 sums through shared memory
+// between two barriers a step: 7.4 us a step, 12.29 ms at T = 1666, N = 128.
+//
+// Design: K1's kernel with int8 elements. The wrapper slices W_i8 as K1's
+// W_hh ([C][4U][Kp], Kp = C * U rounded up to 64: a pair of k-tiles is 64
+// bytes in either type), each CTA keeps its slice in shared memory, and the
+// products run on mma.sync m16n8k32 (s8 in, s32 sums, exact in any order:
+// |acc| <= H * 127^2 < 2^24). In bytes an int8 k-tile of 32 is a bf16
+// k-tile of 16, so the ldmatrix addresses (in 16-byte chunks), the m-tiles
+// and the accumulators' layout, and with them the cell update's gathering
+// by shuffles, are K1's. A pair of k-tiles costs a warp 8 registers an
+// m-tile in either type, and int32 sums as many as f32 ones, so reg_pairs
+// holds for K15 as it stands; K15 adds only its 4 MTW scale registers
+// (K16's bias registers) to K1's. But an int8 pair covers twice the depth,
+// so the registers hold twice the slice: 6 pairs cover hac's H = 384, all
+// of a warp's A at up to 16 rows with one m-tile a warp. h crosses the
+// cluster as int8: each CTA stages round_half_even(h * 127) of its units,
+// what the next product takes, and copies it to its peers as K1 copies its
+// bf16 h (half of K1's bytes); out[t] = bf16(h) goes from the lane's
+// registers to global memory. The cell update is the first version's
+// operation for operation: the gate's multiply and add and the cell
+// update's products and sum are separately rounded (__fmul_rn, __fadd_rn),
+// so that no FMA contraction moves a value across an int8 rounding boundary
+// of h, and __float2int_rn rounds h * 127 half to even, as torch.round does.
+// The plan is K1's clusters and its rule for rows a cluster, fitted to the
+// int8 shared memory (k1_plan with elem_bytes = 1): clusters of 8 at hac's H.
+// The int8 slices fit in clusters of 4 too (96 units, two m-tiles a warp,
+// 2-4 of 6 pairs in registers); measured on the card (NVIDIA H100 80GB
+// HBM3, 700 W) they took 4.094 ms against 4.243 at T = 1666, N = 128 and
+// 10.073 against 9.795 at N = 512: within 4% either way, so K15 keeps K1's.
+// One template rather than a second copy of the cluster machinery: the
+// element type changes the strides, the mma and the cell update's last
+// lines, not the exchange, the barriers, the register ring or the plan.
+#include <type_traits>
 
-constexpr int KS = 4;  // slices of k of K15; its blocks have KS * H / 2 = 2H threads
+#include "common.cuh"
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -107,27 +156,51 @@ namespace k1 {
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can have
 constexpr int MAX_WARPS = 12;
 constexpr int MAX_NT = 6;
+// the launches of the template: K1, K16 (FUSED) and K15 (int8)
+constexpr int KIND_K1 = 0, KIND_K16 = 1, KIND_K15 = 2;
 
-__device__ __forceinline__ float pick4(float a, float b, float c, float d, int i) {
+template <typename V>
+__device__ __forceinline__ V pick4(V a, V b, V c, V d, int i) {
   return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
 }
 
-// The depth of the products: Hp rounded up to a multiple of 32, two k-tiles.
-__host__ __device__ constexpr int depth(int hp) { return (hp + 31) / 32 * 32; }
-
-// h as blocks of U units, one for each CTA's slice (and zero ones to the
-// depth): [blocks][R][U + 8].
-__host__ __device__ constexpr int h_blocks(int units, int cluster) {
-  return (depth(cluster * units) + units - 1) / units;
+// c += a . b by the accumulators' type: f32 sums of bf16 (K1, K16), exact
+// int32 sums of int8 (K15)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  mma_s8(c, a, b0, b1);
 }
 
-// Shared memory of one CTA, in bytes: the W slice, two h buffers (the
-// cluster's R rows, all units), two stagings of the CTA's new h slice, with
-// K16 two x buffers [R][Kp + 8], and the two h buffers' mbarriers.
-__host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows, bool fused) {
-  return 2 * (4 * units * (depth(cluster * units) + 8) +
-              2 * (h_blocks(units, cluster) + 1) * rows * (units + 8) +
-              (fused ? 2 * rows * (depth(cluster * units) + 8) : 0)) +
+// Sizes in elements of `es` bytes (2: bf16, 1: int8).
+// The depth of the products: Hp rounded up to a pair of k-tiles, 64 bytes.
+__host__ __device__ constexpr int depth(int hp, int es) { return (hp * es + 63) / 64 * 64 / es; }
+
+// The row stride of h's blocks: U and 16 bytes, or U alone where its 16-byte
+// chunks are odd in number, so that ldmatrix's eight rows fall in distinct
+// banks.
+__host__ __device__ constexpr int h_stride(int units, int es) {
+  return (units * es / 16 | 1) * 16 / es;
+}
+
+// h as blocks of U units, one for each CTA's slice (and zero ones to the
+// depth): [blocks][R][h_stride].
+__host__ __device__ constexpr int h_blocks(int units, int cluster, int es) {
+  return (depth(cluster * units, es) + units - 1) / units;
+}
+
+// Shared memory of one CTA, in bytes: the W slice (rows of depth + 16
+// bytes), two h buffers (the cluster's R rows, all units), two stagings of
+// the CTA's new h slice, with K16 two x buffers [R][depth + 8], and the two
+// h buffers' mbarriers.
+__host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows, bool fused,
+                                             int es) {
+  return es * (4 * units * (depth(cluster * units, es) + 16 / es) +
+               2 * (h_blocks(units, cluster, es) + 1) * rows * h_stride(units, es) +
+               (fused ? 2 * rows * (depth(cluster * units, es) + 16 / es) : 0)) +
          16;
 }
 
@@ -135,32 +208,39 @@ __host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows, b
 // registers for the whole launch, by what the accumulators of MTW m-tiles
 // and NT n-tiles leave of 168 registers a thread (12 warps); the rest come
 // from shared memory every step. K16 also carries the next step's input
-// sums: it keeps what one more n-tile would leave.
+// sums: it keeps what one more n-tile would leave. A pair is 8 registers an
+// m-tile in bf16 and in int8 (K15: see its note).
 __host__ __device__ constexpr int reg_pairs(int mtw, int nt) {
   return mtw == 1 ? (nt == 1 ? 12 : nt == 2 ? 8 : nt == 3 ? 4 : nt == 4 ? 2 : 0)
                   : (nt == 1 ? 4 : nt == 2 ? 2 : 0);
 }
 
-// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster); FUSED: K16.
-template <int MTW, int NT, bool FUSED>
+// W: the element of W and h (bf16: K1, K16; int8: K15); MTW m-tiles a warp,
+// NT n-tiles (R = 8 NT rows a cluster); FUSED: K16.
+template <typename W, int MTW, int NT, bool FUSED>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     lstm_cluster_kernel(const __nv_bfloat16* __restrict__ xin,   // xproj [T, N, 4H] or x [T, N, H]
-                        const __nv_bfloat16* __restrict__ w_sl,  // [C][4U][depth] W_hh^T slices
+                        const W* __restrict__ w_sl,              // [C][4U][depth] W_hh^T slices
                         const __nv_bfloat16* __restrict__ w_ih,  // K16: W_ih^T's fragments
-                        const float* __restrict__ bias,          // K16: [4H]
+                        const float* __restrict__ gate_vec,      // [4H]: K16's bias, K15's scale
                         __nv_bfloat16* __restrict__ out,         // [T, N, H]
                         int T, int N, int H, int C, int U, int reverse) {
+  constexpr bool INT8 = std::is_same_v<W, int8_t>;
+  static_assert(!(INT8 && FUSED), "K16 runs in bf16");
+  // elements of a 16-byte chunk (an ldmatrix row) and of a k-tile (32 bytes)
+  constexpr int ES = sizeof(W), CH = 16 / ES, KT = 32 / ES;
+  using Acc = std::conditional_t<INT8, int, float>;
   constexpr int R = 8 * NT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hk = depth(C * U), hs = hk + 8;    // row stride of the W slices and x, in bf16
-  const int up = U + 8, hb = h_blocks(U, C);       // row stride of h's blocks, blocks
-  const int h_elems = hb * R * up;                  // one h buffer
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [4U][hs]
-  __nv_bfloat16* h_s = w_s + 4 * U * hs;                          // [2][hb][R][up]
-  __nv_bfloat16* st_s = h_s + 2 * h_elems;                         // [2][R][up]
-  __nv_bfloat16* x_s = st_s + 2 * R * up;                          // K16: [2][R][hs]
+  const int hk = depth(C * U, ES), hs = hk + CH;     // row stride of the W slices and x
+  const int up = h_stride(U, ES), hb = h_blocks(U, C, ES);  // row stride of h's blocks, blocks
+  const int h_elems = hb * R * up;                    // one h buffer
+  W* w_s = reinterpret_cast<W*>(smem);                // [4U][hs]
+  W* h_s = w_s + 4 * U * hs;                          // [2][hb][R][up]
+  W* st_s = h_s + 2 * h_elems;                        // [2][R][up]
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(st_s + 2 * R * up);  // K16: [2][R][hs]
   const uint32_t mbar0 = smem_u32(x_s + (FUSED ? 2 * R * hs : 0));  // [2] 8-byte mbarriers
-  const int slice_bytes = R * up * 2;  // one CTA's h block: what a phase takes from each peer
+  const int slice_bytes = R * up * ES;  // one CTA's h block: what a phase takes from each peer
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
@@ -174,14 +254,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   // ---- once per launch: the W slice, zeroed h (and x) buffers ---------------
   {
     const uint4* src = reinterpret_cast<const uint4*>(w_sl + (size_t)rank * 4 * U * hk);
-    const int per_row = hk / 8;
+    const int per_row = hk / CH;
     for (int i = tid; i < 4 * U * per_row; i += nthreads) {
       const int r = i / per_row, c = i % per_row;
-      *reinterpret_cast<uint4*>(w_s + r * hs + c * 8) = src[i];
+      *reinterpret_cast<uint4*>(w_s + r * hs + c * CH) = src[i];
     }
     const uint4 zero = make_uint4(0, 0, 0, 0);
     uint4* hz = reinterpret_cast<uint4*>(h_s);
-    for (int i = tid; i < 2 * h_elems / 8; i += nthreads) hz[i] = zero;
+    for (int i = tid; i < 2 * h_elems / CH; i += nthreads) hz[i] = zero;
     uint4* xz = reinterpret_cast<uint4*>(x_s);
     for (int i = tid; i < (FUSED ? 2 * R * hs / 8 : 0); i += nthreads) xz[i] = zero;
   }
@@ -198,9 +278,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   }
   // The lane's cell updates: m-tile warp + i * nwarps, n-tile nt; it takes
   // the (unit, row) combination number q of the lane group that shares g / 4
-  // and t4 (see step 2). K1: their xproj[t] (gates i | f and g | o) are
+  // and t4 (see step 2). K1, K15: their xproj[t] (gates i | f and g | o) are
   // loaded into registers a step ahead; rows past N and units past H stay
-  // zero. K16: their bias, once.
+  // zero. K16: their bias, K15: their scale, once.
   __nv_bfloat162 x[MTW][NT][2];
   float bg[MTW][4];
   auto unit_of = [&](int i) { return u0 + 4 * (warp + i * nwarps) + (g >> 2) + 2 * (q >> 1); };
@@ -233,13 +313,16 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     }
     cp_async_commit();
   };
-  if constexpr (FUSED) {
+  if constexpr (FUSED || INT8) {
 #pragma unroll
     for (int i = 0; i < MTW; ++i) {
       const int unit = unit_of(i);
 #pragma unroll
-      for (int gate = 0; gate < 4; ++gate) bg[i][gate] = unit < H ? bias[gate * H + unit] : 0.f;
+      for (int gate = 0; gate < 4; ++gate)
+        bg[i][gate] = unit < H ? gate_vec[gate * H + unit] : 0.f;
     }
+  }
+  if constexpr (FUSED) {
     __syncthreads();  // the zeros are written before any copy lands
     load_x(time_of(0), 0);
     if (T > 1) load_x(time_of(1), 1);
@@ -254,17 +337,16 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   for (int i = 0; i < MTW; ++i)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) c_state[i][nt] = 0.f;
-  const int kp_n = hk / 32;  // pairs of k-tiles
-  const int ku = U / 16;     // k-tiles a block of h
-  const float inv_ku = 1.f / ku;
-  const __nv_bfloat16* a_row =
-      w_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hs + (lane >> 4) * 8;
+  const int kp_n = hk / (2 * KT);  // pairs of k-tiles
+  const int cu = U / CH;           // 16-byte chunks in a row of a block of h
+  const float inv_cu = 1.f / cu;
+  const W* a_row = w_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hs + (lane >> 4) * CH;
   auto load_a = [&](int kp, uint32_t (&a)[MTW][2][4]) {
 #pragma unroll
     for (int i = 0; i < MTW; ++i)
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2)
-        ldmatrix_x4(a[i][h2], a_row + i * nwarps * 16 * hs + kp * 32 + h2 * 16);
+        ldmatrix_x4(a[i][h2], a_row + i * nwarps * 16 * hs + (2 * kp + h2) * KT);
   };
   // K16's A: W_ih's fragments from L2, [C][U / 4][Kp / 16][32 lanes] x 16
   // bytes
@@ -295,15 +377,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
   // acc += A . B over a pair of k-tiles. With one m-tile a warp the two
   // accumulators are the pair's two k-tiles, with two they are the two m-tiles
-  auto mma_pair = [&](float (&acc)[2][NT][4], const uint32_t (&a)[MTW][2][4],
-                      const uint32_t (&b)[NT][4]) {
+  auto mma_pair = [&](auto& acc, const uint32_t (&a)[MTW][2][4], const uint32_t (&b)[NT][4]) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
       for (int i = 0; i < MTW; ++i)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
+          mma(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
   };
   // K16: x[t + 1] @ W_ih_slice^T from x buffer xb, as the lane's sums; B as
   // in the recurrent product below, from x's rows
@@ -360,23 +441,23 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     // 1. acc = W_slice . h, a pair of k-tiles at a time, the next pair's
     //    fragments loaded before this pair's products: first the pairs whose
     //    A comes from shared memory, then those held in registers
-    float acc[2][NT][4];
+    Acc acc[2][NT][4];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][nt][e] = 0.f;
-    // B: rows nt * 8 .. + 7 of h, k 0-7, 8-15 of the pair's first k-tile
-    //    (lanes 0-15) and of its second (lanes 16-31), each k-tile inside one
-    //    block of U units: block kt / (U / 16) (a float product, exact at
-    //    these sizes), k-tile kt % (U / 16) there
-    const __nv_bfloat16* b_base =
-        h_s + buf * h_elems + (lane & 7) * up + ((lane >> 3) & 1) * 8;
+        for (int e = 0; e < 4; ++e) acc[a][nt][e] = 0;
+    // B: rows nt * 8 .. + 7 of h, four 16-byte chunks of k a pair (ldmatrix's
+    //    matrix lane / 8 takes chunk 4 kp + lane / 8: the halves of the first
+    //    k-tile, then of the second), each chunk inside one block of U units:
+    //    block c / (U / CH) (a float product, exact at these sizes), chunk
+    //    c % (U / CH) there
+    const W* b_base = h_s + buf * h_elems + (lane & 7) * up;
     auto load_b = [&](int kp, uint32_t (&b)[NT][4]) {
-      const int kt = 2 * kp + (lane >> 4);
-      const int blk = __float2int_rz((kt + 0.5f) * inv_ku);
-      const __nv_bfloat16* p = b_base + blk * R * up + (kt - blk * ku) * 16;
+      const int c = 4 * kp + (lane >> 3);
+      const int blk = __float2int_rz((c + 0.5f) * inv_cu);
+      const W* p = b_base + blk * R * up + (c - blk * cu) * CH;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) ldmatrix_x4(b[nt], p + nt * 8 * up);
     };
@@ -420,37 +501,51 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       const int jl = 4 * mt + (g >> 2) + 2 * (q >> 1);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        float v[4];
+        Acc v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           v[e] = MTW == 1 ? acc[0][nt][e] + acc[1][nt][e] : acc[i][nt][e];
           if constexpr (FUSED) v[e] += xg[i][nt][e];
         }
-        const float r0 = pick4(v[0], v[1], v[2], v[3], q);
-        const float r1 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 1), 4);
-        const float r2 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 2), 8);
-        const float r3 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 3), 12);
+        const Acc r0 = pick4(v[0], v[1], v[2], v[3], q);
+        const Acc r1 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 1), 4);
+        const Acc r2 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 2), 8);
+        const Acc r3 = __shfl_xor_sync(0xffffffffu, pick4(v[0], v[1], v[2], v[3], q ^ 3), 12);
         const int row = nt * 8 + 2 * t4 + (q & 1);
-        float base[4];  // xproj[t]'s gates (K1) or the bias (K16)
-        if constexpr (FUSED) {
-#pragma unroll
-          for (int gate = 0; gate < 4; ++gate) base[gate] = bg[i][gate];
-        } else {
+        // gate k of the combination came from the lane with q ^ k: r[k ^ q]
+        const Acc si = pick4(r0, r1, r2, r3, q), sf = pick4(r0, r1, r2, r3, q ^ 1);
+        const Acc sg = pick4(r0, r1, r2, r3, q ^ 2), so = pick4(r0, r1, r2, r3, q ^ 3);
+        float& c = c_state[i][nt];
+        if constexpr (INT8) {
+          // separately rounded, as the plain version: gates = x + acc * scale
           const float2 xif = __bfloat1622float2(x[i][nt][0]);
           const float2 xgo = __bfloat1622float2(x[i][nt][1]);
-          base[0] = xif.x;
-          base[1] = xif.y;
-          base[2] = xgo.x;
-          base[3] = xgo.y;
+          const float gi = __fadd_rn(xif.x, __fmul_rn((float)si, bg[i][0]));
+          const float gf = __fadd_rn(xif.y, __fmul_rn((float)sf, bg[i][1]));
+          const float gg = __fadd_rn(xgo.x, __fmul_rn((float)sg, bg[i][2]));
+          const float go = __fadd_rn(xgo.y, __fmul_rn((float)so, bg[i][3]));
+          c = __fadd_rn(__fmul_rn(sigmoidf_(gf), c), __fmul_rn(sigmoidf_(gi), tanhf(gg)));
+          const float h = sigmoidf_(go) * tanhf(c);
+          st_s[(buf * R + row) * up + jl] = static_cast<int8_t>(__float2int_rn(h * 127.f));
+          if (n0 + row < N && u0 + jl < H)
+            out[((size_t)t * N + n0 + row) * H + u0 + jl] = __float2bfloat16(h);
+        } else {
+          float base[4];  // xproj[t]'s gates (K1) or the bias (K16)
+          if constexpr (FUSED) {
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate) base[gate] = bg[i][gate];
+          } else {
+            const float2 xif = __bfloat1622float2(x[i][nt][0]);
+            const float2 xgo = __bfloat1622float2(x[i][nt][1]);
+            base[0] = xif.x;
+            base[1] = xif.y;
+            base[2] = xgo.x;
+            base[3] = xgo.y;
+          }
+          const float gi = base[0] + si, gf = base[1] + sf, gg = base[2] + sg, go = base[3] + so;
+          c = sigmoidf_(gf) * c + sigmoidf_(gi) * tanhf(gg);
+          st_s[(buf * R + row) * up + jl] = __float2bfloat16(sigmoidf_(go) * tanhf(c));
         }
-        // gate k of the combination came from the lane with q ^ k: r[k ^ q]
-        const float gi = base[0] + pick4(r0, r1, r2, r3, q);
-        const float gf = base[1] + pick4(r0, r1, r2, r3, q ^ 1);
-        const float gg = base[2] + pick4(r0, r1, r2, r3, q ^ 2);
-        const float go = base[3] + pick4(r0, r1, r2, r3, q ^ 3);
-        float& c = c_state[i][nt];
-        c = sigmoidf_(gf) * c + sigmoidf_(gi) * tanhf(gg);
-        st_s[(buf * R + row) * up + jl] = __float2bfloat16(sigmoidf_(go) * tanhf(c));
       }
     }
     if constexpr (FUSED) cp_async_wait<0>();  // this thread's copies of x[t + 1]
@@ -458,25 +553,27 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     __syncthreads();  // the CTA's new h slice is staged (K16: x[t + 1] is in)
 
     // 3. the slice's rows into every peer's other h buffer (the bulk copy
-    //    engine, completing on the peer's mbarrier), and out[t]. Nothing
-    //    else orders the steps: a peer copies step t + 2's h into the buffer
-    //    step t read only once it has all of step t + 1's h, this CTA's
-    //    slice included, which this CTA copied after its products of step t;
-    //    and the staging written at step t + 2 was read by copies that had
-    //    to land before any peer could send step t + 2's h
-    const __nv_bfloat16* st = st_s + buf * R * up;
+    //    engine, completing on the peer's mbarrier), and out[t] (K15 wrote
+    //    it above). Nothing else orders the steps: a peer copies step t + 2's
+    //    h into the buffer step t read only once it has all of step t + 1's
+    //    h, this CTA's slice included, which this CTA copied after its
+    //    products of step t; and the staging written at step t + 2 was read
+    //    by copies that had to land before any peer could send step t + 2's h
+    const W* st = st_s + buf * R * up;
     if (step + 1 < T && tid < C) {
       const uint32_t next = smem_u32(h_s + (buf ^ 1) * h_elems + rank * R * up);
       bulk_copy_cluster(map_rank(next, tid), smem_u32(st), slice_bytes,
                         map_rank(mbar0 + 8 * (buf ^ 1), tid));
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
-    const int per_row4 = U / 4;
-    for (int i = tid; i < R * per_row4; i += nthreads) {
-      const int r = i / per_row4, j4 = (i % per_row4) * 4;
-      if (n0 + r < N && u0 + j4 < H)
-        *reinterpret_cast<uint2*>(out + ((size_t)t * N + n0 + r) * H + u0 + j4) =
-            *reinterpret_cast<const uint2*>(st + r * up + j4);
+    if constexpr (!INT8) {
+      const int per_row4 = U / 4;
+      for (int i = tid; i < R * per_row4; i += nthreads) {
+        const int r = i / per_row4, j4 = (i % per_row4) * 4;
+        if (n0 + r < N && u0 + j4 < H)
+          *reinterpret_cast<uint2*>(out + ((size_t)t * N + n0 + r) * H + u0 + j4) =
+              *reinterpret_cast<const uint2*>(st + r * up + j4);
+      }
     }
     if constexpr (FUSED) {
       // x[t + 2] into the buffer that held x[t], which every warp finished
@@ -494,11 +591,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   cluster_sync();
 }
 
-template <int MTW, int NT, bool FUSED>
-int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* bias, void* out,
-              int T, int N, int H, int C, int U, int reverse, cudaStream_t stream, int* active) {
-  auto kernel = lstm_cluster_kernel<MTW, NT, FUSED>;
-  const int smem = smem_bytes(U, C, 8 * NT, FUSED);
+template <typename W, int MTW, int NT, bool FUSED>
+int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* gate_vec,
+              void* out, int T, int N, int H, int C, int U, int reverse, cudaStream_t stream,
+              int* active) {
+  auto kernel = lstm_cluster_kernel<W, MTW, NT, FUSED>;
+  const int smem = smem_bytes(U, C, 8 * NT, FUSED, sizeof(W));
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (C > 8) {
@@ -522,42 +620,48 @@ int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* b
   if (active != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveClusters(active, (void*)kernel, &cfg));
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(xin),
-                         static_cast<const __nv_bfloat16*>(w_sl),
-                         static_cast<const __nv_bfloat16*>(w_ih), static_cast<const float*>(bias),
-                         static_cast<__nv_bfloat16*>(out), T, N, H, C, U, reverse);
+                         static_cast<const W*>(w_sl), static_cast<const __nv_bfloat16*>(w_ih),
+                         static_cast<const float*>(gate_vec), static_cast<__nv_bfloat16*>(out), T,
+                         N, H, C, U, reverse);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One of the twelve instantiations of K1 or of K16, or the launch's refusal.
-template <bool FUSED>
-int dispatch_nt(const void* xin, const void* w_sl, const void* w_ih, const void* bias, void* out,
-                int T, int N, int H, int C, int U, int mtw, int nt, int reverse, cudaStream_t s,
-                int* active) {
-#define DTT_K1(M, NT_)                                                                    \
-  if (mtw == M && nt == NT_)                                                              \
-    return launch_k1<M, NT_, FUSED>(xin, w_sl, w_ih, bias, out, T, N, H, C, U, reverse, s, \
-                                    active);
+// One of the twelve instantiations of K1, K16 or K15, or the launch's
+// refusal.
+template <typename W, bool FUSED>
+int dispatch_nt(const void* xin, const void* w_sl, const void* w_ih, const void* gate_vec,
+                void* out, int T, int N, int H, int C, int U, int mtw, int nt, int reverse,
+                cudaStream_t s, int* active) {
+#define DTT_K1(M, NT_)                                                                 \
+  if (mtw == M && nt == NT_)                                                           \
+    return launch_k1<W, M, NT_, FUSED>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, \
+                                       reverse, s, active);
   DTT_K1(1, 1) DTT_K1(1, 2) DTT_K1(1, 3) DTT_K1(1, 4) DTT_K1(1, 5) DTT_K1(1, 6)
   DTT_K1(2, 1) DTT_K1(2, 2) DTT_K1(2, 3) DTT_K1(2, 4) DTT_K1(2, 5) DTT_K1(2, 6)
 #undef DTT_K1
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int dispatch_k1(bool fused, const void* xin, const void* w_sl, const void* w_ih, const void* bias,
-                void* out, int T, int N, int H, int C, int U, int rows, int warps, int reverse,
-                cudaStream_t s, int* active) {
-  if (T < 0 || N <= 0 || H <= 0 || H % 4 || U % 16 || C < 1 || C > 16 || (C & (C - 1)) ||
-      C * U < H || rows % 8 || rows < 8 || rows > 8 * MAX_NT || warps < 1 ||
-      warps > MAX_WARPS || (U / 4) % warps || smem_bytes(U, C, rows, fused) > SMEM_MAX)
+int dispatch_k1(int kind, const void* xin, const void* w_sl, const void* w_ih,
+                const void* gate_vec, void* out, int T, int N, int H, int C, int U, int rows,
+                int warps, int reverse, cudaStream_t s, int* active) {
+  const int es = kind == KIND_K15 ? 1 : 2;
+  if (kind < KIND_K1 || kind > KIND_K15 || T < 0 || N <= 0 || H <= 0 || H % 4 || U % 16 ||
+      C < 1 || C > 16 || (C & (C - 1)) || C * U < H || rows % 8 || rows < 8 ||
+      rows > 8 * MAX_NT || warps < 1 || warps > MAX_WARPS || (U / 4) % warps ||
+      smem_bytes(U, C, rows, kind == KIND_K16, es) > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int mtw = U / 4 / warps;
   const int nt = rows / 8;
-  if (fused)
-    return dispatch_nt<true>(xin, w_sl, w_ih, bias, out, T, N, H, C, U, mtw, nt, reverse, s,
-                             active);
-  return dispatch_nt<false>(xin, w_sl, w_ih, bias, out, T, N, H, C, U, mtw, nt, reverse, s,
-                            active);
+  if (kind == KIND_K16)
+    return dispatch_nt<__nv_bfloat16, true>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw,
+                                            nt, reverse, s, active);
+  if (kind == KIND_K15)
+    return dispatch_nt<int8_t, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw, nt,
+                                      reverse, s, active);
+  return dispatch_nt<__nv_bfloat16, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw,
+                                           nt, reverse, s, active);
 }
 
 }  // namespace k1
@@ -571,7 +675,7 @@ DTT_EXPORT int lstm_scan_bf16(const void* xproj, const void* w_sl, void* out, in
                               int H, int reverse, int cluster, int units, int rows, int warps,
                               void* stream) {
   if (T == 0) return 0;
-  return k1::dispatch_k1(false, xproj, w_sl, nullptr, nullptr, out, T, N, H, cluster,
+  return k1::dispatch_k1(k1::KIND_K1, xproj, w_sl, nullptr, nullptr, out, T, N, H, cluster,
                          units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -582,167 +686,26 @@ DTT_EXPORT int lstm_fused_bf16(const void* x, const void* w_hh_sl, const void* w
                                const void* bias, void* out, int T, int N, int H, int reverse,
                                int cluster, int units, int rows, int warps, void* stream) {
   if (T == 0) return 0;
-  return k1::dispatch_k1(true, x, w_hh_sl, w_ih_frag, bias, out, T, N, H, cluster, units, rows, warps,
-                         reverse, static_cast<cudaStream_t>(stream), nullptr);
+  return k1::dispatch_k1(k1::KIND_K16, x, w_hh_sl, w_ih_frag, bias, out, T, N, H, cluster,
+                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many clusters of K1's (fused = 0) or K16's (1) launch at this shape
-// the card runs at once.
-DTT_EXPORT int lstm_scan_active_clusters(int H, int fused, int cluster, int units, int rows,
+// xproj [T, N, 4H] bf16; w_sl [C][4U][Kp] int8 (Kp = C * U rounded up to
+// 64), the wrapper's slices of W_i8 in lstm_scan_bf16's layout; scale [4H]
+// float32; out [T, N, H]; the limits of lstm_scan_bf16.
+DTT_EXPORT int lstm_scan_int8(const void* xproj, const void* w_sl, const void* scale, void* out,
+                              int T, int N, int H, int reverse, int cluster, int units, int rows,
+                              int warps, void* stream) {
+  if (T == 0) return 0;
+  return k1::dispatch_k1(k1::KIND_K15, xproj, w_sl, nullptr, scale, out, T, N, H, cluster,
+                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of K1's (kind 0), K16's (1) or K15's (2) launch at this
+// shape the card runs at once.
+DTT_EXPORT int lstm_scan_active_clusters(int H, int kind, int cluster, int units, int rows,
                                          int warps, int* active) {
   *active = 0;
-  return k1::dispatch_k1(fused != 0, nullptr, nullptr, nullptr, nullptr, nullptr, 1, rows, H, cluster,
+  return k1::dispatch_k1(kind, nullptr, nullptr, nullptr, nullptr, nullptr, 1, rows, H, cluster,
                          units, rows, warps, 0, nullptr, active);
 }
-
-// ---------------------------------------------------------------------------
-// K15: the recurrence with an int8 W_hh.
-//
-// Replaces dorado_tpu/ops/lstm.py::lstm_scan_time_major_int8 (Pallas body
-// _lstm_int8_kernel). Per step t (walked backwards when reverse != 0):
-//   acc = h_i8 @ W_i8           (int32, exact)
-//   gates = xproj[t] + acc * scale   (scale [4H]: the weight column's scale
-//                                     over 127, the activations' static scale)
-//   c = sigmoid(f) * c + sigmoid(i) * tanh(g);  h = sigmoid(o) * tanh(c)
-//   out[t] = bf16(h);  h_i8 = round_half_even(h * 127)
-//
-// What bounds it on the H100: the L2 read of the recurrent weights every
-// step, int8: 0.59 MB a step at hac's H = 384 for every block. Each block
-// owns BN batch rows and every hidden unit (one launch per layer, the time
-// loop inside); thread (q, ks) owns 8 gate columns over the ks-th of KS
-// slices of k, and the owner of hidden unit j does the cell update. The
-// products are __dp4a on four k at once, so the wrapper hands
-// W in a k4-packed layout: word (kg, c) holds W[4kg .. 4kg+3][c], and a
-// thread's 8 columns of one k group are 32 contiguous bytes. h stays int8
-// in shared memory in the same packing (word (kg, r): h[r][4kg .. 4kg+3]),
-// rounded half to even by __float2int_rn, as jnp.round and torch.round do.
-// The int32 sums are exact (|acc| <= H * 127 * 127 < 2^24), and the float
-// arithmetic after them is the plain version's operation for operation:
-// the gate's multiply and add and the cell update's products and sum are
-// written as separately rounded operations, so that no FMA contraction
-// moves a value across an int8 rounding boundary of h.
-// ---------------------------------------------------------------------------
-
-template <int BN>
-__global__ void __launch_bounds__(1024)
-    lstm_scan_int8_kernel(const __nv_bfloat16* __restrict__ xproj,  // [T, N, 4H]
-                          const int* __restrict__ w4,               // [H/4, 4H] k4-packed int8
-                          const float* __restrict__ scale,          // [4H]
-                          __nv_bfloat16* __restrict__ out,          // [T, N, H]
-                          int T, int N, int H, int reverse) {
-  extern __shared__ __align__(16) int smem_i[];
-  const int G = 4 * H;
-  int* h_s = smem_i;                  // [H/4][BN]: packed int8 h of the block's rows
-  int* g_s = smem_i + (H / 4) * BN;   // [KS][BN][4H]: partial int32 sums of this step
-  const int tid = threadIdx.x;
-  const int q = tid % (G / 8);
-  const int ks = tid / (G / 8);
-  const int kg_len = H / (4 * KS);    // k groups of four in a slice
-  const int n0 = blockIdx.x * BN;
-  const bool owns_unit = tid < H;
-  int8_t* h_bytes = reinterpret_cast<int8_t*>(h_s);
-
-  for (int i = tid; i < (H / 4) * BN; i += blockDim.x) h_s[i] = 0;
-  float c[BN], sc[4];
-#pragma unroll
-  for (int r = 0; r < BN; ++r) c[r] = 0.f;
-#pragma unroll
-  for (int g = 0; g < 4; ++g) sc[g] = owns_unit ? scale[g * H + tid] : 0.f;
-  __syncthreads();
-
-  for (int step = 0; step < T; ++step) {
-    const int t = reverse ? T - 1 - step : step;
-    float x[BN][4];
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-      const __nv_bfloat16* xr = xproj + ((size_t)t * N + n0 + r) * G;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) x[r][g] = owns_unit ? __bfloat162float(xr[g * H + tid]) : 0.f;
-    }
-
-    // phase 1: acc[r][i] = sum over this slice of k of h[r][k] * W[k][8q + i]
-    int acc[BN][8];
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[r][i] = 0;
-    }
-    const int kg0 = ks * kg_len;
-    const uint4* wq = reinterpret_cast<const uint4*>(w4) + (size_t)kg0 * H + 2 * q;
-    const int* hq = h_s + kg0 * BN;
-#pragma unroll 4
-    for (int kk = 0; kk < kg_len; ++kk) {
-      const uint4 a = __ldg(wq + (size_t)kk * H);
-      const uint4 b = __ldg(wq + (size_t)kk * H + 1);
-      const int wv[8] = {(int)a.x, (int)a.y, (int)a.z, (int)a.w,
-                         (int)b.x, (int)b.y, (int)b.z, (int)b.w};
-#pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        const int h4 = hq[kk * BN + r];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] = __dp4a(h4, wv[i], acc[r][i]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BN; ++r) {
-      int4* dst = reinterpret_cast<int4*>(g_s + ((size_t)ks * BN + r) * G + 8 * q);
-      dst[0] = make_int4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      dst[1] = make_int4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    }
-    __syncthreads();  // sums complete; every read of this step's h done
-
-    // phase 2: cell update of the thread's unit j = tid
-    if (owns_unit) {
-      const int j = tid;
-#pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        float gate[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          int sum = g_s[(size_t)r * G + g * H + j];
-#pragma unroll
-          for (int s = 1; s < KS; ++s) sum += g_s[((size_t)s * BN + r) * G + g * H + j];
-          gate[g] = __fadd_rn(x[r][g], __fmul_rn((float)sum, sc[g]));
-        }
-        const float ig = sigmoidf_(gate[0]);
-        const float fg = sigmoidf_(gate[1]);
-        const float gg = tanhf(gate[2]);
-        const float og = sigmoidf_(gate[3]);
-        c[r] = __fadd_rn(__fmul_rn(fg, c[r]), __fmul_rn(ig, gg));
-        const float hn = og * tanhf(c[r]);
-        h_bytes[((j >> 2) * BN + r) * 4 + (j & 3)] = (int8_t)__float2int_rn(hn * 127.f);
-        out[((size_t)t * N + n0 + r) * H + j] = __float2bfloat16(hn);
-      }
-    }
-    __syncthreads();  // the new h is visible; g_s may be overwritten
-  }
-}
-
-template <int BN>
-static int launch_int8(const void* xproj, const void* w4, const void* scale, void* out, int T,
-                       int N, int H, int reverse, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * (size_t)BN * (H / 4 + KS * 4 * H);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_scan_int8_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  lstm_scan_int8_kernel<BN><<<N / BN, KS * H / 2, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(xproj), static_cast<const int*>(w4),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), T, N, H, reverse);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// w4 is W_i8 [H, 4H] packed four k to a word ([H/4, 4H] int32, see K15's
-// note); H must be a multiple of 16 (each k slice whole k groups) and at most
-// 512; rows_per_block (1, 2 or 4) must divide N; all pointers 16-byte aligned.
-DTT_EXPORT int lstm_scan_int8(const void* xproj, const void* w4, const void* scale, void* out,
-                              int T, int N, int H, int reverse, int rows_per_block,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows_per_block == 1) return launch_int8<1>(xproj, w4, scale, out, T, N, H, reverse, s);
-  if (rows_per_block == 2) return launch_int8<2>(xproj, w4, scale, out, T, N, H, reverse, s);
-  if (rows_per_block == 4) return launch_int8<4>(xproj, w4, scale, out, T, N, H, reverse, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-

@@ -301,12 +301,28 @@ def viterbi_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Max-plus forward pass over float32 scores [T, N, C]: (choices
     [T, N, S] int8, 0..3 the predecessor slot and 4 a stay; final carry
-    [N, S] float32), the carry normalised by its row max before each step."""
+    [N, S] float32), the carry normalised by its row max before each step.
+    On the card it is K4's kernel with alpha and the posteriors compiled
+    out."""
     if scores.device.type == "cpu":
         return viterbi_forward_plain(scores, stay_score)
     t_len, n, s = _check_scores(scores, torch.float32)
     choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
     final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
+    _launch_viterbi_forward(scores, stay_score, choices, final)
+    return choices, final
+
+
+def _launch_viterbi_forward(
+    scores: torch.Tensor, stay_score: float, choices: torch.Tensor, final: torch.Tensor
+) -> None:
+    """K7 on CUDA tensors into choices [T, N, S] int8 and final [N, S]
+    float32."""
+    t_len, n, s = _check_scores(scores, torch.float32)
+    _cuda.check_tensor(choices, "choices", torch.int8, (t_len, n, s))
+    _cuda.check_tensor(final, "final", torch.float32, (n, s))
+    if not scores.device == choices.device == final.device:
+        raise ValueError("viterbi_forward: inputs are on different devices")
     fn = _cuda.kernel_function(
         "crf_viterbi_forward", "crf_viterbi_forward_f32",
         [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.FLOAT, _cuda.VOIDP],
@@ -318,7 +334,6 @@ def viterbi_forward(
         )
     _cuda.check_launch("crf_viterbi_forward", code)
     viterbi_forward.launches += 1
-    return choices, final
 
 
 viterbi_forward.launches = 0

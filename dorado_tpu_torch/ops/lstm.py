@@ -25,8 +25,9 @@ cluster. K16 runs on K1's kernel and plan (``fused=True``) with x[t] in
 place of xproj[t]: each CTA computes its gate rows' input product of the
 next step while the h slices of this one are exchanged, reading its slice
 of W_ih from L2 every step in the order of the mma fragments
-(``w_ih_fragments``). K15 reads its weights from L2 every step, a block per
-``_rows_per_block`` batch rows.
+(``w_ih_fragments``). K15 runs on K1's kernel with int8 elements
+(``elem_bytes=1``): its W_i8 slices resident, int8 products on the tensor
+cores, h exchanged as int8.
 """
 
 from __future__ import annotations
@@ -58,15 +59,6 @@ def lstm_scan_plain(xproj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
     return out
 
 
-def _rows_per_block(n: int, device: torch.device) -> int:
-    """Batch rows per block of K15, which reads the recurrent weights from
-    L2 every step: the fewest rows per block that still fit the batch in one
-    wave of blocks (one per SM)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    fitting = [r for r in (1, 2, 4) if n % r == 0 and n // r <= sms]
-    return fitting[0] if fitting else max(r for r in (1, 2, 4) if n % r == 0)
-
-
 # K1's limits: dynamic shared memory a block can have on Hopper, warps a
 # CTA, m-tiles (16 gate columns) a warp, batch rows a cluster
 _K1_SMEM_MAX = 232448
@@ -86,28 +78,45 @@ class ClusterPlan(NamedTuple):
     clusters: int
 
 
-def _k1_smem(units: int, cluster: int, rows: int, fused: bool = False) -> int:
+def _k1_smem(
+    units: int, cluster: int, rows: int, fused: bool = False, elem_bytes: int = 2
+) -> int:
     """Shared memory of one CTA of K1's kernel in bytes (``smem_bytes`` in
     the source): its W slice, two h buffers and two h stagings, with K16
-    (``fused``) two x buffers, bf16, and two 8-byte mbarriers."""
-    kp = _k1_depth(cluster, units)
+    (``fused``) two x buffers, in elements of ``elem_bytes`` (2: bf16, K1 and
+    K16; 1: int8, K15), and two 8-byte mbarriers."""
+    kp = _k1_depth(cluster, units, elem_bytes)
+    pad = 16 // elem_bytes  # a W or x row's 16 bytes of padding
     blocks = -(-kp // units)  # h held as blocks of one CTA's units
-    x_bufs = 2 * rows * (kp + 8) if fused else 0
-    return 2 * (4 * units * (kp + 8) + 2 * (blocks + 1) * rows * (units + 8) + x_bufs) + 16
+    x_bufs = 2 * rows * (kp + pad) if fused else 0
+    h_rows = 2 * (blocks + 1) * rows * _k1_h_stride(units, elem_bytes)
+    return elem_bytes * (4 * units * (kp + pad) + h_rows + x_bufs) + 16
 
 
-def _k1_depth(cluster: int, units: int) -> int:
-    """The products' depth: the cluster's units rounded up to 32 (two
-    k-tiles)."""
-    return -(-cluster * units // 32) * 32
+def _k1_depth(cluster: int, units: int, elem_bytes: int = 2) -> int:
+    """The products' depth: the cluster's units rounded up to a pair of
+    k-tiles, 64 bytes (32 bf16, 64 int8)."""
+    pair = 64 // elem_bytes
+    return -(-cluster * units // pair) * pair
+
+
+def _k1_h_stride(units: int, elem_bytes: int = 2) -> int:
+    """The row stride of h's blocks in elements: the units and 16 bytes, or
+    the units alone where their 16-byte chunks are odd in number (ldmatrix's
+    rows in distinct banks)."""
+    return (units * elem_bytes // 16 | 1) * 16 // elem_bytes
 
 
 def k1_cluster_shape(hidden: int, fused: bool = False) -> tuple[int, int, int]:
     """(cluster, units, warps) for hidden width H (K16's launch: ``fused``):
-    the smallest cluster (1 to 16 CTAs) whose CTAs' W slices fit shared
+    the smallest cluster (1 to 16 CTAs) whose CTAs' bf16 W slices fit shared
     memory at 8 rows and whose m-tiles (four units each) split over at most
     12 warps, one or two a warp; each CTA's unit count rounded up to 16
-    (whole k-tiles of h), and the most warps that split them."""
+    (whole k-tiles of h), and the most warps that split them. K15 takes
+    the same shape: its int8 slices would fit in half the cluster at some
+    widths (clusters of 4 at hac's H), but on the card the two were within
+    4% of each other, either way by the batch (PERF.md, PR 13), and one
+    rule serves the three kernels."""
     for cluster in (1, 2, 4, 8, 16):
         units = -(-hidden // cluster)
         units += -units % 16
@@ -123,15 +132,18 @@ def k1_cluster_shape(hidden: int, fused: bool = False) -> tuple[int, int, int]:
     return cluster, units, max(warps)
 
 
-def k1_plan(hidden: int, n: int, active_clusters: int, fused: bool = False) -> ClusterPlan:
+def k1_plan(
+    hidden: int, n: int, active_clusters: int, fused: bool = False, elem_bytes: int = 2
+) -> ClusterPlan:
     """The split of a batch of ``n`` rows, given how many clusters of the
     shape the card runs at once: rows a cluster spread the batch over those
     clusters (a multiple of 8, the mma's n-tile), at most 48 and what shared
-    memory holds; a batch beyond that takes more clusters than run at once."""
+    memory holds (in elements of ``elem_bytes``: 1 for K15's int8); a batch
+    beyond that takes more clusters than run at once."""
     cluster, units, warps = k1_cluster_shape(hidden, fused)
     fit = [
         r for r in range(8, _K1_MAX_ROWS + 1, 8)
-        if _k1_smem(units, cluster, r, fused) <= _K1_SMEM_MAX
+        if _k1_smem(units, cluster, r, fused, elem_bytes) <= _K1_SMEM_MAX
     ]
     per_cluster = -(-n // max(active_clusters, 1))
     rows = min(max(8, per_cluster + -per_cluster % 8), fit[-1])
@@ -140,11 +152,12 @@ def k1_plan(hidden: int, n: int, active_clusters: int, fused: bool = False) -> C
 
 def slice_w_hh(w_hh_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
     """[H, 4H] recurrent weights -> [cluster, 4 * units, Kp] (Kp = cluster *
-    units rounded up to 32): CTA c's row 4 j + gate holds the weights of gate
-    column gate * H + c * units + j over k, zero where the unit or k is past
-    H. K1 copies slice c into CTA c's shared memory."""
+    units rounded up to 64 bytes: 32 bf16, 64 int8): CTA c's row 4 j + gate
+    holds the weights of gate column gate * H + c * units + j over k, zero
+    where the unit or k is past H. K1 (K15: int8 weights) copies slice c
+    into CTA c's shared memory."""
     hidden = w_hh_t.shape[0]
-    hp, kp = cluster * units, _k1_depth(cluster, units)
+    hp, kp = cluster * units, _k1_depth(cluster, units, w_hh_t.element_size())
     w = w_hh_t.new_zeros(kp, 4, hp)  # [k, gate, unit]
     w[:hidden, :, :hidden] = w_hh_t.reshape(hidden, 4, hidden)
     return w.reshape(kp, 4, cluster, units).permute(2, 3, 1, 0).reshape(cluster, 4 * units, kp)
@@ -173,18 +186,21 @@ def w_ih_fragments(w_ih_t: torch.Tensor, cluster: int, units: int) -> torch.Tens
 _active: dict[tuple, int] = {}
 
 
-def _active_clusters(device: torch.device, hidden: int, fused: bool = False) -> int:
-    """Clusters of K1's (or K16's) shape at 8 rows the card runs at once
+def _active_clusters(
+    device: torch.device, hidden: int, fused: bool = False, elem_bytes: int = 2
+) -> int:
+    """Clusters of K1's (K16's, K15's) shape at 8 rows the card runs at once
     (``cudaOccupancyMaxActiveClusters``), once per device and width."""
-    key = (device, hidden, fused)
+    key = (device, hidden, fused, elem_bytes)
     if key not in _active:
         cluster, units, warps = k1_cluster_shape(hidden, fused)
         fn = _cuda.kernel_function(
             "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 6 + [_cuda.VOIDP]
         )
         count = ctypes.c_int(0)
+        kind = 2 if elem_bytes == 1 else int(fused)  # the source's KIND_K15, KIND_K16, KIND_K1
         with torch.cuda.device(device):
-            code = fn(hidden, int(fused), cluster, units, 8, warps, ctypes.addressof(count))
+            code = fn(hidden, kind, cluster, units, 8, warps, ctypes.addressof(count))
         _cuda.check_launch("lstm_scan", code)
         if count.value < 1:
             raise RuntimeError(f"lstm_scan: the card runs no cluster of {cluster} CTAs at H = {hidden}")
@@ -192,10 +208,14 @@ def _active_clusters(device: torch.device, hidden: int, fused: bool = False) -> 
     return _active[key]
 
 
-def k1_launch_plan(hidden: int, n: int, device: torch.device, fused: bool = False) -> ClusterPlan:
-    """The split K1 (or K16: ``fused``) launches with on ``device`` for width
-    H and N rows."""
-    return k1_plan(hidden, n, _active_clusters(device, hidden, fused), fused)
+def k1_launch_plan(
+    hidden: int, n: int, device: torch.device, fused: bool = False, elem_bytes: int = 2
+) -> ClusterPlan:
+    """The split K1 (K16: ``fused``; K15: ``elem_bytes=1``) launches with on
+    ``device`` for width H and N rows."""
+    return k1_plan(
+        hidden, n, _active_clusters(device, hidden, fused, elem_bytes), fused, elem_bytes
+    )
 
 
 def lstm_scan_time_major(
@@ -270,14 +290,6 @@ def lstm_scan_int8_plain(
     return out
 
 
-def _pack_k4(w_i8: torch.Tensor) -> torch.Tensor:
-    """int8 [H, 4H] -> int32 [H/4, 4H]: word (kg, c) holds W[4kg .. 4kg+3][c]
-    in its bytes 0..3, the operand layout of the kernel's ``__dp4a``."""
-    hidden, g4 = w_i8.shape
-    packed = w_i8.reshape(hidden // 4, 4, g4).transpose(1, 2).contiguous()
-    return packed.view(torch.int32).reshape(hidden // 4, g4)
-
-
 def lstm_scan_time_major_int8(
     xproj: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor, reverse: bool = False
 ) -> torch.Tensor:
@@ -285,33 +297,53 @@ def lstm_scan_time_major_int8(
     float32 scale (``quantize_lstm_weights``) -> [T, N, H].
 
     A CPU tensor takes the plain version; a CUDA tensor (bf16, H a multiple
-    of 16 up to 512: the kernel's four slices of k in groups of four)
-    launches the kernel."""
+    of 16 up to 512) launches the kernel, split by ``k1_launch_plan(...,
+    elem_bytes=1)``."""
     if xproj.device.type == "cpu":
         return lstm_scan_int8_plain(xproj, w_i8, scale, reverse)
     t_len, n, g4 = xproj.shape
     hidden = g4 // 4
     if g4 != 4 * hidden or hidden % 16 or not 0 < hidden <= 512 or t_len == 0 or n == 0:
         raise ValueError(f"lstm_scan_int8: unsupported gate shape {tuple(xproj.shape)}")
-    _cuda.check_tensor(xproj, "xproj", torch.bfloat16, (t_len, n, g4))
     _cuda.check_tensor(w_i8, "w_i8", torch.int8, (hidden, g4))
-    _cuda.check_tensor(scale, "scale", torch.float32, (g4,))
-    if w_i8.device != xproj.device or scale.device != xproj.device:
-        raise ValueError("lstm_scan_int8: xproj, w_i8 and scale are on different devices")
-    w4 = _pack_k4(w_i8)
+    plan = k1_launch_plan(hidden, n, xproj.device, elem_bytes=1)
     out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
+    _launch_int8(xproj, slice_w_hh(w_i8, plan.cluster, plan.units), scale, out, reverse, plan)
+    return out
+
+
+def _launch_int8(
+    xproj: torch.Tensor,
+    w_sl: torch.Tensor,
+    scale: torch.Tensor,
+    out: torch.Tensor,
+    reverse: bool,
+    plan: ClusterPlan,
+) -> None:
+    """K15 on CUDA tensors: W_i8's slices ``slice_w_hh(w_i8, plan.cluster,
+    plan.units)`` into ``out`` [T, N, H] bf16, split by ``plan``."""
+    t_len, n, g4 = xproj.shape
+    hidden = g4 // 4
+    _cuda.check_tensor(xproj, "xproj", torch.bfloat16, (t_len, n, g4))
+    _cuda.check_tensor(
+        w_sl, "w_sl", torch.int8,
+        (plan.cluster, 4 * plan.units, _k1_depth(plan.cluster, plan.units, 1)),
+    )
+    _cuda.check_tensor(scale, "scale", torch.float32, (g4,))
+    _cuda.check_tensor(out, "out", torch.bfloat16, (t_len, n, hidden))
+    if any(t.device != xproj.device for t in (w_sl, scale, out)):
+        raise ValueError("lstm_scan_int8: xproj, w_i8, scale and out are on different devices")
     fn = _cuda.kernel_function(
-        "lstm_scan", "lstm_scan_int8", [_cuda.VOIDP] * 4 + [_cuda.INT] * 5 + [_cuda.VOIDP]
+        "lstm_scan", "lstm_scan_int8", [_cuda.VOIDP] * 4 + [_cuda.INT] * 8 + [_cuda.VOIDP]
     )
     with torch.cuda.device(xproj.device):
         code = fn(
-            xproj.data_ptr(), w4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            t_len, n, hidden, int(reverse), _rows_per_block(n, xproj.device),
+            xproj.data_ptr(), w_sl.data_ptr(), scale.data_ptr(), out.data_ptr(), t_len, n,
+            hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps,
             _cuda.stream_ptr(xproj.device),
         )
     _cuda.check_launch("lstm_scan", code)
     lstm_scan_time_major_int8.launches += 1
-    return out
 
 
 lstm_scan_time_major_int8.launches = 0

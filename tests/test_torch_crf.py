@@ -282,6 +282,28 @@ def test_viterbi_forward_matches_pallas(num_states):
     assert (choices.numpy() == 4).any() and (choices.numpy() < 4).any()
 
 
+# T of one step and one that fills no register ring of the kernel (eight rows,
+# four at 1024 states), N of one row and one that fills no warp, at each state
+# count the kernel takes
+@pytest.mark.parametrize("num_states", [64, 256, 1024])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("t_len", [1, 17])
+def test_viterbi_forward_matches_pallas_at_ragged_shapes(t_len, n, num_states):
+    """``viterbi_forward`` on CPU tensors (K7's plain version) against
+    ``_viterbi_fwd_pallas`` (K7a) and ``_viterbi_fwd_pallas_blk`` (K7b) in
+    interpret mode: choices identical, the final carry within 1e-5."""
+    raw = _ragged_scores(t_len, n, num_states)
+    pallas = _viterbi_fwd_pallas_blk if num_states == 1024 else _viterbi_fwd_pallas
+    ch_ref, fin_ref = pallas(jnp.asarray(raw), STAY, True)
+    launches = crf_cuda.viterbi_forward.launches
+    choices, final = crf_cuda.viterbi_forward(torch.from_numpy(raw), STAY)
+    assert crf_cuda.viterbi_forward.launches == launches
+    assert choices.dtype == torch.int8 and choices.shape == (t_len, n, num_states)
+    assert final.dtype == torch.float32 and final.shape == (n, num_states)
+    np.testing.assert_array_equal(choices.numpy(), np.asarray(ch_ref))
+    np.testing.assert_allclose(final.numpy(), np.asarray(fin_ref), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("num_states", [256, 1024])
 def test_viterbi_path_matches_pallas(num_states):
     """``viterbi_path`` (the Viterbi forward pass, then the traceback)

@@ -75,7 +75,9 @@ def test_quantize_lstm_weights_bit_equal_to_jax():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("t,n,h", K_CASES)
+# and a ragged case: T, N and H no multiple of the JAX kernel's tiles or of
+# K15's (8 rows, 16 units)
+@pytest.mark.parametrize("t,n,h", K_CASES + [(5, 3, 48)])
 def test_lstm_scan_int8_matches_pallas(t, n, h, reverse, dtype):
     """K15's plain version against its Pallas kernel in interpret mode."""
     xproj, w = _k15_inputs(t, n, h, 11 + h)
@@ -176,6 +178,69 @@ def test_slice_w_hh_reassembles_w_hh(h):
     kp = -(-cluster * units // 32) * 32
     assert sl.shape == (cluster, 4 * units, kp) and sl.dtype == w.dtype
     # [c, j, gate, k] -> [k, gate, c * units + j]
+    back = sl.reshape(cluster, units, 4, kp).permute(3, 2, 0, 1).reshape(kp, 4, cluster * units)
+    assert torch.equal(back[:h, :, :h].reshape(h, 4 * h), w)
+    assert not back[h:].any() and not back[:, :, h:].any()
+
+
+# K15's host-side helpers: it launches on K1's kernel and cluster shape with
+# int8 elements (``elem_bytes=1``): W_i8's slices are half of W_hh's bytes, a
+# pair of k-tiles is 64 k, h is held as int8.
+
+
+@pytest.mark.parametrize("h", range(16, 513, 16))
+def test_k15_plan_fits_every_width(h):
+    """Every width K15's wrapper takes launches on K1's cluster shape, and
+    its int8 slices, h buffers and stagings take less shared memory than
+    K1's bf16 ones at every rows a cluster."""
+    cluster, units, warps = k1_cluster_shape(h)
+    assert k1_plan(h, 1, 1, elem_bytes=1)[:3] == (cluster, units, warps)
+    for rows in range(8, 49, 8):
+        assert _k1_smem(units, cluster, rows, elem_bytes=1) < _k1_smem(units, cluster, rows)
+
+
+@pytest.mark.parametrize(
+    "h,smem",
+    # hac's H in clusters of 8 (77 KB of W_i8 a CTA), fast's 96 one CTA, 512
+    # in clusters of 16, a JAX test width, and the ragged test width 48 (h
+    # held as blocks of 48 bytes, no padding)
+    [(384, 83_728), (96, 60_688), (512, 80_656), (32, 12_560), (48, 17_680)],
+)
+def test_k15_shared_memory_at_the_models_widths(h, smem):
+    cluster, units, _ = k1_cluster_shape(h)
+    assert _k1_smem(units, cluster, 8, elem_bytes=1) == smem
+
+
+@pytest.mark.parametrize(
+    "h,n,active,rows,clusters",
+    [
+        (384, 128, 15, 16, 8),  # hac's batch: K1's split
+        (384, 512, 15, 40, 13),
+        (384, 37, 15, 8, 5),
+        (384, 100, 15, 8, 13),
+        (384, 2000, 15, 48, 42),  # int8 fits 48 rows where bf16 fits 40
+        (96, 512, 132, 8, 64),
+        (512, 128, 7, 24, 6),
+    ],
+)
+def test_k15_plan_rows_a_cluster(h, n, active, rows, clusters):
+    plan = k1_plan(h, n, active, elem_bytes=1)
+    assert (plan.rows, plan.clusters) == (rows, clusters)
+    assert plan.rows * plan.clusters >= n > plan.rows * (plan.clusters - 1)
+    assert _k1_smem(plan.units, plan.cluster, plan.rows, elem_bytes=1) <= 232448
+
+
+@pytest.mark.parametrize("h", [32, 48, 96, 384, 512])
+def test_slice_w_i8_reassembles_w_i8(h):
+    """K15's slices of W_i8 in K1's layout, at a depth rounded up to 64 k (a
+    pair of int8 k-tiles): every weight once, at CTA c's row 4 j + gate and
+    k, and zeros where the unit or k is past H."""
+    rs = np.random.RandomState(h)
+    w, _ = quantize_lstm_weights(torch.from_numpy(rs.randn(h, 4 * h).astype(np.float32)))
+    cluster, units, _ = k1_cluster_shape(h)
+    sl = slice_w_hh(w, cluster, units)
+    kp = -(-cluster * units // 64) * 64
+    assert sl.shape == (cluster, 4 * units, kp) and sl.dtype == torch.int8
     back = sl.reshape(cluster, units, 4, kp).permute(3, 2, 0, 1).reshape(kp, 4, cluster * units)
     assert torch.equal(back[:h, :, :h].reshape(h, 4 * h), w)
     assert not back[h:].any() and not back[:, :, h:].any()
