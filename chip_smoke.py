@@ -6,7 +6,9 @@
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the eleven CUDA kernel sources of ``dorado_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints their register and spill
-   reports; fails if ptxas serialised the ``wgmma`` of any kernel.
+   reports; fails if ptxas serialised the ``wgmma`` of any kernel. Builds
+   the read splitter's aligner (``csrc/align.cpp``, host C++) with ``g++``
+   and prints the compiler's version.
 3. Runs each kernel and its plain PyTorch version on the card at hac v4.3
    shapes (chunk 9996 -> T = 1666, batch N = 128, H = 384, S = 256), holds
    them against each other and times both, beside a PyTorch call that
@@ -67,7 +69,8 @@
    K7a; K8, its choices equal to K7b's; K17 and its traceback at 1024 states on the sup model's float32
    scores, against the plain beam on all 128 rows at the full T.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
-   ``BamWriter``) at hac v4.3's full width over 16 synthetic reads (14 of
+   ``BamWriter``, splitting reads, the default: every read must have its
+   record or its subreads' records) at hac v4.3's full width over 16 synthetic reads (14 of
    20k-60k samples, 2 of 3k-7k for the short-chunk lane) with seeded random
    weights, once with the Viterbi decoder and once with the beam decoder,
    both with W8A8 input projections (the default on the card). Every launch
@@ -85,13 +88,16 @@
    Then the command line, ``dorado_tpu_torch.cli.main`` in this process, on
    the committed POD5 fixture (16 reads, 502k samples) with model
    directories the port writes (hac v4.3 and sup v5.0 at full width, the
-   weights above): hac with the defaults (Viterbi, BAM), with ``--decoder
-   beam --emit-fastq`` and with ``--emit-sam``, and sup with ``--emit-sam``.
-   Each run starts with the counters at 0, must launch every kernel of its
-   path, and must write what ``run_reads`` writes for the reads of the
-   port's ``Pod5File`` with the same weights and header. One
-   ``python -m dorado_tpu_torch basecaller ... --emit-sam`` subprocess must
-   write the in-process SAM but for @PG. Then the ``-b 0`` sweep at hac with
+   weights above), splitting reads (the default): hac with the defaults
+   (Viterbi, BAM), with ``--decoder beam --emit-fastq``, with
+   ``--emit-sam``, with ``--emit-sam --disable-read-splitting``, and with
+   ``--emit-sam --max-reads 8 --min-qscore q`` (q halfway through the qs of
+   those eight reads' records, so that it drops some), and sup with
+   ``--emit-sam``. Each run starts with the counters at 0, must launch
+   every kernel of its path, and must write what ``run_reads`` writes for
+   the reads of the port's ``Pod5File`` with the same weights, options and
+   header. One ``python -m dorado_tpu_torch basecaller ... --emit-sam``
+   subprocess must write the in-process SAM but for @PG. Then the ``-b 0`` sweep at hac with
    its cache off: each batch size's device step and the chosen one.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
@@ -114,7 +120,11 @@
    kernel and by operator and the device's busy share. The "ext" and int8
    steps are those routes' main paths: their launches are counted as the
    pipelines' are (K10 18 times and K14 36 times a batch; K9 18 times).
-7. Prints one JSON line of per-kernel numbers and, last, the device line.
+7. Runs the read splitter on the card's host (``splitter_phase``) over 8
+   planted concatemers of 2-4 strands of 5-15 kb in simplex and in duplex
+   mode, which must cut at each planted base, and prints its host ms a read
+   beside the profiled hac Viterbi step's device ms for as many samples.
+8. Prints one JSON line of per-kernel numbers and, last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -143,6 +153,9 @@ W = 32  # beam width
 BEAM_CUT = 100.0
 STAY = 2.0
 N_READS = 16
+# the splitter phase: planted concatemers of 2-4 strands of 5-15 kb
+SPLIT_READS = 8
+SPLIT_STRAND_BASES = (5_000, 15_001)
 # random weights either stay on every step or move on most of them; this
 # gain on the CRF head's weights makes the path emit bases
 HEAD_GAIN = 64.0
@@ -359,12 +372,15 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
               card) -> None:
     """``python -m dorado_tpu_torch basecaller`` on the card: model
     directories written by the port (hac v4.3 and sup v5.0 at full width,
-    this run's seeded weights), the committed POD5 fixture. Each in-process
-    run starts with every launch counter at 0 and must launch every kernel of
-    its path (``check_launches``); its output must equal, record for record,
+    this run's seeded weights), the committed POD5 fixture, read splitting on
+    (the default) but in one case. Each in-process run starts with every
+    launch counter at 0 and must launch every kernel of its path
+    (``check_launches``); its output must equal, record for record,
     ``BasecallerPipeline.run_reads`` on the reads the port's ``Pod5File``
-    returns, with the same weights, written with the same header. One more
-    run in a subprocess must write the in-process run's SAM but for @PG."""
+    returns, with the same weights, options and header, and hold a record of
+    every read (the read filters' case: of every read it admits, less those
+    under ``--min-qscore``). One more run in a subprocess must write the
+    in-process run's SAM but for @PG."""
     import gzip
     import shlex
     import tempfile
@@ -373,6 +389,7 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
 
     from dorado_tpu_torch.cli.main import main as cli_main
     from dorado_tpu_torch.io import vbz
+    from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.pod5 import Pod5File
     from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
     from dorado_tpu_torch.models.load import build_model, load_model, save_model
@@ -384,6 +401,7 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
     fixture_reads = list(Pod5File(fixture).reads(strict=True))
     decode_s = time.perf_counter() - t0
     samples = sum(len(r.signal) for r in fixture_reads)
+    read_ids = [r.read_id for r in fixture_reads]
     print(f"POD5 decode of {fixture.name}: {len(fixture_reads)} reads, {samples} samples, "
           f"{fixture.stat().st_size} bytes in {decode_s:.4f} s (host) [{card}]", flush=True)
     runs = {}
@@ -397,17 +415,12 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
         for kind, path in (("hac", hac_dir), ("sup", sup_dir)):
             config, params = load_model(path)
             loaded[kind] = (config, build_model(config, params))
-        cases = [
-            # (path, model directory, kind, extra arguments, format, launch path)
-            ("cli hac", hac_dir, "hac", [], "bam", "viterbi"),
-            ("cli beam", hac_dir, "hac", ["--decoder", "beam", "--emit-fastq"], "fastq", "beam"),
-            ("cli hac sam", hac_dir, "hac", ["--emit-sam"], "sam", "viterbi"),
-            ("cli sup", sup_dir, "sup", ["--emit-sam"], "sam", "sup viterbi"),
-        ]
-        for path, model_dir, kind, extra, fmt, launch_path in cases:
+
+        def run_case(path, model_dir, kind, extra, fmt, launch_path, pipe_kw, admitted):
+            """One in-process run, held against run_reads with ``pipe_kw``;
+            ``admitted`` are the reads the options let in."""
             out = tmp / f"{path.replace(' ', '_')}.{fmt}"
-            argv = ["basecaller", str(model_dir), str(fixture), "--disable-read-splitting",
-                    *extra, "-o", str(out)]
+            argv = ["basecaller", str(model_dir), str(fixture), *extra, "-o", str(out)]
             for w in wrappers.values():
                 w.launches = 0
             torch.cuda.synchronize()
@@ -420,10 +433,10 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
             launches[path] = {name: w.launches for name, w in wrappers.items()}
             path_kernels[path] = path_kernels[launch_path]
             check_launches(path, launches[path], 1)
-            # the same reads through run_reads with the same weights and header
+            # the same reads through run_reads with the same weights, options and header
             config, ref_model = loaded[kind]
             pipe = BasecallerPipeline(config, ref_model, decoder="beam" if "beam" in path
-                                      else "viterbi")
+                                      else "viterbi", **pipe_kw)
             header = pipe.build_header([fixture], cli_line=shlex.join(["dorado_tpu_torch", *argv]))
             buf = io.StringIO() if fmt != "bam" else io.BytesIO()
             writer = {"sam": SamWriter, "fastq": FastqWriter, "bam": BamWriter}[fmt](buf, header)
@@ -442,17 +455,64 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
                 g, w = got.splitlines(), want.splitlines()
                 bad = sum(a != b for a, b in zip(g, w)) + abs(len(g) - len(w))
                 raise AssertionError(f"{path}: output differs from run_reads' at {bad} lines")
+            # every admitted read has a record (or its subreads have), but for
+            # those the qscore filter dropped
+            if fmt == "fastq":
+                names = [line[1:].split("\t")[0] for line in out.read_text().splitlines()[::4]]
+                parents = {n.split(":")[0] for n in names}
+            else:
+                records = read_records(out)[1]
+                names = [r.qname for r in records]
+                parents = {next((t.value for t in r.tags if t.tag == "pi"), r.qname)
+                           for r in records}
             n_records = stats.reads_called
-            if n_records != len(fixture_reads) or stats.bases_called == 0:
-                raise AssertionError(f"{path}: {n_records} reads, {stats.bases_called} bases")
+            if (len(names) != n_records or stats.bases_called == 0
+                    or not parents <= set(admitted)
+                    or len(names) + pipe.reads_filtered < len(admitted)
+                    or (not pipe.reads_filtered and parents != set(admitted))):
+                raise AssertionError(f"{path}: {len(names)} records of {len(parents)} of the "
+                                     f"{len(admitted)} reads admitted, {pipe.reads_filtered} "
+                                     f"filtered, {stats.bases_called} bases")
             runs[path] = (out, wall)
-            print(f"{path}: {' '.join(argv[3:])} -> {fmt}; {n_records} reads, {samples} samples "
-                  f"in {wall:.3f} s wall (incl. the runner's set-up: quantisation, first "
-                  f"batch shapes) = {samples / wall:.0f} samples/s [{card}]; output equal to "
-                  f"run_reads' ({len(got)} bytes{' decompressed' if fmt == 'bam' else ''}); "
-                  f"launches { {k: v for k, v in launches[path].items() if v} }", flush=True)
+            if "--min-qscore" in extra and not pipe.reads_filtered:
+                raise AssertionError(f"{path}: --min-qscore filtered no read")
+            split = sum(":" in n for n in names)
+            print(f"{path}: {' '.join(argv[3:-2])} -> {fmt}; {n_records} records ({split} of "
+                  f"them subreads) of {len(admitted)} reads admitted, {pipe.reads_filtered} "
+                  f"filtered by qscore, {samples} samples in the file, in {wall:.3f} s wall "
+                  f"(incl. the runner's set-up: quantisation, first batch shapes) = "
+                  f"{samples / wall:.0f} samples/s [{card}]; output equal to run_reads' "
+                  f"({len(got)} bytes{' decompressed' if fmt == 'bam' else ''}); host finish "
+                  f"{stats.host_finish_s:.3f} thread-s; launches "
+                  f"{ {k: v for k, v in launches[path].items() if v} }", flush=True)
+
+        cases = [
+            # (path, model directory, kind, extra arguments, format, launch path,
+            #  run_reads' options)
+            ("cli hac", hac_dir, "hac", [], "bam", "viterbi", {}),
+            ("cli beam", hac_dir, "hac", ["--decoder", "beam", "--emit-fastq"], "fastq", "beam",
+             {}),
+            ("cli hac sam", hac_dir, "hac", ["--emit-sam"], "sam", "viterbi", {}),
+            ("cli hac no split", hac_dir, "hac", ["--emit-sam", "--disable-read-splitting"],
+             "sam", "viterbi", {"split_reads": False}),
+            ("cli sup", sup_dir, "sup", ["--emit-sam"], "sam", "sup viterbi", {}),
+        ]
+        for case in cases:
+            run_case(*case, admitted=read_ids)
+        # --max-reads 8 and a --min-qscore halfway through the qs of those
+        # eight reads' records in the hac SAM, so that it drops some
+        records = read_records(runs["cli hac sam"][0])[1]
+        qs = sorted({next(t.value for t in r.tags if t.tag == "qs") for r in records
+                     if next((t.value for t in r.tags if t.tag == "pi"), r.qname)
+                     in read_ids[:8]})
+        if len(qs) < 2:
+            raise AssertionError(f"cli hac sam: the first 8 reads' records have one qs, {qs}")
+        min_qscore = (qs[len(qs) // 2 - 1] + qs[len(qs) // 2]) / 2
+        run_case("cli hac filters", hac_dir, "hac",
+                 ["--emit-sam", "--max-reads", "8", "--min-qscore", repr(min_qscore)], "sam",
+                 "viterbi", {"max_reads": 8, "min_qscore": min_qscore}, admitted=read_ids[:8])
         # one real subprocess: python -m dorado_tpu_torch, SAM on stdout
-        argv = ["basecaller", str(hac_dir), str(fixture), "--disable-read-splitting", "--emit-sam"]
+        argv = ["basecaller", str(hac_dir), str(fixture), "--emit-sam"]
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "dorado_tpu_torch", *argv], cwd=ROOT,
                              capture_output=True, text=True, timeout=600)
@@ -470,6 +530,55 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
               f"process: imports, CUDA context, runner set-up); SAM equal to the in-process run's "
               f"but for @PG; its summary: "
               f"{[l for l in res.stderr.splitlines() if l.startswith('> ')][:2]}", flush=True)
+
+
+def splitter_phase(stride, smi, hac_step) -> None:
+    """The read splitter on the card's host, in simplex mode (the basecaller's
+    finder chain) and duplex mode (every finder), at pA-scaled settings (hac's
+    pore threshold), over planted concatemers (``tests/torch_concatemers.py``)
+    at the model's stride: 8 reads of 2-4 strands of 5-15 kb, the odd ones
+    duplex (each strand the reverse complement of the one before, up to 10%
+    edits), where a read of 3 or 4 strands has one junction without an
+    adapter. Simplex mode must cut at the spacer base of every junction with
+    an adapter, duplex mode at every junction. Prints the host ms a read of
+    each mode beside the device ms of the hac Viterbi step for as many samples
+    (``hac_step``: its profiled busy ms and samples)."""
+    import numpy as np
+
+    from dorado_tpu_torch.splitter import DuplexReadSplitter, DuplexSplitSettings
+    from tests.torch_concatemers import concatemer
+
+    rs = np.random.RandomState(SEED)
+    reads = []
+    for i in range(SPLIT_READS):
+        n = int(rs.randint(2, 5))
+        duplex = i % 2 == 1
+        reads.append(concatemer(rs, list(rs.randint(*SPLIT_STRAND_BASES, n)), stride, duplex,
+                                adapter_free=(1,) if duplex and n > 2 else ()))
+    bases = sum(len(c.seq) for c in reads)
+    samples = sum(len(c.signal) for c in reads)
+    step_ms, step_samples = hac_step
+    device_ms = step_ms * samples / step_samples / len(reads)
+    for simplex in (True, False):
+        splitter = DuplexReadSplitter(DuplexSplitSettings.for_pa_scaling())
+        splitter.settings.simplex_mode = simplex
+        times, cuts = [], 0
+        for c in reads:
+            t0 = time.perf_counter()
+            subs = splitter.split(c.seq, c.qstring, c.moves, c.signal, stride)
+            times.append(time.perf_counter() - t0)
+            want = [b for b, adapter in zip(c.junctions, c.with_adapter) if adapter or not simplex]
+            if [sr.seq for sr in subs] != c.pieces(want):
+                raise AssertionError(
+                    f"splitter ({'simplex' if simplex else 'duplex'}): {len(subs)} subreads, not "
+                    f"the {len(want) + 1} that cutting at the planted bases {want} leaves")
+            cuts += len(want)
+        mode = "simplex" if simplex else "duplex"
+        print(f"read splitter, {mode} mode: {SPLIT_READS} reads of {bases} bases, {samples} "
+              f"samples, cut at all {cuts} planted bases; host {1e3 * np.mean(times):.2f} ms a "
+              f"read (max {1e3 * max(times):.2f}, {1e6 * sum(times) / bases:.3f} ms a kb) beside "
+              f"{device_ms:.2f} ms a read of the hac Viterbi device step for as many samples "
+              f"[{smi}]", flush=True)
 
 
 def batch_sweep(cfg, model, card) -> None:
@@ -512,6 +621,7 @@ def main() -> None:
         _cuda, attention, beam, crf_cuda, crf_scan, fused_norm, int8_matmul, lstm,
     )
     from dorado_tpu_torch.pipeline import BasecallerPipeline
+    from dorado_tpu_torch.utils import align as aligner
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -525,6 +635,13 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _cuda.build_kernels()
     print(f"built {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the read splitter's aligner: host C++, built by g++ (no fallback)
+    t0 = time.perf_counter()
+    align_lib = aligner.build()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    print(f"built the splitter's aligner {align_lib.name} with {gxx} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # each kernel's registers, spills and static shared memory, under its
     # (mangled) name, and ptxas's notes of lost performance (such as wgmma
     # serialised); K1's and the attention's dynamic shared memory are
@@ -1822,6 +1939,19 @@ def main() -> None:
         def write(self, rec):
             pass
 
+    class Parents:
+        """A writer's wrapper that keeps each record's read: its own name, or
+        its parent's for a subread."""
+
+        def __init__(self, inner):
+            self.inner, self.parents, self.subreads = inner, [], 0
+
+        def write(self, rec):
+            pi = next((t.value for t in rec.tags if t.tag == "pi"), None)
+            self.parents.append(pi or rec.qname)
+            self.subreads += pi is not None
+            self.inner.write(rec)
+
     wrappers = {
         "lstm_scan": lstm.lstm_scan_time_major,
         "w8a8_matmul_fq": int8_matmul.w8a8_matmul_fq,
@@ -1908,15 +2038,19 @@ def main() -> None:
             w.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = p.run_reads(path_reads, writer)
+        written = Parents(writer)
+        stats = p.run_reads(path_reads, written)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches[decoder] = {name: w.launches for name, w in wrappers.items()}
         writer.close()
 
         data = bam.getvalue()
-        if stats.reads_called != n_reads or writer.records_written != n_reads:
-            raise AssertionError(f"{decoder}: {writer.records_written} of {n_reads} reads written")
+        # splitting is on (the default): every read has its record or subreads
+        if (stats.reads_called != writer.records_written
+                or set(written.parents) != {r.read_id for r in path_reads}):
+            raise AssertionError(f"{decoder}: {writer.records_written} records of "
+                                 f"{len(set(written.parents))} of {n_reads} reads written")
         if data[:4] != b"\x1f\x8b\x08\x04":
             raise AssertionError(f"{decoder}: output does not start with the BGZF magic")
         # the sup paths: 18 encoder layers a batch, one decode a batch, a full
@@ -1926,12 +2060,14 @@ def main() -> None:
             raise AssertionError(f"{decoder} pipeline: {stats.batches} batches (at least 3), "
                                  f"{stats.bases_called} bases")
         print(
-            f"{decoder} pipeline: {n_reads} reads, {samples} samples, {stats.batches} batches, "
+            f"{decoder} pipeline: {n_reads} reads ({writer.records_written} records, "
+            f"{written.subreads} of them subreads), {samples} samples, {stats.batches} batches, "
             f"{stats.bases_called} bases in {elapsed:.3f} s = {samples / elapsed:.0f} samples/s "
             f"({what}) [{card}]; launches "
             f"{ {k: v for k, v in launches[decoder].items() if v} }; "
             f"device idle {stats.device_idle_s:.3f} s, host blocked in dispatch "
-            f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s",
+            f"{stats.dispatch_wait_s:.3f} s and in finish {stats.finish_wait_s:.3f} s; host "
+            f"finish (stitch, split, tags) {stats.host_finish_s:.3f} thread-s",
             flush=True,
         )
 
@@ -2316,6 +2452,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     # the ext and int8 steps are their routes' main paths: their launches count
+    step_busy = {}
     for decoder, r in (("viterbi", runner), ("beam", beam_runner), ("sup viterbi", sup_runner),
                        ("sup hp fused", hp_pipe.runner), ("sup beam", sup_beam_runner),
                        ("sup ext bf16", ext_runner), ("sup int8", int8_runner)):
@@ -2339,6 +2476,7 @@ def main() -> None:
             key=lambda kv: -kv[1],
         )
         busy_ms = sum(ms for _, ms in by_kernel)
+        step_busy[decoder] = (busy_ms, buf.shape[0] * buf.shape[1])
         precision = r.tx_precision or r.lstm_precision
         print(
             f"{decoder} device step (batch {buf.shape[0]}, {precision}): wall {wall_ms:.2f} ms, "
@@ -2368,6 +2506,8 @@ def main() -> None:
               f"operators and do not show here):", flush=True)
         for key, shapes, count, ms in by_op[:16 if decoder in ("sup viterbi", "sup beam") else 10]:
             print(f"  {ms:9.3f} ms  x{count:<4d} {key} {shapes[:100]}")
+
+    splitter_phase(cfg.stride, smi, step_busy["viterbi"])
 
     for row in rows:
         by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches

@@ -2,14 +2,14 @@
 
 Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
-directory, to BAM, SAM or FASTQ. Every other option of the JAX command is
-left out, so argparse rejects it, and two are refused with exit code 1
-instead of doing something else than the JAX command would:
-
-  - read splitting, on by default there, needs the aligner the port does not
-    have yet: the command runs only with ``--disable-read-splitting``;
-  - a model name or ``{fast,hac,sup}[@version]`` needs the model
-    downloader: the model must be a directory.
+directory, to BAM, SAM or FASTQ, splitting reads unless
+``--disable-read-splitting`` is given, with the read filters
+``--min-qscore``, ``--read-ids``, ``--max-reads`` and ``--resume-from``.
+Every other option of the JAX command is left out, so argparse rejects it,
+and two are refused with exit code 1 instead of doing something else than
+the JAX command would: ``--decoder beam-host``, and a model name or
+``{fast,hac,sup}[@version]``, which needs the model downloader: the model
+must be a directory.
 
 The device is CUDA unless ``-x cpu`` is given (``auto`` means CUDA); without
 CUDA the command raises rather than falling back to the CPU.
@@ -52,8 +52,12 @@ def _add_basecaller(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--trim", choices=["none"], default="none",
                    help="Trimming is not supported by the port: only 'none'")
     p.add_argument("--no-trim", action="store_true", help="Alias for --trim none")
-    p.add_argument("--disable-read-splitting", action="store_true",
-                   help="Required: the port does not split reads yet")
+    p.add_argument("--disable-read-splitting", action="store_true")
+    p.add_argument("--min-qscore", type=float, default=0.0)
+    p.add_argument("--resume-from", default=None, help="Resume from a partial BAM/SAM")
+    p.add_argument("--read-ids", default=None,
+                   help="File with one read id per line; only these are basecalled")
+    p.add_argument("--max-reads", type=int, default=None)
     p.add_argument("--run-for", type=int, default=None,
                    help="Stop basecalling after N seconds")
     p.add_argument("-x", "--device", default="cuda",
@@ -101,15 +105,12 @@ def _summarise(stats, elapsed_s: float) -> None:
 
 def _run_basecaller(args: argparse.Namespace) -> int:
     from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.pod5 import find_pod5_files
     from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
     from dorado_tpu_torch.models.load import build_model, load_model
     from dorado_tpu_torch.pipeline import BasecallerPipeline
 
-    if not args.disable_read_splitting:
-        print("> Read splitting is not supported by the port yet: pass "
-              "--disable-read-splitting", file=sys.stderr)
-        return 1
     if args.decoder == "beam-host":
         print("> --decoder beam-host is not supported by the port: use viterbi or beam",
               file=sys.stderr)
@@ -117,6 +118,30 @@ def _run_basecaller(args: argparse.Namespace) -> int:
     model_dir = _resolve_model_dir(args.model)
     if model_dir is None:
         return 1
+    # --resume-from: replay the file's records and skip their reads (the
+    # parent's id for a split read), after checking that it was made with
+    # this model (resume_loader/ResumeLoader.cpp:16-60)
+    skip_read_ids = set()
+    resume_records = []
+    if args.resume_from:
+        try:
+            header_text, resume_records = read_records(args.resume_from)
+        except ValueError as exc:  # CRAM, or not a BAM
+            print(f"> {exc}", file=sys.stderr)
+            return 1
+        err = _validate_resume_cl(header_text, model_dir)
+        if err:
+            print(f"> {err}", file=sys.stderr)
+            return 1
+        for rec in resume_records:
+            pid = next((t.value for t in rec.tags if t.tag == "pi"), None)
+            skip_read_ids.add(pid if pid else rec.qname)
+        print(f"> Resuming: {len(skip_read_ids)} reads already basecalled", file=sys.stderr)
+    only_read_ids = None
+    if args.read_ids:
+        with open(args.read_ids) as fh:
+            only_read_ids = {line.strip() for line in fh if line.strip()}
+
     device = resolve_device("cuda" if args.device == "auto" else args.device)
     config, params = load_model(model_dir)
     model = build_model(config, params)
@@ -132,6 +157,8 @@ def _run_basecaller(args: argparse.Namespace) -> int:
     pipeline = BasecallerPipeline(
         config, model, chunk_size=args.chunksize, batch_size=batchsize, overlap=args.overlap,
         emit_moves=args.emit_moves, device=device, decoder=args.decoder,
+        split_reads=not args.disable_read_splitting, min_qscore=args.min_qscore,
+        skip_read_ids=skip_read_ids, only_read_ids=only_read_ids, max_reads=args.max_reads,
     )
     try:
         files = find_pod5_files(args.data, recursive=args.recursive)
@@ -165,6 +192,8 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         else:
             writer = BamWriter(fh, header)
         t0 = time.perf_counter()
+        for rec in resume_records:
+            writer.write(rec)
         stats = pipeline.run(args.data, writer, recursive=args.recursive,
                              max_seconds=args.run_for)
         writer.close()
@@ -173,6 +202,42 @@ def _run_basecaller(args: argparse.Namespace) -> int:
             fh.close()
     _summarise(stats, time.perf_counter() - t0)
     return 0
+
+
+def _validate_resume_cl(header_text: str, model_dir: Path) -> str | None:
+    """Refuse to resume from a file made with another model: the model of
+    the file's ``@PG ID:basecaller CL:`` line, re-parsed with this command's
+    parser, must be a directory of the same name, with no modified-base
+    models (cli/cli_lib/basecaller.cpp:636-693). An error message, or None
+    when they agree."""
+    cl = None
+    for line in header_text.splitlines():
+        fields = line.split("\t")
+        if line.startswith("@PG") and "ID:basecaller" in fields:
+            for f in fields:
+                if f.startswith("CL:"):
+                    cl = f[3:]
+    if cl is None:
+        return ("Failed to parse resume parameters: the --resume-from file has no basecaller "
+                "@PG 'CL' (Command Line) header. This can happen if the HTS file headers "
+                "were dropped.")
+    tokens = shlex.split(cl)
+    if "basecaller" not in tokens:
+        return "Failed to parse resume parameters from the @PG CL header."
+    parser = argparse.ArgumentParser(prog="dorado_tpu_torch", exit_on_error=False)
+    _add_basecaller(parser.add_subparsers(dest="command"))
+    try:
+        resumed, unknown = parser.parse_known_args(
+            ["basecaller", *tokens[tokens.index("basecaller") + 1 :]])
+    except (argparse.ArgumentError, SystemExit):
+        return "Failed to parse resume parameters from the @PG CL header."
+    mods = tuple(sorted(t for t in unknown if t.split("=")[0] in ("--modified-bases",
+                                                                  "--modified-bases-models")))
+    current, recorded = (model_dir.name, ()), (Path(resumed.model).name, mods)
+    if current != recorded:
+        return ("Inconsistent models used in this pipeline and those used in the "
+                f"--resume-from file. Current: {current}; Resumed: {recorded}.")
+    return None
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,4 +1,4 @@
-"""BGZF block-compressed writer (the container format of BAM).
+"""BGZF block-compressed writer and reader (the container format of BAM).
 
 Pure-python implementation over zlib raw-deflate: 64 KiB-max blocks, each a
 complete gzip member carrying a BC extra field with the compressed block size,
@@ -10,7 +10,7 @@ from __future__ import annotations
 import struct
 import zlib
 from collections import deque
-from typing import BinaryIO
+from typing import BinaryIO, Iterator
 
 # Canonical BGZF EOF marker block (htslib bgzf.c).
 BGZF_EOF = bytes.fromhex(
@@ -107,3 +107,54 @@ class BgzfWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def iter_members(fh: BinaryIO) -> Iterator[bytes]:
+    """The decompressed payload of each BGZF member of ``fh``, one at a time."""
+    while True:
+        hdr = fh.read(12)
+        if not hdr:
+            return
+        if len(hdr) < 12 or hdr[:2] != b"\x1f\x8b":
+            raise ValueError("bad BGZF magic")
+        xlen = struct.unpack_from("<H", hdr, 10)[0]
+        extra = fh.read(xlen)
+        bsize = None
+        epos = 0
+        while epos < len(extra):
+            slen = struct.unpack_from("<H", extra, epos + 2)[0]
+            if extra[epos : epos + 2] == b"BC":
+                bsize = struct.unpack_from("<H", extra, epos + 4)[0] + 1
+            epos += 4 + slen
+        if bsize is None:
+            raise ValueError("missing BGZF BC field")
+        cdata = fh.read(bsize - 12 - xlen)[:-8]
+        if cdata:
+            yield zlib.decompress(cdata, -15)
+
+
+class BgzfReader:
+    """``read(n)`` over the concatenated payloads of a BGZF stream, holding
+    one member (at most 64 KiB) at a time."""
+
+    def __init__(self, fileobj: BinaryIO):
+        self._members = iter_members(fileobj)
+        self._buf = b""
+        self._off = 0
+
+    def read(self, n: int) -> bytes:
+        parts = []
+        while n:
+            avail = len(self._buf) - self._off
+            if avail == 0:
+                self._buf = next(self._members, None)
+                self._off = 0
+                if self._buf is None:
+                    self._buf = b""
+                    break
+                continue
+            take = min(avail, n)
+            parts.append(self._buf[self._off : self._off + take])
+            self._off += take
+            n -= take
+        return b"".join(parts)

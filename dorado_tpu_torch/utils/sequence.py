@@ -19,3 +19,13 @@ def mean_qscore_from_qstring(qstring: str | bytes) -> float:
     mean_error = float(np.mean(_CHAR_TO_ERR[q], dtype=np.float64))
     mean_q = -10.0 * np.log10(mean_error)
     return float(np.clip(mean_q, 1.0, 50.0))
+
+
+_COMPLEMENT = np.zeros(256, dtype=np.uint8)
+for _a, _b in zip(b"ACGTacgtNn", b"TGCATGCANN"):
+    _COMPLEMENT[_a] = _b
+
+
+def reverse_complement(seq: str) -> str:
+    arr = np.frombuffer(seq.encode(), dtype=np.uint8)
+    return _COMPLEMENT[arr[::-1]].tobytes().decode()

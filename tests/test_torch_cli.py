@@ -1,6 +1,8 @@
 """``python -m dorado_tpu_torch basecaller`` on the CPU against the JAX
 command (``dorado_tpu.cli.main``) on the same model directory and POD5 file,
-for SAM, FASTQ and BAM output, and the cases where it exits with 1.
+both splitting reads (their default), for SAM, FASTQ and BAM output; with
+``--disable-read-splitting``, ``--min-qscore``, ``--read-ids``,
+``--max-reads`` and ``--resume-from``; and the cases where it exits with 1.
 
 The file holds white-noise reads, as ``tests/test_torch_pipeline.py`` feeds
 the pipelines. (On the smooth signal of the committed fixture this narrow
@@ -21,13 +23,14 @@ from dorado_tpu.io.bam_reader import read_records
 from dorado_tpu.models.load import save_lstm_params as jax_save_lstm_params
 from dorado_tpu.models.presets import hac_v43_config as jax_hac_config
 from dorado_tpu_torch.cli.main import main
+from dorado_tpu_torch.io.pod5 import Pod5File
 from dorado_tpu_torch.io.sam import SamRecord, SamTag
 from dorado_tpu_torch.models.presets import config_toml, hac_v43_config
 from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
 from tests.torch_pod5_writer import make_reads, run_info, write_pod5
 
 REPO = Path(__file__).resolve().parent.parent
-COMMON = ["--disable-read-splitting", "-c", "1200", "-b", "8", "--emit-moves"]
+COMMON = ["-c", "1200", "-b", "8", "--emit-moves"]
 
 
 @pytest.fixture(autouse=True)
@@ -81,11 +84,11 @@ def _records(path: Path, fmt: str) -> tuple[list[str], list]:
     return [l for l in header.splitlines() if l.startswith("@RG")], records
 
 
-def _assert_records_match(ref, out):
+def _assert_records_match(ref, out, n_records=5, min_positions=500):
     """``tests/test_torch_pipeline.py``'s rule: records in the same order,
     sequences, flags and every tag equal but ``qs`` (within 1%) and the
     quality string (chars a step apart at most, at under 1% of bases)."""
-    assert [r.qname for r in out] == [r.qname for r in ref] and len(out) == 5
+    assert [r.qname for r in out] == [r.qname for r in ref] and len(out) == n_records
     counts = [0, 0]
     for a, b in zip(ref, out):
         assert b.seq == a.seq and b.flag == a.flag
@@ -98,7 +101,7 @@ def _assert_records_match(ref, out):
                 np.testing.assert_array_equal(tb.value, ta.value)
             else:
                 assert (tb.type, tb.value, tb.subtype) == (ta.type, ta.value, ta.subtype), ta.tag
-    assert counts[1] > 500
+    assert counts[1] > min_positions
     assert counts[0] <= 0.01 * counts[1]
 
 
@@ -141,8 +144,67 @@ def test_cli_writes_into_a_directory_and_counts_skipped_reads(inputs, tmp_path, 
     assert "> Reads skipped (POD5 decode faults): 1" in err
 
 
-@pytest.mark.parametrize("case", ["missing-dir", "no-pod5", "model-name", "variant", "split",
-                                  "beam-host", "fast5"])
+def _qs(rec) -> float:
+    return float(next(t.value for t in rec.tags if t.tag == "qs"))
+
+
+@pytest.fixture(scope="module")
+def default_sam(inputs, tmp_path_factory):
+    """The JAX command's SAM with the default options."""
+    model, data = inputs
+    out = tmp_path_factory.mktemp("default") / "calls.sam"
+    assert jax_main(["basecaller", str(model), str(data), *COMMON, "--emit-sam", "--dtype",
+                     "float32", "-x", "cpu", "-o", str(out)]) == 0
+    return read_records(out)[1]
+
+
+@pytest.mark.parametrize("option", ["disable-read-splitting", "min-qscore", "read-ids",
+                                    "max-reads", "resume-from"])
+def test_cli_read_options_match_jax_cli(inputs, default_sam, tmp_path, capfd, option):
+    """Each read option writes the JAX command's SAM. ``--resume-from`` takes
+    a partial BAM that the port wrote with ``--max-reads 2``: both commands
+    replay its two records first, then call the three other reads."""
+    model, data = inputs
+    names = [r.qname for r in default_sam]
+    first = [r.read_id for r in Pod5File(data / "calls.pod5").reads()]  # in input order
+    if option == "min-qscore":
+        qs = sorted(_qs(r) for r in default_sam)
+        gap, i = max((b - a, i) for i, (a, b) in enumerate(zip(qs, qs[1:])))
+        assert gap > 0.05 * qs[i + 1]
+        threshold = (qs[i] + qs[i + 1]) / 2
+        extra, kept = ["--min-qscore", str(threshold)], [n for n, r in zip(names, default_sam)
+                                                        if _qs(r) > threshold]
+    elif option == "read-ids":
+        (tmp_path / "ids.txt").write_text(f"{names[3]}\n\n{names[1]}\nnot-a-read\n")
+        extra, kept = ["--read-ids", str(tmp_path / "ids.txt")], [names[1], names[3]]
+    elif option == "max-reads":
+        extra, kept = ["--max-reads", "3"], first[:3]
+    elif option == "resume-from":
+        partial = tmp_path / "partial.bam"
+        assert main(["basecaller", str(model), str(data), *COMMON, "-x", "cpu", "--max-reads",
+                     "2", "-o", str(partial)]) == 0
+        extra, kept = ["--resume-from", str(partial)], names
+    else:
+        extra, kept = ["--disable-read-splitting"], names
+    ours, theirs = tmp_path / "ours.sam", tmp_path / "theirs.sam"
+    assert jax_main(["basecaller", str(model), str(data), *COMMON, *extra, "--emit-sam",
+                     "--dtype", "float32", "-x", "cpu", "-o", str(theirs)]) == 0
+    capfd.readouterr()
+    assert main(["basecaller", str(model), str(data), *COMMON, *extra, "--emit-sam", "-x", "cpu",
+                 "-o", str(ours)]) == 0
+    err = capfd.readouterr().err
+    _, ref = _records(theirs, "sam")
+    _, out = _records(ours, "sam")
+    assert sorted(r.qname for r in out) == sorted(kept)
+    _assert_records_match(ref, out, n_records=len(kept), min_positions=100)
+    if option == "resume-from":
+        assert sorted(r.qname for r in out[:2]) == sorted(first[:2])
+        assert "> Resuming: 2 reads already basecalled" in err
+        assert "> Reads basecalled: 3" in err
+
+
+@pytest.mark.parametrize("case", ["missing-dir", "no-pod5", "model-name", "variant",
+                                  "resume-other-model", "resume-cram", "beam-host", "fast5"])
 def test_cli_exits_1(inputs, tmp_path, capsys, case):
     model, data = inputs
     empty = tmp_path / "empty"
@@ -152,12 +214,24 @@ def test_cli_exits_1(inputs, tmp_path, capsys, case):
         "no-pod5": [str(model), str(empty), *COMMON],
         "model-name": ["dna_r10.4.1_e8.2_400bps_hac@v4.3.0", str(data), *COMMON],
         "variant": ["hac@v4.3", str(data), *COMMON],
-        "split": [str(model), str(data), "-c", "1200"],
+        "resume-other-model": [str(model), str(data), *COMMON, "--resume-from",
+                               str(tmp_path / "other.sam")],
+        "resume-cram": [str(model), str(data), *COMMON, "--resume-from", str(tmp_path / "x.cram")],
         "beam-host": [str(model), str(data), *COMMON, "--decoder", "beam-host"],
         "fast5": [str(model), str(empty), *COMMON],
     }[case]
     if case == "fast5":
         (empty / "old.fast5").write_bytes(b"")
+    if case == "resume-cram":
+        (tmp_path / "x.cram").write_bytes(b"CRAM\x03\x00")
+    if case == "resume-other-model":
+        # a file another model wrote, which the JAX command refuses too
+        (tmp_path / "other.sam").write_text(
+            "@HD\tVN:1.6\tSO:unknown\n@PG\tID:basecaller\tPN:dorado_tpu_torch\tVN:0.1.0\t"
+            f"CL:dorado_tpu_torch basecaller {tmp_path / 'dna_r10.4.1_e8.2_400bps_sup@v5.0.0'} "
+            f"{data} --emit-sam\nread-x\t4\t*\t0\t0\t*\t*\t0\t0\tACGT\t++++\tqs:f:5.0\n")
+        with capsys.disabled():  # the JAX command enables faulthandler on the real stderr
+            assert jax_main(["basecaller", *args, "-x", "cpu", "-o", str(tmp_path / "j.bam")]) == 1
     assert main(["basecaller", *args, "-x", "cpu", "-o", str(tmp_path / "o.bam")]) == 1
     err = capsys.readouterr().err
     want = {
@@ -165,7 +239,9 @@ def test_cli_exits_1(inputs, tmp_path, capsys, case):
         "no-pod5": f"> No POD5 files found under {empty}",
         "model-name": "the port has no model downloader yet",
         "variant": "the port has no model downloader yet",
-        "split": "--disable-read-splitting",
+        "resume-other-model": "Inconsistent models used in this pipeline and those used in the "
+                              "--resume-from file",
+        "resume-cram": "CRAM is not supported by the port",
         "beam-host": "beam-host is not supported",
         "fast5": "FAST5 files are not supported",
     }[case]

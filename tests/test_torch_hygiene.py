@@ -1,7 +1,7 @@
 """Hygiene of the port package: it imports neither JAX nor the JAX package,
-its entry points default to CUDA and refuse to fall back to the CPU, and
-each kernel wrapper runs its plain version on CPU tensors without counting
-a launch."""
+builds its aligner from its own source with no fallback, its entry points
+default to CUDA and refuse to fall back to the CPU, and each kernel wrapper
+runs its plain version on CPU tensors without counting a launch."""
 
 import pkgutil
 import subprocess
@@ -32,7 +32,9 @@ def _module_names():
 def test_package_imports_no_jax():
     names = _module_names()
     assert "dorado_tpu_torch.basecall.runner" in names and len(names) > 20
-    assert {"dorado_tpu_torch.models.tx_model", "dorado_tpu_torch.ops.attention"} <= set(names)
+    assert {"dorado_tpu_torch.models.tx_model", "dorado_tpu_torch.ops.attention",
+            "dorado_tpu_torch.splitter.duplex_splitter", "dorado_tpu_torch.splitter.utils",
+            "dorado_tpu_torch.utils.align", "dorado_tpu_torch.io.bam_reader"} <= set(names)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -344,7 +346,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     from dorado_tpu_torch.cli import main as cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    parser_args = ["basecaller", str(tmp_path), str(tmp_path), "--disable-read-splitting"]
+    parser_args = ["basecaller", str(tmp_path), str(tmp_path)]
     for extra in ([], ["-x", "auto"], ["-x", "cuda"], ["--device", "cuda:0"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(parser_args + extra)
@@ -374,3 +376,31 @@ def test_lstm_scan_source_has_k15_and_k16():
     for tpu_kernel in ("lstm_scan_time_major_int8", "lstm_fused_time_major"):
         assert f"Replaces dorado_tpu/ops/lstm.py::{tpu_kernel}" in src
     assert "__dp4a" in src
+
+
+def test_aligner_builds_from_its_own_source(monkeypatch, tmp_path):
+    """The splitter's aligner is ``csrc/align.cpp``, built by g++ into
+    ``csrc/build/``; a failed build raises, with no fallback; no module of
+    the port names the JAX package's native library or its sources."""
+    from dorado_tpu_torch.utils import align
+
+    assert align.SOURCE == _cuda.CSRC / "align.cpp" and align.SOURCE.is_file()
+    assert "int dt_align(" in align.SOURCE.read_text()
+    assert align.library_path().parent == _cuda.BUILD_DIR
+    assert align.library_path().name.startswith("align-")
+    calls = []
+
+    def failing_gxx(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, stdout="", stderr="error: planted")
+
+    monkeypatch.setattr(align, "library_path", lambda: tmp_path / "align-missing.so")
+    monkeypatch.setattr(align.subprocess, "run", failing_gxx)
+    with pytest.raises(RuntimeError, match="(?s)g[+][+] failed .*planted"):
+        align.build()
+    assert calls and calls[0][0] == "g++" and str(align.SOURCE) in calls[0]
+    assert {"-O3", "-std=c++17", "-shared", "-fPIC"} <= set(calls[0])
+    for path in PKG.rglob("*.py"):
+        text = path.read_text()
+        for name in ("dorado_tpu/native", "dorado_tpu.native", "libdorado_native"):
+            assert name not in text, f"{path} names {name}"

@@ -1,6 +1,7 @@
 """The port's file readers without pyarrow, zstandard or ml_dtypes, against
 the JAX package's and pyarrow on the same bytes: ``.tensor`` weight files,
-the VBZ signal codec (libzstd through ctypes) and the Arrow IPC reader."""
+the VBZ signal codec (libzstd through ctypes), the Arrow IPC reader, and
+BAM and SAM read back (``io/bam_reader.py``)."""
 
 import datetime
 import io
@@ -16,7 +17,10 @@ import zstandard
 
 from dorado_tpu.io import tensor_file as jax_tensor_file
 from dorado_tpu.io import vbz as jax_vbz
-from dorado_tpu_torch.io import arrow_ipc, tensor_file, vbz
+from dorado_tpu.io.bam_reader import read_records as jax_read_records
+from dorado_tpu_torch.io import arrow_ipc, bgzf, tensor_file, vbz
+from dorado_tpu_torch.io.bam_reader import read_records
+from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamRecord, SamTag, SamWriter
 
 # ---------------------------------------------------------------------------
 # .tensor files
@@ -220,3 +224,61 @@ def test_arrow_reader_refuses_what_it_does_not_decode():
     good = _ipc([pa.record_batch([pa.array([1, 2, 3], pa.int64())], names=["c"])])
     with pytest.raises(arrow_ipc.ArrowInvalid):
         arrow_ipc.read_file(good[:-14] + b"\xff\xff\xff\x7f" + good[-10:])
+
+
+# ---------------------------------------------------------------------------
+# BAM and SAM read back
+# ---------------------------------------------------------------------------
+
+
+def _records(n: int) -> list[SamRecord]:
+    rs = np.random.RandomState(5)
+    out = []
+    for i in range(n):
+        seq = "".join(rs.choice(list("ACGT"), rs.randint(0, 400)))
+        qual = (rs.randint(0, 60, len(seq)) + 33).astype(np.uint8).tobytes().decode()
+        tags = [SamTag("qs", "f", float(rs.rand() * 20)), SamTag("ns", "i", int(rs.randint(1e6))),
+                SamTag("ts", "i", -3), SamTag("st", "Z", "2023-11-14T22:13:20.000+00:00"),
+                SamTag("me", "I", 2**32 - 1), SamTag("tp", "A", "P"),
+                SamTag("mv", "B", rs.randint(0, 2, rs.randint(1, 50)).astype(np.uint8),
+                       subtype="c")]
+        if i % 3 == 1:
+            tags.append(SamTag("pi", "Z", f"parent-{i}"))
+        out.append(SamRecord(qname=f"read-{i}", seq=seq or "*", qual=qual or "*", tags=tags))
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["bam", "sam"])
+def test_read_records_matches_jax(tmp_path, fmt):
+    """Records written by the port read back as the JAX reader reads them:
+    every field and tag, over a BAM of several BGZF blocks."""
+    header = SamHeader(programs=[{"ID": "basecaller", "CL": "dorado_tpu_torch basecaller m d"}])
+    path = tmp_path / f"x.{fmt}"
+    records = _records(400)
+    with open(path, "wb" if fmt == "bam" else "w") as fh:
+        writer = BamWriter(fh, header, threads=0) if fmt == "bam" else SamWriter(fh, header)
+        for rec in records:
+            writer.write(rec)
+        writer.close()
+    text, got = read_records(path)
+    want_text, want = jax_read_records(path)
+    assert text == want_text == header.to_text()
+    assert len(got) == len(want) == len(records)
+    if fmt == "bam":
+        with open(path, "rb") as fh:
+            assert len(list(bgzf.iter_members(fh))) > 3
+    for a, b in zip(got, want):
+        assert (a.qname, a.flag, a.rname, a.pos, a.mapq, a.cigar, a.seq, a.qual) == (
+            b.qname, b.flag, b.rname, b.pos, b.mapq, b.cigar, b.seq, b.qual)
+        assert [(t.tag, t.type, t.subtype) for t in a.tags] == [
+            (t.tag, t.type, t.subtype) for t in b.tags]
+        for ta, tb in zip(a.tags, b.tags):
+            np.testing.assert_array_equal(ta.value, tb.value)
+    assert [r.seq for r in got] == [r.seq for r in records]
+
+
+def test_read_records_refuses_cram(tmp_path):
+    path = tmp_path / "x.cram"
+    path.write_bytes(b"CRAM\x03\x00")
+    with pytest.raises(ValueError, match="CRAM is not supported"):
+        read_records(path)

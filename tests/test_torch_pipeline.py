@@ -1,7 +1,10 @@
 """The port's simplex pipeline (``run_reads``, CPU) against the JAX
-``BasecallerPipeline(split_reads=False).run`` on the same synthetic reads,
-with the Viterbi and the beam decoder on a narrow hac model, and with the
-Viterbi decoder on the small transformer (sup) model.
+``BasecallerPipeline.run`` on the same synthetic reads, both splitting reads
+(their default), with the Viterbi and the beam decoder on a narrow hac model,
+and with the Viterbi decoder on the small transformer (sup) model; with each
+read filter (``min_qscore``, ``only_read_ids``, ``skip_read_ids``,
+``max_reads``); and both pipelines' finishers on one stitched call of a
+planted concatemer, where the split fires.
 
 The JAX pipeline reads POD5 files; the test hands it the same reads by
 replacing ``find_pod5_files`` and ``Pod5File`` in its module's namespace.
@@ -11,6 +14,7 @@ derived from it, which follow the runner test's tolerance.
 
 import io
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,7 @@ import dorado_tpu.pipeline.basecaller as jax_pipeline_module
 from dorado_tpu.io import pod5 as jax_pod5
 from dorado_tpu.models.presets import hac_v43_config as jax_hac_config
 from dorado_tpu.models.presets import sup_v50_config as jax_sup_config
+import dorado_tpu_torch.pipeline.basecaller as port_pipeline_module
 from dorado_tpu_torch.io import pod5
 from dorado_tpu_torch.io.bgzf import BGZF_EOF
 from dorado_tpu_torch.io.sam import BamWriter
@@ -30,6 +35,7 @@ from dorado_tpu_torch.models.tx_model import tx_params_from_jax
 from dorado_tpu_torch.pipeline import BasecallerPipeline
 from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
 from tests.test_torch_tx_model import jax_tx_params, small_sup
+from tests.torch_concatemers import concatemer
 
 FILENAME = "synthetic.pod5"
 LENGTHS = [3000, 890, 5200, 1700]
@@ -78,9 +84,22 @@ class _FakePod5File:
         return iter(_reads(jax_pod5))
 
 
+def _jax_run(jp):
+    """``jp.run`` over the synthetic reads: its records."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_pipeline_module, "find_pod5_files", lambda *a, **k: [Path(FILENAME)])
+    mp.setattr(jax_pipeline_module, "Pod5File", _FakePod5File)
+    try:
+        ref = _Collect()
+        jp.run("unused", ref)
+    finally:
+        mp.undo()
+    return ref.records
+
+
 def _run_both(decoder, family="hac"):
-    """The same reads through the JAX pipeline and the port's: (JAX records,
-    the port's records, the port's stats)."""
+    """The same reads through the JAX pipeline and the port's, both splitting
+    reads: (JAX records, the port's records, the port's stats)."""
     if family == "hac":
         params = jax_params_with_moves(2)
         jcfg, cfg = _narrow_hac(jax_hac_config()), _narrow_hac(hac_v43_config())
@@ -92,21 +111,13 @@ def _run_both(decoder, family="hac"):
         model = tx_params_from_jax(params, cfg)
         chunk_size = 1152
     kw = dict(chunk_size=chunk_size, batch_size=8, emit_moves=True, decoder=decoder)
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax_pipeline_module, "find_pod5_files", lambda *a, **k: [Path(FILENAME)])
-    mp.setattr(jax_pipeline_module, "Pod5File", _FakePod5File)
-    try:
-        jp = jax_pipeline_module.BasecallerPipeline(
-            jcfg, params, split_reads=False, compute_dtype=jnp.float32, **kw,
-        )
-        ref = _Collect()
-        jp.run("unused", ref)
-    finally:
-        mp.undo()
+    jp = jax_pipeline_module.BasecallerPipeline(jcfg, params, compute_dtype=jnp.float32, **kw)
+    ref = _jax_run(jp)
     tp = BasecallerPipeline(cfg, model, device="cpu", **kw)
+    assert tp.read_splitter.settings.simplex_mode and tp.read_splitter.settings.pore_thr == 2.8
     out = _Collect()
     stats = tp.run_reads(_reads(pod5), out)
-    return ref.records, out.records, stats
+    return ref, out.records, stats
 
 
 @pytest.fixture(scope="module")
@@ -132,11 +143,12 @@ def _assert_tx_qstrings_close(a: str, b: str, counts: list) -> None:
 
 
 def _assert_records_match(
-    ref, out, stats, qstrings_close=assert_qstrings_close, max_share_different=0.01
+    ref, out, stats, qstrings_close=assert_qstrings_close, max_share_different=0.01,
+    names=tuple(f"read-{i}" for i in range(4)), min_positions=500, min_batches=2,
 ):
     # both pipelines write reads in the order they complete
     assert [r.qname for r in out] == [r.qname for r in ref]
-    assert sorted(r.qname for r in out) == [f"read-{i}" for i in range(4)]
+    assert sorted(r.qname for r in out) == list(names)
     counts = [0, 0]
     for a, b in zip(ref, out):
         assert b.seq == a.seq and b.flag == a.flag
@@ -152,9 +164,9 @@ def _assert_records_match(
             else:
                 a_t, b_t = ta[tag], tb[tag]
                 assert (b_t.type, b_t.value, b_t.subtype) == (a_t.type, a_t.value, a_t.subtype), tag
-    assert counts[1] > 500
+    assert counts[1] > min_positions
     assert counts[0] <= max_share_different * counts[1]
-    assert stats.reads_called == 4 and stats.batches >= 2
+    assert stats.reads_called == len(names) and stats.batches >= min_batches
     assert stats.bases_called == sum(len(r.seq) for r in out)
 
 
@@ -207,3 +219,101 @@ def test_bam_output(records):
     assert data[:4] == b"\x1f\x8b\x08\x04" and data.endswith(BGZF_EOF)
     assert writer.records_written == len(LENGTHS)
 
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    """One JAX and one port pipeline on the narrow hac model, reused by the
+    filter tests, which set the filters' attributes before each run."""
+    params = jax_params_with_moves(2)
+    cfg = _narrow_hac(hac_v43_config())
+    kw = dict(chunk_size=1200, batch_size=8, emit_moves=True)
+    jp = jax_pipeline_module.BasecallerPipeline(
+        _narrow_hac(jax_hac_config()), params, compute_dtype=jnp.float32, **kw)
+    return jp, BasecallerPipeline(cfg, params_from_jax(params, cfg), device="cpu", **kw)
+
+
+def _min_qscore_between(records):
+    """A threshold halfway across the widest gap between two reads' qs: the
+    two frameworks' qs (1% apart at most) fall on the same side of it."""
+    qs = sorted(float(next(t.value for t in r.tags if t.tag == "qs")) for r in records)
+    gap, i = max((b - a, i) for i, (a, b) in enumerate(zip(qs, qs[1:])))
+    assert gap > 0.05 * qs[i + 1]
+    return (qs[i] + qs[i + 1]) / 2, i + 1
+
+
+@pytest.mark.parametrize("which", ["min_qscore", "only_read_ids", "skip_read_ids", "max_reads"])
+def test_read_filters_match_jax(pipelines, records, which):
+    """Each filter keeps the same records in both pipelines, and counts the
+    same ``reads_filtered``; only the admitted reads are decoded."""
+    jp, tp = pipelines
+    threshold, n_below = _min_qscore_between(records[0])
+    setting = {
+        "min_qscore": threshold,
+        "only_read_ids": {"read-1", "read-3", "not-in-the-input"},
+        "skip_read_ids": {"read-0", "read-2"},
+        "max_reads": 2,
+    }[which]
+    for p in (jp, tp):
+        p.min_qscore, p.skip_read_ids, p.only_read_ids, p.max_reads = 0.0, set(), None, None
+        setattr(p, which, setting)
+        p._reads_fed = p.reads_filtered = 0
+    ref = _jax_run(jp)
+    out = _Collect()
+    taken = []
+
+    def source():
+        for r in _reads(pod5):
+            taken.append(r.read_id)
+            yield r
+
+    stats = tp.run_reads(source(), out)
+    names = {
+        "min_qscore": sorted(r.qname for r in records[0]
+                             if next(t.value for t in r.tags if t.tag == "qs") > threshold),
+        "only_read_ids": ["read-1", "read-3"],
+        "skip_read_ids": ["read-1", "read-3"],
+        "max_reads": ["read-0", "read-1"],
+    }[which]
+    _assert_records_match(ref, out.records, stats, names=tuple(names), min_positions=100,
+                          min_batches=1)
+    assert tp.reads_filtered == jp.reads_filtered == (n_below if which == "min_qscore" else 0)
+    assert taken == (["read-0", "read-1"] if which == "max_reads" else [f"read-{i}" for i in range(4)])
+    assert tp.run_reads(_reads(pod5), _Collect()).reads_called == (
+        0 if which == "max_reads" else len(names))
+
+
+def _split_call(module, c, read):
+    """A working read of ``module``'s pipeline whose one chunk was called as
+    the planted concatemer ``c``."""
+    n = len(c.signal)
+    call = SimpleNamespace(sequence=c.seq, qstring=c.qstring, moves=c.moves)
+    return module._WorkingRead(
+        read=read, scaled=c.signal.copy(), num_trimmed=10, shift_pa=91.9, scale_pa=22.5,
+        scaling_method="quantile", offsets=[0], chunk_sizes=[n], results=[call], pending=0)
+
+
+def test_split_records_match_jax(pipelines):
+    """Both finishers on one stitched call of a planted concatemer (three
+    strands, adapters at both junctions) write the same three subread
+    records, tag for tag: ``:i`` names, ``pi``, ``sp:i:0``, ``rn = -1`` and the
+    subread's ``ns``, ``ts = 0`` and ``du``."""
+    jp, tp = pipelines
+    for p in (jp, tp):
+        p.min_qscore, p.skip_read_ids, p.only_read_ids, p.max_reads = 0.0, set(), None, None
+    c = concatemer(np.random.RandomState(4), [1500, 2200, 1800], 6, duplex=False)
+    want = jp._finish_read(_split_call(jax_pipeline_module, c, _reads(jax_pod5)[1]))
+    got = tp._finish_read(_split_call(port_pipeline_module, c, _reads(pod5)[1]))
+    assert [r.qname for r in got] == [r.qname for r in want] == ["read-1:0", "read-1:1",
+                                                                 "read-1:2"]
+    assert [r.seq for r in got] == c.pieces(c.junctions)
+    for a, b in zip(want, got):
+        assert (b.seq, b.qual, b.flag) == (a.seq, a.qual, a.flag)
+        assert [(t.tag, t.type, t.value, t.subtype) for t in b.tags if t.tag != "mv"] == [
+            (t.tag, t.type, t.value, t.subtype) for t in a.tags if t.tag != "mv"]
+        np.testing.assert_array_equal(next(t.value for t in b.tags if t.tag == "mv"),
+                                      next(t.value for t in a.tags if t.tag == "mv"))
+        tags = {t.tag: t.value for t in b.tags}
+        assert (tags["pi"], tags["sp"], tags["rn"], tags["ts"]) == ("read-1", 0, -1, 0)
+    ns = [dict((t.tag, t.value) for t in r.tags)["ns"] for r in got]
+    assert sum(ns) < len(c.signal) and min(ns) > 0
