@@ -23,7 +23,12 @@
    split and microseconds a step, on no path; K16 (the input
    projection inside the recurrence, on K1's kernel) at K1's widths and
    batches in both directions, timed at N = 128 and 512 beside cuDNN's LSTM
-   with its split, on no path; K2 (W8A8 projection) bit for bit at three row
+   with its split, on no path; K1 float32 (K1's kernel with float32
+   elements and 3xTF32 products: the modbase models' LSTMs) in both
+   directions at the modbase shape (T = 32, H = 256) at N = 128 and 1024 and
+   at hac's H and T at N = 128, each timed beside cuDNN's float32 LSTM with
+   TF32 off, and at two ragged shapes launched into outputs filled with NaN
+   first; K2 (W8A8 projection) bit for bit at three row
    counts and at 357 rows of its widest (K = 768, O = 3072) and narrowest
    (128, 128) weights, beside the bf16 matmul it replaces and
    ``torch._int_mm`` with separate quantise and dequantise passes; K3, K4, K5 (the Viterbi path's
@@ -85,6 +90,15 @@
    with ``decoder="beam"``, where the full-history scans (both directions
    in one launch), K17 and the beam traceback take K3's, K4's and K5's place
    (once a batch each). K7a, K7b and K8 are on no path (``"on_path": false``).
+   Then modified-base calling (``modbase_phase``) with the 5mCG_5hmCG@v3
+   model at full width (H = 256, random weights and kmer levels from the
+   seed, written as a model directory): ``ModBaseCaller`` on the card and on
+   the CPU over 24 synthetic reads of 2-8 kb (MM equal, ML within 1 and equal
+   at 99.9% of values), with the host ms a read of ``prepare_read`` and the
+   device ms of a batch of 128 chunks; and ``run_reads`` at hac v4.3 with the
+   caller (the finish pool's scheduler on), which must launch the hac path's
+   kernels and K1 float32 and write MN, MM and ML on every record, ML
+   entries on some.
    Then the command line, ``dorado_tpu_torch.cli.main`` in this process, on
    the committed POD5 fixture (16 reads, 502k samples) with model
    directories the port writes (hac v4.3 and sup v5.0 at full width, the
@@ -92,12 +106,14 @@
    (Viterbi, BAM), with ``--decoder beam --emit-fastq``, with
    ``--emit-sam``, with ``--emit-sam --disable-read-splitting``, and with
    ``--emit-sam --max-reads 8 --min-qscore q`` (q halfway through the qs of
-   those eight reads' records, so that it drops some), and sup with
-   ``--emit-sam``. Each run starts with the counters at 0, must launch
+   those eight reads' records, so that it drops some), hac with
+   ``--emit-sam --modified-bases-models`` (the modbase directory), and sup
+   with ``--emit-sam``. Each run starts with the counters at 0, must launch
    every kernel of its path, and must write what ``run_reads`` writes for
    the reads of the port's ``Pod5File`` with the same weights, options and
-   header. One ``python -m dorado_tpu_torch basecaller ... --emit-sam``
-   subprocess must write the in-process SAM but for @PG. Then the ``-b 0`` sweep at hac with
+   header (the modbase case: ML within 1 at all but 0.1% of its values).
+   One ``python -m dorado_tpu_torch basecaller ... --emit-sam`` subprocess
+   must write the in-process SAM but for @PG. Then the ``-b 0`` sweep at hac with
    its cache off: each batch size's device step and the chosen one.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
@@ -138,6 +154,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -164,6 +181,9 @@ HEAD_GAIN = 64.0
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+# dense TF32 on the tensor cores: K1 float32 issues three such products
+# (3xTF32) for each float32 one, so its float32 rate is at most a third
+PEAK_TF32 = 495e12
 PEAK_F64 = 34e12  # float64 outside the tensor cores
 HBM_BYTES_S = 3.35e12
 # kernel vs plain version on the card (max abs error):
@@ -202,6 +222,27 @@ K15_SHAPES = [(T, N, H), (64, 37, H), (64, 100, H), (1, 5, H), (3, 37, H), (64, 
 # the card runs 30 such clusters at once) at the rows that gives: 8 at N =
 # 128, 24 at 512
 K15_SMALL_CLUSTER, K15_SMALL_ROWS = (4, 96, 12), {N: 8, 4 * N: 24}
+# K1 float32 (the modbase models' LSTMs): float32 sums of 3xTF32 products
+#     (about 2^-21 of each product) in another order, and CUDA's expf and
+#     tanhf a last bit off PyTorch's, carried over the steps: within 1e-4,
+#     half the JAX package's own tolerance for its float32 kernel against
+#     lax.scan (2e-4; measured 7e-7 at T = 1666)
+TOL_LSTM_F32 = 1e-4
+# its shapes (T, N, H): the modbase models' (a chunk of 192 samples at stride
+# 6 -> T = 32, H = 256) at their batch of 128 chunks and at 1024, and hac's H
+# and chunk at N = 128 (clusters of 16); each in both directions. Then ragged
+# shapes launched into outputs filled with NaN first (every position must be
+# written): T, N no multiple of anything the kernel works in, at H = 256 and at
+# a padded width in one CTA
+K1F_SHAPES = [(32, N, 256), (32, 8 * N, 256), (T, N, H)]
+K1F_RAGGED = [(5, 37, 256), (7, 3, 36)]
+# the modbase phase: synthetic reads of 2-8 kb through ModBaseCaller at full
+# width on the card and on the CPU; their uint8 probabilities are floor(p *
+# 256), so float32 sums in another order can move one a step: ML equal at
+# 99.9% of positions, never more than 1 apart; MM equal
+MODBASE_READS = 24
+MODBASE_BASES = (2_000, 8_001)
+MIN_MODBASE_ML_EQUAL = 0.999
 # K16 (input projection inside): held as K1 (TOL_LSTM), at K1's widths and
 # batches in both directions
 # K2: bit for bit (the int32 sums are exact and every float step is a single
@@ -369,7 +410,7 @@ def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
 
 
 def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels, launches,
-              card) -> None:
+              card, mod_dir) -> None:
     """``python -m dorado_tpu_torch basecaller`` on the card: model
     directories written by the port (hac v4.3 and sup v5.0 at full width,
     this run's seeded weights), the committed POD5 fixture, read splitting on
@@ -379,12 +420,15 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
     ``BasecallerPipeline.run_reads`` on the reads the port's ``Pod5File``
     returns, with the same weights, options and header, and hold a record of
     every read (the read filters' case: of every read it admits, less those
-    under ``--min-qscore``). One more run in a subprocess must write the
-    in-process run's SAM but for @PG."""
+    under ``--min-qscore``). The modbase case (``--modified-bases-models
+    mod_dir``) is held on ML within 1 at all but 0.1% of its values, and
+    every other field equal: its caller's batches hold other chunks together
+    in the two runs. One more run in a subprocess must write the in-process
+    run's SAM but for @PG."""
     import gzip
     import shlex
-    import tempfile
 
+    import numpy as np
     import torch
 
     from dorado_tpu_torch.cli.main import main as cli_main
@@ -392,6 +436,8 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
     from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.pod5 import Pod5File
     from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
+    from dorado_tpu_torch.modbase.caller import ModBaseCaller
+    from dorado_tpu_torch.modbase.config import load_modbase_config
     from dorado_tpu_torch.models.load import build_model, load_model, save_model
     from dorado_tpu_torch.pipeline import BasecallerPipeline
 
@@ -451,7 +497,28 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
                 got, want = gzip.decompress(got), gzip.decompress(want)
             else:
                 want = want.encode()
-            if got != want:
+            ml_counts = [0, 0]
+            if got != want and "modbase" in path:
+                # the modbase batches of the two runs hold other chunks
+                # together (the scheduler's timing), and a float32 product
+                # over another row count can move a probability a step: ML
+                # within 1, at most 0.1% of values off; all else equal
+                g, w = got.decode().splitlines(), want.decode().splitlines()
+                for a, b in zip(g, w):
+                    fa, fb = a.split("\t"), b.split("\t")
+                    ml = [(x, y) for x, y in zip(fa, fb) if x.startswith("ML:B:C")]
+                    if (len(g) != len(w) or len(fa) != len(fb)
+                            or [x for x in fa if not x.startswith("ML:B:C")]
+                            != [y for y in fb if not y.startswith("ML:B:C")]
+                            or not all(ml_close(np.array(x.split(",")[1:], dtype=np.int32),
+                                                np.array(y.split(",")[1:], dtype=np.int32),
+                                                ml_counts) for x, y in ml)):
+                        raise AssertionError(f"{path}: a record differs from run_reads' (not "
+                                             f"only in ML, or ML by more than 1)")
+                if ml_counts[0] > (1 - MIN_MODBASE_ML_EQUAL) * ml_counts[1]:
+                    raise AssertionError(f"{path}: {ml_counts[0]} of {ml_counts[1]} ML values "
+                                         f"differ from run_reads'")
+            elif got != want:
                 g, w = got.splitlines(), want.splitlines()
                 bad = sum(a != b for a, b in zip(g, w)) + abs(len(g) - len(w))
                 raise AssertionError(f"{path}: output differs from run_reads' at {bad} lines")
@@ -482,7 +549,9 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
                   f"filtered by qscore, {samples} samples in the file, in {wall:.3f} s wall "
                   f"(incl. the runner's set-up: quantisation, first batch shapes) = "
                   f"{samples / wall:.0f} samples/s [{card}]; output equal to run_reads' "
-                  f"({len(got)} bytes{' decompressed' if fmt == 'bam' else ''}); host finish "
+                  f"({len(got)} bytes{' decompressed' if fmt == 'bam' else ''}"
+                  f"{f'; ML: {ml_counts[0]} of {ml_counts[1]} values a step apart' if ml_counts[1] else ''}"
+                  f"); host finish "
                   f"{stats.host_finish_s:.3f} thread-s; launches "
                   f"{ {k: v for k, v in launches[path].items() if v} }", flush=True)
 
@@ -496,6 +565,10 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
             ("cli hac no split", hac_dir, "hac", ["--emit-sam", "--disable-read-splitting"],
              "sam", "viterbi", {"split_reads": False}),
             ("cli sup", sup_dir, "sup", ["--emit-sam"], "sam", "sup viterbi", {}),
+            ("cli hac modbase", hac_dir, "hac", ["--emit-sam", "--modified-bases-models",
+                                                 str(mod_dir)], "sam", "modbase",
+             {"modbase_caller": ModBaseCaller([load_modbase_config(mod_dir)],
+                                              canonical_stride=cfg.stride)}),
         ]
         for case in cases:
             run_case(*case, admitted=read_ids)
@@ -581,6 +654,174 @@ def splitter_phase(stride, smi, hac_step) -> None:
               f"[{smi}]", flush=True)
 
 
+def modbase_reads(rs, stride, n=MODBASE_READS):
+    """Synthetic reads for the modbase callers, made with numpy: (sequence of
+    random bases, CG at about one in sixteen positions; a move table at
+    ``stride``, one move a base over 2.2 steps a base; the scaled signal,
+    white noise) triples."""
+    import numpy as np
+
+    reads = []
+    for _ in range(n):
+        bases = int(rs.randint(*MODBASE_BASES))
+        seq = "".join(rs.choice(list("ACGT"), bases))
+        steps = int(bases * 2.2)
+        moves = np.zeros(steps, dtype=np.uint8)
+        moves[0] = 1
+        moves[np.sort(rs.choice(np.arange(1, steps), bases - 1, replace=False))] = 1
+        reads.append((seq, moves, rs.randn(stride * steps).astype(np.float32)))
+    return reads
+
+
+def ml_close(got: np.ndarray, want: np.ndarray, counts: list) -> bool:
+    """ML values of one record within 1 of the reference's; counts the
+    values that differ and all values."""
+    import numpy as np
+
+    if got.shape != want.shape:
+        return False
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    counts[0] += int((diff > 0).sum())
+    counts[1] += diff.size
+    return diff.max(initial=0) <= 1
+
+
+def modbase_phase(cfg, model, reads, run_info, mod_dir, wrappers, check_launches, launches,
+                  smi) -> None:
+    """Modified-base calling on the card. (b) ``ModBaseCaller`` with the
+    5mCG_5hmCG@v3 model at full width (``mod_dir``: random weights and kmer
+    levels from the seed, rescale on) on the card and on the CPU over the
+    same synthetic reads (``modbase_reads``): MM strings equal, ML bytes
+    within 1 and equal at MIN_MODBASE_ML_EQUAL of positions; prints the host
+    ms a read of ``prepare_read`` and the device ms of a batch of chunks. (c)
+    ``BasecallerPipeline.run_reads`` at hac v4.3 (``model``, W8A8) with that
+    caller, the finish pool's scheduler on (the default): it must launch the
+    hac path's kernels and K1 float32 (``launches["modbase"]``), write MN, MM
+    and ML after ``me`` on every record, and ML entries on at least one."""
+    import numpy as np
+    import torch
+
+    from dorado_tpu_torch.io.sam import BamWriter
+    from dorado_tpu_torch.modbase.caller import ModBaseCaller
+    from dorado_tpu_torch.modbase.config import load_modbase_config
+    from dorado_tpu_torch.modbase.tags import generate_modbase_tags, modbase_threshold_uint8
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+    mcfg = load_modbase_config(mod_dir)
+    card = ModBaseCaller([mcfg], canonical_stride=cfg.stride)
+    cpu = ModBaseCaller([mcfg], canonical_stride=cfg.stride, device="cpu")
+    if card.scalers[0] is None or card.models[0].config.size != 256:
+        raise AssertionError("the modbase model is not 5mCG_5hmCG@v3 at full width with rescale")
+    mreads = modbase_reads(np.random.RandomState(SEED), cfg.stride)
+    bases = sum(len(r[0]) for r in mreads)
+    t0 = time.perf_counter()
+    prepared = [card.prepare_read(*r) for r in mreads]
+    prep_s = time.perf_counter() - t0
+    chunks = sum(p.num_chunks for p in prepared)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = card.call_reads(prepared)
+    call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = cpu.call_reads([cpu.prepare_read(*r) for r in mreads])
+    cpu_s = time.perf_counter() - t0
+    threshold = modbase_threshold_uint8(0.05)
+    counts, hits = [0, 0], 0
+    for (seq, _, _), a, b in zip(mreads, on_card, on_cpu):
+        mm_a, ml_a, _ = generate_modbase_tags(seq, a.base_mod_probs, a.info, a.motif_hits,
+                                              threshold)
+        mm_b, ml_b, _ = generate_modbase_tags(seq, b.base_mod_probs, b.info, b.motif_hits,
+                                              threshold)
+        if mm_a != mm_b or not ml_close(ml_a, ml_b, counts):
+            raise AssertionError("modbase on the card: MM differs from the CPU's, or ML by more "
+                                 "than 1")
+        hits += int(a.motif_hits.sum())
+    equal = 1 - counts[0] / max(counts[1], 1)
+    # a full batch of chunks: the model's forward on the card, and the
+    # caller's batch (host staging, copies both ways, forward)
+    batch = [(pm, start) for p in prepared for pm in p.models
+             for start, _ in pm.chunk_list][: card.batch_size]
+    size = mcfg.context.chunk_size
+    sig = torch.randn(len(batch), size, device="cuda")
+    seq = (torch.rand(len(batch), size, 4 * mcfg.kmer_len, device="cuda") < 0.1).to(torch.int8)
+    with torch.inference_mode():
+        card.models[0](sig, seq)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            card.models[0](sig, seq)
+        end.record()
+        end.synchronize()
+    fwd_ms = start.elapsed_time(end) / 10
+    # where the forward's device time goes, by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            card.models[0](sig, seq)
+        torch.cuda.synchronize()
+    by_kernel = sorted(((e.key, e.self_device_time_total / 5e3) for e in prof.key_averages()
+                        if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    busy_ms = sum(ms for _, ms in by_kernel)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        card._run_batch(0, batch)
+    batch_ms = (time.perf_counter() - t0) * 100
+    print(f"modbase caller (5mCG_5hmCG@v3, H = 256, rescale on): {len(mreads)} reads, {bases} "
+          f"bases, {hits} CG hits, {chunks} chunks in {-(-chunks // card.batch_size)} batches of "
+          f"{card.batch_size}; card vs CPU: MM equal on every read, ML {counts[1]} values, "
+          f"{equal:.4%} equal, none more than 1 apart; host prepare_read "
+          f"{1e3 * prep_s / len(mreads):.2f} ms a read ({1e6 * prep_s / bases:.3f} ms a kb); "
+          f"device {fwd_ms:.3f} ms a batch of {len(batch)} chunks (the model's forward), "
+          f"{batch_ms:.3f} ms host clock for the caller's batch (staging, copies, forward); "
+          f"call_reads {call_s:.3f} s on the card, {cpu_s:.3f} s on the CPU [{smi}]", flush=True)
+    print(f"modbase forward (batch {len(batch)}) by kernel: device busy {busy_ms:.3f} ms of "
+          f"{fwd_ms:.3f} ms [{smi}]", flush=True)
+    for key, ms in by_kernel[:10]:
+        print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%}  {key[:90]}")
+    if equal < MIN_MODBASE_ML_EQUAL or counts[1] == 0:
+        raise AssertionError(f"modbase on the card: ML equal to the CPU's at {equal:.4%}")
+
+    # (c) the pipeline with the caller: hac v4.3 + modbase, scheduler on
+    class Records:
+        def __init__(self, inner):
+            self.inner, self.records = inner, []
+
+        def write(self, rec):
+            self.records.append(rec)
+            self.inner.write(rec)
+
+    pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True, modbase_caller=card)
+    pipe.run_reads(reads, Records(BamWriter(io.BytesIO(), pipe.build_header([run_info]))))
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    writer = Records(BamWriter(io.BytesIO(), pipe.build_header([run_info])))
+    t0 = time.perf_counter()
+    stats = pipe.run_reads(reads, writer)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches["modbase"] = {name: w.launches for name, w in wrappers.items()}
+    check_launches("modbase", launches["modbase"], stats.batches)
+    with_ml, ml_values, cg = 0, 0, 0
+    for rec in writer.records:
+        tags = [t.tag for t in rec.tags]
+        if tags[-4:] != ["me", "MN", "MM", "ML"]:
+            raise AssertionError(f"modbase pipeline: {rec.qname} has tags {tags[-4:]} last")
+        ml = next(t.value for t in rec.tags if t.tag == "ML")
+        with_ml += len(ml) > 0
+        ml_values += len(ml)
+        cg += rec.seq.count("CG")
+    print(f"modbase pipeline (hac v4.3 W8A8 + 5mCG_5hmCG@v3, the finish pool's scheduler): "
+          f"{len(reads)} reads, {len(writer.records)} records, {stats.bases_called} bases with "
+          f"{cg} CG, {with_ml} records carry ML ({ml_values} values), {stats.batches} basecall "
+          f"batches in {elapsed:.3f} s; K1 float32 launches {launches['modbase']['lstm_scan_f32']}; "
+          f"host finish {stats.host_finish_s:.3f} thread-s [{smi}]", flush=True)
+    if with_ml == 0:
+        raise AssertionError("modbase pipeline: no record carries ML entries")
+
+
 def batch_sweep(cfg, model, card) -> None:
     """``-b 0`` at hac: the sweep of ``auto_batch_size`` with the cache off."""
     from dorado_tpu_torch.basecall.batch_size import auto_batch_size
@@ -600,6 +841,7 @@ def batch_sweep(cfg, model, card) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -613,8 +855,11 @@ def main() -> None:
     from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
     from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
     from dorado_tpu_torch.io.sam import BamWriter
+    from dorado_tpu_torch.modbase.model import init_modbase_params, save_modbase_model
     from dorado_tpu_torch.models.crf_model import _linear_f32, init_lstm_crf_params
-    from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
+    from dorado_tpu_torch.models.presets import (
+        hac_5mcg_5hmcg_v3_config, hac_v43_config, sup_v50_config,
+    )
     from dorado_tpu_torch.models import tx_model
     from dorado_tpu_torch.models.tx_model import init_tx_params
     from dorado_tpu_torch.ops import (
@@ -885,7 +1130,8 @@ def main() -> None:
             p4 = lstm.ClusterPlan(*K15_SMALL_CLUSTER, rows4, -(-n // rows4))
             w_sl4 = lstm.slice_w_hh(w_i8, p4.cluster, p4.units)
             out4 = torch.empty(T, n, H, dtype=torch.bfloat16, device=dev)
-            c4_ms = time_ms(lambda: lstm._launch_int8(xproj, w_sl4, w_scale, out4, True, p4), 3)
+            c4_ms = time_ms(lambda: lstm._launch("lstm_scan_int8", xproj, w_sl4, out4, True, p4,
+                                                 w_scale), 3)
             if not torch.equal(out4, lstm.lstm_scan_time_major_int8(xproj, w_i8, w_scale,
                                                                     reverse=True)):
                 raise AssertionError(f"lstm_scan_int8 at N={n}: clusters of 4 give other outputs")
@@ -976,6 +1222,88 @@ def main() -> None:
             n512_split=n512["split"],
         )
         del w_ih_t, lstm_bias
+
+        # ---- K1 float32: the modbase models' LSTMs -------------------------
+        def hold_k1f(w, t_len, n, reverse):
+            h = w.shape[0]
+            xproj = torch.randn(t_len, n, 4 * h, generator=gen, device=dev) * 0.8
+            out_k = lstm.lstm_scan_time_major(xproj, w, reverse=reverse)
+            out_p = lstm.lstm_scan_plain(xproj, w, reverse=reverse)
+            torch.cuda.synchronize()
+            e = (out_k - out_p).abs().max().item()
+            print(f"lstm_scan_f32 H={h} T={t_len} N={n} reverse={reverse} "
+                  f"({k1_split(h, n, elem_bytes=4)}): max abs error {e:.3g}", flush=True)
+            if not e <= TOL_LSTM_F32:
+                raise AssertionError(f"lstm_scan_f32 at H={h} T={t_len} N={n} reverse={reverse}: "
+                                     f"max abs error {e} > {TOL_LSTM_F32}")
+            return e
+
+        def f32_weights(h):
+            return (torch.rand(h, 4 * h, generator=gen, device=dev) * 2 - 1) / h**0.5
+
+        timed_f = {}
+        errf = 0.0
+        for t_len, n, h in K1F_SHAPES:
+            w = f32_weights(h)
+            errf = max(errf, *(hold_k1f(w, t_len, n, reverse) for reverse in (False, True)))
+            xproj = torch.randn(t_len, n, 4 * h, generator=gen, device=dev) * 0.8
+            cudnn = torch.nn.LSTM(h, h, device=dev)
+            cudnn.flatten_parameters()
+            x_f = torch.randn(t_len, n, h, generator=gen, device=dev)
+            k_ms = time_ms(lambda: lstm.lstm_scan_time_major(xproj, w, reverse=True), 5)
+            # cuDNN's float32 RNN runs in TF32 unless told not to (PyTorch's
+            # default): the same function in float32 is timed with it off
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                lib_ms = time_ms(lambda: cudnn(x_f), 5)
+            nbytes = 4 * (t_len * n * 4 * h + h * 4 * h + t_len * n * h)
+            b_ms, b_by = bound_ms(2.0 * t_len * n * h * 4 * h, PEAK_F32, nbytes)
+            timed_f[(t_len, n, h)] = dict(
+                ms=k_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                tf32x3_bound_ms=bound_ms(2.0 * t_len * n * h * 4 * h, PEAK_TF32 / 3, nbytes)[0],
+                us_per_step=k_ms / t_len * 1e3,
+                split=lstm.k1_launch_plan(h, n, dev, elem_bytes=4)._asdict(),
+                plain_ms=time_ms(lambda: lstm.lstm_scan_plain(xproj, w, reverse=True), 1))
+            print(f"lstm_scan_f32 T={t_len} N={n} H={h}: {k_ms:.4f} ms, {k_ms / t_len * 1e3:.3f} us "
+                  f"a step ({k1_split(h, n, elem_bytes=4)}); bound {b_ms:.4f} ms ({b_by}; "
+                  f"{timed_f[(t_len, n, h)]['tf32x3_bound_ms']:.4f} ms on 3xTF32); cuDNN "
+                  f"nn.LSTM float32, TF32 off, at the same shape {lib_ms:.4f} ms [{smi}]",
+                  flush=True)
+        del xproj, x_f, cudnn
+        # ragged shapes into NaN-filled outputs, through the launch helper
+        for t_len, n, h in K1F_RAGGED:
+            w = f32_weights(h)
+            xproj = torch.randn(t_len, n, 4 * h, generator=gen, device=dev) * 0.8
+            for reverse in (False, True):
+                plan = lstm.k1_launch_plan(h, n, dev, elem_bytes=4)
+                out = torch.full((t_len, n, h), float("nan"), device=dev)
+                lstm._launch("lstm_scan_f32", xproj,
+                             lstm.slice_w_hh(w, plan.cluster, plan.units), out, reverse, plan)
+                out_p = lstm.lstm_scan_plain(xproj, w, reverse=reverse)
+                torch.cuda.synchronize()
+                e = (out - out_p).abs().max().item()  # NaN where a position was not written
+                print(f"lstm_scan_f32 H={h} T={t_len} N={n} reverse={reverse} into a NaN-filled "
+                      f"output ({k1_split(h, n, elem_bytes=4)}): max abs error {e:.3g}",
+                      flush=True)
+                if not e <= TOL_LSTM_F32:
+                    raise AssertionError(f"lstm_scan_f32 at H={h} T={t_len} N={n}: max abs "
+                                         f"error {e} (NaN: a position was not written)")
+                errf = max(errf, e)
+        print(f"  K1 float32's clusters the card runs at once, by width: "
+              f"{ {k[1]: c for k, c in lstm._active.items() if k[3] == 4} }", flush=True)
+        mb, wide, hac_f = (timed_f[K1F_SHAPES[0]], timed_f[K1F_SHAPES[1]],
+                           timed_f[K1F_SHAPES[2]])
+        report(
+            "lstm_scan_f32", "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:65",
+            errf, mb["ms"], mb["plain_ms"], 2.0 * 32 * N * 256 * 1024, PEAK_F32,
+            4 * (32 * N * 1024 + 256 * 1024 + 32 * N * 256), mb["library_ms"],
+            "(cuDNN nn.LSTM float32, TF32 off, one layer, incl. its input projection)",
+            shape="T=32 N=128 H=256 (the modbase models' chunk batch)",
+            us_per_step=mb["us_per_step"], split=mb["split"],
+            tf32x3_bound_ms=mb["tf32x3_bound_ms"],
+            **{f"n1024_{k}": v for k, v in wide.items()},
+            **{f"hac_{k}": v for k, v in hac_f.items()},
+        )
+        del xproj, out, out_p
 
         # ---- K2: W8A8 input projection -------------------------------------
         w_ih = (torch.rand(4 * H, H, generator=gen, device=dev) * 2 - 1) / H**0.5
@@ -1974,6 +2302,7 @@ def main() -> None:
         "crf_fused_forward_f32": crf_cuda.fused_forward_decode_full,
         "lstm_scan_int8": lstm.lstm_scan_time_major_int8,
         "lstm_fused": lstm.lstm_fused_time_major,
+        "lstm_scan_f32": lstm.lstm_scan_time_major_f32,
     }
     # each path's kernels and, for the sup paths, their launches a batch
     path_kernels = {
@@ -1990,6 +2319,9 @@ def main() -> None:
         # one device step each, below
         "sup ext bf16": ["attention_prerotated", "fused_norm", "crf_lse_backward",
                          "crf_fused_forward", "crf_traceback"],
+        # hac's Viterbi path with the modbase caller's K1 float32
+        "modbase": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward", "crf_fused_forward",
+                    "crf_traceback", "lstm_scan_f32"],
         "sup int8": ["attention_banded", "crf_lse_backward", "crf_fused_forward",
                      "crf_traceback"],
     }
@@ -2072,7 +2404,19 @@ def main() -> None:
         )
 
     # ---- main paths: the command line on a POD5 file and model directories --
-    cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels, launches, card)
+    # ---- main paths: modified-base calling, then the command line ----------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modbase_") as mod_tmp:
+        mod_cfg = hac_5mcg_5hmcg_v3_config()
+        levels = np.random.RandomState(SEED).randn(4**mod_cfg.kmer_len).astype(np.float32)
+        mod_dir = save_modbase_model(
+            mod_cfg, init_modbase_params(mod_cfg, torch.Generator().manual_seed(SEED)),
+            Path(mod_tmp) / mod_cfg.model_path.name, refine_levels=levels)
+        t0 = time.perf_counter()
+        modbase_phase(cfg, model, reads, run_info, mod_dir, wrappers, check_launches, launches,
+                      smi)
+        print(f"modbase phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels,
+                  launches, card, mod_dir)
     batch_sweep(cfg, model, card)
     torch.cuda.empty_cache()
 
@@ -2517,6 +2861,7 @@ def main() -> None:
         if row["launches"] <= 0 and row.get("on_path", True):
             raise AssertionError(f"{row['name']} was not launched by a main path")
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

@@ -1,12 +1,15 @@
-// LSTM recurrences, bf16 in and out, f32 state.
+// LSTM recurrences, bf16 (or float32) in and out, f32 state.
 //
 //   lstm_scan_bf16 (K1): gates = xproj[t] + h @ W_hh^T, W_hh bf16;
 //   lstm_fused_bf16 (K16): the whole layer, the input projection inside the
 //     recurrence, gates = x[t] @ W_ih^T + h @ W_hh^T + bias, on K1's kernel;
 //   lstm_scan_int8 (K15): the recurrence with W_hh int8 and h quantised to
-//     int8, on K1's kernel with int8 elements.
+//     int8, on K1's kernel with int8 elements;
+//   lstm_scan_f32 (K1 float32): K1 with xproj, W_hh, h and out in float32,
+//     on K1's kernel with float elements.
 //
-// K1 first, then K16 and K15 (the same kernel template), each with its note.
+// K1 first, then K16, K15 and K1 float32 (the same kernel template), each
+// with its note.
 //
 // Replaces dorado_tpu/ops/lstm.py::lstm_scan_time_major (Pallas body
 // _lstm_kernel). Per step t (walked backwards when reverse != 0):
@@ -145,6 +148,50 @@
 // One template rather than a second copy of the cluster machinery: the
 // element type changes the strides, the mma and the cell update's last
 // lines, not the exchange, the barriers, the register ring or the plan.
+//
+// ---------------------------------------------------------------------------
+// K1 float32: the recurrence in float32, on K1's kernel (W = float).
+//
+// Replaces dorado_tpu/ops/lstm.py::lstm_scan_time_major fed float32 xproj
+// and W_hh, as the modified-base models run it (dorado_tpu/modbase/model.py
+// _lstm, through models/crf_model.py lstm_layer). Per step, K1's, with h and
+// out in float32: out[t] = h = sigmoid(o) * tanh(c).
+//
+// What bounds it on the H100: K1's chain of steps, with twice K1's bytes
+// (W_hh is 1 MiB at the modbase models' H = 256) and float32 products. At
+// the modbase shapes a launch is short: T = 32 steps (a chunk of 192
+// samples at stride 6), so the copy of W's slices into shared memory, once a
+// launch, is a large part of it.
+//
+// Design: K1's kernel with float elements. In bytes a tf32 k-tile of 8 is a
+// bf16 k-tile of 16 and its mma fragments are bf16's, so the slices, the
+// ldmatrix addresses, the m-tiles, the accumulators' layout and the cell
+// update's gathering by shuffles are K1's; a CTA's units are a multiple of 8
+// (whole float32 k-tiles). Shared memory doubles: clusters of 8 CTAs of 32
+// units at H = 256 (133 KB of W a CTA, at most 32 rows a cluster), of 16
+// CTAs of 24 units at hac's 384 (149 KB, at most 16 rows); no cluster of up
+// to 16 CTAs holds W above H = 384, where the wrapper refuses.
+// The products must be float32 in effect: the JAX package sums float32
+// products (its Pallas kernel matches lax.scan at 2e-4), and TF32 alone keeps
+// 10 bits of mantissa, about three decimal digits. So each product runs in
+// 3xTF32: each operand x is split into hi = tf32(x) and lo = tf32(x - hi),
+// and a_lo b_hi + a_hi b_lo + a_hi b_hi go to three mma.sync m16n8k8 tf32
+// into the float32 sums; the dropped a_lo b_lo and lo's own rounding leave
+// about 2^-21 of each product. FFMA on the CUDA cores would be exact, but
+// needs another product loop than K1's fragments; 3xTF32 keeps the template
+// whole, at three mma a k-tile and the splits (every step, of W's fragments
+// too). The splits' registers come out of those that hold W's fragments:
+// with K1's count of register pairs (reg_pairs) its launches spilled and took
+// 1.3-2x as long as with what two more n-tiles leave (0.317 against 0.207 ms
+// at T = 32, N = 128, H = 256; 38.5 against 28.0 ms at T = 1666, N = 128, H =
+// 384; NVIDIA H100 80GB HBM3, 700 W), and holding none in registers was no
+// faster than that. h crosses the cluster as float32, twice K1's bytes. No
+// int8 or bf16 rounding follows the cell update, so K15's separately rounded
+// operations are not needed. chip_smoke.py holds it against the plain
+// version within 1e-4 (TOL_LSTM_F32). The plan is K1's rule (k1_plan with
+// elem_bytes = 4): the card runs 15 clusters of 8 at H = 256, so N = 128
+// takes 8 clusters of 16 rows, one wave, and N = 1024 32 clusters of 32, the
+// most shared memory holds, in three waves.
 #include <type_traits>
 
 #include "common.cuh"
@@ -156,26 +203,64 @@ namespace k1 {
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can have
 constexpr int MAX_WARPS = 12;
 constexpr int MAX_NT = 6;
-// the launches of the template: K1, K16 (FUSED) and K15 (int8)
-constexpr int KIND_K1 = 0, KIND_K16 = 1, KIND_K15 = 2;
+// the launches of the template: K1, K16 (FUSED), K15 (int8) and K1 float32
+constexpr int KIND_K1 = 0, KIND_K16 = 1, KIND_K15 = 2, KIND_K1F = 3;
 
 template <typename V>
 __device__ __forceinline__ V pick4(V a, V b, V c, V d, int i) {
   return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
 }
 
-// c += a . b by the accumulators' type: f32 sums of bf16 (K1, K16), exact
-// int32 sums of int8 (K15)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  mma_bf16(c, a, b0, b1);
-}
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  mma_s8(c, a, b0, b1);
+// A float split into a tf32 high part and the tf32 rounding of the rest
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(__uint_as_float(x));
+  lo = to_tf32(__uint_as_float(x) - __uint_as_float(hi));
 }
 
-// Sizes in elements of `es` bytes (2: bf16, 1: int8).
+// c += a . b in 3xTF32 (K1 float32, see its note): a_lo b_hi + a_hi b_lo +
+// a_hi b_hi, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// c += a . b by the sums' and the elements' type: exact int32 sums of int8
+// (K15), f32 sums of float32 in 3xTF32 (K1 float32), else of bf16 (K1, K16,
+// and K16's input product, which the other kinds compile but never run)
+template <typename W, typename Acc>
+__device__ __forceinline__ void mma(Acc (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  if constexpr (std::is_same_v<Acc, int>)
+    mma_s8(c, a, b0, b1);
+  else if constexpr (std::is_same_v<W, float>)
+    mma_3xtf32(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
+}
+
+// The type of xproj and out: float32 for K1 float32, else bf16
+template <typename W>
+using io_t = std::conditional_t<std::is_same_v<W, float>, float, __nv_bfloat16>;
+
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v) {
+  if constexpr (std::is_same_v<T, float>)
+    return v;
+  else
+    return __float2bfloat16(v);
+}
+
+// Sizes in elements of `es` bytes (2: bf16, 1: int8, 4: float32).
 // The depth of the products: Hp rounded up to a pair of k-tiles, 64 bytes.
 __host__ __device__ constexpr int depth(int hp, int es) { return (hp * es + 63) / 64 * 64 / es; }
 
@@ -208,25 +293,29 @@ __host__ __device__ constexpr int smem_bytes(int units, int cluster, int rows, b
 // registers for the whole launch, by what the accumulators of MTW m-tiles
 // and NT n-tiles leave of 168 registers a thread (12 warps); the rest come
 // from shared memory every step. K16 also carries the next step's input
-// sums: it keeps what one more n-tile would leave. A pair is 8 registers an
-// m-tile in bf16 and in int8 (K15: see its note).
+// sums: it keeps what one more n-tile would leave. K1 float32 splits every
+// fragment into tf32 parts as it uses it: it keeps what two more n-tiles
+// would leave (see its note). A pair is 8 registers an m-tile in bf16, in
+// int8 (K15: see its note) and in float32.
 __host__ __device__ constexpr int reg_pairs(int mtw, int nt) {
   return mtw == 1 ? (nt == 1 ? 12 : nt == 2 ? 8 : nt == 3 ? 4 : nt == 4 ? 2 : 0)
                   : (nt == 1 ? 4 : nt == 2 ? 2 : 0);
 }
 
-// W: the element of W and h (bf16: K1, K16; int8: K15); MTW m-tiles a warp,
-// NT n-tiles (R = 8 NT rows a cluster); FUSED: K16.
+// W: the element of W and h (bf16: K1, K16; int8: K15; float: K1 float32);
+// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster); FUSED: K16.
 template <typename W, int MTW, int NT, bool FUSED>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-    lstm_cluster_kernel(const __nv_bfloat16* __restrict__ xin,   // xproj [T, N, 4H] or x [T, N, H]
+    lstm_cluster_kernel(const io_t<W>* __restrict__ xin,         // xproj [T, N, 4H] or x [T, N, H]
                         const W* __restrict__ w_sl,              // [C][4U][depth] W_hh^T slices
                         const __nv_bfloat16* __restrict__ w_ih,  // K16: W_ih^T's fragments
                         const float* __restrict__ gate_vec,      // [4H]: K16's bias, K15's scale
-                        __nv_bfloat16* __restrict__ out,         // [T, N, H]
+                        io_t<W>* __restrict__ out,               // [T, N, H]
                         int T, int N, int H, int C, int U, int reverse) {
   constexpr bool INT8 = std::is_same_v<W, int8_t>;
-  static_assert(!(INT8 && FUSED), "K16 runs in bf16");
+  constexpr bool F32 = std::is_same_v<W, float>;
+  static_assert(!((INT8 || F32) && FUSED), "K16 runs in bf16");
+  using IO = io_t<W>;
   // elements of a 16-byte chunk (an ldmatrix row) and of a k-tile (32 bytes)
   constexpr int ES = sizeof(W), CH = 16 / ES, KT = 32 / ES;
   using Acc = std::conditional_t<INT8, int, float>;
@@ -281,7 +370,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   // and t4 (see step 2). K1, K15: their xproj[t] (gates i | f and g | o) are
   // loaded into registers a step ahead; rows past N and units past H stay
   // zero. K16: their bias, K15: their scale, once.
-  __nv_bfloat162 x[MTW][NT][2];
+  std::conditional_t<F32, float2, __nv_bfloat162> x[MTW][NT][2];
   float bg[MTW][4];
   auto unit_of = [&](int i) { return u0 + 4 * (warp + i * nwarps) + (g >> 2) + 2 * (q >> 1); };
   auto load_xproj = [&](int t) {
@@ -292,8 +381,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       for (int nt = 0; nt < NT; ++nt) {
         const int row = n0 + nt * 8 + 2 * t4 + (q & 1);
         const bool ok = row < N && unit < H;
-        const __nv_bfloat16* src = xin + ((size_t)t * N + (ok ? row : 0)) * G + (ok ? unit : 0);
-        const __nv_bfloat16 zero = __float2bfloat16(0.f);
+        const IO* src = xin + ((size_t)t * N + (ok ? row : 0)) * G + (ok ? unit : 0);
+        const IO zero = from_float<IO>(0.f);
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           x[i][nt][p].x = ok ? src[2 * p * H] : zero;
@@ -367,7 +456,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   };
   // pairs [0, kr_n) of W_hh's A fragments in registers, read from the slice
   // that the cluster barrier above made visible
-  constexpr int KR = reg_pairs(MTW, FUSED ? NT + 1 : NT);
+  constexpr int KR = reg_pairs(MTW, F32 ? NT + 2 : FUSED ? NT + 1 : NT);
   static_assert(KR % 2 == 0, "the register pairs are taken two at a time");
   const int kr_n = min(KR, kp_n);
   uint32_t w_reg[KR > 0 ? KR : 1][MTW][2][4];
@@ -384,7 +473,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       for (int i = 0; i < MTW; ++i)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          mma(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
+          mma<W>(acc[MTW == 1 ? h2 : i][nt], a[i][h2], b[nt][2 * h2], b[nt][2 * h2 + 1]);
   };
   // K16: x[t + 1] @ W_ih_slice^T from x buffer xb, as the lane's sums; B as
   // in the recurrent product below, from x's rows
@@ -535,8 +624,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 #pragma unroll
             for (int gate = 0; gate < 4; ++gate) base[gate] = bg[i][gate];
           } else {
-            const float2 xif = __bfloat1622float2(x[i][nt][0]);
-            const float2 xgo = __bfloat1622float2(x[i][nt][1]);
+            const float2 xif = to_float2(x[i][nt][0]);
+            const float2 xgo = to_float2(x[i][nt][1]);
             base[0] = xif.x;
             base[1] = xif.y;
             base[2] = xgo.x;
@@ -544,7 +633,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
           }
           const float gi = base[0] + si, gf = base[1] + sf, gg = base[2] + sg, go = base[3] + so;
           c = sigmoidf_(gf) * c + sigmoidf_(gi) * tanhf(gg);
-          st_s[(buf * R + row) * up + jl] = __float2bfloat16(sigmoidf_(go) * tanhf(c));
+          st_s[(buf * R + row) * up + jl] = from_float<W>(sigmoidf_(go) * tanhf(c));
         }
       }
     }
@@ -567,12 +656,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
     if constexpr (!INT8) {
+      using V4 = std::conditional_t<F32, uint4, uint2>;  // four elements
       const int per_row4 = U / 4;
       for (int i = tid; i < R * per_row4; i += nthreads) {
         const int r = i / per_row4, j4 = (i % per_row4) * 4;
         if (n0 + r < N && u0 + j4 < H)
-          *reinterpret_cast<uint2*>(out + ((size_t)t * N + n0 + r) * H + u0 + j4) =
-              *reinterpret_cast<const uint2*>(st + r * up + j4);
+          *reinterpret_cast<V4*>(out + ((size_t)t * N + n0 + r) * H + u0 + j4) =
+              *reinterpret_cast<const V4*>(st + r * up + j4);
       }
     }
     if constexpr (FUSED) {
@@ -619,16 +709,16 @@ int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* g
   cfg.numAttrs = 1;
   if (active != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveClusters(active, (void*)kernel, &cfg));
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(xin),
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const io_t<W>*>(xin),
                          static_cast<const W*>(w_sl), static_cast<const __nv_bfloat16*>(w_ih),
-                         static_cast<const float*>(gate_vec), static_cast<__nv_bfloat16*>(out), T,
-                         N, H, C, U, reverse);
+                         static_cast<const float*>(gate_vec), static_cast<io_t<W>*>(out), T, N,
+                         H, C, U, reverse);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One of the twelve instantiations of K1, K16 or K15, or the launch's
-// refusal.
+// One of the twelve instantiations of K1, K16, K15 or K1 float32, or the
+// launch's refusal.
 template <typename W, bool FUSED>
 int dispatch_nt(const void* xin, const void* w_sl, const void* w_ih, const void* gate_vec,
                 void* out, int T, int N, int H, int C, int U, int mtw, int nt, int reverse,
@@ -646,8 +736,10 @@ int dispatch_nt(const void* xin, const void* w_sl, const void* w_ih, const void*
 int dispatch_k1(int kind, const void* xin, const void* w_sl, const void* w_ih,
                 const void* gate_vec, void* out, int T, int N, int H, int C, int U, int rows,
                 int warps, int reverse, cudaStream_t s, int* active) {
-  const int es = kind == KIND_K15 ? 1 : 2;
-  if (kind < KIND_K1 || kind > KIND_K15 || T < 0 || N <= 0 || H <= 0 || H % 4 || U % 16 ||
+  const int es = kind == KIND_K15 ? 1 : kind == KIND_K1F ? 4 : 2;
+  // U: whole k-tiles of h (16 units; 8 in float32)
+  if (kind < KIND_K1 || kind > KIND_K1F || T < 0 || N <= 0 || H <= 0 || H % 4 ||
+      U % (es == 4 ? 8 : 16) ||
       C < 1 || C > 16 || (C & (C - 1)) || C * U < H || rows % 8 || rows < 8 ||
       rows > 8 * MAX_NT || warps < 1 || warps > MAX_WARPS || (U / 4) % warps ||
       smem_bytes(U, C, rows, kind == KIND_K16, es) > SMEM_MAX)
@@ -660,6 +752,9 @@ int dispatch_k1(int kind, const void* xin, const void* w_sl, const void* w_ih,
   if (kind == KIND_K15)
     return dispatch_nt<int8_t, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw, nt,
                                       reverse, s, active);
+  if (kind == KIND_K1F)
+    return dispatch_nt<float, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw, nt,
+                                     reverse, s, active);
   return dispatch_nt<__nv_bfloat16, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw,
                                            nt, reverse, s, active);
 }
@@ -701,8 +796,19 @@ DTT_EXPORT int lstm_scan_int8(const void* xproj, const void* w_sl, const void* s
                          units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many clusters of K1's (kind 0), K16's (1) or K15's (2) launch at this
-// shape the card runs at once.
+// xproj [T, N, 4H] float32; w_sl [C][4U][Kp] float32 (Kp = C * U rounded up
+// to 16), the wrapper's slices of W_hh^T in lstm_scan_bf16's layout; out
+// [T, N, H] float32; U a multiple of 8, else the limits of lstm_scan_bf16.
+DTT_EXPORT int lstm_scan_f32(const void* xproj, const void* w_sl, void* out, int T, int N, int H,
+                             int reverse, int cluster, int units, int rows, int warps,
+                             void* stream) {
+  if (T == 0) return 0;
+  return k1::dispatch_k1(k1::KIND_K1F, xproj, w_sl, nullptr, nullptr, out, T, N, H, cluster,
+                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of K1's (kind 0), K16's (1), K15's (2) or K1 float32's
+// (3) launch at this shape the card runs at once.
 DTT_EXPORT int lstm_scan_active_clusters(int H, int kind, int cluster, int units, int rows,
                                          int warps, int* active) {
   *active = 0;

@@ -227,3 +227,87 @@ def config_toml(config: BasecallModelConfig) -> str:
         "chunksize": config.basecaller.chunk_size, "overlap": config.basecaller.overlap,
     })
     return "\n".join(lines)
+
+
+def hac_5mcg_5hmcg_v3_config(size: int = 256):
+    """dna_r10.4.1_e8.2_400bps_hac@v5.0.0_5mCG_5hmCG@v3, a conv_lstm_v2
+    modbase model: size 256, kmer_len 9, num_out 3 (h, m, canonical), stride
+    6, motif CG at offset 0, chunk 192 with 96/96 samples of context, 4/4
+    kmer context bases, base start justified, rough rescale with the kmer
+    centred at index 6 (SURVEY.md §2.3). ``size`` narrows it for tests."""
+    from dorado_tpu_torch.modbase.config import (
+        ContextParams, ModBaseModelConfig, ModBaseModelType, ModificationParams,
+        RefinementParams,
+    )
+
+    return ModBaseModelConfig(
+        model_path=Path("dna_r10.4.1_e8.2_400bps_hac@v5.0.0_5mCG_5hmCG@v3"),
+        model_type=ModBaseModelType.CONV_LSTM_V2,
+        size=size, kmer_len=9, num_out=3, stride=6, sequence_stride=1,
+        mods=ModificationParams(codes=["h", "m"], long_names=["5hmC", "5mC"], motif="CG",
+                                motif_offset=0),
+        context=ContextParams(samples_before=96, samples_after=96, chunk_size=192,
+                              bases_before=4, bases_after=4, reverse=False,
+                              base_start_justify=True),
+        refine=RefinementParams(do_rough_rescale=True, center_idx=6),
+    )
+
+
+def small_conv_lstm_v3_config():
+    """A small synthetic conv_lstm_v3 model (the shape of the 6mA@v4 models,
+    narrowed: signal convs 1 -> 4 -> 16 -> 32 at stride 6, sequence convs 36
+    -> 16 -> 32 at stride 1, a merge conv, LSTMs of 32), motif A: for the
+    tests, which have no published v3 config."""
+    from dorado_tpu_torch.modbase.config import (
+        ContextParams, ModBaseModelConfig, ModBaseModelType, ModificationParams,
+        RefinementParams,
+    )
+
+    def conv(insize, size, winlen, stride, activation="swish"):
+        return {"type": "convolution", "insize": insize, "size": size, "winlen": winlen,
+                "stride": stride, "padding": winlen // 2, "activation": activation}
+
+    return ModBaseModelConfig(
+        model_path=Path("small_conv_lstm_v3_6mA"),
+        model_type=ModBaseModelType.CONV_LSTM_V3,
+        size=32, kmer_len=9, num_out=2, stride=6, sequence_stride=1,
+        mods=ModificationParams(codes=["a"], long_names=["6mA"], motif="A", motif_offset=0),
+        context=ContextParams(samples_before=150, samples_after=150, chunk_size=300,
+                              bases_before=4, bases_after=4, reverse=False,
+                              base_start_justify=False),
+        refine=RefinementParams(),
+        signal_encoder=[conv(1, 4, 5, 1), conv(4, 16, 5, 1), conv(16, 32, 9, 6)],
+        sequence_encoder=[conv(36, 16, 5, 1), conv(16, 32, 13, 1, "tanh")],
+        encoder=[conv(64, 32, 5, 1), {"type": "lstm", "size": 32, "reverse": False},
+                 {"type": "lstm", "size": 32, "reverse": True},
+                 {"type": "linear", "in_features": 32, "out_features": 2}],
+    )
+
+
+def modbase_config_toml(config) -> str:
+    """The ``config.toml`` of a modbase model directory for ``config`` (a
+    ``ModBaseModelConfig``), such that ``load_modbase_config`` of the
+    directory gives ``config`` back (but for ``model_path``)."""
+    ctx, mods = config.context, config.mods
+    lines = _toml_table("general", {"model": config.model_type.value})
+    lines += _toml_table("model_params", {
+        "size": config.size, "kmer_len": config.kmer_len, "num_out": config.num_out,
+        "stride": config.stride, "sequence_stride": config.sequence_stride,
+    })
+    modbases = {"mod_bases": "".join(mods.codes), "motif": mods.motif,
+                "motif_offset": mods.motif_offset}
+    modbases.update({f"mod_long_names_{i}": n for i, n in enumerate(mods.long_names)})
+    modbases.update({
+        "chunk_context_0": ctx.samples_before, "chunk_context_1": ctx.samples_after,
+        "chunk_size": ctx.chunk_size, "kmer_context_bases_0": ctx.bases_before,
+        "kmer_context_bases_1": ctx.bases_after, "reverse_signal": ctx.reverse,
+        "base_start_justify": ctx.base_start_justify,
+    })
+    lines += _toml_table("modbases", modbases)
+    if config.refine.do_rough_rescale:
+        lines += _toml_table("refinement", {"refine_do_rough_rescale": 1,
+                                            "refine_kmer_center_idx": config.refine.center_idx})
+    for key in ("signal_encoder", "sequence_encoder", "encoder"):
+        for layer in getattr(config, key):
+            lines += _toml_table(f"{key}.sublayers", layer, array=True)
+    return "\n".join(lines)

@@ -16,18 +16,20 @@ pipeline path (the JAX package calls neither from its model):
     layer, the input projection ``x[t] @ W_ih^T + bias`` inside the
     recurrence.
 
-On a CUDA tensor each wrapper launches its kernel (bf16); on a CPU tensor it
-runs its plain version below. K1 keeps W_hh in the shared memory of a
-thread-block cluster, each CTA a slice of the gate columns (``slice_w_hh``),
-and exchanges h between the CTAs every step; ``k1_cluster_shape`` and
-``k1_plan`` choose the cluster, the units a CTA and the batch rows a
-cluster. K16 runs on K1's kernel and plan (``fused=True``) with x[t] in
+On a CUDA tensor each wrapper launches its kernel (bf16; K1 also float32,
+as the modified-base models run it, through ``lstm_scan_time_major_f32``);
+on a CPU tensor it runs its plain version below. K1 keeps W_hh in the
+shared memory of a thread-block cluster, each CTA a slice of the gate
+columns (``slice_w_hh``), and exchanges h between the CTAs every step;
+``k1_cluster_shape`` and ``k1_plan`` choose the cluster, the units a CTA
+and the batch rows a cluster. K16 runs on K1's kernel and plan (``fused=True``) with x[t] in
 place of xproj[t]: each CTA computes its gate rows' input product of the
 next step while the h slices of this one are exchanged, reading its slice
 of W_ih from L2 every step in the order of the mma fragments
 (``w_ih_fragments``). K15 runs on K1's kernel with int8 elements
 (``elem_bytes=1``): its W_i8 slices resident, int8 products on the tensor
-cores, h exchanged as int8.
+cores, h exchanged as int8. K1 float32 runs on K1's kernel with float
+elements (``elem_bytes=4``): its products in 3xTF32, h exchanged in float32.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def _k1_smem(
     """Shared memory of one CTA of K1's kernel in bytes (``smem_bytes`` in
     the source): its W slice, two h buffers and two h stagings, with K16
     (``fused``) two x buffers, in elements of ``elem_bytes`` (2: bf16, K1 and
-    K16; 1: int8, K15), and two 8-byte mbarriers."""
+    K16; 1: int8, K15; 4: K1 float32), and two 8-byte mbarriers."""
     kp = _k1_depth(cluster, units, elem_bytes)
     pad = 16 // elem_bytes  # a W or x row's 16 bytes of padding
     blocks = -(-kp // units)  # h held as blocks of one CTA's units
@@ -95,7 +97,7 @@ def _k1_smem(
 
 def _k1_depth(cluster: int, units: int, elem_bytes: int = 2) -> int:
     """The products' depth: the cluster's units rounded up to a pair of
-    k-tiles, 64 bytes (32 bf16, 64 int8)."""
+    k-tiles, 64 bytes (32 bf16, 64 int8, 16 float32)."""
     pair = 64 // elem_bytes
     return -(-cluster * units // pair) * pair
 
@@ -107,28 +109,33 @@ def _k1_h_stride(units: int, elem_bytes: int = 2) -> int:
     return (units * elem_bytes // 16 | 1) * 16 // elem_bytes
 
 
-def k1_cluster_shape(hidden: int, fused: bool = False) -> tuple[int, int, int]:
-    """(cluster, units, warps) for hidden width H (K16's launch: ``fused``):
-    the smallest cluster (1 to 16 CTAs) whose CTAs' bf16 W slices fit shared
-    memory at 8 rows and whose m-tiles (four units each) split over at most
-    12 warps, one or two a warp; each CTA's unit count rounded up to 16
-    (whole k-tiles of h), and the most warps that split them. K15 takes
-    the same shape: its int8 slices would fit in half the cluster at some
-    widths (clusters of 4 at hac's H), but on the card the two were within
-    4% of each other, either way by the batch (PERF.md, PR 13), and one
-    rule serves the three kernels."""
+def k1_cluster_shape(
+    hidden: int, fused: bool = False, elem_bytes: int = 2
+) -> tuple[int, int, int]:
+    """(cluster, units, warps) for hidden width H (K16's launch: ``fused``;
+    K1 float32's: ``elem_bytes=4``): the smallest cluster (1 to 16 CTAs)
+    whose CTAs' W slices fit shared memory at 8 rows and whose m-tiles (four
+    units each) split over at most 12 warps, one or two a warp; each CTA's
+    unit count rounded up to whole k-tiles of h (32 bytes: 16 bf16, 8
+    float32), and the most warps that split them. K15 (``elem_bytes=1``)
+    takes bf16's shape: its int8 slices would fit in half the cluster at
+    some widths (clusters of 4 at hac's H), but on the card the two were
+    within 4% of each other, either way by the batch (PERF.md, K15's row), and
+    one rule serves K1, K15 and K16."""
+    es = 4 if elem_bytes == 4 else 2
     for cluster in (1, 2, 4, 8, 16):
         units = -(-hidden // cluster)
-        units += -units % 16
+        units += -units % (32 // es)
         tiles = units // 4
         warps = [
             w for w in range(1, _K1_MAX_WARPS + 1)
             if tiles % w == 0 and tiles // w <= _K1_MAX_TILES_A_WARP
         ]
-        if warps and _k1_smem(units, cluster, 8, fused) <= _K1_SMEM_MAX:
+        if warps and _k1_smem(units, cluster, 8, fused, es) <= _K1_SMEM_MAX:
             break
     else:
-        raise ValueError(f"lstm_scan: no cluster of up to 16 CTAs holds W_hh at H = {hidden}")
+        raise ValueError(f"lstm_scan: no cluster of up to 16 CTAs holds W_hh at H = {hidden}"
+                         + (" in float32" if es == 4 else ""))
     return cluster, units, max(warps)
 
 
@@ -138,9 +145,9 @@ def k1_plan(
     """The split of a batch of ``n`` rows, given how many clusters of the
     shape the card runs at once: rows a cluster spread the batch over those
     clusters (a multiple of 8, the mma's n-tile), at most 48 and what shared
-    memory holds (in elements of ``elem_bytes``: 1 for K15's int8); a batch
-    beyond that takes more clusters than run at once."""
-    cluster, units, warps = k1_cluster_shape(hidden, fused)
+    memory holds (in elements of ``elem_bytes``: 1 for K15's int8, 4 for K1
+    float32); a batch beyond that takes more clusters than run at once."""
+    cluster, units, warps = k1_cluster_shape(hidden, fused, elem_bytes)
     fit = [
         r for r in range(8, _K1_MAX_ROWS + 1, 8)
         if _k1_smem(units, cluster, r, fused, elem_bytes) <= _K1_SMEM_MAX
@@ -152,10 +159,11 @@ def k1_plan(
 
 def slice_w_hh(w_hh_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
     """[H, 4H] recurrent weights -> [cluster, 4 * units, Kp] (Kp = cluster *
-    units rounded up to 64 bytes: 32 bf16, 64 int8): CTA c's row 4 j + gate
-    holds the weights of gate column gate * H + c * units + j over k, zero
-    where the unit or k is past H. K1 (K15: int8 weights) copies slice c
-    into CTA c's shared memory."""
+    units rounded up to 64 bytes of the weights' type: 32 bf16, 64 int8, 16
+    float32): CTA c's row 4 j + gate holds the weights of gate column gate *
+    H + c * units + j over k, zero where the unit or k is past H. K1 (K15:
+    int8 weights; K1 float32: float32) copies slice c into CTA c's shared
+    memory."""
     hidden = w_hh_t.shape[0]
     hp, kp = cluster * units, _k1_depth(cluster, units, w_hh_t.element_size())
     w = w_hh_t.new_zeros(kp, 4, hp)  # [k, gate, unit]
@@ -189,16 +197,18 @@ _active: dict[tuple, int] = {}
 def _active_clusters(
     device: torch.device, hidden: int, fused: bool = False, elem_bytes: int = 2
 ) -> int:
-    """Clusters of K1's (K16's, K15's) shape at 8 rows the card runs at once
-    (``cudaOccupancyMaxActiveClusters``), once per device and width."""
+    """Clusters of K1's (K16's, K15's, K1 float32's) shape at 8 rows the
+    card runs at once (``cudaOccupancyMaxActiveClusters``), once per device
+    and width."""
     key = (device, hidden, fused, elem_bytes)
     if key not in _active:
-        cluster, units, warps = k1_cluster_shape(hidden, fused)
+        cluster, units, warps = k1_cluster_shape(hidden, fused, elem_bytes)
         fn = _cuda.kernel_function(
             "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 6 + [_cuda.VOIDP]
         )
         count = ctypes.c_int(0)
-        kind = 2 if elem_bytes == 1 else int(fused)  # the source's KIND_K15, KIND_K16, KIND_K1
+        # the source's KIND_K15, KIND_K1F, KIND_K16, KIND_K1
+        kind = {1: 2, 4: 3}.get(elem_bytes, int(fused))
         with torch.cuda.device(device):
             code = fn(hidden, kind, cluster, units, 8, warps, ctypes.addressof(count))
         _cuda.check_launch("lstm_scan", code)
@@ -211,11 +221,81 @@ def _active_clusters(
 def k1_launch_plan(
     hidden: int, n: int, device: torch.device, fused: bool = False, elem_bytes: int = 2
 ) -> ClusterPlan:
-    """The split K1 (K16: ``fused``; K15: ``elem_bytes=1``) launches with on
-    ``device`` for width H and N rows."""
+    """The split K1 (K16: ``fused``; K15: ``elem_bytes=1``; K1 float32:
+    ``elem_bytes=4``) launches with on ``device`` for width H and N rows."""
     return k1_plan(
         hidden, n, _active_clusters(device, hidden, fused, elem_bytes), fused, elem_bytes
     )
+
+
+# K1's element types on CUDA, by C entry: the activations' and W's dtypes,
+# W's element size (``elem_bytes``), the widest H and what H is a multiple of
+_K1_KINDS = {
+    "lstm_scan_bf16": (torch.bfloat16, torch.bfloat16, 2, 512, 4),  # K1
+    "lstm_scan_f32": (torch.float32, torch.float32, 4, 384, 4),  # K1 float32
+    "lstm_scan_int8": (torch.bfloat16, torch.int8, 1, 512, 16),  # K15
+}
+
+
+def _scan(
+    symbol: str, xproj: torch.Tensor, w_t: torch.Tensor, reverse: bool,
+    scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K1, K1 float32 or K15 (``symbol``, a key of ``_K1_KINDS``) on CUDA
+    tensors: [T, N, 4H] gates + [H, 4H] W (K15: int8, with its scale) ->
+    [T, N, H], split by ``k1_launch_plan``."""
+    _, w_dtype, elem_bytes, max_h, multiple = _K1_KINDS[symbol]
+    t_len, n, g4 = xproj.shape
+    hidden = g4 // 4
+    if g4 != 4 * hidden or hidden % multiple or not 0 < hidden <= max_h or t_len == 0 or n == 0:
+        raise ValueError(f"{symbol}: unsupported gate shape {tuple(xproj.shape)}")
+    _cuda.check_tensor(w_t, "w_hh_t", w_dtype, (hidden, g4))
+    plan = k1_launch_plan(hidden, n, xproj.device, elem_bytes=elem_bytes)
+    out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
+    _launch(symbol, xproj, slice_w_hh(w_t, plan.cluster, plan.units), out, reverse, plan, scale)
+    return out
+
+
+def _launch(
+    symbol: str,
+    xproj: torch.Tensor,
+    w_sl: torch.Tensor,
+    out: torch.Tensor,
+    reverse: bool,
+    plan: ClusterPlan,
+    scale: torch.Tensor | None = None,
+) -> None:
+    """K1, K1 float32 or K15 (``symbol``) on CUDA tensors: W's slices
+    ``slice_w_hh(w, plan.cluster, plan.units)`` (K15: and W_i8's [4H] scale)
+    into ``out`` [T, N, H], split by ``plan``; one launch on the wrapper's
+    counter."""
+    act, w_dtype, elem_bytes, _, _ = _K1_KINDS[symbol]
+    t_len, n, g4 = xproj.shape
+    hidden = g4 // 4
+    _cuda.check_tensor(xproj, "xproj", act, (t_len, n, g4))
+    _cuda.check_tensor(
+        w_sl, "w_sl", w_dtype,
+        (plan.cluster, 4 * plan.units, _k1_depth(plan.cluster, plan.units, elem_bytes)),
+    )
+    _cuda.check_tensor(out, "out", act, (t_len, n, hidden))
+    tensors = [xproj, w_sl, out]
+    if symbol == "lstm_scan_int8":
+        _cuda.check_tensor(scale, "scale", torch.float32, (g4,))
+        tensors.insert(2, scale)
+    if any(t.device != xproj.device for t in tensors):
+        raise ValueError(f"{symbol}: inputs are on different devices")
+    fn = _cuda.kernel_function(
+        "lstm_scan", symbol, [_cuda.VOIDP] * len(tensors) + [_cuda.INT] * 8 + [_cuda.VOIDP]
+    )
+    with torch.cuda.device(xproj.device):
+        code = fn(
+            *(t.data_ptr() for t in tensors), t_len, n, hidden, int(reverse),
+            plan.cluster, plan.units, plan.rows, plan.warps, _cuda.stream_ptr(xproj.device),
+        )
+    _cuda.check_launch("lstm_scan", code)
+    counter = {"lstm_scan_bf16": lstm_scan_time_major, "lstm_scan_f32": lstm_scan_time_major_f32,
+               "lstm_scan_int8": lstm_scan_time_major_int8}[symbol]
+    counter.launches += 1
 
 
 def lstm_scan_time_major(
@@ -223,35 +303,32 @@ def lstm_scan_time_major(
 ) -> torch.Tensor:
     """[T, N, 4H] pre-projected gates + [H, 4H] recurrent weights -> [T, N, H].
 
-    A CPU tensor takes the plain version; a CUDA tensor (bf16, H a multiple
-    of 4 up to 512) launches the kernel, split by ``k1_launch_plan``."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    split by ``k1_launch_plan``: bf16 (H a multiple of 4 up to 512) K1 here,
+    float32 K1 float32 through ``lstm_scan_time_major_f32``."""
     if xproj.device.type == "cpu":
         return lstm_scan_plain(xproj, w_hh_t, reverse)
-    t_len, n, g4 = xproj.shape
-    hidden = g4 // 4
-    if g4 != 4 * hidden or hidden % 4 or not 0 < hidden <= 512 or t_len == 0 or n == 0:
-        raise ValueError(f"lstm_scan: unsupported gate shape {tuple(xproj.shape)}")
-    _cuda.check_tensor(xproj, "xproj", torch.bfloat16, (t_len, n, g4))
-    _cuda.check_tensor(w_hh_t, "w_hh_t", torch.bfloat16, (hidden, g4))
-    if w_hh_t.device != xproj.device:
-        raise ValueError("lstm_scan: xproj and w_hh_t are on different devices")
-    plan = k1_launch_plan(hidden, n, xproj.device)
-    w_sl = slice_w_hh(w_hh_t, plan.cluster, plan.units)
-    out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
-    fn = _cuda.kernel_function(
-        "lstm_scan", "lstm_scan_bf16", [_cuda.VOIDP] * 3 + [_cuda.INT] * 8 + [_cuda.VOIDP]
-    )
-    with torch.cuda.device(xproj.device):
-        code = fn(
-            xproj.data_ptr(), w_sl.data_ptr(), out.data_ptr(), t_len, n, hidden, int(reverse),
-            plan.cluster, plan.units, plan.rows, plan.warps, _cuda.stream_ptr(xproj.device),
-        )
-    _cuda.check_launch("lstm_scan", code)
-    lstm_scan_time_major.launches += 1
-    return out
+    if xproj.dtype == torch.float32:
+        return lstm_scan_time_major_f32(xproj, w_hh_t, reverse)
+    return _scan("lstm_scan_bf16", xproj, w_hh_t, reverse)
 
 
 lstm_scan_time_major.launches = 0
+
+
+def lstm_scan_time_major_f32(
+    xproj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False
+) -> torch.Tensor:
+    """K1 float32: ``lstm_scan_time_major`` on float32 [T, N, 4H] gates and
+    [H, 4H] weights, h and the output in float32. A CPU tensor takes the
+    plain version; a CUDA tensor (H a multiple of 4 up to 384) launches the
+    kernel, split by ``k1_launch_plan(..., elem_bytes=4)``."""
+    if xproj.device.type == "cpu":
+        return lstm_scan_plain(xproj, w_hh_t, reverse)
+    return _scan("lstm_scan_f32", xproj, w_hh_t, reverse)
+
+
+lstm_scan_time_major_f32.launches = 0
 
 
 def quantize_lstm_weights(w_hh_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -301,49 +378,7 @@ def lstm_scan_time_major_int8(
     elem_bytes=1)``."""
     if xproj.device.type == "cpu":
         return lstm_scan_int8_plain(xproj, w_i8, scale, reverse)
-    t_len, n, g4 = xproj.shape
-    hidden = g4 // 4
-    if g4 != 4 * hidden or hidden % 16 or not 0 < hidden <= 512 or t_len == 0 or n == 0:
-        raise ValueError(f"lstm_scan_int8: unsupported gate shape {tuple(xproj.shape)}")
-    _cuda.check_tensor(w_i8, "w_i8", torch.int8, (hidden, g4))
-    plan = k1_launch_plan(hidden, n, xproj.device, elem_bytes=1)
-    out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
-    _launch_int8(xproj, slice_w_hh(w_i8, plan.cluster, plan.units), scale, out, reverse, plan)
-    return out
-
-
-def _launch_int8(
-    xproj: torch.Tensor,
-    w_sl: torch.Tensor,
-    scale: torch.Tensor,
-    out: torch.Tensor,
-    reverse: bool,
-    plan: ClusterPlan,
-) -> None:
-    """K15 on CUDA tensors: W_i8's slices ``slice_w_hh(w_i8, plan.cluster,
-    plan.units)`` into ``out`` [T, N, H] bf16, split by ``plan``."""
-    t_len, n, g4 = xproj.shape
-    hidden = g4 // 4
-    _cuda.check_tensor(xproj, "xproj", torch.bfloat16, (t_len, n, g4))
-    _cuda.check_tensor(
-        w_sl, "w_sl", torch.int8,
-        (plan.cluster, 4 * plan.units, _k1_depth(plan.cluster, plan.units, 1)),
-    )
-    _cuda.check_tensor(scale, "scale", torch.float32, (g4,))
-    _cuda.check_tensor(out, "out", torch.bfloat16, (t_len, n, hidden))
-    if any(t.device != xproj.device for t in (w_sl, scale, out)):
-        raise ValueError("lstm_scan_int8: xproj, w_i8, scale and out are on different devices")
-    fn = _cuda.kernel_function(
-        "lstm_scan", "lstm_scan_int8", [_cuda.VOIDP] * 4 + [_cuda.INT] * 8 + [_cuda.VOIDP]
-    )
-    with torch.cuda.device(xproj.device):
-        code = fn(
-            xproj.data_ptr(), w_sl.data_ptr(), scale.data_ptr(), out.data_ptr(), t_len, n,
-            hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps,
-            _cuda.stream_ptr(xproj.device),
-        )
-    _cuda.check_launch("lstm_scan", code)
-    lstm_scan_time_major_int8.launches += 1
+    return _scan("lstm_scan_int8", xproj, w_i8, reverse, scale)
 
 
 lstm_scan_time_major_int8.launches = 0

@@ -2,14 +2,17 @@
 
 Port of ``dorado_tpu/pipeline/basecaller.py::BasecallerPipeline`` for
 simplex DNA basecalling with read splitting (on by default, the simplex
-chain of ``splitter.DuplexReadSplitter``) and the read filters
-(``min_qscore``, ``skip_read_ids``, ``only_read_ids``, ``max_reads``), without
-modified bases, barcoding or poly(A) estimation (the JAX pipeline with none
-of those set). ``run`` basecalls the POD5 files under a path, ``run_reads``
-any iterable of reads; both admit reads through the same gate. Host code is
+chain of ``splitter.DuplexReadSplitter``), the read filters (``min_qscore``,
+``skip_read_ids``, ``only_read_ids``, ``max_reads``) and modified-base
+calling (``modbase_caller``: MN/MM/ML tags), without barcoding or poly(A)
+estimation (the JAX pipeline with none of those set). ``run`` basecalls
+the POD5 files under a path, ``run_reads`` any iterable of reads; both
+admit reads through the same gate. Host code is
 a *feeder* (gate + scale + trim + chunk + batch fill) and a *finisher*
-(stitch + split + tags + filter + write) around ``TorchBasecallRunner``; the
-device computes batch k+1 while the host finishes batch k.
+(stitch + split + tags + modbase + filter + write) around
+``TorchBasecallRunner``; the device computes batch k+1 while the host
+finishes batch k. With a modbase caller, the finisher threads share its
+device batches through a ``ModBaseBatchScheduler`` made for each run.
 
 Per-read semantics follow ScalerNode (dorado/read_pipeline/nodes/
 ScalerNode.cpp:143-270), BasecallerNode chunking/stitch (BasecallerNode.cpp:
@@ -31,6 +34,8 @@ from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.config import BasecallModelConfig
 from dorado_tpu_torch.io.pod5 import Pod5File, Pod5Read, RunInfo, find_pod5_files
 from dorado_tpu_torch.io.sam import SamHeader, SamRecord, SamTag
+from dorado_tpu_torch.modbase.caller import ModBaseBatchScheduler, ModBaseCaller
+from dorado_tpu_torch.modbase.tags import generate_modbase_tags, modbase_threshold_uint8
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
 from dorado_tpu_torch.models.tx_model import TxModel
 from dorado_tpu_torch.pipeline.host import OrderedPool, OrderedSink, default_host_threads
@@ -113,6 +118,8 @@ class BasecallerPipeline:
         skip_read_ids: set | None = None,
         only_read_ids: set | None = None,
         max_reads: int | None = None,
+        modbase_caller: ModBaseCaller | None = None,
+        modbase_threshold: float = 0.05,
     ):
         if config.is_rna_model:
             raise ValueError("RNA models are not supported by this pipeline yet")
@@ -134,6 +141,9 @@ class BasecallerPipeline:
         self.overlap = int(overlap if overlap is not None else config.basecaller.overlap)
         self.overlap -= self.overlap % config.stride
         self.emit_moves = emit_moves
+        self.modbase_caller = modbase_caller
+        self.modbase_threshold = modbase_threshold
+        self._modbase_scheduler: ModBaseBatchScheduler | None = None  # one a run
         self.read_splitter = None
         if split_reads:
             pa = config.signal_norm_params.standardisation.standardise
@@ -390,6 +400,8 @@ class BasecallerPipeline:
             if wr.read.end_reason:
                 rec.tags.append(SamTag("er", "Z", wr.read.end_reason))
             rec.tags.append(SamTag("me", "I", wr.read.num_minknow_events & 0xFFFFFFFF))
+            if self.modbase_caller is not None and len(s_seq):
+                self._add_modbase_tags(rec, s_seq, s_moves, s_signal)
             if self.min_qscore > 0:
                 qs = next((t.value for t in rec.tags if t.tag == "qs"), 0.0)
                 if qs < self.min_qscore:
@@ -403,6 +415,23 @@ class BasecallerPipeline:
                 self.stats.bases_called += len(s_seq)
             records.append(rec)
         return records
+
+    def _add_modbase_tags(self, rec: SamRecord, seq: str, moves, scaled_signal) -> None:
+        """MN, MM and ML of one record (a read or a subread, on its own
+        signal), after the read tags (messages.cpp:134-147 order)."""
+        if self._modbase_scheduler is not None:
+            # the finisher threads share device batches
+            prepared = self.modbase_caller.prepare_read(seq, np.asarray(moves), scaled_signal)
+            result = self._modbase_scheduler.call(prepared)
+        else:
+            result = self.modbase_caller.call_read(seq, np.asarray(moves), scaled_signal)
+        mm, ml, mn = generate_modbase_tags(
+            seq, result.base_mod_probs, result.info, result.motif_hits,
+            modbase_threshold_uint8(self.modbase_threshold),
+        )
+        rec.tags.append(SamTag("MN", "i", mn))
+        rec.tags.append(SamTag("MM", "Z", mm))
+        rec.tags.append(SamTag("ML", "B", ml, subtype="C"))
 
     def _mean_qscore(self, qstring: str) -> float:
         start = self.config.mean_qscore_start_pos
@@ -502,6 +531,8 @@ class BasecallerPipeline:
         deadline = t0 + max_seconds if max_seconds is not None else None
         finished: list[_WorkingRead] = []
         workers = default_host_threads()
+        if workers > 0 and self.modbase_caller is not None:
+            self._modbase_scheduler = ModBaseBatchScheduler(self.modbase_caller)
         # scale pool ahead of the feed loop; finish pool behind the device
         # step; records written on this thread in submission order
         scale_pool = OrderedPool(self._prepare_read, workers)
@@ -538,6 +569,9 @@ class BasecallerPipeline:
         finally:
             finish_sink.shutdown()
             scale_pool.shutdown()
+            if self._modbase_scheduler is not None:
+                self._modbase_scheduler.close()
+                self._modbase_scheduler = None
         self.stats.elapsed_s = time.perf_counter() - t0
         rs_after = self.runner.stats.snapshot()
         self.stats.dispatch_wait_s = rs_after[3] - rs_before[3]

@@ -2,7 +2,8 @@
 command (``dorado_tpu.cli.main``) on the same model directory and POD5 file,
 both splitting reads (their default), for SAM, FASTQ and BAM output; with
 ``--disable-read-splitting``, ``--min-qscore``, ``--read-ids``,
-``--max-reads`` and ``--resume-from``; and the cases where it exits with 1.
+``--max-reads`` and ``--resume-from``; with ``--modified-bases-models``; and
+the cases where it exits with 1.
 
 The file holds white-noise reads, as ``tests/test_torch_pipeline.py`` feeds
 the pipelines. (On the smooth signal of the committed fixture this narrow
@@ -25,7 +26,8 @@ from dorado_tpu.models.presets import hac_v43_config as jax_hac_config
 from dorado_tpu_torch.cli.main import main
 from dorado_tpu_torch.io.pod5 import Pod5File
 from dorado_tpu_torch.io.sam import SamRecord, SamTag
-from dorado_tpu_torch.models.presets import config_toml, hac_v43_config
+from dorado_tpu_torch.modbase.model import init_modbase_params, save_modbase_model
+from dorado_tpu_torch.models.presets import config_toml, hac_5mcg_5hmcg_v3_config, hac_v43_config
 from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
 from tests.torch_pod5_writer import make_reads, run_info, write_pod5
 
@@ -60,6 +62,17 @@ def inputs(tmp_path_factory):
     write_pod5(data / "calls.pod5",
                make_reads(7, [3000, 890, 5200, 1700, 2500], infos, noise=True), infos)
     return model, data
+
+
+@pytest.fixture(scope="module")
+def mod_dir(tmp_path_factory):
+    """A narrow 5mCG_5hmCG@v3 modbase model directory (width 32, random
+    weights and kmer levels from seeds)."""
+    cfg = hac_5mcg_5hmcg_v3_config(32)
+    levels = np.random.RandomState(5).randn(4**cfg.kmer_len).astype(np.float32)
+    model = init_modbase_params(cfg, torch.Generator().manual_seed(3))
+    return save_modbase_model(cfg, model, tmp_path_factory.mktemp("mod") / cfg.model_path.name,
+                              refine_levels=levels)
 
 
 def _fastq_records(path: Path) -> list[SamRecord]:
@@ -203,9 +216,38 @@ def test_cli_read_options_match_jax_cli(inputs, default_sam, tmp_path, capfd, op
         assert "> Reads basecalled: 3" in err
 
 
+def test_cli_modified_bases_matches_jax_cli(inputs, mod_dir, tmp_path):
+    """``--modified-bases-models`` (with a threshold and a batch size) writes
+    the JAX command's SAM: every tag as the other tests hold them, MN/MM/ML
+    after ``me``, MM equal, ML values within 1 and equal at 99.9% of them
+    (``tests/test_torch_pipeline.py``'s rule), and ML non-empty."""
+    model, data = inputs
+    extra = ["--modified-bases-models", str(mod_dir), "--modified-bases-threshold", "0.2",
+             "--modified-bases-batchsize", "16", "--emit-sam"]
+    ours, theirs = tmp_path / "ours.sam", tmp_path / "theirs.sam"
+    assert jax_main(["basecaller", str(model), str(data), *COMMON, *extra, "--dtype", "float32",
+                     "-x", "cpu", "-o", str(theirs)]) == 0
+    assert main(["basecaller", str(model), str(data), *COMMON, *extra, "-x", "cpu",
+                 "-o", str(ours)]) == 0
+    _, ref = _records(theirs, "sam")
+    _, out = _records(ours, "sam")
+    ml = []
+    for recs in (ref, out):
+        ml.append(np.concatenate([np.asarray(next(t for t in r.tags if t.tag == "ML").value,
+                                             dtype=np.int32) for r in recs]))
+        for r in recs:
+            assert [t.tag for t in r.tags][-4:] == ["me", "MN", "MM", "ML"]
+            r.tags = [t for t in r.tags if t.tag != "ML"]
+    _assert_records_match(ref, out)
+    assert len(ml[0]) == len(ml[1]) > 20
+    diff = np.abs(ml[0] - ml[1])
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
 @pytest.mark.parametrize("case", ["missing-dir", "no-pod5", "model-name", "variant",
-                                  "resume-other-model", "resume-cram", "beam-host", "fast5"])
-def test_cli_exits_1(inputs, tmp_path, capsys, case):
+                                  "resume-other-model", "resume-other-modbase", "resume-cram",
+                                  "beam-host", "fast5"])
+def test_cli_exits_1(inputs, mod_dir, tmp_path, capsys, case):
     model, data = inputs
     empty = tmp_path / "empty"
     empty.mkdir()
@@ -216,6 +258,9 @@ def test_cli_exits_1(inputs, tmp_path, capsys, case):
         "variant": ["hac@v4.3", str(data), *COMMON],
         "resume-other-model": [str(model), str(data), *COMMON, "--resume-from",
                                str(tmp_path / "other.sam")],
+        "resume-other-modbase": [str(model), str(data), *COMMON, "--resume-from",
+                                 str(tmp_path / "other.sam"), "--modified-bases-models",
+                                 str(mod_dir)],
         "resume-cram": [str(model), str(data), *COMMON, "--resume-from", str(tmp_path / "x.cram")],
         "beam-host": [str(model), str(data), *COMMON, "--decoder", "beam-host"],
         "fast5": [str(model), str(empty), *COMMON],
@@ -230,6 +275,14 @@ def test_cli_exits_1(inputs, tmp_path, capsys, case):
             "@HD\tVN:1.6\tSO:unknown\n@PG\tID:basecaller\tPN:dorado_tpu_torch\tVN:0.1.0\t"
             f"CL:dorado_tpu_torch basecaller {tmp_path / 'dna_r10.4.1_e8.2_400bps_sup@v5.0.0'} "
             f"{data} --emit-sam\nread-x\t4\t*\t0\t0\t*\t*\t0\t0\tACGT\t++++\tqs:f:5.0\n")
+    if case == "resume-other-modbase":
+        # the same basecall model with another modified-base model
+        (tmp_path / "other.sam").write_text(
+            "@HD\tVN:1.6\tSO:unknown\n@PG\tID:basecaller\tPN:dorado_tpu_torch\tVN:0.1.0\t"
+            f"CL:dorado_tpu_torch basecaller {model} {data} --modified-bases-models "
+            f"{tmp_path / 'dna_r10.4.1_e8.2_400bps_hac@v5.0.0_6mA@v2'}\n"
+            "read-x\t4\t*\t0\t0\t*\t*\t0\t0\tACGT\t++++\tqs:f:5.0\n")
+    if case.startswith("resume-other"):
         with capsys.disabled():  # the JAX command enables faulthandler on the real stderr
             assert jax_main(["basecaller", *args, "-x", "cpu", "-o", str(tmp_path / "j.bam")]) == 1
     assert main(["basecaller", *args, "-x", "cpu", "-o", str(tmp_path / "o.bam")]) == 1
@@ -241,6 +294,8 @@ def test_cli_exits_1(inputs, tmp_path, capsys, case):
         "variant": "the port has no model downloader yet",
         "resume-other-model": "Inconsistent models used in this pipeline and those used in the "
                               "--resume-from file",
+        "resume-other-modbase": "Resumed: ('dna_r10.4.1_e8.2_400bps_hac@v4.3.0', "
+                                "('dna_r10.4.1_e8.2_400bps_hac@v5.0.0_6mA@v2',))",
         "resume-cram": "CRAM is not supported by the port",
         "beam-host": "beam-host is not supported",
         "fast5": "FAST5 files are not supported",

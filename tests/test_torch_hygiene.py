@@ -34,7 +34,11 @@ def test_package_imports_no_jax():
     assert "dorado_tpu_torch.basecall.runner" in names and len(names) > 20
     assert {"dorado_tpu_torch.models.tx_model", "dorado_tpu_torch.ops.attention",
             "dorado_tpu_torch.splitter.duplex_splitter", "dorado_tpu_torch.splitter.utils",
-            "dorado_tpu_torch.utils.align", "dorado_tpu_torch.io.bam_reader"} <= set(names)
+            "dorado_tpu_torch.utils.align", "dorado_tpu_torch.io.bam_reader",
+            "dorado_tpu_torch.modbase.caller", "dorado_tpu_torch.modbase.config",
+            "dorado_tpu_torch.modbase.encode", "dorado_tpu_torch.modbase.model",
+            "dorado_tpu_torch.modbase.motif", "dorado_tpu_torch.modbase.scaler",
+            "dorado_tpu_torch.modbase.tags"} <= set(names)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -122,6 +126,7 @@ WRAPPERS = (
     crf_cuda.fused_forward_decode_full,
     lstm.lstm_scan_time_major_int8,
     lstm.lstm_fused_time_major,
+    lstm.lstm_scan_time_major_f32,
 )
 
 
@@ -376,6 +381,37 @@ def test_lstm_scan_source_has_k15_and_k16():
     for tpu_kernel in ("lstm_scan_time_major_int8", "lstm_fused_time_major"):
         assert f"Replaces dorado_tpu/ops/lstm.py::{tpu_kernel}" in src
     assert "__dp4a" in src
+
+
+def test_lstm_scan_source_has_k1_float32():
+    src = (_cuda.CSRC / "lstm_scan.cu").read_text()
+    assert "DTT_EXPORT int lstm_scan_f32(" in src and "mma_3xtf32" in src
+    assert "dispatch_nt<float, false>" in src
+
+
+def test_modbase_caller_defaults_to_cuda_and_runs_plain_on_cpu(no_kernels, monkeypatch):
+    """``ModBaseCaller`` takes CUDA unless told otherwise and raises without
+    it; on the CPU its model's LSTMs take K1's plain version (float32), and
+    no kernel is built or launched."""
+    from dorado_tpu_torch.modbase.caller import ModBaseCaller
+    from dorado_tpu_torch.modbase.model import init_modbase_params
+    from dorado_tpu_torch.models.presets import hac_5mcg_5hmcg_v3_config
+
+    cfg = hac_5mcg_5hmcg_v3_config(16)
+    model = init_modbase_params(cfg, torch.Generator().manual_seed(1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModBaseCaller([cfg], [model], canonical_stride=6)
+    calls = []
+    _spy(monkeypatch, calls, lstm, "lstm_scan_plain")
+    mc = ModBaseCaller([cfg], [model], canonical_stride=6, device="cpu")
+    rs = np.random.RandomState(3)
+    seq = "ACGT" * 30 + "CG" * 10
+    moves = np.zeros(2 * len(seq), dtype=np.uint8)
+    moves[::2] = 1
+    res = mc.call_read(seq, moves, rs.randn(12 * len(seq)).astype(np.float32))
+    assert res.motif_hits.sum() == 40 and len(calls) % 2 == 0 and calls
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_aligner_builds_from_its_own_source(monkeypatch, tmp_path):

@@ -17,6 +17,7 @@ from dorado_tpu_torch.ops.lstm import (
     k1_plan,
     lstm_fused_time_major,
     lstm_scan_time_major,
+    lstm_scan_time_major_f32,
     lstm_scan_time_major_int8,
     quantize_lstm_weights,
     slice_w_hh,
@@ -37,6 +38,27 @@ def test_lstm_scan_matches_pallas(reverse):
     assert out.dtype == torch.float32 and out.shape == (t, n, h)
     # float32 both sides; only the summation order of h @ W differs
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_scan_f32_matches_pallas_at_the_modbase_shape(reverse):
+    """K1 float32's plain version (the wrapper on CPU tensors, and
+    ``lstm_scan_time_major`` on float32 ones) against the Pallas kernel in
+    interpret mode at the modbase models' H = 256 and T = 32 (a chunk of 192
+    samples at stride 6): float32 both sides, atol 1e-5 as above."""
+    t, n, h = 32, 8, 256
+    rs = np.random.RandomState(17)
+    xproj = (rs.randn(t, n, 4 * h) * 0.8).astype(np.float32)
+    w_hh_t = (rs.uniform(-1, 1, (h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    ref = np.asarray(
+        jax_lstm_scan(jnp.asarray(xproj), jnp.asarray(w_hh_t), reverse=reverse, interpret=True)
+    )
+    x_t, w_t = torch.from_numpy(xproj), torch.from_numpy(w_hh_t)
+    out = lstm_scan_time_major_f32(x_t, w_t, reverse=reverse)
+    assert out.dtype == torch.float32 and out.shape == (t, n, h)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+    assert torch.equal(lstm_scan_time_major(x_t, w_t, reverse=reverse), out)
+    assert lstm_scan_time_major_f32.launches == 0
 
 
 # K15 and K16 at two widths and both directions, float32 and bf16. The
@@ -318,3 +340,77 @@ def test_w_ih_fragments_reassemble_w_ih(h):
             tiles[..., g + dr, 2 * t + dk] = frag[..., lane, e]
     back = tiles.permute(0, 1, 3, 2, 4).reshape(cluster, 4 * units, kp)
     assert torch.equal(back, slice_w_hh(w, cluster, units))
+
+
+# K1 float32's host-side helpers: it launches on K1's kernel with float
+# elements (``elem_bytes=4``): W's slices and h are twice K1's bytes, a pair of
+# k-tiles is 16 k, a CTA's units are whole float32 k-tiles (8).
+
+
+@pytest.mark.parametrize("h", range(4, 385, 4))
+def test_k1_f32_cluster_shape_fits_every_width(h):
+    """Every width K1 float32's wrapper takes (up to 384) gets a cluster whose
+    CTAs hold their float32 W slice, h buffers and staging at 8 rows, whose
+    units cover H in whole k-tiles, and whose m-tiles split over the warps
+    one or two a warp; half the cluster would not hold W."""
+    cluster, units, warps = k1_cluster_shape(h, elem_bytes=4)
+    assert cluster in (1, 2, 4, 8, 16) and units % 8 == 0 and cluster * units >= h
+    assert 1 <= warps <= 12 and (units // 4) % warps == 0 and units // 4 // warps <= 2
+    assert _k1_smem(units, cluster, 8, elem_bytes=4) <= 232448
+    if cluster > 1:
+        half = -(-h // (cluster // 2))
+        half += -half % 8
+        assert _k1_smem(half, cluster // 2, 8, elem_bytes=4) > 232448 or half // 4 > 24
+    assert k1_plan(h, 1, 1, elem_bytes=4)[:3] == (cluster, units, warps)
+
+
+def test_k1_f32_refuses_wider_than_384():
+    with pytest.raises(ValueError, match="in float32"):
+        k1_cluster_shape(388, elem_bytes=4)
+
+
+@pytest.mark.parametrize(
+    "h,shape,smem",
+    # the modbase models' H = 256 in clusters of 8 (133 KB of W a CTA), hac's
+    # 384 in clusters of 16 of 24 units, and two test widths in one CTA
+    [(256, (8, 32, 8), 153_872), (384, (16, 24, 6), 179_472), (32, (1, 32, 8), 23_056),
+     (36, (1, 40, 10), 41_744)],
+)
+def test_k1_f32_cluster_shape_at_the_models_widths(h, shape, smem):
+    assert k1_cluster_shape(h, elem_bytes=4) == shape
+    cluster, units, _ = shape
+    assert _k1_smem(units, cluster, 8, elem_bytes=4) == smem
+
+
+@pytest.mark.parametrize(
+    "h,n,active,rows,clusters",
+    [
+        (256, 128, 15, 16, 8),  # the modbase batch: one wave of 8 clusters
+        (256, 1024, 15, 32, 32),  # shared memory holds 32 rows: three waves
+        (256, 37, 15, 8, 5),
+        (384, 128, 7, 16, 8),  # 16 rows at most at hac's H
+        (32, 1024, 132, 8, 128),
+    ],
+)
+def test_k1_f32_plan_rows_a_cluster(h, n, active, rows, clusters):
+    plan = k1_plan(h, n, active, elem_bytes=4)
+    assert (plan.rows, plan.clusters) == (rows, clusters)
+    assert plan.rows * plan.clusters >= n > plan.rows * (plan.clusters - 1)
+    assert _k1_smem(plan.units, plan.cluster, plan.rows, elem_bytes=4) <= 232448
+    assert _k1_smem(plan.units, plan.cluster, plan.rows + 8, elem_bytes=4) > 232448 or (
+        plan.rows * active >= n)
+
+
+@pytest.mark.parametrize("h", [256, 384, 36, 32])
+def test_slice_w_f32_reassembles_w_hh(h):
+    """K1 float32's slices of W_hh in K1's layout, at a depth rounded up to 16
+    k (a pair of float32 k-tiles): every weight once, zeros past H."""
+    rs = np.random.RandomState(h)
+    w = torch.from_numpy(rs.randn(h, 4 * h).astype(np.float32))
+    cluster, units, _ = k1_cluster_shape(h, elem_bytes=4)
+    sl = slice_w_hh(w, cluster, units)
+    kp = -(-cluster * units // 16) * 16
+    assert sl.shape == (cluster, 4 * units, kp) and sl.dtype == torch.float32
+    back = sl.reshape(cluster, units, 4, kp).permute(3, 2, 0, 1).reshape(kp, 4, cluster * units)
+    assert torch.equal(back[:h, :, :h].reshape(h, 4 * h), w)
+    assert not back[h:].any() and not back[:, :, h:].any()

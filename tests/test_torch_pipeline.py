@@ -28,7 +28,7 @@ from dorado_tpu.models.presets import sup_v50_config as jax_sup_config
 import dorado_tpu_torch.pipeline.basecaller as port_pipeline_module
 from dorado_tpu_torch.io import pod5
 from dorado_tpu_torch.io.bgzf import BGZF_EOF
-from dorado_tpu_torch.io.sam import BamWriter
+from dorado_tpu_torch.io.sam import BamWriter, SamTag
 from dorado_tpu_torch.models.crf_model import params_from_jax
 from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
 from dorado_tpu_torch.models.tx_model import tx_params_from_jax
@@ -317,3 +317,51 @@ def test_split_records_match_jax(pipelines):
         assert (tags["pi"], tags["sp"], tags["rn"], tags["ts"]) == ("read-1", 0, -1, 0)
     ns = [dict((t.tag, t.value) for t in r.tags)["ns"] for r in got]
     assert sum(ns) < len(c.signal) and min(ns) > 0
+
+
+def test_modbase_records_match_jax(tmp_path):
+    """Both pipelines with a modified-base caller on one narrow 5mCG_5hmCG@v3
+    model directory (``tests/test_torch_modbase.py``'s, rescale on): the
+    records match tag for tag, MN/MM/ML after ``me``; MM equal, ML values
+    within 1 and equal at 99.9% of them (the floor of p * 256 of float32 sums
+    in another order), and ML non-empty on both sides."""
+    from dorado_tpu.modbase.caller import ModBaseCaller as JaxModBaseCaller
+    from dorado_tpu.modbase.config import load_modbase_config as jax_load_modbase_config
+    from dorado_tpu_torch.modbase.caller import ModBaseCaller
+    from dorado_tpu_torch.modbase.config import load_modbase_config
+    from dorado_tpu_torch.modbase.model import init_modbase_params, save_modbase_model
+    from dorado_tpu_torch.models.presets import hac_5mcg_5hmcg_v3_config
+
+    mod_cfg = hac_5mcg_5hmcg_v3_config(32)
+    levels = np.random.RandomState(5).randn(4**mod_cfg.kmer_len).astype(np.float32)
+    mod_dir = save_modbase_model(mod_cfg, init_modbase_params(mod_cfg, torch.Generator()
+                                                              .manual_seed(3)),
+                                 tmp_path / mod_cfg.model_path.name, refine_levels=levels)
+    params = jax_params_with_moves(2)
+    cfg = _narrow_hac(hac_v43_config())
+    kw = dict(chunk_size=1200, batch_size=8, emit_moves=True, modbase_threshold=0.1)
+    jp = jax_pipeline_module.BasecallerPipeline(
+        _narrow_hac(jax_hac_config()), params, compute_dtype=jnp.float32,
+        modbase_caller=JaxModBaseCaller([jax_load_modbase_config(mod_dir)], canonical_stride=6,
+                                        batch_size=16), **kw)
+    ref = _jax_run(jp)
+    tp = BasecallerPipeline(
+        cfg, params_from_jax(params, cfg), device="cpu",
+        modbase_caller=ModBaseCaller([load_modbase_config(mod_dir)], canonical_stride=6,
+                                     batch_size=16, device="cpu"), **kw)
+    out = _Collect()
+    stats = tp.run_reads(_reads(pod5), out)
+    ml_ref = [next(t for t in r.tags if t.tag == "ML").value for r in ref]
+    ml_out = [next(t for t in r.tags if t.tag == "ML").value for r in out.records]
+    strip = [[SamTag(t.tag, t.type, 0, t.subtype) if t.tag == "ML" else t for t in r.tags]
+             for r in out.records]
+    for r, t in zip(out.records, strip):
+        assert [x.tag for x in r.tags][-4:] == ["me", "MN", "MM", "ML"]
+        r.tags = t
+    for r in ref:
+        r.tags = [SamTag(t.tag, t.type, 0, t.subtype) if t.tag == "ML" else t for t in r.tags]
+    _assert_records_match(ref, out.records, stats)
+    got, want = np.concatenate(ml_out), np.concatenate(ml_ref)
+    assert len(got) == len(want) > 20
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
