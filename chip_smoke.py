@@ -73,6 +73,14 @@
    forward and unshifted backward outputs); K7b, with the cross-checks of
    K7a; K8, its choices equal to K7b's; K17 and its traceback at 1024 states on the sup model's float32
    scores, against the plain beam on all 128 rows at the full T.
+   Then the float32 forms (``float32_kernels``): K2 at float32 (float32 rows
+   in, float32 gates out) at hac's projection and sup's qkv, K13 writing
+   float32 at sup's fc2 (both bit for bit), K10 on float32 q, k and v at sup's
+   shape (within TOL_ATTN_F32) and K14 at float32 at out_proj and fc2
+   (within TOL_NORM_F32), each also at a ragged shape launched into an output
+   filled with NaN first, and timed beside its bound, its plain version and
+   float32 ``F.linear``, ``torch._int_mm`` + dequantise, SDPA in float32 or
+   the unfused float32 passes.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``, splitting reads, the default: every read must have its
    record or its subreads' records) at hac v4.3's full width over 16 synthetic reads (14 of
@@ -112,9 +120,27 @@
    every kernel of its path, and must write what ``run_reads`` writes for
    the reads of the port's ``Pod5File`` with the same weights, options and
    header (the modbase case: ML within 1 at all but 0.1% of its values).
-   One ``python -m dorado_tpu_torch basecaller ... --emit-sam`` subprocess
-   must write the in-process SAM but for @PG. Then the ``-b 0`` sweep at hac with
-   its cache off: each batch size's device step and the chosen one.
+   The same for fast v4.0 SAM, hac SAM and sup SAM with ``--dtype float32``,
+   and hac SAM with ``--dtype bfloat16``, which must write the default's SAM
+   but for @PG. One ``python -m dorado_tpu_torch basecaller ... --emit-sam``
+   subprocess must write the in-process SAM but for @PG. Then the ``-b 0``
+   sweep at hac with its cache off: each batch size's device step and the
+   chosen one.
+   Before the modbase phase, float32 compute on the card
+   (``float32_paths``, ``compute_dtype=torch.float32``): ``run_reads`` at hac
+   v4.3 (Viterbi and beam, W8A8: K2 and K1 at float32, the decode on bf16
+   scores as on the bf16 paths) and at sup v5.0 (K2, K10, K12, K13: 18 a
+   batch each), one device step of sup with the fused norms (K14 at float32),
+   each path's launches held; the scores on the card against the CPU's
+   float32 models on the same chunks (hac, and unquantised sup over all 18
+   layers, within MAX_F32_SCORE_REL; W8A8 sup within MAX_F32_W8A8_SHALLOW
+   over its first 2 layers and the bf16 limit over all 18), the Viterbi
+   decode of the card's scores equal to the CPU's, and one profiled step
+   each. Then fast v4.0 at full width (``fast_phase``: H = 96, 64 states,
+   chunk 10000, batch 128, unquantised projections): K1 at H = 96 in bf16
+   and float32, K3, the full-history scans and K17 at 64 states timed at its
+   shapes (``fast_*`` keys of their rows), and ``run_reads`` in bf16 (Viterbi
+   and beam) and in float32, held as above.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
@@ -140,7 +166,8 @@
    planted concatemers of 2-4 strands of 5-15 kb in simplex and in duplex
    mode, which must cut at each planted base, and prints its host ms a read
    beside the profiled hac Viterbi step's device ms for as many samples.
-8. Prints one JSON line of per-kernel numbers and, last, the device line.
+8. Prints one JSON line of per-kernel numbers (the float32 forms of K2, K13,
+   K10 and K14 in rows of their own) and, last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -156,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -363,10 +391,11 @@ TOL_NORM_REL, MAX_NORM_SHARE_DIFFERENT = 2.0**-6, 1e-3
 # (the cluster's second CTA then has no rows in its last tile)
 K14_ROWS = [5 * 64 + 37, 3 * 128, SUP_M]
 # the sup model's fused norms on the card against the unfused route on the
-# same weights, over the first SUP_SHALLOW_DEPTH layers (mean abs difference
-# over the mean abs score): K14 rounds where the unfused operators do, but
-# sums the product in another order (measured on an H100 80GB HBM3: 2.6e-4
-# and 5.9e-4; the two planted faults of the check 1.1e-2 and 7.8e-3)
+# same weights (biases and norm weights drawn from the seed), over the first
+# SUP_SHALLOW_DEPTH layers (mean abs difference over the mean abs score): K14
+# rounds where the unfused operators do, but sums the product in another
+# order (measured on an H100 80GB HBM3: 1.2e-3 and 1.3e-3; the two planted
+# faults of the check 1.2e-2 and 7.8e-3)
 MAX_SUP_ROUTE_MEAN_ERR = 2.0**-8
 # K12: expf and PyTorch's exp may differ in the last bit, which can move a
 #     value across an int8 rounding boundary: row scales within 1e-6
@@ -410,7 +439,7 @@ def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
 
 
 def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels, launches,
-              card, mod_dir) -> None:
+              card, mod_dir, fast) -> None:
     """``python -m dorado_tpu_torch basecaller`` on the card: model
     directories written by the port (hac v4.3 and sup v5.0 at full width,
     this run's seeded weights), the committed POD5 fixture, read splitting on
@@ -423,8 +452,10 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
     under ``--min-qscore``). The modbase case (``--modified-bases-models
     mod_dir``) is held on ML within 1 at all but 0.1% of its values, and
     every other field equal: its caller's batches hold other chunks together
-    in the two runs. One more run in a subprocess must write the in-process
-    run's SAM but for @PG."""
+    in the two runs. fast v4.0 (``fast``: its config and model) and hac and
+    sup with ``--dtype float32`` run as the rest; hac with ``--dtype
+    bfloat16`` must write the default's SAM but for @PG. One more run in a
+    subprocess must write the in-process run's SAM but for @PG."""
     import gzip
     import shlex
 
@@ -456,9 +487,10 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
         t0 = time.perf_counter()
         hac_dir = save_model(cfg, model, tmp / cfg.model_name)
         sup_dir = save_model(sup_cfg, sup_model, tmp / sup_cfg.model_name)
+        fast_dir = save_model(fast[0], fast[1], tmp / fast[0].model_name)
         print(f"model directories written in {time.perf_counter() - t0:.1f} s", flush=True)
         loaded = {}
-        for kind, path in (("hac", hac_dir), ("sup", sup_dir)):
+        for kind, path in (("hac", hac_dir), ("sup", sup_dir), ("fast", fast_dir)):
             config, params = load_model(path)
             loaded[kind] = (config, build_model(config, params))
 
@@ -565,6 +597,13 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
             ("cli hac no split", hac_dir, "hac", ["--emit-sam", "--disable-read-splitting"],
              "sam", "viterbi", {"split_reads": False}),
             ("cli sup", sup_dir, "sup", ["--emit-sam"], "sam", "sup viterbi", {}),
+            ("cli fast", fast_dir, "fast", ["--emit-sam"], "sam", "fast viterbi", {}),
+            ("cli hac f32", hac_dir, "hac", ["--emit-sam", "--dtype", "float32"], "sam",
+             "hac f32 viterbi", {"compute_dtype": torch.float32}),
+            ("cli sup f32", sup_dir, "sup", ["--emit-sam", "--dtype", "float32"], "sam",
+             "sup f32", {"compute_dtype": torch.float32}),
+            ("cli hac bf16", hac_dir, "hac", ["--emit-sam", "--dtype", "bfloat16"], "sam",
+             "viterbi", {"compute_dtype": torch.bfloat16}),
             ("cli hac modbase", hac_dir, "hac", ["--emit-sam", "--modified-bases-models",
                                                  str(mod_dir)], "sam", "modbase",
              {"modbase_caller": ModBaseCaller([load_modbase_config(mod_dir)],
@@ -572,6 +611,14 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
         ]
         for case in cases:
             run_case(*case, admitted=read_ids)
+
+        def body(text):
+            return [line for line in text.splitlines() if not line.startswith("@PG")]
+
+        # --dtype bfloat16 is the card's default
+        if body(runs["cli hac bf16"][0].read_text()) != body(runs["cli hac sam"][0].read_text()):
+            raise AssertionError("cli hac bf16: --dtype bfloat16 differs from the default")
+        print("cli hac bf16: --dtype bfloat16 wrote the default's SAM but for @PG", flush=True)
         # --max-reads 8 and a --min-qscore halfway through the qs of those
         # eight reads' records in the hac SAM, so that it drops some
         records = read_records(runs["cli hac sam"][0])[1]
@@ -592,9 +639,6 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
         wall = time.perf_counter() - t0
         if res.returncode != 0:
             raise AssertionError(f"python -m dorado_tpu_torch: exit {res.returncode}\n{res.stderr}")
-
-        def body(text):
-            return [line for line in text.splitlines() if not line.startswith("@PG")]
 
         in_process = runs["cli hac sam"][0].read_text()
         if body(res.stdout) != body(in_process) or not body(in_process):
@@ -838,6 +882,557 @@ def batch_sweep(cfg, model, card) -> None:
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     if chosen not in [n for n, _ in timings]:
         raise AssertionError(f"-b 0 chose {chosen}, which it did not time")
+
+
+def draw_biases_and_norms(model, seed) -> None:
+    """Draw a transformer's biases (convolutions, out_proj, upsample) and its
+    norm weights from ``seed`` in place: the random init leaves them 0 and
+    1, where a kernel that dropped or misplaced one would go unseen."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for b in (*model.conv_b, *(layer.out_proj_b for layer in model.layers),
+                  model.upsample_b):
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+        for layer in model.layers:
+            for w in (layer.norm1, layer.norm2):
+                w.copy_(1.0 + 0.1 * torch.randn(w.shape, generator=g))
+
+
+# ---- float32 compute and fast v4.0 ------------------------------------------
+# K2 and K13 at float32: bit for bit, as their bf16 forms. K10 at float32:
+#     products in 3xTF32 (about 2^-21 of each lost) and __expf where the plain
+#     version runs float32 products and exp, the sums in another order:
+#     max |err| / max |value| <= 1e-4
+# K14 at float32: the product in 3xTF32 on mma.sync, whose float32 sums the
+#     tensor cores round in their own way over K terms:
+#     |err| <= 1e-4 * (|value| + 1), elementwise
+TOL_ATTN_F32 = 1e-4
+TOL_NORM_F32 = 1e-4
+# each form is also launched at a ragged shape into an output filled with
+# NaN first: rows (K2, K13, K14), and (N, T') for K10
+F32_RAGGED_ROWS = 5 * 64 + 37
+F32_RAGGED_ATTN = (3, 357)
+# the float32 models on the card against the same float32 models on the CPU
+# on the same chunks (mean abs difference over the mean abs score): only the
+# order of float32 sums differs (hac: measured 1.2e-4 on an H100 80GB HBM3).
+# Where a sum sits at an int8 rounding boundary of W8A8's activation
+# quantisation it moves a step, four quantisations a sup layer, and over
+# layers of random weights such steps grow as bf16's roundings do (measured:
+# 2.1e-3 over sup's first 2 layers, 0.024 over all 18). So sup at W8A8 is
+# held to MAX_F32_W8A8_SHALLOW over its first SUP_SHALLOW_DEPTH layers and
+# to the bf16 limit (MAX_SUP_BF16_MEAN_ERR) over all 18; its unquantised
+# float32 model, with no int8 rounding, to MAX_F32_SCORE_REL over all 18
+# (measured 4.7e-6; 3.8e-4 with quantize_tx_head_w8a8's head, whose row
+# quantisation moves a step where the stream sits at a rounding boundary)
+MAX_F32_SCORE_REL = 1e-3
+MAX_F32_W8A8_SHALLOW = 1e-2
+# fast v4.0 in bf16 on the card against float32 on the CPU: the hac check's
+# limit
+MAX_FAST_BF16_MEAN_ERR = 0.02
+FAST_T, FAST_S = 2000, 64  # fast v4.0 at chunk 10000 (stride 5), 64 states
+
+
+def float32_kernels(k) -> None:
+    """K2, K13, K10 and K14 at float32 on the card, at the main paths' shapes
+    and at a ragged shape each (launched into outputs filled with NaN first,
+    so that every position must be written), against their plain versions:
+    K2 and K13 bit for bit, K10 within TOL_ATTN_F32, K14 within TOL_NORM_F32.
+    Each is timed beside its bound, its plain version and one PyTorch call,
+    in a row of its own in the ``kernels`` line. ``k`` holds main's helpers."""
+    torch, dev, gen = k.torch, k.dev, k.gen
+    F = torch.nn.functional
+    int8_matmul, attention, fused_norm, tx_model = (
+        k.int8_matmul, k.attention, k.fused_norm, k.tx_model)
+    time_ms, report, card = k.time_ms, k.report, k.card
+
+    def nan_like(shape):
+        return torch.full(shape, float("nan"), device=dev)
+
+    with torch.inference_mode():
+        # ---- K2 at float32: hac's input projection, sup's qkv ----------------
+        timed = {}
+        for what, m, kin, o in (("hac", T * N, H, 4 * H), ("sup qkv", SUP_M, SUP_D, 3 * SUP_D),
+                                ("ragged", F32_RAGGED_ROWS, H, 4 * H)):
+            x = torch.randn(m, kin, generator=gen, device=dev)
+            w = torch.randn(o, kin, generator=gen, device=dev) / kin**0.5
+            wq, ws = int8_matmul.quantize_weight_rows(w)
+            b = torch.randn(o, generator=gen, device=dev) * 0.1
+            out = int8_matmul.w8a8_matmul_fq_f32(x, wq.t(), ws, b)
+            into = int8_matmul._fq_launch(x, wq.t(), ws, b, torch.float32, out=nan_like((m, o)))
+            ref = int8_matmul.w8a8_matmul_fq_plain(x, wq.t(), ws, b, torch.float32)
+            torch.cuda.synchronize()
+            if not (out.dtype == torch.float32 and torch.equal(out, ref)
+                    and torch.equal(into, ref)):
+                raise AssertionError(f"w8a8_matmul_fq_f32 {what} ({m}, {kin}, {o}): "
+                                     f"{(out != ref).sum().item()} outputs differ from the plain "
+                                     f"version's (or a position was not written)")
+            print(f"w8a8_matmul_fq_f32 {what} (M={m} K={kin} O={o}): equal to the plain version, "
+                  f"every position written", flush=True)
+            if what != "ragged":
+                timed[what] = dict(
+                    ms=time_ms(lambda: int8_matmul.w8a8_matmul_fq_f32(x, wq.t(), ws, b), 10),
+                    plain_ms=time_ms(lambda: int8_matmul.w8a8_matmul_fq_plain(
+                        x, wq.t(), ws, b, torch.float32), 2),
+                    library_ms=time_ms(lambda: F.linear(x, w, b), 5),
+                    ops=2.0 * m * kin * o, nbytes=4 * m * kin + kin * o + 8 * o + 4 * m * o)
+            del x, out, into, ref
+        hac, sup = timed["hac"], timed["sup qkv"]
+        sup_bound, sup_by = bound_ms(sup["ops"], PEAK_INT8, sup["nbytes"])
+        report(
+            "w8a8_matmul_fq_f32", "dorado_tpu_torch/csrc/w8a8_matmul_fq.cu",
+            "dorado_tpu/ops/int8_matmul.py:267", 0.0, hac["ms"], hac["plain_ms"], hac["ops"],
+            PEAK_INT8, hac["nbytes"], hac["library_ms"],
+            "(float32 F.linear with the bias, TF32 off)", sup_ms=sup["ms"],
+            sup_plain_ms=sup["plain_ms"], sup_bound_ms=sup_bound, sup_bound_by=sup_by,
+            sup_library_ms=sup["library_ms"],
+        )
+        print(f"  at sup's qkv (M={SUP_M} K={SUP_D} O={3 * SUP_D}): kernel {sup['ms']:.3f} ms, "
+              f"plain {sup['plain_ms']:.3f} ms, bound {sup_bound:.3f} ms ({sup_by}), float32 "
+              f"F.linear {sup['library_ms']:.3f} ms [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+        # ---- K13 at float32: sup's fc2 (the timed shape last) -----------------
+        for m in (F32_RAGGED_ROWS, SUP_M):
+            xq = torch.randint(-127, 128, (m, SUP_FFN), generator=gen, device=dev,
+                               dtype=torch.int8)
+            xs = torch.rand(m, 1, generator=gen, device=dev) * 0.01
+            wq, ws = int8_matmul.quantize_weight_rows(
+                torch.randn(SUP_D, SUP_FFN, generator=gen, device=dev))
+            out = int8_matmul.w8a8_matmul_f32(xq, xs, wq.t(), ws)
+            into = int8_matmul._w8a8_launch(xq, xs, wq.t(), ws, torch.float32,
+                                            out=nan_like((m, SUP_D)))
+            ref = int8_matmul.w8a8_matmul_plain(xq, xs, wq.t(), ws, torch.float32)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref) and torch.equal(into, ref)):
+                raise AssertionError(f"w8a8_matmul_f32 at M={m}: {(out != ref).sum().item()} "
+                                     f"outputs differ from the plain version's")
+            print(f"w8a8_matmul_f32 M={m} K={SUP_FFN} O={SUP_D}: equal to the plain version, "
+                  f"every position written", flush=True)
+
+        def int_mm_route():
+            acc = torch._int_mm(xq, wq.t())
+            return acc.float() * xs * ws
+
+        report(
+            "w8a8_matmul_f32", "dorado_tpu_torch/csrc/w8a8_matmul.cu",
+            "dorado_tpu/ops/int8_matmul.py:218", 0.0,
+            time_ms(lambda: int8_matmul.w8a8_matmul_f32(xq, xs, wq.t(), ws), 10),
+            time_ms(lambda: int8_matmul.w8a8_matmul_plain(xq, xs, wq.t(), ws, torch.float32), 2),
+            2.0 * SUP_M * SUP_FFN * SUP_D, PEAK_INT8,
+            SUP_M * SUP_FFN + 4 * SUP_M + SUP_FFN * SUP_D + 4 * SUP_D + 4 * SUP_M * SUP_D,
+            time_ms(int_mm_route, 10), "(torch._int_mm, then the float32 dequantise pass)",
+        )
+        del xq, xs, out, into, ref
+        torch.cuda.empty_cache()
+
+        # ---- K10 at float32: the float32 stream's attention -----------------
+        hd, d_head = SUP_D, SUP_D // SUP_HEADS
+        err = 0.0
+        for n, t_len in (F32_RAGGED_ATTN, (N, SUP_TOK)):  # the timed shape last
+            qkv = torch.randn(n, t_len, 3 * hd, generator=gen, device=dev)
+            cos, sin = attention.rope_tables(t_len, d_head, 10000.0, dev)
+            qk = attention.rope_qk(qkv, cos, sin, SUP_HEADS)
+            out = attention.windowed_attention_prerotated_f32(qk, qkv, SUP_HEADS, *SUP_WINDOW)
+            into = attention._prerotated_launch(qk, qkv, SUP_HEADS, *SUP_WINDOW, 12,
+                                                out=nan_like((n, t_len, hd)))
+            ref = attention.windowed_attention_prerotated_plain(qk, qkv, SUP_HEADS, *SUP_WINDOW)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            e = max((out - ref).abs().max().item(), (into - ref).abs().max().item()) / scale
+            print(f"attention_prerotated_f32 N={n} T'={t_len}: max |err| / max |value| {e:.3g} "
+                  f"(limit {TOL_ATTN_F32}), every position written", flush=True)
+            if not (bool(torch.isfinite(into).all()) and e <= TOL_ATTN_F32):
+                raise AssertionError(f"attention_prerotated_f32 at N={n} T'={t_len}: error {e}")
+            err = max(err, e)
+        q4, k4, v4 = (t.reshape(n, t_len, SUP_HEADS, d_head).transpose(1, 2).contiguous()
+                      for t in (qk[..., :hd], qk[..., hd:], qkv[..., 2 * hd:]))
+        pos = torch.arange(t_len, device=dev)
+        mask = attention.band_mask(pos[:, None], pos[None, :], t_len, *SUP_WINDOW,
+                                   attention.ref_strip_elems(t_len))
+        sdpa = F.scaled_dot_product_attention
+        pairs = float(mask.sum().item())
+        ops = n * SUP_HEADS * pairs * 4.0 * d_head
+        report(
+            "attention_prerotated_f32", "dorado_tpu_torch/csrc/attention_banded.cu",
+            "dorado_tpu/ops/attention.py:700", err,
+            time_ms(lambda: attention.windowed_attention_prerotated_f32(
+                qk, qkv, SUP_HEADS, *SUP_WINDOW), 5),
+            time_ms(lambda: attention.windowed_attention_prerotated_plain(
+                qk, qkv, SUP_HEADS, *SUP_WINDOW), 1),
+            ops, PEAK_F32, 4 * n * t_len * 2 * hd + 4 * n * t_len * hd + 4 * n * t_len * hd,
+            time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), 3),
+            "(scaled_dot_product_attention in float32, dense T' x T' with the same boolean "
+            "mask)", tf32x3_bound_ms=bound_ms(3 * ops, PEAK_TF32, 4 * n * t_len * 4 * hd)[0],
+        )
+        print(f"  max_abs_err of attention_prerotated_f32 is max |err| / max |value|", flush=True)
+        del qkv, qk, out, into, ref, q4, k4, v4, mask
+        torch.cuda.empty_cache()
+
+        # ---- K14 at float32: out_proj and fc2 with the residual norm --------
+        alpha = k.sup_alpha
+        site_numbers = {}
+        for site, k_in, with_bias in (("fc2", SUP_FFN, False), ("out_proj", SUP_D, True)):
+            x = torch.randn(SUP_M, k_in, generator=gen, device=dev)
+            w = torch.randn(SUP_D, k_in, generator=gen, device=dev) / k_in**0.5
+            b = torch.randn(SUP_D, generator=gen, device=dev) * 0.1 if with_bias else None
+            res = torch.randn(SUP_M, SUP_D, generator=gen, device=dev)
+            nw = 1.0 + 0.1 * torch.randn(SUP_D, generator=gen, device=dev)
+            errs = []
+            for m in (F32_RAGGED_ROWS, SUP_M):
+                args = (x[:m], w, b, res[:m], nw, alpha)
+                out = fused_norm.matmul_residual_rmsnorm_f32(*args)
+                into = fused_norm._launch(*args, 1e-5, out=nan_like((m, SUP_D)))
+                ref = fused_norm.matmul_residual_rmsnorm_plain(*args)
+                torch.cuda.synchronize()
+                worst = max(((out - ref).abs() / (ref.abs() + 1.0)).max().item(),
+                            ((into - ref).abs() / (ref.abs() + 1.0)).max().item())
+                print(f"fused_norm_f32 {site} M={m} K={k_in}: the largest |err| / (|value| + 1) "
+                      f"is {worst:.3g} (limit {TOL_NORM_F32}), every position written",
+                      flush=True)
+                if not (bool(torch.isfinite(into).all()) and worst <= TOL_NORM_F32):
+                    raise AssertionError(f"fused_norm_f32 {site} at M={m}: error {worst}")
+                errs.append(worst)
+            args = (x, w, b, res, nw, alpha)
+
+            def unfused():
+                return tx_model.rms_norm(F.linear(x, w, b) + res * alpha, nw)
+
+            site_numbers[site] = dict(
+                err=max(errs),
+                ms=time_ms(lambda: fused_norm.matmul_residual_rmsnorm_f32(*args), 5),
+                plain_ms=time_ms(lambda: fused_norm.matmul_residual_rmsnorm_plain(*args), 2),
+                library_ms=time_ms(unfused, 3), ops=2.0 * SUP_M * k_in * SUP_D,
+                nbytes=4 * (SUP_M * k_in + SUP_D * k_in + 2 * SUP_M * SUP_D + 2 * SUP_D))
+            del x, res, out, into, ref
+        o, f2 = site_numbers["out_proj"], site_numbers["fc2"]
+        fc2_bound, fc2_by = bound_ms(f2["ops"], PEAK_F32, f2["nbytes"])
+        report(
+            "fused_norm_f32", "dorado_tpu_torch/csrc/fused_norm.cu",
+            "dorado_tpu/ops/fused_norm.py:55", max(o["err"], f2["err"]), o["ms"], o["plain_ms"],
+            o["ops"], PEAK_F32, o["nbytes"], o["library_ms"],
+            "(float32 F.linear + residual + rms_norm, TF32 off)", fc2_ms=f2["ms"],
+            fc2_plain_ms=f2["plain_ms"], fc2_bound_ms=fc2_bound, fc2_bound_by=fc2_by,
+            fc2_library_ms=f2["library_ms"],
+        )
+        print(f"  fused_norm_f32 at fc2 (K={SUP_FFN}, no bias): kernel {f2['ms']:.3f} ms, plain "
+              f"{f2['plain_ms']:.3f} ms, bound {fc2_bound:.3f} ms ({fc2_by}), unfused float32 "
+              f"passes {f2['library_ms']:.3f} ms [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+
+def profiled_step(k, what, runner) -> None:
+    """One full batch of ``runner``'s device step under the profiler: its
+    device time by kernel and its busy share of the wall time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    torch = k.torch
+    buf = runner.make_input_buffer(0)
+    buf[:] = np.random.RandomState(SEED).randn(*buf.shape)
+    runner.call_chunks(buf, buf.shape[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.call_chunks(buf, buf.shape[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                        if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in by_kernel)
+    print(f"{what} device step (batch {buf.shape[0]}, chunk {buf.shape[1]}, "
+          f"{runner.compute_dtype}): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({busy / wall_ms:.1%}) [{k.card}]", flush=True)
+    for key, ms in by_kernel[:12]:
+        print(f"  {ms:9.3f} ms {ms / busy:6.1%}  {key[:90]}")
+
+
+def chunk_signals(pipe, reads):
+    """One chunk of each read (long reads: each fills it), scaled as the
+    pipeline scales it, as f16 [reads, chunk]."""
+    import numpy as np
+
+    chunk = pipe.runner.chunk_size
+    return np.stack([pipe.scaler.scale_read(r.signal, read_scale=0.2)[0][10:10 + chunk]
+                     for r in reads]).astype(np.float16)
+
+
+def score_rel(k, model, ref_model, sig, layers=None) -> float:
+    """Mean abs difference of two models' scores (``model`` on the card,
+    ``ref_model`` on the CPU, or both on the card) over the mean abs score,
+    on the chunks ``sig``; over their first ``layers`` encoder layers where
+    given."""
+    torch = k.torch
+    kept = [(m, m.layers) for m in (model, ref_model) if layers is not None]
+    try:
+        for m, all_layers in kept:
+            m.layers = all_layers[:layers]
+        with torch.inference_mode():
+            a = model(torch.from_numpy(sig).to(k.dev)).float()
+            ref_dev = next(ref_model.parameters()).device
+            b = ref_model(torch.from_numpy(sig).to(ref_dev)).float().to(a.device)
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError("scores not finite or of the wrong shape")
+        return ((a - b).abs().mean() / b.abs().mean()).item()
+    finally:
+        for m, all_layers in kept:
+            m.layers = all_layers
+
+
+def hold_scores_and_decode(k, what, runner, cpu_runner, sig, max_rel, layers=None) -> None:
+    """The model's scores on the card against the CPU model's on the same
+    chunks (``score_rel`` within ``max_rel``, over the first ``layers``
+    encoder layers where given), and the card's Viterbi decode of its own
+    bf16 scores equal (sequences and moves) to the CPU's decode of the same
+    values."""
+    import numpy as np
+
+    torch = k.torch
+    rel = score_rel(k, runner.model, cpu_runner.model, sig, layers)
+    depth = "" if layers is None else f", first {layers} layers"
+    print(f"{what}: scores on the card vs the CPU's {cpu_runner.compute_dtype} model{depth}: "
+          f"mean abs difference {rel:.3e} of the mean abs score (limit {max_rel})", flush=True)
+    if not rel <= max_rel:
+        raise AssertionError(f"{what}: scores too far from the CPU model's")
+    with torch.inference_mode():
+        scores = runner.model(torch.from_numpy(sig).to(k.dev))
+        vit = scores.to(torch.bfloat16)
+        on_card = runner.decode_scores(vit).cpu().numpy()
+        on_cpu = cpu_runner.decode_scores(vit.float().cpu()).numpy()
+        emit = on_card[2].astype(bool)
+        if not (np.array_equal(on_card[0], on_cpu[0]) and np.array_equal(on_card[2], on_cpu[2])
+                and emit.sum() > 0):
+            raise AssertionError(f"{what}: the device decode differs from the CPU decode (or "
+                                 f"calls no base)")
+        print(f"  {what}: Viterbi decode of the card's bf16 scores, {int(emit.sum())} bases, "
+              f"equal to the CPU decode of the same values", flush=True)
+
+
+def run_path(k, path, pipe, reads, what) -> None:
+    """``run_reads`` over ``reads`` with every launch counter at 0 first; the
+    launches must be those of ``path`` (``k.check_launches``), and every read
+    must have a record or subreads."""
+    torch = k.torch
+    pipe.run_reads(reads, k.Discard())  # the per-shape set-up, reused below
+    torch.cuda.synchronize()
+    for w in k.wrappers.values():
+        w.launches = 0
+    written = k.Parents(k.Discard())
+    t0 = time.perf_counter()
+    stats = pipe.run_reads(reads, written)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k.launches[path] = {name: w.launches for name, w in k.wrappers.items()}
+    k.check_launches(path, k.launches[path], stats.batches)
+    if set(written.parents) != {r.read_id for r in reads} or stats.bases_called == 0:
+        raise AssertionError(f"{path}: {len(set(written.parents))} of {len(reads)} reads "
+                             f"written, {stats.bases_called} bases")
+    samples = sum(len(r.signal) for r in reads)
+    print(f"{path} pipeline: {len(reads)} reads, {samples} samples, {stats.batches} batches, "
+          f"{stats.bases_called} bases in {elapsed:.3f} s = {samples / elapsed:.0f} samples/s "
+          f"({what}) [{k.card}]; launches "
+          f"{ {n: v for n, v in k.launches[path].items() if v} }; device idle "
+          f"{stats.device_idle_s:.3f} s", flush=True)
+
+
+def float32_paths(k, cfg, model, reads, sup_cfg, sup_model, sup_reads) -> None:
+    """``compute_dtype=torch.float32`` on the card: ``run_reads`` at hac v4.3
+    (Viterbi and beam, W8A8: K2 and K1 at float32) and at sup v5.0 (W8A8: K2,
+    K10, K12 and K13 at their float32 forms), and one device step of sup with
+    the fused norms (K14 at float32); the scores against the CPU's float32
+    models (also with ``quantize_tx_head_w8a8``'s head, through K2), the
+    decode against the CPU's, and one profiled step each."""
+    import numpy as np
+
+    torch = k.torch
+    from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+    f32 = dict(batch_size=N, emit_moves=True, compute_dtype=torch.float32)
+    hac = BasecallerPipeline(cfg, model, **f32)
+    hac_beam = BasecallerPipeline(cfg, model, decoder="beam", **f32)
+    sup = BasecallerPipeline(sup_cfg, sup_model, **f32)
+    if not (hac.runner.compute_dtype == sup.runner.compute_dtype == torch.float32
+            and hac.runner.score_dtype == torch.bfloat16
+            and next(sup.runner.model.parameters()).dtype == torch.float32):
+        raise AssertionError("the float32 pipelines do not hold float32 models")
+    run_path(k, "hac f32 viterbi", hac, reads, "hac v4.3, float32, W8A8 projections")
+    run_path(k, "hac f32 beam", hac_beam, reads, "hac v4.3, float32, W8A8, beam decoder")
+    run_path(k, "sup f32", sup, sup_reads, "sup v5.0, 18 layers, float32, W8A8 encoder matmuls")
+    # the fused norms on a copy whose biases and norm weights are drawn from
+    # the seed, as the route check's
+    drawn = k.tx_model.with_routes(sup_model)
+    draw_biases_and_norms(drawn, SEED)
+    fused = TorchBasecallRunner(sup_cfg, drawn, batch_size=N, tx_fused_norm=True,
+                                compute_dtype=torch.float32)
+    buf = fused.make_input_buffer(0)
+    buf[:] = np.random.RandomState(SEED).randn(*buf.shape)
+    for w in k.wrappers.values():
+        w.launches = 0
+    fused.call_chunks(buf, buf.shape[0])
+    torch.cuda.synchronize()
+    k.launches["sup f32 fused"] = {name: w.launches for name, w in k.wrappers.items()}
+    k.check_launches("sup f32 fused", k.launches["sup f32 fused"], 1)
+    print(f"sup f32 fused: one device step, launches "
+          f"{ {n: v for n, v in k.launches['sup f32 fused'].items() if v} }", flush=True)
+
+    kw = dict(batch_size=N, compute_dtype=torch.float32)
+    sig = chunk_signals(hac, reads[2:6])
+    hold_scores_and_decode(k, "hac f32", hac.runner, TorchBasecallRunner(
+        cfg, model, device="cpu", lstm_precision="w8a8", **kw), sig, MAX_F32_SCORE_REL)
+    sig = chunk_signals(sup, sup_reads[SUP_SHORT_READS:SUP_SHORT_READS + 2])
+    sup_cpu = TorchBasecallRunner(sup_cfg, sup_model, device="cpu", tx_precision="w8a8", **kw)
+    hold_scores_and_decode(k, "sup f32", sup.runner, sup_cpu, sig, MAX_F32_W8A8_SHALLOW,
+                           layers=SUP_SHALLOW_DEPTH)
+    rel = score_rel(k, sup.runner.model, sup_cpu.model, sig)
+    print(f"  sup f32, all 18 layers: mean abs difference {rel:.3e} of the mean abs score "
+          f"(limit {MAX_SUP_BF16_MEAN_ERR}, the bf16 model's)", flush=True)
+    if not rel <= MAX_SUP_BF16_MEAN_ERR:
+        raise AssertionError("sup f32: scores over all layers too far from the CPU model's")
+    # unquantised, all 18 layers: the float32 stream's own arithmetic (K10 at
+    # float32, the norms, the float32 products), no int8 rounding
+    plain = dict(tx_precision="bf16", **kw)
+    rel = score_rel(k, TorchBasecallRunner(sup_cfg, sup_model, **plain).model,
+                    TorchBasecallRunner(sup_cfg, sup_model, device="cpu", **plain).model, sig)
+    print(f"sup f32 unquantised, all 18 layers: scores on the card vs the CPU's mean abs "
+          f"difference {rel:.3e} of the mean abs score (limit {MAX_F32_SCORE_REL})", flush=True)
+    if not rel <= MAX_F32_SCORE_REL:
+        raise AssertionError("sup f32 unquantised: scores too far from the CPU model's")
+    # the quantised head (quantize_tx_head_w8a8: the upsample and the CRF
+    # head through K2 at float32) behind the unquantised encoder, whose
+    # stream the card computes as the CPU does (above), on the card against
+    # the CPU: where the stream sits at an int8 rounding boundary of the
+    # head's row quantisation, a score moves a step
+    head_q = k.tx_model.quantize_tx_head_w8a8(sup_model)
+    on_card = TorchBasecallRunner(sup_cfg, head_q, **plain)
+    for w in k.wrappers.values():
+        w.launches = 0
+    rel = score_rel(k, on_card.model,
+                    TorchBasecallRunner(sup_cfg, head_q, device="cpu", **plain).model, sig)
+    torch.cuda.synchronize()
+    head_launches = k.wrappers["w8a8_matmul_fq_f32"].launches
+    print(f"sup f32 unquantised with the quantised head, all 18 layers: scores on the card vs "
+          f"the CPU's mean abs difference {rel:.3e} of the mean abs score (limit "
+          f"{MAX_F32_SCORE_REL}); K2 float32 launched {head_launches} times (the upsample and "
+          f"the CRF head)", flush=True)
+    if not (rel <= MAX_F32_SCORE_REL and head_launches == 2):
+        raise AssertionError("sup f32 quantised head: too far from the CPU's, or not on K2")
+    del on_card, head_q
+    # the fused norms against the unfused route, on the card at float32
+    rel = score_rel(k, fused.model, TorchBasecallRunner(sup_cfg, drawn, **kw).model, sig,
+                    SUP_SHALLOW_DEPTH)
+    print(f"sup f32 fused norms vs unfused on the card, first {SUP_SHALLOW_DEPTH} layers: mean "
+          f"abs difference {rel:.3e} of the mean abs score (limit {MAX_F32_W8A8_SHALLOW})",
+          flush=True)
+    if not rel <= MAX_F32_W8A8_SHALLOW:
+        raise AssertionError("sup f32: the fused norms are too far from the unfused route")
+    for what, runner in (("hac f32 viterbi", hac.runner), ("hac f32 beam", hac_beam.runner),
+                         ("sup f32", sup.runner), ("sup f32 fused", fused)):
+        profiled_step(k, what, runner)
+    del hac, hac_beam, sup, fused, sup_cpu, drawn
+    torch.cuda.empty_cache()
+
+
+def fast_phase(k, reads) -> tuple:
+    """fast v4.0 at full width (5 LSTM layers of 96, 64 states, chunk 10000,
+    batch 128, unquantised projections, random weights from the seed with
+    the CRF head's gain): its kernels timed at its shapes (K1 at H = 96 in
+    bf16 and float32; K3, K6 and K17 at 64 states: ``fast_*`` keys of their
+    rows; K4 and K5 are timed at 64 states with their checks), then
+    ``run_reads`` in bf16 (Viterbi and beam) and in float32, each path's
+    launches held, its scores against the CPU's float32 model and its decode
+    against the CPU's, and one profiled step each. Returns (config, model)."""
+    import numpy as np
+
+    torch, dev, gen = k.torch, k.dev, k.gen
+    lstm, crf_cuda, beam = k.lstm, k.crf_cuda, k.beam
+    from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+    from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+    from dorado_tpu_torch.models.presets import fast_v40_config
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+    cfg = fast_v40_config()
+    cfg.normalise_basecaller_params()
+    model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.linear1_w.mul_(HEAD_GAIN)
+    hf = cfg.lstm_size
+
+    def fast_times(name, ms, plain_ms, ops, peak, nbytes, **extra):
+        b_ms, b_by = bound_ms(ops, peak, nbytes)
+        row = next(r for r in k.rows if r["name"] == name)
+        row.update(fast_ms=ms, fast_plain_ms=plain_ms, fast_bound_ms=b_ms, fast_bound_by=b_by,
+                   **extra)
+        print(f"{name} at fast v4.0's shapes: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"bound {b_ms:.3f} ms ({b_by}) {extra or ''} [{k.card}]", flush=True)
+
+    with torch.inference_mode():
+        # K1 at H = 96, bf16 and float32, at fast's T and batch
+        for name, dtype, peak, elem in (("lstm_scan", torch.bfloat16, PEAK_BF16, 2),
+                                        ("lstm_scan_f32", torch.float32, PEAK_F32, 4)):
+            xp = torch.randn(FAST_T, N, 4 * hf, generator=gen, device=dev).to(dtype)
+            whh = (torch.randn(hf, 4 * hf, generator=gen, device=dev) / hf**0.5).to(dtype)
+            out = lstm.lstm_scan_time_major(xp, whh)
+            ref = lstm.lstm_scan_plain(xp, whh)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            limit = TOL_LSTM if dtype == torch.bfloat16 else TOL_LSTM_F32
+            print(f"{name} at fast's H={hf} T={FAST_T} N={N}: max abs error {e:.3g} (limit "
+                  f"{limit}); split {lstm.k1_launch_plan(hf, N, dev, elem_bytes=elem)}", flush=True)
+            if not e <= limit:
+                raise AssertionError(f"{name} at H={hf}: max abs error {e}")
+            fast_times(name, k.time_ms(lambda: lstm.lstm_scan_time_major(xp, whh), 5),
+                       k.time_ms(lambda: lstm.lstm_scan_plain(xp, whh), 1),
+                       2.0 * FAST_T * N * hf * 4 * hf, peak,
+                       elem * (FAST_T * N * 4 * hf + hf * 4 * hf + FAST_T * N * hf),
+                       fast_max_abs_err=e)
+            del xp, out, ref
+        # K3, the full-history scans (K6) and K17 at 64 states on fast's T
+        sc = (torch.randn(FAST_T, N, 4 * FAST_S, generator=gen, device=dev) * 2).clamp(-5, 5)
+        sc16 = sc.bfloat16()
+        fast_times("crf_lse_backward",
+                   k.time_ms(lambda: crf_cuda.backward_scores_shifted(sc16, STAY), 5),
+                   k.time_ms(lambda: crf_cuda.backward_scores_shifted_plain(sc16, STAY), 1),
+                   17.0 * FAST_T * N * FAST_S, PEAK_F32,
+                   2 * FAST_T * N * 4 * FAST_S + 2 * FAST_T * N * FAST_S)
+        ops = LSE_F64_FLOPS * 2 * FAST_T * N * FAST_S
+        fast_times("crf_lse_scan",
+                   k.time_ms(lambda: crf_cuda.forward_backward_scores(sc, STAY), 3),
+                   k.time_ms(lambda: (k.crf_scan.forward_scores(sc, STAY),
+                                      k.crf_scan.backward_scores(sc, STAY)), 1),
+                   ops, PEAK_F64, 4 * FAST_T * N * 4 * FAST_S + 2 * 4 * (FAST_T + 1) * N * FAST_S)
+        beta = crf_cuda.backward_scores(sc, STAY)
+        fast_times("beam_search",
+                   k.time_ms(lambda: beam.beam_forward(sc, beta, W, BEAM_CUT, STAY), 3),
+                   k.time_ms(lambda: beam.beam_forward_plain(sc, beta, W, BEAM_CUT, STAY), 1),
+                   float(FAST_T * N * W * (8 * W + 115)), PEAK_F32,
+                   4 * FAST_T * N * 4 * FAST_S + 4 * FAST_T * N * FAST_S + FAST_T * N * W * 5
+                   + N * W * 12)
+        del sc, sc16, beta
+    torch.cuda.empty_cache()
+
+    p = dict(batch_size=N, emit_moves=True)
+    vit = BasecallerPipeline(cfg, model, **p)
+    bm = BasecallerPipeline(cfg, model, decoder="beam", **p)
+    f32 = BasecallerPipeline(cfg, model, compute_dtype=torch.float32, **p)
+    if vit.runner.chunk_size // cfg.stride != FAST_T or cfg.num_states != FAST_S:
+        raise AssertionError("the fast pipeline is not fast v4.0 at chunk 10000")
+    if any(hasattr(layer, "w_ih_q") for layer in vit.runner.model.lstms):
+        raise AssertionError("fast's projections were quantised (H = 96 is no multiple of 128)")
+    run_path(k, "fast viterbi", vit, reads, "fast v4.0, bf16, unquantised projections")
+    run_path(k, "fast beam", bm, reads, "fast v4.0, bf16, beam decoder")
+    run_path(k, "fast f32", f32, reads, "fast v4.0, float32")
+    sig = chunk_signals(vit, reads[2:6])
+    cpu = TorchBasecallRunner(cfg, model, device="cpu", batch_size=N)
+    hold_scores_and_decode(k, "fast bf16", vit.runner, cpu, sig, MAX_FAST_BF16_MEAN_ERR)
+    hold_scores_and_decode(k, "fast f32", f32.runner, cpu, sig, MAX_F32_SCORE_REL)
+    for what, runner in (("fast viterbi", vit.runner), ("fast beam", bm.runner),
+                         ("fast f32", f32.runner)):
+        profiled_step(k, what, runner)
+    del vit, bm, f32, cpu
+    torch.cuda.empty_cache()
+    return cfg, model
 
 
 def main() -> None:
@@ -1563,7 +2158,7 @@ def main() -> None:
                      f"T={t_len} N={n} S={s}")
         errs = hold_lse(scores32, f"T={T} N={N} S={S}")
         lse_report("crf_lse_scan", "dorado_tpu/ops/crf_pallas.py:152", scores32, errs,
-                   ["viterbi", "beam", "cli beam"])
+                   ["viterbi", "beam", "cli beam", "hac f32 beam", "fast beam"])
 
         # ---- K7a: the Viterbi forward pass alone, and viterbi_path -----------
         hold_viterbi(small, "T=64 N=8 S=64")
@@ -2067,6 +2662,15 @@ def main() -> None:
         del scores32, beta32, ch_k, ch7, st_k, mv_k
     torch.cuda.empty_cache()
 
+    # ---- float32 forms of K2, K13, K10 and K14 ---------------------------------
+    kit = types.SimpleNamespace(
+        torch=torch, dev=dev, gen=gen, card=card, time_ms=time_ms, report=report, rows=rows,
+        int8_matmul=int8_matmul, attention=attention, fused_norm=fused_norm, tx_model=tx_model,
+        sup_alpha=sup_v50_config().tx.tx.deepnorm_alpha)
+    t0 = time.perf_counter()
+    float32_kernels(kit)
+    print(f"float32 kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- the model and the pipelines at hac v4.3's full width ---------------
     cfg = hac_v43_config()
     cfg.normalise_basecaller_params()
@@ -2303,6 +2907,10 @@ def main() -> None:
         "lstm_scan_int8": lstm.lstm_scan_time_major_int8,
         "lstm_fused": lstm.lstm_fused_time_major,
         "lstm_scan_f32": lstm.lstm_scan_time_major_f32,
+        "w8a8_matmul_fq_f32": int8_matmul.w8a8_matmul_fq_f32,
+        "w8a8_matmul_f32": int8_matmul.w8a8_matmul_f32,
+        "attention_prerotated_f32": attention.windowed_attention_prerotated_f32,
+        "fused_norm_f32": fused_norm.matmul_residual_rmsnorm_f32,
     }
     # each path's kernels and, for the sup paths, their launches a batch
     path_kernels = {
@@ -2324,6 +2932,20 @@ def main() -> None:
                     "crf_traceback", "lstm_scan_f32"],
         "sup int8": ["attention_banded", "crf_lse_backward", "crf_fused_forward",
                      "crf_traceback"],
+        # compute_dtype=torch.float32 (the Viterbi decode stays bf16)
+        "hac f32 viterbi": ["lstm_scan_f32", "w8a8_matmul_fq_f32", "crf_lse_backward",
+                            "crf_fused_forward", "crf_traceback"],
+        "hac f32 beam": ["lstm_scan_f32", "w8a8_matmul_fq_f32", "crf_lse_scans", "beam_search",
+                         "beam_traceback"],
+        "sup f32": ["w8a8_matmul_fq_f32", "attention_prerotated_f32", "swiglu_w8a8",
+                    "w8a8_matmul_f32", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
+        "sup f32 fused": ["w8a8_matmul_fq_f32", "attention_prerotated_f32", "fused_norm_f32",
+                          "swiglu_w8a8", "w8a8_matmul_f32", "crf_lse_backward",
+                          "crf_fused_forward", "crf_traceback"],
+        # fast v4.0: unquantised projections (H = 96)
+        "fast viterbi": ["lstm_scan", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
+        "fast beam": ["lstm_scan", "crf_lse_scans", "beam_search", "beam_traceback"],
+        "fast f32": ["lstm_scan_f32", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
     }
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
@@ -2331,6 +2953,12 @@ def main() -> None:
         "sup beam": [18, 18, 18, 18, 1, 1, 1],
         "sup ext bf16": [18, 36, 1, 1, 1],  # the fused norm at out_proj and at fc2
         "sup int8": [18, 1, 1, 1],
+        "sup f32": [18, 18, 18, 18, 1, 1, 1],
+        "sup f32 fused": [18, 18, 18, 18, 18, 1, 1, 1],
+        # five LSTM layers a batch, K2 at each of hac's
+        "hac f32 viterbi": [5, 5, 1, 1, 1],
+        "fast viterbi": [5, 1, 1, 1],
+        "fast f32": [5, 1, 1, 1],
     }
 
     def check_launches(path, counts, batches):
@@ -2403,7 +3031,15 @@ def main() -> None:
             flush=True,
         )
 
-    # ---- main paths: the command line on a POD5 file and model directories --
+    # ---- main paths: float32 compute, and fast v4.0 ------------------------
+    kit.__dict__.update(
+        wrappers=wrappers, check_launches=check_launches, launches=launches, Discard=Discard,
+        Parents=Parents, lstm=lstm, crf_cuda=crf_cuda, crf_scan=crf_scan, beam=beam)
+    t0 = time.perf_counter()
+    float32_paths(kit, cfg, model, reads, sup_cfg, sup_model, sup_reads)
+    fast = fast_phase(kit, reads)
+    print(f"float32 and fast phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- main paths: modified-base calling, then the command line ----------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_modbase_") as mod_tmp:
         mod_cfg = hac_5mcg_5hmcg_v3_config()
@@ -2416,7 +3052,7 @@ def main() -> None:
                       smi)
         print(f"modbase phase: {time.perf_counter() - t0:.1f} s", flush=True)
         cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels,
-                  launches, card, mod_dir)
+                  launches, card, mod_dir, fast)
     batch_sweep(cfg, model, card)
     torch.cuda.empty_cache()
 
@@ -2651,14 +3287,25 @@ def main() -> None:
             raise AssertionError("sup W8A8 scores over the first layers are too far from bf16's")
         del shallow
 
-        # the routes against the default route on the same weights. The
-        # attention routes alone compute its function bit for bit (K10 and
-        # K11a round as K9 does; "hp" holds wqkv's rows permuted): all layers,
-        # unfused norms, held equal
+        # the routes against the default route on the same weights, a copy of
+        # the model whose biases and norm weights are drawn from the seed (the
+        # random init leaves them 0 and 1, where a route that dropped or
+        # misplaced one would go unseen). The attention routes alone compute
+        # its function bit for bit (K10 and K11a round as K9 does; "hp" holds
+        # wqkv's rows permuted): all layers, unfused norms, held equal
+        drawn = tx_model.with_routes(sup_model)
+        draw_biases_and_norms(drawn, SEED)
+        d_w8a8 = TorchBasecallRunner(sup_cfg, drawn, **kw).model
+        d_bf16 = TorchBasecallRunner(sup_cfg, drawn, tx_precision="bf16", **kw).model
+        d_hp = TorchBasecallRunner(sup_cfg, drawn, tx_attention="hp", tx_fused_norm=True,
+                                   **kw).model
+        d_ext = TorchBasecallRunner(sup_cfg, drawn, tx_precision="bf16", tx_attention="ext",
+                                    tx_fused_norm=True, **kw).model
+        d_scores, d_b_scores = d_w8a8(on_dev), d_bf16(on_dev)
         for what, model, want in (
-                ("hp attention, W8A8", tx_model.with_routes(sup_runner.model, "hp"), scores),
-                ("ext attention, bf16", tx_model.with_routes(ext_runner.model, fused_norm=False),
-                 b_scores)):
+                ("hp attention, W8A8", tx_model.with_routes(d_w8a8, "hp"), d_scores),
+                ("ext attention, bf16", tx_model.with_routes(d_ext, fused_norm=False),
+                 d_b_scores)):
             got = model(on_dev)
             diff = (got - want).abs().max().item() if got.shape == want.shape else float("inf")
             print(f"sup {what} vs the default route on the card, all {len(model.layers)} layers: "
@@ -2685,16 +3332,16 @@ def main() -> None:
             return out
 
         def unpermuted_scales(m):  # "hp" with wqkv's scales left in natural order
-            m._frozen_scales[0]["wqkv"] = sup_runner.model._frozen_scales[0]["wqkv"].clone()
+            m._frozen_scales[0]["wqkv"] = d_w8a8._frozen_scales[0]["wqkv"].clone()
 
-        base = {"w8a8": shallow(sup_runner.model), "bf16": shallow(sup_bf16.model)}
+        base = {"w8a8": shallow(d_w8a8), "bf16": shallow(d_bf16)}
         cases = [
-            ("hp attention + fused norms, W8A8", hp_model, "w8a8", True),
-            ("ext attention + fused norms, bf16", ext_runner.model, "bf16", True),
-            ("planted fault: the first norm1 weight x 1.01 (1.0078 in bf16)",
-             faulty(hp_model, lambda m: m.layers[0].norm1.mul_(1.01)), "w8a8", False),
+            ("hp attention + fused norms, W8A8", d_hp, "w8a8", True),
+            ("ext attention + fused norms, bf16", d_ext, "bf16", True),
+            ("planted fault: the first norm1 weights x 1.01 (about 1.0078 in bf16)",
+             faulty(d_hp, lambda m: m.layers[0].norm1.mul_(1.01)), "w8a8", False),
             ("planted fault: the first layer's wqkv scales unpermuted",
-             faulty(hp_model, unpermuted_scales), "w8a8", False),
+             faulty(d_hp, unpermuted_scales), "w8a8", False),
         ]
         failed = []
         for what, model, precision, within in cases:
@@ -2708,7 +3355,7 @@ def main() -> None:
                 failed.append(what)
         if failed:
             raise AssertionError(f"sup routes: {failed} on the wrong side of the limit")
-        del cases, base
+        del cases, base, drawn, d_w8a8, d_bf16, d_hp, d_ext, d_scores, d_b_scores
         # int8 encoder matmuls: on the card against float32 on the CPU, and
         # against bf16 matmuls on the card (the limits of the W8A8 checks)
         i_scores = int8_runner.model(on_dev)

@@ -12,7 +12,7 @@ CudaCaller.cpp:371-520):
     per sample, and caches the result in
     ``~/.cache/dorado_tpu_torch/batch_benchmarks.json`` (or under
     ``$DORADO_TPU_TORCH_CACHE_DIR``) keyed by (card name, model name, chunk
-    size).
+    size, compute dtype).
 
 Where it differs from the JAX module, on purpose: the memory is the card's
 (``torch.cuda.mem_get_info``), not a TPU constant; only
@@ -63,11 +63,13 @@ def max_safe_batch_size(
     chunk_size: int,
     memory_bytes: int,
     limit_fraction: float = MEMORY_LIMIT_FRACTION,
+    compute_bytes: int = 2,
 ) -> int:
     """The largest multiple of 64 rows whose activations fit ``memory_bytes``
-    (less 1 GB for weights and the runtime), at least 64."""
+    (less 1 GB for weights and the runtime), at least 64; ``compute_bytes``
+    is the compute dtype's element size (2 for bf16, 4 for float32)."""
     t_out = chunk_size // config.stride
-    per_chunk = bytes_per_chunk_timestep(config) * t_out
+    per_chunk = bytes_per_chunk_timestep(config, compute_bytes) * t_out
     budget = int(memory_bytes * limit_fraction) - 1 * GB
     n = max(budget // per_chunk, BATCH_GRANULARITY)
     return int(n - (n % BATCH_GRANULARITY))
@@ -89,18 +91,25 @@ def auto_batch_size(
     max_batch: int | None = None,
     use_cache: bool = True,
     timings: list | None = None,
+    compute_dtype: torch.dtype | None = None,
 ) -> int:
     """Benchmark sweep at 288*stride samples (the reference's benchmark
     chunk), doubling batch sizes from 64 up to the memory cap (or
     ``max_batch``); returns the batch with the best per-sample time.
     ``timings``, when given, receives (batch, seconds per step) of each
-    size swept. On the CPU, ``max_batch`` must be given: there is no card
-    memory to size against."""
-    from dorado_tpu_torch.basecall.runner import TorchBasecallRunner, resolve_device
+    size swept. ``compute_dtype`` is the runner's (None: its default). On
+    the CPU, ``max_batch`` must be given: there is no card memory to size
+    against."""
+    from dorado_tpu_torch.basecall.runner import (
+        TorchBasecallRunner,
+        resolve_compute_dtype,
+        resolve_device,
+    )
 
     dev = resolve_device(device)
+    dtype = resolve_compute_dtype(compute_dtype, dev)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    key = f"{kind}|{config.model_name}|{chunk_size}"
+    key = f"{kind}|{config.model_name}|{chunk_size}|{str(dtype).removeprefix('torch.')}"
     cp = _cache_path()
     cache = {}
     if use_cache and cp.exists():
@@ -115,10 +124,14 @@ def auto_batch_size(
         if dev.type != "cuda":
             raise ValueError("auto_batch_size on the CPU needs max_batch")
         free, _total = torch.cuda.mem_get_info(dev)
-        max_batch = min(max_safe_batch_size(config, chunk_size, free), MAX_AUTO_BATCH)
+        max_batch = min(
+            max_safe_batch_size(config, chunk_size, free, compute_bytes=dtype.itemsize),
+            MAX_AUTO_BATCH,
+        )
     bench_chunk = 288 * config.stride_inner
     runner = TorchBasecallRunner(
-        config, model, chunk_size=bench_chunk, batch_size=max_batch, device=dev, decoder=decoder
+        config, model, chunk_size=bench_chunk, batch_size=max_batch, device=dev, decoder=decoder,
+        compute_dtype=dtype,
     )
     rs = np.random.RandomState(0)
     best = (float("inf"), BATCH_GRANULARITY)

@@ -22,6 +22,13 @@ variables. Its head writes the scores in the decoder's type: bf16 for
 ``viterbi`` on the card, float32 for ``beam`` (as the JAX runner's
 ``device_beam`` takes the head's float32 output).
 
+``compute_dtype`` is the model's type: bf16 on the card and float32 on the
+CPU by default, as the JAX pipeline picks; float32 on the card runs the
+float32 forms of the kernels (K1, K2, K10, K13 and K14 at float32). The
+Viterbi decode on the card takes bf16 scores at either type, as the JAX
+runner stores them (its ``score_dtype``), so K3, K4 and K5 are the same;
+on the CPU it takes float32 scores, as the JAX runner's CPU path does.
+
 The step is enqueued on the current CUDA stream and returns at once
 (``dispatch``); ``finish`` waits for it, so the host feeds and finishes
 other batches while the device computes.
@@ -43,6 +50,7 @@ from dorado_tpu_torch.models.crf_model import LSTMCRFModel, quantize_lstm_crf_w8
 from dorado_tpu_torch.models.tx_model import (
     TxModel,
     check_attention_route,
+    check_route_dtype,
     quantize_tx_int8,
     quantize_tx_w8a8,
     set_routes,
@@ -70,6 +78,21 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def resolve_compute_dtype(
+    compute_dtype: torch.dtype | None, device: torch.device
+) -> torch.dtype:
+    """The model's compute type: ``compute_dtype`` when it is float32 or bf16,
+    else bf16 on CUDA and float32 on the CPU for None (the JAX pipeline's
+    default: bf16 on the accelerator); anything else raises ValueError."""
+    if compute_dtype is None:
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"unknown compute_dtype {compute_dtype!r}: expected torch.float32 or torch.bfloat16"
+        )
+    return compute_dtype
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,7 +225,10 @@ class TorchBasecallRunner:
     H100, so pick it only to reproduce that route. tx_fused_norm:
     whether the residual norms run fused into the matmuls in front of them
     (default False). The two lstm and tx argument sets raise on the other
-    model family."""
+    model family.
+    compute_dtype: ``torch.float32`` or ``torch.bfloat16``; None means bf16 on
+    CUDA and float32 on the CPU. ``tx_attention="hp"`` at float32 on CUDA
+    raises ValueError (``models.tx_model.check_route_dtype``)."""
 
     def __init__(
         self,
@@ -216,8 +242,10 @@ class TorchBasecallRunner:
         tx_precision: str | None = None,
         tx_attention: str | None = None,
         tx_fused_norm: bool | None = None,
+        compute_dtype: torch.dtype | None = None,
     ):
         self.device = resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
         if decoder not in ("viterbi", "beam"):
             raise ValueError(f"unknown decoder {decoder!r}: expected 'viterbi' or 'beam'")
         self.decoder = decoder
@@ -242,6 +270,7 @@ class TorchBasecallRunner:
         self.tx_precision = chosen if config.is_tx_model else None
         if config.is_tx_model:
             self.tx_attention = check_attention_route(tx_attention or "extf")
+            check_route_dtype(self.tx_attention, self.compute_dtype, self.device)
             self.tx_fused_norm = bool(tx_fused_norm)
         else:
             self.tx_attention = self.tx_fused_norm = None
@@ -265,13 +294,13 @@ class TorchBasecallRunner:
             q_shift=config.qbias,
             q_scale=config.qscale,
         )
-        # bf16 on the card (the kernels' type, as the TPU path runs); float32
-        # on the CPU, as the JAX package runs there
-        self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        # the Viterbi decode's scores: bf16 on the card at either compute
+        # type (the JAX runner's score_dtype), float32 on the CPU
+        self.score_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         if self.device.type == "cuda":
             # float32 products in full precision: no TF32 in matmuls or
-            # cuDNN convolutions (the model runs in bf16 on the card anyway;
-            # this pins what float32 work there is)
+            # cuDNN convolutions (the float32 model's products, the bf16
+            # model's float32 work)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             from dorado_tpu_torch.ops._cuda import build_kernels
@@ -350,15 +379,15 @@ class TorchBasecallRunner:
             # 4096 transitions
             if self.decoder == "beam":
                 return self.decode_scores_beam(self.model(sig, score_dtype=torch.float32))
-            return self.decode_scores(self.model(sig, score_dtype=self.compute_dtype))
+            return self.decode_scores(self.model(sig, score_dtype=self.score_dtype))
         scores = self.model(sig)
         if self.decoder == "beam":
             return self.decode_scores_beam(scores)
-        return self.decode_scores(scores.to(self.compute_dtype))
+        return self.decode_scores(scores.to(self.score_dtype))
 
     @torch.inference_mode()
     def decode_scores(self, scores: torch.Tensor) -> torch.Tensor:
-        """Time-major CRF scores [T, N, C] in the compute dtype -> uint8
+        """Time-major CRF scores [T, N, C] in ``score_dtype`` -> uint8
         [3, N, T]: ASCII bases, phred chars and moves of each row's Viterbi
         path."""
         blank = float(self.options.blank_score)

@@ -4,11 +4,12 @@ Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
 directory, to BAM, SAM or FASTQ, splitting reads unless
 ``--disable-read-splitting`` is given, with the read filters
-``--min-qscore``, ``--read-ids``, ``--max-reads`` and ``--resume-from``, and
+``--min-qscore``, ``--read-ids``, ``--max-reads`` and ``--resume-from``,
 modified-base calling with model directories (``--modified-bases-models``,
-``--modified-bases-threshold``, ``--modified-bases-batchsize``). Every other
-option of the JAX command is left out, so argparse rejects it (among them
-``--modified-bases``, which names models for the downloader),
+``--modified-bases-threshold``, ``--modified-bases-batchsize``), and the
+model's compute type (``--dtype``, passed to the pipeline and to ``-b 0``).
+Every other option of the JAX command is left out, so argparse rejects it
+(among them ``--modified-bases``, which names models for the downloader),
 and two are refused with exit code 1 instead of doing something else than
 the JAX command would: ``--decoder beam-host``, and a model name or
 ``{fast,hac,sup}[@version]``, which needs the model downloader: the model
@@ -69,6 +70,10 @@ def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) 
                    help="Stop basecalling after N seconds")
     p.add_argument("-x", "--device", default="cuda",
                    help="'cuda' (the default; 'auto' means it), 'cuda:N' or 'cpu'")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="Compute type of the model (default: bfloat16 on the card, float32 "
+                   "on the CPU). float32 on the card runs the transformer's attention on "
+                   "the pre-rotated route; its 'hp' route (an API option) is refused there")
     p.set_defaults(func=_run_basecaller)
 
 
@@ -111,6 +116,8 @@ def _summarise(stats, elapsed_s: float) -> None:
 
 
 def _run_basecaller(args: argparse.Namespace) -> int:
+    import torch
+
     from dorado_tpu_torch.basecall.runner import resolve_device
     from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.pod5 import find_pod5_files
@@ -150,6 +157,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
             only_read_ids = {line.strip() for line in fh if line.strip()}
 
     device = resolve_device("cuda" if args.device == "auto" else args.device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}[args.dtype]
     config, params = load_model(model_dir)
     model = build_model(config, params)
     modbase_caller = None
@@ -169,12 +177,14 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         from dorado_tpu_torch.basecall.batch_size import auto_batch_size
 
         chunk = args.chunksize or config.basecaller.chunk_size
-        batchsize = auto_batch_size(config, model, chunk, device=device, decoder=args.decoder)
+        batchsize = auto_batch_size(
+            config, model, chunk, device=device, decoder=args.decoder, compute_dtype=dtype
+        )
         print(f"> Auto batch size: {batchsize}", file=sys.stderr)
 
     pipeline = BasecallerPipeline(
         config, model, chunk_size=args.chunksize, batch_size=batchsize, overlap=args.overlap,
-        emit_moves=args.emit_moves, device=device, decoder=args.decoder,
+        emit_moves=args.emit_moves, device=device, decoder=args.decoder, compute_dtype=dtype,
         split_reads=not args.disable_read_splitting, min_qscore=args.min_qscore,
         skip_read_ids=skip_read_ids, only_read_ids=only_read_ids, max_reads=args.max_reads,
         modbase_caller=modbase_caller, modbase_threshold=args.modified_bases_threshold,

@@ -66,6 +66,28 @@
 // tile holds none of their chunks); the second block on each SM fills those
 // slots, so a design that keeps every warp busy at the price of more
 // barriers and registers does not pay.
+//
+// attention_prerotated_f32 (K10 at float32: the JAX package's
+// compute_dtype=float32 stream, which leaves the fused-RoPE route for
+// _banded_attention_call) computes the same function on float32 q, k and v
+// with no rounding of the output: attention_f32_kernel, the same block of 128
+// queries and 8 warps over the same two-tile ring of 64 keys, one 16-key
+// chunk a warp at a time. The products are float32 in effect: each operand
+// is split into tf32 hi + lo and a . b summed as a_lo b_hi + a_hi b_lo +
+// a_hi b_hi on mma.sync m16n8k8 (3xTF32, as K1 float32 does; about 2^-21 of
+// each product is lost), for q . k and for p . v alike. q's splits stay in
+// registers for the whole band. p . v takes p straight from the logits'
+// accumulator fragments: the key order inside an 8-key step does not
+// matter to the sum, so the A operand's k index t (t + 4) is read as key 2t
+// (2t + 1) of the step, and v's rows are read in that order. Rows are 68
+// floats apart in shared memory, so that the fragment loads of q, k and v
+// fall on 32 distinct banks (q_s 128 x 68 and the two rings 2 x 64 x 68 each:
+// 104 KB, one block an SM). k and v both come by cp.async, since nothing is
+// rotated. What bounds it: bytes in the bf16 form's count doubled, and the
+// products three times over on tf32 mma.sync, which runs below the card's
+// wgmma rate: 2.58 ms at sup's shape against 0.96 ms of float32 operations
+// at 67 TFLOP/s, 0.39 at a third of the TF32 rate (NVIDIA H100 80GB HBM3,
+// 700 W, chip_smoke.py).
 
 #include <type_traits>
 
@@ -422,6 +444,204 @@ const __nv_bfloat16* at(const void* p, size_t offset) {
   return static_cast<const __nv_bfloat16*>(p) + offset;
 }
 
+// ---- K10 at float32 ----------------------------------------------------------
+
+constexpr int LDF = D + 4;  // shared row stride in floats: conflict-free fragment loads
+
+// cp.async of `rows` float rows of D channels from position t0 into dst
+// [rows][LDF]; rows outside [0, T) are zero-filled (the copy reads no byte
+// of them).
+__device__ __forceinline__ void copy_rows_f32(const float* base, size_t stride, int t0, int rows,
+                                              int T, float* dst) {
+  for (int i = threadIdx.x; i < rows * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), c = i % (D / 4);
+    const int t = t0 + r;
+    const bool ok = t >= 0 && t < T;
+    const float* src = base + (size_t)(ok ? t : 0) * stride + c * 4;
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * LDF + c * 4));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+                 "r"(ok ? 16 : 0));
+  }
+}
+
+// q, k, v: the batch row's position 0 of each head's channels ([T, stride]
+// floats); the rest as attention_banded_kernel.
+template <bool FIXED>
+__global__ void __launch_bounds__(THREADS, 1) attention_f32_kernel(
+    const float* __restrict__ q, int q_stride, const float* __restrict__ k, int k_stride,
+    const float* __restrict__ v, int v_stride, float* __restrict__ out, int T, int H,
+    int win_upper, int win_lower, int ref_elems, int chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (FIXED) chunks = NARROW_CHUNKS;
+  const int tiles = (16 * (WARPS - 1) + 16 * chunks + BK - 1) / BK;
+  float* q_s = reinterpret_cast<float*>(smem);  // [BQ][LDF]
+  float* k_s = q_s + BQ * LDF;                  // [2][BK][LDF]
+  float* v_s = k_s + 2 * BK * LDF;              // [2][BK][LDF]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int head = blockIdx.y;
+  const int n = blockIdx.z;
+  const int hd = H * D;
+  const int kb = q0 - (FIXED ? NARROW : win_upper);  // position of the block's key 0
+  const float* q_base = q + (size_t)n * T * q_stride + head * D;
+  const float* k_base = k + (size_t)n * T * k_stride + head * D;
+  const float* v_base = v + (size_t)n * T * v_stride + head * D;
+
+  copy_rows_f32(q_base, q_stride, q0, BQ, T, q_s);
+  copy_rows_f32(k_base, k_stride, kb, BK, T, k_s);
+  copy_rows_f32(v_base, v_stride, kb, BK, T, v_s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- this warp's 16 queries, split for 3xTF32 ------------------------------
+  const int r0 = warp * 16;
+  uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float* p = q_s + (r0 + g) * LDF + kk * 8 + t4;
+    tf32_split(p[0], qh[kk][0], ql[kk][0]);
+    tf32_split(p[8 * LDF], qh[kk][1], ql[kk][1]);
+    tf32_split(p[4], qh[kk][2], ql[kk][2]);
+    tf32_split(p[8 * LDF + 4], qh[kk][3], ql[kk][3]);
+  }
+  int lo[2], hi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + r0 + g + 8 * h;
+    const int rb = (qi / ref_elems) * ref_elems;
+    const int re = min(rb + ref_elems, T);
+    lo[h] = max(max(qi - win_upper, rb - win_lower), 0);
+    hi[h] = min(min(qi + win_lower, re + win_upper - 1), T - 1);
+  }
+  const float scale = 0.125f;  // 1 / sqrt(D)
+  const float masked = -1e30f;
+  float mx[2] = {masked, masked};
+  float sum[2] = {0.f, 0.f};
+  float o[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+  // one chunk of 16 keys from staged row kl of a tile: s[j][2h + e] is row
+  // g + 8h, key key0 + 8j + 2 t4 + e
+  auto run = [&](const float* kt, const float* vt, int kl, int key0) {
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const float* kp = kt + (kl + 8 * j + g) * LDF + kk * 8 + t4;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_split(kp[0], bh0, bl0);
+        tf32_split(kp[4], bh1, bl1);
+        mma_3xtf32_split(s[j], qh[kk], ql[kk], bh0, bh1, bl0, bl1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * j + 2 * t4 + (e & 1);
+        const int h = e >> 1;
+        s[j][e] = (key >= lo[h] && key <= hi[h]) ? __fmul_rn(s[j][e], scale) : masked;
+      }
+    }
+    float rescale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]), fmaxf(s[1][2 * h], s[1][2 * h + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(mx[h], m);
+      rescale[h] = __expf(mx[h] - m_new);
+      mx[h] = m_new;
+      sum[h] *= rescale[h];
+    }
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      o[dt][0] *= rescale[0];
+      o[dt][1] *= rescale[0];
+      o[dt][2] *= rescale[1];
+      o[dt][3] *= rescale[1];
+    }
+    // p in the A operand's order: k index t4 is key 2 t4 of the step, t4 + 4
+    // key 2 t4 + 1 (v's rows are read in the same order below)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = s[j][e] == masked ? 0.f : __expf(s[j][e] - mx[e >> 1]);
+        sum[e >> 1] += p[e];
+      }
+      uint32_t ph[4], pl[4];
+      tf32_split(p[0], ph[0], pl[0]);  // row g, key 2 t4
+      tf32_split(p[2], ph[1], pl[1]);  // row g + 8, key 2 t4
+      tf32_split(p[1], ph[2], pl[2]);  // row g, key 2 t4 + 1
+      tf32_split(p[3], ph[3], pl[3]);  // row g + 8, key 2 t4 + 1
+      const float* vp = vt + (kl + 8 * j + 2 * t4) * LDF + g;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_split(vp[dt * 8], bh0, bl0);
+        tf32_split(vp[LDF + dt * 8], bh1, bl1);
+        mma_3xtf32_split(o[dt], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  };
+
+  // ---- the key tiles: tile i + 1's copies in flight during tile i's products
+  for (int i = 0; i < tiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < tiles) {
+      copy_rows_f32(k_base, k_stride, kb + (i + 1) * BK, BK, T, k_s + (buf ^ 1) * BK * LDF);
+      copy_rows_f32(v_base, v_stride, kb + (i + 1) * BK, BK, T, v_s + (buf ^ 1) * BK * LDF);
+      cp_async_commit();
+    }
+    const float* kt = k_s + buf * BK * LDF;
+    const float* vt = v_s + buf * BK * LDF;
+    const int c_end = min((i + 1) * (BK / 16), warp + chunks);
+    for (int c = max(i * (BK / 16), warp); c < c_end; ++c)
+      run(kt, vt, 16 * (c - i * (BK / 16)), kb + 16 * c);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = q0 + r0 + g + 8 * h;
+    if (t >= T) continue;
+    float* dst = out + ((size_t)n * T + t) * hd + head * D + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<float2*>(dst + dt * 8) =
+          make_float2(__fdiv_rn(o[dt][2 * h], sum[h]), __fdiv_rn(o[dt][2 * h + 1], sum[h]));
+  }
+}
+
+template <bool FIXED>
+int launch_f32(const float* q, int q_stride, const float* k, int k_stride, const float* v,
+               int v_stride, float* out, int N, int T, int H, int win_upper, int win_lower,
+               int ref_elems, void* stream) {
+  const int chunks = FIXED ? NARROW_CHUNKS : (16 + win_upper + win_lower + 15) / 16;
+  const int smem = (BQ + 4 * BK) * LDF * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<FIXED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + BQ - 1) / BQ, H, N);
+  attention_f32_kernel<FIXED><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, q_stride, k, k_stride, v, v_stride, out, T, H, win_upper, win_lower, ref_elems, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All four: heads of 64 channels, windows of at most 256 keys either side
@@ -464,4 +684,23 @@ DTT_EXPORT int attention_separate_bf16(const void* q, const void* k, const void*
   const int hd = H * head_dim;
   return launch<PLAIN>(q, hd, k, hd, v, hd, nullptr, nullptr, out, N, T, H, head_dim, win_upper,
                        win_lower, ref_elems, stream);
+}
+
+// K10 at float32: qk [N, T, 2*H*D] rotated q | k; v from the projection qkv
+// [N, T, 3*H*D]; all float32.
+DTT_EXPORT int attention_prerotated_f32(const void* qk, const void* qkv, void* out, int N,
+                                        int T, int H, int head_dim, int win_upper,
+                                        int win_lower, int ref_elems, void* stream) {
+  if (N <= 0 || T <= 0 || H <= 0 || head_dim != D || win_upper < 0 || win_lower < 0 ||
+      win_upper > WIN_MAX || win_lower > WIN_MAX || ref_elems <= 0 || N > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = H * head_dim;
+  const float* qkp = static_cast<const float*>(qk);
+  const float* vp = static_cast<const float*>(qkv) + 2 * hd;
+  float* o = static_cast<float*>(out);
+  if (win_upper <= NARROW && win_lower <= NARROW)
+    return launch_f32<true>(qkp, 2 * hd, qkp + hd, 2 * hd, vp, 3 * hd, o, N, T, H, win_upper,
+                            win_lower, ref_elems, stream);
+  return launch_f32<false>(qkp, 2 * hd, qkp + hd, 2 * hd, vp, 3 * hd, o, N, T, H, win_upper,
+                           win_lower, ref_elems, stream);
 }

@@ -110,6 +110,40 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
+// A float split for 3xTF32 products: hi = tf32(x) and lo = tf32(x - hi);
+// a . b is then a_lo b_hi + a_hi b_lo + a_hi b_hi (mma_tf32 each, the small
+// terms first), which leaves about 2^-21 of each product.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b in 3xTF32 on operands split already (tf32_split).
+__device__ __forceinline__ void mma_3xtf32_split(float (&c)[4], const uint32_t (&ah)[4],
+                                                 const uint32_t (&al)[4], uint32_t bh0,
+                                                 uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// The pair (y0, y1), rounded to T (bf16 or float), at the even column col of
+// row `row` of a [64][cols] tile held as boxes of 64 rows x 128 bytes in the
+// 128-byte swizzle (box col / (128 / sizeof(T)), 16-byte chunk XOR row % 8):
+// the output tiles that the wgmma kernels send out by TMA.
+template <typename T>
+__device__ __forceinline__ void store_pair_swz128(unsigned char* tile, int row, int col, float y0,
+                                                  float y1) {
+  constexpr int PER = 128 / sizeof(T);  // columns a box
+  unsigned char* chunk = tile + ((col / PER) * 64 + row) * 128 +
+                         (((((col % PER) * (int)sizeof(T)) >> 4) ^ (row & 7)) << 4) +
+                         ((col * (int)sizeof(T)) & 15);
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float2*>(chunk) = make_float2(y0, y1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(chunk) = __floats2bfloat162_rn(y0, y1);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

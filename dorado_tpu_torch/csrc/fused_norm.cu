@@ -51,6 +51,30 @@
 // The epilogue's roundings are paired (one conversion instruction for two
 // values), and its code is written once for both passes: two unrolled
 // copies overflowed the instruction cache and slowed the kernel sharply.
+//
+// matmul_residual_rmsnorm_f32 (K14 at float32: the JAX package's
+// compute_dtype=float32 stream on the fused-norm route) computes
+//   h   = (sum_k x[m][k] * w[o][k] + bias[o]) + residual[m][o] * alpha
+//   out = (h * rstd) * nw[o],  rstd = 1 / sqrt(sum_o h^2 / O + eps)
+// all in float32 (the stream's roundings are float32 ones) in
+// fused_norm_f32_kernel. The bf16 design does not carry over: its tile of
+// 128 rows x 512 columns doubles to 256 KB in float32, over the 227 KB a
+// block has, and float32 products need tf32 operands split in three. So a
+// CTA of 8 warps owns 64 rows and all 512 columns, in two passes of 256
+// columns (each warp 32 rows x 64 columns, 64 float32 sums a thread); each
+// pass streams x and W through a two-stage cp.async ring of 32-k slabs (x
+// 64 x 32, W 256 x 32, rows 36 floats apart so that the fragment loads fall
+// on distinct banks) into mma.sync m16n8k8 in 3xTF32 (each operand split
+// into tf32 hi + lo, a_lo b_hi + a_hi b_lo + a_hi b_hi: float32 products
+// but for about 2^-21 of each, as K1 float32 and K10 at float32 do). Each
+// pass's epilogue writes h, with the bias and the scaled residual, into a
+// [64][520] float32 tile in shared memory (133 KB; 225 KB with the ring);
+// then each warp takes 8 rows, sums their squares across the warp and
+// writes the normalised rows times the weight in full lines. What bounds it:
+// the products, three times over on tf32 mma.sync (below the card's wgmma
+// rate), and W's reads from L2, one for every 64 rows: 1.70 ms at out_proj
+// and 6.02 at fc2 against 1.03 and 4.10 ms of float32 operations at 67
+// TFLOP/s (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
 #include "common.cuh"
 #include "tma_map.cuh"
 
@@ -270,7 +294,178 @@ __global__ void __launch_bounds__(THREADS, 1) fused_norm_kernel(
   }
 }
 
+// ---- K14 at float32 -----------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BM = 64;          // rows a CTA
+constexpr int HALF = 256;       // columns a pass
+constexpr int BK = 32;          // k a slab
+constexpr int LDS = BK + 4;     // the slabs' row stride in floats
+constexpr int LDH = O + 8;      // h's row stride in floats
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGE = (BM + HALF) * LDS;  // floats a stage
+constexpr int SMEM_BYTES = (2 * STAGE + BM * LDH) * 4;
+
+// cp.async of the 32-k slab at k0 of x's rows [m0, m0 + BM) and W's rows
+// [n0, n0 + HALF) into stage `st`; x's rows past M are zero-filled.
+__device__ __forceinline__ void load_slab(const float* x, const float* w, int M, int K, int m0,
+                                          int n0, int k0, float* st) {
+  for (int i = threadIdx.x; i < (BM + HALF) * (BK / 4); i += THREADS) {
+    const int r = i / (BK / 4), c = i % (BK / 4);
+    const bool is_x = r < BM;
+    const int m = m0 + r;
+    const bool ok = !is_x || m < M;
+    const float* src = is_x ? x + (size_t)(ok ? m : 0) * K + k0 + 4 * c
+                            : w + (size_t)(n0 + r - BM) * K + k0 + 4 * c;
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(st + r * LDS + 4 * c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+                 "r"(ok ? 16 : 0));
+  }
+}
+
+// x^2 + y^2 + z^2 + w^2, each step one rounded operation
+__device__ __forceinline__ float squares(float4 v) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+                   __fadd_rn(__fmul_rn(v.z, v.z), __fmul_rn(v.w, v.w)));
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fused_norm_f32_kernel(
+    const float* __restrict__ x,     // [M, K]
+    const float* __restrict__ w,     // [O, K]
+    const float* __restrict__ bias,  // [O] or null
+    const float* __restrict__ res,   // [M, O]
+    const float* __restrict__ nw,    // [O]
+    float* __restrict__ out,         // [M, O]
+    int M, int K, float alpha, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [2][BM + HALF][LDS]: x rows, then W rows
+  float* h_s = ring + 2 * STAGE;                 // [BM][LDH]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = blockIdx.x * BM;
+  const int wr = (warp >> 2) * 32;  // the warp's rows of the block
+  const int wc = (warp & 3) * 64;   // and columns of the pass
+  const int k_tiles = K / BK;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    float acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    load_slab(x, w, M, K, m0, pass * HALF, 0, ring);
+    cp_async_commit();
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      if (kt + 1 < k_tiles) {
+        load_slab(x, w, M, K, m0, pass * HALF, (kt + 1) * BK, ring + ((kt + 1) & 1) * STAGE);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* xs = ring + (kt & 1) * STAGE;
+      const float* ws = xs + BM * LDS;
+#pragma unroll
+      for (int ks = 0; ks < BK / 8; ++ks) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* ap = xs + (wr + 16 * mt + g) * LDS + 8 * ks + t4;
+          tf32_split(ap[0], ah[mt][0], al[mt][0]);
+          tf32_split(ap[8 * LDS], ah[mt][1], al[mt][1]);
+          tf32_split(ap[4], ah[mt][2], al[mt][2]);
+          tf32_split(ap[8 * LDS + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* bp = ws + (wc + 8 * nt + g) * LDS + 8 * ks + t4;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_split(bp[0], bh0, bl0);
+          tf32_split(bp[4], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_3xtf32_split(acc[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+      __syncthreads();  // the stage is free for the slab after next
+    }
+    // h = (sum + bias) + residual * alpha into h_s
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = pass * HALF + wc + 8 * nt + 2 * t4;
+      const float2 b = bias ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wr + 16 * mt + g + 8 * h, m = m0 + r;
+          const float2 rv =
+              m < M ? __ldg(reinterpret_cast<const float2*>(res + (size_t)m * O + col))
+                    : make_float2(0.f, 0.f);
+          const float s0 = acc[mt][nt][2 * h], s1 = acc[mt][nt][2 * h + 1];
+          const float a0 = bias ? __fadd_rn(s0, b.x) : s0;
+          const float a1 = bias ? __fadd_rn(s1, b.y) : s1;
+          *reinterpret_cast<float2*>(h_s + r * LDH + col) = make_float2(
+              __fadd_rn(a0, __fmul_rn(rv.x, alpha)), __fadd_rn(a1, __fmul_rn(rv.y, alpha)));
+        }
+    }
+  }
+  __syncthreads();
+  // each warp's 8 rows: the sum of squares across the warp, then the
+  // normalised row times the weight, in full lines
+  for (int r = warp * (BM / WARPS); r < (warp + 1) * (BM / WARPS); ++r) {
+    const int m = m0 + r;
+    float4 hv[O / 128];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < O / 128; ++i) {
+      hv[i] = *reinterpret_cast<const float4*>(h_s + r * LDH + 128 * i + 4 * lane);
+      ss = __fadd_rn(ss, squares(hv[i]));
+    }
+    ss = warp_sum(ss);
+    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)O), eps)));
+    if (m >= M) continue;
+#pragma unroll
+    for (int i = 0; i < O / 128; ++i) {
+      const int col = 128 * i + 4 * lane;
+      const float4 nv = __ldg(reinterpret_cast<const float4*>(nw + col));
+      *reinterpret_cast<float4*>(out + (size_t)m * O + col) = make_float4(
+          __fmul_rn(__fmul_rn(hv[i].x, rstd), nv.x), __fmul_rn(__fmul_rn(hv[i].y, rstd), nv.y),
+          __fmul_rn(__fmul_rn(hv[i].z, rstd), nv.z), __fmul_rn(__fmul_rn(hv[i].w, rstd), nv.w));
+    }
+  }
+}
+
+}  // namespace f32
+
 }  // namespace
+
+// K14 at float32: every tensor float32; O = 512, K a multiple of 32, M >= 1;
+// bias may be null; all 16-byte aligned.
+DTT_EXPORT int matmul_residual_rmsnorm_f32(const void* x, const void* w, const void* bias,
+                                           const void* res, const void* nw, void* out, int M,
+                                           int K, int out_width, float alpha, float eps,
+                                           void* stream) {
+  if (M <= 0 || K <= 0 || K % f32::BK || out_width != O)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(f32::fused_norm_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         f32::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (M + f32::BM - 1) / f32::BM;
+  f32::fused_norm_f32_kernel<<<blocks, f32::THREADS, f32::SMEM_BYTES,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(res),
+      static_cast<const float*>(nw), static_cast<float*>(out), M, K, alpha, eps);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // O = 512, K a multiple of 32, M >= 1; bias may be null (else 8-byte
 // aligned); x, w, res and out 16-byte aligned.

@@ -32,7 +32,7 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A [rows][cols] tensor of bf16 (elem_bytes 2) or int8 (1), cols contiguous,
+// A [rows][cols] tensor of float32 (elem_bytes 4), bf16 (2) or int8 (1), cols contiguous,
 // in boxes of box_rows x box_cols, swizzled over the box's row of box_cols *
 // elem_bytes bytes (128, 64 or 32); reads past its edges give zeros and
 // stores past them are dropped.
@@ -46,8 +46,10 @@ inline bool make_map(CUtensorMap* map, const void* base, int elem_bytes, int row
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  return encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                2, const_cast<void*>(base), dims, strides, box, steps,
+  const CUtensorMapDataType type = elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                             : (span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B),

@@ -64,10 +64,16 @@
 // traps after about 4 s instead of hanging the card.
 //
 // w8a8_matmul_kernel (K13). Replaces dorado_tpu/ops/int8_matmul.py::
-// w8a8_matmul (Pallas body _a8_kernel): out = bf16((float(xq . wq[o]) * xs)
+// w8a8_matmul (Pallas body _a8_kernel): out = TO((float(xq . wq[o]) * xs)
 // * ws[o]) for xq [M, K] int8 with row scales xs, wq [O, K] int8 with
-// channel scales ws; the int32 sums are exact and the two products single
-// rounded operations, so it equals the plain version bit for bit.
+// channel scales ws, TO bf16 or float32 (the JAX package's
+// compute_dtype=float32 path); the int32 sums are exact and the two products
+// single rounded operations, so it equals the plain version bit for bit. The
+// float32 form is an instantiation of the same kernel whose tile, twice the
+// bf16 one's bytes, leaves through the same buffer in two halves of 64
+// columns, so that the ring keeps its depth; its output doubles in bytes
+// (0.260 ms at sup's fc2 against a 0.161 ms byte bound; NVIDIA H100 80GB
+// HBM3, 700 W, chip_smoke.py).
 //
 // What bounds it on the H100: operations, just ahead of bytes. At sup's fc2
 // (M = 131072, K = 2048, O = 512) it is 275 GOP (0.139 ms at the int8 peak)
@@ -555,10 +561,12 @@ constexpr int smem_bytes(int stages) {
   return 1024 + stages * STAGE + OUT_BYTES + 8 * 2 * MAX_STAGES;
 }
 
+// TO: the output's element type (__nv_bfloat16 or float)
+template <typename TO>
 __global__ void __launch_bounds__(THREADS, 1) w8a8_matmul_kernel(
     const __grid_constant__ CUtensorMap map_x,  // xq [M, K]: boxes of BM / cluster rows x KB
     const __grid_constant__ CUtensorMap map_w,  // wq [O, K]: boxes of BN rows x KB
-    const __grid_constant__ CUtensorMap map_o,  // out [M, O] bf16: boxes of 64 rows x 64
+    const __grid_constant__ CUtensorMap map_o,  // out [M, O] TO: boxes of 64 rows x 128 bytes
     const float* __restrict__ xs,               // [M]
     const float* __restrict__ ws,               // [O]
     int M, int K, int O, int cluster, int stages) {
@@ -568,6 +576,8 @@ __global__ void __launch_bounds__(THREADS, 1) w8a8_matmul_kernel(
   unsigned char* out_s = ring + stages * STAGE;  // [CONSUMERS][2 boxes][64][128 B]
   uint64_t* bars = reinterpret_cast<uint64_t*>(out_s + OUT_BYTES);
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + MAX_STAGES);
+  // the output tile leaves in PASSES column slices of PCOLS, two boxes each
+  constexpr int PASSES = sizeof(TO) / 2, PCOLS = BN / PASSES, BOX = 128 / sizeof(TO);
 
   const int tid = threadIdx.x, lane = tid & 31;
   // the warp's and warpgroup's indices through a shuffle (see the header)
@@ -633,13 +643,6 @@ __global__ void __launch_bounds__(THREADS, 1) w8a8_matmul_kernel(
     const int g = lane >> 2, t4 = lane & 3;
     const int r0 = (lt >> 5) * 16 + g;  // the thread's rows r0, r0 + 8 of its warpgroup's 64
     unsigned char* my_out = out_s + wg * (OUT_BYTES / CONSUMERS);
-    // column col's pair at row `row` of the warpgroup's two boxes [64][64]:
-    // box col / 64, 16-byte chunk (col % 64) / 8 XOR row % 8
-    auto at = [&](int row, int col) {
-      return reinterpret_cast<__nv_bfloat162*>(my_out + ((col >> 6) * 64 + row) * 128 +
-                                               ((((col & 63) >> 3) ^ (row & 7)) << 4) +
-                                               (col & 7) * 2);
-    };
     int acc[64];
     int stage = 0, phase = 0;
     for (int u = cid; u < units; u += nclusters) {
@@ -675,33 +678,40 @@ __global__ void __launch_bounds__(THREADS, 1) w8a8_matmul_kernel(
       for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
       if (lt < cluster) mbar_arrive_cluster(empty0 + 8 * held, lt);
 
-      // the dequantised sums, to the output by TMA
-      if (lt == 0) bulk_wait_read<0>();  // the last tile's store has read the buffer
-      named_bar_sync(1 + wg, 128);
+      // the dequantised sums, to the output by TMA: the bf16 tile in one
+      // pass, the float32 one in two column halves through the same buffer
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        const float2 w2 = __ldg(reinterpret_cast<const float2*>(ws + n0 + col));
+      for (int ps = 0; ps < PASSES; ++ps) {
+        if (lt == 0) bulk_wait_read<0>();  // the last store has read the buffer
+        named_bar_sync(1 + wg, 128);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float y0 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h], rs[h]), w2.x);
-          const float y1 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + 1], rs[h]), w2.y);
-          *at(r0 + 8 * h, col) = __floats2bfloat162_rn(y0, y1);
+        for (int jj = 0; jj < PCOLS / 8; ++jj) {
+          const int j = ps * (PCOLS / 8) + jj;
+          const int col = 8 * j + 2 * t4;
+          const float2 w2 = __ldg(reinterpret_cast<const float2*>(ws + n0 + col));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float y0 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h], rs[h]), w2.x);
+            const float y1 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * h + 1], rs[h]), w2.y);
+            store_pair_swz128<TO>(my_out, r0 + 8 * h, col - ps * PCOLS, y0, y1);
+          }
         }
-      }
-      fence_proxy_async();  // the tile is read by the TMA store (the async proxy)
-      named_bar_sync(1 + wg, 128);
-      if (lt == 0) {
-        const uint64_t stream = l2_evict_first();  // written once
-        tma_store_2d_hint(&map_o, n0, m0 + 64 * wg, smem_u32(my_out), stream);
-        tma_store_2d_hint(&map_o, n0 + 64, m0 + 64 * wg, smem_u32(my_out + 64 * 128), stream);
-        bulk_commit();
+        fence_proxy_async();  // the tile is read by the TMA store (the async proxy)
+        named_bar_sync(1 + wg, 128);
+        if (lt == 0) {
+          const uint64_t stream = l2_evict_first();  // written once
+          const int c0 = n0 + ps * PCOLS;
+          tma_store_2d_hint(&map_o, c0, m0 + 64 * wg, smem_u32(my_out), stream);
+          tma_store_2d_hint(&map_o, c0 + BOX, m0 + 64 * wg, smem_u32(my_out + 64 * 128), stream);
+          bulk_commit();
+        }
       }
     }
     if (lt == 0) bulk_wait_all();
   }
 }
 
+template <typename TO>
 int launch(const void* xq, const void* xs, const void* wq, const void* ws, void* out, int M,
            int K, int O, int cluster, int stages, void* stream) {
   if (M <= 0 || K <= 0 || K % KB || O <= 0 || O % BN || cluster < 1 || cluster > MAX_CLUSTER ||
@@ -711,13 +721,14 @@ int launch(const void* xq, const void* xs, const void* wq, const void* ws, void*
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w, map_o;
   if (!make_map(&map_x, xq, 1, M, K, BM / cluster, KB) || !make_map(&map_w, wq, 1, O, K, BN, KB) ||
-      !make_map(&map_o, out, 2, M, O, 64, 64))
+      !make_map(&map_o, out, sizeof(TO), M, O, 64, 128 / sizeof(TO)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(w8a8_matmul_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = w8a8_matmul_kernel<TO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int active = 0;
-  err = active_clusters((const void*)w8a8_matmul_kernel, cluster, THREADS, smem, &active);
+  err = active_clusters((const void*)kernel, cluster, THREADS, smem, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(THREADS);
@@ -733,7 +744,7 @@ int launch(const void* xq, const void* xs, const void* wq, const void* ws, void*
   // persistent: as many clusters as the card runs at once
   const long long units = (long long)((M + BM - 1) / BM) * (O / BN / cluster);
   cfg.gridDim = dim3(cluster * (int)(units < active ? units : active));
-  err = cudaLaunchKernelEx(&cfg, w8a8_matmul_kernel, map_x, map_w, map_o,
+  err = cudaLaunchKernelEx(&cfg, kernel, map_x, map_w, map_o,
                            static_cast<const float*>(xs), static_cast<const float*>(ws), M, K, O,
                            cluster, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -759,9 +770,14 @@ DTT_EXPORT int swiglu_w8a8_i8(const void* xq, const void* xs, const void* wy, co
 }
 
 // K and O multiples of 128, M >= 1; the cluster (column tiles that share x)
-// and stages from ops/int8_matmul.py::w8a8_plan.
-DTT_EXPORT int w8a8_matmul_bf16(const void* xq, const void* xs, const void* wq, const void* ws,
-                                void* out, int M, int K, int O, int cluster, int stages,
-                                void* stream) {
-  return k13::launch(xq, xs, wq, ws, out, M, K, O, cluster, stages, stream);
+// and stages from ops/int8_matmul.py::w8a8_plan; out_bytes 2 (bf16) or 4
+// (float32).
+DTT_EXPORT int w8a8_matmul(const void* xq, const void* xs, const void* wq, const void* ws,
+                           void* out, int M, int K, int O, int cluster, int stages,
+                           int out_bytes, void* stream) {
+  if (out_bytes == 2)
+    return k13::launch<__nv_bfloat16>(xq, xs, wq, ws, out, M, K, O, cluster, stages, stream);
+  if (out_bytes == 4)
+    return k13::launch<float>(xq, xs, wq, ws, out, M, K, O, cluster, stages, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,12 +24,19 @@ package's ``ext`` and ``qkv_rope`` routes; ``"hp"`` through
 With ``fused_norm`` the output projection, the bias, the scaled residual and
 the first RMS norm run as one kernel (``ops.fused_norm``, K14), and so do fc2
 and the second norm when the encoder matmuls are unquantised. The JAX package
-picks these routes with environment variables; here they are arguments.
+picks these routes with environment variables; here they are arguments. A
+float32 stream leaves ``"extf"`` for ``"ext"`` (K10 at float32), as the JAX
+layer falls back to its plain ext kernel at float32; ``"hp"`` has no float32
+kernel on the card, and ``check_route_dtype`` refuses it there.
 
 ``quantize_tx_w8a8`` turns the encoder's three fat matmuls into W8A8:
 ``wqkv`` through ``ops.int8_matmul.w8a8_matmul_fq``, fc1 with the SwiGLU
 product and the requantisation through ``swiglu_w8a8``, fc2 through
-``w8a8_matmul`` (CUDA kernels on the GPU). ``quantize_tx_int8`` holds the
+``w8a8_matmul`` (CUDA kernels on the GPU); in a float32 model they write
+float32. ``quantize_tx_head_w8a8`` also takes the upsample and the CRF head
+through ``w8a8_matmul_fq``, with the bias fused and ``crf.scale`` folded into
+the scales (the JAX package's ``quantize_tx_head_w8a8``, which no runner path
+of either package calls). ``quantize_tx_int8`` holds the
 same three as int8 weights whose products take per-token quantised
 activations and an int32 dot (``torch._int_mm`` on the GPU, the exact
 float64 product on the CPU), as the JAX package's ``quantize_tx_params``
@@ -85,6 +92,17 @@ def check_attention_route(attention: str) -> str:
             f"unknown attention route {attention!r}: expected one of {ATTENTION_ROUTES}"
         )
     return attention
+
+
+def check_route_dtype(attention: str, dtype: torch.dtype, device: torch.device | str) -> None:
+    """Raise ValueError where the card has no kernel for the route at the
+    compute type: ``"hp"`` (K11a) runs bf16 only. On the CPU every route runs
+    its plain version at either type."""
+    if attention == "hp" and dtype == torch.float32 and torch.device(device).type == "cuda":
+        raise ValueError(
+            "tx_attention='hp' has no float32 kernel on the card (K11a runs bf16): "
+            "use 'extf' or 'ext' with compute_dtype=torch.float32"
+        )
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -146,15 +164,18 @@ class TxModel(nn.Module):
         self.upsample_w = nn.Parameter(torch.zeros(scale_factor * d, d, **kw))
         self.upsample_b = nn.Parameter(torch.zeros(scale_factor * d, **kw))
         self.crf_w = nn.Parameter(torch.zeros(config.tx.crf.outsize, d, **kw))
+        self.head_quantised = False
         self._frozen_scales: list[dict[str, torch.Tensor]] | None = None
+        self._frozen_head: dict[str, torch.Tensor] | None = None
         self._rope: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
     @torch.no_grad()
     def freeze_constants(self) -> None:
         """Keep each quantised layer's weight scales in float32, on the
-        module's current device. Called before the module is cast to a
-        narrower dtype, which would round the scale buffers; the weights
-        must not change afterwards."""
+        module's current device, and a quantised head's scales (the CRF's
+        with ``crf.scale`` folded in) and upsample bias. Called before the
+        module is cast to a narrower dtype, which would round the scale
+        buffers; the weights must not change afterwards."""
         self._frozen_scales = [
             {
                 name: getattr(layer, name + "_s").float().clone()
@@ -162,6 +183,16 @@ class TxModel(nn.Module):
             }
             for layer in self.layers
         ]
+        self._frozen_head = self._head_constants() if self.head_quantised else None
+
+    def _head_constants(self) -> dict[str, torch.Tensor]:
+        """A quantised head's float32 constants: the upsample's scales and
+        bias, and the CRF's scales times ``crf.scale`` (the JAX head's fold)."""
+        return {
+            "upsample_s": self.upsample_w_s.float().clone(),
+            "upsample_b": self.upsample_b.float().clone(),
+            "crf_s": self.crf_w_s.float() * self.config.tx.crf.scale,
+        }
 
     def rope(self, t_len: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
         """The float32 cos and sin tables [T', D/2] for ``t_len`` tokens on
@@ -196,9 +227,11 @@ class TxModel(nn.Module):
         else:
             qkv = F.linear(x, p.wqkv)
         win = tx.attn_window
-        if self.attention == "extf":
+        if self.attention == "extf" and dtype != torch.float32:
             attn = windowed_attention_rope(qkv, cos, sin, tx.nhead, *win)
-        elif self.attention == "ext":
+        elif self.attention in ("extf", "ext"):
+            # a float32 stream takes the pre-rotated kernel on "extf" too, as
+            # the JAX layer falls back to its ext kernel at float32
             qk_rot = rope_qk(qkv, cos, sin, tx.nhead)
             attn = windowed_attention_prerotated(qk_rot, qkv, tx.nhead, *win)
         else:
@@ -253,16 +286,32 @@ class TxModel(nn.Module):
 
         # LinearUpsample: [N, T', d] -> [N, scale * T', d] (nn/LinearUpsample.cpp)
         scale_factor = self.config.tx.upsample.scale_factor
-        x = F.linear(x, self.upsample_w, self.upsample_b)
+        head = self._frozen_head or (self._head_constants() if self.head_quantised else None)
+        if head is not None:
+            # the quantised head: the bias fused, the compute dtype out
+            x = w8a8_matmul_fq(
+                x, self.upsample_w_q.t(), head["upsample_s"], head["upsample_b"], out_dtype=dtype
+            )
+        else:
+            x = F.linear(x, self.upsample_w, self.upsample_b)
         x = x.reshape(n, scale_factor * t_len, d)
 
         # LinearScaledCRF: weights scaled by crf.scale (TxModules.cpp:330-339)
-        w = (self.crf_w.float() * self.config.tx.crf.scale).to(dtype)
         x = x.transpose(0, 1).contiguous()  # [T, N, d]
-        if dtype == score_dtype or x.device.type != "cuda":
-            return F.linear(x, w).to(score_dtype)
-        scores = torch.mm(x.reshape(-1, d), w.t(), out_dtype=score_dtype)
-        return scores.reshape(*x.shape[:2], -1)
+        if head is not None:
+            # crf.scale folded into the scales; the scores leave in the
+            # compute dtype, as the JAX head's do
+            return w8a8_matmul_fq(x, self.crf_w_q.t(), head["crf_s"], out_dtype=dtype).to(
+                score_dtype)
+        w = (self.crf_w.float() * self.config.tx.crf.scale).to(dtype)
+        if dtype == score_dtype:
+            return F.linear(x, w)
+        if x.device.type == "cuda" and dtype == torch.bfloat16:
+            scores = torch.mm(x.reshape(-1, d), w.t(), out_dtype=score_dtype)
+            return scores.reshape(*x.shape[:2], -1)
+        # the compute-type operands' float32 sums, rounded once to the score
+        # dtype
+        return F.linear(x.float(), w.float()).to(score_dtype)
 
 
 def init_tx_params(
@@ -368,6 +417,33 @@ def quantize_tx_int8(model: TxModel) -> TxModel:
 
 
 @torch.no_grad()
+def quantize_tx_head_w8a8(model: TxModel) -> TxModel:
+    """A copy of ``model`` whose upsample and CRF head weights are symmetric
+    int8 per output channel with float32 scales (``upsample_w_q``/``_s``,
+    ``crf_w_q``/``_s``; the upsample bias stays), run through
+    ``w8a8_matmul_fq``: the JAX package's ``quantize_tx_head_w8a8``. Its
+    scores leave the kernel in the compute dtype, as the JAX head's do, and
+    are cast to the score dtype asked for. A model whose head is quantised
+    stays as it is. Quantise the float32 model."""
+    out = copy.deepcopy(model)
+    out._frozen_head = None
+    if not out.head_quantised:
+        _set_head_quantised(
+            out, quantize_weight_rows(out.upsample_w), quantize_weight_rows(out.crf_w)
+        )
+    return out
+
+
+def _set_head_quantised(model: TxModel, upsample: tuple, crf: tuple) -> None:
+    """Replace the upsample and CRF weights by int8 ones and float32 scales."""
+    del model.upsample_w, model.crf_w
+    for name, (wq, ws) in (("upsample_w", upsample), ("crf_w", crf)):
+        model.register_buffer(name + "_q", wq.contiguous())
+        model.register_buffer(name + "_s", ws.contiguous())
+    model.head_quantised = True
+
+
+@torch.no_grad()
 def set_routes(
     model: TxModel, attention: str | None = None, fused_norm: bool | None = None
 ) -> TxModel:
@@ -410,7 +486,9 @@ def tx_params_from_jax(params, config: BasecallModelConfig) -> TxModel:
     packages compute the same function. Layers that hold
     ``<name>_w8``/``<name>_w8s`` in place of ``wqkv``, ``fc1`` and ``fc2``
     (``quantize_tx_params_w8a8`` there) make a W8A8 model, layers that hold
-    ``<name>_q``/``<name>_s`` (``quantize_tx_params``) an int8 one."""
+    ``<name>_q``/``<name>_s`` (``quantize_tx_params``) an int8 one, and an
+    upsample and CRF head that hold ``w8``/``w8s`` (``quantize_tx_head_w8a8``)
+    a quantised head."""
     model = TxModel(config, device="cpu")
     first = params["layers"][0]
     if "wqkv_w8" in first:
@@ -439,7 +517,14 @@ def tx_params_from_jax(params, config: BasecallModelConfig) -> TxModel:
                     )
                     for name in _QUANTISED_NAMES[model.precision]
                 })
-        model.upsample_w.copy_(t(params["upsample"]["w"]))
         model.upsample_b.copy_(t(params["upsample"]["b"]))
-        model.crf_w.copy_(t(params["crf"]["w"]))
+        if "w8" in params["upsample"]:
+            _set_head_quantised(model, *(
+                (torch.from_numpy(np.array(params[k]["w8"], dtype=np.int8)),
+                 t(params[k]["w8s"]).reshape(-1))
+                for k in ("upsample", "crf")
+            ))
+        else:
+            model.upsample_w.copy_(t(params["upsample"]["w"]))
+            model.crf_w.copy_(t(params["crf"]["w"]))
     return model

@@ -26,8 +26,11 @@ window): ``band_mask``, the JAX package's ``_band_bias_at``.
 
 On a CUDA tensor each wrapper launches ``csrc/attention_banded.cu`` (bf16,
 heads of 64 channels): blocks of 128 queries over a ring of 64-key tiles,
-one pass with a running max. On a CPU tensor it runs its plain version
-below, which follows the same arithmetic but for the order of the sums:
+one pass with a running max. K10 also runs on float32 q, k and v
+(``windowed_attention_prerotated_f32``, the JAX package's float32 stream),
+with float32 products (3xTF32) and no rounding of the output. On a CPU
+tensor each runs its plain version below, which follows the same arithmetic
+but for the order of the sums:
 rotation in float32 rounded to the stream dtype, float32 logits, softmax
 (the max first) and p @ v, one rounding of the output.
 """
@@ -181,12 +184,14 @@ def _launch(symbol: str, tensors: list, ints: list, device: torch.device) -> Non
     _cuda.check_launch("attention_banded", code)
 
 
-def _check_projection(what: str, qkv: torch.Tensor, nhead: int) -> tuple[int, int, int, int]:
-    """(N, T, H*D, D) of a [N, T, 3*H*D] bf16 projection on the card."""
+def _check_projection(
+    what: str, qkv: torch.Tensor, nhead: int, dtype: torch.dtype = torch.bfloat16
+) -> tuple[int, int, int, int]:
+    """(N, T, H*D, D) of a [N, T, 3*H*D] projection in ``dtype`` on the card."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * nhead) or 0 in qkv.shape:
         raise ValueError(f"{what}: qkv: expected [N, T, 3*H*D], got {tuple(qkv.shape)}")
     n, t_len, width = qkv.shape
-    _cuda.check_tensor(qkv, "qkv", torch.bfloat16, (n, t_len, width))
+    _cuda.check_tensor(qkv, "qkv", dtype, (n, t_len, width))
     return n, t_len, width // 3, width // 3 // nhead
 
 
@@ -286,28 +291,70 @@ def windowed_attention_prerotated(
     compute the same function, so the port keeps the first.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
-    bf16, D = 64, windows of at most 128 keys a side."""
+    bf16 here, float32 through ``windowed_attention_prerotated_f32``; D = 64,
+    windows of at most 128 keys a side."""
     if qk_rot.device.type == "cpu":
         return windowed_attention_prerotated_plain(
             qk_rot, qkv, nhead, win_upper, win_lower, num_splits
         )
-    what = "windowed_attention_prerotated"
-    n, t_len, hd, d = _check_projection(what, qkv, nhead)
-    _check_heads(what, d, win_upper, win_lower, 128)
-    _cuda.check_tensor(qk_rot, "qk_rot", torch.bfloat16, (n, t_len, 2 * hd))
-    if qk_rot.device != qkv.device:
-        raise ValueError(f"{what}: inputs are on different devices")
-    out = torch.empty(n, t_len, hd, dtype=torch.bfloat16, device=qkv.device)
-    _launch(
-        "attention_prerotated_bf16", [qk_rot, qkv, out],
-        [n, t_len, nhead, d, win_upper, win_lower, ref_strip_elems(t_len, num_splits)],
-        qkv.device,
-    )
+    if qk_rot.dtype == torch.float32:
+        return windowed_attention_prerotated_f32(
+            qk_rot, qkv, nhead, win_upper, win_lower, num_splits
+        )
+    out = _prerotated_launch(qk_rot, qkv, nhead, win_upper, win_lower, num_splits)
     windowed_attention_prerotated.launches += 1
     return out
 
 
+def windowed_attention_prerotated_f32(
+    qk_rot: torch.Tensor,
+    qkv: torch.Tensor,
+    nhead: int,
+    win_upper: int,
+    win_lower: int,
+    num_splits: int = 12,
+) -> torch.Tensor:
+    """K10 at float32: ``windowed_attention_prerotated`` on float32 q, k
+    and v (the JAX package's float32 stream, which takes this kernel where
+    the bf16 one takes the fused-RoPE route), float32 products and output, on
+    its own launch counter. A CPU tensor takes the plain version."""
+    if qk_rot.device.type == "cpu":
+        return windowed_attention_prerotated_plain(
+            qk_rot, qkv, nhead, win_upper, win_lower, num_splits
+        )
+    out = _prerotated_launch(qk_rot, qkv, nhead, win_upper, win_lower, num_splits)
+    windowed_attention_prerotated_f32.launches += 1
+    return out
+
+
+def _prerotated_launch(
+    qk_rot, qkv, nhead, win_upper, win_lower, num_splits, out=None
+) -> torch.Tensor:
+    """K10's launch on CUDA tensors, bf16 or float32 (qk_rot's dtype); into
+    ``out`` where given (a check fills it with NaN first)."""
+    what = "windowed_attention_prerotated"
+    dtype = qk_rot.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: the kernel takes bf16 or float32, not {dtype}")
+    n, t_len, hd, d = _check_projection(what, qkv, nhead, dtype)
+    _check_heads(what, d, win_upper, win_lower, 128)
+    _cuda.check_tensor(qk_rot, "qk_rot", dtype, (n, t_len, 2 * hd))
+    if qk_rot.device != qkv.device:
+        raise ValueError(f"{what}: inputs are on different devices")
+    if out is None:
+        out = torch.empty(n, t_len, hd, dtype=dtype, device=qkv.device)
+    _cuda.check_tensor(out, "out", dtype, (n, t_len, hd))
+    symbol = "attention_prerotated_f32" if dtype == torch.float32 else "attention_prerotated_bf16"
+    _launch(
+        symbol, [qk_rot, qkv, out],
+        [n, t_len, nhead, d, win_upper, win_lower, ref_strip_elems(t_len, num_splits)],
+        qkv.device,
+    )
+    return out
+
+
 windowed_attention_prerotated.launches = 0
+windowed_attention_prerotated_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------

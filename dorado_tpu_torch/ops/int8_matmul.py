@@ -4,17 +4,19 @@ Port of ``dorado_tpu/ops/int8_matmul.py``. Weights are symmetric int8 per
 output channel, activations symmetric int8 per row, the products sum in
 int32 and are rescaled in float32.
 
-- ``w8a8_matmul_fq`` (Pallas body ``_fq_kernel``): bf16 rows quantised inside
-  the kernel, the bias added in its epilogue: the LSTM input projections and
-  the transformer's qkv projection. ``csrc/w8a8_matmul_fq.cu``, launched as
-  ``w8a8_fq_plan`` says.
+- ``w8a8_matmul_fq`` (Pallas body ``_fq_kernel``): rows quantised inside
+  the kernel, the bias added in its epilogue: the LSTM input projections,
+  the transformer's qkv projection and its quantised head.
+  ``csrc/w8a8_matmul_fq.cu``, launched as ``w8a8_fq_plan`` says; bf16 in
+  and out, and its float32 form (``w8a8_matmul_fq_f32``: float32 in and
+  out) for ``compute_dtype=float32``.
 - ``swiglu_w8a8`` (``_swiglu_kernel``): the transformer's fc1 on quantised
   rows, both SwiGLU halves, ``y * silu(g)`` and the per-row requantisation of
   the result in one kernel. ``csrc/w8a8_matmul.cu``, launched as
   ``swiglu_plan`` says.
 - ``w8a8_matmul`` (``_a8_kernel``): quantised rows times int8 weights, the
   transformer's fc2. ``csrc/w8a8_matmul.cu``, launched as ``w8a8_plan``
-  says.
+  says; a bf16 output, and its float32 form (``w8a8_matmul_f32``).
 - ``quantize_rows`` is plain PyTorch, as it is plain XLA there.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
@@ -166,45 +168,80 @@ def w8a8_matmul_fq(
     ``bias`` [O] float32 added in the epilogue) -> [..., O].
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    as ``w8a8_fq_plan(K, O)`` says: bf16 in and out, K a multiple of 128 up
-    to 768, O a multiple of 128, any number of rows. The kernels read the
+    as ``w8a8_fq_plan(K, O)`` says: bf16 in and out here, float32 in and out
+    through ``w8a8_matmul_fq_f32``; K a multiple of 128 up to 768, O a
+    multiple of 128, any number of rows. The kernels read the
     weights one output channel a row, so ``wq_t`` given as the transposed
     view of a contiguous [O, K] tensor (as the models hold it) is used as it
     is; any other layout is copied."""
     if x.device.type == "cpu":
         return w8a8_matmul_fq_plain(x, wq_t, ws, bias, out_dtype)
+    if x.dtype == torch.float32:
+        return w8a8_matmul_fq_f32(x, wq_t, ws, bias, out_dtype)
+    out = _fq_launch(x, wq_t, ws, bias, out_dtype)
+    w8a8_matmul_fq.launches += 1
+    return out
+
+
+def w8a8_matmul_fq_f32(
+    x: torch.Tensor,
+    wq_t: torch.Tensor,
+    ws: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K2's float32 form: ``w8a8_matmul_fq`` on float32 rows writing float32
+    (the JAX package's ``compute_dtype=float32`` path), on its own launch
+    counter. A CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_fq_plain(x, wq_t, ws, bias, out_dtype)
+    out = _fq_launch(x, wq_t, ws, bias, out_dtype)
+    w8a8_matmul_fq_f32.launches += 1
+    return out
+
+
+_KERNEL_TYPES = (torch.bfloat16, torch.float32)
+
+
+def _fq_launch(x, wq_t, ws, bias, out_dtype, out=None) -> torch.Tensor:
+    """K2's launch on CUDA tensors: x and the output both bf16 or both
+    float32; into ``out`` where given (a check fills it with NaN first)."""
     if wq_t.dim() != 2:
         raise ValueError(f"wq_t: expected [K, O], got {tuple(wq_t.shape)}")
     k, o = wq_t.shape
     plan = w8a8_fq_plan(k, o)
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"w8a8_matmul_fq: the kernel writes bf16, not {out_dtype}")
+    if x.dtype not in _KERNEL_TYPES or out_dtype != x.dtype:
+        raise ValueError(
+            f"w8a8_matmul_fq: the kernel writes x's type, bf16 or float32, not {x.dtype} -> "
+            f"{out_dtype}"
+        )
     if x.dim() < 1 or x.shape[-1] != k or x.numel() == 0:
         raise ValueError(f"x: expected [..., {k}], got {tuple(x.shape)}")
     lead = x.shape[:-1]
     m = x.numel() // k
-    _cuda.check_tensor(x, "x", torch.bfloat16, (*lead, k))
+    _cuda.check_tensor(x, "x", x.dtype, (*lead, k))
     wq, ws = _weight_rows(wq_t, ws, "wq_t", x.device)
     if bias is None:
         bias = torch.zeros(o, dtype=torch.float32, device=x.device)
     _cuda.check_tensor(bias, "bias", torch.float32, (o,))
     if bias.device != x.device:
         raise ValueError("w8a8_matmul_fq: inputs are on different devices")
-    out = torch.empty(*lead, o, dtype=torch.bfloat16, device=x.device)
+    if out is None:
+        out = torch.empty(*lead, o, dtype=out_dtype, device=x.device)
+    _cuda.check_tensor(out, "out", out_dtype, (*lead, o))
     fn = _cuda.kernel_function(
-        "w8a8_matmul_fq", "w8a8_matmul_fq_bf16",
-        [_cuda.VOIDP] * 5 + [_cuda.INT] * 5 + [_cuda.VOIDP],
+        "w8a8_matmul_fq", "w8a8_matmul_fq", [_cuda.VOIDP] * 5 + [_cuda.INT] * 6 + [_cuda.VOIDP]
     )
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            m, k, o, plan.a_buffers, plan.stages, _cuda.stream_ptr(x.device),
+            m, k, o, plan.a_buffers, plan.stages, x.element_size(), _cuda.stream_ptr(x.device),
         )
     _cuda.check_launch("w8a8_matmul_fq", code)
-    w8a8_matmul_fq.launches += 1
     return out
 
 
+w8a8_matmul_fq_f32.launches = 0
 w8a8_matmul_fq.launches = 0
 
 
@@ -450,16 +487,45 @@ def w8a8_matmul(
     (``ws`` [O] float32 scales) -> [..., O].
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    as ``w8a8_plan(K, O)`` says: bf16 out, K and O multiples of 128, any
-    number of rows."""
+    as ``w8a8_plan(K, O)`` says: a bf16 output here, a float32 one through
+    ``w8a8_matmul_f32``; K and O multiples of 128, any number of rows."""
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, xs, wq_t, ws, out_dtype)
+    if out_dtype == torch.float32:
+        return w8a8_matmul_f32(xq, xs, wq_t, ws, out_dtype)
+    out = _w8a8_launch(xq, xs, wq_t, ws, out_dtype)
+    w8a8_matmul.launches += 1
+    return out
+
+
+def w8a8_matmul_f32(
+    xq: torch.Tensor,
+    xs: torch.Tensor,
+    wq_t: torch.Tensor,
+    ws: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K13's float32 form: ``w8a8_matmul`` writing float32 (the JAX
+    package's ``compute_dtype=float32`` path), on its own launch counter.
+    A CPU tensor takes the plain version."""
+    if xq.device.type == "cpu":
+        return w8a8_matmul_plain(xq, xs, wq_t, ws, out_dtype)
+    if out_dtype != torch.float32:
+        raise ValueError(f"w8a8_matmul_f32: writes float32, not {out_dtype}")
+    out = _w8a8_launch(xq, xs, wq_t, ws, out_dtype)
+    w8a8_matmul_f32.launches += 1
+    return out
+
+
+def _w8a8_launch(xq, xs, wq_t, ws, out_dtype, out=None) -> torch.Tensor:
+    """K13's launch on CUDA tensors: the output bf16 or float32; into ``out``
+    where given."""
     if wq_t.dim() != 2:
         raise ValueError(f"wq_t: expected [K, O], got {tuple(wq_t.shape)}")
     k, o = wq_t.shape
     plan = w8a8_plan(k, o)
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"w8a8_matmul: the kernel writes bf16, not {out_dtype}")
+    if out_dtype not in _KERNEL_TYPES:
+        raise ValueError(f"w8a8_matmul: the kernel writes bf16 or float32, not {out_dtype}")
     if xq.dim() < 1 or xq.shape[-1] != k or xq.numel() == 0:
         raise ValueError(f"xq: expected [..., {k}], got {tuple(xq.shape)}")
     lead = xq.shape[:-1]
@@ -469,18 +535,20 @@ def w8a8_matmul(
     wq, ws = _weight_rows(wq_t, ws, "wq_t", xq.device)
     if xs.device != xq.device:
         raise ValueError("w8a8_matmul: inputs are on different devices")
-    out = torch.empty(*lead, o, dtype=torch.bfloat16, device=xq.device)
+    if out is None:
+        out = torch.empty(*lead, o, dtype=out_dtype, device=xq.device)
+    _cuda.check_tensor(out, "out", out_dtype, (*lead, o))
     fn = _cuda.kernel_function(
-        "w8a8_matmul", "w8a8_matmul_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 5 + [_cuda.VOIDP]
+        "w8a8_matmul", "w8a8_matmul", [_cuda.VOIDP] * 5 + [_cuda.INT] * 6 + [_cuda.VOIDP]
     )
     with torch.cuda.device(xq.device):
         code = fn(
             xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            m, k, o, plan.cluster, plan.stages, _cuda.stream_ptr(xq.device),
+            m, k, o, plan.cluster, plan.stages, out.element_size(), _cuda.stream_ptr(xq.device),
         )
     _cuda.check_launch("w8a8_matmul", code)
-    w8a8_matmul.launches += 1
     return out
 
 
+w8a8_matmul_f32.launches = 0
 w8a8_matmul.launches = 0

@@ -113,6 +113,7 @@ class BasecallerPipeline:
         tx_precision: str | None = None,
         tx_attention: str | None = None,
         tx_fused_norm: bool | None = None,
+        compute_dtype: torch.dtype | None = None,
         split_reads: bool = True,
         min_qscore: float = 0.0,
         skip_read_ids: set | None = None,
@@ -137,6 +138,7 @@ class BasecallerPipeline:
             tx_precision=tx_precision,
             tx_attention=tx_attention,
             tx_fused_norm=tx_fused_norm,
+            compute_dtype=compute_dtype,
         )
         self.overlap = int(overlap if overlap is not None else config.basecaller.overlap)
         self.overlap -= self.overlap % config.stride

@@ -63,9 +63,10 @@ def test_sweep_on_the_cpu_and_its_cache(tmp_path, monkeypatch, one_thread):
     assert [n for n, _ in timings] == [64, 128] and chosen in (64, 128)
     assert all(s > 0 for _, s in timings)
     cache = json.loads((tmp_path / "batch_benchmarks.json").read_text())
-    assert cache == {f"cpu|{cfg.model_name}|1200": chosen}
+    # keyed by the compute dtype too (float32, the CPU's default)
+    assert cache == {f"cpu|{cfg.model_name}|1200|float32": chosen}
     # a cached choice is taken without a sweep
-    cache[f"cpu|{cfg.model_name}|1200"] = 192
+    cache[f"cpu|{cfg.model_name}|1200|float32"] = 192
     (tmp_path / "batch_benchmarks.json").write_text(json.dumps(cache))
     assert batch_size.auto_batch_size(cfg, model, 1200, device="cpu", max_batch=128) == 192
     assert batch_size.auto_batch_size(cfg, model, 1200, device="cpu", max_batch=64,

@@ -127,6 +127,10 @@ WRAPPERS = (
     lstm.lstm_scan_time_major_int8,
     lstm.lstm_fused_time_major,
     lstm.lstm_scan_time_major_f32,
+    int8_matmul.w8a8_matmul_fq_f32,
+    int8_matmul.w8a8_matmul_f32,
+    attention.windowed_attention_prerotated_f32,
+    fused_norm.matmul_residual_rmsnorm_f32,
 )
 
 
@@ -387,6 +391,44 @@ def test_lstm_scan_source_has_k1_float32():
     src = (_cuda.CSRC / "lstm_scan.cu").read_text()
     assert "DTT_EXPORT int lstm_scan_f32(" in src and "mma_3xtf32" in src
     assert "dispatch_nt<float, false>" in src
+
+
+@pytest.mark.parametrize(
+    "family,dtype,fused",
+    [("tx", torch.float32, False), ("tx", torch.float32, True), ("tx", torch.bfloat16, True),
+     ("lstm", torch.float32, False), ("lstm", torch.bfloat16, False)],
+)
+def test_cpu_runner_compute_dtypes_launch_no_kernel(no_kernels, family, dtype, fused):
+    """``compute_dtype`` on the CPU: the model holds that type and every
+    kernel's plain version runs, the float32 forms' included."""
+    if family == "tx":
+        cfg = _small_sup()
+        kw = dict(tx_precision="w8a8", tx_fused_norm=fused)
+        model, chunk = TxModel(cfg), 768
+    else:
+        cfg = hac_v43_config()
+        cfg.lstm_size, cfg.convs[2].size, cfg.lstm_layers = 128, 128, 2
+        kw = dict(lstm_precision="w8a8")
+        model, chunk = LSTMCRFModel(cfg), 1200
+    runner = TorchBasecallRunner(cfg, model, chunk_size=chunk, batch_size=2, device="cpu",
+                                 compute_dtype=dtype, **kw)
+    assert runner.compute_dtype == dtype and runner.score_dtype == torch.float32
+    assert all(p.dtype == dtype for p in runner.model.parameters())
+    out = runner.call_chunks(runner.make_input_buffer(0), 1)
+    assert len(out) == 1 and len(out[0].moves) == chunk // cfg.stride
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+def test_kernel_sources_have_float32_forms():
+    """The float32 forms' C entry points, in the sources of their bf16 forms."""
+    sources = {name: (_cuda.CSRC / f"{name}.cu").read_text() for name in (
+        "w8a8_matmul_fq", "w8a8_matmul", "attention_banded", "fused_norm")}
+    assert "DTT_EXPORT int w8a8_matmul_fq(" in sources["w8a8_matmul_fq"]
+    assert "launch<float, float>" in sources["w8a8_matmul_fq"]
+    assert "k13::launch<float>" in sources["w8a8_matmul"]
+    assert "DTT_EXPORT int attention_prerotated_f32(" in sources["attention_banded"]
+    assert "DTT_EXPORT int matmul_residual_rmsnorm_f32(" in sources["fused_norm"]
+    assert "mma_3xtf32_split" in sources["attention_banded"] + sources["fused_norm"]
 
 
 def test_modbase_caller_defaults_to_cuda_and_runs_plain_on_cpu(no_kernels, monkeypatch):

@@ -64,6 +64,23 @@ def jax_tx_params(seed):
     )
 
 
+def with_drawn_biases(params, seed):
+    """A copy of JAX parameters whose biases (convolutions, out_proj,
+    upsample) and norm weights are drawn from ``seed``: the random init
+    leaves them 0 and 1, where a route that dropped or misplaced one would
+    go unseen."""
+    rs = np.random.RandomState(seed)
+    out = jax.tree_util.tree_map(np.array, params)
+    for conv in out["convs"]:
+        conv["b"] = (0.1 * rs.randn(*conv["b"].shape)).astype(np.float32)
+    for layer in out["layers"]:
+        layer["out_proj_b"] = (0.1 * rs.randn(*layer["out_proj_b"].shape)).astype(np.float32)
+        for name in ("norm1", "norm2"):
+            layer[name] = (1.0 + 0.3 * rs.randn(*layer[name].shape)).astype(np.float32)
+    out["upsample"]["b"] = (0.1 * rs.randn(*out["upsample"]["b"].shape)).astype(np.float32)
+    return out
+
+
 def _signal(seed):
     return np.random.RandomState(seed).randn(3, CHUNK).astype(np.float32)
 
@@ -193,8 +210,9 @@ JAX_QUANTISE = {"float": None, "w8a8": quantize_tx_params_w8a8, "int8": quantize
 @functools.lru_cache(maxsize=None)
 def _jax_reference(precision, seed=3):
     """(JAX parameters of ``precision`` as numpy, the signal, tx_forward's
-    scores on them, tx_forward's float32 scores)."""
-    params = jax_tx_params(seed)
+    scores on them, tx_forward's float32 scores), with biases and norm
+    weights drawn from the seed."""
+    params = with_drawn_biases(jax_tx_params(seed), seed)
     sig = _signal(seed)
     jcfg = small_sup(jax_sup_config())
     full = np.asarray(tx_forward(params, jnp.asarray(sig), jcfg))
@@ -214,7 +232,9 @@ def test_routes_match_jax(precision, attention, fused_norm):
     Float32: 2e-4 absolute, as above. Quantised: the tolerance of the W8A8
     test above (the int8 path rounds three activations per token too: the
     inputs of wqkv, fc1 and fc2), and far inside the quantisation's own
-    error. On the CPU every route gives the same scores as the default."""
+    error. On the CPU every route gives the same scores as the default.
+    Biases and norm weights are drawn from the seed (``with_drawn_biases``),
+    so a route that dropped or misplaced one would fail."""
     params, sig, ref, full = _jax_reference(precision)
     carried = tx_params_from_jax(params, small_sup(sup_v50_config()))
     assert carried.precision == precision
@@ -239,7 +259,7 @@ def test_int8_scores_match_jax(seed):
     tcfg = small_sup(sup_v50_config())
     params, sig, ref, full = _jax_reference("int8", seed)
     carried = tx_params_from_jax(params, tcfg)
-    float_params = jax_tx_params(seed)
+    float_params = with_drawn_biases(jax_tx_params(seed), seed)
     own = quantize_tx_int8(tx_params_from_jax(float_params, tcfg))
     assert own.precision == carried.precision == "int8"
     for a, b in zip(own.layers, carried.layers):
