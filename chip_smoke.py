@@ -80,7 +80,14 @@
    (within TOL_NORM_F32), each also at a ragged shape launched into an output
    filled with NaN first, and timed beside its bound, its plain version and
    float32 ``F.linear``, ``torch._int_mm`` + dequantise, SDPA in float32 or
-   the unfused float32 passes.
+   the unfused float32 passes. Then ``wide_kernels``: K1's wide form (the
+   LSTM recurrence at widths no cluster of 16 CTAs holds: W_hh split into
+   register, shared-memory and L2-streamed pairs of k-tiles) in bf16 at H =
+   768 and 1024 and in float32 at 768 and 448, both directions, at T = 1666,
+   N = 128 and at ragged batches, into NaN-filled outputs, each timed beside
+   its bound and cuDNN's LSTM (float32: TF32 off), printing its split; and
+   K11a at float32 (halves-major q and k rotated while staged, the float32
+   body) at sup's shape and a ragged one, beside SDPA in float32.
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``, splitting reads, the default: every read must have its
    record or its subreads' records) at hac v4.3's full width over 16 synthetic reads (14 of
@@ -140,7 +147,17 @@
    chunk 10000, batch 128, unquantised projections): K1 at H = 96 in bf16
    and float32, K3, the full-history scans and K17 at 64 states timed at its
    shapes (``fast_*`` keys of their rows), and ``run_reads`` in bf16 (Viterbi
-   and beam) and in float32, held as above.
+   and beam) and in float32, held as above. Then the LSTM-sup class at full
+   width (``lstm_sup_phase``: ``presets.lstm_sup_config``, 5 LSTM layers of
+   768 on K1's wide form, 1024 states, chunk 9996, batch 128, W8A8) over 12
+   reads that fill a batch: ``run_reads`` in bf16 (Viterbi and beam) and in
+   float32, each path's launches held (K1's wide form and K2 5 times a batch),
+   its scores against the CPU's float32 model on two chunks, its Viterbi
+   decode against the CPU's, its beam against the CPU's plain beam on the
+   same back guide, and one profiled step each; and, in ``float32_paths``,
+   sup at float32 on the "hp" route (K11a at float32, 18 launches a batch),
+   its scores equal to the default route's on the card. The CLI phase runs
+   the LSTM-sup directory too (``cli lstm sup``).
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
@@ -167,7 +184,8 @@
    mode, which must cut at each planted base, and prints its host ms a read
    beside the profiled hac Viterbi step's device ms for as many samples.
 8. Prints one JSON line of per-kernel numbers (the float32 forms of K2, K13,
-   K10 and K14 in rows of their own) and, last, the device line.
+   K10, K14 and K11a and K1's two wide forms in rows of their own) and,
+   last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -439,7 +457,7 @@ def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
 
 
 def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels, launches,
-              card, mod_dir, fast) -> None:
+              card, mod_dir, fast, lstm_sup) -> None:
     """``python -m dorado_tpu_torch basecaller`` on the card: model
     directories written by the port (hac v4.3 and sup v5.0 at full width,
     this run's seeded weights), the committed POD5 fixture, read splitting on
@@ -452,8 +470,9 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
     under ``--min-qscore``). The modbase case (``--modified-bases-models
     mod_dir``) is held on ML within 1 at all but 0.1% of its values, and
     every other field equal: its caller's batches hold other chunks together
-    in the two runs. fast v4.0 (``fast``: its config and model) and hac and
-    sup with ``--dtype float32`` run as the rest; hac with ``--dtype
+    in the two runs. fast v4.0 and the LSTM-sup class (``fast``, ``lstm_sup``:
+    each its config and model) and hac and sup with ``--dtype float32`` run
+    as the rest; hac with ``--dtype
     bfloat16`` must write the default's SAM but for @PG. One more run in a
     subprocess must write the in-process run's SAM but for @PG."""
     import gzip
@@ -488,9 +507,11 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
         hac_dir = save_model(cfg, model, tmp / cfg.model_name)
         sup_dir = save_model(sup_cfg, sup_model, tmp / sup_cfg.model_name)
         fast_dir = save_model(fast[0], fast[1], tmp / fast[0].model_name)
+        lstm_sup_dir = save_model(lstm_sup[0], lstm_sup[1], tmp / lstm_sup[0].model_name)
         print(f"model directories written in {time.perf_counter() - t0:.1f} s", flush=True)
         loaded = {}
-        for kind, path in (("hac", hac_dir), ("sup", sup_dir), ("fast", fast_dir)):
+        for kind, path in (("hac", hac_dir), ("sup", sup_dir), ("fast", fast_dir),
+                           ("lstm sup", lstm_sup_dir)):
             config, params = load_model(path)
             loaded[kind] = (config, build_model(config, params))
 
@@ -598,6 +619,8 @@ def cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_ker
              "sam", "viterbi", {"split_reads": False}),
             ("cli sup", sup_dir, "sup", ["--emit-sam"], "sam", "sup viterbi", {}),
             ("cli fast", fast_dir, "fast", ["--emit-sam"], "sam", "fast viterbi", {}),
+            ("cli lstm sup", lstm_sup_dir, "lstm sup", ["--emit-sam"], "sam", "lstm sup viterbi",
+             {}),
             ("cli hac f32", hac_dir, "hac", ["--emit-sam", "--dtype", "float32"], "sam",
              "hac f32 viterbi", {"compute_dtype": torch.float32}),
             ("cli sup f32", sup_dir, "sup", ["--emit-sam", "--dtype", "float32"], "sam",
@@ -932,6 +955,27 @@ MAX_F32_W8A8_SHALLOW = 1e-2
 # limit
 MAX_FAST_BF16_MEAN_ERR = 0.02
 FAST_T, FAST_S = 2000, 64  # fast v4.0 at chunk 10000 (stride 5), 64 states
+# K1's wide form (widths no cluster of 16 CTAs holds: the LSTM-sup class's H
+# = 768, and 1024): in bf16 within TOL_LSTM, in float32 within TOL_LSTM_F32
+# (the same sums and cell update as K1's and K1 float32's, over more terms).
+# (T, N, H) in both directions: hac's and LSTM-sup's chunk (T = 1666) at the
+# batch, and ragged batches (100, 37: the last cluster part full, N no
+# multiple of 8) at H = 768 and 1024, the float32 form also at 448 (above
+# K1 float32's 384); each launched into an output filled with NaN first
+WIDE_SHAPES = [(T, N, 768), (T, N, 1024), (64, 100, 768), (64, 37, 1024)]
+WIDE_F32_SHAPES = [(T, N, 768), (T, N, 448), (64, 100, 768), (33, 37, 448)]
+# the LSTM-sup class at full width (presets.lstm_sup_config: 5 LSTM layers of
+# 768, 1024 states, chunk 9996): 10 reads of 130k samples give 140 chunks, a
+# full batch of 128 and a second one, and two short reads go to the 7494
+# lane. Its random model's LSTM outputs are smaller than hac's (768 units of
+# weights 1/sqrt(768)), so the CRF head takes twice hac's gain for the
+# Viterbi path to emit bases (on the CPU: 6 bases over 2 chunks at 64, 3327
+# at 128). Its scores are held to hac's limits: bf16 with W8A8 against the
+# CPU's float32 model within MAX_LSTM_SUP_BF16_MEAN_ERR (hac's 0.02), float32
+# within MAX_F32_SCORE_REL
+LSTM_SUP_LONG_READS, LSTM_SUP_SHORT_READS = 10, 2
+LSTM_SUP_HEAD_GAIN = 128.0
+MAX_LSTM_SUP_BF16_MEAN_ERR = 0.02
 
 
 def float32_kernels(k) -> None:
@@ -1122,6 +1166,147 @@ def float32_kernels(k) -> None:
         torch.cuda.empty_cache()
 
 
+def wide_kernels(k) -> None:
+    """K1's wide form in bf16 (``lstm_scan_time_major_wide``) and in float32
+    (``lstm_scan_time_major_wide_f32``) at WIDE_SHAPES and WIDE_F32_SHAPES,
+    both directions, into outputs filled with NaN first (through
+    ``lstm._launch_wide``) and through the wrappers, against the plain
+    version; each timed at T = 1666, N = 128 beside its bound and cuDNN's
+    LSTM at the same shape (float32: TF32 off). Then K11a at float32 at sup's
+    shape and a ragged one, into NaN-filled outputs, within TOL_ATTN_F32,
+    timed beside its bound and SDPA in float32. A row each in the
+    ``kernels`` line."""
+    torch, dev, gen, lstm, attention = k.torch, k.dev, k.gen, k.lstm, k.attention
+    F = torch.nn.functional
+    time_ms, report, card = k.time_ms, k.report, k.card
+
+    with torch.inference_mode():
+        for name, dtype, es, shapes, tol, peak in (
+                ("lstm_scan_wide", torch.bfloat16, 2, WIDE_SHAPES, TOL_LSTM, PEAK_BF16),
+                ("lstm_scan_wide_f32", torch.float32, 4, WIDE_F32_SHAPES, TOL_LSTM_F32,
+                 PEAK_F32)):
+            symbol = "lstm_scan_wide_f32" if es == 4 else "lstm_scan_wide_bf16"
+            wrapper = (lstm.lstm_scan_time_major_wide_f32 if es == 4
+                       else lstm.lstm_scan_time_major_wide)
+            err, timed = 0.0, {}
+            for t_len, n, h in shapes:
+                w = ((torch.rand(h, 4 * h, generator=gen, device=dev) * 2 - 1) / h**0.5).to(dtype)
+                xproj = (torch.randn(t_len, n, 4 * h, generator=gen, device=dev) * 0.8).to(dtype)
+                p = lstm.k1_wide_launch_plan(h, n, dev, es)
+                for reverse in (False, True):
+                    out = wrapper(xproj, w, reverse=reverse)
+                    into = torch.full((t_len, n, h), float("nan"), dtype=dtype, device=dev)
+                    lstm._launch_wide(symbol, xproj, *lstm.wide_w_hh(w, p), into, reverse, p)
+                    ref = lstm.lstm_scan_plain(xproj, w, reverse=reverse)
+                    torch.cuda.synchronize()
+                    # NaN where a position was not written
+                    e = max((out.float() - ref.float()).abs().max().item(),
+                            (into.float() - ref.float()).abs().max().item())
+                    smem = lstm._k1_wide_smem(p.units, p.cluster, p.rows, p.resident - p.reg, es)
+                    print(f"{name} H={h} T={t_len} N={n} reverse={reverse}: max abs error "
+                          f"{e:.3g} (limit {tol}), every position written; clusters of "
+                          f"{p.cluster}, {p.units} units a CTA, {p.warps} warps, {p.rows} rows a "
+                          f"cluster, {p.clusters} clusters; pairs of k-tiles: {p.reg} in "
+                          f"registers, {p.resident - p.reg} resident, {p.pairs - p.resident} "
+                          f"streamed from L2, of {p.pairs}; {smem} bytes of shared memory a "
+                          f"CTA", flush=True)
+                    if not e <= tol:
+                        raise AssertionError(f"{name} at H={h} T={t_len} N={n} "
+                                             f"reverse={reverse}: max abs error {e}")
+                    err = max(err, e)
+                    del out, into, ref
+                if (t_len, n) != (T, N):
+                    continue
+                # timed as K1's row is: reversed (the first layer's direction),
+                # beside cuDNN's one-layer LSTM at the same shape, its input
+                # projection included
+                cudnn = torch.nn.LSTM(h, h, device=dev, dtype=dtype)
+                cudnn.flatten_parameters()
+                x_in = torch.randn(t_len, n, h, generator=gen, device=dev).to(dtype)
+                ms = time_ms(lambda: wrapper(xproj, w, reverse=True), 3)
+                with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                    lib_ms = time_ms(lambda: cudnn(x_in), 3)
+                ops = 2.0 * t_len * n * h * 4 * h
+                nbytes = es * (t_len * n * 4 * h + h * 4 * h + t_len * n * h)
+                b_ms, b_by = bound_ms(ops, peak, nbytes)
+                timed[h] = dict(
+                    ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, ops=ops,
+                    nbytes=nbytes, us_per_step=ms / t_len * 1e3, split=p._asdict(),
+                    plain_ms=time_ms(lambda: lstm.lstm_scan_plain(xproj, w, reverse=True), 1))
+                if es == 4:
+                    timed[h]["tf32x3_bound_ms"] = bound_ms(ops, PEAK_TF32 / 3, nbytes)[0]
+                print(f"{name} T={t_len} N={n} H={h}: {ms:.3f} ms, {ms / t_len * 1e3:.3f} us a "
+                      f"step; bound {b_ms:.3f} ms ({b_by}); cuDNN nn.LSTM "
+                      f"{'float32, TF32 off' if es == 4 else 'bf16'} at the same shape "
+                      f"{lib_ms:.3f} ms [{card}]", flush=True)
+                del cudnn, x_in
+            first, second = timed[shapes[0][2]], timed[shapes[1][2]]
+            report(
+                name, "dorado_tpu_torch/csrc/lstm_scan.cu", "dorado_tpu/ops/lstm.py:65", err,
+                first["ms"], first["plain_ms"], first["ops"], peak, first["nbytes"],
+                first["library_ms"],
+                "(cuDNN nn.LSTM" + (" float32, TF32 off" if es == 4 else "")
+                + ", one layer, incl. its input projection)",
+                shape=f"T={T} N={N} H={shapes[0][2]}", us_per_step=first["us_per_step"],
+                split=first["split"],
+                **({"tf32x3_bound_ms": first["tf32x3_bound_ms"]} if es == 4 else {}),
+                **{f"h{shapes[1][2]}_{key}": v for key, v in second.items()
+                   if key not in ("ops", "nbytes")},
+            )
+            torch.cuda.empty_cache()
+        print(f"  the wide forms' clusters the card runs at once, by width: "
+              f"{ {key[1:4:2]: c for key, c in lstm._active.items()
+                   if not key[2] and lstm.k1_needs_wide(key[1], key[3])} }", flush=True)
+
+        # ---- K11a at float32: the float32 stream on the "hp" route ----------
+        hd, d_head = SUP_D, SUP_D // SUP_HEADS
+        rows = torch.from_numpy(attention.wqkv_halfperm_rows(SUP_HEADS, SUP_D)).to(dev)
+        err = 0.0
+        for n, t_len in (F32_RAGGED_ATTN, (N, SUP_TOK)):  # the timed shape last
+            qkv = torch.randn(n, t_len, 3 * hd, generator=gen, device=dev)
+            hp = qkv[..., rows].contiguous()
+            cos, sin = attention.rope_tables(t_len, d_head, 10000.0, dev)
+            out = attention.windowed_attention_halfperm_f32(hp, cos, sin, SUP_HEADS, *SUP_WINDOW)
+            into = attention._halfperm_launch(hp, cos, sin, SUP_HEADS, *SUP_WINDOW, 12,
+                                              out=torch.full((n, t_len, hd), float("nan"),
+                                                             device=dev))
+            ref = attention.windowed_attention_halfperm_plain(hp, cos, sin, SUP_HEADS,
+                                                              *SUP_WINDOW)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            e = max((out - ref).abs().max().item(), (into - ref).abs().max().item()) / scale
+            print(f"attention_halfperm_f32 N={n} T'={t_len}: max |err| / max |value| {e:.3g} "
+                  f"(limit {TOL_ATTN_F32}), every position written", flush=True)
+            if not (bool(torch.isfinite(into).all()) and e <= TOL_ATTN_F32):
+                raise AssertionError(f"attention_halfperm_f32 at N={n} T'={t_len}: error {e}")
+            err = max(err, e)
+        qk = attention.rope_qk(qkv, cos, sin, SUP_HEADS)
+        q4, k4, v4 = (t.reshape(n, t_len, SUP_HEADS, d_head).transpose(1, 2).contiguous()
+                      for t in (qk[..., :hd], qk[..., hd:], qkv[..., 2 * hd:]))
+        pos = torch.arange(t_len, device=dev)
+        mask = attention.band_mask(pos[:, None], pos[None, :], t_len, *SUP_WINDOW,
+                                   attention.ref_strip_elems(t_len))
+        pairs = float(mask.sum().item())
+        ops = n * SUP_HEADS * pairs * 4.0 * d_head
+        report(
+            "attention_halfperm_f32", "dorado_tpu_torch/csrc/attention_banded.cu",
+            "dorado_tpu/ops/attention.py:608", err,
+            time_ms(lambda: attention.windowed_attention_halfperm_f32(
+                hp, cos, sin, SUP_HEADS, *SUP_WINDOW), 5),
+            time_ms(lambda: attention.windowed_attention_halfperm_plain(
+                hp, cos, sin, SUP_HEADS, *SUP_WINDOW), 1),
+            ops, PEAK_F32,
+            4 * n * t_len * 3 * hd + 4 * n * t_len * hd + 2 * 4 * t_len * (d_head // 2),
+            time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 3),
+            "(scaled_dot_product_attention in float32 on q and k rotated beforehand, dense T' x "
+            "T' with the same boolean mask)",
+            tf32x3_bound_ms=bound_ms(3 * ops, PEAK_TF32, 4 * n * t_len * 4 * hd)[0],
+        )
+        print("  max_abs_err of attention_halfperm_f32 is max |err| / max |value|", flush=True)
+        del qkv, hp, qk, out, into, ref, q4, k4, v4, mask
+        torch.cuda.empty_cache()
+
+
 def profiled_step(k, what, runner) -> None:
     """One full batch of ``runner``'s device step under the profiler: its
     device time by kernel and its busy share of the wall time."""
@@ -1260,6 +1445,9 @@ def float32_paths(k, cfg, model, reads, sup_cfg, sup_model, sup_reads) -> None:
     run_path(k, "hac f32 viterbi", hac, reads, "hac v4.3, float32, W8A8 projections")
     run_path(k, "hac f32 beam", hac_beam, reads, "hac v4.3, float32, W8A8, beam decoder")
     run_path(k, "sup f32", sup, sup_reads, "sup v5.0, 18 layers, float32, W8A8 encoder matmuls")
+    sup_hp = BasecallerPipeline(sup_cfg, sup_model, tx_attention="hp", **f32)
+    run_path(k, "sup hp f32", sup_hp, sup_reads,
+             "sup v5.0, 18 layers, float32, W8A8 encoder matmuls, hp attention route")
     # the fused norms on a copy whose biases and norm weights are drawn from
     # the seed, as the route check's
     drawn = k.tx_model.with_routes(sup_model)
@@ -1327,10 +1515,26 @@ def float32_paths(k, cfg, model, reads, sup_cfg, sup_model, sup_reads) -> None:
           flush=True)
     if not rel <= MAX_F32_W8A8_SHALLOW:
         raise AssertionError("sup f32: the fused norms are too far from the unfused route")
+    # the "hp" route at float32 against the default route on the card, on the
+    # drawn copy, all 18 layers: K11a's float32 staging rotates as rope_qk
+    # does (each product and sum singly rounded) and the float32 body after it
+    # is K10's, and wqkv's permuted rows give the same int8 products, so the
+    # route check's limit for "hp" holds: equal
+    hp_f32 = TorchBasecallRunner(sup_cfg, drawn, tx_attention="hp", **kw).model
+    with torch.inference_mode():
+        got = hp_f32(torch.from_numpy(sig).to(k.dev))
+        want = TorchBasecallRunner(sup_cfg, drawn, **kw).model(torch.from_numpy(sig).to(k.dev))
+    diff = (got - want).abs().max().item() if got.shape == want.shape else float("inf")
+    print(f"sup hp attention, float32 W8A8, vs the default route on the card, all 18 layers: "
+          f"max abs difference {diff}", flush=True)
+    if diff != 0:
+        raise AssertionError("sup hp f32: scores differ from the default route's")
+    del hp_f32, got, want
     for what, runner in (("hac f32 viterbi", hac.runner), ("hac f32 beam", hac_beam.runner),
-                         ("sup f32", sup.runner), ("sup f32 fused", fused)):
+                         ("sup f32", sup.runner), ("sup f32 fused", fused),
+                         ("sup hp f32", sup_hp.runner)):
         profiled_step(k, what, runner)
-    del hac, hac_beam, sup, fused, sup_cpu, drawn
+    del hac, hac_beam, sup, fused, sup_cpu, drawn, sup_hp
     torch.cuda.empty_cache()
 
 
@@ -1431,6 +1635,75 @@ def fast_phase(k, reads) -> tuple:
                          ("fast f32", f32.runner)):
         profiled_step(k, what, runner)
     del vit, bm, f32, cpu
+    torch.cuda.empty_cache()
+    return cfg, model
+
+
+def lstm_sup_phase(k, make_read) -> tuple:
+    """The LSTM-sup class at full width (``lstm_sup_config``: 5 LSTM layers of
+    768 on K1's wide form, 1024 states, chunk 9996, batch 128, random weights
+    from the seed with LSTM_SUP_HEAD_GAIN on the CRF head), through
+    ``run_reads`` over reads that fill a batch (``make_read``): bf16 with W8A8
+    projections and the Viterbi decoder, the same with the beam decoder, and
+    float32 (W8A8, Viterbi), each path's launches held. The scores of two
+    chunks against the CPU's float32 W8A8 model (hac's limits at each type),
+    the card's Viterbi decode of them equal to the CPU's, the card's beam
+    against the CPU's plain beam on the same scores and back guide (K17's
+    limits), and one profiled step each. Returns (config, model)."""
+    import numpy as np
+
+    torch, dev = k.torch, k.dev
+    crf_cuda, beam = k.crf_cuda, k.beam
+    from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+    from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+    from dorado_tpu_torch.models.presets import lstm_sup_config
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+    cfg = lstm_sup_config()
+    cfg.normalise_basecaller_params()
+    model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.linear1_w.mul_(LSTM_SUP_HEAD_GAIN)
+    # from a generator of their own: the later phases keep their draws
+    rs = np.random.RandomState(SEED + 1)
+    reads = [make_read(200 + i, 130_000 if i >= LSTM_SUP_SHORT_READS
+                       else int(rs.randint(3_000, 7_001)), rs)
+             for i in range(LSTM_SUP_SHORT_READS + LSTM_SUP_LONG_READS)]
+    p = dict(batch_size=N, emit_moves=True)
+    vit = BasecallerPipeline(cfg, model, **p)
+    bm = BasecallerPipeline(cfg, model, decoder="beam", **p)
+    f32 = BasecallerPipeline(cfg, model, compute_dtype=torch.float32, **p)
+    if (vit.runner.chunk_size // cfg.stride != T or cfg.num_states != SUP_S
+            or cfg.lstm_size != 768 or not k.lstm.k1_needs_wide(cfg.lstm_size)):
+        raise AssertionError("the LSTM-sup pipeline is not 768 wide at 1024 states, chunk 9996")
+    for pipe in (vit, bm, f32):
+        if not all(hasattr(layer, "w_ih_q") for layer in pipe.runner.model.lstms):
+            raise AssertionError("the LSTM-sup projections are not W8A8")
+    what = f"LSTM-sup (H = 768, 1024 states), batch {N}"
+    run_path(k, "lstm sup viterbi", vit, reads, what + ", bf16 with W8A8 projections")
+    run_path(k, "lstm sup beam", bm, reads, what + ", bf16 with W8A8, beam decoder")
+    run_path(k, "lstm sup f32", f32, reads, what + ", float32 with W8A8 projections")
+    sig = chunk_signals(vit, reads[LSTM_SUP_SHORT_READS:LSTM_SUP_SHORT_READS + 2])
+    cpu = TorchBasecallRunner(cfg, model, device="cpu", lstm_precision="w8a8", batch_size=N)
+    hold_scores_and_decode(k, "lstm sup bf16", vit.runner, cpu, sig, MAX_LSTM_SUP_BF16_MEAN_ERR)
+    hold_scores_and_decode(k, "lstm sup f32", f32.runner, cpu, sig, MAX_F32_SCORE_REL)
+    # the beam on the card against the CPU's plain beam on the same float32
+    # scores, the card's back guide on both sides
+    with torch.inference_mode():
+        scores = bm.runner.model(torch.from_numpy(sig).to(dev)).contiguous()
+        back_guide = crf_cuda.backward_scores(scores, STAY)
+        st_k, mv_k = beam.beam_search_device(scores, back_guide, W, BEAM_CUT, STAY)
+        st_c, mv_c = beam.beam_search_plain(scores.cpu(), back_guide.cpu(), W, BEAM_CUT, STAY)
+    per_row = ((st_k.cpu() != st_c) | (mv_k.cpu() != mv_c)).sum(dim=1).tolist()
+    print(f"lstm sup beam on the card vs the CPU's plain beam, the card's back guide on both: "
+          f"differing steps by row {per_row} of {T}; {int(mv_k.sum().item())} moves", flush=True)
+    if (sum(c > 0 for c in per_row) > BEAM_MAX_ROWS_DIFFERENT
+            or max(per_row) > BEAM_MAX_ROW_SHARE_DIFFERENT * T or int(mv_k.sum().item()) == 0):
+        raise AssertionError("lstm sup beam: far from the CPU's plain beam on the same back guide")
+    for what, runner in (("lstm sup viterbi", vit.runner), ("lstm sup beam", bm.runner),
+                         ("lstm sup f32", f32.runner)):
+        profiled_step(k, what, runner)
+    del vit, bm, f32, cpu, scores, back_guide
     torch.cuda.empty_cache()
     return cfg, model
 
@@ -2634,7 +2907,7 @@ def main() -> None:
         del scores
         errs = hold_lse(scores32, f"T={t_s} N={N} S={s_s}")
         lse_report("crf_lse_scan_1024", "dorado_tpu/ops/crf_pallas.py:461", scores32, errs,
-                   ["sup beam"])
+                   ["sup beam", "lstm sup beam"])
 
         # ---- K7b: the Viterbi forward pass alone at 1024 states ---------------
         ch7, fin7 = hold_viterbi(scores32, f"T={t_s} N={N} S={s_s}")
@@ -2666,10 +2939,13 @@ def main() -> None:
     kit = types.SimpleNamespace(
         torch=torch, dev=dev, gen=gen, card=card, time_ms=time_ms, report=report, rows=rows,
         int8_matmul=int8_matmul, attention=attention, fused_norm=fused_norm, tx_model=tx_model,
-        sup_alpha=sup_v50_config().tx.tx.deepnorm_alpha)
+        lstm=lstm, sup_alpha=sup_v50_config().tx.tx.deepnorm_alpha)
     t0 = time.perf_counter()
     float32_kernels(kit)
     print(f"float32 kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    wide_kernels(kit)
+    print(f"wide K1 and K11a float32 checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the model and the pipelines at hac v4.3's full width ---------------
     cfg = hac_v43_config()
@@ -2694,9 +2970,10 @@ def main() -> None:
         acquisition_start_time_ms=1_700_000_000_000, sample_id="smoke",
     )
 
-    def make_read(i, n):
-        # raw ADC around the models' standardisation mean (92-94 pA at 0.2 pA/ADC)
-        signal = np.clip(rs.normal(460, 113, n), -32768, 32767).astype(np.int16)
+    def make_read(i, n, gen=None):
+        # raw ADC around the models' standardisation mean (92-94 pA at 0.2 pA/ADC),
+        # from rs unless another generator is given
+        signal = np.clip((gen or rs).normal(460, 113, n), -32768, 32767).astype(np.int16)
         return Pod5Read(
             read_id=f"read-{i}", signal=signal, read_number=i, start_sample=0,
             median_before=200.0, channel=i + 1, well=1, pore_type="not_set",
@@ -2911,6 +3188,9 @@ def main() -> None:
         "w8a8_matmul_f32": int8_matmul.w8a8_matmul_f32,
         "attention_prerotated_f32": attention.windowed_attention_prerotated_f32,
         "fused_norm_f32": fused_norm.matmul_residual_rmsnorm_f32,
+        "lstm_scan_wide": lstm.lstm_scan_time_major_wide,
+        "lstm_scan_wide_f32": lstm.lstm_scan_time_major_wide_f32,
+        "attention_halfperm_f32": attention.windowed_attention_halfperm_f32,
     }
     # each path's kernels and, for the sup paths, their launches a batch
     path_kernels = {
@@ -2946,6 +3226,17 @@ def main() -> None:
         "fast viterbi": ["lstm_scan", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
         "fast beam": ["lstm_scan", "crf_lse_scans", "beam_search", "beam_traceback"],
         "fast f32": ["lstm_scan_f32", "crf_lse_backward", "crf_fused_forward", "crf_traceback"],
+        # the LSTM-sup class: K1's wide form, 1024 states
+        "lstm sup viterbi": ["lstm_scan_wide", "w8a8_matmul_fq", "crf_lse_backward",
+                             "crf_fused_forward", "crf_traceback"],
+        "lstm sup beam": ["lstm_scan_wide", "w8a8_matmul_fq", "crf_lse_scans", "beam_search",
+                          "beam_traceback"],
+        "lstm sup f32": ["lstm_scan_wide_f32", "w8a8_matmul_fq_f32", "crf_lse_backward",
+                         "crf_fused_forward", "crf_traceback"],
+        # sup at float32 on the "hp" route (K11a at float32)
+        "sup hp f32": ["w8a8_matmul_fq_f32", "attention_halfperm_f32", "swiglu_w8a8",
+                       "w8a8_matmul_f32", "crf_lse_backward", "crf_fused_forward",
+                       "crf_traceback"],
     }
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
@@ -2959,6 +3250,10 @@ def main() -> None:
         "hac f32 viterbi": [5, 5, 1, 1, 1],
         "fast viterbi": [5, 1, 1, 1],
         "fast f32": [5, 1, 1, 1],
+        "lstm sup viterbi": [5, 5, 1, 1, 1],
+        "lstm sup beam": [5, 5, 1, 1, 1],
+        "lstm sup f32": [5, 5, 1, 1, 1],
+        "sup hp f32": [18, 18, 18, 18, 1, 1, 1],
     }
 
     def check_launches(path, counts, batches):
@@ -3039,6 +3334,9 @@ def main() -> None:
     float32_paths(kit, cfg, model, reads, sup_cfg, sup_model, sup_reads)
     fast = fast_phase(kit, reads)
     print(f"float32 and fast phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lstm_sup = lstm_sup_phase(kit, make_read)
+    print(f"LSTM-sup phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- main paths: modified-base calling, then the command line ----------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_modbase_") as mod_tmp:
@@ -3052,7 +3350,7 @@ def main() -> None:
                       smi)
         print(f"modbase phase: {time.perf_counter() - t0:.1f} s", flush=True)
         cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels,
-                  launches, card, mod_dir, fast)
+                  launches, card, mod_dir, fast, lstm_sup)
     batch_sweep(cfg, model, card)
     torch.cuda.empty_cache()
 

@@ -50,7 +50,6 @@ from dorado_tpu_torch.models.crf_model import LSTMCRFModel, quantize_lstm_crf_w8
 from dorado_tpu_torch.models.tx_model import (
     TxModel,
     check_attention_route,
-    check_route_dtype,
     quantize_tx_int8,
     quantize_tx_w8a8,
     set_routes,
@@ -227,8 +226,7 @@ class TorchBasecallRunner:
     (default False). The two lstm and tx argument sets raise on the other
     model family.
     compute_dtype: ``torch.float32`` or ``torch.bfloat16``; None means bf16 on
-    CUDA and float32 on the CPU. ``tx_attention="hp"`` at float32 on CUDA
-    raises ValueError (``models.tx_model.check_route_dtype``)."""
+    CUDA and float32 on the CPU."""
 
     def __init__(
         self,
@@ -270,7 +268,6 @@ class TorchBasecallRunner:
         self.tx_precision = chosen if config.is_tx_model else None
         if config.is_tx_model:
             self.tx_attention = check_attention_route(tx_attention or "extf")
-            check_route_dtype(self.tx_attention, self.compute_dtype, self.device)
             self.tx_fused_norm = bool(tx_fused_norm)
         else:
             self.tx_attention = self.tx_fused_norm = None

@@ -1,6 +1,7 @@
 // Banded (windowed) softmax attention of the sup transformer, on four layouts
 // of q, k and v. One kernel body, instantiated for three ways of staging q
-// and k; four entry points.
+// and k; four entry points. Two more at float32 (K10 and K11a, below), on a
+// float32 body with two ways of staging q and k.
 //
 // Replaces dorado_tpu/ops/attention.py's banded kernels, one entry point each:
 //   attention_banded_bf16     windowed_attention_ext_fused (Pallas body
@@ -88,6 +89,15 @@
 // wgmma rate: 2.58 ms at sup's shape against 0.96 ms of float32 operations
 // at 67 TFLOP/s, 0.39 at a third of the TF32 rate (NVIDIA H100 80GB HBM3,
 // 700 W, chip_smoke.py).
+//
+// attention_halfperm_f32 (K11a at float32: windowed_attention_halfperm fed
+// float32, as the JAX package's float32 stream runs the "hp" route) is the
+// same float32 body with K11a's staging: q and k taken halves-major from
+// the projection and rotated in float32 from the [T, D/2] tables while they
+// are staged (each product and sum singly rounded, as the plain version), q
+// once before the band, each tile's k rows loaded into registers while the
+// tile before is computed and stored rotated after its products (v still
+// by cp.async). Everything after staging is K10 float32's.
 
 #include <type_traits>
 
@@ -464,12 +474,68 @@ __device__ __forceinline__ void copy_rows_f32(const float* base, size_t stride, 
   }
 }
 
+// K11a at float32: 4 channels of a q or k row's first half (lo) and their
+// partners of the second half (hi), in registers between their load and
+// their rotated store.
+struct HalfPartF32 {
+  float4 lo, hi;
+};
+
+// Item i of a tile of rows from position t0 (row i / 8, channels 4 (i % 8) of
+// each half), of a row whose head's halves sit at lo_off and hi_off; zeros
+// outside [0, T).
+__device__ __forceinline__ HalfPartF32 load_half_f32(const float* base, size_t stride, int lo_off,
+                                                     int hi_off, int t0, int T, int i) {
+  HalfPartF32 p;
+  p.lo = p.hi = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int t = t0 + i / 8, c4 = 4 * (i % 8);
+  if (t < 0 || t >= T) return p;
+  const float* s = base + (size_t)t * stride;
+  p.lo = *reinterpret_cast<const float4*>(s + lo_off + c4);
+  p.hi = *reinterpret_cast<const float4*>(s + hi_off + c4);
+  return p;
+}
+
+// Its rotation, stored at channels 4 (i % 8) and 32 + 4 (i % 8) of staged row
+// i / 8 of dst [rows][LDF]: lo' = cos lo + (-sin) hi, hi' = cos hi + sin lo,
+// each product and sum a single rounded operation, as the plain version
+// computes them in float32.
+__device__ __forceinline__ void store_half_f32(const HalfPartF32& p, const float* cos_t,
+                                               const float* sin_t, int t0, int T, int i,
+                                               float* dst) {
+  const int t = t0 + i / 8, c4 = 4 * (i % 8);
+  float4 lo = p.lo, hi = p.hi;
+  if (t >= 0 && t < T) {
+    const float4 c = *reinterpret_cast<const float4*>(cos_t + (size_t)t * (D / 2) + c4);
+    const float4 sn = *reinterpret_cast<const float4*>(sin_t + (size_t)t * (D / 2) + c4);
+    auto rot_lo = [](float cv, float sv, float l, float h) {
+      return __fadd_rn(__fmul_rn(cv, l), __fmul_rn(-sv, h));
+    };
+    auto rot_hi = [](float cv, float sv, float l, float h) {
+      return __fadd_rn(__fmul_rn(cv, h), __fmul_rn(sv, l));
+    };
+    lo = make_float4(rot_lo(c.x, sn.x, p.lo.x, p.hi.x), rot_lo(c.y, sn.y, p.lo.y, p.hi.y),
+                     rot_lo(c.z, sn.z, p.lo.z, p.hi.z), rot_lo(c.w, sn.w, p.lo.w, p.hi.w));
+    hi = make_float4(rot_hi(c.x, sn.x, p.lo.x, p.hi.x), rot_hi(c.y, sn.y, p.lo.y, p.hi.y),
+                     rot_hi(c.z, sn.z, p.lo.z, p.hi.z), rot_hi(c.w, sn.w, p.lo.w, p.hi.w));
+  }
+  float* row = dst + (i / 8) * LDF;
+  *reinterpret_cast<float4*>(row + c4) = lo;
+  *reinterpret_cast<float4*>(row + D / 2 + c4) = hi;
+}
+
 // q, k, v: the batch row's position 0 of each head's channels ([T, stride]
-// floats); the rest as attention_banded_kernel.
-template <bool FIXED>
+// floats); the rest as attention_banded_kernel. HALVES (K11a at float32): q
+// and k are the batch row's position 0 of the projection's q and k thirds,
+// halves-major (a head's halves at h * 32 and H * 32 + h * 32), rotated by
+// the [T, D/2] tables while staged: q's rows before the band, each tile's k
+// rows loaded into registers while the tile before it is computed and
+// stored rotated after it (v comes by cp.async as before).
+template <bool FIXED, bool HALVES>
 __global__ void __launch_bounds__(THREADS, 1) attention_f32_kernel(
     const float* __restrict__ q, int q_stride, const float* __restrict__ k, int k_stride,
-    const float* __restrict__ v, int v_stride, float* __restrict__ out, int T, int H,
+    const float* __restrict__ v, int v_stride, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, float* __restrict__ out, int T, int H,
     int win_upper, int win_lower, int ref_elems, int chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (FIXED) chunks = NARROW_CHUNKS;
@@ -486,12 +552,29 @@ __global__ void __launch_bounds__(THREADS, 1) attention_f32_kernel(
   const int n = blockIdx.z;
   const int hd = H * D;
   const int kb = q0 - (FIXED ? NARROW : win_upper);  // position of the block's key 0
-  const float* q_base = q + (size_t)n * T * q_stride + head * D;
-  const float* k_base = k + (size_t)n * T * k_stride + head * D;
+  const float* q_base = q + (size_t)n * T * q_stride + (HALVES ? 0 : head * D);
+  const float* k_base = k + (size_t)n * T * k_stride + (HALVES ? 0 : head * D);
   const float* v_base = v + (size_t)n * T * v_stride + head * D;
+  const int lo_off = head * (D / 2), hi_off = H * (D / 2) + head * (D / 2);  // HALVES
+  constexpr int K_ITEMS = BK * 8 / THREADS;  // a thread's items of a tile of k rows (HALVES)
 
-  copy_rows_f32(q_base, q_stride, q0, BQ, T, q_s);
-  copy_rows_f32(k_base, k_stride, kb, BK, T, k_s);
+  if constexpr (HALVES) {
+#pragma unroll
+    for (int j = 0; j < BQ * 8 / THREADS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      store_half_f32(load_half_f32(q_base, q_stride, lo_off, hi_off, q0, T, i), cos_t, sin_t,
+                     q0, T, i, q_s);
+    }
+#pragma unroll
+    for (int j = 0; j < K_ITEMS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      store_half_f32(load_half_f32(k_base, k_stride, lo_off, hi_off, kb, T, i), cos_t, sin_t,
+                     kb, T, i, k_s);
+    }
+  } else {
+    copy_rows_f32(q_base, q_stride, q0, BQ, T, q_s);
+    copy_rows_f32(k_base, k_stride, kb, BK, T, k_s);
+  }
   copy_rows_f32(v_base, v_stride, kb, BK, T, v_s);
   cp_async_commit();
   cp_async_wait<0>();
@@ -597,9 +680,18 @@ __global__ void __launch_bounds__(THREADS, 1) attention_f32_kernel(
   // ---- the key tiles: tile i + 1's copies in flight during tile i's products
   for (int i = 0; i < tiles; ++i) {
     const int buf = i & 1;
+    const int t_next = kb + (i + 1) * BK;
+    HalfPartF32 kn[HALVES ? K_ITEMS : 1];  // HALVES: tile i + 1's k rows, in flight
     if (i + 1 < tiles) {
-      copy_rows_f32(k_base, k_stride, kb + (i + 1) * BK, BK, T, k_s + (buf ^ 1) * BK * LDF);
-      copy_rows_f32(v_base, v_stride, kb + (i + 1) * BK, BK, T, v_s + (buf ^ 1) * BK * LDF);
+      if constexpr (HALVES) {
+#pragma unroll
+        for (int j = 0; j < K_ITEMS; ++j)
+          kn[j] = load_half_f32(k_base, k_stride, lo_off, hi_off, t_next, T,
+                                threadIdx.x + j * THREADS);
+      } else {
+        copy_rows_f32(k_base, k_stride, t_next, BK, T, k_s + (buf ^ 1) * BK * LDF);
+      }
+      copy_rows_f32(v_base, v_stride, t_next, BK, T, v_s + (buf ^ 1) * BK * LDF);
       cp_async_commit();
     }
     const float* kt = k_s + buf * BK * LDF;
@@ -607,6 +699,16 @@ __global__ void __launch_bounds__(THREADS, 1) attention_f32_kernel(
     const int c_end = min((i + 1) * (BK / 16), warp + chunks);
     for (int c = max(i * (BK / 16), warp); c < c_end; ++c)
       run(kt, vt, 16 * (c - i * (BK / 16)), kb + 16 * c);
+    // HALVES: tile i + 1's k rows rotated into the buffer tile i - 1 used,
+    // which every warp left before the barrier that ended tile i - 1
+    if constexpr (HALVES) {
+      if (i + 1 < tiles) {
+#pragma unroll
+        for (int j = 0; j < K_ITEMS; ++j)
+          store_half_f32(kn[j], cos_t, sin_t, t_next, T, threadIdx.x + j * THREADS,
+                         k_s + (buf ^ 1) * BK * LDF);
+      }
+    }
     cp_async_wait<0>();
     __syncthreads();
   }
@@ -627,19 +729,45 @@ __global__ void __launch_bounds__(THREADS, 1) attention_f32_kernel(
   }
 }
 
-template <bool FIXED>
-int launch_f32(const float* q, int q_stride, const float* k, int k_stride, const float* v,
-               int v_stride, float* out, int N, int T, int H, int win_upper, int win_lower,
-               int ref_elems, void* stream) {
+template <bool FIXED, bool HALVES>
+int launch_f32_span(const float* q, int q_stride, const float* k, int k_stride, const float* v,
+                    int v_stride, const float* cos_t, const float* sin_t, float* out, int N,
+                    int T, int H, int win_upper, int win_lower, int ref_elems, void* stream) {
   const int chunks = FIXED ? NARROW_CHUNKS : (16 + win_upper + win_lower + 15) / 16;
   const int smem = (BQ + 4 * BK) * LDF * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<FIXED>,
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<FIXED, HALVES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + BQ - 1) / BQ, H, N);
-  attention_f32_kernel<FIXED><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, q_stride, k, k_stride, v, v_stride, out, T, H, win_upper, win_lower, ref_elems, chunks);
+  attention_f32_kernel<FIXED, HALVES><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, q_stride, k, k_stride, v, v_stride, cos_t, sin_t, out, T, H, win_upper, win_lower,
+      ref_elems, chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K10 (HALVES false) or K11a (true) at float32: qk the rotated q | k [N, T,
+// 2*H*D] (K10) or the projection [N, T, 3*H*D] with its q and k halves-major
+// (K11a, rotated by the [T, D/2] tables); v at channel block 2 of the
+// projection qkv [N, T, 3*H*D].
+template <bool HALVES>
+int launch_f32(const void* qk, const void* qkv, const void* cos_t, const void* sin_t, void* out,
+               int N, int T, int H, int head_dim, int win_upper, int win_lower, int ref_elems,
+               void* stream) {
+  if (N <= 0 || T <= 0 || H <= 0 || head_dim != D || win_upper < 0 || win_lower < 0 ||
+      win_upper > WIN_MAX || win_lower > WIN_MAX || ref_elems <= 0 || N > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = H * head_dim;
+  const int stride = HALVES ? 3 * hd : 2 * hd;
+  const float* qp = static_cast<const float*>(qk);
+  const float* vp = static_cast<const float*>(qkv) + 2 * hd;
+  const float* c = static_cast<const float*>(cos_t);
+  const float* sn = static_cast<const float*>(sin_t);
+  float* o = static_cast<float*>(out);
+  if (win_upper <= NARROW && win_lower <= NARROW)
+    return launch_f32_span<true, HALVES>(qp, stride, qp + hd, stride, vp, 3 * hd, c, sn, o, N, T,
+                                         H, win_upper, win_lower, ref_elems, stream);
+  return launch_f32_span<false, HALVES>(qp, stride, qp + hd, stride, vp, 3 * hd, c, sn, o, N, T,
+                                        H, win_upper, win_lower, ref_elems, stream);
 }
 
 }  // namespace
@@ -691,16 +819,16 @@ DTT_EXPORT int attention_separate_bf16(const void* q, const void* k, const void*
 DTT_EXPORT int attention_prerotated_f32(const void* qk, const void* qkv, void* out, int N,
                                         int T, int H, int head_dim, int win_upper,
                                         int win_lower, int ref_elems, void* stream) {
-  if (N <= 0 || T <= 0 || H <= 0 || head_dim != D || win_upper < 0 || win_lower < 0 ||
-      win_upper > WIN_MAX || win_lower > WIN_MAX || ref_elems <= 0 || N > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int hd = H * head_dim;
-  const float* qkp = static_cast<const float*>(qk);
-  const float* vp = static_cast<const float*>(qkv) + 2 * hd;
-  float* o = static_cast<float*>(out);
-  if (win_upper <= NARROW && win_lower <= NARROW)
-    return launch_f32<true>(qkp, 2 * hd, qkp + hd, 2 * hd, vp, 3 * hd, o, N, T, H, win_upper,
-                            win_lower, ref_elems, stream);
-  return launch_f32<false>(qkp, 2 * hd, qkp + hd, 2 * hd, vp, 3 * hd, o, N, T, H, win_upper,
+  return launch_f32<false>(qk, qkv, nullptr, nullptr, out, N, T, H, head_dim, win_upper,
                            win_lower, ref_elems, stream);
+}
+
+// K11a at float32: qkv [N, T, 3*H*D] float32 with the q and k rows
+// halves-major, v head-major; cos, sin [T, D/2] float32.
+DTT_EXPORT int attention_halfperm_f32(const void* qkv, const void* cos_t, const void* sin_t,
+                                      void* out, int N, int T, int H, int head_dim,
+                                      int win_upper, int win_lower, int ref_elems,
+                                      void* stream) {
+  return launch_f32<true>(qkv, qkv, cos_t, sin_t, out, N, T, H, head_dim, win_upper, win_lower,
+                          ref_elems, stream);
 }

@@ -192,6 +192,42 @@
 // elem_bytes = 4): the card runs 15 clusters of 8 at H = 256, so N = 128
 // takes 8 clusters of 16 rows, one wave, and N = 1024 32 clusters of 32, the
 // most shared memory holds, in three waves.
+//
+// ---------------------------------------------------------------------------
+// The wide form: K1 and K1 float32 where no cluster holds W_hh (WIDE).
+//
+//   lstm_scan_wide_bf16 / lstm_scan_wide_f32: lstm_scan_bf16's and
+//   lstm_scan_f32's function at widths where no cluster of up to 16 CTAs holds
+//   its W_hh slices (bf16 above H = 512, float32 above 384): the LSTM-sup
+//   class, H = 768 (W_hh 4.72 MB in bf16, 9.44 MB in float32), and up to 1024.
+//
+// What bounds it on the H100: K1's chain of steps, with every step needing
+// more of W than the cluster's shared memory holds (16 CTAs hold 3.72 MB).
+// All of W fits the 50 MB L2 many times over, so the part that does not stay
+// resident is read from L2 every step: its latency is in each step's chain,
+// its bytes (times the clusters in flight, which all read the same slices)
+// in L2's bandwidth.
+//
+// Design: K1's kernel, clusters of 16 CTAs of U units (48 at H = 768, 64 at
+// 1024), with W's pairs of k-tiles split three ways per CTA: pairs [0, kr)
+// held in registers for the whole launch (loaded once from L2), pairs
+// [kr, ks) resident in shared memory (as much as is left after h's buffers at
+// the plan's rows), pairs [ks, Kp / 2) streamed from L2 every step as mma A
+// fragments (the layout of K16's W_ih: a lane's 16 bytes of an m-tile and
+// k-tile contiguous, a warp's 512 bytes coalesced). The wrapper hands over
+// the resident part [C][4U][2 KT (ks - kr)] and the fragments of the other
+// pairs [C][U / 4][k-tiles][32 lanes] x 16 bytes (wide_w_hh). The streamed
+// reads do not depend on h: each step issues the first SD of them (a ring of
+// SD pairs of registers: 4 with one m-tile a warp, 2 with two) before it
+// waits for its peers' h slices, so their latency hides behind the exchange;
+// after the wait the streamed pairs come first, each ring slot refilled SD
+// pairs ahead, then the resident pairs, then the register pairs. The ring
+// takes its registers out of those K1 gives its register pairs (with one
+// m-tile a warp, two pairs fewer). h, its exchange, the cell update and the
+// plan's rule for rows are K1's; at float32 the products are K1 float32's
+// 3xTF32. Nothing is int8: K1's bf16 parity holds. The resident form's
+// instantiations compile without any of this (WIDE is a template flag), so
+// at the widths a cluster holds nothing changes.
 #include <type_traits>
 
 #include "common.cuh"
@@ -203,8 +239,9 @@ namespace k1 {
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can have
 constexpr int MAX_WARPS = 12;
 constexpr int MAX_NT = 6;
-// the launches of the template: K1, K16 (FUSED), K15 (int8) and K1 float32
-constexpr int KIND_K1 = 0, KIND_K16 = 1, KIND_K15 = 2, KIND_K1F = 3;
+// the launches of the template: K1, K16 (FUSED), K15 (int8), K1 float32 and
+// the wide forms of K1 and K1 float32 (WIDE)
+constexpr int KIND_K1 = 0, KIND_K16 = 1, KIND_K15 = 2, KIND_K1F = 3, KIND_K1W = 4, KIND_K1FW = 5;
 
 template <typename V>
 __device__ __forceinline__ V pick4(V a, V b, V c, V d, int i) {
@@ -302,30 +339,64 @@ __host__ __device__ constexpr int reg_pairs(int mtw, int nt) {
                   : (nt == 1 ? 4 : nt == 2 ? 2 : 0);
 }
 
+// The wide form's ring of streamed pairs (see its note): 4 pairs with one
+// m-tile a warp where the register pairs leave room, else 2 (the registers
+// of the resident loop's two pairs); and the register pairs it keeps.
+__host__ __device__ constexpr int ring_depth(int mtw, int rp) {
+  return mtw == 1 && rp >= 2 ? 4 : 2;
+}
+__host__ __device__ constexpr int wide_reg_pairs(int mtw, int rp) {
+  return rp - (ring_depth(mtw, rp) - 2);
+}
+
+// The wide form's shared memory: `res` resident pairs of k-tiles of each of
+// the 4U rows (and 16 bytes), h's buffers and stagings as K1's, mbarriers.
+__host__ __device__ constexpr int smem_bytes_wide(int units, int cluster, int rows, int res,
+                                                  int es) {
+  return es * (4 * units * (res * 64 / es + 16 / es) +
+               2 * (h_blocks(units, cluster, es) + 1) * rows * h_stride(units, es)) +
+         16;
+}
+
 // W: the element of W and h (bf16: K1, K16; int8: K15; float: K1 float32);
-// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster); FUSED: K16.
-template <typename W, int MTW, int NT, bool FUSED>
+// MTW m-tiles a warp, NT n-tiles (R = 8 NT rows a cluster); FUSED: K16;
+// WIDE: the wide form (pairs [ks, Kp / 2) streamed from w_frag).
+template <typename W, int MTW, int NT, bool FUSED, bool WIDE>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-    lstm_cluster_kernel(const io_t<W>* __restrict__ xin,         // xproj [T, N, 4H] or x [T, N, H]
-                        const W* __restrict__ w_sl,              // [C][4U][depth] W_hh^T slices
-                        const __nv_bfloat16* __restrict__ w_ih,  // K16: W_ih^T's fragments
-                        const float* __restrict__ gate_vec,      // [4H]: K16's bias, K15's scale
-                        io_t<W>* __restrict__ out,               // [T, N, H]
-                        int T, int N, int H, int C, int U, int reverse) {
+    lstm_cluster_kernel(const io_t<W>* __restrict__ xin,  // xproj [T, N, 4H] or x [T, N, H]
+                        const W* __restrict__ w_sl,       // [C][4U][depth] W_hh^T slices (WIDE:
+                                                          // the resident pairs' columns)
+                        const void* __restrict__ w_frag,  // K16: W_ih^T's fragments; WIDE:
+                                                          // W_hh^T's of the other pairs
+                        const float* __restrict__ gate_vec,  // [4H]: K16's bias, K15's scale
+                        io_t<W>* __restrict__ out,           // [T, N, H]
+                        int T, int N, int H, int C, int U, int reverse, int ks) {
   constexpr bool INT8 = std::is_same_v<W, int8_t>;
   constexpr bool F32 = std::is_same_v<W, float>;
   static_assert(!((INT8 || F32) && FUSED), "K16 runs in bf16");
+  static_assert(!((INT8 || FUSED) && WIDE), "the wide form is K1's and K1 float32's");
   using IO = io_t<W>;
   // elements of a 16-byte chunk (an ldmatrix row) and of a k-tile (32 bytes)
   constexpr int ES = sizeof(W), CH = 16 / ES, KT = 32 / ES;
   using Acc = std::conditional_t<INT8, int, float>;
   constexpr int R = 8 * NT;
+  // pairs of k-tiles of W_hh's A fragments a warp keeps in registers (see
+  // reg_pairs), and the wide form's ring of streamed pairs
+  constexpr int RP = reg_pairs(MTW, F32 ? NT + 2 : FUSED ? NT + 1 : NT);
+  constexpr int KR = WIDE ? wide_reg_pairs(MTW, RP) : RP;
+  constexpr int SD = ring_depth(MTW, RP);
+  static_assert(KR % 2 == 0, "the register pairs are taken two at a time");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hk = depth(C * U, ES), hs = hk + CH;     // row stride of the W slices and x
+  const int hk = depth(C * U, ES), hs = hk + CH;  // the products' depth; row stride of x
+  const int kp_n = hk / (2 * KT);                 // pairs of k-tiles
+  const int kr_n = min(KR, kp_n);                 // pairs [0, kr_n) in registers
+  // pairs [k_lo, k_hi) resident in shared memory, in rows of ws
+  const int k_lo = WIDE ? kr_n : 0, k_hi = WIDE ? ks : kp_n;
+  const int wl = (k_hi - k_lo) * 2 * KT, ws = wl + CH;
   const int up = h_stride(U, ES), hb = h_blocks(U, C, ES);  // row stride of h's blocks, blocks
   const int h_elems = hb * R * up;                    // one h buffer
-  W* w_s = reinterpret_cast<W*>(smem);                // [4U][hs]
-  W* h_s = w_s + 4 * U * hs;                          // [2][hb][R][up]
+  W* w_s = reinterpret_cast<W*>(smem);                // [4U][ws]
+  W* h_s = w_s + 4 * U * ws;                          // [2][hb][R][up]
   W* st_s = h_s + 2 * h_elems;                        // [2][R][up]
   __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(st_s + 2 * R * up);  // K16: [2][R][hs]
   const uint32_t mbar0 = smem_u32(x_s + (FUSED ? 2 * R * hs : 0));  // [2] 8-byte mbarriers
@@ -342,11 +413,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
   // ---- once per launch: the W slice, zeroed h (and x) buffers ---------------
   {
-    const uint4* src = reinterpret_cast<const uint4*>(w_sl + (size_t)rank * 4 * U * hk);
-    const int per_row = hk / CH;
+    const uint4* src = reinterpret_cast<const uint4*>(w_sl + (size_t)rank * 4 * U * wl);
+    const int per_row = wl / CH;
     for (int i = tid; i < 4 * U * per_row; i += nthreads) {
       const int r = i / per_row, c = i % per_row;
-      *reinterpret_cast<uint4*>(w_s + r * hs + c * CH) = src[i];
+      *reinterpret_cast<uint4*>(w_s + r * ws + c * CH) = src[i];
     }
     const uint4 zero = make_uint4(0, 0, 0, 0);
     uint4* hz = reinterpret_cast<uint4*>(h_s);
@@ -426,28 +497,30 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   for (int i = 0; i < MTW; ++i)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) c_state[i][nt] = 0.f;
-  const int kp_n = hk / (2 * KT);  // pairs of k-tiles
   const int cu = U / CH;           // 16-byte chunks in a row of a block of h
   const float inv_cu = 1.f / cu;
-  const W* a_row = w_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hs + (lane >> 4) * CH;
+  const W* a_row = w_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ws + (lane >> 4) * CH;
   auto load_a = [&](int kp, uint32_t (&a)[MTW][2][4]) {
 #pragma unroll
     for (int i = 0; i < MTW; ++i)
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2)
-        ldmatrix_x4(a[i][h2], a_row + i * nwarps * 16 * hs + (2 * kp + h2) * KT);
+        ldmatrix_x4(a[i][h2], a_row + i * nwarps * 16 * ws + (2 * (kp - k_lo) + h2) * KT);
   };
-  // K16's A: W_ih's fragments from L2, [C][U / 4][Kp / 16][32 lanes] x 16
-  // bytes
-  auto load_a_ih = [&](int kp, uint32_t (&a)[MTW][2][4]) {
-    const uint4* frag = reinterpret_cast<const uint4*>(w_ih);
+  // A from L2 as mma fragments, [C][U / 4][k-tiles][32 lanes] x 16 bytes:
+  // K16's W_ih (every k-tile), the wide form's W_hh (the k-tiles of the pairs
+  // that are not resident, in order)
+  const int skip = WIDE ? k_hi - k_lo : 0;  // pairs absent from the fragments
+  const int nf = 2 * (kp_n - skip);         // k-tiles an m-tile
+  auto load_a_l2 = [&](int kp, uint32_t (&a)[MTW][2][4]) {
+    const uint4* frag = reinterpret_cast<const uint4*>(w_frag);
+    const int kf = 2 * (kp < k_lo ? kp : kp - skip);
 #pragma unroll
     for (int i = 0; i < MTW; ++i)
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const uint4 v = __ldg(
-            frag + (((size_t)rank * (U / 4) + warp + i * nwarps) * (hk / 16) + 2 * kp + h2) * 32 +
-            lane);
+            frag + (((size_t)rank * (U / 4) + warp + i * nwarps) * nf + kf + h2) * 32 + lane);
         a[i][h2][0] = v.x;
         a[i][h2][1] = v.y;
         a[i][h2][2] = v.z;
@@ -455,14 +528,17 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
       }
   };
   // pairs [0, kr_n) of W_hh's A fragments in registers, read from the slice
-  // that the cluster barrier above made visible
-  constexpr int KR = reg_pairs(MTW, F32 ? NT + 2 : FUSED ? NT + 1 : NT);
-  static_assert(KR % 2 == 0, "the register pairs are taken two at a time");
-  const int kr_n = min(KR, kp_n);
+  // that the cluster barrier above made visible (the wide form: from L2)
   uint32_t w_reg[KR > 0 ? KR : 1][MTW][2][4];
 #pragma unroll
-  for (int p = 0; p < KR; ++p)
-    if (p < kr_n) load_a(p, w_reg[p]);
+  for (int p = 0; p < KR; ++p) {
+    if (p < kr_n) {
+      if constexpr (WIDE)
+        load_a_l2(p, w_reg[p]);
+      else
+        load_a(p, w_reg[p]);
+    }
+  }
 
   // acc += A . B over a pair of k-tiles. With one m-tile a warp the two
   // accumulators are the pair's two k-tiles, with two they are the two m-tiles
@@ -494,15 +570,15 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
     // the pairs in order, the next pair's fragments loaded before this pair's
     // products (as the recurrent product's loop below)
     uint32_t a0[MTW][2][4], a1[MTW][2][4], b0[NT][4], b1[NT][4];
-    load_a_ih(0, a0);
+    load_a_l2(0, a0);
     load_bx(0, b0);
     int kp = 0;
     for (; kp + 2 <= kp_n; kp += 2) {
-      load_a_ih(kp + 1, a1);
+      load_a_l2(kp + 1, a1);
       load_bx(kp + 1, b1);
       mma_pair(xa, a0, b0);
       if (kp + 2 < kp_n) {
-        load_a_ih(kp + 2, a0);
+        load_a_l2(kp + 2, a0);
         load_bx(kp + 2, b0);
       }
       mma_pair(xa, a1, b1);
@@ -522,6 +598,15 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   for (int step = 0; step < T; ++step) {
     const int t = time_of(step);
     const int buf = step & 1;
+    // the wide form: the first SD streamed pairs' fragments, in flight while
+    // the h slices come in (they do not depend on h)
+    uint32_t ring[WIDE ? SD : 1][MTW][2][4];
+    const int ns = kp_n - k_hi;  // streamed pairs (the wide form)
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int s = 0; s < SD; ++s)
+        if (s < ns) load_a_l2(k_hi + s, ring[s]);
+    }
     if (step > 0) {
       mbar_wait(mbar0 + 8 * buf, ((step - 1) >> 1) & 1);  // every slice of this step's h
       if (tid == 0 && step + 2 < T) mbar_expect(mbar0 + 8 * buf, C * slice_bytes);
@@ -529,7 +614,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 
     // 1. acc = W_slice . h, a pair of k-tiles at a time, the next pair's
     //    fragments loaded before this pair's products: first the pairs whose
-    //    A comes from shared memory, then those held in registers
+    //    A comes from shared memory, then those held in registers (the wide
+    //    form: the streamed pairs before both, each ring slot refilled SD
+    //    pairs ahead)
     Acc acc[2][NT][4];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -550,24 +637,38 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) ldmatrix_x4(b[nt], p + nt * 8 * up);
     };
+    if constexpr (WIDE) {
+      for (int j0 = 0; j0 < ns; j0 += SD) {
+#pragma unroll
+        for (int s = 0; s < SD; ++s) {
+          const int j = j0 + s;
+          if (j < ns) {
+            uint32_t b[NT][4];
+            load_b(k_hi + j, b);
+            mma_pair(acc, ring[s], b);
+            if (j + SD < ns) load_a_l2(k_hi + j + SD, ring[s]);
+          }
+        }
+      }
+    }
     {
       uint32_t a0[MTW][2][4], a1[MTW][2][4], b0[NT][4], b1[NT][4];
       int kp = kr_n;
-      if (kp < kp_n) {
+      if (kp < k_hi) {
         load_a(kp, a0);
         load_b(kp, b0);
       }
-      for (; kp + 2 <= kp_n; kp += 2) {
+      for (; kp + 2 <= k_hi; kp += 2) {
         load_a(kp + 1, a1);
         load_b(kp + 1, b1);
         mma_pair(acc, a0, b0);
-        if (kp + 2 < kp_n) {
+        if (kp + 2 < k_hi) {
           load_a(kp + 2, a0);
           load_b(kp + 2, b0);
         }
         mma_pair(acc, a1, b1);
       }
-      if (kp < kp_n) mma_pair(acc, a0, b0);
+      if (kp < k_hi) mma_pair(acc, a0, b0);
       if (kr_n > 0) load_b(0, b0);
 #pragma unroll
       for (int p = 0; p < KR; p += 2) {
@@ -681,12 +782,19 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
   cluster_sync();
 }
 
-template <typename W, int MTW, int NT, bool FUSED>
-int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* gate_vec,
-              void* out, int T, int N, int H, int C, int U, int reverse, cudaStream_t stream,
-              int* active) {
-  auto kernel = lstm_cluster_kernel<W, MTW, NT, FUSED>;
-  const int smem = smem_bytes(U, C, 8 * NT, FUSED, sizeof(W));
+template <typename W, int MTW, int NT, bool FUSED, bool WIDE>
+int launch_k1(const void* xin, const void* w_sl, const void* w_frag, const void* gate_vec,
+              void* out, int T, int N, int H, int C, int U, int reverse, int ks,
+              cudaStream_t stream, int* active) {
+  auto kernel = lstm_cluster_kernel<W, MTW, NT, FUSED, WIDE>;
+  constexpr int ES = sizeof(W);
+  constexpr int RP = reg_pairs(MTW, ES == 4 ? NT + 2 : FUSED ? NT + 1 : NT);
+  const int kp_n = depth(C * U, ES) * ES / 64;
+  const int kr_n = min(WIDE ? wide_reg_pairs(MTW, RP) : RP, kp_n);
+  if (WIDE && (ks < kr_n || ks > kp_n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = WIDE ? smem_bytes_wide(U, C, 8 * NT, ks - kr_n, ES)
+                        : smem_bytes(U, C, 8 * NT, FUSED, ES);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (C > 8) {
@@ -710,53 +818,59 @@ int launch_k1(const void* xin, const void* w_sl, const void* w_ih, const void* g
   if (active != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveClusters(active, (void*)kernel, &cfg));
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const io_t<W>*>(xin),
-                         static_cast<const W*>(w_sl), static_cast<const __nv_bfloat16*>(w_ih),
+                         static_cast<const W*>(w_sl), w_frag,
                          static_cast<const float*>(gate_vec), static_cast<io_t<W>*>(out), T, N,
-                         H, C, U, reverse);
+                         H, C, U, reverse, ks);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One of the twelve instantiations of K1, K16, K15 or K1 float32, or the
-// launch's refusal.
-template <typename W, bool FUSED>
-int dispatch_nt(const void* xin, const void* w_sl, const void* w_ih, const void* gate_vec,
+// One of the twelve instantiations of K1, K16, K15, K1 float32 or the wide
+// forms, or the launch's refusal.
+template <typename W, bool FUSED, bool WIDE = false>
+int dispatch_nt(const void* xin, const void* w_sl, const void* w_frag, const void* gate_vec,
                 void* out, int T, int N, int H, int C, int U, int mtw, int nt, int reverse,
-                cudaStream_t s, int* active) {
-#define DTT_K1(M, NT_)                                                                 \
-  if (mtw == M && nt == NT_)                                                           \
-    return launch_k1<W, M, NT_, FUSED>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, \
-                                       reverse, s, active);
+                int ks, cudaStream_t s, int* active) {
+#define DTT_K1(M, NT_)                                                                  \
+  if (mtw == M && nt == NT_)                                                            \
+    return launch_k1<W, M, NT_, FUSED, WIDE>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C, \
+                                             U, reverse, ks, s, active);
   DTT_K1(1, 1) DTT_K1(1, 2) DTT_K1(1, 3) DTT_K1(1, 4) DTT_K1(1, 5) DTT_K1(1, 6)
   DTT_K1(2, 1) DTT_K1(2, 2) DTT_K1(2, 3) DTT_K1(2, 4) DTT_K1(2, 5) DTT_K1(2, 6)
 #undef DTT_K1
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int dispatch_k1(int kind, const void* xin, const void* w_sl, const void* w_ih,
+int dispatch_k1(int kind, const void* xin, const void* w_sl, const void* w_frag,
                 const void* gate_vec, void* out, int T, int N, int H, int C, int U, int rows,
-                int warps, int reverse, cudaStream_t s, int* active) {
-  const int es = kind == KIND_K15 ? 1 : kind == KIND_K1F ? 4 : 2;
-  // U: whole k-tiles of h (16 units; 8 in float32)
-  if (kind < KIND_K1 || kind > KIND_K1F || T < 0 || N <= 0 || H <= 0 || H % 4 ||
+                int warps, int reverse, int ks, cudaStream_t s, int* active) {
+  const int es = kind == KIND_K15 ? 1 : kind == KIND_K1F || kind == KIND_K1FW ? 4 : 2;
+  // U: whole k-tiles of h (16 units; 8 in float32); shared memory is checked
+  // where the instantiation is known
+  if (kind < KIND_K1 || kind > KIND_K1FW || T < 0 || N <= 0 || H <= 0 || H % 4 ||
       U % (es == 4 ? 8 : 16) ||
       C < 1 || C > 16 || (C & (C - 1)) || C * U < H || rows % 8 || rows < 8 ||
-      rows > 8 * MAX_NT || warps < 1 || warps > MAX_WARPS || (U / 4) % warps ||
-      smem_bytes(U, C, rows, kind == KIND_K16, es) > SMEM_MAX)
+      rows > 8 * MAX_NT || warps < 1 || warps > MAX_WARPS || (U / 4) % warps)
     return static_cast<int>(cudaErrorInvalidValue);
   const int mtw = U / 4 / warps;
   const int nt = rows / 8;
   if (kind == KIND_K16)
-    return dispatch_nt<__nv_bfloat16, true>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw,
-                                            nt, reverse, s, active);
+    return dispatch_nt<__nv_bfloat16, true>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C, U, mtw,
+                                            nt, reverse, ks, s, active);
   if (kind == KIND_K15)
-    return dispatch_nt<int8_t, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw, nt,
-                                      reverse, s, active);
+    return dispatch_nt<int8_t, false>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C, U, mtw, nt,
+                                      reverse, ks, s, active);
   if (kind == KIND_K1F)
-    return dispatch_nt<float, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw, nt,
-                                     reverse, s, active);
-  return dispatch_nt<__nv_bfloat16, false>(xin, w_sl, w_ih, gate_vec, out, T, N, H, C, U, mtw,
-                                           nt, reverse, s, active);
+    return dispatch_nt<float, false>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C, U, mtw, nt,
+                                     reverse, ks, s, active);
+  if (kind == KIND_K1W)
+    return dispatch_nt<__nv_bfloat16, false, true>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C,
+                                                   U, mtw, nt, reverse, ks, s, active);
+  if (kind == KIND_K1FW)
+    return dispatch_nt<float, false, true>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C, U, mtw,
+                                           nt, reverse, ks, s, active);
+  return dispatch_nt<__nv_bfloat16, false>(xin, w_sl, w_frag, gate_vec, out, T, N, H, C, U, mtw,
+                                           nt, reverse, ks, s, active);
 }
 
 }  // namespace k1
@@ -771,7 +885,8 @@ DTT_EXPORT int lstm_scan_bf16(const void* xproj, const void* w_sl, void* out, in
                               void* stream) {
   if (T == 0) return 0;
   return k1::dispatch_k1(k1::KIND_K1, xproj, w_sl, nullptr, nullptr, out, T, N, H, cluster,
-                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
+                         units, rows, warps, reverse, 0, static_cast<cudaStream_t>(stream),
+                         nullptr);
 }
 
 // x [T, N, H] bf16; w_hh_sl as lstm_scan_bf16's w_sl; w_ih_frag the mma
@@ -782,7 +897,8 @@ DTT_EXPORT int lstm_fused_bf16(const void* x, const void* w_hh_sl, const void* w
                                int cluster, int units, int rows, int warps, void* stream) {
   if (T == 0) return 0;
   return k1::dispatch_k1(k1::KIND_K16, x, w_hh_sl, w_ih_frag, bias, out, T, N, H, cluster,
-                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
+                         units, rows, warps, reverse, 0, static_cast<cudaStream_t>(stream),
+                         nullptr);
 }
 
 // xproj [T, N, 4H] bf16; w_sl [C][4U][Kp] int8 (Kp = C * U rounded up to
@@ -793,7 +909,8 @@ DTT_EXPORT int lstm_scan_int8(const void* xproj, const void* w_sl, const void* s
                               int warps, void* stream) {
   if (T == 0) return 0;
   return k1::dispatch_k1(k1::KIND_K15, xproj, w_sl, nullptr, scale, out, T, N, H, cluster,
-                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
+                         units, rows, warps, reverse, 0, static_cast<cudaStream_t>(stream),
+                         nullptr);
 }
 
 // xproj [T, N, 4H] float32; w_sl [C][4U][Kp] float32 (Kp = C * U rounded up
@@ -804,14 +921,41 @@ DTT_EXPORT int lstm_scan_f32(const void* xproj, const void* w_sl, void* out, int
                              void* stream) {
   if (T == 0) return 0;
   return k1::dispatch_k1(k1::KIND_K1F, xproj, w_sl, nullptr, nullptr, out, T, N, H, cluster,
-                         units, rows, warps, reverse, static_cast<cudaStream_t>(stream), nullptr);
+                         units, rows, warps, reverse, 0, static_cast<cudaStream_t>(stream),
+                         nullptr);
 }
 
-// How many clusters of K1's (kind 0), K16's (1), K15's (2) or K1 float32's
-// (3) launch at this shape the card runs at once.
+// The wide forms: xproj [T, N, 4H] and out [T, N, H] in bf16 (float32);
+// w_res [C][4U][2 KT (ks - kr)], the columns of the resident pairs [kr, ks)
+// of lstm_scan_bf16's (lstm_scan_f32's) slices; w_frag the mma fragments of
+// the other pairs' k-tiles in order, [C][U / 4][k-tiles][32] x 16 bytes (the
+// wrapper's wide_w_hh); kr the register pairs of the instantiation (see
+// wide_reg_pairs), ks the end of the resident pairs; the limits of
+// lstm_scan_bf16 (lstm_scan_f32).
+DTT_EXPORT int lstm_scan_wide_bf16(const void* xproj, const void* w_res, const void* w_frag,
+                                   void* out, int T, int N, int H, int reverse, int cluster,
+                                   int units, int rows, int warps, int ks, void* stream) {
+  if (T == 0) return 0;
+  return k1::dispatch_k1(k1::KIND_K1W, xproj, w_res, w_frag, nullptr, out, T, N, H, cluster,
+                         units, rows, warps, reverse, ks, static_cast<cudaStream_t>(stream),
+                         nullptr);
+}
+
+DTT_EXPORT int lstm_scan_wide_f32(const void* xproj, const void* w_res, const void* w_frag,
+                                  void* out, int T, int N, int H, int reverse, int cluster,
+                                  int units, int rows, int warps, int ks, void* stream) {
+  if (T == 0) return 0;
+  return k1::dispatch_k1(k1::KIND_K1FW, xproj, w_res, w_frag, nullptr, out, T, N, H, cluster,
+                         units, rows, warps, reverse, ks, static_cast<cudaStream_t>(stream),
+                         nullptr);
+}
+
+// How many clusters of K1's (kind 0), K16's (1), K15's (2), K1 float32's (3)
+// or the wide forms' (4: bf16, 5: float32, with ks the end of the resident
+// pairs) launch at this shape the card runs at once.
 DTT_EXPORT int lstm_scan_active_clusters(int H, int kind, int cluster, int units, int rows,
-                                         int warps, int* active) {
+                                         int warps, int ks, int* active) {
   *active = 0;
   return k1::dispatch_k1(kind, nullptr, nullptr, nullptr, nullptr, nullptr, 1, rows, H, cluster,
-                         units, rows, warps, 0, nullptr, active);
+                         units, rows, warps, 0, ks, nullptr, active);
 }

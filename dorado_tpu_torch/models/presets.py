@@ -57,6 +57,30 @@ def hac_v43_config() -> BasecallModelConfig:
     return cfg
 
 
+def lstm_sup_config() -> BasecallModelConfig:
+    """The conv + LSTM sup class, named dna_r10.4.1_e8.2_400bps_sup@v4.3.0,
+    built from what the repository records of that class (the JAX package's
+    benchmark and README: LSTM 768 wide, state_len 5) and, for every other
+    field, hac v4.3's (``hac_v43_config``); its true ``config.toml`` is not
+    in the repository. Field by field:
+
+      - from the records: 5 LSTM layers of 768 (``lstm_size``), ``state_len``
+        5, ``outsize`` 4^6 (1024 states);
+      - from hac v4.3: the convs 1 -> 16 -> 16 (k5, swish) -> 768 (the last
+        at k19, stride 6, tanh), ``stride`` 6, chunk 10000 (9996 once
+        normalised to the stride) with overlap 500, ``clamp``, no bias,
+        ``blank_score`` 2.0, ``scale`` 1.0, qscale 1.1 and qbias -1.1, 5 kHz
+        DNA, pa scaling with hac's standardisation (mean 91.88, stdev
+        22.65)."""
+    cfg = hac_v43_config()
+    cfg.model_path = Path("dna_r10.4.1_e8.2_400bps_sup@v4.3.0")
+    cfg.lstm_size = 768
+    cfg.state_len = 5
+    cfg.outsize = 4**6
+    cfg.convs[2] = ConvParams(16, 768, 19, 6, Activation.TANH)
+    return cfg
+
+
 def fast_v40_config() -> BasecallModelConfig:
     """dna_r10.4.1_e8.2_260bps_fast@v4.0.0: conv 16/16/96 (stride 5),
     5x LSTM(96), LinearCRF state_len 3."""

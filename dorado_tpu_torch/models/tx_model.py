@@ -26,8 +26,8 @@ the first RMS norm run as one kernel (``ops.fused_norm``, K14), and so do fc2
 and the second norm when the encoder matmuls are unquantised. The JAX package
 picks these routes with environment variables; here they are arguments. A
 float32 stream leaves ``"extf"`` for ``"ext"`` (K10 at float32), as the JAX
-layer falls back to its plain ext kernel at float32; ``"hp"`` has no float32
-kernel on the card, and ``check_route_dtype`` refuses it there.
+layer falls back to its plain ext kernel at float32; ``"hp"`` runs K11a at
+float32 (``windowed_attention_halfperm_f32``).
 
 ``quantize_tx_w8a8`` turns the encoder's three fat matmuls into W8A8:
 ``wqkv`` through ``ops.int8_matmul.w8a8_matmul_fq``, fc1 with the SwiGLU
@@ -92,17 +92,6 @@ def check_attention_route(attention: str) -> str:
             f"unknown attention route {attention!r}: expected one of {ATTENTION_ROUTES}"
         )
     return attention
-
-
-def check_route_dtype(attention: str, dtype: torch.dtype, device: torch.device | str) -> None:
-    """Raise ValueError where the card has no kernel for the route at the
-    compute type: ``"hp"`` (K11a) runs bf16 only. On the CPU every route runs
-    its plain version at either type."""
-    if attention == "hp" and dtype == torch.float32 and torch.device(device).type == "cuda":
-        raise ValueError(
-            "tx_attention='hp' has no float32 kernel on the card (K11a runs bf16): "
-            "use 'extf' or 'ext' with compute_dtype=torch.float32"
-        )
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

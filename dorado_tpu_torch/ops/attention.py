@@ -14,7 +14,8 @@ Ports of ``dorado_tpu/ops/attention.py``:
   plain PyTorch pass (the JAX package rotates in XLA outside the kernel too),
   and v taken from the projection.
 - ``windowed_attention_halfperm`` (K11a): the projection with its q and k
-  rows halves-major (``rope_halfperm``), RoPE inside.
+  rows halves-major (``rope_halfperm``), RoPE inside; at float32 through
+  ``windowed_attention_halfperm_f32``.
 - ``windowed_attention_fused`` (K11b): separate q, k, v ``[N, T, H, D]``, no
   rotation, windows up to 256 keys a side.
 
@@ -26,9 +27,10 @@ window): ``band_mask``, the JAX package's ``_band_bias_at``.
 
 On a CUDA tensor each wrapper launches ``csrc/attention_banded.cu`` (bf16,
 heads of 64 channels): blocks of 128 queries over a ring of 64-key tiles,
-one pass with a running max. K10 also runs on float32 q, k and v
-(``windowed_attention_prerotated_f32``, the JAX package's float32 stream),
-with float32 products (3xTF32) and no rounding of the output. On a CPU
+one pass with a running max. K10 and K11a also run on float32 q, k and v
+(``windowed_attention_prerotated_f32``, ``windowed_attention_halfperm_f32``:
+the JAX package's float32 stream), with float32 products (3xTF32) and no
+rounding of the output. On a CPU
 tensor each runs its plain version below, which follows the same arithmetic
 but for the order of the sums:
 rotation in float32 rounded to the stream dtype, float32 logits, softmax
@@ -426,26 +428,69 @@ def windowed_attention_halfperm(
     are the same float32 arithmetic as K9's.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
-    bf16, D = 64, windows of at most 128 keys a side, float32 tables."""
+    bf16 here, float32 through ``windowed_attention_halfperm_f32``; D = 64,
+    windows of at most 128 keys a side, float32 tables."""
     if qkv.device.type == "cpu":
         return windowed_attention_halfperm_plain(
             qkv, cos, sin, nhead, win_upper, win_lower, num_splits
         )
-    what = "windowed_attention_halfperm"
-    n, t_len, hd, d = _check_projection(what, qkv, nhead)
-    _check_heads(what, d, win_upper, win_lower, 128)
-    _check_tables(what, cos, sin, t_len, d, qkv.device)
-    out = torch.empty(n, t_len, hd, dtype=torch.bfloat16, device=qkv.device)
-    _launch(
-        "attention_halfperm_bf16", [qkv, cos, sin, out],
-        [n, t_len, nhead, d, win_upper, win_lower, ref_strip_elems(t_len, num_splits)],
-        qkv.device,
-    )
+    if qkv.dtype == torch.float32:
+        return windowed_attention_halfperm_f32(
+            qkv, cos, sin, nhead, win_upper, win_lower, num_splits
+        )
+    out = _halfperm_launch(qkv, cos, sin, nhead, win_upper, win_lower, num_splits)
     windowed_attention_halfperm.launches += 1
     return out
 
 
+def windowed_attention_halfperm_f32(
+    qkv: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    nhead: int,
+    win_upper: int,
+    win_lower: int,
+    num_splits: int = 12,
+) -> torch.Tensor:
+    """K11a at float32: ``windowed_attention_halfperm`` on a float32
+    projection (the JAX package's float32 stream on the ``"hp"`` route),
+    float32 rotation, products (3xTF32) and output, on its own launch
+    counter. A CPU tensor takes the plain version."""
+    if qkv.device.type == "cpu":
+        return windowed_attention_halfperm_plain(
+            qkv, cos, sin, nhead, win_upper, win_lower, num_splits
+        )
+    out = _halfperm_launch(qkv, cos, sin, nhead, win_upper, win_lower, num_splits)
+    windowed_attention_halfperm_f32.launches += 1
+    return out
+
+
+def _halfperm_launch(
+    qkv, cos, sin, nhead, win_upper, win_lower, num_splits, out=None
+) -> torch.Tensor:
+    """K11a's launch on CUDA tensors, bf16 or float32 (qkv's dtype); into
+    ``out`` where given (a check fills it with NaN first)."""
+    what = "windowed_attention_halfperm"
+    dtype = qkv.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: the kernel takes bf16 or float32, not {dtype}")
+    n, t_len, hd, d = _check_projection(what, qkv, nhead, dtype)
+    _check_heads(what, d, win_upper, win_lower, 128)
+    _check_tables(what, cos, sin, t_len, d, qkv.device)
+    if out is None:
+        out = torch.empty(n, t_len, hd, dtype=dtype, device=qkv.device)
+    _cuda.check_tensor(out, "out", dtype, (n, t_len, hd))
+    symbol = "attention_halfperm_f32" if dtype == torch.float32 else "attention_halfperm_bf16"
+    _launch(
+        symbol, [qkv, cos, sin, out],
+        [n, t_len, nhead, d, win_upper, win_lower, ref_strip_elems(t_len, num_splits)],
+        qkv.device,
+    )
+    return out
+
+
 windowed_attention_halfperm.launches = 0
+windowed_attention_halfperm_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,14 @@ of W_ih from L2 every step in the order of the mma fragments
 (``elem_bytes=1``): its W_i8 slices resident, int8 products on the tensor
 cores, h exchanged as int8. K1 float32 runs on K1's kernel with float
 elements (``elem_bytes=4``): its products in 3xTF32, h exchanged in float32.
+
+Where no cluster of 16 CTAs holds W_hh (bf16 above H = 512, float32 above
+384: the LSTM-sup class's H = 768), ``lstm_scan_time_major`` and
+``lstm_scan_time_major_f32`` launch the wide form of K1's kernel through
+``lstm_scan_time_major_wide`` and ``lstm_scan_time_major_wide_f32``, each on
+its own launch counter: clusters of 16, each CTA's W_hh slice split into
+pairs of k-tiles held in registers, resident in shared memory and streamed
+from L2 every step (``k1_wide_plan``, ``wide_w_hh``).
 """
 
 from __future__ import annotations
@@ -171,13 +179,6 @@ def slice_w_hh(w_hh_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
     return w.reshape(kp, 4, cluster, units).permute(2, 3, 1, 0).reshape(cluster, 4 * units, kp)
 
 
-# lane l's 8 bf16 of an m16 x k16 A tile, as ldmatrix_x4 gives them from a
-# row-major tile: (row, k) of its registers a[0] to a[3], two values each
-_LANE = torch.arange(32)
-_FRAG_ROWS = torch.stack([_LANE // 4 + d for d in (0, 0, 8, 8, 0, 0, 8, 8)], 1)
-_FRAG_COLS = torch.stack([2 * (_LANE % 4) + d for d in (0, 1, 0, 1, 8, 9, 8, 9)], 1)
-
-
 def w_ih_fragments(w_ih_t: torch.Tensor, cluster: int, units: int) -> torch.Tensor:
     """[H, 4H] input weights -> [cluster, units // 4, Kp // 16, 32, 8]: W_ih
     sliced over the cluster as ``slice_w_hh`` slices W_hh (K16's input is H
@@ -185,10 +186,120 @@ def w_ih_fragments(w_ih_t: torch.Tensor, cluster: int, units: int) -> torch.Tens
     CTA c's m-tile mt (16 rows) and k-tile kt (16 k) that lane l holds, rows
     l // 4 and l // 4 + 8 at k 2 (l % 4) + (0, 1) and + 8. A lane reads its
     16 bytes, a warp 512 contiguous bytes."""
-    sl = slice_w_hh(w_ih_t, cluster, units)
-    kp = sl.shape[2]
-    tiles = sl.reshape(cluster, units // 4, 16, kp // 16, 16).permute(0, 1, 3, 2, 4)
-    return tiles[..., _FRAG_ROWS, _FRAG_COLS].contiguous()
+    return _fragments(slice_w_hh(w_ih_t, cluster, units))
+
+
+# K1's register pairs (``reg_pairs`` in the source): pairs of k-tiles of W a
+# warp holds in registers, by m-tiles a warp and n-tiles (K1 float32 counts
+# two more n-tiles)
+def _k1_reg_pairs(mtw: int, nt: int) -> int:
+    if mtw == 1:
+        return {1: 12, 2: 8, 3: 4, 4: 2}.get(nt, 0)
+    return {1: 4, 2: 2}.get(nt, 0)
+
+
+class WidePlan(NamedTuple):
+    """How K1's wide form splits a launch: ``ClusterPlan``'s fields, and each
+    CTA's pairs of k-tiles of W (64 bytes of depth each): [0, ``reg``) held
+    in registers, [``reg``, ``resident``) in shared memory, [``resident``,
+    ``pairs``) streamed from L2 every step."""
+
+    cluster: int
+    units: int
+    warps: int
+    rows: int
+    clusters: int
+    reg: int
+    resident: int
+    pairs: int
+
+
+_K1_WIDE_CLUSTER = 16
+
+
+def k1_needs_wide(hidden: int, elem_bytes: int = 2) -> bool:
+    """True where no cluster of up to 16 CTAs holds W_hh at width H in
+    elements of ``elem_bytes`` (2: bf16, 4: float32): K1's wide form."""
+    try:
+        k1_cluster_shape(hidden, elem_bytes=elem_bytes)
+    except ValueError:
+        return True
+    return False
+
+
+def _k1_wide_smem(units: int, cluster: int, rows: int, resident: int, elem_bytes: int) -> int:
+    """Shared memory of one CTA of the wide form in bytes
+    (``smem_bytes_wide`` in the source): ``resident`` pairs of k-tiles of its
+    4U rows (and 16 bytes a row), and K1's h buffers, stagings and
+    mbarriers."""
+    pad = 16 // elem_bytes
+    blocks = -(-_k1_depth(cluster, units, elem_bytes) // units)
+    h_rows = 2 * (blocks + 1) * rows * _k1_h_stride(units, elem_bytes)
+    return elem_bytes * (4 * units * (resident * 64 // elem_bytes + pad) + h_rows) + 16
+
+
+def k1_wide_plan(hidden: int, n: int, active_clusters: int, elem_bytes: int = 2) -> WidePlan:
+    """The wide form's split for width H and ``n`` rows: clusters of 16
+    CTAs, each CTA's units rounded up to whole k-tiles of h (16 bf16, 8
+    float32), the most warps that split their m-tiles one or two a warp;
+    rows a cluster by ``k1_plan``'s rule (a multiple of 8 that spreads the
+    batch over the clusters the card runs at once, at most 48 and what h's
+    buffers leave room for); the register pairs of the instantiation (K1's,
+    less the ring of streamed pairs: ``wide_reg_pairs`` in the source); as
+    many pairs resident as shared memory holds after h's buffers; the rest
+    streamed."""
+    cluster = _K1_WIDE_CLUSTER
+    units = -(-hidden // cluster)
+    units += -units % (32 // elem_bytes)
+    tiles = units // 4
+    warps = [w for w in range(1, _K1_MAX_WARPS + 1)
+             if tiles % w == 0 and tiles // w <= _K1_MAX_TILES_A_WARP]
+    fit = [r for r in range(8, _K1_MAX_ROWS + 1, 8)
+           if _k1_wide_smem(units, cluster, r, 0, elem_bytes) <= _K1_SMEM_MAX]
+    if not warps or not fit:
+        raise ValueError(f"lstm_scan: the wide form takes no H = {hidden}")
+    per_cluster = -(-n // max(active_clusters, 1))
+    rows = min(max(8, per_cluster + -per_cluster % 8), fit[-1])
+    pairs = _k1_depth(cluster, units, elem_bytes) * elem_bytes // 64
+    mtw, nt = tiles // max(warps), rows // 8
+    rp = _k1_reg_pairs(mtw, nt + 2 if elem_bytes == 4 else nt)
+    reg = min(rp - (2 if mtw == 1 and rp >= 2 else 0), pairs)
+    room = _K1_SMEM_MAX - _k1_wide_smem(units, cluster, rows, 0, elem_bytes)
+    resident = reg + min(room // (4 * units * 64), pairs - reg)
+    return WidePlan(cluster, units, max(warps), rows, -(-n // rows), reg, resident, pairs)
+
+
+def _fragments(sl: torch.Tensor) -> torch.Tensor:
+    """[C, 4U, Kp] slices (any element type) -> [C, U / 4, Kp / KT, 32, 16
+    bytes' elements]: the mma A fragments of each m-tile (16 rows) and k-tile
+    (32 bytes, KT elements) that lane l holds, as ldmatrix_x4 gives them
+    from a row-major tile: in 32-bit words, rows l // 4 and l // 4 + 8 at
+    word l % 4, then the same rows at word 4 + l % 4. A lane reads its 16
+    bytes, a warp 512 contiguous bytes."""
+    c, rows, kp = sl.shape
+    words = sl.contiguous().view(torch.int32)  # [C, 4U, Kp * es / 4]
+    kw = words.shape[2]
+    tiles = words.reshape(c, rows // 16, 16, kw // 8, 8).permute(0, 1, 3, 2, 4)
+    lane = torch.arange(32, device=sl.device)  # made there: no copy from the host
+    r, w = lane // 4, lane % 4
+    frag = torch.stack([tiles[..., r, w], tiles[..., r + 8, w],
+                        tiles[..., r, w + 4], tiles[..., r + 8, w + 4]], -1)
+    return frag.contiguous().view(sl.dtype)
+
+
+def wide_w_hh(w_hh_t: torch.Tensor, plan: WidePlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """[H, 4H] recurrent weights -> (resident [C, 4U, (resident - reg) * 64
+    bytes' elements], fragments [C, U / 4, k-tiles, 32, 16 bytes' elements]):
+    ``slice_w_hh``'s slices at the plan's cluster, cut at pairs of k-tiles
+    (64 bytes of depth): the columns of the resident pairs [reg, resident),
+    which the kernel copies into shared memory, and the mma A fragments
+    (``_fragments``) of the k-tiles of the other pairs, [0, reg) then
+    [resident, pairs), in order, which it reads from L2."""
+    sl = slice_w_hh(w_hh_t, plan.cluster, plan.units)
+    pair = 64 // w_hh_t.element_size()
+    res = sl[:, :, plan.reg * pair:plan.resident * pair].contiguous()
+    frag = _fragments(sl)
+    return res, torch.cat([frag[:, :, :2 * plan.reg], frag[:, :, 2 * plan.resident:]], dim=2)
 
 
 _active: dict[tuple, int] = {}
@@ -202,15 +313,23 @@ def _active_clusters(
     and width."""
     key = (device, hidden, fused, elem_bytes)
     if key not in _active:
-        cluster, units, warps = k1_cluster_shape(hidden, fused, elem_bytes)
+        # the source's KIND_K15, KIND_K1F, KIND_K16, KIND_K1; the wide forms'
+        # KIND_K1W, KIND_K1FW, at their resident pairs at 8 rows
+        wide = not fused and elem_bytes != 1 and k1_needs_wide(hidden, elem_bytes)
+        if wide:
+            p = k1_wide_plan(hidden, 8, 1, elem_bytes)
+            cluster, units, warps, ks = p.cluster, p.units, p.warps, p.resident
+            kind = 5 if elem_bytes == 4 else 4
+        else:
+            cluster, units, warps = k1_cluster_shape(hidden, fused, elem_bytes)
+            ks = 0
+            kind = {1: 2, 4: 3}.get(elem_bytes, int(fused))
         fn = _cuda.kernel_function(
-            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 6 + [_cuda.VOIDP]
+            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 7 + [_cuda.VOIDP]
         )
         count = ctypes.c_int(0)
-        # the source's KIND_K15, KIND_K1F, KIND_K16, KIND_K1
-        kind = {1: 2, 4: 3}.get(elem_bytes, int(fused))
         with torch.cuda.device(device):
-            code = fn(hidden, kind, cluster, units, 8, warps, ctypes.addressof(count))
+            code = fn(hidden, kind, cluster, units, 8, warps, ks, ctypes.addressof(count))
         _cuda.check_launch("lstm_scan", code)
         if count.value < 1:
             raise RuntimeError(f"lstm_scan: the card runs no cluster of {cluster} CTAs at H = {hidden}")
@@ -228,12 +347,23 @@ def k1_launch_plan(
     )
 
 
+def k1_wide_launch_plan(
+    hidden: int, n: int, device: torch.device, elem_bytes: int = 2
+) -> WidePlan:
+    """The split K1's wide form (bf16, or float32: ``elem_bytes=4``)
+    launches with on ``device`` for width H and N rows."""
+    return k1_wide_plan(hidden, n, _active_clusters(device, hidden, False, elem_bytes), elem_bytes)
+
+
 # K1's element types on CUDA, by C entry: the activations' and W's dtypes,
 # W's element size (``elem_bytes``), the widest H and what H is a multiple of
 _K1_KINDS = {
     "lstm_scan_bf16": (torch.bfloat16, torch.bfloat16, 2, 512, 4),  # K1
     "lstm_scan_f32": (torch.float32, torch.float32, 4, 384, 4),  # K1 float32
     "lstm_scan_int8": (torch.bfloat16, torch.int8, 1, 512, 16),  # K15
+    # K1's wide form, where no cluster holds W_hh (see k1_needs_wide)
+    "lstm_scan_wide_bf16": (torch.bfloat16, torch.bfloat16, 2, 1024, 4),
+    "lstm_scan_wide_f32": (torch.float32, torch.float32, 4, 1024, 4),
 }
 
 
@@ -241,19 +371,68 @@ def _scan(
     symbol: str, xproj: torch.Tensor, w_t: torch.Tensor, reverse: bool,
     scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """K1, K1 float32 or K15 (``symbol``, a key of ``_K1_KINDS``) on CUDA
-    tensors: [T, N, 4H] gates + [H, 4H] W (K15: int8, with its scale) ->
-    [T, N, H], split by ``k1_launch_plan``."""
+    """K1, K1 float32, K15 or K1's wide forms (``symbol``, a key of
+    ``_K1_KINDS``) on CUDA tensors: [T, N, 4H] gates + [H, 4H] W (K15: int8,
+    with its scale) -> [T, N, H], split by ``k1_launch_plan`` (the wide
+    forms: ``k1_wide_launch_plan``)."""
     _, w_dtype, elem_bytes, max_h, multiple = _K1_KINDS[symbol]
     t_len, n, g4 = xproj.shape
     hidden = g4 // 4
     if g4 != 4 * hidden or hidden % multiple or not 0 < hidden <= max_h or t_len == 0 or n == 0:
         raise ValueError(f"{symbol}: unsupported gate shape {tuple(xproj.shape)}")
     _cuda.check_tensor(w_t, "w_hh_t", w_dtype, (hidden, g4))
-    plan = k1_launch_plan(hidden, n, xproj.device, elem_bytes=elem_bytes)
     out = torch.empty(t_len, n, hidden, dtype=xproj.dtype, device=xproj.device)
+    if symbol.startswith("lstm_scan_wide"):
+        if not k1_needs_wide(hidden, elem_bytes):
+            raise ValueError(f"{symbol}: a cluster holds W_hh at H = {hidden} (K1's resident "
+                             f"form takes it)")
+        wide = k1_wide_launch_plan(hidden, n, xproj.device, elem_bytes)
+        _launch_wide(symbol, xproj, *wide_w_hh(w_t, wide), out, reverse, wide)
+        return out
+    plan = k1_launch_plan(hidden, n, xproj.device, elem_bytes=elem_bytes)
     _launch(symbol, xproj, slice_w_hh(w_t, plan.cluster, plan.units), out, reverse, plan, scale)
     return out
+
+
+def _launch_wide(
+    symbol: str,
+    xproj: torch.Tensor,
+    w_res: torch.Tensor,
+    w_frag: torch.Tensor,
+    out: torch.Tensor,
+    reverse: bool,
+    plan: WidePlan,
+) -> None:
+    """K1's wide form (``symbol``: ``lstm_scan_wide_bf16`` or
+    ``lstm_scan_wide_f32``) on CUDA tensors: ``wide_w_hh(w, plan)``'s
+    resident columns and fragments into ``out`` [T, N, H], split by
+    ``plan``; one launch on the wrapper's counter."""
+    dtype = torch.float32 if symbol == "lstm_scan_wide_f32" else torch.bfloat16
+    es = 4 if dtype == torch.float32 else 2
+    t_len, n, g4 = xproj.shape
+    hidden = g4 // 4
+    pair = 64 // es
+    _cuda.check_tensor(xproj, "xproj", dtype, (t_len, n, g4))
+    _cuda.check_tensor(w_res, "w_res", dtype,
+                       (plan.cluster, 4 * plan.units, (plan.resident - plan.reg) * pair))
+    _cuda.check_tensor(w_frag, "w_frag", dtype, (
+        plan.cluster, plan.units // 4, 2 * (plan.pairs - plan.resident + plan.reg), 32, 16 // es))
+    _cuda.check_tensor(out, "out", dtype, (t_len, n, hidden))
+    if any(t.device != xproj.device for t in (w_res, w_frag, out)):
+        raise ValueError(f"{symbol}: inputs are on different devices")
+    fn = _cuda.kernel_function(
+        "lstm_scan", symbol, [_cuda.VOIDP] * 4 + [_cuda.INT] * 9 + [_cuda.VOIDP]
+    )
+    with torch.cuda.device(xproj.device):
+        code = fn(
+            xproj.data_ptr(), w_res.data_ptr(), w_frag.data_ptr(), out.data_ptr(), t_len, n,
+            hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps, plan.resident,
+            _cuda.stream_ptr(xproj.device),
+        )
+    _cuda.check_launch("lstm_scan", code)
+    counter = (lstm_scan_time_major_wide_f32 if dtype == torch.float32
+               else lstm_scan_time_major_wide)
+    counter.launches += 1
 
 
 def _launch(
@@ -305,15 +484,33 @@ def lstm_scan_time_major(
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     split by ``k1_launch_plan``: bf16 (H a multiple of 4 up to 512) K1 here,
-    float32 K1 float32 through ``lstm_scan_time_major_f32``."""
+    wider (up to 1024) its wide form through ``lstm_scan_time_major_wide``,
+    float32 through ``lstm_scan_time_major_f32``."""
     if xproj.device.type == "cpu":
         return lstm_scan_plain(xproj, w_hh_t, reverse)
     if xproj.dtype == torch.float32:
         return lstm_scan_time_major_f32(xproj, w_hh_t, reverse)
+    if k1_needs_wide(xproj.shape[-1] // 4):
+        return lstm_scan_time_major_wide(xproj, w_hh_t, reverse)
     return _scan("lstm_scan_bf16", xproj, w_hh_t, reverse)
 
 
 lstm_scan_time_major.launches = 0
+
+
+def lstm_scan_time_major_wide(
+    xproj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False
+) -> torch.Tensor:
+    """K1's wide form in bf16: ``lstm_scan_time_major`` at widths no
+    cluster holds (H above 512, a multiple of 4 up to 1024), on its own
+    launch counter. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel, split by ``k1_wide_launch_plan``."""
+    if xproj.device.type == "cpu":
+        return lstm_scan_plain(xproj, w_hh_t, reverse)
+    return _scan("lstm_scan_wide_bf16", xproj, w_hh_t, reverse)
+
+
+lstm_scan_time_major_wide.launches = 0
 
 
 def lstm_scan_time_major_f32(
@@ -322,13 +519,32 @@ def lstm_scan_time_major_f32(
     """K1 float32: ``lstm_scan_time_major`` on float32 [T, N, 4H] gates and
     [H, 4H] weights, h and the output in float32. A CPU tensor takes the
     plain version; a CUDA tensor (H a multiple of 4 up to 384) launches the
-    kernel, split by ``k1_launch_plan(..., elem_bytes=4)``."""
+    kernel, split by ``k1_launch_plan(..., elem_bytes=4)``; wider (up to
+    1024) its wide form through ``lstm_scan_time_major_wide_f32``."""
     if xproj.device.type == "cpu":
         return lstm_scan_plain(xproj, w_hh_t, reverse)
+    if k1_needs_wide(xproj.shape[-1] // 4, elem_bytes=4):
+        return lstm_scan_time_major_wide_f32(xproj, w_hh_t, reverse)
     return _scan("lstm_scan_f32", xproj, w_hh_t, reverse)
 
 
 lstm_scan_time_major_f32.launches = 0
+
+
+def lstm_scan_time_major_wide_f32(
+    xproj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False
+) -> torch.Tensor:
+    """K1's wide form in float32 (3xTF32 products): ``lstm_scan_time_major``
+    on float32 tensors at widths no cluster holds (H above 384, a multiple
+    of 4 up to 1024), on its own launch counter. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel, split by
+    ``k1_wide_launch_plan(..., elem_bytes=4)``."""
+    if xproj.device.type == "cpu":
+        return lstm_scan_plain(xproj, w_hh_t, reverse)
+    return _scan("lstm_scan_wide_f32", xproj, w_hh_t, reverse)
+
+
+lstm_scan_time_major_wide_f32.launches = 0
 
 
 def quantize_lstm_weights(w_hh_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

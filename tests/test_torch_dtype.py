@@ -1,19 +1,20 @@
-"""The compute type (``compute_dtype``, the CLI's ``--dtype``) on the CPU:
-the port at float32 and at bf16 against the JAX package at the same type.
+"""The compute type (``compute_dtype``, the CLI's ``--dtype``) on the CPU,
+the kernels' float32 forms and the runner: the port at float32 and at bf16
+against the JAX package at the same type. ``tests/test_torch_dtype_paths.py``
+holds the pipeline and the command line at each type.
 
-- The float32 forms of K2, K13, K10 and K14 (``w8a8_matmul_fq_f32``,
+- The float32 forms of K2, K13, K10, K14 and K11a (``w8a8_matmul_fq_f32``,
   ``w8a8_matmul_f32``, ``windowed_attention_prerotated_f32``,
-  ``matmul_residual_rmsnorm_f32``), which take their plain versions on a CPU
-  tensor, against the JAX functions at float32: the Pallas bodies in
-  interpret mode.
+  ``matmul_residual_rmsnorm_f32``, ``windowed_attention_halfperm_f32``),
+  which take their plain versions on a CPU tensor, against the JAX
+  functions at float32: the Pallas bodies in interpret mode.
 - ``quantize_tx_head_w8a8`` and the quantised head against the JAX
   package's.
-- ``TorchBasecallRunner`` and ``BasecallerPipeline.run_reads`` against the
-  JAX runner and pipeline for a narrow LSTM preset and the two-layer
-  transformer of ``tests/test_torch_tx_model.py``; the CLI against the JAX
-  CLI on the committed fixture.
-- ``bytes_per_chunk_timestep`` at 4 bytes, the cache key of ``-b 0``, and the
-  ``"hp"`` route's refusal at float32 on the card.
+- ``TorchBasecallRunner`` against the JAX runner for a narrow LSTM preset and
+  the two-layer transformer of ``tests/test_torch_tx_model.py`` (also on the
+  ``"hp"`` route at float32); the models' bf16 scores and each route's.
+- ``bytes_per_chunk_timestep`` at 4 bytes, the ``compute_dtype`` argument,
+  and every attention route at either type.
 
 At float32 the two packages compute one function with float32 sums in
 another order, and the runner tests' tolerances hold (sequences and moves
@@ -35,13 +36,9 @@ import numpy as np
 import pytest
 import torch
 
-import dorado_tpu.pipeline.basecaller as jax_pipeline_module
 from dorado_tpu.basecall import batch_size as jax_batch_size
 from dorado_tpu.basecall.runner import BasecallRunner
-from dorado_tpu.cli.main import main as jax_main
-from dorado_tpu.io import pod5 as jax_pod5
 from dorado_tpu.models.crf_model import lstm_crf_forward
-from dorado_tpu.models.load import save_lstm_params as jax_save_lstm_params
 from dorado_tpu.models.presets import hac_v43_config as jax_hac_config
 from dorado_tpu.models.presets import sup_v50_config as jax_sup_config
 from dorado_tpu.models.tx_model import quantize_tx_head_w8a8 as jax_quantize_head
@@ -51,21 +48,16 @@ from dorado_tpu.ops import int8_matmul as jax_int8
 from dorado_tpu.ops.fused_norm import matmul_residual_rmsnorm as jax_fused
 from dorado_tpu_torch.basecall import batch_size
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner, resolve_compute_dtype
-from dorado_tpu_torch.cli.main import main
-from dorado_tpu_torch.io import pod5
 from dorado_tpu_torch.models.crf_model import params_from_jax
-from dorado_tpu_torch.models.presets import config_toml, hac_v43_config, sup_v50_config
+from dorado_tpu_torch.models.presets import hac_v43_config, sup_v50_config
 from dorado_tpu_torch.models.tx_model import (
-    check_route_dtype,
+    ATTENTION_ROUTES,
     quantize_tx_head_w8a8,
     tx_params_from_jax,
     with_routes,
 )
 from dorado_tpu_torch.ops import attention, fused_norm, int8_matmul
-from dorado_tpu_torch.pipeline import BasecallerPipeline
 from dorado_tpu_torch.utils.align import align
-from tests.test_torch_cli import _records
-from tests.test_torch_pipeline import _Collect, _jax_run, _reads
 from tests.test_torch_runner import (
     BATCH,
     CHUNK,
@@ -82,7 +74,6 @@ from tests.test_torch_tx_model import (
     with_drawn_biases,
 )
 
-FIXTURE = "tests/data/torch_port/fixture.pod5"
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # bf16 runs and the fixture's calls: the identity of the port's calls to the
@@ -90,7 +81,6 @@ TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # for the narrow LSTM, 0.967 for the transformer, where the JAX package's own
 # bf16 calls are 0.9985 and 0.944 from its float32 ones)
 MIN_BF16_IDENTITY = 0.9
-MIN_F32_FIXTURE_IDENTITY = 0.999
 # bf16 scores: the port's against the JAX package's, over the larger of each
 # package's bf16 scores against its own float32 ones (mean abs differences;
 # measured 0.86 and 1.1)
@@ -184,6 +174,29 @@ def test_prerotated_f32_form_matches_pallas_interpret(t_len):
     assert attention.windowed_attention_prerotated_f32.launches == launches
     assert out.shape == (2, t_len, h * d) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("t_len", [100, 700])
+def test_halfperm_f32_form_matches_pallas_interpret(t_len):
+    """K11a at float32 on sup's window: the projection with its q and k rows
+    halves-major, JAX's [2, T, H*D] tables against the port's [T, D/2] ones,
+    the JAX kernel fed float32 (the float32 stream on the "hp" route): 1e-5
+    absolute, as K10's float32 form above."""
+    h, d = 2, 64
+    qkv = np.random.RandomState(5000 + t_len).randn(2, t_len, 3 * h * d).astype(np.float32)
+    hp = np.ascontiguousarray(qkv[..., attention.wqkv_halfperm_rows(h, h * d)])
+    ref = jax_attention.windowed_attention_halfperm(
+        jnp.asarray(hp), jax_attention.rope_half_tables(t_len, d, h, 10000.0), h, 127, 128,
+        interpret=True)
+    cos, sin = attention.rope_tables(t_len, d, 10000.0)
+    launches = attention.windowed_attention_halfperm_f32.launches
+    out = attention.windowed_attention_halfperm_f32(torch.from_numpy(hp), cos, sin, h, 127, 128)
+    assert attention.windowed_attention_halfperm_f32.launches == launches
+    assert out.shape == (2, t_len, h * d) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    # the bf16 wrapper routes a float32 projection to it
+    assert torch.equal(
+        attention.windowed_attention_halfperm(torch.from_numpy(hp), cos, sin, h, 127, 128), out)
 
 
 @pytest.mark.parametrize("k,bias", [(512, True), (2048, False)])
@@ -327,42 +340,6 @@ def test_runner_matches_jax(family, dtype):
     _assert_calls_close(ref, out, dtype, qstrings=family == "lstm")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("family", ["lstm", "tx"])
-def test_run_reads_matches_jax(family, dtype):
-    """``run_reads`` against the JAX pipeline's ``run`` on the synthetic reads
-    of ``tests/test_torch_pipeline.py`` at the same compute type: the same
-    reads in the same order, their calls held as the runner's above."""
-    if family == "lstm":
-        params = jax_params_with_moves(2)
-        jcfg, cfg = _narrow_hac(jax_hac_config()), _narrow_hac(hac_v43_config())
-        model, chunk = params_from_jax(params, cfg), CHUNK
-    else:
-        params = jax_tx_params(3)
-        jcfg, cfg = small_sup(jax_sup_config()), small_sup(sup_v50_config())
-        model, chunk = tx_params_from_jax(params, cfg), TX_CHUNK
-    kw = dict(chunk_size=chunk, batch_size=8, emit_moves=True, decoder="viterbi")
-    jp = jax_pipeline_module.BasecallerPipeline(jcfg, params, compute_dtype=JAX_DTYPES[dtype],
-                                                **kw)
-    ref = _jax_run(jp)
-    tp = BasecallerPipeline(cfg, model, device="cpu", compute_dtype=TORCH_DTYPES[dtype], **kw)
-    assert tp.runner.compute_dtype == TORCH_DTYPES[dtype]
-    out = _Collect()
-    stats = tp.run_reads(_reads(pod5), out)
-    assert [r.qname for r in out.records] == [r.qname for r in ref]
-    assert stats.reads_called == len(ref)
-    ref_seqs, out_seqs = [r.seq for r in ref], [r.seq for r in out.records]
-    assert sum(map(len, ref_seqs)) > 500
-    if dtype == "float32":
-        assert out_seqs == ref_seqs
-        for a, b in zip(ref, out.records):
-            mv = {t.tag: t.value for t in a.tags}["mv"]
-            np.testing.assert_array_equal({t.tag: t.value for t in b.tags}["mv"], mv)
-    else:
-        ratio, _ = _identity(ref_seqs, out_seqs)
-        assert ratio >= MIN_BF16_IDENTITY, ratio
-
-
 @pytest.mark.parametrize("family", ["lstm", "tx"])
 def test_bf16_scores_match_jax(family):
     """The models' scores at bf16 (the JAX model on bf16 parameters, the
@@ -436,51 +413,8 @@ def test_bf16_routes_match_jax(attention, fused_norm):
     assert across <= MAX_BF16_SCORE_RATIO * own, (across, own)
 
 
-@pytest.fixture(scope="module")
-def cli_model(tmp_path_factory):
-    """The CLI parity test's narrow hac model directory."""
-    model = tmp_path_factory.mktemp("dtype") / "dna_r10.4.1_e8.2_400bps_hac@v4.3.0"
-    model.mkdir()
-    (model / "config.toml").write_text(config_toml(_narrow_hac(hac_v43_config())))
-    jax_save_lstm_params(_narrow_hac(jax_hac_config()), jax_params_with_moves(2), model)
-    return model
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cli_dtype_matches_jax_cli(cli_model, tmp_path, dtype):
-    """``--dtype`` through both CLIs on the committed fixture (16 reads, read
-    splitting on): the same reads; their bases at float32 within
-    MIN_F32_FIXTURE_IDENTITY (on the fixture's smooth signal the narrow
-    random model calls repeats whose Viterbi near-ties the two packages break
-    differently in 2 of 16 reads: ``tests/test_torch_cli.py``; measured
-    0.99986), at bf16 within MIN_BF16_IDENTITY (measured 0.994)."""
-    common = ["-c", "1200", "-b", "8", "--emit-sam", "--dtype", dtype, "-x", "cpu"]
-    ours, theirs = tmp_path / "ours.sam", tmp_path / "theirs.sam"
-    assert jax_main(["basecaller", str(cli_model), FIXTURE, *common, "-o", str(theirs)]) == 0
-    assert main(["basecaller", str(cli_model), FIXTURE, *common, "-o", str(ours)]) == 0
-    _, ref = _records(theirs, "sam")
-    _, out = _records(ours, "sam")
-    assert sorted(r.qname for r in out) == sorted(r.qname for r in ref) and len(out) >= 16
-    by_name = {r.qname: r.seq for r in ref}
-    ratio, _ = _identity([by_name[r.qname] for r in out], [r.seq for r in out])
-    assert ratio >= (MIN_F32_FIXTURE_IDENTITY if dtype == "float32" else MIN_BF16_IDENTITY), ratio
-
-
-def test_cli_default_dtype_on_the_cpu_is_float32(cli_model, tmp_path):
-    """No ``--dtype`` means float32 on the CPU (the JAX CLI's default off the
-    accelerator): the same calls as ``--dtype float32``."""
-    args = ["basecaller", str(cli_model), FIXTURE, "-c", "1200", "-b", "8", "--emit-sam",
-            "-x", "cpu", "--max-reads", "4"]
-    outs = {}
-    for name, extra in (("default", []), ("float32", ["--dtype", "float32"])):
-        path = tmp_path / f"{name}.sam"
-        assert main([*args, *extra, "-o", str(path)]) == 0
-        outs[name] = [r.seq for r in _records(path, "sam")[1]]
-    assert outs["default"] == outs["float32"]
-
-
 # ---------------------------------------------------------------------------
-# sizing, arguments and refusals
+# sizing, arguments and routes
 # ---------------------------------------------------------------------------
 
 
@@ -497,24 +431,6 @@ def test_bytes_per_chunk_timestep_at_4_bytes(family):
         batch_size.max_safe_batch_size(ours, 10_000, gb))
 
 
-def test_auto_batch_size_caches_by_dtype(cli_model, tmp_path, monkeypatch):
-    """``-b 0``'s sweep is keyed by the compute type too: a float32 result
-    is not taken for bf16."""
-    from dorado_tpu_torch.models.load import build_model, load_model
-
-    monkeypatch.setenv("DORADO_TPU_TORCH_CACHE_DIR", str(tmp_path))
-    config, params = load_model(cli_model)
-    model = build_model(config, params)
-    for dtype in (torch.float32, torch.bfloat16):
-        n = batch_size.auto_batch_size(config, model, 1200, device="cpu", max_batch=64,
-                                       compute_dtype=dtype)
-        assert n == 64
-    import json
-
-    keys = sorted(json.loads((tmp_path / "batch_benchmarks.json").read_text()))
-    assert [k.rsplit("|", 1)[1] for k in keys] == ["bfloat16", "float32"]
-
-
 def test_compute_dtype_argument():
     cpu = torch.device("cpu")
     assert resolve_compute_dtype(None, cpu) == torch.float32
@@ -529,17 +445,37 @@ def test_compute_dtype_argument():
         TorchBasecallRunner(cfg, model, device="cpu", compute_dtype=torch.float64)
 
 
-def test_hp_float32_refused_on_the_card():
-    """``"hp"`` has no float32 kernel: the check the runner calls refuses it
-    on CUDA and lets the CPU run its plain version; the other routes and bf16
-    pass."""
-    with pytest.raises(ValueError, match="'hp'.*float32"):
-        check_route_dtype("hp", torch.float32, "cuda")
-    for route, dtype, device in (("hp", torch.bfloat16, "cuda"), ("extf", torch.float32, "cuda"),
-                                 ("ext", torch.float32, "cuda"), ("hp", torch.float32, "cpu")):
-        check_route_dtype(route, dtype, device)
+@pytest.mark.parametrize("fused_norm", [False, True])
+def test_hp_float32_runner_matches_jax(fused_norm):
+    """The ``"hp"`` route at float32 (K11a's float32 form on the card, its
+    plain version here), with and without the fused norms, against the JAX
+    runner at float32 on the same batch: the float32 transformer's
+    tolerance of ``test_runner_matches_jax``."""
+    jr, _ = _runners("tx", "float32")
+    cfg = small_sup(sup_v50_config())
+    tr = TorchBasecallRunner(cfg, tx_params_from_jax(jax_tx_params(3), cfg), chunk_size=TX_CHUNK,
+                             batch_size=BATCH, device="cpu", tx_attention="hp",
+                             tx_fused_norm=fused_norm, compute_dtype=torch.float32)
+    assert tr.model.attention == "hp" and tr.model.fused_norm == fused_norm
+    buf = tr.make_input_buffer(0)
+    buf[:] = np.random.RandomState(21).randn(*buf.shape).astype(np.float16)
+    n = buf.shape[0] - 1
+    ref = jr.call_chunks(buf.copy(), n)
+    out = tr.call_chunks(buf.copy(), n)
+    assert len(out) == len(ref) == n
+    _assert_calls_close(ref, out, "float32", qstrings=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ATTENTION_ROUTES)
+def test_every_route_runs_at_each_dtype(route, dtype):
+    """Every attention route takes either compute type (none is refused: on
+    the card ``"hp"`` runs K11a's float32 form at float32): the runner holds
+    its route and type and calls a chunk."""
     cfg = small_sup(sup_v50_config())
     runner = TorchBasecallRunner(cfg, tx_params_from_jax(jax_tx_params(3), cfg), device="cpu",
-                                 chunk_size=TX_CHUNK, batch_size=BATCH, tx_attention="hp",
-                                 compute_dtype=torch.float32)
-    assert runner.model.attention == "hp"
+                                 chunk_size=TX_CHUNK, batch_size=BATCH, tx_attention=route,
+                                 compute_dtype=TORCH_DTYPES[dtype])
+    assert runner.model.attention == route and runner.compute_dtype == TORCH_DTYPES[dtype]
+    assert next(runner.model.parameters()).dtype == TORCH_DTYPES[dtype]
+    assert len(runner.call_chunks(runner.make_input_buffer(1), 1)) == 1

@@ -15,7 +15,12 @@ import torch
 import dorado_tpu_torch
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
-from dorado_tpu_torch.models.presets import fast_v40_config, hac_v43_config, sup_v50_config
+from dorado_tpu_torch.models.presets import (
+    fast_v40_config,
+    hac_v43_config,
+    lstm_sup_config,
+    sup_v50_config,
+)
 from dorado_tpu_torch.models.tx_model import TxModel
 from dorado_tpu_torch.ops import _cuda, attention, beam, crf_cuda, fused_norm, int8_matmul, lstm
 from dorado_tpu_torch.pipeline import BasecallerPipeline
@@ -131,6 +136,9 @@ WRAPPERS = (
     int8_matmul.w8a8_matmul_f32,
     attention.windowed_attention_prerotated_f32,
     fused_norm.matmul_residual_rmsnorm_f32,
+    lstm.lstm_scan_time_major_wide,
+    lstm.lstm_scan_time_major_wide_f32,
+    attention.windowed_attention_halfperm_f32,
 )
 
 
@@ -482,3 +490,67 @@ def test_aligner_builds_from_its_own_source(monkeypatch, tmp_path):
         text = path.read_text()
         for name in ("dorado_tpu/native", "dorado_tpu.native", "libdorado_native"):
             assert name not in text, f"{path} names {name}"
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread, as ``tests/test_torch_cli.py`` runs: the runner's
+    many small operators crawl at their thread-pool barriers when the test
+    workers oversubscribe the CPU (0.4 s alone, 70-86 s in the whole run)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_wide_k1_and_k11a_f32_wrappers_take_plain_version_on_cpu(no_kernels, monkeypatch,
+                                                                 one_thread):
+    """K1's wide forms (at widths no cluster holds, reached from K1's and K1
+    float32's wrappers too) and K11a at float32 run their plain versions on
+    CPU tensors and count no launch."""
+    rs = np.random.RandomState(1)
+    calls = []
+    _spy(monkeypatch, calls, lstm, "lstm_scan_plain")
+    _spy(monkeypatch, calls, attention, "windowed_attention_halfperm_plain")
+    for h in (516, 768):
+        x = torch.from_numpy(rs.randn(2, 3, 4 * h).astype(np.float32))
+        w = torch.from_numpy(rs.randn(h, 4 * h).astype(np.float32) / h)
+        for fn in (lstm.lstm_scan_time_major, lstm.lstm_scan_time_major_f32,
+                   lstm.lstm_scan_time_major_wide, lstm.lstm_scan_time_major_wide_f32):
+            fn(x, w)
+        lstm.lstm_scan_time_major(x.bfloat16(), w.bfloat16())
+    cos, sin = attention.rope_tables(7, 64, 10000.0)
+    qkv = torch.from_numpy(rs.randn(2, 7, 3 * 64).astype(np.float32))
+    attention.windowed_attention_halfperm_f32(qkv, cos, sin, 1, 127, 128)
+    attention.windowed_attention_halfperm(qkv, cos, sin, 1, 127, 128)
+    assert calls == ["lstm_scan_plain"] * 10 + ["windowed_attention_halfperm_plain"] * 2
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+@pytest.mark.parametrize("decoder,dtype", [("viterbi", torch.float32), ("beam", torch.float32),
+                                           ("viterbi", torch.bfloat16)])
+def test_cpu_lstm_sup_runner_launches_no_kernel(no_kernels, one_thread, decoder, dtype):
+    """The LSTM-sup preset (1024 states) narrowed to LSTM width 128 and two
+    layers, W8A8: on the CPU every kernel's plain version runs."""
+    cfg = lstm_sup_config()
+    cfg.lstm_size, cfg.convs[2].size, cfg.lstm_layers = 128, 128, 2
+    runner = TorchBasecallRunner(cfg, LSTMCRFModel(cfg), chunk_size=1200, batch_size=2,
+                                 device="cpu", decoder=decoder, lstm_precision="w8a8",
+                                 compute_dtype=dtype)
+    assert cfg.num_states == 1024 and hasattr(runner.model.lstms[0], "w_ih_q")
+    out = runner.call_chunks(runner.make_input_buffer(0), 1)
+    assert len(out) == 1 and len(out[0].moves) == 1200 // cfg.stride
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+def test_kernel_sources_have_the_wide_k1_and_k11a_f32():
+    """K1's wide forms in K1's source, K11a at float32 in the attention's."""
+    lstm_src = (_cuda.CSRC / "lstm_scan.cu").read_text()
+    attn_src = (_cuda.CSRC / "attention_banded.cu").read_text()
+    assert "DTT_EXPORT int lstm_scan_wide_bf16(" in lstm_src
+    assert "DTT_EXPORT int lstm_scan_wide_f32(" in lstm_src
+    assert "KIND_K1FW" in lstm_src and "load_a_l2" in lstm_src
+    assert "DTT_EXPORT int attention_halfperm_f32(" in attn_src
+

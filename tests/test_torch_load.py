@@ -20,6 +20,7 @@ from dorado_tpu_torch.models.presets import (
     config_toml,
     fast_v40_config,
     hac_v43_config,
+    lstm_sup_config,
     sup_v50_config,
 )
 from dorado_tpu_torch.models.tx_model import init_tx_params, tx_params_from_jax
@@ -113,7 +114,8 @@ def test_save_model_read_by_both(tmp_path, family):
     np.testing.assert_array_equal(bf["convs"][0]["w"], w.float().permute(2, 1, 0).numpy())
 
 
-@pytest.mark.parametrize("preset", [hac_v43_config, fast_v40_config, sup_v50_config])
+@pytest.mark.parametrize(
+    "preset", [hac_v43_config, fast_v40_config, sup_v50_config, lstm_sup_config])
 def test_config_toml_round_trip(tmp_path, preset):
     cfg = preset()
     d = tmp_path / cfg.model_name
