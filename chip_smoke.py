@@ -88,6 +88,11 @@
    its bound and cuDNN's LSTM (float32: TF32 off), printing its split; and
    K11a at float32 (halves-major q and k rotated while staged, the float32
    body) at sup's shape and a ragged one, beside SDPA in float32.
+   Then ``duplex_kernels``: K1 in bf16 and float32 at the stereo runner's
+   shapes (T = 2000, H = 384, N = 1, 3 and 32, both directions, into
+   NaN-filled outputs), each timed beside cuDNN's LSTM, and K2 at the rows
+   of 3 and 32 stereo chunks bit for bit, beside the ``torch._int_mm`` route
+   (``stereo_*`` keys of their rows).
 4. Drives the simplex pipeline (``BasecallerPipeline.run_reads`` into a
    ``BamWriter``, splitting reads, the default: every read must have its
    record or its subreads' records) at hac v4.3's full width over 16 synthetic reads (14 of
@@ -158,6 +163,27 @@
    sup at float32 on the "hp" route (K11a at float32, 18 launches a batch),
    its scores equal to the default route's on the card. The CLI phase runs
    the LSTM-sup directory too (``cli lstm sup``).
+   Then duplex calling (``duplex_phase``, after the modbase phase):
+   ``DuplexPipeline.run_reads`` over the committed duplex fixture (21
+   template-complement pairs on shared channels and muxes and 2 lone reads
+   of 20-30k samples, in channel order; a full simplex batch and a partial
+   one) with hac v4.3 and the stereo preset (``presets.stereo_config``, its
+   head's bias drawn), W8A8, pairs forced by ``tests/torch_duplex.py``'s
+   ``ForcedPairer`` (random calls pass no pairing gate): bf16 with the
+   Viterbi and the beam decoder, float32, and with the 5mCG_5hmCG@v3 model.
+   Each run must write every read, the duplex records first (``t;c``, dx 1),
+   dx -1 on each parent and 0 on the rest, and launch K1 and K2 five times
+   and the decode once a simplex or stereo batch; with the mod model each
+   duplex MM holds '+' channels on C and '-' on G with an ML value a call.
+   The real ``DuplexPairer``'s verdicts on the same candidates are printed;
+   the stereo model's scores on two feature chunks are held against the
+   CPU's float32 model (hac's limits), its decodes against the CPU's; one
+   stereo step of each kind is profiled; a pair's host ms of alignment and
+   stereo features is printed beside its stereo call's device ms. Then
+   ``duplex_cli``: ``duplex`` in process with pairs forced (its SAM equal to
+   ``DuplexPipeline.run``'s), ``python -m dorado_tpu_torch duplex`` (the real
+   pairer; its SAM equal to the in-process run's but for @PG) and ``duplex
+   basespace --pairs`` on the forced run's SAM.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
@@ -976,6 +1002,28 @@ WIDE_F32_SHAPES = [(T, N, 768), (T, N, 448), (64, 100, 768), (33, 37, 448)]
 LSTM_SUP_LONG_READS, LSTM_SUP_SHORT_READS = 10, 2
 LSTM_SUP_HEAD_GAIN = 128.0
 MAX_LSTM_SUP_BF16_MEAN_ERR = 0.02
+# duplex (``duplex_kernels``, ``duplex_phase``): the stereo model
+# (presets.stereo_config: 13 features, stride 5, 5 LSTM layers of 384 with
+# W8A8 projections, 64 states, a pre-v4 head with its bias) at chunk 10000 ->
+# T = 2000 steps, on a runner of a quarter of the simplex batch (32 rows), of
+# which one pair's chunks fill 1 to 32. K1 there at N = 1, 3 and 32 in both
+# directions, bf16 within TOL_LSTM and float32 within TOL_LSTM_F32, into
+# outputs filled with NaN first, each timed beside cuDNN's LSTM at the same
+# shape; K2 at the rows of 3 and of 32 chunks (K = 384, O = 1536) bit for
+# bit, also into a NaN-filled output, timed beside the torch._int_mm route
+STEREO_T = 2000
+STEREO_ROWS = N // 4
+STEREO_K1_N = (1, 3, STEREO_ROWS)
+STEREO_K2_ROWS = (3 * STEREO_T, STEREO_ROWS * STEREO_T)
+# the duplex fixture (tests/torch_duplex.py): 21 template-complement pairs and
+# 2 lone reads of 20-30k samples, 136 hac chunks, so that a full simplex
+# batch and a partial one are dispatched; the stereo model's head takes
+# hac's gain and a bias drawn from the seed (a dropped bias shows)
+DUPLEX_FIXTURE = ROOT / "tests" / "data" / "torch_port" / "duplex.pod5"
+# the stereo model in bf16 on the card against float32 on the CPU, on two
+# feature chunks: hac's limit (0.02 of the mean abs score); in float32,
+# MAX_F32_SCORE_REL
+MAX_STEREO_BF16_MEAN_ERR = 0.02
 
 
 def float32_kernels(k) -> None:
@@ -1706,6 +1754,427 @@ def lstm_sup_phase(k, make_read) -> tuple:
     del vit, bm, f32, cpu, scores, back_guide
     torch.cuda.empty_cache()
     return cfg, model
+
+
+def duplex_kernels(k) -> None:
+    """K1 (bf16 and float32) and K2 at the stereo runner's shapes: K1 at T =
+    2000, H = 384 and N = 1, 3 and 32 in both directions, launched into
+    outputs filled with NaN first and through its wrapper, against its plain
+    version, each timed beside its bound and cuDNN's LSTM at the same shape
+    (float32: TF32 off); K2 at the rows of 3 and 32 chunks bit for bit (also
+    into a NaN-filled output), timed beside the torch._int_mm route. The
+    times go into K1's, K1 float32's and K2's rows as ``stereo_*`` keys."""
+    torch, dev, gen, lstm, int8_matmul = k.torch, k.dev, k.gen, k.lstm, k.int8_matmul
+    time_ms, card = k.time_ms, k.card
+    g4 = 4 * H
+
+    def row(name):
+        return next(r for r in k.rows if r["name"] == name)
+
+    with torch.inference_mode():
+        for name, symbol, dtype, tol, peak, es in (
+                ("lstm_scan", "lstm_scan_bf16", torch.bfloat16, TOL_LSTM, PEAK_BF16, 2),
+                ("lstm_scan_f32", "lstm_scan_f32", torch.float32, TOL_LSTM_F32, PEAK_F32, 4)):
+            w = ((torch.rand(H, g4, generator=gen, device=dev) * 2 - 1) / H**0.5).to(dtype)
+            keys = {}
+            for n in STEREO_K1_N:
+                xproj = (torch.randn(STEREO_T, n, g4, generator=gen, device=dev) * 0.8).to(dtype)
+                plan = lstm.k1_launch_plan(H, n, dev, elem_bytes=es)
+                err = 0.0
+                for reverse in (False, True):
+                    into = torch.full((STEREO_T, n, H), float("nan"), dtype=dtype, device=dev)
+                    lstm._launch(symbol, xproj, lstm.slice_w_hh(w, plan.cluster, plan.units),
+                                 into, reverse, plan)
+                    out = lstm.lstm_scan_time_major(xproj, w, reverse=reverse)
+                    ref = lstm.lstm_scan_plain(xproj, w, reverse=reverse).float()
+                    torch.cuda.synchronize()
+                    # NaN where a position was not written
+                    e = max((into.float() - ref).abs().max().item(),
+                            (out.float() - ref).abs().max().item())
+                    if not e <= tol:
+                        raise AssertionError(f"{name} at the stereo shape T={STEREO_T} N={n} "
+                                             f"reverse={reverse}: max abs error {e} > {tol}")
+                    err = max(err, e)
+                cudnn = torch.nn.LSTM(H, H, device=dev, dtype=dtype)
+                cudnn.flatten_parameters()
+                x_in = torch.randn(STEREO_T, n, H, generator=gen, device=dev).to(dtype)
+                ms = time_ms(lambda: lstm.lstm_scan_time_major(xproj, w, reverse=True), 5)
+                with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                    lib_ms = time_ms(lambda: cudnn(x_in), 5)
+                plain_ms = time_ms(lambda: lstm.lstm_scan_plain(xproj, w, reverse=True), 1)
+                b_ms, b_by = bound_ms(2.0 * STEREO_T * n * H * g4, peak,
+                                      es * (STEREO_T * n * g4 + H * g4 + STEREO_T * n * H))
+                keys.update({f"stereo_n{n}_{key}": v for key, v in dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    max_abs_err=err, us_per_step=ms / STEREO_T * 1e3,
+                    split=plan._asdict()).items()})
+                print(f"{name} at the stereo shape T={STEREO_T} N={n} H={H}, both directions, "
+                      f"into NaN-filled outputs: max abs error {err:.3g} (limit {tol}); kernel "
+                      f"{ms:.3f} ms ({ms / STEREO_T * 1e3:.3f} us a step), plain {plain_ms:.3f} "
+                      f"ms, bound {b_ms:.4f} ms ({b_by}), cuDNN nn.LSTM {lib_ms:.3f} ms; split "
+                      f"{plan} [{card}]", flush=True)
+                del xproj, into, out, ref, cudnn, x_in
+            row(name).update(keys)
+
+        w_ih = (torch.rand(g4, H, generator=gen, device=dev) * 2 - 1) / H**0.5
+        wq, ws = int8_matmul.quantize_weight_rows(w_ih)
+        wq_t = wq.t()
+        bias = torch.randn(g4, generator=gen, device=dev) * 0.1
+        keys = {}
+        for m in STEREO_K2_ROWS:
+            x = torch.randn(m, H, generator=gen, device=dev).bfloat16()
+            out = int8_matmul.w8a8_matmul_fq(x, wq_t, ws, bias)
+            into = int8_matmul._fq_launch(x, wq_t, ws, bias, torch.bfloat16,
+                                          out=torch.full((m, g4), float("nan"), device=dev,
+                                                         dtype=torch.bfloat16))
+            ref = int8_matmul.w8a8_matmul_fq_plain(x, wq_t, ws, bias)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref) and torch.equal(into, ref)):
+                raise AssertionError(f"w8a8_matmul_fq at the stereo rows M={m}: "
+                                     f"{(out != ref).sum().item()} outputs differ from the plain "
+                                     f"version's (or a position was not written)")
+
+            def int_mm_path():
+                xf = x.float()
+                s = xf.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) * (1.0 / 127.0)
+                xq = torch.round(xf * torch.reciprocal(s)).to(torch.int8)
+                return (torch._int_mm(xq, wq_t).float() * s * ws + bias).to(torch.bfloat16)
+
+            ms = time_ms(lambda: int8_matmul.w8a8_matmul_fq(x, wq_t, ws, bias), 10)
+            plain_ms = time_ms(lambda: int8_matmul.w8a8_matmul_fq_plain(x, wq_t, ws, bias), 2)
+            lib_ms = time_ms(int_mm_path, 5)
+            b_ms, b_by = bound_ms(2.0 * m * H * g4, PEAK_INT8,
+                                  2 * m * H + H * g4 + 8 * g4 + 2 * m * g4)
+            keys.update({f"stereo_m{m}_{key}": v for key, v in dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms).items()})
+            print(f"w8a8_matmul_fq at the stereo rows M={m} K={H} O={g4}: bit for bit, every "
+                  f"position written; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}), torch._int_mm route {lib_ms:.4f} ms [{card}]",
+                  flush=True)
+            del x, out, into, ref
+        row("w8a8_matmul_fq").update(keys)
+    torch.cuda.empty_cache()
+
+
+class _Records:
+    """A writer that keeps the records."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, rec):
+        self.records.append(rec)
+
+
+def stereo_model(torch):
+    """(config, model) of the stereo preset at full width: random weights
+    from the seed, the CRF head's weights at HEAD_GAIN and its bias drawn."""
+    from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+    from dorado_tpu_torch.models.presets import stereo_config
+
+    cfg = stereo_config()
+    cfg.normalise_basecaller_params()
+    model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.linear1_w.mul_(HEAD_GAIN)
+        model.linear1_b.copy_(torch.randn(cfg.outsize,
+                                          generator=torch.Generator().manual_seed(SEED + 2)))
+    return cfg, model
+
+
+def check_duplex_output(path, records, reads, stats, mods=False) -> list:
+    """Every read written (its record or its subreads'), the duplex records
+    first, each named ``t;c`` with a qstring of its length and ``dx`` 1, the
+    simplex records' ``dx`` -1 on each parent and 0 on the rest; with
+    ``mods``, each duplex MM with '+' channels on C and '-' on G and an ML
+    value for each of its calls. Returns the duplex records."""
+    duplex = [r for r in records if ";" in r.qname]
+    simplex = records[len(duplex):]
+    if any(";" in r.qname for r in simplex) or not duplex:
+        raise AssertionError(f"{path}: the duplex records are not written first, or none")
+    parents = {name for r in duplex for name in r.qname.split(";")}
+    tags = [{t.tag: t.value for t in r.tags} for r in records]
+    read_of = {t.get("pi") or r.qname for r, t in zip(simplex, tags[len(duplex):])}
+    if read_of != {r.read_id for r in reads} or len(simplex) != stats.simplex_reads:
+        raise AssertionError(f"{path}: records of {len(read_of)} of {len(reads)} reads written")
+    for r, t in zip(records, tags):
+        want = 1 if ";" in r.qname else -1 if r.qname in parents else 0
+        if t["dx"] != want or len(r.seq) != len(r.qual) or not r.seq:
+            raise AssertionError(f"{path}: {r.qname} has dx {t['dx']} (want {want}) or a "
+                                 f"qstring of another length")
+    if not parents <= {r.qname for r in simplex}:
+        raise AssertionError(f"{path}: a duplex record names a read with no simplex record")
+    if mods:
+        for r, t in zip(duplex, tags):
+            calls = sum(len(part.split(",")) - 1 for part in t["MM"].split(";"))
+            if ("C+h?" not in t["MM"] or "G-m?" not in t["MM"] or len(t["ML"]) != calls
+                    or t["MN"] != len(r.seq)):
+                raise AssertionError(f"{path}: {r.qname}'s MM/ML/MN are not both strands' "
+                                     f"({t['MM'][:60]}, {len(t['ML'])} ML values)")
+    return duplex
+
+
+def duplex_phase(k, cfg, model, mod_dir) -> None:
+    """Duplex calling at full width (``DuplexPipeline.run_reads`` over the
+    channel-ordered reads of the duplex fixture, pairs forced with
+    ``ForcedPairer``): hac v4.3 and the stereo preset, W8A8, in bf16 with
+    the Viterbi and the beam decoder, in float32 (Viterbi), and with the
+    5mCG_5hmCG@v3 model (``mod_dir``); each run's launches held against its
+    simplex and stereo batches, its records checked (``check_duplex_output``);
+    the real pairer's verdicts on the same candidates printed; the stereo
+    model's scores against the CPU's float32 model and its decodes against
+    the CPU's; one profiled stereo step of each kind; the host ms a pair of
+    the pair alignment and the stereo features beside the pair's stereo
+    device ms. Then the command line (``duplex_cli``)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    torch, dev = k.torch, k.dev
+    crf_cuda, beam = k.crf_cuda, k.beam
+    from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+    from dorado_tpu_torch.duplex import DuplexPairer, DuplexPipeline, check_pair
+    from dorado_tpu_torch.duplex.pairing import PairingResult
+    from dorado_tpu_torch.duplex.stereo import StereoFeatureInputs, generate_stereo_features
+    from dorado_tpu_torch.io.pod5 import iter_reads
+    from dorado_tpu_torch.modbase.caller import ModBaseCaller
+    from dorado_tpu_torch.modbase.config import load_modbase_config
+    from dorado_tpu_torch.utils.align import align
+    from dorado_tpu_torch.utils.sequence import mean_qscore_from_qstring, reverse_complement
+    from tests.torch_duplex import DUPLEX_FIXTURE_PAIRS, ForcedPairer
+
+    scfg, smodel = stereo_model(torch)
+    reads = list(iter_reads([DUPLEX_FIXTURE], by_channel=True))
+    p = dict(batch_size=N)
+    pipes = {
+        "duplex viterbi": DuplexPipeline(cfg, model, scfg, smodel, **p),
+        "duplex beam": DuplexPipeline(cfg, model, scfg, smodel, decoder="beam", **p),
+        "duplex f32": DuplexPipeline(cfg, model, scfg, smodel, compute_dtype=torch.float32, **p),
+        "duplex modbase": DuplexPipeline(
+            cfg, model, scfg, smodel, modbase_caller=ModBaseCaller(
+                [load_modbase_config(mod_dir)], canonical_stride=cfg.stride), **p),
+    }
+    for pipe in pipes.values():
+        sr = pipe.stereo_runner
+        if (sr.batch_size != STEREO_ROWS or sr.chunk_size // scfg.stride != STEREO_T
+                or not all(hasattr(layer, "w_ih_q") for layer in sr.model.lstms)
+                or sr.model.linear1_b is None):
+            raise AssertionError("the stereo runner is not the W8A8 stereo preset at 32 rows of "
+                                 "T = 2000 with its head's bias")
+    print(f"duplex fixture {DUPLEX_FIXTURE.name}: {len(reads)} reads, "
+          f"{sum(len(r.signal) for r in reads)} samples", flush=True)
+    pairer = None
+    for path, pipe in pipes.items():
+        pipe.pairer = ForcedPairer(PairingResult)
+        for w in k.wrappers.values():
+            w.launches = 0
+        simplex_chunks = pipe.simplex.runner.stats.chunks_called
+        stereo_before = pipe.stereo_runner.stats.snapshot()
+        written = _Records()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = pipe.run_reads(reads, written)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        stereo_after = pipe.stereo_runner.stats.snapshot()
+        simplex_batches = pipe.simplex.stats.batches
+        stereo_batches = stereo_after[0] - stereo_before[0]
+        simplex_chunks = pipe.simplex.runner.stats.chunks_called - simplex_chunks
+        k.launches[path] = {name: w.launches for name, w in k.wrappers.items()}
+        k.check_launches(path, k.launches[path], simplex_batches + stereo_batches)
+        duplex = check_duplex_output(path, written.records, reads, stats,
+                                     mods=path == "duplex modbase")
+        # a full simplex batch and a partial one: the run ends on the latter
+        if not (simplex_chunks > N and simplex_chunks < simplex_batches * N):
+            raise AssertionError(f"{path}: {simplex_chunks} simplex chunks in {simplex_batches} "
+                                 f"batches: no full batch, or no partial one")
+        if stats.pairs != DUPLEX_FIXTURE_PAIRS or stats.duplex_reads != stats.pairs:
+            raise AssertionError(f"{path}: {stats.pairs} pairs, {stats.duplex_reads} duplex reads")
+        print(f"{path}: {len(reads)} reads in {simplex_batches} simplex batches ({simplex_chunks} "
+              f"chunks, the last partial) and {stats.pairs} forced pairs in {stereo_batches} "
+              f"stereo batches ({stereo_after[1] - stereo_before[1]} chunks of T = {STEREO_T}) "
+              f"in {elapsed:.3f} s [{k.card}]: {len(duplex)} duplex records "
+              f"({sum(len(r.seq) for r in duplex)} bases); host a pair: alignment "
+              f"{stats.pair_align_s / stats.pairs * 1e3:.2f} ms, stereo features "
+              f"{stats.stereo_features_s / stats.pairs * 1e3:.2f} ms; stereo calls (wall) "
+              f"{stats.stereo_call_s / stats.pairs * 1e3:.2f} ms a pair; launches "
+              f"{ {n: v for n, v in k.launches[path].items() if v} }", flush=True)
+        if path == "duplex viterbi":
+            pairer = pipe.pairer
+
+    # the real pairer over the same candidates, in the same order: its gates
+    # see random calls (few bases, low qscores)
+    real = DuplexPairer()
+    verdicts = [real.push(c) is not None for c in pairer.pushed]
+    forced = ForcedPairer(PairingResult)
+    pairs = [pr for pr in (forced.push(c) for c in pairer.pushed) if pr is not None]
+    gates = [(len(pr.template.seq), len(pr.complement.seq),
+              round(min(mean_qscore_from_qstring(pr.template.qstring),
+                        mean_qscore_from_qstring(pr.complement.qstring)), 2),
+              pr.complement.start_time_ms - pr.template.end_time_ms) for pr in pairs]
+    print(f"DuplexPairer over the {len(pairer.pushed)} candidates: {sum(verdicts)} pairs; "
+          f"check_pair on the {len(pairs)} forced pairs: "
+          f"{[check_pair(pr.template, pr.complement) is not None for pr in pairs]}; their "
+          f"(template bases, complement bases, lower mean qscore, gap ms): {gates}", flush=True)
+
+    # the stereo model on the card against the CPU's float32 model, on a
+    # chunk of each of two pairs' features; a pair's host and device times
+    vit, bm, f32 = pipes["duplex viterbi"], pipes["duplex beam"], pipes["duplex f32"]
+    chunks = []
+    for pr in pairs[:2]:
+        t, c = pr.template, pr.complement
+        rc = reverse_complement(c.seq)
+        t0 = time.perf_counter()
+        ops = align(t.seq, rc).ops
+        t1 = time.perf_counter()
+        feats = generate_stereo_features(StereoFeatureInputs(
+            alignment=ops, template_seq=t.seq, template_qstring=t.qstring,
+            template_moves=t.moves, template_signal=t.signal, complement_seq=rc,
+            complement_qstring=c.qstring, complement_moves=c.moves,
+            complement_signal=np.ascontiguousarray(c.signal[::-1]),
+            signal_stride=cfg.stride)).T
+        t2 = time.perf_counter()
+        chunks.append(feats[: vit.stereo_runner.chunk_size])
+        vit._call_stereo(pr)  # the per-shape set-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t3 = time.perf_counter()
+            vit._call_stereo(pr)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t3
+        device = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        print(f"pair {t.read_id[:8]};{c.read_id[:8]} ({len(t.seq)} and {len(c.seq)} bases, "
+              f"{len(feats)} stereo samples): host alignment {(t1 - t0) * 1e3:.2f} ms, stereo "
+              f"features {(t2 - t1) * 1e3:.2f} ms; its stereo call {wall * 1e3:.2f} ms wall, "
+              f"{device:.2f} ms on the device [{k.card}]", flush=True)
+    sig = np.stack(chunks).astype(np.float16)
+    cpu = TorchBasecallRunner(scfg, smodel, device="cpu", lstm_precision="w8a8",
+                              batch_size=STEREO_ROWS)
+    hold_scores_and_decode(k, "stereo bf16", vit.stereo_runner, cpu, sig,
+                           MAX_STEREO_BF16_MEAN_ERR)
+    hold_scores_and_decode(k, "stereo f32", f32.stereo_runner, cpu, sig, MAX_F32_SCORE_REL)
+    with torch.inference_mode():
+        scores = bm.stereo_runner.model(torch.from_numpy(sig).to(dev)).contiguous()
+        back_guide = crf_cuda.backward_scores(scores, STAY)
+        st_k, mv_k = beam.beam_search_device(scores, back_guide, W, BEAM_CUT, STAY)
+        st_c, mv_c = beam.beam_search_plain(scores.cpu(), back_guide.cpu(), W, BEAM_CUT, STAY)
+    per_row = ((st_k.cpu() != st_c) | (mv_k.cpu() != mv_c)).sum(dim=1).tolist()
+    print(f"stereo beam on the card vs the CPU's plain beam, the card's back guide on both: "
+          f"differing steps by row {per_row} of {STEREO_T}; {int(mv_k.sum().item())} moves",
+          flush=True)
+    if (sum(c > 0 for c in per_row) > BEAM_MAX_ROWS_DIFFERENT
+            or max(per_row) > BEAM_MAX_ROW_SHARE_DIFFERENT * STEREO_T
+            or int(mv_k.sum().item()) == 0):
+        raise AssertionError("stereo beam: far from the CPU's plain beam on the same back guide")
+
+    # one stereo device step of each kind at a full stereo batch, profiled, its
+    # launches those of one batch
+    for path, pipe in (("stereo viterbi", vit), ("stereo beam", bm), ("stereo f32", f32)):
+        for w in k.wrappers.values():
+            w.launches = 0
+        profiled_step(k, path, pipe.stereo_runner)
+        torch.cuda.synchronize()
+        k.launches[path] = {name: w.launches for name, w in k.wrappers.items()}
+        k.check_launches(path, k.launches[path], 2)  # the set-up call and the profiled one
+    del pipes, vit, bm, f32, cpu, scores, back_guide
+    torch.cuda.empty_cache()
+    duplex_cli(k, cfg, model, scfg, smodel)
+
+
+def duplex_cli(k, cfg, model, scfg, smodel) -> None:
+    """``dorado_tpu_torch duplex`` on the duplex fixture with model
+    directories the port writes: in this process with pairs forced (its
+    launches held), whose SAM must equal ``DuplexPipeline.run``'s with the
+    same options and header; ``python -m dorado_tpu_torch duplex ...
+    --emit-sam`` in a subprocess, whose SAM must equal the in-process run's
+    with the real pairer but for @PG; and ``duplex basespace --pairs`` on the
+    forced run's SAM with its pairs."""
+    import shlex
+
+    torch = k.torch
+    import dorado_tpu_torch.duplex.pipeline as duplex_pipeline
+    from dorado_tpu_torch.cli.main import main as cli_main
+    from dorado_tpu_torch.duplex import DuplexPipeline
+    from dorado_tpu_torch.duplex.pairing import PairingResult
+    from dorado_tpu_torch.io.sam import SamWriter
+    from dorado_tpu_torch.models.load import build_model, load_model, save_model
+    from tests.torch_duplex import ForcedPairer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_duplex_") as tmp:
+        tmp = Path(tmp)
+        hac_dir = save_model(cfg, model, tmp / cfg.model_name)
+        stereo_dir = save_model(scfg, smodel, tmp / scfg.model_name)
+        loaded = [build_model(*load_model(d)) for d in (hac_dir, stereo_dir)]
+
+        def in_process(argv, forced):
+            """``DuplexPipeline.run`` with the command's models, options and
+            header: its SAM text."""
+            pipe = DuplexPipeline(load_model(hac_dir)[0], loaded[0], load_model(stereo_dir)[0],
+                                  loaded[1])
+            if forced:
+                pipe.pairer = ForcedPairer(PairingResult)
+            out = io.StringIO()
+            writer = SamWriter(out, pipe.simplex.build_header(
+                [DUPLEX_FIXTURE], cli_line=shlex.join(["dorado_tpu_torch", *argv])))
+            pipe.run(DUPLEX_FIXTURE, writer)
+            writer.close()
+            return out.getvalue()
+
+        sam = tmp / "duplex.sam"
+        argv = ["duplex", str(hac_dir), str(DUPLEX_FIXTURE), "--stereo-model", str(stereo_dir),
+                "--emit-sam"]
+        real_pairer = duplex_pipeline.DuplexPairer
+        duplex_pipeline.DuplexPairer = lambda: ForcedPairer(PairingResult)
+        try:
+            for w in k.wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            rc = cli_main([*argv, "-o", str(sam)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            duplex_pipeline.DuplexPairer = real_pairer
+        k.launches["cli duplex"] = {name: w.launches for name, w in k.wrappers.items()}
+        k.check_launches("cli duplex", k.launches["cli duplex"], 1)
+        got = sam.read_text()
+        want = in_process([*argv, "-o", str(sam)], forced=True)
+        if rc != 0 or got != want:
+            print("\n".join(difflib.unified_diff(got.splitlines(), want.splitlines(), n=0,
+                                                 lineterm=""))[:3000], flush=True)
+            raise AssertionError(f"cli duplex: exit code {rc}, or its SAM differs from "
+                                 f"DuplexPipeline.run's (the diff above)")
+        duplex = [l.split("\t")[0] for l in got.splitlines() if ";" in l.split("\t")[0]]
+        print(f"cli duplex (in process, pairs forced): {wall:.2f} s, {len(duplex)} duplex "
+              f"records, the SAM equal to DuplexPipeline.run's [{k.card}]; launches "
+              f"{ {n: v for n, v in k.launches['cli duplex'].items() if v} }", flush=True)
+
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "dorado_tpu_torch", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+
+        def body(text):
+            return [l for l in text.splitlines() if not l.startswith("@PG")]
+
+        want = in_process(argv, forced=False)
+        if res.returncode != 0 or body(res.stdout) != body(want) or not body(want):
+            raise AssertionError(f"python -m dorado_tpu_torch duplex: exit code "
+                                 f"{res.returncode}, or its SAM differs from the in-process "
+                                 f"run's but for @PG: {res.stderr[-2000:]}")
+        print(f"python -m dorado_tpu_torch duplex (the real pairer): {wall:.2f} s, "
+              f"{len(body(want))} lines equal to DuplexPipeline.run's but for @PG; "
+              f"{[l for l in res.stderr.splitlines() if l.startswith('> ')]}", flush=True)
+
+        pairs = tmp / "pairs.txt"
+        pairs.write_text("".join(name.replace(";", " ") + "\n" for name in duplex))
+        out = tmp / "basespace.sam"
+        rc = cli_main(["duplex", "basespace", str(sam), "--pairs", str(pairs), "--emit-sam",
+                       "-o", str(out)])
+        records = [l for l in out.read_text().splitlines() if not l.startswith("@")]
+        if rc != 0:
+            raise AssertionError(f"duplex basespace: exit code {rc}")
+        print(f"cli duplex basespace on the forced pairs: {len(records)} consensus records of "
+              f"{len(duplex)} pairs (random calls of a pair rarely overlap)", flush=True)
 
 
 def main() -> None:
@@ -2946,6 +3415,9 @@ def main() -> None:
     t0 = time.perf_counter()
     wide_kernels(kit)
     print(f"wide K1 and K11a float32 checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    duplex_kernels(kit)
+    print(f"K1 and K2 at the stereo shapes: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the model and the pipelines at hac v4.3's full width ---------------
     cfg = hac_v43_config()
@@ -3237,7 +3709,21 @@ def main() -> None:
         "sup hp f32": ["w8a8_matmul_fq_f32", "attention_halfperm_f32", "swiglu_w8a8",
                        "w8a8_matmul_f32", "crf_lse_backward", "crf_fused_forward",
                        "crf_traceback"],
+        # duplex: hac's simplex path and the stereo model's, on the same
+        # kernels (5 LSTM layers a batch of either); one stereo device step
+        # alone; the command line; the modbase models' K1 float32 besides
+        "duplex viterbi": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward",
+                           "crf_fused_forward", "crf_traceback"],
+        "duplex beam": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_scans", "beam_search",
+                        "beam_traceback"],
+        "duplex f32": ["lstm_scan_f32", "w8a8_matmul_fq_f32", "crf_lse_backward",
+                       "crf_fused_forward", "crf_traceback"],
+        "duplex modbase": ["lstm_scan", "w8a8_matmul_fq", "crf_lse_backward",
+                           "crf_fused_forward", "crf_traceback", "lstm_scan_f32"],
     }
+    for what in ("viterbi", "beam", "f32"):
+        path_kernels[f"stereo {what}"] = path_kernels[f"duplex {what}"]
+    path_kernels["cli duplex"] = path_kernels["duplex viterbi"]
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
         "sup hp fused": [18, 18, 18, 18, 18, 1, 1, 1],
@@ -3254,6 +3740,9 @@ def main() -> None:
         "lstm sup beam": [5, 5, 1, 1, 1],
         "lstm sup f32": [5, 5, 1, 1, 1],
         "sup hp f32": [18, 18, 18, 18, 1, 1, 1],
+        # a simplex or a stereo batch: 5 LSTM layers, one decode
+        **{f"{kind} {what}": [5, 5, 1, 1, 1] for kind in ("duplex", "stereo")
+           for what in ("viterbi", "beam", "f32")},
     }
 
     def check_launches(path, counts, batches):
@@ -3349,6 +3838,9 @@ def main() -> None:
         modbase_phase(cfg, model, reads, run_info, mod_dir, wrappers, check_launches, launches,
                       smi)
         print(f"modbase phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        duplex_phase(kit, cfg, model, mod_dir)
+        print(f"duplex phase: {time.perf_counter() - t0:.1f} s", flush=True)
         cli_phase(cfg, model, sup_cfg, sup_model, wrappers, check_launches, path_kernels,
                   launches, card, mod_dir, fast, lstm_sup)
     batch_sweep(cfg, model, card)

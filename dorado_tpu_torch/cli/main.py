@@ -1,4 +1,5 @@
-"""Command line of the port: ``python -m dorado_tpu_torch basecaller``.
+"""Command line of the port: ``python -m dorado_tpu_torch basecaller`` and
+``python -m dorado_tpu_torch duplex``.
 
 Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
@@ -14,6 +15,16 @@ and two are refused with exit code 1 instead of doing something else than
 the JAX command would: ``--decoder beam-host``, and a model name or
 ``{fast,hac,sup}[@version]``, which needs the model downloader: the model
 must be a directory.
+
+``duplex`` is the JAX command's ``duplex`` for what the port's
+``DuplexPipeline`` does: stereo duplex calling of POD5 files with a simplex
+and a stereo model directory (``--stereo-model``), with duplex modified
+bases from model directories, the ``--min-qscore`` and ``--read-ids``
+filters and ``--dtype``; or, with ``basespace`` as the model, the
+consensus of basecalled pairs (a BAM or SAM and ``--pairs``). Its other JAX
+options are left out, ``--modified-bases`` among them, and
+``--decoder beam-host`` is refused with exit code 1, as ``basecaller``
+refuses it.
 
 The device is CUDA unless ``-x cpu`` is given (``auto`` means CUDA); without
 CUDA the command raises rather than falling back to the CPU.
@@ -121,7 +132,6 @@ def _run_basecaller(args: argparse.Namespace) -> int:
     from dorado_tpu_torch.basecall.runner import resolve_device
     from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.pod5 import find_pod5_files
-    from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
     from dorado_tpu_torch.models.load import build_model, load_model
     from dorado_tpu_torch.pipeline import BasecallerPipeline
 
@@ -199,27 +209,16 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         return 1
     header = pipeline.build_header(files, cli_line=args.cli_line)
 
-    out_is_stdout = args.output == "-"
     output = args.output
-    if not out_is_stdout and (Path(output).is_dir() or output.endswith(("/", os.sep))):
+    if output != "-" and (Path(output).is_dir() or output.endswith(("/", os.sep))):
         # a directory: calls_<timestamp>.<ext> inside it (hts_writer/Structure.cpp:44-55)
         Path(output).mkdir(parents=True, exist_ok=True)
         ts = datetime.datetime.now(datetime.timezone.utc).strftime("%Y-%m-%d_T%H-%M-%S")
         ext = ".fastq" if args.emit_fastq else ".sam" if args.emit_sam else ".bam"
         output = str(Path(output) / f"calls_{ts}{ext}")
         print(f"> Output: {output}", file=sys.stderr)
-    text = args.emit_fastq or args.emit_sam
-    if out_is_stdout:
-        fh = sys.stdout if text else sys.stdout.buffer
-    else:
-        fh = open(output, "w" if text else "wb")
+    writer, fh = _open_writer(output, args, header)
     try:
-        if args.emit_fastq:
-            writer = FastqWriter(fh, header)
-        elif args.emit_sam:
-            writer = SamWriter(fh, header)
-        else:
-            writer = BamWriter(fh, header)
         t0 = time.perf_counter()
         for rec in resume_records:
             writer.write(rec)
@@ -227,7 +226,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
                              max_seconds=args.run_for)
         writer.close()
     finally:
-        if not out_is_stdout:
+        if fh is not None:
             fh.close()
     _summarise(stats, time.perf_counter() - t0)
     return 0
@@ -290,10 +289,164 @@ def _validate_resume_cl(
     return None
 
 
+def _add_duplex(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("duplex", help="Run duplex basecalling")
+    p.add_argument("model", help="Simplex model directory, or 'basespace'")
+    p.add_argument("data", help="POD5 file or directory (basespace: a BAM or SAM)")
+    p.add_argument("--stereo-model", default=None,
+                   help="Stereo model directory (required unless the model is 'basespace')")
+    p.add_argument("--pairs", default=None,
+                   help="File of 'template complement' read-id pairs (basespace mode)")
+    p.add_argument("-r", "--recursive", action="store_true")
+    p.add_argument("-o", "--output", default="-", help="Output file or - for stdout")
+    p.add_argument("--emit-sam", action="store_true", help="Emit SAM instead of BAM")
+    p.add_argument("--emit-fastq", action="store_true")
+    p.add_argument("--modified-bases-models", default=None,
+                   help="Comma-separated paths to modified-base model directories")
+    p.add_argument("--modified-bases-threshold", type=float, default=0.05)
+    p.add_argument("-c", "--chunksize", type=int, default=None)
+    p.add_argument("-b", "--batchsize", type=int, default=None)
+    p.add_argument("--decoder", choices=["viterbi", "beam", "beam-host"], default="viterbi",
+                   help="as basecaller's --decoder (beam-host is not supported by the port)")
+    p.add_argument("--overlap", type=int, default=None)
+    p.add_argument("--min-qscore", type=float, default=0.0)
+    p.add_argument("--read-ids", default=None,
+                   help="File with one read id per line; only these are basecalled")
+    p.add_argument("-x", "--device", default="cuda",
+                   help="'cuda' (the default; 'auto' means it), 'cuda:N' or 'cpu'")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="Compute type of both models (default: bfloat16 on the card, "
+                   "float32 on the CPU)")
+    p.set_defaults(func=_run_duplex)
+
+
+def _open_writer(output: str, args: argparse.Namespace, header):
+    """(writer, the file it writes or None for stdout) for ``output`` (a
+    path, or - for stdout) and --emit-sam / --emit-fastq."""
+    from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
+
+    text = args.emit_fastq or args.emit_sam
+    if output == "-":
+        fh = None
+        stream = sys.stdout if text else sys.stdout.buffer
+    else:
+        fh = stream = open(output, "w" if text else "wb")
+    cls = FastqWriter if args.emit_fastq else SamWriter if args.emit_sam else BamWriter
+    return cls(stream, header), fh
+
+
+def _run_duplex(args: argparse.Namespace) -> int:
+    if args.model == "basespace":
+        return _run_basespace_duplex(args)
+    import torch
+
+    from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.duplex.pipeline import DuplexPipeline
+    from dorado_tpu_torch.io.pod5 import find_pod5_files
+    from dorado_tpu_torch.models.load import build_model, load_model
+
+    if args.decoder == "beam-host":
+        print("> --decoder beam-host is not supported by the port: use viterbi or beam",
+              file=sys.stderr)
+        return 1
+    if not args.stereo_model:
+        print("> stereo duplex requires --stereo-model", file=sys.stderr)
+        return 1
+    model_dir = _resolve_model_dir(args.model)
+    stereo_dir = _resolve_model_dir(args.stereo_model)
+    if model_dir is None or stereo_dir is None:
+        return 1
+    device = resolve_device("cuda" if args.device == "auto" else args.device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}[args.dtype]
+    only_read_ids = None
+    if args.read_ids:
+        with open(args.read_ids) as fh:
+            only_read_ids = {line.strip() for line in fh if line.strip()}
+    try:
+        files = find_pod5_files(args.data, recursive=args.recursive)
+    except RuntimeError as exc:  # FAST5 input
+        print(f"> {exc}", file=sys.stderr)
+        return 1
+    if not files:
+        print(f"> No POD5 files found under {args.data}", file=sys.stderr)
+        return 1
+    config, params = load_model(model_dir)
+    stereo_config, stereo_params = load_model(stereo_dir)
+    modbase_caller = None
+    if args.modified_bases_models:
+        from dorado_tpu_torch.modbase.caller import ModBaseCaller
+        from dorado_tpu_torch.modbase.config import load_modbase_config
+
+        modbase_caller = ModBaseCaller(
+            [load_modbase_config(p) for p in args.modified_bases_models.split(",")],
+            canonical_stride=config.stride, is_rna=config.is_rna_model, device=device,
+        )
+    pipeline = DuplexPipeline(
+        config, build_model(config, params), stereo_config,
+        build_model(stereo_config, stereo_params), chunk_size=args.chunksize,
+        batch_size=args.batchsize, overlap=args.overlap, device=device, decoder=args.decoder,
+        compute_dtype=dtype, min_qscore=args.min_qscore, only_read_ids=only_read_ids,
+        modbase_caller=modbase_caller, modbase_threshold=args.modified_bases_threshold,
+    )
+    header = pipeline.simplex.build_header(files, cli_line=args.cli_line)
+    writer, fh = _open_writer(args.output, args, header)
+    try:
+        stats = pipeline.run(args.data, writer, recursive=args.recursive)
+        writer.close()
+    finally:
+        if fh is not None:
+            fh.close()
+    print(f"> Simplex reads basecalled: {stats.simplex_reads}", file=sys.stderr)
+    print(f"> Duplex reads basecalled: {stats.duplex_reads}", file=sys.stderr)
+    if stats.simplex_reads:
+        rate = 200.0 * stats.duplex_reads / stats.simplex_reads
+        print(f"> Duplex rate: {rate:.2f}%", file=sys.stderr)
+    return 0
+
+
+def _run_basespace_duplex(args: argparse.Namespace) -> int:
+    """The consensus of basecalled pairs: the records of a BAM or SAM and a
+    pairs file (cli_lib/duplex.cpp:431-456, basespace mode)."""
+    from dorado_tpu_torch.duplex.basespace import basespace_duplex_call
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.io.sam import SamHeader, SamRecord, SamTag
+    from dorado_tpu_torch.utils.sequence import mean_qscore_from_qstring
+
+    if not args.pairs:
+        print("> basespace mode requires --pairs", file=sys.stderr)
+        return 1
+    _, records = read_records(args.data)
+    by_id = {r.qname: r for r in records}
+    with open(args.pairs) as fh:
+        pairs = [parts[:2] for parts in (line.split() for line in fh) if len(parts) >= 2]
+    writer, fh = _open_writer(args.output, args, SamHeader())
+    n = 0
+    try:
+        for t_id, c_id in pairs:
+            t, c = by_id.get(t_id), by_id.get(c_id)
+            if t is None or c is None:
+                continue
+            result = basespace_duplex_call(t.seq, t.qual, c.seq, c.qual)
+            if result is None:
+                continue
+            seq, qstring = result
+            writer.write(SamRecord(qname=f"{t_id};{c_id}", seq=seq, qual=qstring, tags=[
+                SamTag("qs", "f", mean_qscore_from_qstring(qstring)), SamTag("dx", "i", 1),
+            ]))
+            n += 1
+        writer.close()
+    finally:
+        if fh is not None:
+            fh.close()
+    print(f"> Duplex reads basecalled: {n}", file=sys.stderr)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dorado_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_basecaller(sub)
+    _add_duplex(sub)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     # the @PG CL line: the command as given, shell-quoted

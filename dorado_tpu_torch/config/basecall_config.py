@@ -191,6 +191,15 @@ class BasecallModelConfig:
         return self.is_lstm_model and self.lstm_inner_dim is not None
 
     @property
+    def has_pre_v4_head(self) -> bool:
+        """A conv + LSTM model whose CRF head is pre-v4: one linear layer
+        with a bias, then 5 tanh (a first conv of 4 or more than one input
+        feature, as the stereo model's 13)."""
+        return self.is_lstm_model and self.out_features is None and (
+            self.convs[0].size <= 4 or self.num_features != 1
+        )
+
+    @property
     def scale_factor(self) -> int:
         return self.tx.upsample.scale_factor if self.tx is not None else 1
 

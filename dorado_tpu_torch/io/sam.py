@@ -54,8 +54,8 @@ class SamRecord:
 
     def tag_string(self, t: SamTag) -> str:
         if t.type == "B":
-            vals = ",".join(str(int(v)) for v in t.value)
-            return f"{t.tag}:B:{t.subtype},{vals}"
+            # an empty array is the subtype alone (no trailing comma)
+            return f"{t.tag}:B:{t.subtype}" + "".join(f",{int(v)}" for v in t.value)
         if t.type in "cCsSiI":
             return f"{t.tag}:i:{int(t.value)}"
         if t.type == "f":

@@ -107,7 +107,7 @@ class LSTMCRFModel(nn.Module):
             layer.b_ih = nn.Parameter(torch.zeros(4 * h, **kw))
             layer.b_hh = nn.Parameter(torch.zeros(4 * h, **kw))
             self.lstms.append(layer)
-        self.pre_v4 = config.convs[0].size <= 4 or config.num_features != 1
+        self.pre_v4 = config.has_pre_v4_head
         if config.out_features is not None:
             self.linear1_w = nn.Parameter(torch.zeros(config.out_features, h, **kw))
             self.linear1_b = (
@@ -161,7 +161,7 @@ class LSTMCRFModel(nn.Module):
             scores = _linear_f32(y, self.linear2_w, None)
         else:
             scores = _linear_f32(x, self.linear1_w, self.linear1_b)
-        if self.pre_v4 and self.linear2_w is None:
+        if self.pre_v4:
             return 5.0 * torch.tanh(scores)
         if tanh_x5:
             scores = 5.0 * torch.tanh(scores)

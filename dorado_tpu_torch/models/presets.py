@@ -107,6 +107,50 @@ def fast_v40_config() -> BasecallModelConfig:
     return cfg
 
 
+def stereo_config() -> BasecallModelConfig:
+    """The duplex stereo model, named dna_r10.4.1_e8.2_5khz_stereo@v1.1 (the
+    JAX package's model registry), built from what the repository records of
+    it; its true ``config.toml`` is not in the repository. Field by field:
+
+      - from the registry's name: 5 kHz DNA;
+      - from the stereo features (``duplex.stereo``) and the pre-v4 config
+        layout both loaders parse for such a model (``[input] features``,
+        ``[encoder]`` ``stride``, ``features``, ``first_conv_size``,
+        ``scale``, ``blank_score``): 13 input features and the implied convs
+        13 -> 16 (k5) -> 16 (k5) -> the LSTM width (k19, at the stride), all
+        swish; the head takes a bias (``bias``) and computes 5 tanh of its
+        output (``scale`` 5.0), which keeps the scores within +-5 (no clamp
+        layer: ``clamp`` False, as the layout loads it);
+      - from the JAX package's stereo tests: ``stride`` 5, ``state_len`` 3
+        (``outsize`` 4^4, 64 states), ``blank_score`` 2.0;
+      - from hac v4.3 (``hac_v43_config``): 5 LSTM layers of 384, chunk
+        10000 with overlap 500;
+      - the loaders' defaults for the rest (qscale 1.0, qbias 0.0, the
+        default signal normalisation: the stereo features arrive scaled).
+
+    ``config_toml`` writes it in the pre-v4 layout."""
+    return BasecallModelConfig(
+        model_path=Path("dna_r10.4.1_e8.2_5khz_stereo@v1.1"),
+        lstm_size=384,
+        stride=5,
+        bias=True,
+        clamp=False,
+        state_len=3,
+        outsize=4**4,
+        blank_score=2.0,
+        scale=5.0,
+        num_features=13,
+        sample_rate=5000,
+        sample_type=SampleType.DNA,
+        convs=[
+            ConvParams(13, 16, 5, 1, Activation.SWISH),
+            ConvParams(16, 16, 5, 1, Activation.SWISH),
+            ConvParams(16, 384, 19, 5, Activation.SWISH),
+        ],
+        basecaller=BatchParams(chunk_size=10000, overlap=500, batch_size=0),
+    )
+
+
 def sup_v50_config() -> BasecallModelConfig:
     """dna_r10.4.1_e8.2_400bps_sup@v5.0.0 transformer: conv stack stride 12,
     18-layer TxEncoder (d_model 512, 8 heads, ff 2048, window [127,128]),
@@ -176,10 +220,29 @@ def _toml_table(name: str, values: dict, array: bool = False) -> list[str]:
     return [head] + [f"{k} = {_toml_value(v)}" for k, v in values.items()] + [""]
 
 
+def _pre_v4_encoder(config: BasecallModelConfig) -> dict:
+    """The pre-v4 ``[encoder]`` table of ``config``; raises ValueError where
+    the layout cannot hold it (its convs, layer count and flags are
+    implied)."""
+    first = config.convs[0].size
+    implied = [
+        ConvParams(config.num_features, first, 5, 1, Activation.SWISH),
+        ConvParams(first, 16, 5, 1, Activation.SWISH),
+        ConvParams(16, config.lstm_size, 19, config.stride, Activation.SWISH),
+    ]
+    if (config.convs != implied or config.lstm_layers != 5 or not config.bias
+            or config.clamp):
+        raise ValueError(f"{config.model_name}: a pre-v4 head on another stack than the "
+                         f"pre-v4 layout implies")
+    return {"stride": config.stride, "features": config.lstm_size, "first_conv_size": first,
+            "scale": config.scale, "blank_score": config.blank_score}
+
+
 def config_toml(config: BasecallModelConfig) -> str:
     """The ``config.toml`` of a model directory for ``config``, in the
     reference's schema (v4 encoder sublayers for conv + LSTM models, the
-    ``model.encoder`` tables for transformers), such that
+    pre-v4 ``[encoder]`` table for a conv + LSTM model with a pre-v4 head,
+    the ``model.encoder`` tables for transformers), such that
     ``load_model_config`` of the directory gives ``config`` back (a
     directory named after ``config.model_name``)."""
     lines: list[str] = []
@@ -205,6 +268,10 @@ def config_toml(config: BasecallModelConfig) -> str:
             "scale": crf.scale, "blank_score": crf.blank_score,
             "expand_blanks": crf.expand_blanks, "permute": list(crf.permute),
         })
+    elif config.has_pre_v4_head:
+        lines += _toml_table("input", {"features": config.num_features})
+        lines += _toml_table("encoder", _pre_v4_encoder(config))
+        lines += _toml_table("global_norm", {"state_len": config.state_len})
     else:
         lines += _toml_table("input", {"features": config.num_features})
         lines += _toml_table("encoder", {"type": "serial"})

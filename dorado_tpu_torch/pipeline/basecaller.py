@@ -285,6 +285,14 @@ class BasecallerPipeline:
         wr.pending = len(offsets)
         return [wr]
 
+    def _feed_read(self, read: Pod5Read, flush_cb) -> None:
+        """Admit, prepare and feed one read on this thread, without the
+        scale pool: the duplex pipeline's feed."""
+        if not self._gate_read(read):
+            return
+        for wr in self._prepare_read(read):
+            self._feed_prepared(wr, flush_cb)
+
     def _feed_prepared(self, wr: _WorkingRead, flush_cb) -> None:
         self.stats.samples_processed += len(wr.scaled)
         for ci, off in enumerate(wr.offsets):

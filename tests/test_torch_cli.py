@@ -3,7 +3,9 @@ command (``dorado_tpu.cli.main``) on the same model directory and POD5 file,
 both splitting reads (their default), for SAM, FASTQ and BAM output; with
 ``--disable-read-splitting``, ``--min-qscore``, ``--read-ids``,
 ``--max-reads`` and ``--resume-from``; with ``--modified-bases-models``; and
-the cases where it exits with 1.
+the cases where it exits with 1. ``duplex`` against the JAX command with
+pairs forced the same way in both (``tests/torch_duplex.py``), with and
+without duplex modified bases, and ``duplex basespace``.
 
 The file holds white-noise reads, as ``tests/test_torch_pipeline.py`` feeds
 the pipelines. (On the smooth signal of the committed fixture this narrow
@@ -28,6 +30,7 @@ from dorado_tpu_torch.io.pod5 import Pod5File
 from dorado_tpu_torch.io.sam import SamRecord, SamTag
 from dorado_tpu_torch.modbase.model import init_modbase_params, save_modbase_model
 from dorado_tpu_torch.models.presets import config_toml, hac_5mcg_5hmcg_v3_config, hac_v43_config
+from dorado_tpu_torch.utils.sequence import reverse_complement
 from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
 from tests.torch_pod5_writer import make_reads, run_info, write_pod5
 
@@ -328,3 +331,159 @@ def test_python_m_entry_point(inputs, tmp_path):
         return [l for l in text.splitlines() if not l.startswith("@PG")]
 
     assert body(res.stdout) == body((tmp_path / "in.sam").read_text())
+
+
+# ---- duplex ------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def duplex_inputs(inputs, tmp_path_factory):
+    """A narrow stereo model directory (the JAX package writes its weights,
+    the head's bias drawn) and a POD5 file of white-noise reads in pairs on
+    shared channels and muxes, whose chunks fill whole batches at ``-c 1200
+    -b 8`` (the JAX command writes no read of a batch that never fills).
+    The reads have no calibration offset, so their signal lies about the
+    standardisation mean as ``tests/test_torch_pipeline.py``'s does: with
+    the writer's random offsets, one of these 11 reads drives the narrow
+    random model into a long repeat whose Viterbi near-ties the two
+    frameworks break differently (in the simplex commands too)."""
+    from dorado_tpu.config import load_model_config as jax_load_config
+    from dorado_tpu_torch.models.presets import stereo_config
+    from tests.test_torch_duplex import PAIRS, _jax_stereo_params, _lengths, _narrow_stereo
+    from tests.torch_duplex import duplex_read_layout
+
+    d = tmp_path_factory.mktemp("duplex")
+    cfg = _narrow_stereo(stereo_config())
+    stereo = d / cfg.model_name
+    stereo.mkdir()
+    (stereo / "config.toml").write_text(config_toml(cfg))
+    jcfg = jax_load_config(stereo)
+    jax_save_lstm_params(jcfg, _jax_stereo_params(jcfg), stereo)
+    lengths = _lengths(3, PAIRS)
+    infos = [run_info(3)]
+    reads = make_reads(8, lengths, infos, noise=True)
+    layout = duplex_read_layout(np.random.RandomState(8), lengths, PAIRS)
+    for r, (channel, well, start) in zip(reads, layout):
+        r.update(channel=channel, well=well, start=start, end_reason="signal_positive",
+                 calibration_offset=0.0)
+    data = d / "pod5"
+    data.mkdir()
+    write_pod5(data / "duplex.pod5", reads, infos)
+    return inputs[0], stereo, data, [str(r["read_id"]) for r in reads]
+
+
+@pytest.fixture
+def forced_pairs(monkeypatch):
+    """Both duplex pipelines pair reads with ``ForcedPairer``."""
+    import dorado_tpu.duplex.pipeline as jax_duplex_pipeline
+    from dorado_tpu.duplex.pairing import PairingResult as JaxPairingResult
+    import dorado_tpu_torch.duplex.pipeline as port_duplex_pipeline
+    from dorado_tpu_torch.duplex.pairing import PairingResult
+    from tests.torch_duplex import ForcedPairer
+
+    monkeypatch.setattr(jax_duplex_pipeline, "DuplexPairer",
+                        lambda: ForcedPairer(JaxPairingResult))
+    monkeypatch.setattr(port_duplex_pipeline, "DuplexPairer", lambda: ForcedPairer(PairingResult))
+
+
+@pytest.mark.parametrize("case", ["viterbi", "modbase"])
+def test_cli_duplex_matches_jax_cli(duplex_inputs, mod_dir, forced_pairs, tmp_path, capfd, case):
+    """``duplex <model> <pod5> --stereo-model <dir>`` on the CPU against the
+    JAX command with the same pairs forced: the same @RG lines and records
+    (the duplex records first: sequences equal, qstrings within a step, tags
+    equal but ``qs``), with ``--modified-bases-models`` the duplex MM/ML/MN
+    too; then ``duplex basespace --pairs`` on that SAM, equal to the JAX
+    command's."""
+    from tests.test_torch_duplex import PAIRS, _assert_records_match
+
+    model, stereo, data, read_ids = duplex_inputs
+    # BAM with mods: the JAX command's SAM writes an empty ML as "ML:B:C,",
+    # which no reader parses (the port writes "ML:B:C")
+    fmt = "bam" if case == "modbase" else "sam"
+    extra = ["--modified-bases-models", str(mod_dir)] if case == "modbase" else ["--emit-sam"]
+    args = ["duplex", str(model), str(data), "--stereo-model", str(stereo), "-c", "1200", "-b",
+            "8", *extra, "-x", "cpu"]
+    ours, theirs = tmp_path / f"ours.{fmt}", tmp_path / f"theirs.{fmt}"
+    assert jax_main([*args, "-o", str(theirs)]) == 0
+    assert main([*args, "-o", str(ours)]) == 0
+    err = capfd.readouterr().err
+    assert f"> Simplex reads basecalled: {len(read_ids)}" in err
+    assert f"> Duplex reads basecalled: {PAIRS}" in err and "> Duplex rate: " in err
+    rg_ref, ref = _records(theirs, fmt)
+    rg_out, out = _records(ours, fmt)
+    assert rg_out == rg_ref and len(rg_out) == 1
+    # the JAX run harvests each batch's reads in reverse: the same records,
+    # compared by name
+    assert sorted(r.qname for r in out) == sorted(r.qname for r in ref)
+    assert len(out) == len(read_ids) + PAIRS and all(";" in r.qname for r in out[:PAIRS])
+    _assert_records_match(ref, out)
+    if case == "modbase":
+        for r in out[:PAIRS]:
+            tags = {t.tag: t.value for t in r.tags}
+            assert [t.tag for t in r.tags][-3:] == ["MM", "ML", "MN"]
+            assert "C+h?" in tags["MM"] and "G-m?" in tags["MM"] and tags["MN"] == len(r.seq)
+
+    pairs = tmp_path / "pairs.txt"
+    pairs.write_text("".join(r.qname.replace(";", " ") + "\n" for r in out[:PAIRS]))
+    base = ["duplex", "basespace", str(ours), "--pairs", str(pairs), "--emit-sam", "-x", "cpu"]
+    assert jax_main([*base, "-o", str(tmp_path / "jb.sam")]) == 0
+    assert main([*base, "-o", str(tmp_path / "ob.sam")]) == 0
+    got, want = _records(tmp_path / "ob.sam", "sam")[1], _records(tmp_path / "jb.sam", "sam")[1]
+    assert [(r.qname, r.seq, r.qual, [(t.tag, t.value) for t in r.tags]) for r in got] == [
+        (r.qname, r.seq, r.qual, [(t.tag, t.value) for t in r.tags]) for r in want]
+
+
+def test_cli_duplex_basespace_matches_jax_cli(tmp_path, capfd):
+    """``duplex basespace`` on a SAM of planted template and complement calls
+    (the complement the reverse complement of the template with errors) and
+    a pairs file naming them, one unknown id among them: the consensus
+    records equal the JAX command's."""
+    from tests.test_torch_duplex import _mutate, _seq
+
+    rs = np.random.RandomState(21)
+    lines, pairs = ["@HD\tVN:1.6\tSO:unknown"], []
+    for i, n in enumerate((300, 800, 1500)):
+        t = _seq(rs, n)
+        c = reverse_complement(_mutate(rs, t))
+        for name, s in ((f"t{i}", t), (f"c{i}", c)):
+            q = "".join(chr(33 + int(v)) for v in rs.randint(2, 41, len(s)))
+            lines.append(f"{name}\t4\t*\t0\t0\t*\t*\t0\t0\t{s}\t{q}\tqs:f:10.0")
+        pairs.append(f"t{i} c{i}")
+    pairs.append("t0 nope")
+    (tmp_path / "in.sam").write_text("\n".join(lines) + "\n")
+    (tmp_path / "pairs.txt").write_text("\n".join(pairs) + "\n")
+    base = ["duplex", "basespace", str(tmp_path / "in.sam"), "--pairs",
+            str(tmp_path / "pairs.txt"), "--emit-sam", "-x", "cpu"]
+    assert jax_main([*base, "-o", str(tmp_path / "j.sam")]) == 0
+    assert main([*base, "-o", str(tmp_path / "o.sam")]) == 0
+    assert "> Duplex reads basecalled: 3" in capfd.readouterr().err
+    got, want = _records(tmp_path / "o.sam", "sam")[1], _records(tmp_path / "j.sam", "sam")[1]
+    assert [r.qname for r in got] == ["t0;c0", "t1;c1", "t2;c2"]
+    assert [(r.qname, r.seq, r.qual, [(t.tag, t.value) for t in r.tags]) for r in got] == [
+        (r.qname, r.seq, r.qual, [(t.tag, t.value) for t in r.tags]) for r in want]
+
+
+@pytest.mark.parametrize("case", ["no stereo model", "beam-host", "basespace without pairs"])
+def test_cli_duplex_exits_1(duplex_inputs, capsys, case):
+    model, stereo, data, _ = duplex_inputs
+    args = {
+        "no stereo model": [str(model), str(data)],
+        "beam-host": [str(model), str(data), "--stereo-model", str(stereo), "--decoder",
+                      "beam-host"],
+        "basespace without pairs": ["basespace", str(data)],
+    }[case]
+    assert main(["duplex", *args, "-x", "cpu", "--emit-sam"]) == 1
+    want = {"no stereo model": "> stereo duplex requires --stereo-model",
+            "beam-host": "beam-host is not supported",
+            "basespace without pairs": "> basespace mode requires --pairs"}[case]
+    assert want in capsys.readouterr().err
+
+
+def test_cli_duplex_rejects_modified_bases_by_name(duplex_inputs):
+    """``--modified-bases`` names models for the downloader, which the port
+    has not: argparse rejects it (exit 2), as for ``basecaller``."""
+    model, stereo, data, _ = duplex_inputs
+    with pytest.raises(SystemExit) as exc:
+        main(["duplex", str(model), str(data), "--stereo-model", str(stereo),
+              "--modified-bases", "5mCG_5hmCG", "-x", "cpu"])
+    assert exc.value.code == 2

@@ -43,7 +43,9 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.modbase.caller", "dorado_tpu_torch.modbase.config",
             "dorado_tpu_torch.modbase.encode", "dorado_tpu_torch.modbase.model",
             "dorado_tpu_torch.modbase.motif", "dorado_tpu_torch.modbase.scaler",
-            "dorado_tpu_torch.modbase.tags"} <= set(names)
+            "dorado_tpu_torch.modbase.tags", "dorado_tpu_torch.duplex.basespace",
+            "dorado_tpu_torch.duplex.modbase", "dorado_tpu_torch.duplex.pairing",
+            "dorado_tpu_torch.duplex.pipeline", "dorado_tpu_torch.duplex.stereo"} <= set(names)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -554,3 +556,68 @@ def test_kernel_sources_have_the_wide_k1_and_k11a_f32():
     assert "KIND_K1FW" in lstm_src and "load_a_l2" in lstm_src
     assert "DTT_EXPORT int attention_halfperm_f32(" in attn_src
 
+
+
+def _narrow_duplex_models(width, head_gain=12.0):
+    """hac v4.3 and the stereo preset at LSTM width ``width`` and 2 layers,
+    random weights with the CRF heads scaled so that both call bases."""
+    from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+    from dorado_tpu_torch.models.presets import stereo_config
+
+    out = []
+    for cfg in (hac_v43_config(), stereo_config()):
+        cfg.lstm_size, cfg.convs[2].size, cfg.lstm_layers = width, width, 2
+        model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            model.linear1_w.mul_(head_gain)
+        out += [cfg, model]
+    return out
+
+
+def test_duplex_pipeline_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from dorado_tpu_torch.cli import main as cli
+    from dorado_tpu_torch.duplex import DuplexPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    models = _narrow_duplex_models(16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DuplexPipeline(*models)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DuplexPipeline(*models, device="cuda")
+    pipe = DuplexPipeline(*models, device="cpu")
+    assert pipe.simplex.runner.device.type == pipe.stereo_runner.device.type == "cpu"
+    args = ["duplex", str(tmp_path), str(tmp_path), "--stereo-model", str(tmp_path)]
+    for extra in ([], ["-x", "auto"], ["-x", "cuda"], ["--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(args + extra)
+
+
+@pytest.mark.parametrize("decoder", ["viterbi", "beam"])
+def test_cpu_duplex_run_launches_no_kernel(no_kernels, one_thread, decoder):
+    """A duplex run on the CPU with W8A8 projections (both models at LSTM
+    width 128): a forced pair is called by the stereo model, and every
+    kernel's plain version runs."""
+    from dorado_tpu_torch.duplex import DuplexPipeline
+    from dorado_tpu_torch.duplex.pairing import PairingResult
+    from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
+    from tests.torch_duplex import ForcedPairer
+
+    pipe = DuplexPipeline(*_narrow_duplex_models(128), chunk_size=1200, batch_size=4,
+                          device="cpu", decoder=decoder, lstm_precision="w8a8")
+    assert hasattr(pipe.stereo_runner.model.lstms[0], "w_ih_q")
+    pipe.pairer = ForcedPairer(PairingResult)
+    rs = np.random.RandomState(1)
+    info = RunInfo(sample_rate=5000, protocol_run_id="run0")
+    reads = [Pod5Read(
+        read_id=f"read-{i}", signal=rs.normal(460, 113, 2000).astype(np.int16), read_number=i,
+        start_sample=2100 * i, median_before=200.0, channel=1, well=1, pore_type="not_set",
+        calibration_offset=0.0, calibration_scale=0.2, end_reason="signal_positive",
+        end_reason_forced=False, open_pore_level=float("nan"), num_reads_since_mux_change=0,
+        time_since_mux_change=0.0, num_minknow_events=0, tracked_scaling_scale=float("nan"),
+        tracked_scaling_shift=float("nan"), predicted_scaling_scale=float("nan"),
+        predicted_scaling_shift=float("nan"), run_info=info) for i in range(2)]
+    written = []
+    stats = pipe.run_reads(reads, type("W", (), {"write": lambda self, r: written.append(r)})())
+    assert stats.pairs == 1 and stats.duplex_reads == 1 and stats.simplex_reads == 2
+    assert [r.qname for r in written] == ["read-0;read-1", "read-0", "read-1"]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)

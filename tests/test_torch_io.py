@@ -282,3 +282,24 @@ def test_read_records_refuses_cram(tmp_path):
     path.write_bytes(b"CRAM\x03\x00")
     with pytest.raises(ValueError, match="CRAM is not supported"):
         read_records(path)
+
+
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+def test_empty_array_tag_round_trips(tmp_path, fmt):
+    """A record whose ML array is empty (a duplex read with no site called)
+    writes ``ML:B:C`` in SAM, and both packages' readers give back an empty
+    array, from SAM and from BAM."""
+    rec = SamRecord(qname="t;c", seq="ACGT", qual="++++", tags=[
+        SamTag("MM", "Z", "C+h?;"), SamTag("ML", "B", np.zeros(0, np.uint8), subtype="C"),
+        SamTag("MN", "i", 4)])
+    assert rec.tag_string(rec.tags[1]) == "ML:B:C"
+    path = tmp_path / f"out.{fmt}"
+    with open(path, "w" if fmt == "sam" else "wb") as fh:
+        writer = (SamWriter if fmt == "sam" else BamWriter)(fh, SamHeader())
+        writer.write(rec)
+        writer.close()
+    for reader in (read_records, jax_read_records):
+        (got,) = reader(path)[1]
+        ml = next(t for t in got.tags if t.tag == "ML")
+        assert len(ml.value) == 0 and ml.subtype == "C"
+        assert [t.tag for t in got.tags] == ["MM", "ML", "MN"]
