@@ -184,6 +184,30 @@
    ``DuplexPipeline.run``'s), ``python -m dorado_tpu_torch duplex`` (the real
    pairer; its SAM equal to the in-process run's but for @PG) and ``duplex
    basespace --pairs`` on the forced run's SAM.
+   Last, several devices (``multi_gpu_phase``, after every other phase), at
+   hac v4.3 full width: ``torch.cuda.device_count()`` and
+   ``describe_devices()``; ``run_reads`` over 192 reads of 40-60k samples with
+   one replica and with a replica on every visible card (two on card 0 when
+   there is one card), Viterbi and beam, the records held against the one
+   replica's and each replica's launches counted for each of its batches
+   (paths ``replicas viterbi``, ``replicas beam``), ``DeviceMonitor`` on card
+   0 sampled during the run (bytes in use, the card's total as its limit);
+   the sharded step (``parallel.make_sharded_basecall_step``, unquantised
+   bf16, N = 128, chunk 9996) on a 2 x 1 and a 1 x 2 mesh over those
+   devices, its states and moves held against the 1 x 1 step's over the
+   same rows and its scores within a bf16 step over all rows, launching
+   K1, K6, K7a and K5 (paths ``sharded 2x1``, ``sharded 1x2``: K7a's only
+   paths); two processes on card 0 (``parallel.distributed``, gloo over
+   127.0.0.1, each with its own time limit) basecalling their shares of the
+   four committed POD5 shards (``tests/data/torch_port/shards``), summing
+   their stats, passing barriers and merging their BAMs, the merged records
+   held against one process's, host 0's first; ``basecaller -x cuda
+   --dump-stats-file`` with ``basecaller.`` and ``device.`` columns; and the
+   rates, each over 3 passes of ``run_reads`` (every pass's rate printed):
+   of one replica and of the replicas over the 192 reads, of each of the two
+   processes over 96 reads of its own (timed together, their windows'
+   overlap printed), and of one process over both processes' 192, each on a
+   line of its own beside the card's name and power limit.
 5. Checks the outputs: the model on the card against the float32 model on
    the CPU, the W8A8 model against the bf16 model, the device decode against
    the CPU's plain decode of the same scores (the beam also with the card's
@@ -472,6 +496,37 @@ SUP_SHALLOW_DEPTH, MIN_SUP_SHALLOW_ARGMAX_AGREE = 2, 0.95
 # the sup decode's qual chars on the card against the CPU's are held (one
 # step apart at most) where the CPU's phred is under this
 SUP_QUAL_HELD_BELOW = 20
+
+
+def smoke_run_info():
+    from dorado_tpu_torch.io.pod5 import RunInfo
+
+    return RunInfo(
+        acquisition_id="smoke", sample_rate=5000, flow_cell_id="FAB00000",
+        flow_cell_product_code="FLO-PRO114M", protocol_run_id="smoke-run",
+        acquisition_start_time_ms=1_700_000_000_000, sample_id="smoke",
+    )
+
+
+def smoke_read(i, n, gen, run_info):
+    """Read ``i``: ``n`` samples of raw ADC drawn from ``gen`` around the
+    models' standardisation mean (92-94 pA at 0.2 pA/ADC)."""
+    import numpy as np
+
+    from dorado_tpu_torch.io.pod5 import Pod5Read
+
+    signal = np.clip(gen.normal(460, 113, n), -32768, 32767).astype(np.int16)
+    return Pod5Read(
+        read_id=f"read-{i}", signal=signal, read_number=i, start_sample=0,
+        median_before=200.0, channel=i + 1, well=1, pore_type="not_set",
+        calibration_offset=0.0, calibration_scale=0.2, end_reason="signal_positive",
+        end_reason_forced=False, open_pore_level=float("nan"),
+        num_reads_since_mux_change=0, time_since_mux_change=0.0,
+        num_minknow_events=0, tracked_scaling_scale=float("nan"),
+        tracked_scaling_shift=float("nan"), predicted_scaling_scale=float("nan"),
+        predicted_scaling_shift=float("nan"), run_info=run_info,
+        filename="smoke.pod5",
+    )
 
 
 def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -1969,14 +2024,14 @@ def duplex_phase(k, cfg, model, mod_dir) -> None:
         for w in k.wrappers.values():
             w.launches = 0
         simplex_chunks = pipe.simplex.runner.stats.chunks_called
-        stereo_before = pipe.stereo_runner.stats.snapshot()
+        stereo_before = pipe.stereo_runner.stats
         written = _Records()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = pipe.run_reads(reads, written)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        stereo_after = pipe.stereo_runner.stats.snapshot()
+        stereo_after = pipe.stereo_runner.stats
         simplex_batches = pipe.simplex.stats.batches
         stereo_batches = stereo_after[0] - stereo_before[0]
         simplex_chunks = pipe.simplex.runner.stats.chunks_called - simplex_chunks
@@ -2177,6 +2232,395 @@ def duplex_cli(k, cfg, model, scfg, smodel) -> None:
               f"{len(duplex)} pairs (random calls of a pair rarely overlap)", flush=True)
 
 
+# ---- several devices: replicas, the sharded step, two processes ------------
+MULTI_READS = 192  # reads of 40-60k samples: about 1000 chunks, 8 batches of 128
+MULTI_READ_SAMPLES = (40_000, 60_001)
+# each process's reads for the two-process rates (``multi_rate_reads``): 96 of
+# MULTI_READ_SAMPLES, about 500 chunks, 4 batches of 128; one process takes
+# both processes' 192. The committed shards (16 reads, less than a batch) are
+# for the file sharding, the stats, the barrier and the merge only.
+MULTI_RATE_READS = 96
+SHARDS_DIR = ROOT / "tests" / "data" / "torch_port" / "shards"
+MULTI_CHILD_TIMEOUT_S = 240
+# passes over the reads of each timed rate: one pass over 192 reads takes
+# about 1.3 s with one replica, too short a window on a host-bound run
+MULTI_RATE_PASSES = 3
+# card against card: records (replicas, processes) and Viterbi rows (the
+# sharded step, against the unsharded step over the same rows) that may
+# differ from the one-device run's
+MULTI_MAX_RECORDS_DIFFERENT = 0
+MULTI_MAX_ROWS_DIFFERENT = 0
+# the 2 x 1 step's scores against the unsharded step's over all N rows: the
+# unquantised bf16 projections and head run cuBLAS at M = T x N/2 rows, which
+# picks other kernels than at T x N, so a score moves by up to one bf16 step
+# (2^-5 at the head's clamp of 5); on white noise's dense near-ties that
+# reroutes most Viterbi paths, so the paths are held over the same rows
+MULTI_MAX_SCORE_ERR = 2.0**-5
+
+MULTI_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+
+root, addr, rank, data, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]
+seed, gain, batch, passes = int(sys.argv[6]), float(sys.argv[7]), int(sys.argv[8]), int(sys.argv[9])
+sys.path.insert(0, root)
+import torch
+
+from chip_smoke import multi_rate_reads
+from dorado_tpu_torch.io.pod5 import find_pod5_files
+from dorado_tpu_torch.io.sam import BamWriter
+from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+from dorado_tpu_torch.models.presets import hac_v43_config
+from dorado_tpu_torch.parallel.distributed import (
+    all_reduce_stats, barrier, host_output_path, init_distributed, merge_host_bams,
+    shard_files_for_host,
+)
+from dorado_tpu_torch.pipeline import BasecallerPipeline
+
+
+class Discard:
+    def write(self, rec):
+        pass
+
+
+assert init_distributed(addr, num_processes=2, process_id=rank) == (rank, 2)
+cfg = hac_v43_config()
+cfg.normalise_basecaller_params()
+model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(seed))
+with torch.no_grad():
+    model.linear1_w.mul_(gain)
+pipe = BasecallerPipeline(cfg, model, batch_size=batch, emit_moves=True, device="cuda:0")
+files = find_pod5_files(data)
+mine = shard_files_for_host(files)
+reads = multi_rate_reads(rank)
+pipe.run_reads(reads[:24], Discard())  # the per-shape set-up, reused below
+torch.cuda.synchronize()
+barrier("start")  # both processes time their passes over the card together
+start = time.time()  # the host's clock, shared by both processes
+for _ in range(passes):
+    pipe.run_reads(reads, Discard())
+torch.cuda.synchronize()
+end = time.time()
+totals = {"reads": 0.0, "bases": 0.0, "samples": 0.0}
+with open(host_output_path(out), "wb") as fh:
+    writer = BamWriter(fh, pipe.build_header(files))  # every process: the same header
+    for f in mine:
+        stats = pipe.run(f, writer)
+        totals["reads"] += stats.reads_called
+        totals["bases"] += stats.bases_called
+        totals["samples"] += stats.samples_processed
+    writer.close()
+summed = all_reduce_stats(totals)
+barrier("pre-merge")
+appended = merge_host_bams(out, 2) if rank == 0 else 0
+barrier("post-merge")
+print("MULTI_PROCESS " + json.dumps({
+    "rank": rank, "files": [f.name for f in mine], "local": totals, "summed": summed,
+    "samples": sum(len(r.signal) for r in reads) * passes, "start": start, "end": end,
+    "appended": appended,
+}), flush=True)
+"""
+
+
+def multi_rate_reads(rank: int) -> list:
+    """Process ``rank``'s reads for the two-process rates: MULTI_RATE_READS
+    reads of MULTI_READ_SAMPLES samples, as ``smoke_read`` draws them, from
+    a generator seeded by the rank."""
+    import numpy as np
+
+    gen = np.random.RandomState(SEED + 190 + rank)
+    info = smoke_run_info()
+    return [smoke_read(19_000 + 1_000 * rank + i, int(gen.randint(*MULTI_READ_SAMPLES)), gen,
+                       info) for i in range(MULTI_RATE_READS)]
+
+
+def timed_passes(k, pipe, reads, first_writer) -> tuple[list, object]:
+    """MULTI_RATE_PASSES timed ``run_reads`` over ``reads``, the first into
+    ``first_writer``: each pass's seconds and the first pass's stats."""
+    seconds, first = [], None
+    for i in range(MULTI_RATE_PASSES):
+        t0 = time.perf_counter()
+        stats = pipe.run_reads(reads, first_writer if i == 0 else k.Discard())
+        k.torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        first = first or stats
+    return seconds, first
+
+
+def records_differing(want, got, what) -> int:
+    """How many of ``got``'s records differ from ``want``'s (SAM lines,
+    matched by name); raises when the names differ."""
+    if sorted(r.qname for r in want) != sorted(r.qname for r in got):
+        raise AssertionError(f"{what}: the records' names differ from the one-device run's")
+    by_name = {r.qname: r.to_sam_line() for r in want}
+    return sum(by_name[r.qname] != r.to_sam_line() for r in got)
+
+
+class Collect:
+    def __init__(self):
+        self.records = []
+
+    def write(self, rec):
+        self.records.append(rec)
+
+
+def multi_gpu_phase(k, cfg, model) -> None:
+    """Several devices at hac v4.3's full width (W8A8, the seed's weights):
+    every visible card when there are more than one, else two replicas on
+    card 0 (``[cuda:0, cuda:0]``).
+
+    - Replicas: ``run_reads`` over MULTI_READS reads with one replica and
+      with the replicas, Viterbi and beam, the records held against the one
+      replica's (MULTI_MAX_RECORDS_DIFFERENT), each replica's step launching
+      its path's kernels for each of its batches (paths ``replicas
+      viterbi``, ``replicas beam``); ``DeviceMonitor`` on card 0 sampled
+      through a ``StatsSampler`` during the Viterbi run.
+    - The sharded step on a 2 x 1 and a 1 x 2 mesh over those devices at N =
+      128, chunk 9996 (unquantised, bf16), its states and moves held against
+      the 1 x 1 step's over the same rows (MULTI_MAX_ROWS_DIFFERENT), its
+      scores against the 1 x 1 step's over all rows (MULTI_MAX_SCORE_ERR):
+      K1, K6, K7a and K5 under paths ``sharded 2x1`` and ``sharded 1x2``.
+    - Two processes on card 0 (gloo over 127.0.0.1), each basecalling its
+      share of the four committed POD5 shards into its BAM; the stats summed,
+      a barrier, process 0's merge; the merged BAM held against a
+      one-process run's records, host 0's first.
+    - ``basecaller -x cuda --dump-stats-file``: the CSV has ``basecaller.``
+      and ``device.`` columns.
+    - The rates, each over MULTI_RATE_PASSES passes of ``run_reads``: one
+      replica and the replicas over the MULTI_READS reads; each process over
+      its own MULTI_RATE_READS reads (``multi_rate_reads``), both timed after
+      a barrier, and the two together over their windows' span; one process
+      over both processes' reads."""
+    import socket
+
+    torch = k.torch
+    import numpy as np
+
+    from dorado_tpu_torch.cli.main import main as cli_main
+    from dorado_tpu_torch.io.bam_reader import read_bam
+    from dorado_tpu_torch.io.sam import BamWriter
+    from dorado_tpu_torch.models.load import save_model
+    from dorado_tpu_torch.parallel import make_mesh, make_sharded_basecall_step, shard_params
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+    from dorado_tpu_torch.utils.device_monitor import DeviceMonitor, describe_devices
+    from dorado_tpu_torch.utils.stats import StatsSampler
+
+    count = torch.cuda.device_count()
+    print(f"multi-GPU phase: torch.cuda.device_count() = {count}", flush=True)
+    for line in describe_devices():
+        print(f"  {line}", flush=True)
+    card0 = torch.device("cuda", 0)
+    devices = [torch.device("cuda", i) for i in range(count)] if count > 1 else [card0] * 2
+    where = f"{len(devices)} replicas on {len({str(d) for d in devices})} card(s)"
+    rs = np.random.RandomState(SEED + 19)
+    reads = [k.make_read(1900 + i, int(rs.randint(*MULTI_READ_SAMPLES)), rs)
+             for i in range(MULTI_READS)]
+    samples = sum(len(r.signal) for r in reads)
+    rates = {}
+
+    # ---- replicas ----------------------------------------------------------
+    k.path_kernels["replicas viterbi"] = k.path_kernels["viterbi"]
+    k.path_kernels["replicas beam"] = k.path_kernels["beam"]
+    k.per_batch["replicas viterbi"] = k.per_batch["replicas beam"] = [5, 5, 1, 1, 1]
+    for decoder in ("viterbi", "beam"):
+        outs = {}
+        for label, device in (("one replica", card0), (where, devices)):
+            pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True, device=device,
+                                      decoder=decoder)
+            pipe.run_reads(reads, k.Discard())  # the per-shape set-up, reused below
+            torch.cuda.synchronize()
+            for w in k.wrappers.values():
+                w.launches = 0
+            steps = pipe.runner.stats.batches_called
+            monitor = StatsSampler({"device": DeviceMonitor(card0).sample_stats}, period_s=0.02)
+            written = Collect()
+            monitor.start()
+            seconds, stats = timed_passes(k, pipe, reads, written)
+            monitor.stop()
+            elapsed = sum(seconds)
+            steps = pipe.runner.stats.batches_called - steps
+            outs[label] = written.records
+            rates[f"{label}, {decoder}"] = samples * len(seconds) / elapsed
+            if label != "one replica":
+                path = f"replicas {decoder}"
+                k.launches[path] = {name: w.launches for name, w in k.wrappers.items()}
+                k.check_launches(path, k.launches[path], steps)
+                shares = [r.stats.batches_called for r in pipe.runner.replicas]
+                if len(pipe.runner.replicas) != len(devices) or min(shares) == 0:
+                    raise AssertionError(f"{path}: replicas' steps {shares}")
+                in_use = [r.get("device.hbm_bytes_in_use", 0) for r in monitor.records]
+                limits = {r.get("device.hbm_bytes_limit") for r in monitor.records}
+                total = torch.cuda.get_device_properties(0).total_memory
+                print(f"  DeviceMonitor(cuda:0) over {len(monitor.records)} samples: bytes in "
+                      f"use up to {max(in_use)}, limit {limits} (the card's total_memory "
+                      f"{total}, mem_get_info {torch.cuda.mem_get_info(0)[1]})", flush=True)
+                if max(in_use) <= 0 or limits != {float(torch.cuda.mem_get_info(0)[1])}:
+                    raise AssertionError("DeviceMonitor: no bytes in use, or a limit that is "
+                                         "not the card's total")
+            print(f"{decoder}, {label}: {len(seconds)} passes over {len(reads)} reads, "
+                  f"{samples} samples, {stats.batches} batches a pass, {steps} replica steps in "
+                  f"all, {stats.bases_called} bases a pass, the first pass with no batch "
+                  f"in flight {stats.device_idle_frac:.1%} of its time (host clock), in "
+                  f"{elapsed:.3f} s = "
+                  f"{samples * len(seconds) / elapsed:.0f} samples/s (passes: "
+                  f"{', '.join(f'{samples / t:.0f}' for t in seconds)}) [{k.smi}]", flush=True)
+        differing = records_differing(outs["one replica"], outs[where], f"replicas {decoder}")
+        print(f"replicas {decoder}: {differing} of {len(outs[where])} records differ from the "
+              f"one replica's", flush=True)
+        if differing > MULTI_MAX_RECORDS_DIFFERENT:
+            raise AssertionError(f"replicas {decoder}: {differing} records differ")
+    torch.cuda.empty_cache()
+
+    # ---- the sharded step ----------------------------------------------------
+    sig = rs.randn(N, T * cfg.stride).astype(np.float32)
+    one = make_mesh(devices=[card0])
+    ref_params, ref_step = shard_params(model, one, cfg), make_sharded_basecall_step(cfg, one)
+    ref_step(ref_params, sig)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ref_step(ref_params, sig)
+    torch.cuda.synchronize()
+    print(f"sharded 1x1 step (N = {N}, T = {T}, bf16): {(time.perf_counter() - t0) * 1e3:.2f} ms "
+          f"wall [{k.smi}]", flush=True)
+    # the unsharded step over each data group's rows: the 2 x 1 step's work
+    halves = [ref_step(ref_params, sig[: N // 2]), ref_step(ref_params, sig[N // 2 :])]
+    by_group = tuple(torch.cat([h[i] for h in halves]) for i in range(3))
+    ref_scores = make_sharded_basecall_step(cfg, one, decoder="beam")(ref_params, sig)[0]
+    del ref_params, ref_step, halves
+    mesh21 = make_mesh(devices=devices[:2], data=2)
+    for name, mesh, want in (("sharded 2x1", mesh21, by_group),
+                             ("sharded 1x2", make_mesh(devices=devices[:2], model=2), ref)):
+        k.path_kernels[name] = ["lstm_scan", "crf_lse_scans", "crf_viterbi_forward",
+                                "crf_traceback"]
+        k.per_batch[name] = [5, 1, 1, 1]
+        sharded = shard_params(model, mesh, cfg)
+        step = make_sharded_basecall_step(cfg, mesh)
+        scores = make_sharded_basecall_step(cfg, mesh, decoder="beam")(sharded, sig)[0]
+        score_err = (scores - ref_scores).abs().max().item()
+        del scores
+        step(sharded, sig)
+        torch.cuda.synchronize()
+        for w in k.wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        states, moves, posts = step(sharded, sig)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k.launches[name] = {n: w.launches for n, w in k.wrappers.items()}
+        k.check_launches(name, k.launches[name], mesh.shape["data"])
+        if states.shape != (N, T) or moves.shape != (N, T) or posts.shape != (N, T + 1, S):
+            raise AssertionError(f"{name}: shapes {states.shape} {moves.shape} {posts.shape}")
+        rows = ((states != want[0]) | (moves != want[1])).any(dim=1)
+        post_err = (posts - want[2]).abs().max().item()
+        apart = (states != ref[0]) | (moves != ref[1])
+        print(f"{name} step (N = {N}, T = {T}, bf16): {ms:.2f} ms wall; against the unsharded "
+              f"step over the same rows {int(rows.sum())} of {N} rows' states or moves differ, "
+              f"posts by up to {post_err:.3g}; against the unsharded step over all {N} rows: "
+              f"scores by up to {score_err:.3g}, posts by up to "
+              f"{(posts - ref[2]).abs().max().item():.3g}, {int(apart.any(dim=1).sum())} rows "
+              f"and {float(apart.float().mean()):.4%} of positions differ; "
+              f"{float(moves.float().mean()):.3f} moves a step [{k.smi}]", flush=True)
+        if (int(rows.sum()) > MULTI_MAX_ROWS_DIFFERENT or score_err > MULTI_MAX_SCORE_ERR
+                or not moves.float().mean() > 0.05):
+            raise AssertionError(f"{name}: {int(rows.sum())} rows differ, scores by {score_err}, "
+                                 f"or no moves")
+        del sharded, step, states, moves, posts
+    del ref, by_group, ref_scores
+    torch.cuda.empty_cache()
+
+    # ---- two processes on card 0 -----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        tmp = Path(tmp)
+        child = tmp / "child.py"
+        child.write_text(MULTI_CHILD)
+        out = tmp / "calls.bam"
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+        sock.close()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(child), str(ROOT), addr, str(rank), str(SHARDS_DIR), str(out),
+             str(SEED), str(HEAD_GAIN), str(N), str(MULTI_RATE_PASSES)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in range(2)]
+        results = []
+        try:
+            for p in procs:
+                stdout, stderr = p.communicate(timeout=MULTI_CHILD_TIMEOUT_S)
+                line = next((l for l in stdout.splitlines() if l.startswith("MULTI_PROCESS ")),
+                            None)
+                if p.returncode != 0 or line is None:
+                    raise AssertionError(f"two processes: a child exited {p.returncode}:\n"
+                                         f"{stderr[-3000:]}")
+                results.append(json.loads(line.split(" ", 1)[1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        merged = read_bam(out)[1]
+        # one process over both processes' reads, timed as they were
+        pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True, device=card0)
+        both = multi_rate_reads(0) + multi_rate_reads(1)
+        pipe.run_reads(both[:24], k.Discard())  # the per-shape set-up, reused below
+        torch.cuda.synchronize()
+        seconds, _ = timed_passes(k, pipe, both, k.Discard())
+        one_rate = sum(len(r.signal) for r in both) * len(seconds) / sum(seconds)
+        rates["one process on cuda:0"] = one_rate
+        # one process over the same files, into a BAM read back the same way
+        files = sorted(SHARDS_DIR.glob("*.pod5"))
+        single = tmp / "single.bam"
+        by_file = {}  # each file's records: (first, end) in the one-process BAM
+        with open(single, "wb") as fh:
+            writer = BamWriter(fh, pipe.build_header(files))
+            for f in files:
+                first = writer.records_written
+                pipe.run(f, writer)
+                by_file[f.name] = first, writer.records_written
+            writer.close()
+        want = read_bam(single)[1]
+        host0 = [want[i].qname for f in results[0]["files"] for i in range(*by_file[f])]
+        summed = results[0]["summed"]
+        differing = records_differing(want, merged, "two processes")
+        print(f"two processes on cuda:0: {wall:.1f} s in all; files {results[0]['files']} and "
+              f"{results[1]['files']}; summed stats {summed}; {results[0]['appended']} records "
+              f"appended to process 0's {len(merged) - results[0]['appended']}; {differing} of "
+              f"{len(merged)} records differ from one process's", flush=True)
+        if ([r.qname for r in merged[:len(host0)]] != host0
+                or summed["reads"] != len(merged) or summed != results[1]["summed"]
+                or differing > MULTI_MAX_RECORDS_DIFFERENT):
+            raise AssertionError("two processes: the merged BAM is not one process's records, "
+                                 "host 0's first, or the summed stats disagree")
+        for r in results:
+            rates[f"process {r['rank']} of 2 on cuda:0"] = r["samples"] / (r["end"] - r["start"])
+        start, end = min(r["start"] for r in results), max(r["end"] for r in results)
+        overlap = ((min(r["end"] for r in results) - max(r["start"] for r in results))
+                   / (end - start))
+        rates["two processes on cuda:0, together"] = (sum(r["samples"] for r in results)
+                                                       / (end - start))
+        windows = ", ".join(f"{r['end'] - r['start']:.3f} s" for r in results)
+        print(f"two processes' timed windows {windows}, overlapping over {overlap:.1%} of their "
+              f"span of {end - start:.3f} s; one process over both's {len(both)} reads: "
+              f"{sum(seconds):.3f} s", flush=True)
+
+        # ---- the command line with --dump-stats-file ---------------------------
+        model_dir = save_model(cfg, model, tmp / cfg.model_name)
+        csv_path = tmp / "stats.csv"
+        rc = cli_main(["basecaller", str(model_dir), str(SHARDS_DIR), "-x", "cuda", "--emit-sam",
+                       "-o", str(tmp / "cli.sam"), "--dump-stats-file", str(csv_path)])
+        lines = csv_path.read_text().splitlines()
+        head = lines[0].split(",") if lines else []
+        print(f"basecaller -x cuda --dump-stats-file: exit {rc}, {len(lines) - 1} rows of "
+              f"{len(head)} columns: {head}", flush=True)
+        if (rc != 0 or len(lines) < 2 or not any(c.startswith("basecaller.") for c in head)
+                or not any(c.startswith("device.") for c in head)):
+            raise AssertionError("--dump-stats-file: no basecaller. and device. columns")
+
+    for what, rate in rates.items():
+        print(f"multi-GPU rate: {what}: {rate:.0f} samples/s [{k.smi}]", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2190,7 +2634,6 @@ def main() -> None:
     import numpy as np
 
     from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
-    from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
     from dorado_tpu_torch.io.sam import BamWriter
     from dorado_tpu_torch.modbase.model import init_modbase_params, save_modbase_model
     from dorado_tpu_torch.models.crf_model import _linear_f32, init_lstm_crf_params
@@ -2900,7 +3343,8 @@ def main() -> None:
                      f"T={t_len} N={n} S={s}")
         errs = hold_lse(scores32, f"T={T} N={N} S={S}")
         lse_report("crf_lse_scan", "dorado_tpu/ops/crf_pallas.py:152", scores32, errs,
-                   ["viterbi", "beam", "cli beam", "hac f32 beam", "fast beam"])
+                   ["viterbi", "beam", "cli beam", "hac f32 beam", "fast beam", "replicas beam",
+                    "sharded 2x1", "sharded 1x2"])
 
         # ---- K7a: the Viterbi forward pass alone, and viterbi_path -----------
         hold_viterbi(small, "T=64 N=8 S=64")
@@ -2912,7 +3356,7 @@ def main() -> None:
             time_ms(lambda: crf_cuda.viterbi_forward(scores32, STAY), 3),
             time_ms(lambda: crf_cuda.viterbi_forward_plain(scores32, STAY), 1),
             VITERBI_OPS * T * N * S, PEAK_F32, 4 * T * N * 4 * S + T * N * S + 4 * N * S, None,
-            on_path=False,
+            paths=["sharded 2x1", "sharded 1x2"],
         )
 
         # ---- K8: the fused forward pass on float32 streams --------------------
@@ -3388,7 +3832,7 @@ def main() -> None:
             time_ms(lambda: crf_cuda.viterbi_forward_plain(scores32, STAY), 1),
             VITERBI_OPS * t_s * N * s_s, PEAK_F32,
             4 * t_s * N * 4 * s_s + t_s * N * s_s + 4 * N * s_s, None,
-            wrappers=["crf_viterbi_forward"], on_path=False,
+            wrappers=["crf_viterbi_forward"], paths=[], on_path=False,
         )
         # ---- K8 at 1024 states: against its plain version and K7b -------------
         beta32 = crf_cuda.backward_scores(scores32, STAY)
@@ -3426,6 +3870,7 @@ def main() -> None:
     model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         model.linear1_w.mul_(HEAD_GAIN)
+    hac_model = model  # the sup checks below reuse the name ``model``
     # W8A8 is the default precision on the card
     pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True)
     beam_pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True, decoder="beam")
@@ -3436,27 +3881,11 @@ def main() -> None:
     runner, beam_runner = pipe.runner, beam_pipe.runner
 
     rs = np.random.RandomState(SEED)
-    run_info = RunInfo(
-        acquisition_id="smoke", sample_rate=5000, flow_cell_id="FAB00000",
-        flow_cell_product_code="FLO-PRO114M", protocol_run_id="smoke-run",
-        acquisition_start_time_ms=1_700_000_000_000, sample_id="smoke",
-    )
+    run_info = smoke_run_info()
 
     def make_read(i, n, gen=None):
-        # raw ADC around the models' standardisation mean (92-94 pA at 0.2 pA/ADC),
         # from rs unless another generator is given
-        signal = np.clip((gen or rs).normal(460, 113, n), -32768, 32767).astype(np.int16)
-        return Pod5Read(
-            read_id=f"read-{i}", signal=signal, read_number=i, start_sample=0,
-            median_before=200.0, channel=i + 1, well=1, pore_type="not_set",
-            calibration_offset=0.0, calibration_scale=0.2, end_reason="signal_positive",
-            end_reason_forced=False, open_pore_level=float("nan"),
-            num_reads_since_mux_change=0, time_since_mux_change=0.0,
-            num_minknow_events=0, tracked_scaling_scale=float("nan"),
-            tracked_scaling_shift=float("nan"), predicted_scaling_scale=float("nan"),
-            predicted_scaling_shift=float("nan"), run_info=run_info,
-            filename="smoke.pod5",
-        )
+        return smoke_read(i, n, gen or rs, run_info)
 
     # two short reads send chunks to the short-chunk lane too
     reads = [
@@ -4289,6 +4718,12 @@ def main() -> None:
             print(f"  {ms:9.3f} ms  x{count:<4d} {key} {shapes[:100]}")
 
     splitter_phase(cfg.stride, smi, step_busy["viterbi"])
+
+    t0 = time.perf_counter()
+    kit.__dict__.update(make_read=make_read, smi=smi, path_kernels=path_kernels,
+                        per_batch=per_batch)
+    multi_gpu_phase(kit, cfg, hac_model)
+    print(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for row in rows:
         by_path = {d: sum(launches[d][n] for n in row["wrappers"]) for d in launches

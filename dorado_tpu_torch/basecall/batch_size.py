@@ -14,6 +14,10 @@ CudaCaller.cpp:371-520):
     ``$DORADO_TPU_TORCH_CACHE_DIR``) keyed by (card name, model name, chunk
     size, compute dtype).
 
+With several cards (``device`` as ``TorchBasecallRunner`` takes it), the
+sweep sizes the first card alone, and every replica gets that batch: the
+runner's ``batch_size`` is each replica's.
+
 Where it differs from the JAX module, on purpose: the memory is the card's
 (``torch.cuda.mem_get_info``), not a TPU constant; only
 ``torch.cuda.OutOfMemoryError`` ends the sweep (any other fault is raised);
@@ -97,7 +101,8 @@ def auto_batch_size(
     chunk), doubling batch sizes from 64 up to the memory cap (or
     ``max_batch``); returns the batch with the best per-sample time.
     ``timings``, when given, receives (batch, seconds per step) of each
-    size swept. ``compute_dtype`` is the runner's (None: its default). On
+    size swept. ``compute_dtype`` is the runner's (None: its default). The
+    sweep runs on ``device``'s first card (``resolve_device``). On
     the CPU, ``max_batch`` must be given: there is no card memory to size
     against."""
     from dorado_tpu_torch.basecall.runner import (
@@ -133,19 +138,20 @@ def auto_batch_size(
         config, model, chunk_size=bench_chunk, batch_size=max_batch, device=dev, decoder=decoder,
         compute_dtype=dtype,
     )
+    replica = runner.replicas[0]
     rs = np.random.RandomState(0)
     best = (float("inf"), BATCH_GRANULARITY)
     n = BATCH_GRANULARITY
     while n <= max_batch:
         sig = torch.from_numpy(rs.randn(n, bench_chunk).astype(np.float16)).to(dev)
         try:
-            runner._device_step(sig)  # the first step at a shape sets up its plans
+            runner._device_step(sig, replica)  # the first step at a shape sets up its plans
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             reps = 3
             t0 = time.perf_counter()
             for _ in range(reps):
-                out = runner._device_step(sig)
+                out = runner._device_step(sig, replica)
             out.cpu()  # waits for the device
             step_s = (time.perf_counter() - t0) / reps
         except torch.cuda.OutOfMemoryError:

@@ -26,8 +26,13 @@ options are left out, ``--modified-bases`` among them, and
 ``--decoder beam-host`` is refused with exit code 1, as ``basecaller``
 refuses it.
 
-The device is CUDA unless ``-x cpu`` is given (``auto`` means CUDA); without
-CUDA the command raises rather than falling back to the CPU.
+``-x`` picks the devices: ``cuda`` or ``auto`` (the default) every visible
+card, one model replica on each (the JAX command's ``-x auto``, the
+reference's ``-x cuda:all``), ``cuda:N`` that card, ``cpu`` the CPU; without
+CUDA the command raises rather than falling back to the CPU. ``basecaller``
+takes ``--dump-stats-file`` (and ``--dump-stats-filter``): a CSV of the
+pipeline's counters and the first card's memory every 100 ms. An uncaught
+exception prints the visible cards' state after its traceback.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from pathlib import Path
 # grammar ({auto,fast,hac,sup}[@version], with modified-base variants after
 # a comma), as dorado_tpu/models/registry.py parses them
 _MODEL_NAME = re.compile(r"^((dna|rna)[\w.]*@v[\d.]+|(auto|fast|hac|sup)(@[\w.]+)?)(,.*)?$", re.I)
+_DEVICE_HELP = ("'cuda' or 'auto' (the default: every visible card, one model replica on "
+                "each), 'cuda:N' (that card) or 'cpu'")
 
 
 def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) -> None:
@@ -79,8 +86,12 @@ def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) 
     p.add_argument("--max-reads", type=int, default=None)
     p.add_argument("--run-for", type=int, default=None,
                    help="Stop basecalling after N seconds")
-    p.add_argument("-x", "--device", default="cuda",
-                   help="'cuda' (the default; 'auto' means it), 'cuda:N' or 'cpu'")
+    p.add_argument("-x", "--device", default="cuda", help=_DEVICE_HELP)
+    p.add_argument("--dump-stats-file", default=None,
+                   help="Write the pipeline's and the first card's stats to this CSV file "
+                   "every 100 ms")
+    p.add_argument("--dump-stats-filter", default="",
+                   help="Only the stats whose name holds this text")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                    help="Compute type of the model (default: bfloat16 on the card, float32 "
                    "on the CPU). float32 on the card runs the transformer's attention on "
@@ -98,6 +109,10 @@ def _resolve_model_dir(arg: str) -> Path | None:
         return None
     print(f"> Model directory not found: {arg}", file=sys.stderr)
     return None
+
+
+def _print_devices(devices) -> None:
+    print(f"> Devices: {len(devices)} ({', '.join(str(d) for d in devices)})", file=sys.stderr)
 
 
 def _summarise(stats, elapsed_s: float) -> None:
@@ -129,7 +144,7 @@ def _summarise(stats, elapsed_s: float) -> None:
 def _run_basecaller(args: argparse.Namespace) -> int:
     import torch
 
-    from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.basecall.runner import resolve_devices
     from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.pod5 import find_pod5_files
     from dorado_tpu_torch.models.load import build_model, load_model
@@ -166,7 +181,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         with open(args.read_ids) as fh:
             only_read_ids = {line.strip() for line in fh if line.strip()}
 
-    device = resolve_device("cuda" if args.device == "auto" else args.device)
+    devices = resolve_devices(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}[args.dtype]
     config, params = load_model(model_dir)
     model = build_model(config, params)
@@ -177,7 +192,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
 
         modbase_caller = ModBaseCaller(
             [load_modbase_config(p) for p in args.modified_bases_models.split(",")],
-            canonical_stride=config.stride, is_rna=config.is_rna_model, device=device,
+            canonical_stride=config.stride, is_rna=config.is_rna_model, device=devices[0],
             **({"batch_size": args.modified_bases_batchsize}
                if args.modified_bases_batchsize else {}),
         )
@@ -187,14 +202,15 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         from dorado_tpu_torch.basecall.batch_size import auto_batch_size
 
         chunk = args.chunksize or config.basecaller.chunk_size
+        # the first card's sweep sizes every replica's batch
         batchsize = auto_batch_size(
-            config, model, chunk, device=device, decoder=args.decoder, compute_dtype=dtype
+            config, model, chunk, device=devices[0], decoder=args.decoder, compute_dtype=dtype
         )
         print(f"> Auto batch size: {batchsize}", file=sys.stderr)
 
     pipeline = BasecallerPipeline(
         config, model, chunk_size=args.chunksize, batch_size=batchsize, overlap=args.overlap,
-        emit_moves=args.emit_moves, device=device, decoder=args.decoder, compute_dtype=dtype,
+        emit_moves=args.emit_moves, device=devices, decoder=args.decoder, compute_dtype=dtype,
         split_reads=not args.disable_read_splitting, min_qscore=args.min_qscore,
         skip_read_ids=skip_read_ids, only_read_ids=only_read_ids, max_reads=args.max_reads,
         modbase_caller=modbase_caller, modbase_threshold=args.modified_bases_threshold,
@@ -218,6 +234,18 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         output = str(Path(output) / f"calls_{ts}{ext}")
         print(f"> Output: {output}", file=sys.stderr)
     writer, fh = _open_writer(output, args, header)
+    sampler = stats_fh = None
+    if args.dump_stats_file:
+        from dorado_tpu_torch.utils.device_monitor import DeviceMonitor
+        from dorado_tpu_torch.utils.stats import StatsSampler
+
+        stats_fh = open(args.dump_stats_file, "w")
+        sampler = StatsSampler(
+            {"basecaller": pipeline.sample_stats,
+             "device": DeviceMonitor(devices[0]).sample_stats},
+            dump_stream=stats_fh, dump_filter=args.dump_stats_filter,
+        )
+        sampler.start()
     try:
         t0 = time.perf_counter()
         for rec in resume_records:
@@ -226,8 +254,12 @@ def _run_basecaller(args: argparse.Namespace) -> int:
                              max_seconds=args.run_for)
         writer.close()
     finally:
+        if sampler is not None:
+            sampler.stop()
+            stats_fh.close()
         if fh is not None:
             fh.close()
+    _print_devices(devices)
     _summarise(stats, time.perf_counter() - t0)
     return 0
 
@@ -312,8 +344,7 @@ def _add_duplex(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--min-qscore", type=float, default=0.0)
     p.add_argument("--read-ids", default=None,
                    help="File with one read id per line; only these are basecalled")
-    p.add_argument("-x", "--device", default="cuda",
-                   help="'cuda' (the default; 'auto' means it), 'cuda:N' or 'cpu'")
+    p.add_argument("-x", "--device", default="cuda", help=_DEVICE_HELP)
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                    help="Compute type of both models (default: bfloat16 on the card, "
                    "float32 on the CPU)")
@@ -340,7 +371,7 @@ def _run_duplex(args: argparse.Namespace) -> int:
         return _run_basespace_duplex(args)
     import torch
 
-    from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.basecall.runner import resolve_devices
     from dorado_tpu_torch.duplex.pipeline import DuplexPipeline
     from dorado_tpu_torch.io.pod5 import find_pod5_files
     from dorado_tpu_torch.models.load import build_model, load_model
@@ -356,7 +387,7 @@ def _run_duplex(args: argparse.Namespace) -> int:
     stereo_dir = _resolve_model_dir(args.stereo_model)
     if model_dir is None or stereo_dir is None:
         return 1
-    device = resolve_device("cuda" if args.device == "auto" else args.device)
+    devices = resolve_devices(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}[args.dtype]
     only_read_ids = None
     if args.read_ids:
@@ -379,12 +410,12 @@ def _run_duplex(args: argparse.Namespace) -> int:
 
         modbase_caller = ModBaseCaller(
             [load_modbase_config(p) for p in args.modified_bases_models.split(",")],
-            canonical_stride=config.stride, is_rna=config.is_rna_model, device=device,
+            canonical_stride=config.stride, is_rna=config.is_rna_model, device=devices[0],
         )
     pipeline = DuplexPipeline(
         config, build_model(config, params), stereo_config,
         build_model(stereo_config, stereo_params), chunk_size=args.chunksize,
-        batch_size=args.batchsize, overlap=args.overlap, device=device, decoder=args.decoder,
+        batch_size=args.batchsize, overlap=args.overlap, device=devices, decoder=args.decoder,
         compute_dtype=dtype, min_qscore=args.min_qscore, only_read_ids=only_read_ids,
         modbase_caller=modbase_caller, modbase_threshold=args.modified_bases_threshold,
     )
@@ -396,6 +427,7 @@ def _run_duplex(args: argparse.Namespace) -> int:
     finally:
         if fh is not None:
             fh.close()
+    _print_devices(devices)
     print(f"> Simplex reads basecalled: {stats.simplex_reads}", file=sys.stderr)
     print(f"> Duplex reads basecalled: {stats.duplex_reads}", file=sys.stderr)
     if stats.simplex_reads:
@@ -442,6 +474,25 @@ def _run_basespace_duplex(args: argparse.Namespace) -> int:
     return 0
 
 
+def crash_hook(exc_type, exc, tb) -> None:
+    """An uncaught exception: its summary and traceback, then each visible
+    card's state (the reference's crash reports, gpu_monitor's
+    get_devices_status_info). The ``sys.excepthook`` of a command-line run
+    (``python -m dorado_tpu_torch``); ``main`` called in-process leaves the
+    caller's hook as it is."""
+    import traceback
+
+    print(f"[dorado_tpu_torch] terminating with uncaught exception: {exc}", file=sys.stderr)
+    traceback.print_exception(exc_type, exc, tb)
+    try:
+        from dorado_tpu_torch.utils.device_monitor import describe_devices
+
+        for line in describe_devices():
+            print(f"[dorado_tpu_torch] {line}", file=sys.stderr)
+    except Exception:
+        pass
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dorado_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -455,4 +506,5 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
+    sys.excepthook = crash_hook
     sys.exit(main())

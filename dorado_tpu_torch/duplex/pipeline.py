@@ -60,10 +60,12 @@ class DuplexStats:
 
 
 class DuplexPipeline:
-    """Simplex and stereo models on one device (CUDA unless ``device`` names
-    another). ``decoder``, ``lstm_precision`` and ``compute_dtype`` apply to
+    """Simplex and stereo models on the same devices: ``device`` goes to the
+    simplex runner (one replica on each visible card by default, as
+    ``TorchBasecallRunner`` takes it), and the stereo runner takes the
+    simplex runner's devices. ``decoder``, ``lstm_precision`` and ``compute_dtype`` apply to
     both runners, as ``BasecallerPipeline`` takes them; the stereo runner's
-    batch is a quarter of the simplex runner's, at least 4 rows.
+    batch is a quarter of the simplex runner's, at least 4 rows a replica.
     ``min_qscore`` and ``only_read_ids`` are the simplex pipeline's read
     filters. With ``modbase_caller``, each duplex record gets MM, ML and MN
     from both strands' signals (``duplex.modbase``), at
@@ -99,7 +101,7 @@ class DuplexPipeline:
         simplex_runner = self.simplex.runner
         self.stereo_runner = TorchBasecallRunner(
             stereo_config, stereo_model, chunk_size=chunk_size,
-            batch_size=max(4, simplex_runner.batch_size // 4), device=simplex_runner.device,
+            batch_size=max(4, simplex_runner.batch_size // 4), device=simplex_runner.devices,
             decoder=decoder, lstm_precision=lstm_precision,
             compute_dtype=simplex_runner.compute_dtype,
         )
@@ -166,8 +168,8 @@ class DuplexPipeline:
         offsets = generate_chunks(t_len, runner.chunk_size, stride, overlap)
         chunks = [(off, min(runner.chunk_size, t_len - off)) for off in offsets]
         called: list[CalledChunk] = []
-        for lo in range(0, len(chunks), runner.batch_size):
-            batch = chunks[lo : lo + runner.batch_size]
+        for lo in range(0, len(chunks), len(buffer)):
+            batch = chunks[lo : lo + len(buffer)]
             for i, (off, size) in enumerate(batch):
                 runner.accept_chunk(buffer, i, features[off : off + size])
             for (off, size), chunk in zip(batch, runner.call_chunks(buffer, len(batch))):

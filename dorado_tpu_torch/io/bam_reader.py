@@ -3,7 +3,8 @@
 Port of ``dorado_tpu/io/bam_reader.py::read_records`` for BAM and SAM, over
 the port's own BGZF reader (``io/bgzf.py``) and record model (``io/sam.py``):
 enough of the BAM spec to read back unaligned BAM output, as ``--resume-from``
-does.
+does and as the merge of several processes' BAMs (``parallel.distributed``)
+re-encodes them.
 """
 
 from __future__ import annotations
@@ -87,25 +88,34 @@ def decode_bam_record(block: bytes) -> SamRecord:
     )
 
 
-def read_bam(path: Path | str) -> tuple[str, list[SamRecord]]:
-    """(header text, records) of a BAM file, read one BGZF member at a time."""
-    with open(path, "rb") as fh:
-        r = BgzfReader(fh)
-        if r.read(4) != b"BAM\x01":
-            raise ValueError("not a BAM file")
-        text = r.read(struct.unpack("<i", r.read(4))[0]).decode()
-        refs = []
-        for _ in range(struct.unpack("<i", r.read(4))[0]):
-            name = r.read(struct.unpack("<i", r.read(4))[0])[:-1].decode()
-            refs.append((name, struct.unpack("<i", r.read(4))[0]))
-        records = []
+def stream_bam(fh) -> tuple[str, list[tuple[str, int]], Iterator[SamRecord]]:
+    """(header text, references as (name, length), a lazy iterator of the
+    records) of an open BAM file, read one BGZF member at a time."""
+    r = BgzfReader(fh)
+    if r.read(4) != b"BAM\x01":
+        raise ValueError("not a BAM file")
+    text = r.read(struct.unpack("<i", r.read(4))[0]).decode()
+    refs = []
+    for _ in range(struct.unpack("<i", r.read(4))[0]):
+        name = r.read(struct.unpack("<i", r.read(4))[0])[:-1].decode()
+        refs.append((name, struct.unpack("<i", r.read(4))[0]))
+
+    def records() -> Iterator[SamRecord]:
         while len(raw_size := r.read(4)) == 4:
             rec = decode_bam_record(r.read(struct.unpack("<i", raw_size)[0]))
             if rec.rname != "*":
                 idx = int(rec.rname)
                 rec.rname = refs[idx][0] if 0 <= idx < len(refs) else "*"
-            records.append(rec)
-    return text, records
+            yield rec
+
+    return text, refs, records()
+
+
+def read_bam(path: Path | str) -> tuple[str, list[SamRecord]]:
+    """(header text, records) of a BAM file."""
+    with open(path, "rb") as fh:
+        text, _, records = stream_bam(fh)
+        return text, list(records)
 
 
 def iter_sam(path: Path | str) -> Iterator[SamRecord]:

@@ -191,7 +191,10 @@ def resolve_score_index(
 
 class ModBaseCaller:
     """One or more modbase models sharing a canonical basecall model, their
-    weights on ``device`` (CUDA unless the caller names another). ``models``
+    weights on one device: ``device``'s first (``resolve_device``: the first
+    visible card unless the caller names another). It stays on that card
+    when the basecall runner has a replica on every card, as the JAX caller
+    takes no mesh. ``models``
     (one ``ModBaseConvLSTM`` for each config) replaces loading the configs'
     directories, and with it their refinement levels, as the JAX caller's
     ``params_list`` does."""

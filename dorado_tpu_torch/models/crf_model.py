@@ -155,29 +155,37 @@ class LSTMCRFModel(nn.Module):
 
     def linear_crf_head(self, x: torch.Tensor) -> torch.Tensor:
         """[T, N, H] -> [T, N, outsize] float32 scores."""
-        tanh_x5 = self.config.scale == 5.0
         if self.linear2_w is not None:
             y = _linear_f32(x, self.linear1_w, self.linear1_b).to(x.dtype)
             scores = _linear_f32(y, self.linear2_w, None)
         else:
             scores = _linear_f32(x, self.linear1_w, self.linear1_b)
+        return self.head_activation(scores)
+
+    def head_activation(self, scores: torch.Tensor) -> torch.Tensor:
+        """The head's output activation on its float32 matmul output."""
         if self.pre_v4:
             return 5.0 * torch.tanh(scores)
-        if tanh_x5:
+        if self.config.scale == 5.0:
             scores = 5.0 * torch.tanh(scores)
         if self.config.clamp:
             scores = torch.clamp(scores, -5.0, 5.0)
         return scores
 
-    def forward(self, signal: torch.Tensor) -> torch.Tensor:
-        """[N, T] (or [N, T, F]) normalised signal -> time-major scores
-        [T/stride, N, outsize] float32, computed in the module's dtype."""
+    def features(self, signal: torch.Tensor) -> torch.Tensor:
+        """[N, T] (or [N, T, F]) normalised signal -> time-major features
+        [T/stride, N, H] in the module's dtype: the convolutions and LSTMs in
+        front of the CRF head."""
         if signal.dim() == 2:
             signal = signal[..., None]
         dtype = self.conv_w[0].dtype
         x = self.conv_stack(signal.to(dtype).transpose(1, 2))
-        x = x.permute(2, 0, 1).contiguous()  # [T, N, H]
-        return self.linear_crf_head(self.lstm_stack(x))
+        return self.lstm_stack(x.permute(2, 0, 1).contiguous())  # [T, N, H]
+
+    def forward(self, signal: torch.Tensor) -> torch.Tensor:
+        """[N, T] (or [N, T, F]) normalised signal -> time-major scores
+        [T/stride, N, outsize] float32, computed in the module's dtype."""
+        return self.linear_crf_head(self.features(signal))
 
 
 def init_lstm_crf_params(

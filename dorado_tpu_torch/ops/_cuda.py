@@ -132,6 +132,23 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(name: str, symbol: str, argtypes: list, device: torch.device, *args,
+           stream: bool = True) -> None:
+    """Call the C entry point ``symbol`` of kernel library ``name`` with
+    ``args`` (and then, with ``stream``, ``device``'s current stream) while
+    ``device`` is the current CUDA device, and raise if it returned an error.
+
+    Every kernel wrapper launches through here. The C launchers act on the
+    calling thread's current device (``cudaFuncSetAttribute``, the occupancy
+    queries behind a persistent grid), so that device must be the tensors'
+    card: on a machine with several cards, a launch for card 1 made while
+    card 0 is current would set the attributes of the wrong card."""
+    fn = kernel_function(name, symbol, [*argtypes, VOIDP] if stream else list(argtypes))
+    with torch.cuda.device(device):
+        code = fn(*args, stream_ptr(device)) if stream else fn(*args)
+    check_launch(name, code)
+
+
 VOIDP = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float

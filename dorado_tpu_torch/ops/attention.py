@@ -177,13 +177,10 @@ def _check_tables(what: str, cos: torch.Tensor, sin: torch.Tensor, t_len: int, d
 def _launch(symbol: str, tensors: list, ints: list, device: torch.device) -> None:
     """Call entry point ``symbol`` of ``csrc/attention_banded.cu`` with the
     tensors' pointers, then the ints, then the stream."""
-    fn = _cuda.kernel_function(
-        "attention_banded", symbol,
-        [_cuda.VOIDP] * len(tensors) + [_cuda.INT] * len(ints) + [_cuda.VOIDP],
+    _cuda.launch(
+        "attention_banded", symbol, [_cuda.VOIDP] * len(tensors) + [_cuda.INT] * len(ints),
+        device, *(t.data_ptr() for t in tensors), *ints,
     )
-    with torch.cuda.device(device):
-        code = fn(*(t.data_ptr() for t in tensors), *ints, _cuda.stream_ptr(device))
-    _cuda.check_launch("attention_banded", code)
 
 
 def _check_projection(

@@ -240,18 +240,13 @@ def beam_forward(
     hist_state = torch.empty(t_len, n, w, dtype=torch.int32, device=dev)
     hist_ps = torch.empty(t_len, n, w, dtype=torch.uint8, device=dev)
     final = torch.empty(n, w, dtype=torch.float32, device=dev)
-    fn = _cuda.kernel_function(
+    _cuda.launch(
         "beam_search", "beam_forward_f32",
-        [_cuda.VOIDP] * 6 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2 + [_cuda.VOIDP],
+        [_cuda.VOIDP] * 6 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2, dev,
+        scores.data_ptr(), back_guide.data_ptr(), init_state.data_ptr(),
+        hist_state.data_ptr(), hist_ps.data_ptr(), final.data_ptr(),
+        t_len, n, s, _log_beam_cut(beam_cut), float(fixed_stay_score),
     )
-    with torch.cuda.device(dev):
-        code = fn(
-            scores.data_ptr(), back_guide.data_ptr(), init_state.data_ptr(),
-            hist_state.data_ptr(), hist_ps.data_ptr(), final.data_ptr(),
-            t_len, n, s, _log_beam_cut(beam_cut), float(fixed_stay_score),
-            _cuda.stream_ptr(dev),
-        )
-    _cuda.check_launch("beam_search", code)
     beam_forward.launches += 1
     return hist_state, hist_ps, final
 
@@ -313,15 +308,11 @@ def _launch_traceback(
     dev = hist_state.device
     if not (hist_ps.device == final_score.device == states.device == moves.device == dev):
         raise ValueError("beam_traceback: inputs are on different devices")
-    fn = _cuda.kernel_function(
-        "beam_search", "beam_traceback", [_cuda.VOIDP] * 5 + [_cuda.INT] * 2 + [_cuda.VOIDP]
+    _cuda.launch(
+        "beam_search", "beam_traceback", [_cuda.VOIDP] * 5 + [_cuda.INT] * 2, dev,
+        hist_state.data_ptr(), hist_ps.data_ptr(), final_score.data_ptr(),
+        states.data_ptr(), moves.data_ptr(), t_len, n,
     )
-    with torch.cuda.device(dev):
-        code = fn(
-            hist_state.data_ptr(), hist_ps.data_ptr(), final_score.data_ptr(),
-            states.data_ptr(), moves.data_ptr(), t_len, n, _cuda.stream_ptr(dev),
-        )
-    _cuda.check_launch("beam_search", code)
     beam_traceback.launches += 1
 
 

@@ -77,16 +77,11 @@ def backward_scores_shifted(scores: torch.Tensor, stay_score: float) -> torch.Te
         return backward_scores_shifted_plain(scores, stay_score)
     t_len, n, s = _check_scores(scores)
     out = torch.empty(t_len, n, s, dtype=torch.bfloat16, device=scores.device)
-    fn = _cuda.kernel_function(
+    _cuda.launch(
         "crf_lse_backward", "crf_lse_backward_bf16",
-        [_cuda.VOIDP, _cuda.VOIDP, _cuda.INT, _cuda.INT, _cuda.INT, _cuda.FLOAT, _cuda.VOIDP],
+        [_cuda.VOIDP, _cuda.VOIDP, _cuda.INT, _cuda.INT, _cuda.INT, _cuda.FLOAT], scores.device,
+        scores.data_ptr(), out.data_ptr(), t_len, n, s, math.exp(stay_score),
     )
-    with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), out.data_ptr(), t_len, n, s,
-            math.exp(stay_score), _cuda.stream_ptr(scores.device),
-        )
-    _cuda.check_launch("crf_lse_backward", code)
     backward_scores_shifted.launches += 1
     return out
 
@@ -108,16 +103,11 @@ def _lse_scans(scores: torch.Tensor, stay_score: float) -> tuple[torch.Tensor, t
         torch.empty(t_len + 1, n, s, dtype=torch.float32, device=scores.device)
         for _ in range(2)
     )
-    fn = _cuda.kernel_function(
-        "crf_lse_scan", "crf_lse_scans_f32",
-        [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.DOUBLE, _cuda.VOIDP],
+    _cuda.launch(
+        "crf_lse_scan", "crf_lse_scans_f32", [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.DOUBLE],
+        scores.device,
+        scores.data_ptr(), alpha.data_ptr(), beta.data_ptr(), t_len, n, s, math.exp(stay_score),
     )
-    with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), alpha.data_ptr(), beta.data_ptr(), t_len, n, s,
-            math.exp(stay_score), _cuda.stream_ptr(scores.device),
-        )
-    _cuda.check_launch("crf_lse_scan", code)
     return alpha, beta
 
 
@@ -224,16 +214,12 @@ def _fused_forward_cuda(
     posts = torch.empty(t_len, n, s, dtype=dtype, device=scores.device)
     choices = torch.empty(t_len, n, s, dtype=torch.int8, device=scores.device)
     final = torch.empty(n, s, dtype=torch.float32, device=scores.device)
-    fn = _cuda.kernel_function(
+    _cuda.launch(
         "crf_fused_forward", "crf_fused_forward_f32" if full else "crf_fused_forward_bf16",
-        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT, _cuda.VOIDP],
+        [_cuda.VOIDP] * 5 + [_cuda.INT] * 3 + [_cuda.FLOAT], scores.device,
+        scores.data_ptr(), beta.data_ptr(), posts.data_ptr(), choices.data_ptr(),
+        final.data_ptr(), t_len, n, s, float(stay_score),
     )
-    with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), beta.data_ptr(), posts.data_ptr(), choices.data_ptr(),
-            final.data_ptr(), t_len, n, s, float(stay_score), _cuda.stream_ptr(scores.device),
-        )
-    _cuda.check_launch("crf_fused_forward", code)
     return posts, choices, final
 
 
@@ -323,16 +309,11 @@ def _launch_viterbi_forward(
     _cuda.check_tensor(final, "final", torch.float32, (n, s))
     if not scores.device == choices.device == final.device:
         raise ValueError("viterbi_forward: inputs are on different devices")
-    fn = _cuda.kernel_function(
+    _cuda.launch(
         "crf_viterbi_forward", "crf_viterbi_forward_f32",
-        [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.FLOAT, _cuda.VOIDP],
+        [_cuda.VOIDP] * 3 + [_cuda.INT] * 3 + [_cuda.FLOAT], scores.device,
+        scores.data_ptr(), choices.data_ptr(), final.data_ptr(), t_len, n, s, float(stay_score),
     )
-    with torch.cuda.device(scores.device):
-        code = fn(
-            scores.data_ptr(), choices.data_ptr(), final.data_ptr(), t_len, n, s,
-            float(stay_score), _cuda.stream_ptr(scores.device),
-        )
-    _cuda.check_launch("crf_viterbi_forward", code)
     viterbi_forward.launches += 1
 
 
@@ -385,16 +366,11 @@ def _launch_traceback(
     _cuda.check_tensor(moves, "moves", torch.uint8, (n, t_len))
     if not (last_state.device == states.device == moves.device == choices.device):
         raise ValueError("viterbi_traceback: inputs are on different devices")
-    fn = _cuda.kernel_function(
-        "crf_traceback", "crf_traceback",
-        [_cuda.VOIDP] * 4 + [_cuda.INT] * 3 + [_cuda.VOIDP],
+    _cuda.launch(
+        "crf_traceback", "crf_traceback", [_cuda.VOIDP] * 4 + [_cuda.INT] * 3, choices.device,
+        choices.data_ptr(), last_state.data_ptr(), states.data_ptr(), moves.data_ptr(),
+        t_len, n, s,
     )
-    with torch.cuda.device(choices.device):
-        code = fn(
-            choices.data_ptr(), last_state.data_ptr(), states.data_ptr(),
-            moves.data_ptr(), t_len, n, s, _cuda.stream_ptr(choices.device),
-        )
-    _cuda.check_launch("crf_traceback", code)
     viterbi_traceback.launches += 1
 
 

@@ -123,17 +123,13 @@ def _launch(x, w, bias, residual, norm_w, alpha, eps, out=None) -> torch.Tensor:
         out = torch.empty(*lead, o, dtype=dtype, device=x.device)
     _cuda.check_tensor(out, "out", dtype, (*lead, o))
     f32 = dtype == torch.float32
-    fn = _cuda.kernel_function(
+    _cuda.launch(
         "fused_norm", "matmul_residual_rmsnorm_f32" if f32 else "matmul_residual_rmsnorm_bf16",
-        [_cuda.VOIDP] * 6 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2 + [_cuda.VOIDP],
+        [_cuda.VOIDP] * 6 + [_cuda.INT] * 3 + [_cuda.FLOAT] * 2, x.device,
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        residual.data_ptr(), norm_w.data_ptr(), out.data_ptr(), m, k, o,
+        torch.tensor(alpha, dtype=dtype).item(), eps,
     )
-    with torch.cuda.device(x.device):
-        code = fn(
-            x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-            residual.data_ptr(), norm_w.data_ptr(), out.data_ptr(), m, k, o,
-            torch.tensor(alpha, dtype=dtype).item(), eps, _cuda.stream_ptr(x.device),
-        )
-    _cuda.check_launch("fused_norm", code)
     return out
 
 

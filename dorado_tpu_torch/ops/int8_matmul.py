@@ -229,15 +229,11 @@ def _fq_launch(x, wq_t, ws, bias, out_dtype, out=None) -> torch.Tensor:
     if out is None:
         out = torch.empty(*lead, o, dtype=out_dtype, device=x.device)
     _cuda.check_tensor(out, "out", out_dtype, (*lead, o))
-    fn = _cuda.kernel_function(
-        "w8a8_matmul_fq", "w8a8_matmul_fq", [_cuda.VOIDP] * 5 + [_cuda.INT] * 6 + [_cuda.VOIDP]
+    _cuda.launch(
+        "w8a8_matmul_fq", "w8a8_matmul_fq", [_cuda.VOIDP] * 5 + [_cuda.INT] * 6, x.device,
+        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        m, k, o, plan.a_buffers, plan.stages, x.element_size(),
     )
-    with torch.cuda.device(x.device):
-        code = fn(
-            x.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            m, k, o, plan.a_buffers, plan.stages, x.element_size(), _cuda.stream_ptr(x.device),
-        )
-    _cuda.check_launch("w8a8_matmul_fq", code)
     return out
 
 
@@ -379,16 +375,12 @@ def _swiglu_cuda(xq, xs, wy_t, wys, wg_t, wgs, two_pass: bool = False):
         raise ValueError("swiglu_w8a8: inputs are on different devices")
     tq = torch.empty(*lead, f, dtype=torch.int8, device=xq.device)
     ts = torch.empty(*lead, 1, dtype=torch.float32, device=xq.device)
-    fn = _cuda.kernel_function(
-        "w8a8_matmul", "swiglu_w8a8_i8", [_cuda.VOIDP] * 8 + [_cuda.INT] * 6 + [_cuda.VOIDP]
+    _cuda.launch(
+        "w8a8_matmul", "swiglu_w8a8_i8", [_cuda.VOIDP] * 8 + [_cuda.INT] * 6, xq.device,
+        xq.data_ptr(), xs.data_ptr(), wy.data_ptr(), wys.data_ptr(), wg.data_ptr(),
+        wgs.data_ptr(), tq.data_ptr(), ts.data_ptr(), m, k, f, int(plan.one_pass),
+        plan.cluster, plan.stages,
     )
-    with torch.cuda.device(xq.device):
-        code = fn(
-            xq.data_ptr(), xs.data_ptr(), wy.data_ptr(), wys.data_ptr(), wg.data_ptr(),
-            wgs.data_ptr(), tq.data_ptr(), ts.data_ptr(), m, k, f, int(plan.one_pass),
-            plan.cluster, plan.stages, _cuda.stream_ptr(xq.device),
-        )
-    _cuda.check_launch("w8a8_matmul", code)
     swiglu_w8a8.launches += 1
     return tq, ts
 
@@ -401,10 +393,7 @@ def rcp_near_mismatches(device: torch.device) -> int:
     wrong against the correctly rounded ``__frcp_rn``, counted on the card
     (K12 takes it for 1 + exp(-g) in that range and ``__frcp_rn`` outside)."""
     bad = torch.zeros(1, dtype=torch.int64, device=device)
-    fn = _cuda.kernel_function("w8a8_matmul", "rcp_near_mismatches", [_cuda.VOIDP] * 2)
-    with torch.cuda.device(device):
-        code = fn(bad.data_ptr(), _cuda.stream_ptr(device))
-    _cuda.check_launch("w8a8_matmul", code)
+    _cuda.launch("w8a8_matmul", "rcp_near_mismatches", [_cuda.VOIDP], device, bad.data_ptr())
     return int(bad.item())
 
 
@@ -538,15 +527,11 @@ def _w8a8_launch(xq, xs, wq_t, ws, out_dtype, out=None) -> torch.Tensor:
     if out is None:
         out = torch.empty(*lead, o, dtype=out_dtype, device=xq.device)
     _cuda.check_tensor(out, "out", out_dtype, (*lead, o))
-    fn = _cuda.kernel_function(
-        "w8a8_matmul", "w8a8_matmul", [_cuda.VOIDP] * 5 + [_cuda.INT] * 6 + [_cuda.VOIDP]
+    _cuda.launch(
+        "w8a8_matmul", "w8a8_matmul", [_cuda.VOIDP] * 5 + [_cuda.INT] * 6, xq.device,
+        xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        m, k, o, plan.cluster, plan.stages, out.element_size(),
     )
-    with torch.cuda.device(xq.device):
-        code = fn(
-            xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            m, k, o, plan.cluster, plan.stages, out.element_size(), _cuda.stream_ptr(xq.device),
-        )
-    _cuda.check_launch("w8a8_matmul", code)
     return out
 
 

@@ -324,13 +324,11 @@ def _active_clusters(
             cluster, units, warps = k1_cluster_shape(hidden, fused, elem_bytes)
             ks = 0
             kind = {1: 2, 4: 3}.get(elem_bytes, int(fused))
-        fn = _cuda.kernel_function(
-            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 7 + [_cuda.VOIDP]
-        )
         count = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            code = fn(hidden, kind, cluster, units, 8, warps, ks, ctypes.addressof(count))
-        _cuda.check_launch("lstm_scan", code)
+        _cuda.launch(
+            "lstm_scan", "lstm_scan_active_clusters", [_cuda.INT] * 7 + [_cuda.VOIDP], device,
+            hidden, kind, cluster, units, 8, warps, ks, ctypes.addressof(count), stream=False,
+        )
         if count.value < 1:
             raise RuntimeError(f"lstm_scan: the card runs no cluster of {cluster} CTAs at H = {hidden}")
         _active[key] = count.value
@@ -420,16 +418,11 @@ def _launch_wide(
     _cuda.check_tensor(out, "out", dtype, (t_len, n, hidden))
     if any(t.device != xproj.device for t in (w_res, w_frag, out)):
         raise ValueError(f"{symbol}: inputs are on different devices")
-    fn = _cuda.kernel_function(
-        "lstm_scan", symbol, [_cuda.VOIDP] * 4 + [_cuda.INT] * 9 + [_cuda.VOIDP]
+    _cuda.launch(
+        "lstm_scan", symbol, [_cuda.VOIDP] * 4 + [_cuda.INT] * 9, xproj.device,
+        xproj.data_ptr(), w_res.data_ptr(), w_frag.data_ptr(), out.data_ptr(), t_len, n,
+        hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps, plan.resident,
     )
-    with torch.cuda.device(xproj.device):
-        code = fn(
-            xproj.data_ptr(), w_res.data_ptr(), w_frag.data_ptr(), out.data_ptr(), t_len, n,
-            hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps, plan.resident,
-            _cuda.stream_ptr(xproj.device),
-        )
-    _cuda.check_launch("lstm_scan", code)
     counter = (lstm_scan_time_major_wide_f32 if dtype == torch.float32
                else lstm_scan_time_major_wide)
     counter.launches += 1
@@ -463,15 +456,11 @@ def _launch(
         tensors.insert(2, scale)
     if any(t.device != xproj.device for t in tensors):
         raise ValueError(f"{symbol}: inputs are on different devices")
-    fn = _cuda.kernel_function(
-        "lstm_scan", symbol, [_cuda.VOIDP] * len(tensors) + [_cuda.INT] * 8 + [_cuda.VOIDP]
+    _cuda.launch(
+        "lstm_scan", symbol, [_cuda.VOIDP] * len(tensors) + [_cuda.INT] * 8, xproj.device,
+        *(t.data_ptr() for t in tensors), t_len, n, hidden, int(reverse),
+        plan.cluster, plan.units, plan.rows, plan.warps,
     )
-    with torch.cuda.device(xproj.device):
-        code = fn(
-            *(t.data_ptr() for t in tensors), t_len, n, hidden, int(reverse),
-            plan.cluster, plan.units, plan.rows, plan.warps, _cuda.stream_ptr(xproj.device),
-        )
-    _cuda.check_launch("lstm_scan", code)
     counter = {"lstm_scan_bf16": lstm_scan_time_major, "lstm_scan_f32": lstm_scan_time_major_f32,
                "lstm_scan_int8": lstm_scan_time_major_int8}[symbol]
     counter.launches += 1
@@ -655,16 +644,11 @@ def lstm_fused_time_major(
     w_hh = slice_w_hh(w_hh_t, plan.cluster, plan.units)
     w_ih = w_ih_fragments(w_ih_t, plan.cluster, plan.units)
     out = torch.empty(t_len, n, hidden, dtype=x.dtype, device=x.device)
-    fn = _cuda.kernel_function(
-        "lstm_scan", "lstm_fused_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 8 + [_cuda.VOIDP]
+    _cuda.launch(
+        "lstm_scan", "lstm_fused_bf16", [_cuda.VOIDP] * 5 + [_cuda.INT] * 8, x.device,
+        x.data_ptr(), w_hh.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        t_len, n, hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps,
     )
-    with torch.cuda.device(x.device):
-        code = fn(
-            x.data_ptr(), w_hh.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            t_len, n, hidden, int(reverse), plan.cluster, plan.units, plan.rows, plan.warps,
-            _cuda.stream_ptr(x.device),
-        )
-    _cuda.check_launch("lstm_scan", code)
     lstm_fused_time_major.launches += 1
     return out
 

@@ -7,7 +7,9 @@ chain of ``splitter.DuplexReadSplitter``), the read filters (``min_qscore``,
 calling (``modbase_caller``: MN/MM/ML tags), without barcoding or poly(A)
 estimation (the JAX pipeline with none of those set). ``run`` basecalls
 the POD5 files under a path, ``run_reads`` any iterable of reads; both
-admit reads through the same gate. Host code is
+admit reads through the same gate. ``device`` goes to the runner (one model
+replica on each visible card by default, as the JAX pipeline takes a mesh);
+a modbase caller stays on its own device. Host code is
 a *feeder* (gate + scale + trim + chunk + batch fill) and a *finisher*
 (stitch + split + tags + modbase + filter + write) around
 ``TorchBasecallRunner``; the device computes batch k+1 while the host
@@ -176,6 +178,28 @@ class BasecallerPipeline:
             }
             for i in range(len(self.runner.chunk_sizes))
         ]
+
+    def sample_stats(self) -> dict:
+        """The pipeline's and the runner's counters under the JAX
+        pipeline's names: a ``StatsSampler`` provider (``--dump-stats-file``'s
+        ``basecaller.`` columns)."""
+        rs = self.runner.stats
+        return {
+            "reads_called": self.stats.reads_called,
+            "bases_called": self.stats.bases_called,
+            "samples_processed": self.stats.samples_processed,
+            "samples_incl_padding": self.stats.samples_incl_padding,
+            "batches_called": rs.batches_called,
+            "chunks_called": rs.chunks_called,
+            "reads_filtered": self.reads_filtered,
+            "batch_queue_depth": sum(len(lane["batch"]) for lane in self._lanes),
+            "device_idle_s": round(self.stats.device_idle_s, 4),
+            "finish_wait_s": round(self.stats.finish_wait_s, 4),
+            "dispatch_wait_s": round(rs.dispatch_s, 4),
+            "device_fetch_s": round(rs.fetch_s, 4),
+            "host_decode_s": round(rs.host_decode_s, 4),
+            "host_finish_s": round(self.stats.host_finish_s, 4),
+        }
 
     # ------------------------------------------------------------------
     # header
@@ -535,7 +559,7 @@ class BasecallerPipeline:
         new reads are fed after the deadline; in-flight reads still finish."""
         t0 = time.perf_counter()
         self.stats = PipelineStats()
-        rs_before = self.runner.stats.snapshot()
+        rs_before = self.runner.stats
         self._idle_mark = t0  # initial fill counts as device idle
         self._inflight_total = 0
         deadline = t0 + max_seconds if max_seconds is not None else None
@@ -583,8 +607,8 @@ class BasecallerPipeline:
                 self._modbase_scheduler.close()
                 self._modbase_scheduler = None
         self.stats.elapsed_s = time.perf_counter() - t0
-        rs_after = self.runner.stats.snapshot()
-        self.stats.dispatch_wait_s = rs_after[3] - rs_before[3]
-        self.stats.device_fetch_s = rs_after[4] - rs_before[4]
-        self.stats.host_decode_s = rs_after[5] - rs_before[5]
+        rs_after = self.runner.stats
+        self.stats.dispatch_wait_s = rs_after.dispatch_s - rs_before.dispatch_s
+        self.stats.device_fetch_s = rs_after.fetch_s - rs_before.fetch_s
+        self.stats.host_decode_s = rs_after.host_decode_s - rs_before.host_decode_s
         return self.stats

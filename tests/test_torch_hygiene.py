@@ -45,7 +45,9 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.modbase.motif", "dorado_tpu_torch.modbase.scaler",
             "dorado_tpu_torch.modbase.tags", "dorado_tpu_torch.duplex.basespace",
             "dorado_tpu_torch.duplex.modbase", "dorado_tpu_torch.duplex.pairing",
-            "dorado_tpu_torch.duplex.pipeline", "dorado_tpu_torch.duplex.stereo"} <= set(names)
+            "dorado_tpu_torch.duplex.pipeline", "dorado_tpu_torch.duplex.stereo",
+            "dorado_tpu_torch.parallel.sharding", "dorado_tpu_torch.parallel.distributed",
+            "dorado_tpu_torch.utils.device_monitor", "dorado_tpu_torch.utils.stats"} <= set(names)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -89,6 +91,63 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         TorchBasecallRunner(sup, TxModel(sup))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BasecallerPipeline(sup, TxModel(sup))
+
+
+def test_every_launch_goes_through_the_device_guard():
+    """Static: no module of the package but ``ops/_cuda.py`` looks up a C
+    entry point, takes a stream or checks a launch's code itself; every call
+    into ``_cuda`` from a kernel wrapper is ``launch`` (or an argument
+    check), and each module that counts a launch launches through it."""
+    import ast
+
+    private = {"kernel_function", "stream_ptr", "check_launch"}
+    for path in PKG.rglob("*.py"):
+        if path.name == "_cuda.py" and path.parent.name == "ops":
+            continue
+        tree = ast.parse(path.read_text())
+        names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        attrs = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        assert not private & (names | attrs), f"{path}: {private & (names | attrs)}"
+        calls = {
+            n.func.attr for n in ast.walk(tree)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and isinstance(n.func.value, ast.Name) and n.func.value.id == "_cuda"
+        }
+        assert calls <= {"launch", "check_tensor", "build_kernels"}, f"{path}: {calls}"
+        if path.parent.name == "ops" and ".launches += 1" in path.read_text():
+            assert "launch" in calls, path
+
+
+def test_launch_enters_the_device_and_passes_its_stream(monkeypatch):
+    """``_cuda.launch`` calls the entry point while the tensors' device is
+    current, with that device's stream last, and raises on an error code."""
+    current, seen = [], []
+
+    class Device:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            current.append(self.dev)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    def fn(*args):
+        seen.append((list(current), args))
+        return args[0]
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(_cuda, "kernel_function", lambda name, symbol, argtypes: fn)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: f"stream of {dev}")
+    card = torch.device("cuda", 1)
+    _cuda.launch("lib", "symbol", [_cuda.INT, _cuda.INT], card, 0, 7)
+    _cuda.launch("lib", "query", [_cuda.INT], card, 0, stream=False)
+    assert seen == [([card], (0, 7, "stream of cuda:1")), ([card], (0,))]
+    monkeypatch.setattr(_cuda, "_libs", {"lib": type("Lib", (), {
+        "dtt_error_string": staticmethod(lambda code: b"bad")})()})
+    with pytest.raises(RuntimeError, match="lib kernel launch failed: CUDA error 3"):
+        _cuda.launch("lib", "symbol", [_cuda.INT], card, 3)
 
 
 def _small_sup():

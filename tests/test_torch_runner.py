@@ -452,7 +452,7 @@ def test_tx_decoder_and_precision_arguments():
     runner = TorchBasecallRunner(cfg, model, **kw)
     assert (runner.decoder, runner.tx_precision) == ("viterbi", "bf16")
     assert (runner.tx_attention, runner.tx_fused_norm) == ("extf", False)
-    assert runner._qual_table.shape == (1024, 1024)
+    assert runner.replicas[0].qual_table.shape == (1024, 1024)
     # int8 is taken: the quantisation, the routes and the precision are the model's
     runner = TorchBasecallRunner(
         cfg, model, tx_precision="int8", tx_attention="hp", tx_fused_norm=True, **kw

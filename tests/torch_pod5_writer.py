@@ -6,7 +6,8 @@ signature and section markers, the three embedded Arrow IPC files (signal,
 run info, reads; the reads table in several record batches with delta
 dictionaries), the ``minknow.uuid`` and ``minknow.vbz`` field metadata, and
 the footer FlatBuffer. ``fixture_reads`` makes the committed fixture's reads
-from its seed; ``python -m tests.torch_pod5_writer`` rewrites that file.
+from its seed; ``python -m tests.torch_pod5_writer`` rewrites that file and
+its reads dealt into the four files of ``SHARDS`` (``write_shards``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from dorado_tpu.io.vbz import svb16_encode
 SIGNATURE = b"\x8bPOD\r\n\x1a\n"
 FIXTURE = Path(__file__).parent / "data" / "torch_port" / "fixture.pod5"
 FIXTURE_SEED = 2024
+SHARDS = FIXTURE.parent / "shards"
 SIGNAL_ROW = 8000  # samples a signal-table row at most (a read spans several)
 
 _UUID = {"ARROW:extension:name": "minknow.uuid", "ARROW:extension:metadata": ""}
@@ -234,7 +236,21 @@ def fixture_reads() -> tuple[list[dict], list[dict]]:
     return make_reads(FIXTURE_SEED + 1, lengths, infos), infos
 
 
+def write_shards(directory: Path = SHARDS, count: int = 4) -> list[Path]:
+    """The fixture's reads dealt round robin into ``count`` POD5 files
+    (``part<i>.pod5``), each with both run infos: the input of a run over
+    several processes, which share it by files."""
+    reads, infos = fixture_reads()
+    directory.mkdir(parents=True, exist_ok=True)
+    paths = [directory / f"part{i}.pod5" for i in range(count)]
+    for i, path in enumerate(paths):
+        write_pod5(path, reads[i::count], infos)
+    return paths
+
+
 if __name__ == "__main__":
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
     write_pod5(FIXTURE, *fixture_reads())
     print(FIXTURE, FIXTURE.stat().st_size, "bytes")
+    for path in write_shards():
+        print(path, path.stat().st_size, "bytes")
