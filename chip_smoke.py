@@ -184,6 +184,25 @@
    ``DuplexPipeline.run``'s), ``python -m dorado_tpu_torch duplex`` (the real
    pairer; its SAM equal to the in-process run's but for @PG) and ``duplex
    basespace --pairs`` on the forced run's SAM.
+   Then draft polishing (``polish_phase``): the port's mapper aligns 300
+   seeded FASTQ reads of 8-12 kb (8% errors, both strands, 100x) to a 30 kb
+   draft on every host core; ``PolishPipeline`` (windows of 10,000
+   overlapping by 1,000, 100 reads a read-matrix column) runs the counts
+   GRUModel (cuDNN ``nn.GRU``, gru 128) and the read-level LatentSpaceLSTM
+   (its four LSTM directions a window on K1 float32) with seeded random
+   weights on the card; the counts pipeline again on the CPU over the same
+   windows (the host features computed once), the read-level one's forward
+   on the CPU on the longest window: logits within TOL_POLISH_LOGITS, argmax
+   equal but at near ties, the counts sequences equal but at near-tie
+   columns; paths ``polish counts`` (no
+   hand-written kernel) and ``polish rl`` (K1 float32, 4 a window); each
+   window's host features (pileup, read matrix) beside its device forward
+   (CUDA events, one profiled forward by kernel); K1 float32 at a window's
+   shape (T = its columns, N = 1, H = 128), both directions into
+   NaN-filled outputs, timed beside its bound, the plain version and
+   cuDNN's float32 LSTM (``polish_*`` keys of its row); and ``python -m
+   dorado_tpu_torch polish reads.fastq draft.fa -m <gru dir>``, whose FASTA
+   must equal ``run()``'s.
    Last, several devices (``multi_gpu_phase``, after every other phase), at
    hac v4.3 full width: ``torch.cuda.device_count()`` and
    ``describe_devices()``; ``run_reads`` over 192 reads of 40-60k samples with
@@ -234,8 +253,8 @@
    mode, which must cut at each planted base, and prints its host ms a read
    beside the profiled hac Viterbi step's device ms for as many samples.
 8. Prints one JSON line of per-kernel numbers (the float32 forms of K2, K13,
-   K10, K14 and K11a and K1's two wide forms in rows of their own) and,
-   last, the device line.
+   K10, K14 and K11a and K1's two wide forms in rows of their own; K1
+   float32's row also at the polish shape) and, last, the device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -244,9 +263,12 @@ result.
 
 from __future__ import annotations
 
+import copy
 import difflib
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2232,6 +2254,343 @@ def duplex_cli(k, cfg, model, scfg, smodel) -> None:
               f"{len(duplex)} pairs (random calls of a pair rarely overlap)", flush=True)
 
 
+# ---- draft polishing: the mapper, the features, the two polish models -------
+
+# a seeded 30 kb draft and 300 reads of 8-12 kb from both strands (100x), at
+# 8% errors (substitutions, deletions and insertions in equal parts); windows
+# of 10,000 columns overlapping by 1,000, the read matrix's 100 rows (the JAX
+# command's defaults)
+POLISH_DRAFT = 30_000
+POLISH_READS = 300
+POLISH_READ_LEN = (8_000, 12_001)
+POLISH_ERROR = 0.08
+POLISH_WINDOW, POLISH_OVERLAP = 10_000, 1_000
+# the polish models' float32 logits, card against CPU: max abs difference
+# (both compute in float32, TF32 off; the sums' order differs); a column
+# whose argmax differs must have its top two CPU logits within twice this
+TOL_POLISH_LOGITS = 1e-3
+
+
+class _CachedFeatures:
+    """The polish pipeline's host features (``build_pileup``,
+    ``build_read_matrix``) computed once a window for the phase's one read
+    set and handed to every later pipeline over the same windows, each
+    computation timed: the CPU pipelines, whose host work is the card's."""
+
+    def __init__(self):
+        import dorado_tpu_torch.secondary.polish as polish_mod
+        import dorado_tpu_torch.secondary.read_matrix as matrix_mod
+
+        self.mods = (polish_mod, matrix_mod)
+        self.real = (polish_mod.build_pileup, matrix_mod.build_read_matrix)
+        self.cache, self.seconds = {}, {"pileup": [], "read_matrix": []}
+
+    def _cached(self, kind, real):
+        def fn(reads, start, end, *args, **kwargs):
+            key = (kind, start, end, tuple(sorted((k, repr(v)) for k, v in kwargs.items())))
+            if key not in self.cache:
+                t0 = time.perf_counter()
+                self.cache[key] = real(reads, start, end, *args, **kwargs)
+                self.seconds[kind].append(time.perf_counter() - t0)
+            return self.cache[key]
+        return fn
+
+    def __enter__(self):
+        self.mods[0].build_pileup = self._cached("pileup", self.real[0])
+        self.mods[1].build_read_matrix = self._cached("read_matrix", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].build_pileup, self.mods[1].build_read_matrix = self.real
+
+
+def polish_phase(k) -> None:
+    """Draft polishing at full width on the card: the port's mapper aligns
+    300 FASTQ reads to a 30 kb draft (the command's ``_collect_alignments``);
+    ``PolishPipeline`` (windows of 10,000 overlapping by 1,000) runs the
+    counts GRUModel (``presets.polish_gru_config``: gru 128, 2 bidirectional
+    layers, cuDNN) and the read-level LatentSpaceLSTM
+    (``presets.polish_rl_config``: 128 channels, kernels 1 and 17, LSTM 128,
+    100 reads a column; its four LSTM directions a window on K1 float32),
+    random weights from the seed, on the card; the counts pipeline on the
+    CPU over the same windows, the read-level pipeline's forward on the CPU
+    on the longest window: logits within TOL_POLISH_LOGITS, argmax equal but
+    at near ties (counted), the counts sequences equal but at near-tie
+    columns. Launches: 4 of K1 float32 a read-level
+    window, none of any hand-written kernel on the counts path. K1 float32
+    at a window's shape (T = its columns, N = 1, H = 128), both directions
+    into NaN-filled outputs, timed beside its bound, its plain version and
+    cuDNN (``polish_*`` keys of its row). Each window's host features
+    (pileup, read matrix) beside its device forward (CUDA events, the
+    profiler's device time by kernel). Last ``python -m dorado_tpu_torch
+    polish reads.fastq draft.fa -m <gru dir>``, whose FASTA must equal
+    ``run()``'s."""
+    import argparse
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    torch, dev, gen, lstm, time_ms = k.torch, k.dev, k.gen, k.lstm, k.time_ms
+    from dorado_tpu_torch.cli.main import _collect_alignments
+    from dorado_tpu_torch.models import presets
+    from dorado_tpu_torch.secondary.architectures import model_factory
+    from dorado_tpu_torch.secondary.polish import PolishPipeline
+    from tests.torch_polish import polish_inputs, write_fasta, write_fastq
+
+    t_phase = time.perf_counter()
+    draft, truth, reads = polish_inputs(SEED, POLISH_DRAFT, POLISH_READS, POLISH_READ_LEN,
+                                        error=POLISH_ERROR)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_polish_"))
+    fasta = write_fasta(tmp / "draft.fa", [("ctg", draft)])
+    fastq = write_fastq(tmp / "reads.fastq", reads)
+    t0 = time.perf_counter()
+    by_contig = _collect_alignments(argparse.Namespace(
+        reads=str(fastq), draft=str(fasta), min_mapq=0, threads=0))
+    map_s = time.perf_counter() - t0
+    aligned = by_contig.get("ctg", [])
+    if len(aligned) < 0.95 * POLISH_READS:
+        raise AssertionError(f"polish: the mapper aligned {len(aligned)} of {POLISH_READS} reads")
+    print(f"polish inputs: a {len(draft)} b draft, {POLISH_READS} reads of {POLISH_READ_LEN} b at "
+          f"{POLISH_ERROR:.0%} errors, {sum(len(r[1]) for r in reads) / len(draft):.1f}x; the "
+          f"port's mapper aligned {len(aligned)} on {os.cpu_count()} threads in {map_s:.2f} s "
+          f"({map_s / POLISH_READS * 1e3:.1f} ms a read) [host of {k.card}]", flush=True)
+
+    gcfg, rcfg = presets.polish_gru_config(), presets.polish_rl_config()
+    g = torch.Generator().manual_seed(SEED)
+    models = {"counts": model_factory("GRUModel", gcfg["model"]["kwargs"], g),
+              "rl": model_factory("LatentSpaceLSTM", rcfg["model"]["kwargs"], g)}
+    with torch.no_grad():
+        # the gap class's bias lowered, so that the random GRU emits bases;
+        # the batch norms away from their identity
+        models["counts"].linear.bias[0] = -1.0
+        for block in models["rl"].read_level_conv:
+            c = block.bn.weight.shape[0]
+            block.bn.weight.copy_(1 + 0.2 * torch.randn(c, generator=g))
+            block.bn.bias.copy_(0.1 * torch.randn(c, generator=g))
+            block.bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+            block.bn.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    gru_dir = presets.save_polish_model(gcfg, models["counts"], tmp / presets.POLISH_GRU_NAME)
+    feature_opts = {"include_dwells": False, "include_haplotags": False,
+                    "include_snp_qv": False, "hap_source": "unphased", "max_reads": 100}
+    kinds = {"counts": ("counts", {}), "rl": ("read_level", feature_opts)}
+
+    def pipeline(name, device):
+        kind, opts = kinds[name]
+        return PolishPipeline(copy.deepcopy(models[name]), window_len=POLISH_WINDOW,
+                              window_overlap=POLISH_OVERLAP, feature_kind=kind,
+                              feature_opts=opts, device=device)
+
+    def run(name, device):
+        """(polished [(name, seq)], [(feats, logits, forward ms by CUDA
+        events or None)] a window, the pipeline)."""
+        pipe = pipeline(name, device)
+        windows = []
+        real = pipe.forward
+
+        def forward(feats):
+            if device is not dev:  # the CPU's run
+                out = real(feats)
+                windows.append((feats, out, None))
+                return out
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = real(feats)
+            end.record()
+            end.synchronize()
+            windows.append((feats, out, start.elapsed_time(end)))
+            return out
+
+        pipe.forward = forward
+        return pipe.run(fasta, by_contig, with_quals=True), windows, pipe
+
+    results = {}
+    with _CachedFeatures() as cached:
+        for name in ("counts", "rl"):
+            path = f"polish {name}"
+            for w in k.wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            got, windows, pipe = run(name, dev)
+            wall = time.perf_counter() - t0
+            k.launches[path] = {n: w.launches for n, w in k.wrappers.items()}
+            k.check_launches(path, k.launches[path], len(windows))
+            t0 = time.perf_counter()
+            if name == "counts":
+                # the whole pipeline on the CPU, over the same windows; the
+                # GRU's many small steps run fastest on one thread
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                want, cpu_windows, _ = run(name, "cpu")
+                torch.set_num_threads(threads)
+                held = list(range(len(windows)))
+            else:
+                # the read-level model on the CPU takes about a second for
+                # 1,000 columns (its plain LSTM's steps): the CPU pipeline's
+                # forward is held on the longest window's features only; the
+                # launch counts and K1's own check below cover every window
+                longest = max(range(len(windows)), key=lambda i: windows[i][0].shape[1])
+                feats = windows[longest][0]
+                want, held = None, [longest]
+                cpu_windows = [(feats, pipeline(name, "cpu").forward(feats), None)]
+            cpu_wall = time.perf_counter() - t0
+            results[name] = (got, windows, pipe, want, cpu_windows, held, wall, cpu_wall)
+        feature_s = {kind: list(v) for kind, v in cached.seconds.items()}
+
+    for name, (got, windows, pipe, want, cpu_windows, held, wall, cpu_wall) in results.items():
+        if len(held) != len(cpu_windows) or not windows:
+            raise AssertionError(f"polish {name}: {len(windows)} windows on the card, "
+                                 f"{len(cpu_windows)} on the CPU")
+        err, flips, near = 0.0, 0, 0
+        for (feats, lg, _), (cfeats, lc, _) in zip([windows[i] for i in held], cpu_windows):
+            if (feats.shape != cfeats.shape or lg.shape != lc.shape
+                    or not np.isfinite(lg).all()):
+                raise AssertionError(f"polish {name}: window shapes {feats.shape} / "
+                                     f"{cfeats.shape} or logits not finite")
+            err = max(err, float(np.abs(lg - lc).max()))
+            differ = lg.argmax(-1) != lc.argmax(-1)
+            top2 = np.sort(lc, axis=-1)[:, -2:]
+            flips += int(differ.sum())
+            near += int((differ & (top2[:, 1] - top2[:, 0] <= 2 * TOL_POLISH_LOGITS)).sum())
+        seq_g = got[0][1][0]
+        if want is None:
+            same = f"the CPU pipeline's forward on window {held[0]} only"
+        else:
+            seq_c = want[0][1][0]
+            diff_cols = sum(a != b for a, b in zip(seq_g, seq_c)) + abs(len(seq_g) - len(seq_c))
+            same = "sequences " + ("equal" if seq_g == seq_c else f"differ at {diff_cols} columns")
+            if seq_g != seq_c and flips == 0:
+                raise AssertionError(f"polish {name}: the sequences differ with no argmax flip")
+        print(f"polish {name}: {len(windows)} windows of {[f.shape[1] for f, _, _ in windows]} "
+              f"columns; card against CPU over windows {held}: logits max abs difference "
+              f"{err:.3g} (limit {TOL_POLISH_LOGITS}), argmax differs at {flips} columns ({near} "
+              f"of them near ties), {same}; {len(seq_g)} b polished (draft {len(draft)}, truth "
+              f"{len(truth)}); run on the card {wall:.2f} s, on the CPU {cpu_wall:.2f} s (host "
+              f"features cached); launches "
+              f"{ {n: v for n, v in k.launches[f'polish {name}'].items() if v} } [{k.card}]",
+              flush=True)
+        if not err <= TOL_POLISH_LOGITS or flips != near:
+            raise AssertionError(f"polish {name}: the card's logits are {err} from the CPU's "
+                                 f"(limit {TOL_POLISH_LOGITS}), or {flips - near} argmax flips "
+                                 f"away from a near tie")
+        if not seq_g or got[0][1][1] is None or len(got[0][1][1]) != len(seq_g):
+            raise AssertionError(f"polish {name}: empty sequence or qualities of another length")
+
+    # ---- the time split of a window ------------------------------------------
+    pile_s, matrix_s = feature_s["pileup"], feature_s["read_matrix"]
+    for name, (got, windows, pipe, *_rest) in results.items():
+        fwd = [ms for _, _, ms in windows]
+        print(f"polish {name} a window: host features {np.mean(pile_s):.3f} s pileup"
+              + (f" + {np.mean(matrix_s):.3f} s read matrix" if name == "rl" else "")
+              + f" (each window: {[round(s, 3) for s in pile_s]}"
+              + (f", {[round(s, 3) for s in matrix_s]}" if name == "rl" else "")
+              + f"); device forward by CUDA events {np.mean(fwd):.2f} ms "
+              f"({[round(ms, 2) for ms in fwd]}), host clock incl. the copies "
+              f"{pipe.stats.forward_s / len(windows) * 1e3:.2f} ms [{k.card}]", flush=True)
+        shape = max((f.shape for f, _, _ in windows), key=lambda s: s[1])
+        x = torch.from_numpy(np.random.RandomState(SEED).rand(*shape).astype(np.float32))
+        if name == "rl":
+            x = torch.from_numpy(np.random.RandomState(SEED).randint(1, 6, shape).astype(
+                np.float32))
+            x[..., 2] = torch.where(x[..., 2] > 3, 1.0, -1.0)
+        x = x.to(dev)
+        model = pipe.model
+        with torch.inference_mode():
+            ev_ms = time_ms(lambda: model(x), 2)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                            if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+        busy = sum(ms for _, ms in by_kernel)
+        # CUDA events time every forward; the profiler's sum is only what it
+        # sees (in the whole script's process it has missed cuDNN's kernels)
+        print(f"polish {name} forward at {tuple(shape)}: CUDA events {ev_ms:.2f} ms; "
+              f"profiled: wall {wall_ms:.2f} ms, kernels seen {busy:.2f} ms [{k.card}]",
+              flush=True)
+        for key, ms in by_kernel[:8]:
+            print(f"  {ms:9.3f} ms {ms / ev_ms:6.1%} of the events' time  {key[:90]}")
+        del x
+
+    # ---- K1 float32 at the polish shape ----------------------------------------
+    h = rcfg["model"]["kwargs"]["lstm_size"]
+    t_len = max(f.shape[1] for f, _, _ in results["rl"][1])
+    w = (torch.rand(h, 4 * h, generator=gen, device=dev) * 2 - 1) / h**0.5
+    xproj = torch.randn(t_len, 1, 4 * h, generator=gen, device=dev) * 0.8
+    plan = lstm.k1_launch_plan(h, 1, dev, elem_bytes=4)
+    err = 0.0
+    for reverse in (False, True):
+        into = torch.full((t_len, 1, h), float("nan"), device=dev)
+        lstm._launch("lstm_scan_f32", xproj, lstm.slice_w_hh(w, plan.cluster, plan.units), into,
+                     reverse, plan)
+        out = lstm.lstm_scan_time_major(xproj, w, reverse=reverse)
+        if reverse:
+            # the plain version takes seconds at this T on the card: it runs
+            # there once, timed by CUDA events
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            ref = lstm.lstm_scan_plain(xproj, w, reverse=reverse)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+        else:
+            # the forward direction's plain version on the host's CPU (its
+            # small steps run faster there)
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            ref = lstm.lstm_scan_plain(xproj.cpu(), w.cpu(), reverse=reverse).to(dev)
+            torch.set_num_threads(threads)
+        e = max((into - ref).abs().max().item(), (out - ref).abs().max().item())
+        if not e <= TOL_LSTM_F32:  # NaN where a position was not written
+            raise AssertionError(f"lstm_scan_f32 at the polish shape T={t_len} N=1 H={h} "
+                                 f"reverse={reverse}: max abs error {e} > {TOL_LSTM_F32}")
+        err = max(err, e)
+    cudnn = torch.nn.LSTM(h, h, device=dev)
+    cudnn.flatten_parameters()
+    x_in = torch.randn(t_len, 1, h, generator=gen, device=dev)
+    ms = time_ms(lambda: lstm.lstm_scan_time_major(xproj, w, reverse=True), 3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_ms = time_ms(lambda: cudnn(x_in), 3)
+    ops = 2.0 * t_len * h * 4 * h
+    nbytes = 4 * (t_len * 4 * h + h * 4 * h + t_len * h)
+    b_ms, b_by = bound_ms(ops, PEAK_F32, nbytes)
+    row = next(r for r in k.rows if r["name"] == "lstm_scan_f32")
+    row.update({f"polish_{key}": v for key, v in dict(
+        shape=f"T={t_len} N=1 H={h} (a read-level polish window)", ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, tf32x3_bound_ms=bound_ms(ops, PEAK_TF32 / 3, nbytes)[0],
+        library_ms=lib_ms, max_abs_err=err, us_per_step=ms / t_len * 1e3,
+        split=plan._asdict(),
+        launches_a_window=k.launches["polish rl"]["lstm_scan_f32"] / len(results["rl"][1])
+    ).items()})
+    print(f"lstm_scan_f32 at the polish shape T={t_len} N=1 H={h}, both directions, into "
+          f"NaN-filled outputs: max abs error {err:.3g} (limit {TOL_LSTM_F32}); kernel {ms:.3f} "
+          f"ms ({ms / t_len * 1e3:.3f} us a step), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {row['polish_tf32x3_bound_ms']:.4f} ms on 3xTF32), cuDNN nn.LSTM float32, "
+          f"TF32 off {lib_ms:.3f} ms; split {plan} [{k.smi}]", flush=True)
+    del xproj, into, out, ref, cudnn, x_in
+
+    # ---- the command line ---------------------------------------------------------
+    out = tmp / "polished.fa"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dorado_tpu_torch", "polish", str(fastq),
+                          str(fasta), "-m", str(gru_dir), "--window-len", str(POLISH_WINDOW),
+                          "--window-overlap", str(POLISH_OVERLAP), "-o", str(out)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    want = "".join(f">{name}\n" + "".join(seq[i:i + 80] + "\n" for i in range(0, len(seq), 80))
+                   for name, (seq, _) in results["counts"][0])
+    if res.returncode != 0 or not out.exists() or out.read_text() != want:
+        raise AssertionError(f"python -m dorado_tpu_torch polish: exit code {res.returncode}, "
+                             f"or its FASTA differs from run()'s: {res.stderr[-2000:]}")
+    print(f"python -m dorado_tpu_torch polish reads.fastq draft.fa -m <gru dir>: {wall:.2f} s, "
+          f"its FASTA equal to run()'s; "
+          f"{[l for l in res.stderr.splitlines() if l.startswith('> ')]}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"polish phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ---- several devices: replicas, the sharded step, two processes ------------
 MULTI_READS = 192  # reads of 40-60k samples: about 1000 chunks, 8 batches of 128
 MULTI_READ_SAMPLES = (40_000, 60_001)
@@ -4152,6 +4511,10 @@ def main() -> None:
     }
     for what in ("viterbi", "beam", "f32"):
         path_kernels[f"stereo {what}"] = path_kernels[f"duplex {what}"]
+    # polishing: the counts GRU on cuDNN (no hand-written kernel), the
+    # read-level model's four LSTM directions a window on K1 float32
+    path_kernels["polish counts"] = []
+    path_kernels["polish rl"] = ["lstm_scan_f32"]
     path_kernels["cli duplex"] = path_kernels["duplex viterbi"]
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
@@ -4172,6 +4535,7 @@ def main() -> None:
         # a simplex or a stereo batch: 5 LSTM layers, one decode
         **{f"{kind} {what}": [5, 5, 1, 1, 1] for kind in ("duplex", "stereo")
            for what in ("viterbi", "beam", "f32")},
+        "polish rl": [4],  # a window
     }
 
     def check_launches(path, counts, batches):
@@ -4722,6 +5086,8 @@ def main() -> None:
     t0 = time.perf_counter()
     kit.__dict__.update(make_read=make_read, smi=smi, path_kernels=path_kernels,
                         per_batch=per_batch)
+    polish_phase(kit)
+    t0 = time.perf_counter()
     multi_gpu_phase(kit, cfg, hac_model)
     print(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -1,5 +1,6 @@
-"""Command line of the port: ``python -m dorado_tpu_torch basecaller`` and
-``python -m dorado_tpu_torch duplex``.
+"""Command line of the port: ``python -m dorado_tpu_torch basecaller``,
+``python -m dorado_tpu_torch duplex`` and ``python -m dorado_tpu_torch
+polish``.
 
 Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
@@ -25,6 +26,17 @@ consensus of basecalled pairs (a BAM or SAM and ``--pairs``). Its other JAX
 options are left out, ``--modified-bases`` among them, and
 ``--decoder beam-host`` is refused with exit code 1, as ``basecaller``
 refuses it.
+
+``polish`` is the JAX command's ``polish`` without its variant flow
+(``--vcf``, ``--gvcf`` and ``--ambig-ref`` are left out, so argparse rejects
+them): a draft FASTA polished with reads from a BAM or SAM, or from a FASTQ
+that the port's mapper aligns to the draft, by a GRUModel (counts features)
+or a LatentSpaceLSTM (read-level features) from a model directory (``-m``,
+names resolved under ``--models-directory`` only), a config
+(``--model-config``, random weights), a ``.tensor`` or TorchScript
+directory (``--model-params``), or random GRU weights with a warning. The
+model runs on one device: ``-x cuda`` (the default, the first card),
+``cuda:N`` or ``cpu``.
 
 ``-x`` picks the devices: ``cuda`` or ``auto`` (the default) every visible
 card, one model replica on each (the JAX command's ``-x auto``, the
@@ -474,6 +486,284 @@ def _run_basespace_duplex(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_polish(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("polish", help="Polish a draft assembly with aligned reads")
+    p.add_argument("reads", help="Aligned BAM/SAM (or FASTQ to self-align)")
+    p.add_argument("draft", help="Draft assembly FASTA")
+    p.add_argument("--model-params", default=None,
+                   help="GRU model params dir (.tensor files) or a TorchScript model.pt (or "
+                   "its directory); random weights if no model is given (testing only)")
+    p.add_argument("--model-config", default=None,
+                   help="Model config TOML selecting the architecture (GRUModel or "
+                   "LatentSpaceLSTM) and its kwargs; random weights")
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("--window-len", type=int, default=10000)
+    p.add_argument("--regions", default=None,
+                   help="Comma-separated contig[:start-end] regions to polish (1-based, "
+                   "inclusive)")
+    p.add_argument("--min-mapq", type=int, default=0)
+    p.add_argument("--min-depth", type=int, default=0,
+                   help="Below this coverage the draft base is kept")
+    p.add_argument("--qualities", action="store_true",
+                   help="Emit FASTQ with per-base consensus qualities")
+    p.add_argument("--hp-tag", action="store_true",
+                   help="Source the haplotag feature column from BAM HP tags (default: "
+                   "unphased, matching the reference polish)")
+    p.add_argument("--no-fill-gaps", action="store_true",
+                   help="Do not fill uncovered spans from the draft; emit one record per "
+                   "covered run (polish.cpp:213)")
+    p.add_argument("--RG", dest="rg", default="", help="Read group to select (polish.cpp:222)")
+    p.add_argument("--ignore-read-groups", action="store_true",
+                   help="Process all read groups (polish.cpp:223)")
+    p.add_argument("--window-overlap", type=int, default=None,
+                   help="Overlap between consensus windows (default 1000)")
+    p.add_argument("--fill-char", default=None,
+                   help="Fill uncovered spans with this character instead of the draft bases")
+    # the reference's device-batching options: accepted and not used, as the
+    # JAX command does (one window a forward)
+    p.add_argument("-b", "--batchsize", type=int, default=None)
+    p.add_argument("--draft-batchsize", default=None)
+    p.add_argument("--encoding-batchsize", type=int, default=None)
+    p.add_argument("--bam-chunk", type=int, default=None)
+    p.add_argument("--bam-subchunk", type=int, default=None)
+    p.add_argument("--bacteria", action="store_true", help="Resolve a bacterial polishing model")
+    p.add_argument("-m", "--model", default=None,
+                   help="Polish model: 'auto' (resolved from the BAM's basecall_model "
+                   "header), a model name (a directory under --models-directory) or a "
+                   "directory (polish.cpp:515-640)")
+    p.add_argument("--models-directory", default=".", help="Where model names are found")
+    p.add_argument("-x", "--device", default="cuda",
+                   help="'cuda' (the default: the first card), 'cuda:N' or 'cpu'")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="Threads that map FASTQ reads to the draft (0 = one a CPU core)")
+    p.set_defaults(func=_run_polish)
+
+
+def _read_fastq(path: str) -> list[tuple[str, str, str]]:
+    """(name, sequence, quality string) of each record of a FASTQ file."""
+    records = []
+    with open(path) as fh:
+        while True:
+            h = fh.readline().strip()
+            if not h:
+                break
+            seq = fh.readline().strip()
+            fh.readline()
+            qual = fh.readline().strip()
+            records.append((h[1:].split()[0], seq, qual))
+    return records
+
+
+def _phred(qual: str):
+    import numpy as np
+
+    if not qual or qual == "*":
+        return None
+    return np.frombuffer(qual.encode(), dtype=np.uint8).astype(np.int16) - 33
+
+
+def _collect_alignments(args: argparse.Namespace):
+    """reads (FASTQ self-aligned by the port's mapper, or a BAM/SAM) ->
+    {contig: [AlignedRead]} with the read-level feature inputs (qual, mapq,
+    qname, mv/HP/NM tags) the encoders read (encoder_read_alignment.cpp:
+    449-520); None (with a message) when the read groups are ambiguous."""
+    import numpy as np
+
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.secondary.pileup import AlignedRead
+
+    min_mapq = args.min_mapq or 0
+    if args.reads.endswith((".fastq", ".fq")):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from dorado_tpu_torch.alignment import Mapper, ReferenceIndex
+        from dorado_tpu_torch.utils.sequence import reverse_complement
+
+        mapper = Mapper(ReferenceIndex.build(args.draft))
+        records = _read_fastq(args.reads)
+        # the banded alignments run in C++ without the interpreter lock: map
+        # on threads, in the file's order
+        with ThreadPoolExecutor(args.threads or os.cpu_count() or 1) as pool:
+            mapped = list(pool.map(lambda rec: mapper.map(rec[1]), records))
+        by_contig: dict[str, list] = {}
+        for (qname, seq, qstring), alignments in zip(records, mapped):
+            qual = _phred(qstring)
+            for a in alignments:
+                if a.mapq < min_mapq:
+                    continue
+                s = reverse_complement(seq) if a.is_reverse else seq
+                q = qual[::-1].copy() if (a.is_reverse and qual is not None) else qual
+                by_contig.setdefault(a.ref_name, []).append(AlignedRead(
+                    a.ref_start, a.cigar, s, a.is_reverse, qual=q, mapq=a.mapq, qname=qname))
+        return by_contig
+    header_text, records = read_records(args.reads)
+    # read-group selection (secondary/common/bam_info.cpp:103-118): several
+    # RGs need --RG or --ignore-read-groups; --RG must name an existing one
+    rg_ids = [
+        f.split(":", 1)[1]
+        for line in header_text.splitlines() if line.startswith("@RG")
+        for f in line.split("\t")[1:] if f.startswith("ID:")
+    ]
+    if args.rg and rg_ids and args.rg not in rg_ids:
+        print(f"> Read group '{args.rg}' not found in the input BAM.", file=sys.stderr)
+        return None
+    if not args.rg and len(rg_ids) > 1 and not args.ignore_read_groups:
+        print("> The input BAM contains more than one read group. Specify --RG to select "
+              "one, or --ignore-read-groups to process all.", file=sys.stderr)
+        return None
+    by_contig = {}
+    for rec in records:
+        # unmapped, secondary and supplementary records (0x904) carry no
+        # alignment the pileup can use (medaka_bamiter.cpp)
+        if rec.flag & (4 | 0x900) or rec.rname == "*" or rec.cigar == "*":
+            continue
+        if args.rg and next((t.value for t in rec.tags if t.tag == "RG"), None) != args.rg:
+            continue
+        if rec.mapq < min_mapq:
+            continue
+        tags = {t.tag: t for t in rec.tags}
+        mv, hp, nm = tags.get("mv"), tags.get("HP"), tags.get("NM")
+        by_contig.setdefault(rec.rname, []).append(AlignedRead(
+            rec.pos - 1, rec.cigar, rec.seq, bool(rec.flag & 16),
+            qual=_phred(rec.qual), mapq=rec.mapq, qname=rec.qname,
+            moves=np.asarray(mv.value, dtype=np.int64) if mv is not None else None,
+            haplotag=int(hp.value) if hp is not None else 0,
+            nm=int(nm.value) if nm is not None else None,
+        ))
+    return by_contig
+
+
+def _feature_opts(mc, hap_source: str = "unphased") -> dict:
+    """Read-level encoder options from a parsed model config's
+    [feature_encoder] kwargs (encoder_factory.cpp:96-118)."""
+    kw = mc.get("feature_encoder_kwargs", {}) if mc else {}
+
+    def b(name, default=False):
+        v = kw.get(name, default)
+        return v == "true" if isinstance(v, str) else bool(v)
+
+    return {
+        "include_dwells": b("include_dwells"),
+        "include_haplotags": b("include_haplotype"),
+        "include_snp_qv": b("include_snp_qv"),
+        "hap_source": hap_source,
+        "max_reads": int(kw.get("max_reads", 100)),
+    }
+
+
+def _parse_regions(spec: str | None):
+    """"ctg" or "ctg:start-end" (1-based inclusive, the htslib convention)
+    -> {ctg: (start0, end) or None}."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if ":" in part:
+            name, rng = part.split(":", 1)
+            lo, _, hi = rng.partition("-")
+            out[name] = (int(lo) - 1, int(hi) if hi else None)
+        else:
+            out[part] = None
+    return out
+
+
+def _run_polish(args: argparse.Namespace) -> int:
+    import torch
+
+    from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.secondary.polish import PolishPipeline
+
+    device = resolve_device(args.device)
+    mc = None
+    feature_kind = "counts"
+    if args.model:
+        from dorado_tpu_torch.io.bam_reader import read_records
+        from dorado_tpu_torch.secondary.model_resolver import (
+            load_resolved_model, resolve_model_dir,
+        )
+
+        header_text = ""
+        if args.model == "auto" and not args.reads.endswith((".fastq", ".fq")):
+            header_text = read_records(args.reads)[0]
+        try:
+            mdir = resolve_model_dir(args.model, header_text, bacteria=args.bacteria,
+                                     models_directory=args.models_directory)
+            model, mc, feature_kind = load_resolved_model(mdir, device)
+        except (ValueError, RuntimeError) as exc:
+            print(f"> {exc}", file=sys.stderr)
+            return 1
+        print(f"> Model: {mdir.name} ({feature_kind})", file=sys.stderr)
+    elif args.model_config:
+        from dorado_tpu_torch.secondary.architectures import model_factory, parse_model_config
+
+        mc = parse_model_config(args.model_config)
+        try:
+            model = model_factory(mc["model_type"], mc["model_kwargs"])
+        except ValueError as exc:
+            print(f"> {exc}", file=sys.stderr)
+            return 1
+        if mc["model_type"] != "GRUModel":
+            feature_kind = "read_level"
+        print(f"> Model: {mc['model_type']}", file=sys.stderr)
+    elif args.model_params and (args.model_params.endswith(".pt")
+                                or (Path(args.model_params) / "model.pt").exists()):
+        # an opaque TorchScript blob (model_factory.cpp:186-201)
+        from dorado_tpu_torch.secondary.model import TorchScriptConsensusModel
+
+        ts_path = Path(args.model_params)
+        if ts_path.is_dir():
+            ts_path = ts_path / "model.pt"
+        model = TorchScriptConsensusModel(ts_path, device)
+        print(f"> Model: TorchScript ({ts_path})", file=sys.stderr)
+    elif args.model_params:
+        from dorado_tpu_torch.secondary.model import load_gru_tensor_dir
+
+        model = load_gru_tensor_dir(args.model_params)
+    else:
+        from dorado_tpu_torch.secondary.model import init_gru_model
+
+        print("> WARNING: no --model-params given; using random weights (structural test "
+              "mode only)", file=sys.stderr)
+        model = init_gru_model(torch.Generator().manual_seed(0))
+
+    by_contig = _collect_alignments(args)
+    if by_contig is None:
+        return 1
+    kwargs = {}
+    if args.window_overlap is not None:
+        kwargs["window_overlap"] = args.window_overlap
+    if args.fill_char:
+        kwargs["fill_char"] = args.fill_char[0]
+    pipeline = PolishPipeline(
+        model, window_len=args.window_len, feature_kind=feature_kind,
+        min_depth=args.min_depth, device=device,
+        feature_opts=_feature_opts(mc if (args.model_config or args.model) else None,
+                                   hap_source="bam" if args.hp_tag else "unphased"),
+        **kwargs,
+    )
+    results = pipeline.run(args.draft, by_contig, regions=_parse_regions(args.regions),
+                           with_quals=args.qualities, fill_gaps=not args.no_fill_gaps)
+    fh = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        for name, result in results:
+            if args.qualities:
+                seq, qual = result
+                fh.write(f"@{name}\n{seq}\n+\n{qual}\n")
+                continue
+            fh.write(f">{name}\n")
+            for i in range(0, len(result), 80):
+                fh.write(result[i:i + 80] + "\n")
+    finally:
+        if fh is not sys.stdout:
+            fh.close()
+    stats = pipeline.stats
+    print(f"> Polished {stats.contigs} contig(s), {stats.windows} window(s) on {device}: host "
+          f"features {stats.features_s:.1f} s, model forwards {stats.forward_s:.1f} s",
+          file=sys.stderr)
+    return 0
+
+
 def crash_hook(exc_type, exc, tb) -> None:
     """An uncaught exception: its summary and traceback, then each visible
     card's state (the reference's crash reports, gpu_monitor's
@@ -498,6 +788,7 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     _add_basecaller(sub)
     _add_duplex(sub)
+    _add_polish(sub)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     # the @PG CL line: the command as given, shell-quoted

@@ -402,3 +402,98 @@ def modbase_config_toml(config) -> str:
         for layer in getattr(config, key):
             lines += _toml_table(f"{key}.sublayers", layer, array=True)
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# polish models (secondary/): config.toml tables in the reference schema
+# (model_config.cpp:94-180) that ``secondary.architectures.parse_model_config``
+# reads. The released polish models' configs and weights are not in the
+# repository (``secondary/model_resolver.py`` names them): these are the
+# widths the JAX package's code and tests give, and wait for those files.
+# ---------------------------------------------------------------------------
+
+POLISH_GRU_NAME = "dna_r10.4.1_e8.2_400bps_hac@v4.3.0_polish"
+POLISH_RL_NAME = "dna_r10.4.1_e8.2_400bps_hac@v5.0.0_polish_rl"
+
+
+def polish_gru_config(gru_size: int = 128) -> dict:
+    """The counts model (``POLISH_GRU_NAME``, the legacy LUT's name for hac
+    v4.3): GRUModel with ``num_features`` 10 (the pileup's "acgtACGTdD"
+    columns, ``secondary/pileup.py``), 5 classes ("*ACGT"), ``gru_size``
+    128, 2 layers, bidirectional (the JAX ``init_gru_params`` defaults,
+    ``dorado_tpu/secondary/model.py:18-26``, and the schema test's kwargs,
+    ``tests/test_secondary_zoo.py:359-361``); the counts encoder normalised
+    by depth (``normalise = "total"``, NormaliseType::TOTAL) and the haploid
+    label scheme, as in that test. ``gru_size`` narrows it for tests."""
+    return {
+        "config_version": 1,
+        "basecaller_model": "dna_r10.4.1_e8.2_400bps_hac@v4.3.0",
+        "model": {"type": "GRUModel", "kwargs": {
+            "num_features": 10, "num_classes": 5, "gru_size": gru_size, "n_layers": 2,
+            "bidirectional": True}},
+        "feature_encoder": {"type": "CountsFeatureEncoder", "kwargs": {"normalise": "total"}},
+        "label_scheme": {"type": "HaploidLabelScheme"},
+    }
+
+
+def polish_rl_config(lstm_size: int = 128, cnn_size: int = 128,
+                     kernel_sizes: tuple = (1, 17)) -> dict:
+    """The read-level model (``POLISH_RL_NAME``, the LUT's name for hac
+    v5.0): LatentSpaceLSTM with ``lstm_size`` 128, ``cnn_size`` 128,
+    ``kernel_sizes`` (1, 17), mean pooling, no dwells, bases and strand
+    embedded in 6 of an alphabet of 6, bidirectional, 5 classes (the JAX
+    ``LatentSpaceLSTMConfig`` defaults,
+    ``dorado_tpu/secondary/architectures.py:263-273``); the read-alignment
+    encoder at ``max_reads`` 100 (the JAX command's default,
+    ``dorado_tpu/cli/main.py:1981``) without the dwell, haplotype and snp_qv
+    columns (its defaults), and the haploid label scheme. The sizes narrow
+    it for tests."""
+    return {
+        "config_version": 1,
+        "basecaller_model": "dna_r10.4.1_e8.2_400bps_hac@v5.0.0",
+        "model": {"type": "LatentSpaceLSTM", "kwargs": {
+            "num_classes": 5, "lstm_size": lstm_size, "cnn_size": cnn_size,
+            "kernel_sizes": list(kernel_sizes), "pooler_type": "mean", "use_dwells": False,
+            "bases_alphabet_size": 6, "bases_embedding_size": 6, "bidirectional": True}},
+        "feature_encoder": {"type": "ReadAlignmentFeatureEncoder", "kwargs": {
+            "max_reads": 100, "include_dwells": False, "include_haplotype": False,
+            "include_snp_qv": False}},
+        "label_scheme": {"type": "HaploidLabelScheme"},
+    }
+
+
+def polish_config_toml(config: dict) -> str:
+    """The ``config.toml`` of a polish model directory for a preset's
+    tables."""
+    lines = [f"{k} = {_toml_value(v)}" for k, v in config.items() if not isinstance(v, dict)]
+    lines.append("")
+    for name, table in config.items():
+        if not isinstance(table, dict):
+            continue
+        lines += _toml_table(name, {k: v for k, v in table.items() if k != "kwargs"})
+        if "kwargs" in table:
+            lines += _toml_table(f"{name}.kwargs", table["kwargs"])
+    return "\n".join(lines)
+
+
+def save_polish_model(config: dict, model, path: Path | str, tensor_files: bool = False) -> Path:
+    """A polish model directory at ``path``: ``config.toml`` for ``config``
+    (a preset's tables) and ``model``'s state dict as ``weights.pt``, or, for
+    a GRUModel with ``tensor_files``, one ``<name>.tensor`` file a weight
+    (the layout of the CLI's ``--model-params``). The resolver, as the JAX
+    package's, loads a GRUModel's ``weights.pt`` only."""
+    import torch
+
+    from dorado_tpu_torch.secondary.model import save_gru_tensor_dir
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.toml").write_text(polish_config_toml(config))
+    if tensor_files:
+        if config["model"]["type"] != "GRUModel":
+            raise ValueError(".tensor files hold a GRUModel's weights only")
+        save_gru_tensor_dir(model, path)
+    else:
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   path / "weights.pt")
+    return path

@@ -38,27 +38,38 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def host_library_path(source: Path) -> Path:
+    """``csrc/build/<stem>-<hash>.so``: the hash of a host C++ source and
+    the flags that build it."""
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"align-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def build_host_library(source: Path, path: Path) -> Path:
+    """Compile the host C++ ``source`` into ``path`` unless it exists; raise
+    with the compiler's output if the build fails."""
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {source.name} (exit {res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent builder finds a whole file
+    return path
+
+
+def library_path() -> Path:
+    return host_library_path(SOURCE)
 
 
 def build() -> Path:
     """Compile ``csrc/align.cpp`` unless its library exists; raise with the
     compiler's output if the build fails."""
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {SOURCE.name} (exit {res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent builder finds a whole file
-    return path
+    return build_host_library(SOURCE, library_path())
 
 
 def _get_lib() -> ctypes.CDLL:

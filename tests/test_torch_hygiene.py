@@ -47,7 +47,14 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.duplex.modbase", "dorado_tpu_torch.duplex.pairing",
             "dorado_tpu_torch.duplex.pipeline", "dorado_tpu_torch.duplex.stereo",
             "dorado_tpu_torch.parallel.sharding", "dorado_tpu_torch.parallel.distributed",
-            "dorado_tpu_torch.utils.device_monitor", "dorado_tpu_torch.utils.stats"} <= set(names)
+            "dorado_tpu_torch.utils.device_monitor", "dorado_tpu_torch.utils.stats",
+            "dorado_tpu_torch.alignment.index", "dorado_tpu_torch.alignment.mapper",
+            "dorado_tpu_torch.alignment.minimizer", "dorado_tpu_torch.utils.chain",
+            "dorado_tpu_torch.utils.torchscript", "dorado_tpu_torch.secondary.architectures",
+            "dorado_tpu_torch.secondary.features", "dorado_tpu_torch.secondary.model",
+            "dorado_tpu_torch.secondary.model_resolver", "dorado_tpu_torch.secondary.pileup",
+            "dorado_tpu_torch.secondary.polish", "dorado_tpu_torch.secondary.read_matrix",
+            } <= set(names)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -679,4 +686,80 @@ def test_cpu_duplex_run_launches_no_kernel(no_kernels, one_thread, decoder):
     stats = pipe.run_reads(reads, type("W", (), {"write": lambda self, r: written.append(r)})())
     assert stats.pairs == 1 and stats.duplex_reads == 1 and stats.simplex_reads == 2
     assert [r.qname for r in written] == ["read-0;read-1", "read-0", "read-1"]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+def test_chain_builds_from_its_own_source(monkeypatch, tmp_path):
+    """The mapper's chaining is ``csrc/chain.cpp``, built by g++ into
+    ``csrc/build/`` with the aligner's flags; a failed build raises, with no
+    fallback."""
+    from dorado_tpu_torch.utils import chain
+
+    assert chain.SOURCE == _cuda.CSRC / "chain.cpp" and chain.SOURCE.is_file()
+    assert "int dt_chain(" in chain.SOURCE.read_text()
+    assert chain.library_path().parent == _cuda.BUILD_DIR
+    assert chain.library_path().name.startswith("chain-")
+    calls = []
+
+    def failing_gxx(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, stdout="", stderr="error: planted")
+
+    monkeypatch.setattr(chain, "library_path", lambda: tmp_path / "chain-missing.so")
+    monkeypatch.setattr(subprocess, "run", failing_gxx)
+    with pytest.raises(RuntimeError, match="(?s)g[+][+] failed .*planted"):
+        chain.build()
+    assert calls and calls[0][0] == "g++" and str(chain.SOURCE) in calls[0]
+    assert {"-O3", "-std=c++17", "-shared", "-fPIC"} <= set(calls[0])
+
+
+def _polish_inputs(tmp_path):
+    from dorado_tpu_torch.secondary.model import init_gru_model
+    from tests.torch_polish import polish_inputs, write_fasta, write_fastq
+
+    draft, _, reads = polish_inputs(3, 1200, 8, (300, 900))
+    return (write_fasta(tmp_path / "d.fa", [("ctg", draft)]),
+            write_fastq(tmp_path / "r.fastq", reads),
+            init_gru_model(torch.Generator().manual_seed(1), gru_size=16))
+
+
+def test_polish_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from dorado_tpu_torch.cli import main as cli
+    from dorado_tpu_torch.secondary.polish import PolishPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fasta, fastq, gru = _polish_inputs(tmp_path)
+    for kw in ({}, {"device": "cuda"}, {"device": "auto"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PolishPipeline(gru, **kw)
+    assert PolishPipeline(gru, device="cpu").device.type == "cpu"
+    for extra in ([], ["-x", "cuda"], ["--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["polish", str(fastq), str(fasta), *extra])
+
+
+@pytest.mark.parametrize("kind", ["counts", "read_level"])
+def test_cpu_polish_run_launches_no_kernel(no_kernels, one_thread, tmp_path, kind):
+    """A polish run on the CPU: the LatentSpaceLSTM's four LSTM directions a
+    window run K1 float32's plain version; no kernel is built or launched."""
+    from dorado_tpu_torch.alignment import Mapper, ReferenceIndex
+    from dorado_tpu_torch.secondary import architectures
+    from dorado_tpu_torch.secondary.pileup import AlignedRead
+    from dorado_tpu_torch.secondary.polish import PolishPipeline
+    from dorado_tpu_torch.utils.sequence import reverse_complement
+
+    fasta, fastq, model = _polish_inputs(tmp_path)
+    if kind == "read_level":
+        model = architectures.model_factory("LatentSpaceLSTM", {
+            "num_classes": 5, "lstm_size": 16, "cnn_size": 8, "kernel_sizes": [1, 5]})
+    mapper = Mapper(ReferenceIndex.build(fasta))
+    reads = []
+    for line in fastq.read_text().splitlines()[1::4]:
+        for a in mapper.map(line):
+            seq = reverse_complement(line) if a.is_reverse else line
+            reads.append(AlignedRead(a.ref_start, a.cigar, seq, a.is_reverse, mapq=a.mapq))
+    pipe = PolishPipeline(model, window_len=600, window_overlap=100, feature_kind=kind,
+                          device="cpu")
+    (name, seq), = pipe.run(fasta, {"ctg": reads})
+    assert name == "ctg" and seq and pipe.stats.windows == 3
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
