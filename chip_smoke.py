@@ -203,6 +203,20 @@
    cuDNN's float32 LSTM (``polish_*`` keys of its row); and ``python -m
    dorado_tpu_torch polish reads.fastq draft.fa -m <gru dir>``, whose FASTA
    must equal ``run()``'s.
+   Then variant calling (``variant_phase``): 150 seeded reads of two
+   haplotypes of that draft (homozygous and heterozygous SNPs and short
+   indels), mapped by the port; ``VariantCaller`` with the slot preset and
+   its LSTMs over the whole draft (path ``variant slot``: K1 float32 at H =
+   256, 4 a window), the perceiver preset over one full default window (path
+   ``variant perceiver``: the decoder LSTM on K1 float32, 1 a window; the
+   attention on the memory-efficient backend, shown by the profiler), timed
+   by CUDA events with its peak memory; both on the card and on the CPU over
+   a reduced region each (outputs within TOL_VARIANT, records equal but at
+   near ties); the phasing pass's host time; K1 float32 at the slot window's
+   shape into NaN-filled outputs beside its bound, plain version and cuDNN
+   (``variant_*`` keys of its row); and ``python -m dorado_tpu_torch variant
+   reads.fastq draft.fa --model-config <slot.toml> -o <dir>``, whose VCF must
+   equal ``VariantCaller.run``'s.
    Last, several devices (``multi_gpu_phase``, after every other phase), at
    hac v4.3 full width: ``torch.cuda.device_count()`` and
    ``describe_devices()``; ``run_reads`` over 192 reads of 40-60k samples with
@@ -254,7 +268,8 @@
    beside the profiled hac Viterbi step's device ms for as many samples.
 8. Prints one JSON line of per-kernel numbers (the float32 forms of K2, K13,
    K10, K14 and K11a and K1's two wide forms in rows of their own; K1
-   float32's row also at the polish shape) and, last, the device line.
+   float32's row also at the polish and variant shapes) and, last, the
+   device line.
 
 No phase catches its own failure: any fault exits non-zero. Without CUDA, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -2591,6 +2606,364 @@ def polish_phase(k) -> None:
     print(f"polish phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- variant calling: the slot model and the perceiver ------------------------
+
+# the polish phase's draft length, read lengths and errors, made diploid:
+# two haplotypes with seeded homozygous and heterozygous SNPs and short
+# indels (``tests/torch_variant.py``), 150 reads of both (50x; a default
+# window still holds 100 reads); windows of the command's defaults (10,000
+# and margins of 1,000)
+VARIANT_READS = 150
+VARIANT_WINDOW = 10_000
+# the perceiver's one full default window: draft [10,000, 20,000) with its
+# margins, [9,000, 21,000)
+VARIANT_PERCEIVER_SPAN = (10_000, 20_000)
+# card against CPU, reduced regions ([lo, hi) of the draft, one window each):
+# the CPU's perceiver over every token of a window takes a while
+VARIANT_CPU_REGIONS = {"slot": (12_000, 14_000), "perceiver": (15_000, 15_500)}
+# the variant models' outputs, card against CPU: the polish bound; a column
+# whose argmax differs must have its top two CPU values within twice this
+TOL_VARIANT = 1e-3
+
+
+def variant_phase(k) -> None:
+    """Variant calling at full width on the card: the port's mapper aligns
+    150 reads of two haplotypes of the polish phase's draft (30 kb, 162
+    seeded sites); ``VariantCaller`` runs the slot preset with its LSTMs
+    (``presets.slot_attention_config(add_lstm=True)``: 2 slots, read
+    embedding 128, kernels 1 and 17, haplotags computed; four K1 float32
+    launches a window at H = 256) over the whole draft (path ``variant
+    slot``), and the perceiver preset (dimension 256, 4 blocks of 8 heads,
+    the decoder LSTM on K1 float32, the reads updated) over one full default
+    window (path ``variant perceiver``): its time by CUDA events, its peak
+    memory, the memory-efficient attention backend shown by the profiler.
+    Both again on the card and on the CPU over a reduced region each:
+    outputs within TOL_VARIANT (NaN at the same places), records equal but
+    at near ties (counted). K1 float32 at the slot window's shape (T = its
+    columns, N = 1, H = 256), both directions into NaN-filled outputs,
+    beside its bound, the plain version and cuDNN (``variant_*`` keys of its
+    row); the phasing pass's host time beside the device forward. Beside
+    the comparisons (host work; the timings wait for it to end), ``python -m
+    dorado_tpu_torch variant reads.fastq draft.fa --model-config <slot.toml>
+    -o <dir>``, whose ``variants.vcf`` must equal the function's."""
+    import argparse
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import dorado_tpu_torch.secondary.architectures as arch
+    from dorado_tpu_torch.cli.main import _collect_alignments, _feature_opts
+    from dorado_tpu_torch.models import presets
+    from dorado_tpu_torch.secondary.variant import VcfWriter
+    from dorado_tpu_torch.secondary.variant_calling import VariantCaller, _ref_end
+    from tests.torch_polish import write_fasta, write_fastq
+    from tests.torch_variant import diploid_inputs
+
+    torch, dev, gen, lstm, time_ms = k.torch, k.dev, k.gen, k.lstm, k.time_ms
+    t_phase = time.perf_counter()
+    draft, _, sites, reads = diploid_inputs(SEED, POLISH_DRAFT, VARIANT_READS, POLISH_READ_LEN,
+                                            error=POLISH_ERROR)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_variant_"))
+    fasta = write_fasta(tmp / "draft.fa", [("ctg", draft)])
+    fastq = write_fastq(tmp / "reads.fastq", [r[:3] for r in reads])
+    t0 = time.perf_counter()
+    by_contig = _collect_alignments(argparse.Namespace(
+        reads=str(fastq), draft=str(fasta), min_mapq=0, threads=0))
+    map_s = time.perf_counter() - t0
+    aligned = by_contig.get("ctg", [])
+    if len(aligned) < 0.95 * VARIANT_READS:
+        raise AssertionError(f"variant: the mapper aligned {len(aligned)} of {VARIANT_READS}")
+    print(f"variant inputs: a {len(draft)} b draft, {len(sites)} sites "
+          f"({sum(s[2] == 'hom' for s in sites)} homozygous), {VARIANT_READS} reads of "
+          f"{POLISH_READ_LEN} b of both haplotypes at {POLISH_ERROR:.0%} errors; mapped "
+          f"{len(aligned)} in {map_s:.2f} s [host of {k.card}]", flush=True)
+
+    configs = {"slot": presets.slot_attention_config(add_lstm=True),
+               "perceiver": presets.variant_perceiver_config(use_decoder_lstm=True,
+                                                             update_read_embeddings=True)}
+    tomls = {}
+    for name, cfg in configs.items():
+        tomls[name] = tmp / f"{name}.toml"
+        tomls[name].write_text(presets.polish_config_toml(cfg))
+    # the slot model of the command's --model-config (the factory's seed 0)
+    models = {"slot": arch.model_factory("SlotAttentionConsensus",
+                                         configs["slot"]["model"]["kwargs"]),
+              "perceiver": arch.model_factory("VariantPerceiver",
+                                              configs["perceiver"]["model"]["kwargs"],
+                                              torch.Generator().manual_seed(SEED))}
+
+    def caller(name, device):
+        mc = arch.parse_model_config(tomls[name])
+        return VariantCaller(copy.deepcopy(models[name]), "read_level",
+                             _feature_opts(mc, hap_source="compute"), device=device,
+                             window_len=VARIANT_WINDOW)
+
+    def recorded(c):
+        """``c`` with its forward recorded: [(features, output, device ms by
+        CUDA events or None)]."""
+        windows, real = [], c.forward
+
+        def forward(feats):
+            if c.device.type != dev.type:  # the CPU's run
+                out = real(feats)
+                windows.append((feats, out, None))
+                return out
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = real(feats)
+            end.record()
+            end.synchronize()
+            windows.append((feats, out, start.elapsed_time(end)))
+            return out
+
+        c.forward = forward
+        return windows
+
+    phase_s = []
+    real_phase = arch.batch_adjacency_phase
+
+    def timed_phase(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_phase(*args, **kwargs)
+        phase_s.append(time.perf_counter() - t0)
+        return out
+
+    arch.batch_adjacency_phase = timed_phase
+    try:
+        # ---- the slot model over the whole draft on the card -------------------
+        slot = caller("slot", dev)
+        slot_windows = recorded(slot)
+        vcf = io.StringIO()
+        for w in k.wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        slot.run([("ctg", draft)], by_contig, VcfWriter(vcf, [("ctg", len(draft))]))
+        wall = time.perf_counter() - t0
+        k.launches["variant slot"] = {n: w.launches for n, w in k.wrappers.items()}
+        k.check_launches("variant slot", k.launches["variant slot"], len(slot_windows))
+        st = slot.stats
+        nan_windows = 0
+        for feats, out, _ in slot_windows:
+            # a window with a column no read covers is NaN throughout (the
+            # slot attention's 0/0, spread by the LSTMs: the JAX package's)
+            uncovered = bool((feats[0, :, :, 0] == 0).all(-1).any())
+            nan_windows += uncovered
+            if out.shape != (feats.shape[1], 2, 5) or not (
+                    np.isfinite(out).all() or (uncovered and np.isnan(out).all())):
+                raise AssertionError(f"variant slot: output {out.shape} for features "
+                                     f"{feats.shape}, or NaN where every column is covered")
+        fwd = [ms for _, _, ms in slot_windows]
+        print(f"variant slot: {st.windows} windows of {[f.shape[1] for f, _, _ in slot_windows]} "
+              f"columns x {[f.shape[2] for f, _, _ in slot_windows]} reads ({nan_windows} with an "
+              f"uncovered column, NaN throughout), {st.records} "
+              f"records in {wall:.2f} s: host features {st.features_s:.2f} s, forwards "
+              f"{st.forward_s:.2f} s (of which phasing on the host {sum(phase_s):.2f} s: "
+              f"{[round(s, 3) for s in phase_s]}), decode {st.decode_s:.2f} s; a forward by "
+              f"CUDA events incl. the phasing {[round(ms, 1) for ms in fwd]} ms; launches "
+              f"{ {n: v for n, v in k.launches['variant slot'].items() if v} } [{k.card}]",
+              flush=True)
+        print(f"variant slot a window: the forward by CUDA events less the host's phasing "
+              f"(the device part and the copies) "
+              f"{[round(ms - 1e3 * s, 1) for ms, s in zip(fwd, phase_s)]} ms [{k.card}]",
+              flush=True)
+        slot_vcf = vcf.getvalue()
+
+        # ---- the command line, run beside the comparisons below ---------------------
+        # (its mapping and features take the host; the card stays free for
+        # the perceiver's and K1's timings, which come after it ends)
+        out_dir = tmp / "vcf_out"
+        out_dir.mkdir()
+        cmd_log = open(tmp / "command.err", "w+")
+        t_cmd = time.perf_counter()
+        command = subprocess.Popen(
+            [sys.executable, "-m", "dorado_tpu_torch", "variant", str(fastq), str(fasta),
+             "--model-config", str(tomls["slot"]), "-o", str(out_dir)], cwd=ROOT,
+            stdout=subprocess.DEVNULL, stderr=cmd_log)
+
+        try:
+            # ---- card against CPU over a reduced region each --------------------------
+            for name, (r_lo, r_hi) in VARIANT_CPU_REGIONS.items():
+                out = {}
+                for device in (dev, "cpu"):
+                    c = caller(name, device)
+                    windows = recorded(c)
+                    text = io.StringIO()
+                    t0 = time.perf_counter()
+                    c.run([("ctg", draft)], by_contig, VcfWriter(text, [("ctg", len(draft))]),
+                          regions={"ctg": (r_lo, r_hi)})
+                    out[str(device)] = (windows, text.getvalue(), time.perf_counter() - t0)
+                (gw, gtext, gs), (cw, ctext, cs) = out[str(dev)], out["cpu"]
+                if len(gw) != len(cw) or not gw:
+                    raise AssertionError(f"variant {name}: {len(gw)} windows on the card, "
+                                         f"{len(cw)} on the CPU")
+                err, flips, near = 0.0, 0, 0
+                for (_, g, _), (_, c_, _) in zip(gw, cw):
+                    if g.shape != c_.shape or not np.array_equal(np.isnan(g), np.isnan(c_)):
+                        raise AssertionError(f"variant {name}: shapes {g.shape} / {c_.shape} "
+                                             f"or NaN at other places")
+                    fin = ~np.isnan(c_)
+                    err = max(err, float(np.abs(g[fin] - c_[fin]).max(initial=0.0)))
+                    differ = g.argmax(-1) != c_.argmax(-1)
+                    top2 = np.sort(c_, axis=-1)[..., -2:]
+                    flips += int(differ.sum())
+                    gap = top2[..., 1] - top2[..., 0]
+                    near += int((differ & (gap <= 2 * TOL_VARIANT)).sum())
+                g_rec, c_rec = body_lines(gtext), body_lines(ctext)
+                diff = (sum(a != b for a, b in zip(g_rec, c_rec))
+                        + abs(len(g_rec) - len(c_rec)))
+                print(f"variant {name}, card against CPU over [{r_lo}, {r_hi}): "
+                      f"{[w[0].shape[1:3] for w in gw]} columns x reads; outputs max abs "
+                      f"difference {err:.3g} (limit {TOL_VARIANT}), argmax differs at {flips} "
+                      f"(column, haplotype) pairs ({near} near ties); {len(c_rec)} records, "
+                      f"{diff} differ; card {gs:.2f} s, CPU {cs:.2f} s (beside the command) "
+                      f"[{k.card}]", flush=True)
+                if not err <= TOL_VARIANT or flips != near or (diff and not flips):
+                    raise AssertionError(f"variant {name}: card against CPU {err} (limit "
+                                         f"{TOL_VARIANT}), {flips - near} flips away from a near "
+                                         f"tie, or {diff} records differ with no flip")
+            rc = command.wait(timeout=600)
+        finally:
+            if command.poll() is None:
+                command.kill()
+                command.wait()
+        wall = time.perf_counter() - t_cmd
+        cmd_log.seek(0)
+        err_text = cmd_log.read()
+        cmd_log.close()
+        got = out_dir / "variants.vcf"
+        if rc != 0 or not got.exists() or got.read_text() != slot_vcf:
+            raise AssertionError(f"python -m dorado_tpu_torch variant: exit code {rc}, or its "
+                                 f"VCF differs from VariantCaller.run's: {err_text[-2000:]}")
+        print(f"python -m dorado_tpu_torch variant reads.fastq draft.fa --model-config "
+              f"<slot.toml> -o <dir>: {wall:.2f} s (beside the comparisons above), its "
+              f"variants.vcf ({len(body_lines(slot_vcf))} records) equal to VariantCaller.run's; "
+              f"{[l for l in err_text.splitlines() if l.startswith('> ')]}", flush=True)
+
+        # ---- the perceiver over one full default window on the card --------------
+        per = caller("perceiver", dev)
+        lo, hi = VARIANT_PERCEIVER_SPAN
+        w_start, w_end = lo - per.margin, hi + per.margin
+        window_reads = [r for r in aligned if r.ref_start < w_end and _ref_end(r) > w_start]
+        t0 = time.perf_counter()
+        pile, feats = per.features(window_reads, w_start, w_end)
+        feat_s = time.perf_counter() - t0
+        for w in k.wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        logits = per.forward(feats)
+        end.record()
+        end.synchronize()
+        per_ms, per_wall = start.elapsed_time(end), time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        k.launches["variant perceiver"] = {n: w.launches for n, w in k.wrappers.items()}
+        k.check_launches("variant perceiver", k.launches["variant perceiver"], 1)
+        if logits.shape != (feats.shape[1], 2, 5) or not np.isfinite(logits).all():
+            raise AssertionError(f"variant perceiver: logits {logits.shape} or not finite")
+        records = [v for v in per.decode(draft, "ctg", pile, logits) if lo <= v.pos < hi]
+        p, d = feats.shape[1], feats.shape[2]
+        kw = configs["perceiver"]["model"]["kwargs"]
+        dim, heads = kw["dimension"], kw["num_heads"]
+        n_big = kw["num_blocks"] + (kw["num_blocks"] - 1)  # reads to haps, haps to reads
+        flop = n_big * 4.0 * p * (p * d) * dim
+        print(f"variant perceiver: one default window [{w_start}, {w_end}): {p} columns x {d} "
+              f"reads ({p * d} keys, {p} queries, {heads} heads of {dim // heads}); host "
+              f"features {feat_s:.2f} s; forward by CUDA events {per_ms:.1f} ms (host clock "
+              f"{per_wall:.2f} s), peak memory {peak / 2**30:.2f} GiB over "
+              f"{base_bytes / 2**30:.2f} GiB in use before; {n_big} big attentions, "
+              f"{flop:.3g} FLOP, {flop / per_ms / 1e9:.1f} TFLOP/s over the whole forward; "
+              f"{len(records)} records; launches "
+              f"{ {n: v for n, v in k.launches['variant perceiver'].items() if v} } [{k.card}]",
+              flush=True)
+        # the attention's backend, seen by the profiler on the window's first
+        # 2,000 columns (the whole window takes long under the profiler)
+        x = torch.from_numpy(np.ascontiguousarray(feats[:, :2000])).to(dev)
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            per.model(x)
+            torch.cuda.synchronize()
+        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                            if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+        busy = sum(ms for _, ms in by_kernel)
+        attn = [(key, ms) for key, ms in by_kernel
+                if "fmha_cutlass" in key or "MemEffAttention" in key]
+        if not attn:
+            raise AssertionError(f"variant perceiver: no attention kernel among "
+                                 f"{[key for key, _ in by_kernel[:12]]}")
+        print(f"variant perceiver at 2,000 columns, profiled: kernels {busy:.1f} ms, the "
+              f"memory-efficient attention {sum(ms for _, ms in attn):.1f} ms "
+              f"({sum(ms for _, ms in attn) / busy:.1%}) [{k.card}]", flush=True)
+        for key, ms in by_kernel[:8]:
+            print(f"  {ms:9.3f} ms {ms / busy:6.1%}  {key[:100]}")
+        del x
+
+    finally:
+        arch.batch_adjacency_phase = real_phase
+
+    # ---- K1 float32 at the slot window's shape -----------------------------------
+    h = 2 * configs["slot"]["model"]["kwargs"]["read_embedding_size"]
+    t_len = max(f.shape[1] for f, _, _ in slot_windows)
+    w = (torch.rand(h, 4 * h, generator=gen, device=dev) * 2 - 1) / h**0.5
+    xproj = torch.randn(t_len, 1, 4 * h, generator=gen, device=dev) * 0.8
+    plan = lstm.k1_launch_plan(h, 1, dev, elem_bytes=4)
+    err = 0.0
+    for reverse in (False, True):
+        into = torch.full((t_len, 1, h), float("nan"), device=dev)
+        lstm._launch("lstm_scan_f32", xproj, lstm.slice_w_hh(w, plan.cluster, plan.units), into,
+                     reverse, plan)
+        out = lstm.lstm_scan_time_major(xproj, w, reverse=reverse)
+        # the plain version on the host's CPU, one thread (its small steps
+        # run faster there); the forward direction's time is reported
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        ref = lstm.lstm_scan_plain(xproj.cpu(), w.cpu(), reverse=reverse).to(dev)
+        if not reverse:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.set_num_threads(threads)
+        e = max((into - ref).abs().max().item(), (out - ref).abs().max().item())
+        if not e <= TOL_LSTM_F32:  # NaN where a position was not written
+            raise AssertionError(f"lstm_scan_f32 at the variant shape T={t_len} N=1 H={h} "
+                                 f"reverse={reverse}: max abs error {e} > {TOL_LSTM_F32}")
+        err = max(err, e)
+    cudnn = torch.nn.LSTM(h, h, device=dev)
+    cudnn.flatten_parameters()
+    x_in = torch.randn(t_len, 1, h, generator=gen, device=dev)
+    ms = time_ms(lambda: lstm.lstm_scan_time_major(xproj, w, reverse=True), 3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.inference_mode():
+        lib_ms = time_ms(lambda: cudnn(x_in), 3)
+    ops = 2.0 * t_len * h * 4 * h
+    nbytes = 4 * (t_len * 4 * h + h * 4 * h + t_len * h)
+    b_ms, b_by = bound_ms(ops, PEAK_F32, nbytes)
+    row = next(r for r in k.rows if r["name"] == "lstm_scan_f32")
+    row.update({f"variant_{key}": v for key, v in dict(
+        shape=f"T={t_len} N=1 H={h} (a slot-model variant window)", ms=ms, plain_ms=plain_ms,
+        plain_where="the host's CPU, one thread, forward", bound_ms=b_ms, bound_by=b_by,
+        tf32x3_bound_ms=bound_ms(ops, PEAK_TF32 / 3, nbytes)[0], library_ms=lib_ms,
+        max_abs_err=err, us_per_step=ms / t_len * 1e3, split=plan._asdict(),
+        launches_a_window=k.launches["variant slot"]["lstm_scan_f32"] / len(slot_windows),
+        perceiver_launches_a_window=k.launches["variant perceiver"]["lstm_scan_f32"],
+    ).items()})
+    print(f"lstm_scan_f32 at the variant shape T={t_len} N=1 H={h}, both directions, into "
+          f"NaN-filled outputs: max abs error {err:.3g} (limit {TOL_LSTM_F32}); kernel {ms:.3f} "
+          f"ms ({ms / t_len * 1e3:.3f} us a step), plain (host CPU, forward) {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; {row['variant_tf32x3_bound_ms']:.4f} ms on 3xTF32), "
+          f"cuDNN nn.LSTM float32, TF32 off {lib_ms:.3f} ms; split {plan} [{k.smi}]", flush=True)
+    del xproj, into, out, ref, cudnn, x_in
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"variant phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def body_lines(vcf_text: str) -> list[str]:
+    """A VCF's records, its header lines left out."""
+    return [line for line in vcf_text.splitlines() if not line.startswith("#")]
+
+
 # ---- several devices: replicas, the sharded step, two processes ------------
 MULTI_READS = 192  # reads of 40-60k samples: about 1000 chunks, 8 batches of 128
 MULTI_READ_SAMPLES = (40_000, 60_001)
@@ -4515,6 +4888,11 @@ def main() -> None:
     # read-level model's four LSTM directions a window on K1 float32
     path_kernels["polish counts"] = []
     path_kernels["polish rl"] = ["lstm_scan_f32"]
+    # variant calling: the slot model's four alternating LSTMs a window and
+    # the perceiver's decoder LSTM on K1 float32 (the attention on PyTorch's
+    # memory-efficient kernel)
+    path_kernels["variant slot"] = ["lstm_scan_f32"]
+    path_kernels["variant perceiver"] = ["lstm_scan_f32"]
     path_kernels["cli duplex"] = path_kernels["duplex viterbi"]
     per_batch = {
         "sup viterbi": [18, 18, 18, 18, 1, 1, 1],
@@ -4536,6 +4914,8 @@ def main() -> None:
         **{f"{kind} {what}": [5, 5, 1, 1, 1] for kind in ("duplex", "stereo")
            for what in ("viterbi", "beam", "f32")},
         "polish rl": [4],  # a window
+        "variant slot": [4],  # a window
+        "variant perceiver": [1],  # a window
     }
 
     def check_launches(path, counts, batches):
@@ -5087,6 +5467,7 @@ def main() -> None:
     kit.__dict__.update(make_read=make_read, smi=smi, path_kernels=path_kernels,
                         per_batch=per_batch)
     polish_phase(kit)
+    variant_phase(kit)
     t0 = time.perf_counter()
     multi_gpu_phase(kit, cfg, hac_model)
     print(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m dorado_tpu_torch basecaller``,
-``python -m dorado_tpu_torch duplex`` and ``python -m dorado_tpu_torch
-polish``.
+``python -m dorado_tpu_torch duplex``, ``python -m dorado_tpu_torch
+polish`` and ``python -m dorado_tpu_torch variant``.
 
 Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
@@ -27,16 +27,24 @@ options are left out, ``--modified-bases`` among them, and
 ``--decoder beam-host`` is refused with exit code 1, as ``basecaller``
 refuses it.
 
-``polish`` is the JAX command's ``polish`` without its variant flow
-(``--vcf``, ``--gvcf`` and ``--ambig-ref`` are left out, so argparse rejects
-them): a draft FASTA polished with reads from a BAM or SAM, or from a FASTQ
-that the port's mapper aligns to the draft, by a GRUModel (counts features)
-or a LatentSpaceLSTM (read-level features) from a model directory (``-m``,
-names resolved under ``--models-directory`` only), a config
-(``--model-config``, random weights), a ``.tensor`` or TorchScript
-directory (``--model-params``), or random GRU weights with a warning. The
-model runs on one device: ``-x cuda`` (the default, the first card),
-``cuda:N`` or ``cpu``.
+``polish`` is the JAX command's ``polish``: a draft FASTA polished with
+reads from a BAM or SAM, or from a FASTQ that the port's mapper aligns to
+the draft, by a GRUModel (counts features) or a read-level model (a
+LatentSpaceLSTM, or a variant model's first haplotype, as in the JAX
+package) from a model directory (``-m``, names resolved under
+``--models-directory`` only), a config (``--model-config``, random
+weights), a ``.tensor`` or TorchScript directory (``--model-params``), or
+random GRU weights with a warning. With ``--vcf`` or ``--gvcf`` it hands off
+to the variant flow with that command's defaults, as the JAX command does.
+
+``variant`` is the JAX command's ``variant``: a VCF (or gVCF) of a draft
+against reads, by the counts GRU or a read-level model
+(SlotAttentionConsensus, VariantPerceiver, LatentSpaceLSTM) chosen as
+``polish`` chooses them, with haplotags from BAM HP tags (``--hp-tag``),
+none (``--unphased``) or local phasing (the default), and ``--candidates``
+spans with their bed file (``secondary/variant_calling.py``). The polish
+and variant models run on one device: ``-x cuda`` (the default, the first
+card), ``cuda:N`` or ``cpu``.
 
 ``-x`` picks the devices: ``cuda`` or ``auto`` (the default) every visible
 card, one model replica on each (the JAX command's ``-x auto``, the
@@ -494,8 +502,9 @@ def _add_polish(sub: argparse._SubParsersAction) -> None:
                    help="GRU model params dir (.tensor files) or a TorchScript model.pt (or "
                    "its directory); random weights if no model is given (testing only)")
     p.add_argument("--model-config", default=None,
-                   help="Model config TOML selecting the architecture (GRUModel or "
-                   "LatentSpaceLSTM) and its kwargs; random weights")
+                   help="Model config TOML selecting the architecture (GRUModel, "
+                   "LatentSpaceLSTM, SlotAttentionConsensus or VariantPerceiver) and its "
+                   "kwargs; random weights")
     p.add_argument("-o", "--output", default="-")
     p.add_argument("--window-len", type=int, default=10000)
     p.add_argument("--regions", default=None,
@@ -512,11 +521,18 @@ def _add_polish(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--no-fill-gaps", action="store_true",
                    help="Do not fill uncovered spans from the draft; emit one record per "
                    "covered run (polish.cpp:213)")
+    p.add_argument("--vcf", action="store_true",
+                   help="Emit variants as VCF instead of polished FASTA: the variant command's "
+                   "flow with its defaults (polish.cpp:173)")
+    p.add_argument("--gvcf", action="store_true",
+                   help="Emit gVCF instead of polished FASTA (polish.cpp:177)")
     p.add_argument("--RG", dest="rg", default="", help="Read group to select (polish.cpp:222)")
     p.add_argument("--ignore-read-groups", action="store_true",
                    help="Process all read groups (polish.cpp:223)")
     p.add_argument("--window-overlap", type=int, default=None,
                    help="Overlap between consensus windows (default 1000)")
+    p.add_argument("--ambig-ref", dest="ambig_ref", action="store_true",
+                   help="Call over ambiguous reference bases (--vcf/--gvcf)")
     p.add_argument("--fill-char", default=None,
                    help="Fill uncovered spans with this character instead of the draft bases")
     # the reference's device-batching options: accepted and not used, as the
@@ -674,6 +690,15 @@ def _run_polish(args: argparse.Namespace) -> int:
     from dorado_tpu_torch.basecall.runner import resolve_device
     from dorado_tpu_torch.secondary.polish import PolishPipeline
 
+    if args.vcf or args.gvcf:
+        # polish --vcf/--gvcf is the variant-calling flow with the polish
+        # model (cram-polish-17-vcf.t), with the variant command's defaults;
+        # its haplotags are computed unless --hp-tag
+        for name, default in (("unphased", False), ("pass_qual_filter", 3.0),
+                              ("candidates", None), ("variant_flanking_bases", 100)):
+            if not hasattr(args, name):
+                setattr(args, name, default)
+        return _run_variant(args)
     device = resolve_device(args.device)
     mc = None
     feature_kind = "counts"
@@ -698,11 +723,9 @@ def _run_polish(args: argparse.Namespace) -> int:
         from dorado_tpu_torch.secondary.architectures import model_factory, parse_model_config
 
         mc = parse_model_config(args.model_config)
-        try:
-            model = model_factory(mc["model_type"], mc["model_kwargs"])
-        except ValueError as exc:
-            print(f"> {exc}", file=sys.stderr)
-            return 1
+        # an unknown type raises ValueError and a config without its model's
+        # kwargs KeyError, as the JAX command's factory does
+        model = model_factory(mc["model_type"], mc["model_kwargs"])
         if mc["model_type"] != "GRUModel":
             feature_kind = "read_level"
         print(f"> Model: {mc['model_type']}", file=sys.stderr)
@@ -764,6 +787,162 @@ def _run_polish(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_variant(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("variant", help="Call variants against a draft reference")
+    p.add_argument("reads", help="Aligned BAM/SAM (or FASTQ to self-align)")
+    p.add_argument("draft", help="Reference FASTA")
+    p.add_argument("--model-params", default=None,
+                   help="A TorchScript model.pt (or its directory); a directory of .tensor "
+                   "files is not read (the random counts GRU runs), as in the JAX command")
+    p.add_argument("--model-config", default=None,
+                   help="Model config TOML (GRUModel, LatentSpaceLSTM, SlotAttentionConsensus "
+                   "or VariantPerceiver) and its kwargs; random weights")
+    p.add_argument("-o", "--output", default="-",
+                   help="The VCF file, or a directory to write variants.vcf into")
+    p.add_argument("--window-len", type=int, default=10000)
+    p.add_argument("--regions", default=None,
+                   help="Comma-separated contig[:start-end] regions to call (1-based, inclusive)")
+    p.add_argument("--min-mapq", type=int, default=0)
+    p.add_argument("--gvcf", action="store_true",
+                   help="Emit a reference record for every covered position")
+    p.add_argument("--ambig-ref", action="store_true",
+                   help="Call variants over ambiguous reference bases")
+    p.add_argument("--pass-qual-filter", type=float, default=3.0,
+                   help="QUAL below this is marked LowQual (variant.cpp:105)")
+    p.add_argument("--hp-tag", action="store_true",
+                   help="Take haplotags from BAM HP tags instead of computing local phasing "
+                   "(variant.cpp:492-495 BAM_HAP_TAG)")
+    p.add_argument("--unphased", action="store_true",
+                   help="Leave the haplotag column empty (variant.cpp:492-495 UNPHASED)")
+    p.add_argument("--RG", dest="rg", default="",
+                   help="Read group to select (bam_info.cpp:115 semantics)")
+    p.add_argument("--ignore-read-groups", action="store_true", help="Process all read groups")
+    p.add_argument("--candidates", default=None,
+                   help="Candidate variant sites (contig and 0-based position a line) whose "
+                   "flanked spans replace the whole contigs (variant.cpp:300); their spans go "
+                   "to <output>.processed_regions.bed")
+    p.add_argument("--variant-flanking-bases", type=int, default=100,
+                   help="Span on each side of a candidate site")
+    p.add_argument("--window-overlap", type=int, default=None,
+                   help="Margin on each side of a calling window (default min(1000, "
+                   "window-len / 2))")
+    p.add_argument("-m", "--model", default=None,
+                   help="Variant model: 'auto', a model name (a directory under "
+                   "--models-directory) or a directory")
+    p.add_argument("--models-directory", default=".", help="Where model names are found")
+    # the reference's candidate filter and device-batching options: accepted
+    # and not used, as the JAX command does (the candidate spans already
+    # restrict inference; one window a forward)
+    p.add_argument("--candidate-filtering", action="store_true")
+    p.add_argument("-b", "--batchsize", type=int, default=None)
+    p.add_argument("--ref-batchsize", default=None)
+    p.add_argument("--encoding-batchsize", type=int, default=None)
+    p.add_argument("--bam-chunk", type=int, default=None)
+    p.add_argument("--bam-subchunk", type=int, default=None)
+    p.add_argument("-x", "--device", default="cuda",
+                   help="'cuda' (the default: the first card), 'cuda:N' or 'cpu'")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="Threads that map FASTQ reads to the draft (0 = one a CPU core)")
+    p.set_defaults(func=_run_variant)
+
+
+def _run_variant(args: argparse.Namespace) -> int:
+    """The variant command (and ``polish --vcf/--gvcf``): the JAX command's
+    model selection and haplotag sources, then ``VariantCaller.run``."""
+    import torch
+
+    from dorado_tpu_torch.alignment.index import read_fasta
+    from dorado_tpu_torch.basecall.runner import resolve_device
+    from dorado_tpu_torch.secondary.variant import VcfWriter
+    from dorado_tpu_torch.secondary.variant_calling import VariantCaller, read_candidates
+
+    device = resolve_device(args.device)
+    by_contig = _collect_alignments(args)
+    if by_contig is None:
+        return 1
+    feature_kind = "counts"
+    mc = None
+    if args.model:
+        from dorado_tpu_torch.io.bam_reader import read_records
+        from dorado_tpu_torch.secondary.model_resolver import (
+            load_resolved_model, resolve_model_dir,
+        )
+
+        header_text = ""
+        if args.model == "auto" and not args.reads.endswith((".fastq", ".fq")):
+            header_text = read_records(args.reads)[0]
+        try:
+            mdir = resolve_model_dir(args.model, header_text,
+                                     models_directory=args.models_directory)
+            model, mc, feature_kind = load_resolved_model(mdir, device)
+        except (ValueError, RuntimeError) as exc:
+            print(f"> {exc}", file=sys.stderr)
+            return 1
+        print(f"> Model: {mdir.name} ({feature_kind})", file=sys.stderr)
+    elif args.model_config:
+        from dorado_tpu_torch.secondary.architectures import model_factory, parse_model_config
+
+        mc = parse_model_config(args.model_config)
+        model = model_factory(mc["model_type"], mc["model_kwargs"])  # raises as in _run_polish
+        if mc["model_type"] != "GRUModel":
+            feature_kind = "read_level"
+        print(f"> Model: {mc['model_type']}", file=sys.stderr)
+    elif args.model_params and (args.model_params.endswith(".pt")
+                                or (Path(args.model_params) / "model.pt").exists()):
+        from dorado_tpu_torch.secondary.model import TorchScriptConsensusModel
+
+        ts_path = Path(args.model_params)
+        if ts_path.is_dir():
+            ts_path = ts_path / "model.pt"
+        model = TorchScriptConsensusModel(ts_path, device)
+        print(f"> Model: TorchScript ({ts_path})", file=sys.stderr)
+    else:
+        from dorado_tpu_torch.secondary.model import init_gru_model
+
+        # as the JAX command: a .tensor --model-params directory is not
+        # read here, and the random counts GRU runs
+        if args.model_params:
+            print("> Custom model params loading shares the polish path", file=sys.stderr)
+        model = init_gru_model(torch.Generator().manual_seed(0))
+
+    # the haplotag source (variant.cpp:492-495, no bin-file input): --hp-tag
+    # BAM HP tags, --unphased none, else local phasing computed a window
+    hap_source = "bam" if args.hp_tag else "unphased" if args.unphased else "compute"
+    caller = VariantCaller(
+        model, feature_kind=feature_kind, feature_opts=_feature_opts(mc, hap_source=hap_source),
+        device=device, window_len=args.window_len, window_overlap=args.window_overlap,
+        min_qual=args.pass_qual_filter, ambig_ref=args.ambig_ref, gvcf=args.gvcf)
+
+    contigs = read_fasta(args.draft)
+    candidates = None
+    if args.candidates:
+        candidates = read_candidates(args.candidates, args.variant_flanking_bases)
+        print(f"> Candidate windows: {sum(len(s) for s in candidates.values())} spans over "
+              f"{len(candidates)} contig(s)", file=sys.stderr)
+    if args.output != "-" and Path(args.output).is_dir():
+        # the reference's -o is a directory holding variants.vcf (and the bed)
+        args.output = str(Path(args.output) / "variants.vcf")
+    fh = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        writer = VcfWriter(fh, [(n, len(s)) for n, s in contigs], gvcf=args.gvcf)
+        processed = caller.run(contigs, by_contig, writer, regions=_parse_regions(args.regions),
+                               candidates=candidates)
+    finally:
+        if fh is not sys.stdout:
+            fh.close()
+    if candidates is not None and args.output != "-":
+        bed_path = Path(args.output).with_suffix(".processed_regions.bed")
+        with open(bed_path, "w") as bf:
+            for ctg, lo, hi in processed:
+                bf.write(f"{ctg}\t{lo}\t{hi}\n")
+        print(f"> Processed regions -> {bed_path}", file=sys.stderr)
+    stats = caller.stats
+    print(f"> Called {stats.records} variant(s) over {stats.windows} window(s) on {device}: "
+          f"host features {stats.features_s:.1f} s, model forwards {stats.forward_s:.1f} s, "
+          f"decode {stats.decode_s:.1f} s", file=sys.stderr)
+    return 0
+
+
 def crash_hook(exc_type, exc, tb) -> None:
     """An uncaught exception: its summary and traceback, then each visible
     card's state (the reference's crash reports, gpu_monitor's
@@ -789,6 +968,7 @@ def main(argv: list[str] | None = None) -> int:
     _add_basecaller(sub)
     _add_duplex(sub)
     _add_polish(sub)
+    _add_variant(sub)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     # the @PG CL line: the command as given, shell-quoted

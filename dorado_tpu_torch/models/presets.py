@@ -497,3 +497,74 @@ def save_polish_model(config: dict, model, path: Path | str, tensor_files: bool 
         torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                    path / "weights.pt")
     return path
+
+
+# ---------------------------------------------------------------------------
+# variant models: stand-ins. No released variant model's config or weights
+# is in the repository; these are the JAX package's config defaults
+# (``SlotAttentionConfig``, ``VariantPerceiverConfig``), read by the same
+# ``parse_model_config`` and ``model_factory``.
+# ---------------------------------------------------------------------------
+
+
+def _variant_encoder() -> dict:
+    """The read-alignment encoder of the variant stand-ins: 100 reads a
+    column (the JAX command's default) with the haplotype column, so that
+    ``variant``'s default local phasing fills it. The dwell column is on as
+    well: the models read the haplotag at column 5 (``DEFAULT_FEATURE_COLUMNS``),
+    after base, qual, strand, mapq and the dwell (zeros without move
+    tables)."""
+    return {"type": "ReadAlignmentFeatureEncoder", "kwargs": {
+        "max_reads": 100, "include_dwells": True, "include_haplotype": "true",
+        "include_snp_qv": False}}
+
+
+def slot_attention_config(read_embedding_size: int = 128, cnn_size: int = 128,
+                          kernel_sizes: tuple = (1, 17), add_lstm: bool = False) -> dict:
+    """A stand-in SlotAttentionConsensus config (no released one is in the
+    repository): 2 slots of 5 classes, read embedding 128, cnn 128, kernels
+    (1, 17), mean pooling, haplotags embedded, bases and strand in 6 of an
+    alphabet of 6 (the JAX ``SlotAttentionConfig`` defaults but
+    ``use_haplotags``), on ``_variant_encoder``; the diploid label scheme.
+    ``add_lstm`` adds the four alternating LSTMs at 2 x read embedding; the
+    sizes narrow it for tests."""
+    return {
+        "config_version": 1,
+        "basecaller_model": "dna_r10.4.1_e8.2_400bps_hac@v5.0.0",
+        "model": {"type": "SlotAttentionConsensus", "kwargs": {
+            "num_slots": 2, "classes_per_slot": 5, "read_embedding_size": read_embedding_size,
+            "cnn_size": cnn_size, "kernel_sizes": list(kernel_sizes), "pooler_type": "mean",
+            "use_mapqc": False, "use_dwells": False, "use_haplotags": True,
+            "use_snp_qv": False, "bases_alphabet_size": 6, "bases_embedding_size": 6,
+            "add_lstm": add_lstm, "use_reference": False}},
+        "feature_encoder": _variant_encoder(),
+        "label_scheme": {"type": "DiploidLabelScheme"},
+    }
+
+
+def variant_perceiver_config(dimension: int = 256, num_blocks: int = 4, num_heads: int = 8,
+                             read_embedding_size: int = 128, cnn_size: int = 128,
+                             kernel_sizes: tuple = (1, 17), use_decoder_lstm: bool = False,
+                             update_read_embeddings: bool = False) -> dict:
+    """A stand-in VariantPerceiver config (no released one is in the
+    repository): ploidy 2, 5 classes, dimension 256, 4 blocks of 8 heads,
+    read embedding 128, cnn 128, kernels (1, 17), haplotags embedded (the
+    JAX ``VariantPerceiverConfig`` defaults but ``use_haplotags``), on
+    ``_variant_encoder``; the diploid label scheme. ``use_decoder_lstm``
+    adds the forward LSTM at ``dimension`` over the latent,
+    ``update_read_embeddings`` the haplotypes-to-reads attention of every
+    block but the last; the sizes narrow it for tests."""
+    return {
+        "config_version": 1,
+        "basecaller_model": "dna_r10.4.1_e8.2_400bps_hac@v5.0.0",
+        "model": {"type": "VariantPerceiver", "kwargs": {
+            "ploidy": 2, "num_classes": 5, "read_embedding_size": read_embedding_size,
+            "cnn_size": cnn_size, "kernel_sizes": list(kernel_sizes), "dimension": dimension,
+            "num_blocks": num_blocks, "num_heads": num_heads, "use_mapqc": False,
+            "use_dwells": False, "use_haplotags": True, "use_snp_qv": False,
+            "bases_alphabet_size": 6, "bases_embedding_size": 6,
+            "use_decoder_lstm": use_decoder_lstm,
+            "update_read_embeddings": update_read_embeddings}},
+        "feature_encoder": _variant_encoder(),
+        "label_scheme": {"type": "DiploidLabelScheme"},
+    }

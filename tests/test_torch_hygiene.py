@@ -54,6 +54,7 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.secondary.features", "dorado_tpu_torch.secondary.model",
             "dorado_tpu_torch.secondary.model_resolver", "dorado_tpu_torch.secondary.pileup",
             "dorado_tpu_torch.secondary.polish", "dorado_tpu_torch.secondary.read_matrix",
+            "dorado_tpu_torch.secondary.variant", "dorado_tpu_torch.secondary.variant_calling",
             } <= set(names)
     code = (
         "import importlib, sys\n"

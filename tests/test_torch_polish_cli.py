@@ -4,7 +4,7 @@
 codes for FASTQ self-alignment, a SAM with two read groups, a ``.tensor``
 ``--model-params`` directory, ``weights.pt`` and ``model.pt`` model
 directories, the read-level model (``--model-config``) and a missing model
-name; and the port's own refusals."""
+name; and the hand-off of ``--vcf``/``--gvcf`` to the variant flow."""
 
 import jax
 import numpy as np
@@ -143,15 +143,25 @@ def test_read_level_model(capfd, data, monkeypatch):
 
 
 def test_refusals_and_random_weights(capfd, data, tmp_path):
+    """``polish --vcf`` and ``--gvcf`` hand off to the variant flow (a VCF,
+    exit 0; ``tests/test_torch_variant_cli.py`` holds it against the JAX
+    command's), ``--ambig-ref`` alone leaves the FASTA as it is; a
+    SlotAttentionConsensus config without its kwargs raises KeyError in both
+    commands; no model: random GRU weights with a warning."""
     base = ["polish", str(data["fastq"]), str(data["fasta"]), "-x", "cpu"]
-    for flag in ("--vcf", "--gvcf", "--ambig-ref"):
-        with pytest.raises(SystemExit) as exc:
-            torch_main([*base, flag])
-        assert exc.value.code == 2
-    cfg = tmp_path / "slot.toml"
-    cfg.write_text('[model]\ntype = "SlotAttentionConsensus"\n')
-    rc, _, err = _cli(capfd, torch_main, [*base, "--model-config", str(cfg)], tmp_path / "x.fa")
-    assert rc == 1 and "not yet ported" in err
+    for flag in ("--vcf", "--gvcf"):
+        rc, vcf, _ = _cli(capfd, torch_main, [*base, *WINDOW, "--regions", "ctg_b", flag],
+                          tmp_path / f"v{flag}.vcf")
+        assert rc == 0 and vcf.startswith("##fileformat=VCFv4.1")
+        assert vcf.count("\nctg_b\t") > (700 if flag == "--gvcf" else 0)
     rc, fa, err = _cli(capfd, torch_main, [*base, *WINDOW, "--regions", "ctg_b"],
                        tmp_path / "r.fa")
     assert rc == 0 and "random weights" in err and fa.startswith(">ctg_b")
+    rc, fa_ambig, _ = _cli(capfd, torch_main, [*base, *WINDOW, "--regions", "ctg_b",
+                                               "--ambig-ref"], tmp_path / "a.fa")
+    assert rc == 0 and fa_ambig == fa
+    cfg = tmp_path / "slot.toml"
+    cfg.write_text('[model]\ntype = "SlotAttentionConsensus"\n')
+    for main in (jax_main, torch_main):
+        with pytest.raises(KeyError):
+            main([*base, "--model-config", str(cfg), "-o", str(tmp_path / "x.fa")])

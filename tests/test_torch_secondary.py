@@ -248,9 +248,22 @@ def test_factory_and_config(tmp_path):
         "use_dwells": "true", "bidirectional": "true"})
     assert rl.config.kernel_sizes == (1, 5) and rl.config.use_dwells
     assert rl.read_level_conv[0].conv.weight.shape == (8, 8, 1)
-    for name in ("SlotAttentionConsensus", "VariantPerceiver"):
-        with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
-            architectures.model_factory(name, {})
+    # the variant models: built from their presets' configs as the JAX
+    # factory reads them; a config without the model's kwargs raises
+    # KeyError in both packages
+    for cfg in (presets.slot_attention_config(16, 12, (1, 5), add_lstm=True),
+                presets.variant_perceiver_config(32, 2, 4, 16, 12, (1, 5))):
+        name = cfg["model"]["type"]
+        d = tmp_path / name
+        d.mkdir()
+        (d / "config.toml").write_text(presets.polish_config_toml(cfg))
+        ours = architectures.parse_model_config(d / "config.toml")
+        assert ours == jax_arch.parse_model_config(d / "config.toml")
+        m = architectures.model_factory(ours["model_type"], ours["model_kwargs"])
+        assert type(m).__name__ == name
+        for factory in (architectures.model_factory, jax_arch.model_factory):
+            with pytest.raises(KeyError):
+                factory(name, {})
     with pytest.raises(ValueError, match="Unknown model type"):
         architectures.model_factory("Nope", {})
 
