@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m dorado_tpu_torch basecaller``,
-``python -m dorado_tpu_torch duplex``, ``python -m dorado_tpu_torch
-polish`` and ``python -m dorado_tpu_torch variant``.
+``duplex``, ``polish``, ``variant``, ``correct``, ``aligner`` and
+``summary``.
 
 Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
@@ -9,7 +9,10 @@ directory, to BAM, SAM or FASTQ, splitting reads unless
 ``--min-qscore``, ``--read-ids``, ``--max-reads`` and ``--resume-from``,
 modified-base calling with model directories (``--modified-bases-models``,
 ``--modified-bases-threshold``, ``--modified-bases-batchsize``), and the
-model's compute type (``--dtype``, passed to the pipeline and to ``-b 0``).
+model's compute type (``--dtype``, passed to the pipeline and to ``-b 0``),
+inline alignment (``--reference`` with ``--bed-file``: the finish threads
+map each record) and ``--emit-summary`` (``sequencing_summary.txt`` beside
+the output).
 Every other option of the JAX command is left out, so argparse rejects it
 (among them ``--modified-bases``, which names models for the downloader),
 and two are refused with exit code 1 instead of doing something else than
@@ -45,6 +48,17 @@ none (``--unphased``) or local phasing (the default), and ``--candidates``
 spans with their bed file (``secondary/variant_calling.py``). The polish
 and variant models run on one device: ``-x cuda`` (the default, the first
 card), ``cuda:N`` or ``cpu``.
+
+``correct`` is the JAX command's ``correct``: all-vs-all overlaps by the
+port's mapper on ``-t`` threads, then the pileup vote or, with ``--nn``, the
+HERRO-contract model on one device (``-x``: ``cuda``, the default, ``cuda:N``
+or ``cpu``), or a HERRO TorchScript module (``--model-path``) there; with
+``--resume-from``, index blocks (``-i``, ``--compute-num-blocks``,
+``--run-block-id``), PAF out and in (``--to-paf``, ``-p``) and the overlap
+index's options. ``aligner`` maps FASTQ, BAM or SAM reads (or a folder of
+them) to a FASTA and writes SAM, an unsorted BAM (``--no-sort``) or a
+coordinate-sorted BAM with its ``.bai``; ``summary`` writes the sequencing
+summary of a BAM or SAM (or a folder of them). CRAM, in or out, exits 1.
 
 ``-x`` picks the devices: ``cuda`` or ``auto`` (the default) every visible
 card, one model replica on each (the JAX command's ``-x auto``, the
@@ -106,6 +120,12 @@ def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) 
     p.add_argument("--max-reads", type=int, default=None)
     p.add_argument("--run-for", type=int, default=None,
                    help="Stop basecalling after N seconds")
+    p.add_argument("--reference", default=None,
+                   help="Align basecalls inline against this FASTA (AlignerNode)")
+    p.add_argument("--bed-file", default=None,
+                   help="BED regions for --reference alignments (bh tags)")
+    p.add_argument("--emit-summary", action="store_true",
+                   help="Write sequencing_summary.txt beside the output")
     p.add_argument("-x", "--device", default="cuda", help=_DEVICE_HELP)
     p.add_argument("--dump-stats-file", default=None,
                    help="Write the pipeline's and the first card's stats to this CSV file "
@@ -228,12 +248,24 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         )
         print(f"> Auto batch size: {batchsize}", file=sys.stderr)
 
+    # inline alignment (AlignerNode, pipeline_creation.cpp): the finish
+    # threads map each record against the reference before it is written
+    aligner = None
+    if args.reference:
+        from dorado_tpu_torch.alignment.aligner import RecordAligner
+        from dorado_tpu_torch.alignment.bed_file import BedFile
+        from dorado_tpu_torch.alignment.index import ReferenceIndex
+
+        print(f"> Indexing {args.reference}", file=sys.stderr)
+        aligner = RecordAligner(ReferenceIndex.build(args.reference),
+                                bed=BedFile.load(args.bed_file) if args.bed_file else None)
     pipeline = BasecallerPipeline(
         config, model, chunk_size=args.chunksize, batch_size=batchsize, overlap=args.overlap,
         emit_moves=args.emit_moves, device=devices, decoder=args.decoder, compute_dtype=dtype,
         split_reads=not args.disable_read_splitting, min_qscore=args.min_qscore,
         skip_read_ids=skip_read_ids, only_read_ids=only_read_ids, max_reads=args.max_reads,
         modbase_caller=modbase_caller, modbase_threshold=args.modified_bases_threshold,
+        aligner=aligner,
     )
     try:
         files = find_pod5_files(args.data, recursive=args.recursive)
@@ -244,6 +276,8 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         print(f"> No POD5 files found under {args.data}", file=sys.stderr)
         return 1
     header = pipeline.build_header(files, cli_line=args.cli_line)
+    if aligner is not None:
+        header.references = list(zip(aligner.index.names, aligner.index.lengths))
 
     output = args.output
     if output != "-" and (Path(output).is_dir() or output.endswith(("/", os.sep))):
@@ -254,6 +288,15 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         output = str(Path(output) / f"calls_{ts}{ext}")
         print(f"> Output: {output}", file=sys.stderr)
     writer, fh = _open_writer(output, args, header)
+    sink, summary_fh = writer, None
+    if args.emit_summary:
+        from dorado_tpu_torch.io.summary import StreamingSummaryWriter, _parse_rg_run_ids
+
+        summary_dir = Path(".") if output == "-" else Path(output).parent
+        summary_fh = open(summary_dir / "sequencing_summary.txt", "w")
+        sink = _SummaryTee(writer, StreamingSummaryWriter(
+            summary_fh, has_barcodes=False, has_alignment=aligner is not None,
+            rg_runs=_parse_rg_run_ids(header.to_text()), model_stride=config.stride))
     sampler = stats_fh = None
     if args.dump_stats_file:
         from dorado_tpu_torch.utils.device_monitor import DeviceMonitor
@@ -270,7 +313,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         t0 = time.perf_counter()
         for rec in resume_records:
             writer.write(rec)
-        stats = pipeline.run(args.data, writer, recursive=args.recursive,
+        stats = pipeline.run(args.data, sink, recursive=args.recursive,
                              max_seconds=args.run_for)
         writer.close()
     finally:
@@ -279,9 +322,25 @@ def _run_basecaller(args: argparse.Namespace) -> int:
             stats_fh.close()
         if fh is not None:
             fh.close()
+        if summary_fh is not None:
+            summary_fh.close()
+            print(f"> Sequencing summary: {sink.summary.rows} rows", file=sys.stderr)
     _print_devices(devices)
     _summarise(stats, time.perf_counter() - t0)
     return 0
+
+
+class _SummaryTee:
+    """A writer that also hands each record to a summary writer (the
+    basecaller's ``--emit-summary``; resumed records are not summarised)."""
+
+    def __init__(self, inner, summary):
+        self.inner = inner
+        self.summary = summary
+
+    def write(self, rec) -> None:
+        self.inner.write(rec)
+        self.summary.write(rec)
 
 
 def _validate_resume_cl(
@@ -943,6 +1002,339 @@ def _run_variant(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_correct(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("correct", help="Error-correct reads via all-vs-all consensus")
+    p.add_argument("reads", help="FASTQ of reads")
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("--min-depth", type=int, default=2)
+    p.add_argument("--nn", action="store_true",
+                   help="HERRO-style NN scorer at supported positions (seeded random weights "
+                        "unless --model-path)")
+    p.add_argument("--model-path", default=None,
+                   help="HERRO TorchScript model (e.g. herro-v1), run on -x's device")
+    p.add_argument("--resume-from", default=None,
+                   help="Skip-set file of already-corrected read names; resumes after the "
+                        "furthest skipped read in input order")
+    p.add_argument("-i", "--index-size", default="8G",
+                   help="Bases per index block; decrease to shard runs")
+    p.add_argument("--compute-num-blocks", action="store_true",
+                   help="Print the number of index blocks and exit")
+    p.add_argument("--run-block-id", type=int, default=None,
+                   help="Correct only the targets of this index block")
+    p.add_argument("--to-paf", action="store_true",
+                   help="Write all-vs-all overlaps as PAF and skip consensus")
+    p.add_argument("-p", "--from-paf", default=None,
+                   help="Consume overlaps from a PAF (from --to-paf) instead of computing them")
+    p.add_argument("--kmer-size", type=int, default=15, help="Overlap-index k-mer size")
+    p.add_argument("--ovl-window-size", type=int, default=10,
+                   help="Overlap-index minimizer window")
+    p.add_argument("--min-chain-score", type=int, default=None,
+                   help="Minimum overlap chain score")
+    p.add_argument("-x", "--device", default="cuda",
+                   help="The NN's device: 'cuda' (the default: the first card), 'cuda:N' or "
+                        "'cpu'")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="Host threads that map the overlaps (0 = every core)")
+    p.set_defaults(func=_run_correct)
+
+
+def _load_skip_set(path: str) -> set[str]:
+    """First whitespace/':'-delimited token per non-blank line — ':' because
+    correct can emit multiple outputs per input with a ':<num>' suffix
+    (cli_lib/correct.cpp:253-277)."""
+    out = set()
+    with open(path) as fh:
+        for line in fh:
+            token = re.split(r"[: \t]", line.strip(), maxsplit=1)[0]
+            if token:
+                out.add(token)
+    return out
+
+
+def _parse_size(s: str) -> int:
+    """'8G'/'100000'-style sizes (utils::arg_parse::parse_string_to_size)."""
+    s = str(s).strip().upper()
+    mult = 1
+    if s and s[-1] in "KMG":
+        mult = {"K": 10**3, "M": 10**6, "G": 10**9}[s[-1]]
+        s = s[:-1]
+    return int(float(s) * mult)
+
+
+def _read_paf(path: str) -> list[tuple]:
+    """The overlap tuples of a PAF written by ``--to-paf`` (its ``cg:Z``
+    CIGAR last); lines without one are skipped."""
+    records = []
+    with open(path) as fh:
+        for line in fh:
+            f = line.rstrip("\n").split("\t")
+            if len(f) < 12:
+                continue
+            cigar = next((t[5:] for t in reversed(f[12:]) if t.startswith("cg:Z:")), "")
+            if cigar:
+                records.append((f[0], int(f[1]), int(f[2]), int(f[3]), f[4], f[5], int(f[6]),
+                                int(f[7]), int(f[8]), int(f[9]), int(f[10]), int(f[11]),
+                                cigar))
+    return records
+
+
+def _run_correct(args: argparse.Namespace) -> int:
+    from dorado_tpu_torch.correct import ReadCorrector
+
+    reads = [(name, seq) for name, seq, _ in _read_fastq(args.reads)]
+    targets = None
+    if args.resume_from:
+        if not Path(args.resume_from).exists():
+            print(f"> Input resume index file {args.resume_from} does not exist!",
+                  file=sys.stderr)
+            return 1
+        skip_set = _load_skip_set(args.resume_from)
+        # everything up to and including the furthest skipped read in input
+        # order is done (find_furthest_skipped_read); the remaining targets
+        # still overlap against the full read set
+        furthest = max((i for i, (name, _) in enumerate(reads)
+                        if name.split(":")[0] in skip_set), default=-1)
+        if furthest >= 0:
+            print(f"> Resuming after read {reads[furthest][0]} ({furthest + 1}/{len(reads)} "
+                  f"inputs already corrected)", file=sys.stderr)
+            targets = {name for name, _ in reads[furthest + 1 :]}
+    # index blocks: reads accumulate until the block reaches --index-size
+    # bases (mm2 batch semantics; correct.cpp:125-129)
+    index_size = _parse_size(args.index_size)
+    blocks: list[list[str]] = [[]]
+    cum = 0
+    for name, seq in reads:
+        blocks[-1].append(name)
+        cum += len(seq)
+        if cum >= index_size:
+            blocks.append([])
+            cum = 0
+    blocks = [b for b in blocks if b]
+    if args.compute_num_blocks:
+        print(len(blocks))
+        return 0
+    if args.run_block_id is not None:
+        if not 0 <= args.run_block_id < len(blocks):
+            print(f"> --run-block-id {args.run_block_id} out of range (0..{len(blocks) - 1})",
+                  file=sys.stderr)
+            return 1
+        block = set(blocks[args.run_block_id])
+        targets = block if targets is None else targets & block
+
+    nn_scorer = None
+    device = args.device
+    if args.model_path:
+        from dorado_tpu_torch.basecall.runner import resolve_device
+        from dorado_tpu_torch.correct.nn_model import TorchScriptScorer
+
+        nn_scorer = TorchScriptScorer(args.model_path, resolve_device(device))
+        print(f"> Loaded TorchScript scorer from {args.model_path}", file=sys.stderr)
+    corrector = ReadCorrector(
+        min_depth=args.min_depth, use_nn=args.nn, nn_scorer=nn_scorer,
+        kmer_size=args.kmer_size, ovl_window_size=args.ovl_window_size,
+        min_chain_score=args.min_chain_score, device=device, threads=args.threads,
+    )
+    overlap_records = None
+    if args.from_paf:
+        overlap_records = _read_paf(args.from_paf)
+        print(f"> Loaded {len(overlap_records)} PAF overlaps", file=sys.stderr)
+    fh = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        if args.to_paf:
+            recs = corrector.compute_overlap_records(reads, targets)
+            for r in recs:
+                fh.write("\t".join(str(v) for v in r[:12]) + f"\tcg:Z:{r[12]}\n")
+            print(f"> Wrote {len(recs)} PAF overlaps", file=sys.stderr)
+            return 0
+        for name, seq in corrector.correct(reads, targets=targets,
+                                           overlap_records=overlap_records):
+            fh.write(f">{name}\n")
+            for i in range(0, len(seq), 80):
+                fh.write(seq[i : i + 80] + "\n")
+    finally:
+        if fh is not sys.stdout:
+            fh.close()
+    st = corrector.stats
+    print(f"> Corrected {st.reads_corrected}/{st.reads_total} reads ({st.overlaps} overlaps)",
+          file=sys.stderr)
+    if corrector.use_nn:
+        where = nn_scorer.device if nn_scorer is not None else corrector.device
+        print(f"> {st.windows} window(s) on {where}: mapping {st.mapping_s:.1f} s, window "
+              f"extraction {st.extract_s:.1f} s, host features {st.features_s:.1f} s, model "
+              f"forwards {st.forward_s:.1f} s, decode {st.decode_s:.1f} s", file=sys.stderr)
+    return 0
+
+
+def _add_aligner(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("aligner", help="Align reads to a reference (from-scratch mapper)")
+    p.add_argument("reference", help="Reference FASTA")
+    p.add_argument("reads", help="Reads: BAM/SAM/FASTQ file or a folder of them")
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("--emit-sam", action="store_true")
+    p.add_argument("-k", type=int, default=15)
+    p.add_argument("-w", type=int, default=10)
+    p.add_argument("--bed-file", default=None, help="BED regions; adds bh:i overlap-count tags")
+    p.add_argument("--no-sort", action="store_true", help="Skip coordinate sorting of BAM output")
+    p.add_argument("--mm2-opts", default=None,
+                   help="minimap2-style option string, e.g. '-k 15 -w 10'")
+    p.add_argument("--max-reads", type=int, default=None)
+    p.add_argument("-r", "--recursive", action="store_true",
+                   help="Search the reads folder recursively")
+    p.add_argument("--allow-sec-supp", action="store_true",
+                   help="Re-align input secondary/supplementary records instead of skipping "
+                        "them")
+    p.set_defaults(func=_run_aligner)
+
+
+def _parse_mm2_opts(opts: str | None, k: int, w: int) -> tuple[int, int, int]:
+    """(k, w, secondary hits) from a minimap2-style option string: -k, -w,
+    -N and --secondary=yes/no (alignment/minimap2_args parity for that
+    subset); other options are reported and ignored. minimap2 keeps up to 5
+    secondary alignments by default."""
+    n_secondary = 5
+    toks = (opts or "").split()
+    i = 0
+    while i < len(toks):
+        tok = toks[i]
+        value = toks[i + 1] if i + 1 < len(toks) else None
+        if tok == "-k" and value is not None:
+            k, i = int(value), i + 1
+        elif tok == "-w" and value is not None:
+            w, i = int(value), i + 1
+        elif tok == "-N" and value is not None:
+            n_secondary, i = int(value), i + 1
+        elif tok.startswith("-k") and len(tok) > 2:
+            k = int(tok[2:])
+        elif tok.startswith("-w") and len(tok) > 2:
+            w = int(tok[2:])
+        elif tok == "--secondary=no":
+            n_secondary = 0
+        elif tok != "--secondary=yes":
+            print(f"> Ignoring unsupported mm2 option {tok!r}", file=sys.stderr)
+        i += 1
+    return k, w, n_secondary
+
+
+def _run_aligner(args: argparse.Namespace) -> int:
+    from dorado_tpu_torch.alignment.aligner import RecordAligner
+    from dorado_tpu_torch.alignment.bed_file import BedFile
+    from dorado_tpu_torch.alignment.index import ReferenceIndex
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamRecord, SamWriter
+    from dorado_tpu_torch.io.sorted_bam import SortedBamWriter
+
+    out_is_stdout = args.output == "-"
+    if not args.emit_sam and not out_is_stdout and args.output.endswith(".cram"):
+        print("> CRAM output is not supported by the port: write BAM or SAM", file=sys.stderr)
+        return 1
+    k, w, n_secondary = _parse_mm2_opts(args.mm2_opts, args.k, args.w)
+    reads_path = Path(args.reads)
+    if reads_path.is_dir():
+        # folder input like the reference's HtsReader loop (aligner.cpp)
+        read_files = sorted(
+            p for p in reads_path.glob("**/*" if args.recursive else "*")
+            if p.suffix in (".bam", ".sam", ".cram", ".fastq", ".fq"))
+        if not read_files:
+            print(f"> No read files found in {args.reads}", file=sys.stderr)
+            return 1
+    else:
+        read_files = [reads_path]
+    records = []
+    try:
+        for rf in read_files:
+            if rf.suffix in (".fastq", ".fq"):
+                records += [SamRecord(qname=n, seq=s, qual=q) for n, s, q in _read_fastq(str(rf))]
+            else:
+                records += read_records(rf)[1]
+    except ValueError as exc:  # CRAM, or not a BAM
+        print(f"> {exc}", file=sys.stderr)
+        return 1
+
+    print(f"> Indexing {args.reference}", file=sys.stderr)
+    index = ReferenceIndex.build(args.reference, k=k, w=w)
+    aligner = RecordAligner(index, bed=BedFile.load(args.bed_file) if args.bed_file else None,
+                            n_secondary=n_secondary)
+    if not args.allow_sec_supp:
+        # input secondary/supplementary records are dropped before
+        # re-alignment by default (aligner.cpp:183 skip_sec_supp)
+        records = [r for r in records if not r.flag & 0x900]
+    if args.max_reads is not None:
+        records = records[: args.max_reads]
+
+    header = SamHeader()
+    header.sort_order = "unsorted" if args.no_sort else "coordinate"
+    header.references = list(zip(index.names, index.lengths))
+    header.programs.append({"ID": "aligner", "PN": "dorado_tpu_torch", "CL": args.cli_line})
+    if args.emit_sam:
+        fh = None if out_is_stdout else open(args.output, "w")
+        writer = SamWriter(fh or sys.stdout, header)
+    else:
+        fh = None if out_is_stdout else open(args.output, "wb")
+        stream = fh or sys.stdout.buffer
+        if args.no_sort:
+            writer = BamWriter(stream, header)
+        else:
+            # bounded-memory coordinate sort with a spill-to-disk merge; a
+            # sorted file gets its .bai (hts_file.cpp:446-509)
+            writer = SortedBamWriter(
+                stream, header, index_path=None if out_is_stdout else f"{args.output}.bai")
+
+    n_mapped = 0
+    aligned, unmapped = [], []
+    for rec in records:
+        secondaries = aligner.align(rec)
+        if rec.flag & 4:
+            unmapped.append(rec)
+            continue
+        n_mapped += 1
+        # minimap2 emits the secondary hits before the primary
+        aligned += secondaries + [rec]
+    ref_order = {name: i for i, name in enumerate(index.names)}
+    aligned.sort(key=lambda r: (ref_order.get(r.rname, 1 << 30), r.pos))
+    try:
+        for rec in aligned + unmapped:
+            writer.write(rec)
+        writer.close()
+    finally:
+        if fh is not None:
+            fh.close()
+    print(f"> Mapped {n_mapped}/{len(records)} reads", file=sys.stderr)
+    return 0
+
+
+def _add_summary(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("summary", help="Create sequencing summary from a BAM/SAM")
+    p.add_argument("reads", help="Basecalled BAM or SAM file, or a folder of them")
+    p.add_argument("-r", "--recursive", action="store_true")
+    p.set_defaults(func=_run_summary)
+
+
+def _run_summary(args: argparse.Namespace) -> int:
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.io.summary import write_summary
+
+    reads_path = Path(args.reads)
+    read_files = [reads_path]
+    if reads_path.is_dir():
+        read_files = sorted(p for p in reads_path.glob("**/*" if args.recursive else "*")
+                            if p.suffix in (".bam", ".sam", ".cram"))
+        if not read_files:
+            print(f"> No read files found in {args.reads}", file=sys.stderr)
+            return 1
+    header, records = "", []
+    try:
+        for rf in read_files:
+            text, recs = read_records(rf)
+            header = header or text
+            records += recs
+    except ValueError as exc:  # CRAM, or not a BAM
+        print(f"> {exc}", file=sys.stderr)
+        return 1
+    n = write_summary(records, sys.stdout, header_text=header)
+    print(f"> Summarised {n} reads", file=sys.stderr)
+    return 0
+
+
 def crash_hook(exc_type, exc, tb) -> None:
     """An uncaught exception: its summary and traceback, then each visible
     card's state (the reference's crash reports, gpu_monitor's
@@ -969,6 +1361,9 @@ def main(argv: list[str] | None = None) -> int:
     _add_duplex(sub)
     _add_polish(sub)
     _add_variant(sub)
+    _add_correct(sub)
+    _add_aligner(sub)
+    _add_summary(sub)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     # the @PG CL line: the command as given, shell-quoted

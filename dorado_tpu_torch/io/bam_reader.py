@@ -1,10 +1,11 @@
 """Reading BAM and SAM back: record decoding and aux-tag parsing.
 
-Port of ``dorado_tpu/io/bam_reader.py::read_records`` for BAM and SAM, over
-the port's own BGZF reader (``io/bgzf.py``) and record model (``io/sam.py``):
-enough of the BAM spec to read back unaligned BAM output, as ``--resume-from``
-does and as the merge of several processes' BAMs (``parallel.distributed``)
-re-encodes them.
+Port of ``dorado_tpu/io/bam_reader.py`` for BAM and SAM, over the port's
+own BGZF readers (``io/bgzf.py``) and record model (``io/sam.py``): enough of
+the BAM spec to read back BAM output, as ``--resume-from``, ``summary``,
+``aligner`` and the sorted writer's merge do and as the merge of several
+processes' BAMs (``parallel.distributed``) re-encodes them, and region
+queries through a .bai (``fetch_region``). CRAM is refused.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Iterator
 
 import numpy as np
 
-from dorado_tpu_torch.io.bgzf import BgzfReader
+from dorado_tpu_torch.io.bgzf import BgzfRandomReader, BgzfReader
 from dorado_tpu_torch.io.sam import SamRecord, SamTag
 
 _SEQ_LUT_BYTES = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
@@ -111,6 +112,13 @@ def stream_bam(fh) -> tuple[str, list[tuple[str, int]], Iterator[SamRecord]]:
     return text, refs, records()
 
 
+def iter_bam(path: Path | str) -> Iterator[SamRecord]:
+    """The records of a BAM file, one at a time."""
+    with open(path, "rb") as fh:
+        _, _, records = stream_bam(fh)
+        yield from records
+
+
 def read_bam(path: Path | str) -> tuple[str, list[SamRecord]]:
     """(header text, records) of a BAM file."""
     with open(path, "rb") as fh:
@@ -160,3 +168,48 @@ def read_records(path: Path | str) -> tuple[str, list[SamRecord]]:
                 break
             header_lines.append(line)
     return "".join(header_lines), list(iter_sam(path))
+
+
+def fetch_region(
+    path: Path | str, rname: str, beg: int, end: int, bai_path: Path | str | None = None
+) -> list[SamRecord]:
+    """Records overlapping [beg, end) (0-based half-open) on ``rname``,
+    located through the .bai index (``<path>.bai`` unless given) —
+    samtools-view region semantics over this module's own readers."""
+    from dorado_tpu_torch.io.bai import cigar_ref_span, query_chunks, read_bai
+
+    path = Path(path)
+    bai_path = Path(bai_path) if bai_path else Path(str(path) + ".bai")
+    with open(path, "rb") as fh:
+        _, refs, _ = stream_bam(fh)
+    tid = [n for n, _ in refs].index(rname)
+    with open(bai_path, "rb") as fh:
+        bins, linear, _ = read_bai(fh)
+    chunks = query_chunks(bins.get(tid, {}), linear.get(tid, []), beg, end)
+
+    out: list[SamRecord] = []
+    seen: set[int] = set()
+    with open(path, "rb") as fh:
+        r = BgzfRandomReader(fh)
+        for c0, c1 in chunks:
+            if not r.seek_voffset(c0):
+                continue
+            while r.voffset() < c1:
+                v_rec = r.voffset()
+                raw_size = r.read(4)
+                if len(raw_size) < 4:
+                    break
+                block = r.read(struct.unpack("<i", raw_size)[0])
+                if v_rec in seen:
+                    continue
+                seen.add(v_rec)
+                rec = decode_bam_record(block)
+                if rec.rname != "*":
+                    idx = int(rec.rname)
+                    rec.rname = refs[idx][0] if 0 <= idx < len(refs) else "*"
+                if rec.rname != rname or rec.pos <= 0:
+                    continue
+                b = rec.pos - 1
+                if b < end and b + cigar_ref_span(rec.cigar) > beg:
+                    out.append(rec)
+    return out

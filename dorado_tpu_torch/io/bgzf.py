@@ -43,7 +43,9 @@ class BgzfWriter:
     """``threads > 1`` compresses full blocks on a thread pool and writes
     the members in submission order — htslib's ``bgzf_mt`` analogue, with
     byte-identical output (each 64 KiB block is an independent gzip member,
-    and zlib output is deterministic for a given level)."""
+    and zlib output is deterministic for a given level). ``virtual_offset``
+    waits for the blocks in flight: a writer that asks for it per record
+    (BAI building) runs without threads."""
 
     def __init__(self, fileobj: BinaryIO, level: int = 6, threads: int = 0):
         self._fh = fileobj
@@ -57,6 +59,13 @@ class BgzfWriter:
 
             self._pool = ThreadPoolExecutor(max_workers=threads)
             self._high_water = threads * 4
+
+    def virtual_offset(self) -> int:
+        """BGZF virtual offset (coffset << 16 | uoffset) of the next byte
+        written — the coordinate BAI indexing addresses records by."""
+        if self._pending:
+            self._drain(wait_all=True)
+        return (self._coffset << 16) | len(self._buffer)
 
     def write(self, data: bytes) -> None:
         self._buffer += data
@@ -109,28 +118,34 @@ class BgzfWriter:
         self.close()
 
 
+def _read_member(fh: BinaryIO) -> tuple[bytes, int] | None:
+    """(decompressed payload, compressed size) of the BGZF member at ``fh``'s
+    position, or None at the end of the file."""
+    hdr = fh.read(12)
+    if not hdr:
+        return None
+    if len(hdr) < 12 or hdr[:2] != b"\x1f\x8b":
+        raise ValueError("bad BGZF magic")
+    xlen = struct.unpack_from("<H", hdr, 10)[0]
+    extra = fh.read(xlen)
+    bsize = None
+    epos = 0
+    while epos < len(extra):
+        slen = struct.unpack_from("<H", extra, epos + 2)[0]
+        if extra[epos : epos + 2] == b"BC":
+            bsize = struct.unpack_from("<H", extra, epos + 4)[0] + 1
+        epos += 4 + slen
+    if bsize is None:
+        raise ValueError("missing BGZF BC field")
+    cdata = fh.read(bsize - 12 - xlen)[:-8]
+    return (zlib.decompress(cdata, -15) if cdata else b""), bsize
+
+
 def iter_members(fh: BinaryIO) -> Iterator[bytes]:
     """The decompressed payload of each BGZF member of ``fh``, one at a time."""
-    while True:
-        hdr = fh.read(12)
-        if not hdr:
-            return
-        if len(hdr) < 12 or hdr[:2] != b"\x1f\x8b":
-            raise ValueError("bad BGZF magic")
-        xlen = struct.unpack_from("<H", hdr, 10)[0]
-        extra = fh.read(xlen)
-        bsize = None
-        epos = 0
-        while epos < len(extra):
-            slen = struct.unpack_from("<H", extra, epos + 2)[0]
-            if extra[epos : epos + 2] == b"BC":
-                bsize = struct.unpack_from("<H", extra, epos + 4)[0] + 1
-            epos += 4 + slen
-        if bsize is None:
-            raise ValueError("missing BGZF BC field")
-        cdata = fh.read(bsize - 12 - xlen)[:-8]
-        if cdata:
-            yield zlib.decompress(cdata, -15)
+    while (member := _read_member(fh)) is not None:
+        if member[0]:
+            yield member[0]
 
 
 class BgzfReader:
@@ -155,6 +170,57 @@ class BgzfReader:
                 continue
             take = min(avail, n)
             parts.append(self._buf[self._off : self._off + take])
+            self._off += take
+            n -= take
+        return b"".join(parts)
+
+
+class BgzfRandomReader:
+    """A seekable BGZF reader addressed by virtual offsets (coffset << 16 |
+    uoffset): the read side of the .bai index (``io/bai.py``)."""
+
+    def __init__(self, fileobj: BinaryIO):
+        self._fh = fileobj
+        self._payload = b""
+        self._coffset = 0  # file offset of the loaded member
+        self._next_coffset = 0
+        self._off = 0
+
+    def _load(self, coffset: int) -> bool:
+        self._fh.seek(coffset)
+        try:
+            member = _read_member(self._fh)
+        except ValueError:
+            return False
+        if member is None:
+            return False
+        self._payload, bsize = member
+        self._coffset = coffset
+        self._next_coffset = coffset + bsize
+        self._off = 0
+        return bool(self._payload)
+
+    def seek_voffset(self, v: int) -> bool:
+        if not self._load(v >> 16):
+            return False
+        self._off = v & 0xFFFF
+        return self._off <= len(self._payload)
+
+    def voffset(self) -> int:
+        if self._off >= len(self._payload):
+            return self._next_coffset << 16
+        return (self._coffset << 16) | self._off
+
+    def read(self, n: int) -> bytes:
+        parts = []
+        while n:
+            avail = len(self._payload) - self._off
+            if avail == 0:
+                if not self._load(self._next_coffset):
+                    break
+                continue
+            take = min(avail, n)
+            parts.append(self._payload[self._off : self._off + take])
             self._off += take
             n -= take
         return b"".join(parts)

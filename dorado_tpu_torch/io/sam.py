@@ -218,7 +218,10 @@ class SamHeader:
 
 
 class BamWriter:
-    """Unsorted BAM writer over BGZF (no BAI index)."""
+    """Unsorted BAM writer over BGZF. With ``index=True`` a BAI builder
+    tracks every record's bin and virtual-offset span (hts_file.cpp:446-509
+    writes the .bai during its final sorted merge the same way); call
+    ``write_index(fh)`` after the records."""
 
     def __init__(
         self,
@@ -226,10 +229,12 @@ class BamWriter:
         header: SamHeader,
         level: int = 6,
         threads: int | None = None,
+        index: bool = False,
     ):
         if threads is None:
-            # parallel BGZF compression (htslib bgzf_mt analogue)
-            threads = min(8, os.cpu_count() or 1)
+            # parallel BGZF compression (htslib bgzf_mt analogue), but for an
+            # index, whose per-record virtual offsets would drain every block
+            threads = 0 if index else min(8, os.cpu_count() or 1)
         self._bgzf = BgzfWriter(fileobj, level=level, threads=threads)
         self._ref_ids = header.ref_ids()
         text = header.to_text().encode()
@@ -243,10 +248,34 @@ class BamWriter:
         # writers can be concatenated without re-encoding
         self._bgzf.flush()
         self.records_written = 0
+        self._bai = None
+        if index:
+            from dorado_tpu_torch.io.bai import BaiBuilder
+
+            self._bai = BaiBuilder(len(header.references))
 
     def write(self, rec: SamRecord) -> None:
-        self._bgzf.write(encode_bam_record(rec, self._ref_ids))
+        if self._bai is None:
+            self._bgzf.write(encode_bam_record(rec, self._ref_ids))
+        else:
+            from dorado_tpu_torch.io.bai import cigar_ref_span
+
+            v0 = self._bgzf.virtual_offset()
+            self._bgzf.write(encode_bam_record(rec, self._ref_ids))
+            v1 = self._bgzf.virtual_offset()
+            tid = self._ref_ids.get(rec.rname, -1)
+            beg = rec.pos - 1
+            if tid < 0 or beg < 0:
+                self._bai.add(-1, -1, -1, v0, v1, False)
+            else:
+                self._bai.add(tid, beg, beg + cigar_ref_span(rec.cigar), v0, v1,
+                              not (rec.flag & 4))
         self.records_written += 1
+
+    def write_index(self, fh: BinaryIO) -> None:
+        if self._bai is None:
+            raise ValueError("BamWriter was not constructed with index=True")
+        self._bai.write(fh)
 
     def close(self) -> None:
         self._bgzf.close()

@@ -15,6 +15,8 @@ a *feeder* (gate + scale + trim + chunk + batch fill) and a *finisher*
 ``TorchBasecallRunner``; the device computes batch k+1 while the host
 finishes batch k. With a modbase caller, the finisher threads share its
 device batches through a ``ModBaseBatchScheduler`` made for each run.
+With an ``aligner`` (``alignment.aligner.RecordAligner``, the CLI's
+``--reference``), the finisher threads map each record before it is written.
 
 Per-read semantics follow ScalerNode (dorado/read_pipeline/nodes/
 ScalerNode.cpp:143-270), BasecallerNode chunking/stitch (BasecallerNode.cpp:
@@ -32,6 +34,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from dorado_tpu_torch.alignment.aligner import RecordAligner
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.config import BasecallModelConfig
 from dorado_tpu_torch.io.pod5 import Pod5File, Pod5Read, RunInfo, find_pod5_files
@@ -123,6 +126,7 @@ class BasecallerPipeline:
         max_reads: int | None = None,
         modbase_caller: ModBaseCaller | None = None,
         modbase_threshold: float = 0.05,
+        aligner: RecordAligner | None = None,
     ):
         if config.is_rna_model:
             raise ValueError("RNA models are not supported by this pipeline yet")
@@ -147,6 +151,10 @@ class BasecallerPipeline:
         self.emit_moves = emit_moves
         self.modbase_caller = modbase_caller
         self.modbase_threshold = modbase_threshold
+        # inline alignment (AlignerNode in the basecall pipeline,
+        # pipeline_creation.cpp): each record that passes the filters is
+        # mapped on the finish threads, before it reaches the writer
+        self.aligner = aligner
         self._modbase_scheduler: ModBaseBatchScheduler | None = None  # one a run
         self.read_splitter = None
         if split_reads:
@@ -448,6 +456,8 @@ class BasecallerPipeline:
                 self.stats.reads_called += 1
                 self.stats.bases_called += len(s_seq)
             records.append(rec)
+            if self.aligner is not None:
+                records += self.aligner.align(rec)
         return records
 
     def _add_modbase_tags(self, rec: SamRecord, seq: str, moves, scaled_signal) -> None:

@@ -309,7 +309,7 @@ def test_cli_exits_1(inputs, mod_dir, tmp_path, capsys, case):
 def test_cli_rejects_options_it_does_not_have(inputs):
     model, data = inputs
     for extra in (["--kit-name", "SQK-NBD114-24"], ["--trim", "adapters"], ["--dtype", "float16"],
-                  ["--reference", "ref.fa"]):
+                  ["--estimate-poly-a"]):
         with pytest.raises(SystemExit) as exc:
             main(["basecaller", str(model), str(data), *COMMON, "-x", "cpu", *extra])
         assert exc.value.code == 2

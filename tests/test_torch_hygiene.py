@@ -55,6 +55,11 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.secondary.model_resolver", "dorado_tpu_torch.secondary.pileup",
             "dorado_tpu_torch.secondary.polish", "dorado_tpu_torch.secondary.read_matrix",
             "dorado_tpu_torch.secondary.variant", "dorado_tpu_torch.secondary.variant_calling",
+            "dorado_tpu_torch.correct.corrector", "dorado_tpu_torch.correct.features",
+            "dorado_tpu_torch.correct.nn_model", "dorado_tpu_torch.correct.windows",
+            "dorado_tpu_torch.alignment.aligner", "dorado_tpu_torch.alignment.bed_file",
+            "dorado_tpu_torch.io.bai", "dorado_tpu_torch.io.sorted_bam",
+            "dorado_tpu_torch.io.summary",
             } <= set(names)
     code = (
         "import importlib, sys\n"
