@@ -233,6 +233,20 @@
    dorado_tpu_torch correct --nn`` against the function, ``--to-paf`` then
    ``--from-paf``, and a HERRO-contract TorchScript module through
    ``--model-path`` on the card against the CPU.
+   Then barcoding (``demux_phase``): ``run_reads`` at hac v4.3 over 96
+   reads of 40-60k samples without and with SQK-NBD114-24 (a 12-barcode
+   sample sheet), ``--trim all``'s trimmer and poly(A) estimation, in turns
+   (path ``demux hac``: K1 and K2 5 a batch, K3-K5 one), each record with
+   the options equal to the plain run's with the port's classifier, poly(A)
+   calculator and trimmer applied on the host; samples/s and the idle share
+   of each pass, each stage's thread-seconds beside ``host_finish_s``, the
+   host ms a read of ``classify`` at 24 and 96 barcodes, of the adapter and
+   primer search and of ``calculate_num_bases``; the basecaller command
+   with those options on the fixture (path ``cli demux``); and ``python -m
+   dorado_tpu_torch demux`` and ``trim`` over a BAM of 2,000 planted reads
+   of 1-10 kb (``tests/torch_demux.py``), each equal to its functions, the
+   classified share held against the planted barcodes, each command's
+   reads/s.
    Last, several devices (``multi_gpu_phase``, after every other phase), at
    hac v4.3 full width: ``torch.cuda.device_count()`` and
    ``describe_devices()``; ``run_reads`` over 192 reads of 40-60k samples with
@@ -3352,6 +3366,516 @@ def body_lines(vcf_text: str) -> list[str]:
     return [line for line in vcf_text.splitlines() if not line.startswith("#")]
 
 
+# ---- barcoding, trimming and poly(A) in the basecaller; demux and trim ------
+DEMUX_KIT = "SQK-NBD114-24"
+DEMUX_KIT_96 = "SQK-NBD114-96"
+# hac reads of 40-60k samples: about 2,700 chunks, 22 batches of 128 a pass
+DEMUX_READS = 480
+DEMUX_READ_SAMPLES = (40_000, 60_001)
+DEMUX_CMD_READS = 2_000  # planted reads of the demux and trim commands
+DEMUX_CMD_LENGTHS = (1_000, 10_001)
+DEMUX_CMD_ERROR = 0.05
+DEMUX_CMD_UNBARCODED = 0.1
+DEMUX_TIMED_READS = 100  # of those, timed one by one for the host ms a read
+DEMUX_WORKERS = 6  # processes that apply the commands' functions to their input
+# the classifier on the planted reads (all of them right on the CPU at this
+# seed): the share of barcoded reads given their barcode, and of reads given
+# another barcode than planted or one where none was planted. The planted
+# calls of the pipeline runs are held to the same shares, and to as large a
+# share of tails found within DEMUX_TAIL_TOL bases of the planted length
+MIN_DEMUX_RIGHT = 0.95
+MAX_DEMUX_WRONG = 0.01
+DEMUX_TAIL_TOL = 3
+DEMUX_SHEET = ("experiment_id,kit,flow_cell_id,barcode,alias\n"
+               + "".join(f",{DEMUX_KIT},FAB00000,barcode{i:02d},smoke_{i:02d}\n"
+                         for i in range(1, 13)))
+
+
+def demux_planter(real, kit_name: str):
+    """A wrapper of the pipeline's ``mux_change_trim`` (``real``) that makes
+    each call it is given a read of a multiplexed cDNA run, its bases, moves,
+    qualities and tail drawn from a seed of the call's own bases, so that
+    equal calls stay equal: the LSK110 front adapter, the kit's front context
+    (flank, barcode, flank), the SSP primer, random bases, a poly(A) tail of
+    30-150 bases, the reverse-complemented VNP primer, the context reverse-
+    complemented and the rear adapter; a base every two moves, and the scaled
+    signal flat under the tail. A tenth of the reads carries no barcode, and
+    a seventh of the others one of ``barcode13``-``barcode14``, which the
+    sample sheet does not hold. A call too short for that stays as it was.
+
+    Returns the wrapper and ``planted``: for each call the wrapper returned,
+    keyed by its bases and qualities, the signal it returned, the planted
+    barcode (None for none, or a call left as it was) and the tail's bases
+    (0 for none)."""
+    import zlib
+
+    import numpy as np
+
+    from dorado_tpu_torch.demux.adapters import ADAPTERS, PRIMERS
+    from dorado_tpu_torch.demux.barcoder import get_barcode_sequence, get_kit_info
+    from dorado_tpu_torch.utils.sequence import reverse_complement
+    from tests.torch_demux import random_seq
+
+    info = get_kit_info(kit_name)
+    ssp, vnp = PRIMERS["PCS110"]
+    front_adapter, rear_adapter = ADAPTERS["LSK110"]
+    planted = {}
+
+    def plant(seq, qstring, moves, signal, stride, end_reason):
+        seq, qstring, moves, signal = real(seq, qstring, moves, signal, stride, end_reason)
+        rng = np.random.RandomState(zlib.crc32(seq.encode()))
+        barcode, tail = None, int(rng.randint(30, 151))
+        if rng.rand() >= 0.1:
+            barcode = info["barcodes"][rng.randint(14)]
+        context = ""
+        if barcode is not None:
+            context = (info["top_front_flank"] + get_barcode_sequence(barcode)
+                       + info["top_rear_flank"])
+        head = front_adapter + context + ssp
+        rear = reverse_complement(vnp) + reverse_complement(context) + rear_adapter
+        n = (len(moves) + 1) // 2
+        insert = n - len(head) - tail - len(rear)
+        if insert < 100:
+            planted[(seq, qstring)] = (signal, None, 0)
+            return seq, qstring, moves, signal
+        seq = head + random_seq(rng, insert) + "A" * tail + rear
+        moves = np.zeros(len(moves), np.uint8)
+        moves[: 2 * n : 2] = 1
+        qstring = "".join(chr(33 + q) for q in rng.randint(8, 35, n))
+        # the tail's samples, and those of the four As that open the rear primer
+        a = 2 * stride * (n - len(rear) - tail)
+        b = min(len(signal), 2 * stride * (n - len(rear) + 4))
+        signal = signal.copy()
+        signal[a:b] = 1.2 + rng.normal(0.0, 0.05, b - a).astype(signal.dtype)
+        planted[(seq, qstring)] = (signal, barcode, tail)
+        return seq, qstring, moves, signal
+
+    return plant, planted
+
+
+def demux_functions(records, kit_name):
+    """The ``demux`` and ``trim`` commands' functions on ``records``: each
+    record's barcode group and its line after classification and barcode
+    trimming, and its line after adapter and primer trimming over every kit."""
+    from dorado_tpu_torch.demux import BarcodeClassifier
+    from dorado_tpu_torch.demux.adapters import ReadTrimmer
+    from dorado_tpu_torch.demux.barcoder import (
+        UNCLASSIFIED, determine_barcode_trim_interval, normalize_barcode_name,
+    )
+    from dorado_tpu_torch.demux.trimmer import trim_record
+    from dorado_tpu_torch.io.sam import SamTag
+
+    classifier, trim_all = BarcodeClassifier(kit_name), ReadTrimmer()
+    groups, trimmed = [], []
+    for rec in records:
+        demuxed = copy.deepcopy(rec)
+        res = classifier.classify(demuxed.seq)
+        name = UNCLASSIFIED
+        if res.barcode_name != UNCLASSIFIED:
+            name = f"{classifier.kit_info['name']}_{normalize_barcode_name(res.barcode_name)}"
+        demuxed.tags.append(SamTag("BC", "Z", name))
+        if name != UNCLASSIFIED:
+            interval = determine_barcode_trim_interval(res, len(demuxed.seq))
+            if interval != (0, len(demuxed.seq)):
+                trim_record(demuxed, interval)
+        groups.append((name, demuxed.to_sam_line()))
+        trimmed.append(trim_all.trim(copy.deepcopy(rec)).to_sam_line())
+    return groups, trimmed
+
+
+def demux_phase(k, cfg, model) -> None:
+    """Barcoding, adapter and primer trimming and poly(A) estimation in the
+    basecaller on the card (path ``demux hac``: hac v4.3 at full width, W8A8,
+    Viterbi; K1 and K2 5 times a batch, K3, K4, K5 once), and the ``demux``
+    and ``trim`` commands on the card's host. Nothing that is timed runs
+    beside another part of the phase.
+
+    - ``run_reads`` over DEMUX_READS reads of 40-60k samples with and without
+      ``barcode_classifier`` (SQK-NBD114-24, limited to a sample sheet's 12
+      barcodes and aliased by it), ``estimate_poly_a`` and ``trimmer`` (the
+      CLI's ``--trim all``), in turns (plain, options, options, plain), each
+      after a run that pays the per-shape set-up: samples/s and the device's
+      idle share of each pass, the host's thread-seconds in ``classify``,
+      the trimmer and ``calculate_num_bases`` beside ``host_finish_s``. Both
+      pipelines' calls are planted reads (``demux_planter``). Every read must
+      be written, and each record with the options must equal the plain
+      run's record with the port's own classifier, poly(A) calculator (on the
+      signal the pipeline gave it: the read's scaled and trimmed signal, a
+      subread's own) and trimmer applied on the host. The reads that were
+      not split are held to the planted truth: barcodes by MIN_DEMUX_RIGHT
+      and MAX_DEMUX_WRONG, the share of tails found within DEMUX_TAIL_TOL
+      bases and of reads trimmed by MIN_DEMUX_RIGHT.
+    - ``basecaller --kit-name --trim all --estimate-poly-a --sample-sheet
+      --emit-summary`` in process on the committed POD5 fixture (path ``cli
+      demux``), its calls planted too: BC, pt and pa on every record, reads
+      given a sheet's alias (and an RG with its suffix), a tail and a trim,
+      12 barcode read groups a run, the summary's barcode columns.
+    - ``python -m dorado_tpu_torch demux`` (classify, trim, summary) and then
+      ``trim``, one at a time, over a BAM of DEMUX_CMD_READS planted reads of
+      1-10 kb (``tests/torch_demux.py``: the LSK110 adapters and
+      SQK-NBD114-24 barcodes with flanks at both ends, 5% errors, 10%
+      unbarcoded): each command's reads/s (its wall time, start-up
+      included). Each output file must hold the records of the commands'
+      functions (``demux_functions``, in DEMUX_WORKERS processes while the
+      host holds the pipeline's records), and the classified share must meet
+      MIN_DEMUX_RIGHT and MAX_DEMUX_WRONG against the planted truth.
+    - Then, alone, the host ms a read of ``classify`` at a 24- and a
+      96-barcode kit and of ``find_adapters`` + ``find_primers``
+      (SQK-NBD114-24's, and every kit's), one thread, over DEMUX_TIMED_READS
+      of the commands' reads; and of ``calculate_num_bases`` over the
+      pipeline's planted records."""
+    import multiprocessing
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    import dorado_tpu_torch.pipeline.basecaller as basecaller_module
+    from dorado_tpu_torch.demux import BarcodeClassifier
+    from dorado_tpu_torch.demux.adapters import ReadTrimmer, find_adapters, find_primers
+    from dorado_tpu_torch.demux.barcoder import UNCLASSIFIED, normalize_barcode_name
+    from dorado_tpu_torch.io.bam_reader import read_bam
+    from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamTag
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+    from dorado_tpu_torch.polytail import make_calculator
+    from dorado_tpu_torch.polytail.calculator import ReadContext
+    from dorado_tpu_torch.utils.sample_sheet import SampleSheet
+    from tests.torch_demux import planted_records
+
+    torch = k.torch
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_demux_"))
+    (tmp / "sheet.csv").write_text(DEMUX_SHEET)
+    sheet = SampleSheet(str(tmp / "sheet.csv"))
+    rs = np.random.RandomState(SEED + 23)
+    reads = [k.make_read(2300 + i, int(rs.randint(*DEMUX_READ_SAMPLES)), rs)
+             for i in range(DEMUX_READS)]
+    samples = sum(len(r.signal) for r in reads)
+
+    # the commands' input, and their functions on it in processes of their own
+    t0 = time.perf_counter()
+    cmd_records, truth = planted_records(SEED, DEMUX_KIT, DEMUX_CMD_READS, DEMUX_CMD_LENGTHS,
+                                         DEMUX_CMD_ERROR, DEMUX_CMD_UNBARCODED, adapters=True)
+    bam = tmp / "planted.bam"
+    with open(bam, "wb") as fh:
+        writer = BamWriter(fh, SamHeader())
+        for rec in cmd_records:
+            writer.write(rec)
+        writer.close()
+    bases = sum(len(r.seq) for r in cmd_records)
+    print(f"demux inputs: {DEMUX_READS} hac reads of {DEMUX_READ_SAMPLES} samples; "
+          f"{DEMUX_CMD_READS} planted reads of {DEMUX_CMD_LENGTHS} bases ({bases} bases), the "
+          f"LSK110 adapters and {DEMUX_KIT} at both ends, {DEMUX_CMD_ERROR:.0%} errors, "
+          f"{DEMUX_CMD_UNBARCODED:.0%} unbarcoded, written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def classifier():
+        return BarcodeClassifier(DEMUX_KIT, allowed_barcodes=sheet.get_barcode_values())
+
+    plain = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True)
+    options = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True,
+                                 barcode_classifier=classifier(), sample_sheet=sheet,
+                                 estimate_poly_a=True, trimmer=ReadTrimmer(kit_name=DEMUX_KIT))
+    # the host's thread-seconds in each stage of the options run
+    host_s = {"classify": 0.0, "poly(A)": 0.0, "trim": 0.0, "planting the calls": 0.0}
+    lock = threading.Lock()
+
+    def timed(stage, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    host_s[stage] += time.perf_counter() - t0
+        return wrapped
+
+    options.barcode_classifier.classify = timed("classify", options.barcode_classifier.classify)
+    calculator = options.poly_tail_selector.get_calculator(None)  # every read's: one config
+    calculator.calculate_num_bases = timed("poly(A)", calculator.calculate_num_bases)
+    options.trimmer.trim = timed("trim", options.trimmer.trim)
+    # the plain run's subreads' own signals, for the poly(A) estimate on the host
+    sub_signals = {}
+    real_split = plain.read_splitter.split
+
+    def split(seq, qstring, moves, signal, stride):
+        subs = real_split(seq, qstring, moves, signal, stride)
+        if len(subs) > 1:
+            with lock:
+                sub_signals.update({(s.seq, s.qstring): s.signal for s in subs})
+        return subs
+
+    plain.read_splitter.split = split
+    plant, planted = demux_planter(basecaller_module.mux_change_trim, DEMUX_KIT)
+    real_mux_trim = basecaller_module.mux_change_trim
+    # the planter runs in the finish threads of both runs: its thread-seconds
+    # are part of host_finish_s
+    basecaller_module.mux_change_trim = timed("planting the calls", plant)
+    try:
+        for p in (plain, options):
+            p.run_reads(reads[:24], k.Discard())  # the per-shape set-up, reused below
+        torch.cuda.synchronize()
+        k.path_kernels["demux hac"] = k.path_kernels["viterbi"]
+        k.per_batch["demux hac"] = [5, 5, 1, 1, 1]
+        passes, records = [], {}
+        for label, p in (("plain", plain), ("options", options), ("options", options),
+                         ("plain", plain)):
+            counted = label == "options" and "options" not in records
+            if counted:
+                for w in k.wrappers.values():
+                    w.launches = 0
+                for stage in host_s:
+                    host_s[stage] = 0.0
+            written = Collect()
+            parents = k.Parents(written)
+            t0 = time.perf_counter()
+            stats = p.run_reads(reads, parents)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if counted:
+                k.launches["demux hac"] = {name: w.launches for name, w in k.wrappers.items()}
+                k.check_launches("demux hac", k.launches["demux hac"], stats.batches)
+                finish_s, stage_s = stats.host_finish_s, dict(host_s)
+            if set(parents.parents) != {r.read_id for r in reads}:
+                raise AssertionError(f"demux {label}: {len(set(parents.parents))} of "
+                                     f"{len(reads)} reads written")
+            records.setdefault(label, written.records)
+            passes.append((label, samples / wall, stats.device_idle_frac))
+            print(f"demux hac pipeline, {label}: {len(reads)} reads, {samples} samples, "
+                  f"{stats.batches} batches, {len(written.records)} records in {wall:.3f} s = "
+                  f"{samples / wall:.0f} samples/s; device idle {stats.device_idle_frac:.1%}; "
+                  f"host finish {stats.host_finish_s:.3f} thread-s (hac v4.3, batch {N}, bf16 "
+                  f"with W8A8 projections, Viterbi, planted calls"
+                  f"{'; ' + DEMUX_KIT + ', --trim all, --estimate-poly-a, a sample sheet' if label == 'options' else ''}) "
+                  f"[{k.smi}]", flush=True)
+    finally:
+        basecaller_module.mux_change_trim = real_mux_trim
+    print(f"demux hac: launches {dict((n, v) for n, v in k.launches['demux hac'].items() if v)};"
+          f" host thread-s in the options run: " + ", ".join(
+              f"{stage} {s:.3f} ({s / finish_s:.1%} of host_finish_s {finish_s:.3f})"
+              for stage, s in stage_s.items()) + f" [{k.smi}]", flush=True)
+    for label in ("plain", "options"):
+        rates = [r for lab, r, _ in passes if lab == label]
+        idle = [i for lab, _, i in passes if lab == label]
+        print(f"demux hac {label}: samples/s by pass {[round(r) for r in rates]}, device idle "
+              f"{[f'{i:.1%}' for i in idle]} [{k.smi}]", flush=True)
+
+    # ---- the commands' functions in processes of their own, meanwhile the
+    # options run's records: the plain run's, finished on the host ------------
+    share = -(-len(cmd_records) // DEMUX_WORKERS)
+    pool = ProcessPoolExecutor(DEMUX_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(demux_functions, cmd_records[i:i + share], DEMUX_KIT)
+                   for i in range(0, len(cmd_records), share)]
+        host_classifier, host_trimmer = classifier(), ReadTrimmer(kit_name=DEMUX_KIT)
+        host_calculator = make_calculator()
+        by_name = {r.qname: r for r in records["options"]}
+        if sorted(by_name) != sorted(r.qname for r in records["plain"]):
+            raise AssertionError("demux hac: the options run's records are not the plain "
+                                 "run's")
+        allowed = set(sheet.get_barcode_values())
+        contexts, counts = [], dict.fromkeys(("classified", "tailed", "planted", "barcoded",
+                                              "right", "wrong", "tail right", "trimmed"), 0)
+        for rec in records["plain"]:
+            tags = {t.tag: t.value for t in rec.tags}
+            res = host_classifier.classify(rec.seq)
+            bc = UNCLASSIFIED
+            if res.barcode_name != UNCLASSIFIED:
+                bc = (f"{host_classifier.kit_info['name']}_"
+                      f"{normalize_barcode_name(res.barcode_name)}")
+                bc = sheet.get_alias(bc, "FAB00000", "", "") or bc
+                counts["classified"] += 1
+                for t in rec.tags:
+                    if t.tag == "RG":
+                        t.value = f"{t.value}_{bc}"
+            if "pi" in tags:
+                signal, trimmed, barcode, tail = sub_signals[(rec.seq, rec.qual)], 0, None, 0
+            else:
+                signal, barcode, tail = planted[(rec.seq, rec.qual)]
+                trimmed = tags["ts"]
+            contexts.append(ReadContext(
+                seq=rec.seq, moves=np.asarray(tags["mv"][1:]), signal=signal,
+                stride=cfg.stride, num_trimmed_samples=trimmed,
+                flow_cell_product_code="FLO-PRO114M"))
+            poly = host_calculator.calculate_num_bases(contexts[-1])
+            counts["tailed"] += poly.num_bases >= 0
+            at = [t.tag for t in rec.tags].index("po")
+            rec.tags[at:at] = [
+                SamTag("BC", "Z", bc),
+                SamTag("pt", "i", poly.num_bases if poly.num_bases >= 0 else -1),
+                SamTag("pa", "B", np.array([poly.signal_anchor, *poly.signal_range,
+                                            *poly.split_signal_range], dtype=np.int32),
+                       subtype="i"),
+            ]
+            length = len(rec.seq)
+            host_trimmer.trim(rec)
+            if rec.to_sam_line() != by_name[rec.qname].to_sam_line():
+                raise AssertionError(f"demux hac: {rec.qname} differs from the plain record "
+                                     f"with classify, poly(A) and trim applied on the host")
+            if tail:  # a planted read that was not split: against the planted truth
+                counts["planted"] += 1
+                counts["tail right"] += abs(poly.num_bases - tail) <= DEMUX_TAIL_TOL
+                counts["trimmed"] += len(rec.seq) < length
+                if barcode is not None and normalize_barcode_name(barcode) in allowed:
+                    want = f"smoke_{barcode[-2:]}"
+                    counts["barcoded"] += 1
+                    counts["right"] += bc == want
+                    counts["wrong"] += bc not in (want, UNCLASSIFIED)
+                else:
+                    counts["wrong"] += bc != UNCLASSIFIED
+        print(f"demux hac: {len(records['plain'])} records equal the plain run's with "
+              f"classify, poly(A) and trim applied on the host ({counts['classified']} "
+              f"classified, {counts['tailed']} with a tail); of {counts['planted']} planted "
+              f"reads not split, {counts['right']} of {counts['barcoded']} with a sheet's "
+              f"barcode given its alias, {counts['wrong']} given another or one where none "
+              f"fits, {counts['tail right']} tails within {DEMUX_TAIL_TOL} bases, "
+              f"{counts['trimmed']} trimmed", flush=True)
+        planted_n = max(1, counts["planted"])
+        if (counts["planted"] < len(reads) // 2
+                or counts["right"] < MIN_DEMUX_RIGHT * counts["barcoded"]
+                or counts["wrong"] > MAX_DEMUX_WRONG * planted_n
+                or counts["tail right"] < MIN_DEMUX_RIGHT * planted_n
+                or counts["trimmed"] < MIN_DEMUX_RIGHT * planted_n):
+            raise AssertionError("demux hac: the planted reads miss their limits")
+        want_groups, want_trim = {}, []
+        for future in futures:
+            groups, trimmed_lines = future.result(timeout=600)
+            for name, line in groups:
+                want_groups.setdefault(name, []).append(line)
+            want_trim += trimmed_lines
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+    # ---- the command line on the card: the basecaller with the options -------
+    from dorado_tpu_torch.cli.main import main as cli_main
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.models.load import save_model
+
+    model_dir = save_model(cfg, model, tmp / cfg.model_name)
+    (tmp / "cli").mkdir()
+    k.path_kernels["cli demux"] = k.path_kernels["viterbi"]
+    for w in k.wrappers.values():
+        w.launches = 0
+    plant, cli_planted = demux_planter(real_mux_trim, DEMUX_KIT)
+    basecaller_module.mux_change_trim = plant
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(["basecaller", str(model_dir), str(ROOT / "tests" / "data" /
+                                                           "torch_port" / "fixture.pod5"),
+                       "--kit-name", DEMUX_KIT, "--trim", "all", "--estimate-poly-a",
+                       "--sample-sheet", str(tmp / "sheet.csv"), "--emit-summary",
+                       "--emit-sam", "-o", str(tmp / "cli" / "calls.sam")])
+        torch.cuda.synchronize()
+    finally:
+        basecaller_module.mux_change_trim = real_mux_trim
+    wall = time.perf_counter() - t0
+    k.launches["cli demux"] = {name: w.launches for name, w in k.wrappers.items()}
+    k.check_launches("cli demux", k.launches["cli demux"], 0)
+    header, cli_records = read_records(tmp / "cli" / "calls.sam")
+    groups = [line for line in header.splitlines() if line.startswith("@RG")]
+    barcoded = [line for line in groups if "\tbk:" + DEMUX_KIT in line]
+    summary = (tmp / "cli" / "sequencing_summary.txt").read_text().splitlines()
+    tags = [{t.tag: t.value for t in r.tags} for r in cli_records]
+    tagged = all({"BC", "pt", "pa"} <= set(t) for t in tags)
+    # the fixture's experiment name is no valid sample-sheet experiment_id, so
+    # its reads take no alias: a classified read's BC is the kit's barcode name
+    classified = sum(t["BC"] != UNCLASSIFIED and t["RG"].endswith("_" + t["BC"])
+                     for t in tags if tagged)
+    tailed = sum(t["pt"] >= 0 for t in tags if tagged)
+    # a record that was not split and holds less than its planted call
+    trimmed = sum("pi" not in t and any(r.seq in seq and len(r.seq) < len(seq)
+                                        for seq, _ in cli_planted)
+                  for r, t in zip(cli_records, tags))
+    if (rc != 0 or not cli_records or not tagged or not classified or not tailed or not trimmed
+            or len(barcoded) != 12 * (len(groups) - len(barcoded))
+            or "barcode_arrangement" not in summary[0]
+            or len(summary) != len(cli_records) + 1):
+        raise AssertionError(f"cli demux: exit {rc}, {len(cli_records)} records (BC, pt, pa on "
+                             f"each: {tagged}; {classified} classified, {tailed} with a "
+                             f"tail, {trimmed} trimmed), {len(barcoded)} barcode read groups "
+                             f"of {len(groups)}, {len(summary) - 1} summary rows; BC and RG "
+                             f"{sorted({(t.get('BC'), t.get('RG')) for t in tags})}")
+    print(f"cli demux (path 'cli demux'): basecaller --kit-name {DEMUX_KIT} --trim all "
+          f"--estimate-poly-a --sample-sheet --emit-summary on the committed fixture, planted "
+          f"calls: {len(cli_records)} records with BC, pt and pa ({classified} classified "
+          f"with the RG suffix, {tailed} with a tail, {trimmed} trimmed), {len(barcoded)} barcode read "
+          f"groups, the summary's barcode columns, in {wall:.2f} s; launches "
+          f"{ {n: v for n, v in k.launches['cli demux'].items() if v} } [{k.smi}]", flush=True)
+
+    # ---- the commands, one at a time -------------------------------------------
+    commands = {
+        "demux": ["demux", str(bam), "--kit-name", DEMUX_KIT, "--output-dir",
+                  str(tmp / "demux"), "--emit-summary"],
+        "trim": ["trim", str(bam), "-o", str(tmp / "trimmed.bam")],
+    }
+    walls = {}
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "dorado_tpu_torch", *argv], cwd=ROOT,
+                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                             timeout=600)
+        walls[name] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"python -m dorado_tpu_torch {name}: exit {res.returncode}"
+                                 f"\n{res.stderr}")
+    got_groups = {p.stem: [r.to_sam_line() for r in read_bam(p)[1]]
+                  for p in (tmp / "demux").glob("*.bam")}
+    if got_groups != want_groups:
+        raise AssertionError(f"demux: the command's files differ from its functions' "
+                             f"({sorted(got_groups)} against {sorted(want_groups)})")
+    if [r.to_sam_line() for r in read_bam(tmp / "trimmed.bam")[1]] != want_trim:
+        raise AssertionError("trim: the command's records differ from its functions'")
+    summary = (tmp / "demux" / "barcoding_summary.txt").read_text().splitlines()
+    if len(summary) != DEMUX_CMD_READS + 1:
+        raise AssertionError(f"demux: {len(summary) - 1} summary rows")
+    called = {line.split("\t")[0]: name for name, lines in got_groups.items()
+              for line in lines}
+    planted_cmd = [(f"read-{i:05d}", t) for i, t in enumerate(truth)]
+    barcoded = [(q, f"NB24_barcode{t[2:]}") for q, t in planted_cmd if t]
+    right = sum(called[q] == want for q, want in barcoded) / len(barcoded)
+    wrong = sum(called[q] not in (want, UNCLASSIFIED) for q, want in barcoded)
+    wrong += sum(called[q] != UNCLASSIFIED for q, t in planted_cmd if not t)
+    trimmed = sum(a != b.to_sam_line() for a, b in zip(want_trim, cmd_records))
+    print(f"demux: {len(got_groups)} files equal to the functions' records; {right:.2%} of "
+          f"{len(barcoded)} barcoded reads given their barcode (limit {MIN_DEMUX_RIGHT:.0%}), "
+          f"{wrong} reads of {DEMUX_CMD_READS} given another barcode or one where none was "
+          f"planted (limit {MAX_DEMUX_WRONG:.0%}); trim: the functions' records, {trimmed} "
+          f"reads trimmed", flush=True)
+    if right < MIN_DEMUX_RIGHT or wrong > MAX_DEMUX_WRONG * DEMUX_CMD_READS:
+        raise AssertionError("demux: the classified share misses its limits")
+    for name, wall in walls.items():
+        print(f"{name} command: {DEMUX_CMD_READS} reads in {wall:.2f} s = "
+              f"{DEMUX_CMD_READS / wall:.1f} reads/s (wall, start-up included; alone) "
+              f"[host of {k.smi}]", flush=True)
+
+    # ---- single-thread host ms a read, alone -----------------------------------
+    timed_reads = [r.seq for r in cmd_records[:DEMUX_TIMED_READS]]
+    host_ms = {}
+    for kit in (DEMUX_KIT, DEMUX_KIT_96):
+        c = BarcodeClassifier(kit)
+        t0 = time.perf_counter()
+        for seq in timed_reads:
+            c.classify(seq)
+        host_ms[f"classify {kit}"] = (time.perf_counter() - t0) / len(timed_reads) * 1e3
+    for kit in (DEMUX_KIT, None):  # None: every kit's adapters and primers
+        t0 = time.perf_counter()
+        for seq in timed_reads:
+            find_adapters(seq, kit)
+            find_primers(seq, kit)
+        host_ms[f"find_adapters + find_primers, kit {kit}"] = (
+            (time.perf_counter() - t0) / len(timed_reads) * 1e3)
+    t0 = time.perf_counter()
+    for ctx in contexts:
+        host_calculator.calculate_num_bases(ctx)
+    host_ms[f"calculate_num_bases, the hac run's {len(contexts)} records (planted primers "
+            f"and tails)"] = (time.perf_counter() - t0) / len(contexts) * 1e3
+    for what, ms in host_ms.items():
+        print(f"demux host ms a read, one thread: {what} {ms:.3f} ms [host of {k.smi}]",
+              flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"demux phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ---- several devices: replicas, the sharded step, two processes ------------
 MULTI_READS = 192  # reads of 40-60k samples: about 1000 chunks, 8 batches of 128
 MULTI_READ_SAMPLES = (40_000, 60_001)
@@ -5868,6 +6392,7 @@ def main() -> None:
     polish_phase(kit)
     variant_phase(kit)
     correct_phase(kit)
+    demux_phase(kit, cfg, hac_model)
     t0 = time.perf_counter()
     multi_gpu_phase(kit, cfg, hac_model)
     print(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m dorado_tpu_torch basecaller``,
-``duplex``, ``polish``, ``variant``, ``correct``, ``aligner`` and
-``summary``.
+``duplex``, ``polish``, ``variant``, ``correct``, ``aligner``, ``summary``,
+``demux`` and ``trim``.
 
 Port of the ``basecaller`` subcommand of ``dorado_tpu/cli/main.py`` for what
 the port's pipeline does: simplex basecalling of POD5 files with a model
@@ -11,8 +11,12 @@ modified-base calling with model directories (``--modified-bases-models``,
 ``--modified-bases-threshold``, ``--modified-bases-batchsize``), and the
 model's compute type (``--dtype``, passed to the pipeline and to ``-b 0``),
 inline alignment (``--reference`` with ``--bed-file``: the finish threads
-map each record) and ``--emit-summary`` (``sequencing_summary.txt`` beside
-the output).
+map each record), ``--emit-summary`` (``sequencing_summary.txt`` beside
+the output), barcode classification (``--kit-name`` or a custom
+``--barcode-arrangement`` with ``--barcode-sequences``, ``--sample-sheet``,
+``--barcode-both-ends``), adapter and primer trimming (``--trim``,
+``--primer-sequences``) and poly(A) estimation (``--estimate-poly-a``,
+``--poly-a-config``).
 Every other option of the JAX command is left out, so argparse rejects it
 (among them ``--modified-bases``, which names models for the downloader),
 and two are refused with exit code 1 instead of doing something else than
@@ -58,7 +62,13 @@ or ``cpu``), or a HERRO TorchScript module (``--model-path``) there; with
 index's options. ``aligner`` maps FASTQ, BAM or SAM reads (or a folder of
 them) to a FASTA and writes SAM, an unsorted BAM (``--no-sort``) or a
 coordinate-sorted BAM with its ``.bai``; ``summary`` writes the sequencing
-summary of a BAM or SAM (or a folder of them). CRAM, in or out, exits 1.
+summary of a BAM or SAM (or a folder of them). ``demux`` classifies the
+reads of a BAM, SAM or FASTQ (or a folder of them) by barcode, or groups
+them by their BC tags (``--no-classify``), trims the barcodes unless
+``--no-trim`` and writes a BAM a barcode (sorted with its ``.bai`` under
+``--sort-bam``) and ``barcoding_summary.txt`` (``--emit-summary``).
+``trim`` cuts adapters and primers from the reads of a BAM or SAM into BAM,
+SAM or FASTQ. CRAM, in or out, exits 1.
 
 ``-x`` picks the devices: ``cuda`` or ``auto`` (the default) every visible
 card, one model replica on each (the JAX command's ``-x auto``, the
@@ -79,6 +89,12 @@ import shlex
 import sys
 import time
 from pathlib import Path
+
+from dorado_tpu_torch.demux.adapters import ReadTrimmer
+from dorado_tpu_torch.demux.barcoder import BarcodeClassifier
+from dorado_tpu_torch.demux.custom_kit import parse_custom_arrangement, parse_custom_sequences
+from dorado_tpu_torch.polytail import load_poly_tail_configs
+from dorado_tpu_torch.utils.sample_sheet import SampleSheet
 
 # a registry model name (dna_r10.4.1_e8.2_400bps_hac@v4.3.0) or the variant
 # grammar ({auto,fast,hac,sup}[@version], with modified-base variants after
@@ -105,9 +121,21 @@ def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) 
     p.add_argument("--decoder", choices=["viterbi", "beam", "beam-host"], default="viterbi",
                    help="viterbi = exact max-scoring path (default); beam = the reference's "
                         "beam search; beam-host is not supported by the port")
-    p.add_argument("--trim", choices=["none"], default="none",
-                   help="Trimming is not supported by the port: only 'none'")
+    p.add_argument("--trim", choices=["all", "adapters", "primers", "none"], default="none",
+                   help="Trim adapters and/or primers from the basecalls (TrimmerNode)")
     p.add_argument("--no-trim", action="store_true", help="Alias for --trim none")
+    p.add_argument("--primer-sequences", default=None,
+                   help="Custom primer sequences FASTA for trimming")
+    p.add_argument("--kit-name", default=None, help="Barcoding kit (e.g. SQK-NBD114-24)")
+    p.add_argument("--sample-sheet", default=None,
+                   help="MinKNOW sample sheet CSV (barcode aliasing + filtering)")
+    p.add_argument("--barcode-both-ends", action="store_true")
+    p.add_argument("--barcode-arrangement", default=None,
+                   help="Custom barcode arrangement TOML")
+    p.add_argument("--barcode-sequences", default=None,
+                   help="Custom barcode sequences FASTA")
+    p.add_argument("--estimate-poly-a", action="store_true")
+    p.add_argument("--poly-a-config", default=None, help="Poly(A) estimation config TOML")
     p.add_argument("--disable-read-splitting", action="store_true")
     p.add_argument("--modified-bases-models", default=None,
                    help="Comma-separated paths to modified-base model directories")
@@ -216,10 +244,22 @@ def _run_basecaller(args: argparse.Namespace) -> int:
             pid = next((t.value for t in rec.tags if t.tag == "pi"), None)
             skip_read_ids.add(pid if pid else rec.qname)
         print(f"> Resuming: {len(skip_read_ids)} reads already basecalled", file=sys.stderr)
-    only_read_ids = None
-    if args.read_ids:
-        with open(args.read_ids) as fh:
-            only_read_ids = {line.strip() for line in fh if line.strip()}
+    only_read_ids = _read_ids(args.read_ids)
+
+    # the sample sheet's aliases match each read's run (flow cell, position,
+    # experiment): cli_lib/basecaller.cpp:865 reads it with
+    # skip_index_matching=false
+    sample_sheet = SampleSheet(args.sample_sheet) if args.sample_sheet else None
+    barcode_classifier = _barcode_classifier(args, sample_sheet)
+    trim = "none" if args.no_trim else args.trim
+    trimmer = None
+    if trim != "none":
+        trimmer = ReadTrimmer(
+            adapters=trim in ("all", "adapters"), primers=trim in ("all", "primers"),
+            kit_name=args.kit_name,
+            custom_primers=(parse_custom_sequences(args.primer_sequences)
+                            if args.primer_sequences else None))
+    poly_a_config = load_poly_tail_configs(args.poly_a_config) if args.poly_a_config else None
 
     devices = resolve_devices(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}[args.dtype]
@@ -265,7 +305,9 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         split_reads=not args.disable_read_splitting, min_qscore=args.min_qscore,
         skip_read_ids=skip_read_ids, only_read_ids=only_read_ids, max_reads=args.max_reads,
         modbase_caller=modbase_caller, modbase_threshold=args.modified_bases_threshold,
-        aligner=aligner,
+        barcode_classifier=barcode_classifier, barcode_both_ends=args.barcode_both_ends,
+        sample_sheet=sample_sheet, estimate_poly_a=args.estimate_poly_a,
+        poly_a_config=poly_a_config, trimmer=trimmer, aligner=aligner,
     )
     try:
         files = find_pod5_files(args.data, recursive=args.recursive)
@@ -295,7 +337,8 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         summary_dir = Path(".") if output == "-" else Path(output).parent
         summary_fh = open(summary_dir / "sequencing_summary.txt", "w")
         sink = _SummaryTee(writer, StreamingSummaryWriter(
-            summary_fh, has_barcodes=False, has_alignment=aligner is not None,
+            summary_fh, has_barcodes=bool(args.kit_name or args.barcode_arrangement),
+            has_alignment=aligner is not None,
             rg_runs=_parse_rg_run_ids(header.to_text()), model_stride=config.stride))
     sampler = stats_fh = None
     if args.dump_stats_file:
@@ -328,6 +371,30 @@ def _run_basecaller(args: argparse.Namespace) -> int:
     _print_devices(devices)
     _summarise(stats, time.perf_counter() - t0)
     return 0
+
+
+def _read_ids(path: str | None) -> set[str] | None:
+    """The read ids of a --read-ids file, one a line; None without one."""
+    if path is None:
+        return None
+    with open(path) as fh:
+        return {line.strip() for line in fh if line.strip()}
+
+
+def _barcode_classifier(args: argparse.Namespace, sample_sheet: SampleSheet | None):
+    """The classifier of ``--kit-name``, or of ``--barcode-arrangement`` with
+    its ``--barcode-sequences``, limited to the sample sheet's barcodes;
+    None without either."""
+    kit_name, kit_info, custom = args.kit_name, None, None
+    if args.barcode_arrangement:
+        kit_name, kit_info = parse_custom_arrangement(args.barcode_arrangement)
+        if args.barcode_sequences:
+            custom = parse_custom_sequences(args.barcode_sequences)
+    if not kit_name:
+        return None
+    return BarcodeClassifier(
+        kit_name, allowed_barcodes=sample_sheet.get_barcode_values() if sample_sheet else None,
+        kit_info=kit_info, custom_barcodes=custom)
 
 
 class _SummaryTee:
@@ -468,10 +535,7 @@ def _run_duplex(args: argparse.Namespace) -> int:
         return 1
     devices = resolve_devices(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}[args.dtype]
-    only_read_ids = None
-    if args.read_ids:
-        with open(args.read_ids) as fh:
-            only_read_ids = {line.strip() for line in fh if line.strip()}
+    only_read_ids = _read_ids(args.read_ids)
     try:
         files = find_pod5_files(args.data, recursive=args.recursive)
     except RuntimeError as exc:  # FAST5 input
@@ -1219,8 +1283,7 @@ def _run_aligner(args: argparse.Namespace) -> int:
     from dorado_tpu_torch.alignment.aligner import RecordAligner
     from dorado_tpu_torch.alignment.bed_file import BedFile
     from dorado_tpu_torch.alignment.index import ReferenceIndex
-    from dorado_tpu_torch.io.bam_reader import read_records
-    from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamRecord, SamWriter
+    from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamWriter
     from dorado_tpu_torch.io.sorted_bam import SortedBamWriter
 
     out_is_stdout = args.output == "-"
@@ -1228,25 +1291,9 @@ def _run_aligner(args: argparse.Namespace) -> int:
         print("> CRAM output is not supported by the port: write BAM or SAM", file=sys.stderr)
         return 1
     k, w, n_secondary = _parse_mm2_opts(args.mm2_opts, args.k, args.w)
-    reads_path = Path(args.reads)
-    if reads_path.is_dir():
-        # folder input like the reference's HtsReader loop (aligner.cpp)
-        read_files = sorted(
-            p for p in reads_path.glob("**/*" if args.recursive else "*")
-            if p.suffix in (".bam", ".sam", ".cram", ".fastq", ".fq"))
-        if not read_files:
-            print(f"> No read files found in {args.reads}", file=sys.stderr)
-            return 1
-    else:
-        read_files = [reads_path]
-    records = []
     try:
-        for rf in read_files:
-            if rf.suffix in (".fastq", ".fq"):
-                records += [SamRecord(qname=n, seq=s, qual=q) for n, s, q in _read_fastq(str(rf))]
-            else:
-                records += read_records(rf)[1]
-    except ValueError as exc:  # CRAM, or not a BAM
+        _, records = _read_inputs(args.reads, args.recursive)
+    except (ValueError, FileNotFoundError) as exc:  # CRAM, not a BAM, an empty folder
         print(f"> {exc}", file=sys.stderr)
         return 1
 
@@ -1335,6 +1382,204 @@ def _run_summary(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_demux(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("demux", help="Demultiplex basecalled reads by barcode")
+    p.add_argument("reads", help="Basecalled BAM, SAM or FASTQ file, or a folder of them")
+    p.add_argument("--kit-name", default=None,
+                   help="Barcoding kit (or use --barcode-arrangement)")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--emit-summary", action="store_true",
+                   help="Write barcoding_summary.txt into the output directory")
+    p.add_argument("--barcode-both-ends", action="store_true")
+    p.add_argument("--sample-sheet", default=None,
+                   help="MinKNOW sample sheet CSV (barcode aliasing + filtering)")
+    p.add_argument("--barcode-arrangement", default=None,
+                   help="Custom barcode arrangement TOML")
+    p.add_argument("--barcode-sequences", default=None,
+                   help="Custom barcode sequences FASTA")
+    p.add_argument("--no-classify", action="store_true",
+                   help="Group by existing BC tags instead of classifying")
+    p.add_argument("--no-trim", action="store_true",
+                   help="Keep the barcodes on the reads (default: trim them)")
+    p.add_argument("--sort-bam", action="store_true",
+                   help="Sort each output BAM by coordinate and write its .bai")
+    p.add_argument("--max-reads", type=int, default=None)
+    p.add_argument("--read-ids", default=None,
+                   help="File with one read id per line; only these are demultiplexed")
+    p.add_argument("-r", "--recursive", action="store_true",
+                   help="Search the reads folder recursively")
+    p.set_defaults(func=_run_demux)
+
+
+def _read_inputs(reads: str, recursive: bool):
+    """(header text of the first BAM or SAM, records) of a BAM, SAM or
+    FASTQ file or of a folder of them (``recursive``: and its subfolders);
+    raises ValueError for CRAM and FileNotFoundError for a folder of none."""
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.io.sam import SamRecord
+
+    path = Path(reads)
+    files = [path]
+    if path.is_dir():
+        # the reference's HtsReader loop over a folder (demux.cpp, aligner.cpp)
+        files = sorted(p for p in path.glob("**/*" if recursive else "*")
+                       if p.suffix in (".bam", ".sam", ".cram", ".fastq", ".fq"))
+        if not files:
+            raise FileNotFoundError(f"No read files found in {reads}")
+    header_text, records = "", []
+    for f in files:
+        if f.suffix in (".fastq", ".fq"):
+            records += [SamRecord(qname=n, seq=q, qual=u) for n, q, u in _read_fastq(str(f))]
+            continue
+        text, recs = read_records(f)
+        header_text = header_text or text
+        records += recs
+    return header_text, records
+
+
+def _run_demux(args: argparse.Namespace) -> int:
+    from collections import defaultdict
+
+    from dorado_tpu_torch.demux.barcoder import (
+        UNCLASSIFIED, determine_barcode_trim_interval, normalize_barcode_name,
+    )
+    from dorado_tpu_torch.demux.trimmer import trim_record
+    from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamTag
+    from dorado_tpu_torch.io.sorted_bam import SortedBamWriter
+
+    try:
+        header_text, records = _read_inputs(args.reads, args.recursive)
+    except (ValueError, FileNotFoundError) as exc:  # CRAM, not a BAM, an empty folder
+        print(f"> {exc}", file=sys.stderr)
+        return 1
+    # BAM input carries no run index: aliases are looked up by barcode alone
+    sample_sheet = (SampleSheet(args.sample_sheet, skip_index_matching=True)
+                    if args.sample_sheet else None)
+    classifier = None
+    kit_display = args.kit_name or ""
+    if args.barcode_arrangement:
+        kit_display = parse_custom_arrangement(args.barcode_arrangement)[0]
+    if not args.no_classify:
+        classifier = _barcode_classifier(args, sample_sheet)
+        if classifier is None:
+            print("> demux requires --kit-name (or --barcode-arrangement) unless --no-classify "
+                  "groups by existing BC tags.", file=sys.stderr)
+            return 1
+        kit_display = classifier.kit_info["name"]
+    only_ids = _read_ids(args.read_ids)
+
+    by_barcode = defaultdict(list)
+    original_barcode: dict[str, str] = {}  # read -> its barcode where an alias replaced it
+    n_done = 0
+    for rec in records:
+        if only_ids is not None and rec.qname not in only_ids:
+            continue
+        if args.max_reads is not None and n_done >= args.max_reads:
+            break
+        n_done += 1
+        if args.no_classify:
+            name = next((t.value for t in rec.tags if t.tag == "BC"), UNCLASSIFIED)
+            by_barcode[name].append(rec)
+            continue
+        seq = rec.seq if rec.seq != "*" else ""
+        result = classifier.classify(seq, barcode_both_ends=args.barcode_both_ends)
+        if result.barcode_name == UNCLASSIFIED:
+            name = UNCLASSIFIED
+        else:
+            # the sample sheet's alias replaces the barcode in BC and in the
+            # grouping (BarcodeClassifierNode.cpp:131-137)
+            name = f"{kit_display}_{normalize_barcode_name(result.barcode_name)}"
+            original_barcode[rec.qname] = name
+            if sample_sheet is not None:
+                name = sample_sheet.get_alias(name) or name
+        rec.tags = [t for t in rec.tags if t.tag != "BC"] + [SamTag("BC", "Z", name)]
+        if not args.no_trim and result.barcode_name != UNCLASSIFIED:
+            # the barcodes' span cut off the read (Trimmer.cpp:40-91)
+            interval = determine_barcode_trim_interval(result, len(rec.seq))
+            if interval != (0, len(rec.seq)):
+                trim_record(rec, interval)
+        by_barcode[name].append(rec)
+
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    header = SamHeader()
+    header.comments = [line.split("\t", 1)[-1] for line in header_text.splitlines()
+                       if line.startswith("@CO")]
+    for name, recs in sorted(by_barcode.items()):
+        path = out_dir / f"{name}.bam"
+        with open(path, "wb") as fh:
+            writer = (SortedBamWriter(fh, header, index_path=f"{path}.bai") if args.sort_bam
+                      else BamWriter(fh, header))
+            for rec in recs:
+                writer.write(rec)
+            writer.close()
+        print(f"> {name}: {len(recs)} reads -> {path}", file=sys.stderr)
+    if args.emit_summary:
+        # the barcoding summary beside the demultiplexed files (demux.cpp:260-264)
+        spath = out_dir / "barcoding_summary.txt"
+        with open(spath, "w") as fh:
+            fh.write("read_id\tbarcode_arrangement\tbarcode_kit\talias\n")
+            for name, recs in sorted(by_barcode.items()):
+                for rec in recs:
+                    orig = original_barcode.get(rec.qname, name)
+                    fh.write(f"{rec.qname}\t{orig}\t{kit_display}\t"
+                             f"{name if name != orig else ''}\n")
+        print(f"> Barcoding summary -> {spath}", file=sys.stderr)
+    return 0
+
+
+def _add_trim(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser("trim", help="Trim adapters and primers from basecalled reads")
+    p.add_argument("reads", help="Basecalled BAM or SAM file")
+    p.add_argument("-o", "--output", default="-", help="Output file or - for stdout")
+    p.add_argument("--emit-sam", action="store_true", help="Emit SAM instead of BAM")
+    p.add_argument("--emit-fastq", action="store_true")
+    p.add_argument("--kit-name", default=None)
+    p.add_argument("--sequencing-kit", default=None,
+                   help="Sequencing kit (used where --kit-name is not given)")
+    p.add_argument("--primer-sequences", default=None, help="Custom primer sequences FASTA")
+    p.add_argument("--no-trim-primers", action="store_true")
+    p.add_argument("--max-reads", type=int, default=None)
+    p.add_argument("--read-ids", default=None,
+                   help="File with one read id per line; only these are trimmed")
+    p.set_defaults(func=_run_trim)
+
+
+def _run_trim(args: argparse.Namespace) -> int:
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.io.sam import SamHeader
+
+    trimmer = ReadTrimmer(
+        adapters=True, primers=not args.no_trim_primers,
+        kit_name=args.kit_name or args.sequencing_kit,
+        custom_primers=(parse_custom_sequences(args.primer_sequences)
+                        if args.primer_sequences else None))
+    try:
+        _, records = read_records(args.reads)
+    except ValueError as exc:  # CRAM, or not a BAM
+        print(f"> {exc}", file=sys.stderr)
+        return 1
+    only_ids = _read_ids(args.read_ids)
+    if only_ids is not None:
+        records = [r for r in records if r.qname in only_ids]
+    if args.max_reads is not None:
+        records = records[: args.max_reads]
+    writer, fh = _open_writer(args.output, args, SamHeader())
+    n_trimmed = 0
+    try:
+        for rec in records:
+            before = len(rec.seq)
+            trimmer.trim(rec)
+            n_trimmed += len(rec.seq) != before
+            writer.write(rec)
+        writer.close()
+    finally:
+        if fh is not None:
+            fh.close()
+    print(f"> Trimmed {n_trimmed}/{len(records)} reads", file=sys.stderr)
+    return 0
+
+
 def crash_hook(exc_type, exc, tb) -> None:
     """An uncaught exception: its summary and traceback, then each visible
     card's state (the reference's crash reports, gpu_monitor's
@@ -1364,6 +1609,8 @@ def main(argv: list[str] | None = None) -> int:
     _add_correct(sub)
     _add_aligner(sub)
     _add_summary(sub)
+    _add_demux(sub)
+    _add_trim(sub)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     # the @PG CL line: the command as given, shell-quoted

@@ -1,6 +1,8 @@
 // Unit-cost edit-distance alignment with traceback, host code of the port's
-// read splitter (dorado_tpu_torch/splitter), covering the modes the
-// reference gets from edlib:
+// read splitter (dorado_tpu_torch/splitter), barcode classifier, adapter and
+// primer finders (dorado_tpu_torch/demux) and poly(A) anchors
+// (dorado_tpu_torch/polytail), covering the modes the reference gets from
+// edlib:
 //   mode 0 (NW):  global  - gaps at all ends cost 1
 //   mode 1 (HW):  infix   - gaps at target start AND end are free
 //   mode 2 (SHW): prefix  - gap at target end is free

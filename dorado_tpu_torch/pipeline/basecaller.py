@@ -3,9 +3,11 @@
 Port of ``dorado_tpu/pipeline/basecaller.py::BasecallerPipeline`` for
 simplex DNA basecalling with read splitting (on by default, the simplex
 chain of ``splitter.DuplexReadSplitter``), the read filters (``min_qscore``,
-``skip_read_ids``, ``only_read_ids``, ``max_reads``) and modified-base
-calling (``modbase_caller``: MN/MM/ML tags), without barcoding or poly(A)
-estimation (the JAX pipeline with none of those set). ``run`` basecalls
+``skip_read_ids``, ``only_read_ids``, ``max_reads``), modified-base
+calling (``modbase_caller``: MN/MM/ML tags), barcode classification
+(``barcode_classifier``, ``barcode_both_ends``, ``sample_sheet``: BC tags,
+the RG suffix and per-barcode read groups) and poly(A) estimation
+(``estimate_poly_a``, ``poly_a_config``: pt/pa tags). ``run`` basecalls
 the POD5 files under a path, ``run_reads`` any iterable of reads; both
 admit reads through the same gate. ``device`` goes to the runner (one model
 replica on each visible card by default, as the JAX pipeline takes a mesh);
@@ -15,8 +17,16 @@ a *feeder* (gate + scale + trim + chunk + batch fill) and a *finisher*
 ``TorchBasecallRunner``; the device computes batch k+1 while the host
 finishes batch k. With a modbase caller, the finisher threads share its
 device batches through a ``ModBaseBatchScheduler`` made for each run.
-With an ``aligner`` (``alignment.aligner.RecordAligner``, the CLI's
-``--reference``), the finisher threads map each record before it is written.
+With a ``trimmer`` (``demux.adapters.ReadTrimmer``, the CLI's ``--trim``)
+the finisher threads cut adapters and primers from each record that passes
+the filters, after its modbase tags, as the JAX command trims records
+before it writes them; with an ``aligner`` (``alignment.aligner.RecordAligner``,
+the CLI's ``--reference``) they then map it.
+
+A split read's subreads get their poly(A) estimate from their own signal
+with no trimmed samples (the ``ts:i:0`` of their records), where the JAX
+pipeline passes the parent's signal and trim with the subread's moves,
+which index the subread's signal.
 
 Per-read semantics follow ScalerNode (dorado/read_pipeline/nodes/
 ScalerNode.cpp:143-270), BasecallerNode chunking/stitch (BasecallerNode.cpp:
@@ -37,6 +47,12 @@ import torch
 from dorado_tpu_torch.alignment.aligner import RecordAligner
 from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
 from dorado_tpu_torch.config import BasecallModelConfig
+from dorado_tpu_torch.demux.adapters import ReadTrimmer
+from dorado_tpu_torch.demux.barcoder import (
+    UNCLASSIFIED,
+    BarcodeClassifier,
+    normalize_barcode_name,
+)
 from dorado_tpu_torch.io.pod5 import Pod5File, Pod5Read, RunInfo, find_pod5_files
 from dorado_tpu_torch.io.sam import SamHeader, SamRecord, SamTag
 from dorado_tpu_torch.modbase.caller import ModBaseBatchScheduler, ModBaseCaller
@@ -44,12 +60,15 @@ from dorado_tpu_torch.modbase.tags import generate_modbase_tags, modbase_thresho
 from dorado_tpu_torch.models.crf_model import LSTMCRFModel
 from dorado_tpu_torch.models.tx_model import TxModel
 from dorado_tpu_torch.pipeline.host import OrderedPool, OrderedSink, default_host_threads
+from dorado_tpu_torch.polytail import PolyTailCalculatorSelector
+from dorado_tpu_torch.polytail.calculator import PolyTailCalculator, ReadContext
 from dorado_tpu_torch.signal.chunk import generate_chunks
 from dorado_tpu_torch.signal.scaling import Scaler
 from dorado_tpu_torch.signal.stitch import CalledChunk, stitch_chunks
 from dorado_tpu_torch.signal.trim import trim_signal
 from dorado_tpu_torch.splitter import DuplexReadSplitter, DuplexSplitSettings
 from dorado_tpu_torch.utils.read_trim import mux_change_trim
+from dorado_tpu_torch.utils.sample_sheet import SampleSheet
 from dorado_tpu_torch.utils.sequence import mean_qscore_from_qstring
 from dorado_tpu_torch.utils.time_utils import timestamp_from_unix_ms
 
@@ -126,6 +145,12 @@ class BasecallerPipeline:
         max_reads: int | None = None,
         modbase_caller: ModBaseCaller | None = None,
         modbase_threshold: float = 0.05,
+        barcode_classifier: BarcodeClassifier | None = None,
+        barcode_both_ends: bool = False,
+        sample_sheet: SampleSheet | None = None,
+        estimate_poly_a: bool = False,
+        poly_a_config=None,
+        trimmer: ReadTrimmer | None = None,
         aligner: RecordAligner | None = None,
     ):
         if config.is_rna_model:
@@ -151,6 +176,21 @@ class BasecallerPipeline:
         self.emit_moves = emit_moves
         self.modbase_caller = modbase_caller
         self.modbase_threshold = modbase_threshold
+        self.barcode_classifier = barcode_classifier
+        self.barcode_both_ends = barcode_both_ends
+        self.sample_sheet = sample_sheet
+        # per-barcode calculator selection, keyed on the read's classified
+        # barcode (PolyACalculatorNode.cpp:46); poly_a_config is one
+        # PolyTailConfig or a {barcode: config} dict from load_poly_tail_configs
+        self.poly_tail_selector = None
+        if estimate_poly_a:
+            self.poly_tail_selector = PolyTailCalculatorSelector(
+                poly_a_config,
+                is_rna=config.is_rna_model,
+                speed=config.polya_speed_correction,
+                offset=config.polya_offset_correction,
+            )
+        self.trimmer = trimmer
         # inline alignment (AlignerNode in the basecall pipeline,
         # pipeline_creation.cpp): each record that passes the filters is
         # mapped on the finish threads, before it reaches the writer
@@ -217,8 +257,10 @@ class BasecallerPipeline:
         self, sources: Iterable[RunInfo | Path | str], cli_line: str = ""
     ) -> SamHeader:
         """@PG plus one @RG per distinct protocol run, in order of first
-        appearance. ``sources`` are run infos or POD5 files, whose run infos
-        are read (as the JAX pipeline's ``build_header`` takes files)."""
+        appearance, and with a barcode classifier one more for each of those
+        and each barcode of the kit that the sample sheet permits.
+        ``sources`` are run infos or POD5 files, whose run infos are read (as
+        the JAX pipeline's ``build_header`` takes files)."""
         run_infos = []
         for src in sources:
             run_infos += [src] if isinstance(src, RunInfo) else Pod5File(src).run_infos
@@ -232,8 +274,14 @@ class BasecallerPipeline:
             }
         )
         seen: dict[str, dict] = {}
+        # each read group's sample-sheet index (flow_cell_id, position_id,
+        # experiment_id), the first run's where runs share a group, so that
+        # aliases resolve per run (bam_utils.cpp:103-112)
+        sheet_index: dict[str, tuple[str, str, str]] = {}
         for ri in run_infos:
             rg_id = f"{ri.protocol_run_id}_{self.config.model_name}"
+            sheet_index.setdefault(
+                rg_id, (ri.flow_cell_id, ri.sequencer_position, ri.experiment_name))
             if rg_id in seen:
                 continue
             started = timestamp_from_unix_ms(ri.acquisition_start_time_ms)
@@ -252,7 +300,36 @@ class BasecallerPipeline:
                 "LB": ri.sample_id or "unknown",
             }
         header.read_groups = list(seen.values())
+        if self.barcode_classifier is not None:
+            header.read_groups += self._barcode_read_groups(header.read_groups, sheet_index)
         return header
+
+    def _barcode_read_groups(self, base_groups: list[dict], sheet_index: dict) -> list[dict]:
+        """One read group for each base group and each kit barcode the
+        sample sheet permits, with BC, bk, SM and al fields and the sheet's
+        alias as its suffix where it has one (bam_utils.cpp
+        add_barcode_kit_rg_hdrs)."""
+        classifier, sheet = self.barcode_classifier, self.sample_sheet
+        info = classifier.kit_info
+        groups = []
+        for barcode_name in info["barcodes"]:
+            norm = normalize_barcode_name(barcode_name)
+            if sheet is not None and not (
+                sheet.barcode_is_permitted(norm) or sheet.barcode_is_permitted(barcode_name)
+            ):
+                continue
+            for rg in base_groups:
+                fc, pos, exp = sheet_index.get(rg["ID"], ("", "", ""))
+                alias = sheet.get_alias(norm, fc, pos, exp) if sheet is not None else ""
+                groups.append({
+                    **rg,
+                    "ID": f"{rg['ID']}_{alias or info['name'] + '_' + norm}",
+                    "BC": classifier.barcode_sequence(barcode_name),
+                    "bk": classifier.kit_name,
+                    "SM": norm,
+                    "al": alias or norm,
+                })
+        return groups
 
     # ------------------------------------------------------------------
     # per-read feed
@@ -416,6 +493,8 @@ class BasecallerPipeline:
         records = []
         for i, (s_seq, s_q, s_moves, s_signal, split_point) in enumerate(parts):
             rec = self._make_record(wr, s_seq, s_q, s_moves)
+            # a subread's signal starts at its own first sample (its ts is 0)
+            s_trimmed = wr.num_trimmed if len(parts) == 1 else 0
             if len(parts) > 1:
                 # split subreads: derived id, pi parent tag, sp split point,
                 # rn = -1, sample counts of the subread's signal
@@ -435,6 +514,14 @@ class BasecallerPipeline:
                         t.value = 0
                     elif t.tag == "du":
                         t.value = len(s_signal) / float(max(1, sample_rate))
+            barcode = None
+            if self.barcode_classifier is not None and len(s_seq):
+                barcode = self._add_barcode_tags(rec, s_seq, wr.read.run_info)
+            if self.poly_tail_selector is not None and len(s_seq):
+                calculator = self.poly_tail_selector.get_calculator(barcode)
+                if calculator is not None:
+                    self._add_poly_a_tags(calculator, rec, wr.read.run_info, s_seq, s_moves,
+                                          s_signal, s_trimmed)
             # pore type / end reason / minknow event count close the read-tag
             # block (messages.cpp:134-147 order)
             if wr.read.pore_type:
@@ -455,10 +542,50 @@ class BasecallerPipeline:
             with self._stats_lock:
                 self.stats.reads_called += 1
                 self.stats.bases_called += len(s_seq)
+            if self.trimmer is not None:
+                self.trimmer.trim(rec)
             records.append(rec)
             if self.aligner is not None:
                 records += self.aligner.align(rec)
         return records
+
+    def _add_barcode_tags(self, rec: SamRecord, seq: str, run_info: RunInfo) -> str:
+        """Classify ``seq``; append BC (the sheet's alias for the read's run
+        where it has one) and suffix RG with it for a classified read
+        (BarcodeClassifierNode.cpp:212-221, messages.cpp:27-40). Returns
+        the BC value."""
+        classifier = self.barcode_classifier
+        result = classifier.classify(seq, barcode_both_ends=self.barcode_both_ends)
+        if result.barcode_name == UNCLASSIFIED:
+            bc = UNCLASSIFIED
+        else:
+            bc = f"{classifier.kit_info['name']}_{normalize_barcode_name(result.barcode_name)}"
+            if self.sample_sheet is not None:
+                alias = self.sample_sheet.get_alias(
+                    bc, run_info.flow_cell_id, run_info.sequencer_position,
+                    run_info.experiment_name)
+                if alias:
+                    bc = alias
+            for t in rec.tags:
+                if t.tag == "RG":
+                    t.value = f"{t.value}_{bc}"
+        rec.tags.append(SamTag("BC", "Z", bc))
+        return bc
+
+    def _add_poly_a_tags(self, calculator: PolyTailCalculator, rec: SamRecord,
+                         run_info: RunInfo, seq: str, moves, signal: np.ndarray,
+                         num_trimmed: int) -> None:
+        """pt (the tail's bases, -1 where estimation failed) and pa (anchor,
+        signal range and split signal range in untrimmed samples)."""
+        result = calculator.calculate_num_bases(ReadContext(
+            seq=seq, moves=np.asarray(moves), signal=signal, stride=self.config.stride,
+            num_trimmed_samples=num_trimmed,
+            flow_cell_product_code=run_info.flow_cell_product_code,
+        ))
+        rec.tags.append(SamTag("pt", "i", result.num_bases if result.num_bases >= 0 else -1))
+        pa = np.array([result.signal_anchor, *result.signal_range,
+                       *result.split_signal_range], dtype=np.int32)
+        rec.tags.append(SamTag("pa", "B", pa, subtype="i"))
 
     def _add_modbase_tags(self, rec: SamRecord, seq: str, moves, scaled_signal) -> None:
         """MN, MM and ML of one record (a read or a subread, on its own

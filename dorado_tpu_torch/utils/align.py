@@ -1,4 +1,6 @@
-"""Unit-cost edit-distance alignment with traceback, for the read splitter.
+"""Unit-cost edit-distance alignment with traceback, for the read splitter,
+the barcode classifier, the adapter and primer finders and the poly(A)
+anchors.
 
 Port of ``align`` of the JAX package's native module over the port's own
 copy of its C++ source, ``csrc/align.cpp``, which ``g++`` builds at first use into
@@ -88,6 +90,29 @@ def _get_lib() -> ctypes.CDLL:
         return _lib
 
 
+def make_equality_table(pairs: list[tuple[str, str]]) -> bytes:
+    """256x256 symmetric extra-equality table for wildcard matching
+    (edlib additionalEqualities semantics)."""
+    table = bytearray(256 * 256)
+    for a, b in pairs:
+        table[ord(a) * 256 + ord(b)] = 1
+        table[ord(b) * 256 + ord(a)] = 1
+    return bytes(table)
+
+
+# edlib config of the barcode classifier (BarcodeClassifier.cpp:28-38):
+# N matches any base (the barcode mask), M matches A/C (16S wobble base)
+BARCODE_EQUALITIES = [
+    ("N", "A"),
+    ("N", "T"),
+    ("N", "C"),
+    ("N", "G"),
+    ("N", "U"),
+    ("M", "A"),
+    ("M", "C"),
+]
+
+
 @dataclass
 class AlignResult:
     distance: int
@@ -96,12 +121,21 @@ class AlignResult:
     ops: np.ndarray  # uint8 edlib-style op codes, query-start -> query-end
 
 
-def align(query: str | bytes, target: str | bytes, mode: int = MODE_NW) -> AlignResult:
+def align(
+    query: str | bytes,
+    target: str | bytes,
+    mode: int = MODE_NW,
+    equalities: bytes | None = None,
+) -> AlignResult:
     """Unit-cost edit-distance alignment with traceback.
 
     The band widens fourfold until the result is provably unclipped (banded
     DP with edge detection) or spans the longer sequence, so results match
-    full DP; where several optima tie, the band decides which is returned."""
+    full DP; where several optima tie, the band decides which is returned.
+    ``equalities`` is a ``make_equality_table`` of base pairs that also
+    match."""
+    if equalities is not None and len(equalities) != 256 * 256:
+        raise ValueError("equalities must be a 256 x 256 table")
     q = query.encode() if isinstance(query, str) else bytes(query)
     t = target.encode() if isinstance(target, str) else bytes(target)
     lib = _get_lib()
@@ -119,7 +153,7 @@ def align(query: str | bytes, target: str | bytes, mode: int = MODE_NW) -> Align
     while True:
         rc = lib.dt_align(q, len(q), t, len(t), mode, b, ctypes.byref(dist),
                           ctypes.byref(t_start), ctypes.byref(t_end), ops_buf, cap,
-                          ctypes.byref(ops_len), ctypes.byref(band_hit), None)
+                          ctypes.byref(ops_len), ctypes.byref(band_hit), equalities)
         if rc != 0:
             raise RuntimeError(f"dt_align failed with code {rc}")
         if (band_hit.value == 0 and dist.value >= 0) or b >= max_band:

@@ -308,8 +308,8 @@ def test_cli_exits_1(inputs, mod_dir, tmp_path, capsys, case):
 
 def test_cli_rejects_options_it_does_not_have(inputs):
     model, data = inputs
-    for extra in (["--kit-name", "SQK-NBD114-24"], ["--trim", "adapters"], ["--dtype", "float16"],
-                  ["--estimate-poly-a"]):
+    for extra in (["--rna-adapters"], ["--emit-cram"], ["--dtype", "float16"],
+                  ["--trim", "barcodes"]):
         with pytest.raises(SystemExit) as exc:
             main(["basecaller", str(model), str(data), *COMMON, "-x", "cpu", *extra])
         assert exc.value.code == 2

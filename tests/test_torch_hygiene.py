@@ -59,7 +59,10 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.correct.nn_model", "dorado_tpu_torch.correct.windows",
             "dorado_tpu_torch.alignment.aligner", "dorado_tpu_torch.alignment.bed_file",
             "dorado_tpu_torch.io.bai", "dorado_tpu_torch.io.sorted_bam",
-            "dorado_tpu_torch.io.summary",
+            "dorado_tpu_torch.io.summary", "dorado_tpu_torch.demux.adapters",
+            "dorado_tpu_torch.demux.barcoder", "dorado_tpu_torch.demux.custom_kit",
+            "dorado_tpu_torch.demux.trimmer", "dorado_tpu_torch.polytail.calculator",
+            "dorado_tpu_torch.utils.sample_sheet",
             } <= set(names)
     code = (
         "import importlib, sys\n"
