@@ -247,6 +247,26 @@
    of 1-10 kb (``tests/torch_demux.py``), each equal to its functions, the
    classified share held against the planted barcodes, each command's
    reads/s.
+   Then direct RNA and CRAM (``rna_cram_phase``): the RNA stand-in
+   (``presets.rna004_hac_config``: hac v4.3's widths, RNA004 at 4 kHz) at
+   full width, batch 128, W8A8, through ``run_reads`` with ``estimate_poly_a``
+   over 128 seeded reads of 40-60k samples (``tests/torch_rna.py``: a DNA
+   adapter step, an open-pore spike in a third, a flat poly(A) stretch in
+   half), with the Viterbi and the beam decoder (paths ``rna viterbi`` and
+   ``rna beam``: K1 and K2 5 a batch, K3-K5 or the scans, K17 and the beam
+   traceback one), every read written, each Viterbi record its stitched
+   call reversed with the host calculator's pt/pa; the scores and decode
+   against the CPU's (hac's tolerance), one profiled step, and 6 reads
+   through the CPU pipeline on the card model's scores, its records equal
+   to the card's; the records as BAM and as CRAM with rANS and with gzip
+   (MB/s and records/s of each writer; each CRAM read back equal to the
+   BAM); a reference-based CRAM of the ``aligner`` command read back through
+   its contig, which ``read_records`` refuses; hac's samples/s writing
+   ``.cram`` against ``.bam`` with the idle share of each pass; and the
+   commands: ``basecaller <rna dir> rna.pod5 --estimate-poly-a -o x.cram``
+   (path ``cli rna cram``, equal to ``run_reads``), ``summary``, ``trim
+   --rna`` and ``aligner`` on it equal to the same on its BAM, and
+   ``--resume-from`` a cut CRAM.
    Last, several devices (``multi_gpu_phase``, after every other phase), at
    hac v4.3 full width: ``torch.cuda.device_count()`` and
    ``describe_devices()``; ``run_reads`` over 192 reads of 40-60k samples with
@@ -3877,6 +3897,516 @@ def demux_phase(k, cfg, model) -> None:
 
 
 # ---- several devices: replicas, the sharded step, two processes ------------
+RNA_READS = 128  # direct-RNA reads of 40-60k samples at 4 kHz: about 700 chunks
+RNA_READ_SAMPLES = (40_000, 60_001)
+RNA_CPU_READS = 6  # of 15-25k samples, through the card's and the CPU's pipelines
+RNA_CPU_SAMPLES = (15_000, 25_001)
+MAX_RNA_SCORE_REL = 0.02  # hac's: bf16 W8A8 on the card against float32 on the CPU
+RNA_FIXTURE = ROOT / "tests" / "data" / "torch_port" / "rna.pod5"
+CRAM_RATE_READS = 128  # hac reads of 40-60k samples written as .bam and as .cram
+CRAM_CONTIG = 30_000  # the seeded contig of the reference-based CRAM
+CRAM_ALIGNED_READS = 60
+CRAM_ALIGNED_LEN = (2_000, 5_001)
+
+
+def rg_last(records) -> list[str]:
+    """Each record's SAM line with its RG tag moved last, as a CRAM reader
+    gives it back (the read group is a data series, not a tag)."""
+    import copy
+
+    out = []
+    for rec in records:
+        rec = copy.copy(rec)
+        rec.tags = ([t for t in rec.tags if t.tag != "RG"]
+                    + [t for t in rec.tags if t.tag == "RG"])
+        out.append(rec.to_sam_line())
+    return out
+
+
+def rna_cram_phase(k, hac_cfg, hac_model) -> None:
+    """Direct-RNA basecalling on the card and CRAM in and out (paths ``rna
+    viterbi``, ``rna beam`` and ``cli rna cram``).
+
+    - The RNA stand-in (``presets.rna004_hac_config``: hac v4.3's widths,
+      RNA004 at 4 kHz) at full width, batch 128, W8A8, bf16, seeded weights,
+      through ``run_reads`` with ``estimate_poly_a`` over RNA_READS seeded
+      reads (``tests/torch_rna.py``: a DNA-adapter step, a third with an
+      open-pore spike that splits them, half with a flat poly(A) stretch),
+      with the Viterbi and the beam decoder: K1 and K2 5 times a batch, K3-K5
+      (Viterbi) or the scans, K17 and the beam traceback (beam) once. Every
+      read is written (subreads ``<id>:<i>``); each Viterbi record is its
+      stitched call reversed (bases, qualities, moves), and its pt/pa equal
+      the port's calculator on that call on the host. The scores and the
+      decode against the CPU's float32 model (``hold_scores_and_decode``,
+      hac's tolerance), one profiled device step, and RNA_CPU_READS reads
+      through the card's pipeline and the CPU's (its decode and host code)
+      on the card model's scores: the same records, subreads included.
+    - The host's thread-seconds in each stage of the counted RNA runs and of
+      the hac runs below (``host_stages``): on the scale pool the whole
+      prepare, the RNA split, the adapter search and the scaler; in the
+      finish pool (``host_finish_s``) the stitch, the mux-change trim, the
+      record, the DNA split and poly(A); on the feed thread the waits in
+      dispatch and fetch and the host decode.
+    - CRAM: the Viterbi run's records as BAM, as CRAM with rANS and with
+      gzip, each CRAM read back equal to the BAM; MB/s (bases and quality
+      characters) and records/s of each writer. A reference-based CRAM of
+      the ``aligner`` command over seeded reads of a seeded contig, read
+      back through ``CramReader(ref_seqs=...)`` equal to its SAM; and
+      ``read_records`` on it raises, naming the reference. hac v4.3's
+      pipeline over CRAM_RATE_READS reads writing .bam and .cram files in
+      turns (bam, cram, cram, bam): samples/s and the device's idle share
+      of each pass.
+    - The commands: ``basecaller <rna dir> rna.pod5 -o x.cram
+      --estimate-poly-a`` (path ``cli rna cram``) equal to ``run_reads``
+      with the same options and header; ``summary x.cram``, ``trim --rna
+      x.cram`` and ``aligner <ref> x.cram -o y.cram``, each equal to the same
+      command on the BAM of the same records; and ``--resume-from`` a CRAM
+      of the first half of the records, which writes the whole run."""
+    import contextlib
+    import dataclasses
+    import shlex
+    import threading
+
+    import numpy as np
+
+    import dorado_tpu_torch.pipeline.basecaller as basecaller_module
+    import dorado_tpu_torch.signal.scaling as scaling_module
+    from dorado_tpu_torch.basecall.runner import TorchBasecallRunner
+    from dorado_tpu_torch.cli.main import main as cli_main
+    from dorado_tpu_torch.io.bam_reader import read_records
+    from dorado_tpu_torch.io.cram import CramReader, CramWriter
+    from dorado_tpu_torch.io.pod5 import Pod5File, RunInfo
+    from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamRecord
+    from dorado_tpu_torch.models.crf_model import init_lstm_crf_params
+    from dorado_tpu_torch.models.load import build_model, load_model, save_model
+    from dorado_tpu_torch.models.presets import rna004_hac_config
+    from dorado_tpu_torch.pipeline import BasecallerPipeline
+    from dorado_tpu_torch.pipeline.host import default_host_threads
+    from dorado_tpu_torch.polytail.calculator import ReadContext
+    from tests.torch_polish import polish_inputs, write_fasta, write_fastq
+    from tests.torch_rna import rna_signal
+
+    torch = k.torch
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rna_"))
+    cfg = rna004_hac_config()
+    cfg.normalise_basecaller_params()
+    model = init_lstm_crf_params(cfg, torch.Generator().manual_seed(SEED + 24))
+    with torch.no_grad():
+        model.linear1_w.mul_(HEAD_GAIN)
+    info = RunInfo(acquisition_id="rna-smoke", sample_rate=4000, flow_cell_id="FAL00000",
+                   flow_cell_product_code="FLO-MIN004RA", protocol_run_id="rna-run",
+                   acquisition_start_time_ms=1_700_000_000_000, sample_id="rna")
+    rs = np.random.RandomState(SEED + 24)
+
+    def rna_read(i, n):
+        adapter = int(rs.randint(2_000, 4_001))
+        polya = int(rs.randint(600, 1_501)) if i % 2 == 0 else 0
+        return dataclasses.replace(smoke_read(i, 1, rs, info), filename="rna.pod5",
+                                   signal=rna_signal(rs, n, adapter, polya, spikes=int(i % 3 == 1)))
+
+    reads = [rna_read(2400 + i, int(rs.randint(*RNA_READ_SAMPLES))) for i in range(RNA_READS)]
+    cpu_reads = [rna_read(2600 + i, int(rs.randint(*RNA_CPU_SAMPLES)))
+                 for i in range(RNA_CPU_READS)]
+    samples = sum(len(r.signal) for r in reads)
+    pipes = {d: BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True,
+                                   estimate_poly_a=True, decoder=d) for d in ("viterbi", "beam")}
+    if pipes["viterbi"].runner.lstm_precision != "w8a8" or pipes["viterbi"].rna_splitter is None:
+        raise AssertionError("the RNA pipeline is not W8A8 with the RNA splitter")
+    rna_what = f"RNA stand-in at hac v4.3 width, batch {N}, bf16 with W8A8 projections"
+
+    # the stitched calls of the counted Viterbi run, keyed by the record they
+    # must give: (bases, qualities) reversed
+    calls = {}
+    real_mux_trim = basecaller_module.mux_change_trim
+
+    def keep_call(seq, qstring, moves, signal, stride, end_reason):
+        out = real_mux_trim(seq, qstring, moves, signal, stride, end_reason)
+        calls[(out[0][::-1], out[1][::-1])] = (np.asarray(out[2]), out[3])
+        return out
+
+    # the host's thread-seconds in each stage of a counted run
+    host_s = {}
+    lock = threading.Lock()
+
+    def add(stage, dt):
+        with lock:
+            host_s[stage] = host_s.get(stage, 0.0) + dt
+
+    def timed(stage, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                add(stage, time.perf_counter() - t0)
+        return wrapped
+
+    real_pool, real_sink = basecaller_module.OrderedPool, basecaller_module.OrderedSink
+
+    class TimedPool(real_pool):
+        """The feed thread's wait for the next prepared read."""
+
+        def map(self, items):
+            it, done = super().map(items), object()
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, done)
+                add("scale pool wait", time.perf_counter() - t0)
+                if item is done:
+                    return
+                yield item
+
+    class TimedSink(real_sink):
+        """The feed thread's time handing reads to the finish pool and
+        writing their records, waits for a full window included."""
+
+        def submit(self, item):
+            t0 = time.perf_counter()
+            try:
+                super().submit(item)
+            finally:
+                add("finish pool handoff", time.perf_counter() - t0)
+
+        def drain_ready(self):
+            t0 = time.perf_counter()
+            try:
+                super().drain_ready()
+            finally:
+                add("finish pool handoff", time.perf_counter() - t0)
+
+        def drain_all(self):
+            t0 = time.perf_counter()
+            try:
+                super().drain_all()
+            finally:
+                add("finish pool handoff", time.perf_counter() - t0)
+
+    def instrument(pipe):
+        pipe._prepare_read = timed("prepare", pipe._prepare_read)
+        pipe.scaler.scale_read = timed("scale", pipe.scaler.scale_read)
+        pipe._make_record = timed("record", pipe._make_record)
+        if pipe.rna_splitter is not None:
+            pipe.rna_splitter.split = timed("rna split", pipe.rna_splitter.split)
+        if pipe.read_splitter is not None:
+            pipe.read_splitter.split = timed("dna split", pipe.read_splitter.split)
+        if pipe.poly_tail_selector is not None:
+            calc = pipe.poly_tail_selector.get_calculator(None)  # every read's: one config
+            calc.calculate_num_bases = timed("poly(A)", calc.calculate_num_bases)
+
+    real_stitch = basecaller_module.stitch_chunks
+    real_adapter_pos = scaling_module.determine_rna_adapter_pos
+
+    @contextlib.contextmanager
+    def host_stages(mux_trim=real_mux_trim):
+        """Times the module-level stages (the adapter search, the stitch, the
+        mux-change trim) for the run inside, from zeroed counts."""
+        host_s.clear()
+        scaling_module.determine_rna_adapter_pos = timed("adapter", real_adapter_pos)
+        basecaller_module.stitch_chunks = timed("stitch", real_stitch)
+        basecaller_module.mux_change_trim = timed("mux trim", mux_trim)
+        basecaller_module.OrderedPool, basecaller_module.OrderedSink = TimedPool, TimedSink
+        try:
+            yield
+        finally:
+            scaling_module.determine_rna_adapter_pos = real_adapter_pos
+            basecaller_module.stitch_chunks = real_stitch
+            basecaller_module.mux_change_trim = real_mux_trim
+            basecaller_module.OrderedPool, basecaller_module.OrderedSink = real_pool, real_sink
+
+    def stage_line(stats):
+        def stages(names):
+            return ", ".join(f"{st} {host_s[st]:.3f}" for st in names if st in host_s)
+
+        feed = (stats.dispatch_wait_s + stats.finish_wait_s + host_s.get("scale pool wait", 0.0)
+                + host_s.get("finish pool handoff", 0.0))
+        return (f"scale pool {stages(('prepare', 'rna split', 'adapter', 'scale'))}; finish "
+                f"pool host_finish_s {stats.host_finish_s:.3f}: "
+                f"{stages(('stitch', 'mux trim', 'record', 'dna split', 'poly(A)'))}; feed thread "
+                f"of {stats.elapsed_s:.3f} wall: dispatch {stats.dispatch_wait_s:.3f}, batch "
+                f"results {stats.finish_wait_s:.3f} (fetch {stats.device_fetch_s:.3f}, host "
+                f"decode {stats.host_decode_s:.3f}), "
+                f"{stages(('scale pool wait', 'finish pool handoff', 'write'))}, the rest "
+                f"{stats.elapsed_s - feed:.3f} ({default_host_threads()} threads a pool; "
+                f"thread-s)")
+
+    records = {}
+    for decoder in ("viterbi", "beam"):
+        path, pipe = f"rna {decoder}", pipes[decoder]
+        k.path_kernels[path] = k.path_kernels[decoder]
+        k.per_batch[path] = [5, 5, 1, 1, 1]
+        pipe.run_reads(reads[:16], k.Discard())  # the per-shape set-up, reused below
+        torch.cuda.synchronize()
+        instrument(pipe)
+        for w in k.wrappers.values():
+            w.launches = 0
+        written = Collect()
+        written.write = timed("write", written.write)
+        with host_stages(keep_call if decoder == "viterbi" else real_mux_trim):
+            t0 = time.perf_counter()
+            stats = pipe.run_reads(reads, written)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k.launches[path] = {name: w.launches for name, w in k.wrappers.items()}
+        k.check_launches(path, k.launches[path], stats.batches)
+        recs = records[decoder] = written.records
+        parents = {r.qname.split(":")[0] for r in recs}
+        subreads = sum(":" in r.qname for r in recs)
+        tags = [{t.tag: t.value for t in r.tags} for r in recs]
+        if (parents != {r.read_id for r in reads} or not subreads or stats.bases_called == 0
+                or not all("pt" in t and "pa" in t for t in tags)
+                or sum(t["ts"] > 0 for t in tags) < len(reads) // 2):
+            raise AssertionError(f"{path}: {len(parents)} of {len(reads)} reads written, "
+                                 f"{subreads} subreads, {stats.bases_called} bases, pt/pa or "
+                                 f"the adapter trim missing")
+        print(f"{path} pipeline: {len(reads)} reads, {samples} samples, {stats.batches} batches, "
+              f"{len(recs)} records ({subreads} subreads), {stats.bases_called} bases, "
+              f"{sum(t['pt'] >= 0 for t in tags)} with a poly(A) estimate in {wall:.3f} s = "
+              f"{samples / wall:.0f} samples/s; device idle {stats.device_idle_frac:.1%}; host "
+              f"finish {stats.host_finish_s:.3f} thread-s ({rna_what}, {decoder}, "
+              f"--estimate-poly-a) [{k.smi}]; launches "
+              f"{ {n: v for n, v in k.launches[path].items() if v} }", flush=True)
+        print(f"{path} host stages: {stage_line(stats)}", flush=True)
+    # the Viterbi records: reversed calls, pt/pa of the host's calculator
+    calculator = pipes["viterbi"].poly_tail_selector.get_calculator(None)
+    poly_s = 0.0
+    for rec in records["viterbi"]:
+        tags = {t.tag: t.value for t in rec.tags}
+        moves, signal = calls[(rec.seq, rec.qual)]
+        t0 = time.perf_counter()
+        poly = calculator.calculate_num_bases(ReadContext(
+            seq=rec.seq, moves=np.asarray(tags["mv"][1:]), signal=signal, stride=cfg.stride,
+            num_trimmed_samples=tags["ts"], flow_cell_product_code=info.flow_cell_product_code))
+        poly_s += time.perf_counter() - t0
+        pa = [poly.signal_anchor, *poly.signal_range, *poly.split_signal_range]
+        if (not np.array_equal(np.asarray(tags["mv"][1:]), moves[::-1])
+                or tags["pt"] != (poly.num_bases if poly.num_bases >= 0 else -1)
+                or list(np.asarray(tags["pa"])) != pa):
+            raise AssertionError(f"rna viterbi: {rec.qname} is not its call reversed, or its "
+                                 f"pt/pa are not the host calculator's")
+    if [r.qname for r in records["beam"]] != [r.qname for r in records["viterbi"]]:
+        raise AssertionError("rna beam: other records than the Viterbi run's")
+    print(f"rna viterbi: every record is its stitched call reversed (bases, qualities, moves), "
+          f"its pt/pa the host calculator's on it ({poly_s / len(records['viterbi']) * 1e3:.2f} "
+          f"ms a record, one thread); rna beam writes the same record names", flush=True)
+
+    # ---- the card against the CPU --------------------------------------------
+    cpu_runner = TorchBasecallRunner(cfg, model, device="cpu", lstm_precision="w8a8",
+                                     batch_size=N)
+    hold_scores_and_decode(k, "rna bf16", pipes["viterbi"].runner, cpu_runner,
+                           chunk_signals(pipes["viterbi"], reads[:4]), MAX_RNA_SCORE_REL)
+    profiled_step(k, "rna viterbi", pipes["viterbi"].runner)
+
+    class CardScores(torch.nn.Module):
+        """The card model's scores in the type the card decodes them (bf16),
+        handed to the CPU as float32: the CPU pipeline decodes the same
+        values."""
+
+        def __init__(self, runner):
+            super().__init__()
+            self.card_model, self.score_dtype = runner.model, runner.score_dtype
+
+        def forward(self, sig):
+            return self.card_model(sig.to(k.dev)).to(self.score_dtype).float().cpu()
+
+    # the CPU pipeline (its decode, stitch, split, trim, reversal, poly(A) and
+    # tags) over the card model's scores, against the card's pipeline
+    cpu_pipe = BasecallerPipeline(cfg, model, batch_size=N, emit_moves=True,
+                                  estimate_poly_a=True, device="cpu")
+    cpu_pipe.runner.replicas[0].model = CardScores(pipes["viterbi"].runner)
+    on_card, on_cpu = Collect(), Collect()
+    pipes["viterbi"].run_reads(cpu_reads, on_card)
+    t0 = time.perf_counter()
+    cpu_pipe.run_reads(cpu_reads, on_cpu)
+    cpu_s = time.perf_counter() - t0
+    a = sorted(rg_last(on_card.records))
+    b = sorted(rg_last(on_cpu.records))
+    split = sum(":" in r.qname for r in on_card.records)
+    if a != b or not split:
+        raise AssertionError(f"rna: {len(a)} records on the card, {len(b)} from the CPU "
+                             f"pipeline on the card's scores, {split} subreads; equal: "
+                             f"{a == b}")
+    print(f"rna: {len(a)} records ({split} subreads) of {RNA_CPU_READS} reads, the card's "
+          f"pipeline equal to the CPU's (its decode and host code, {cpu_s:.1f} s) on the card "
+          f"model's scores", flush=True)
+
+    # ---- CRAM out and in ---------------------------------------------------
+    recs = records["viterbi"]
+    header = pipes["viterbi"].build_header([info])
+    payload = sum(len(r.seq) + len(r.qual) for r in recs)
+    files = {}
+    for label, cls, kw in (("bam", BamWriter, {}), ("cram rans", CramWriter, {}),
+                           ("cram gzip", CramWriter, {"rans": False})):
+        out = tmp / f"rna_{label.replace(' ', '_')}.{label.split()[0]}"
+        t0 = time.perf_counter()
+        with open(out, "wb") as fh:
+            writer = cls(fh, header, **kw)
+            for rec in recs:
+                writer.write(rec)
+            writer.close()
+        dt = time.perf_counter() - t0
+        files[label] = out
+        print(f"{label} writer: {len(recs)} records, {payload} bytes of bases and qualities in "
+              f"{dt:.3f} s = {payload / dt / 1e6:.3f} MB/s, {len(recs) / dt:.0f} records/s; "
+              f"{out.stat().st_size} bytes written (host of [{k.smi}])", flush=True)
+    want = rg_last(read_records(files["bam"])[1])
+    for label in ("cram rans", "cram gzip"):
+        t0 = time.perf_counter()
+        got = rg_last(read_records(files[label])[1])
+        if got != want or files[label].read_bytes()[:4] != b"CRAM":
+            raise AssertionError(f"{label}: reads back other records than the BAM's")
+        print(f"{label}: read back equal to the BAM in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
+    # a reference-based CRAM through the aligner command
+    contig, _, aligned_reads = polish_inputs(SEED + 25, CRAM_CONTIG, CRAM_ALIGNED_READS,
+                                             CRAM_ALIGNED_LEN, error=0.03, draft_error=0.0)
+    ref = write_fasta(tmp / "contig.fa", [("contig", contig)])
+    fastq = write_fastq(tmp / "aligned.fastq", aligned_reads)
+    outs = {}
+    for fmt, extra in (("cram", []), ("sam", ["--emit-sam"])):
+        outs[fmt] = tmp / f"aligned.{fmt}"
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(["aligner", str(ref), str(fastq), *extra, "-o", str(outs[fmt])])
+        if rc != 0:
+            raise AssertionError(f"aligner -o aligned.{fmt}: exit code {rc}")
+    sam = read_records(outs["sam"])[1]
+    back = list(CramReader(outs["cram"], ref_seqs={"contig": contig}).records())
+    for rec in back:  # the reader computes MD where the record had none
+        rec.tags = [t for t in rec.tags if t.tag != "MD"]
+    mapped = sum(not r.flag & 4 for r in sam)
+    if rg_last(back) != rg_last(sam) or mapped < CRAM_ALIGNED_READS // 2:
+        raise AssertionError(f"aligner -o aligned.cram: {len(back)} records read back through "
+                             f"ref_seqs, not the SAM's {len(sam)} ({mapped} mapped)")
+    try:
+        read_records(outs["cram"])
+    except ValueError as exc:
+        if "contig" not in str(exc):
+            raise
+        refusal = str(exc)
+    else:
+        raise AssertionError("read_records read a reference-based CRAM without a reference")
+    print(f"aligner -o aligned.cram: reference-based ({outs['cram'].stat().st_size} bytes, the "
+          f"SAM {outs['sam'].stat().st_size}), {len(back)} records ({mapped} mapped) read back "
+          f"through CramReader(ref_seqs) equal to the SAM's; read_records raises: {refusal}",
+          flush=True)
+
+    # .cram against .bam at hac's width: the writer's write runs on the
+    # pipeline's feed thread, which encodes a slice each 4,096 records; a run
+    # of fewer records is encoded by the close after it, inside the wall time
+    rate_reads = [k.make_read(2700 + i, int(rs.randint(*RNA_READ_SAMPLES)), rs)
+                  for i in range(CRAM_RATE_READS)]
+    rate_samples = sum(len(r.signal) for r in rate_reads)
+    hac_pipe = BasecallerPipeline(hac_cfg, hac_model, batch_size=N)
+    hac_pipe.run_reads(rate_reads[:16], k.Discard())
+    torch.cuda.synchronize()
+    instrument(hac_pipe)
+    passes = []
+    for label in ("bam", "cram", "cram", "bam"):
+        out = tmp / f"rate.{label}"
+        with host_stages():
+            t0 = time.perf_counter()
+            with open(out, "wb") as fh:
+                writer = (CramWriter if label == "cram" else BamWriter)(
+                    fh, hac_pipe.build_header([smoke_run_info()]))
+                writer.write = timed("write", writer.write)
+                stats = hac_pipe.run_reads(rate_reads, writer)
+                t_close = time.perf_counter()
+                writer.close()
+                close_s = time.perf_counter() - t_close
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        passes.append((label, rate_samples / wall, stats.device_idle_frac))
+        print(f"hac pipeline writing .{label}: {len(rate_reads)} reads, {rate_samples} samples in "
+              f"{wall:.3f} s = {rate_samples / wall:.0f} samples/s; device idle "
+              f"{stats.device_idle_frac:.1%}; {out.stat().st_size} bytes (hac v4.3, batch {N}, "
+              f"W8A8, Viterbi) [{k.smi}]; host stages: {stage_line(stats)}; the writer's close "
+              f"after the run {close_s:.3f} s", flush=True)
+    rate = {label: np.mean([r for lab, r, _ in passes if lab == label])
+            for label in ("bam", "cram")}
+    print(f"hac samples/s writing .cram / writing .bam: {rate['cram'] / rate['bam']:.3f} "
+          f"({rate['cram']:.0f} / {rate['bam']:.0f}) [{k.smi}]", flush=True)
+
+    # ---- the commands ---------------------------------------------------------
+    model_dir = save_model(cfg, model, tmp / cfg.model_name)
+    k.path_kernels["cli rna cram"] = k.path_kernels["viterbi"]
+    cram = tmp / "calls.cram"
+    argv = ["basecaller", str(model_dir), str(RNA_FIXTURE), "--estimate-poly-a", "-o", str(cram)]
+    for w in k.wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k.launches["cli rna cram"] = {name: w.launches for name, w in k.wrappers.items()}
+    k.check_launches("cli rna cram", k.launches["cli rna cram"], 0)
+    config, loaded = load_model(model_dir)
+    pipe = BasecallerPipeline(config, build_model(config, loaded), estimate_poly_a=True)
+    fixture_reads = list(Pod5File(RNA_FIXTURE).reads(strict=True))
+    for r in fixture_reads:
+        r.filename = RNA_FIXTURE.name
+    ref_header = pipe.build_header([RNA_FIXTURE], cli_line=shlex.join(["dorado_tpu_torch", *argv]))
+    want = Collect()
+    pipe.run_reads(fixture_reads, want)
+    cli_text, cli_recs = read_records(cram)
+    if (rc != 0 or cram.read_bytes()[:4] != b"CRAM" or cli_text != ref_header.to_text()
+            or rg_last(cli_recs) != rg_last(want.records)):
+        raise AssertionError(f"cli rna cram: exit code {rc}, or not CRAM, or other records than "
+                             f"run_reads'")
+    print(f"cli rna cram (path 'cli rna cram'): basecaller <rna dir> rna.pod5 --estimate-poly-a "
+          f"-o calls.cram: {len(cli_recs)} records of {len(fixture_reads)} reads in {wall:.2f} s, "
+          f"equal to run_reads' [{k.smi}]", flush=True)
+    bam = tmp / "calls.bam"
+    with open(bam, "wb") as fh:
+        writer = BamWriter(fh, ref_header)
+        for rec in want.records:
+            writer.write(rec)
+        writer.close()
+
+    def command(*args, stdout=False):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(list(args))
+        if rc != 0:
+            raise AssertionError(f"{' '.join(args)}: exit code {rc}: {err.getvalue()}")
+        return out.getvalue()
+
+    if command("summary", str(cram)) != command("summary", str(bam)):
+        raise AssertionError("summary calls.cram differs from summary calls.bam")
+    command("trim", "--rna", str(cram), "-o", str(tmp / "trim_cram.bam"))
+    command("trim", str(bam), "-o", str(tmp / "trim_bam.bam"))
+    command("aligner", str(ref), str(cram), "-o", str(tmp / "realigned.cram"))
+    command("aligner", str(ref), str(bam), "-o", str(tmp / "realigned_bam.cram"))
+    trimmed = [read_records(tmp / f"trim_{x}.bam")[1] for x in ("cram", "bam")]
+    realigned = [list(CramReader(tmp / f"realigned{x}.cram", ref_seqs={"contig": contig})
+                      .records()) for x in ("", "_bam")]
+    if rg_last(trimmed[0]) != rg_last(trimmed[1]) or rg_last(realigned[0]) != rg_last(realigned[1]):
+        raise AssertionError("trim --rna or aligner on calls.cram differ from the same on the BAM")
+    # --resume-from a CRAM of the first half of the records
+    half = len(want.records) // 2
+    cut = tmp / "cut.cram"
+    with open(cut, "wb") as fh:
+        writer = CramWriter(fh, ref_header)
+        for rec in want.records[:half]:
+            writer.write(rec)
+        writer.close()
+    resumed = tmp / "resumed.cram"
+    command(*argv[:-1], str(resumed), "--resume-from", str(cut))
+    # the command skips each record's pi or name, as the JAX command does: an
+    # RNA subread names no parent, so a split read is called again
+    skip = {r.qname for r in want.records[:half]}
+    whole = want.records[:half] + [r for r in want.records if r.qname.split(":")[0] not in skip]
+    if rg_last(read_records(resumed)[1]) != rg_last(whole):
+        raise AssertionError("basecaller --resume-from cut.cram: not the cut's records and "
+                             "run_reads' records of the reads it skips not")
+    print(f"summary, trim --rna and aligner on calls.cram equal to the same on its BAM; "
+          f"--resume-from a CRAM of {half} records wrote them and the {len(whole) - half} "
+          f"records of the reads they do not name", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"RNA and CRAM phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 MULTI_READS = 192  # reads of 40-60k samples: about 1000 chunks, 8 batches of 128
 MULTI_READ_SAMPLES = (40_000, 60_001)
 # each process's reads for the two-process rates (``multi_rate_reads``): 96 of
@@ -4997,7 +5527,7 @@ def main() -> None:
         errs = hold_lse(scores32, f"T={T} N={N} S={S}")
         lse_report("crf_lse_scan", "dorado_tpu/ops/crf_pallas.py:152", scores32, errs,
                    ["viterbi", "beam", "cli beam", "hac f32 beam", "fast beam", "replicas beam",
-                    "sharded 2x1", "sharded 1x2"])
+                    "sharded 2x1", "sharded 1x2", "rna beam"])
 
         # ---- K7a: the Viterbi forward pass alone, and viterbi_path -----------
         hold_viterbi(small, "T=64 N=8 S=64")
@@ -6393,6 +6923,7 @@ def main() -> None:
     variant_phase(kit)
     correct_phase(kit)
     demux_phase(kit, cfg, hac_model)
+    rna_cram_phase(kit, cfg, hac_model)
     t0 = time.perf_counter()
     multi_gpu_phase(kit, cfg, hac_model)
     print(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s", flush=True)

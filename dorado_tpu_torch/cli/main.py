@@ -16,7 +16,10 @@ the output), barcode classification (``--kit-name`` or a custom
 ``--barcode-arrangement`` with ``--barcode-sequences``, ``--sample-sheet``,
 ``--barcode-both-ends``), adapter and primer trimming (``--trim``,
 ``--primer-sequences``) and poly(A) estimation (``--estimate-poly-a``,
-``--poly-a-config``).
+``--poly-a-config``), CRAM output (``--emit-cram`` or a ``.cram`` path,
+rANS unless ``--no-cram-rans``) and direct-RNA models (a model directory
+whose config says RNA; ``--rna-adapters`` trims the RNA adapter of a DNA
+model's reads).
 Every other option of the JAX command is left out, so argparse rejects it
 (among them ``--modified-bases``, which names models for the downloader),
 and two are refused with exit code 1 instead of doing something else than
@@ -68,7 +71,10 @@ them by their BC tags (``--no-classify``), trims the barcodes unless
 ``--no-trim`` and writes a BAM a barcode (sorted with its ``.bai`` under
 ``--sort-bam``) and ``barcoding_summary.txt`` (``--emit-summary``).
 ``trim`` cuts adapters and primers from the reads of a BAM or SAM into BAM,
-SAM or FASTQ. CRAM, in or out, exits 1.
+SAM or FASTQ (``--rna`` is accepted and, as in the JAX command, changes
+nothing). Every command that reads records reads CRAM too; ``aligner -o
+x.cram`` writes a reference-based CRAM, which, as in the JAX package, no
+command reads back: they pass no reference and exit 1.
 
 ``-x`` picks the devices: ``cuda`` or ``auto`` (the default) every visible
 card, one model replica on each (the JAX command's ``-x auto``, the
@@ -113,6 +119,11 @@ def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) 
                    help="Output file, directory (gets calls_<timestamp>.<ext>) or - for stdout")
     p.add_argument("--emit-sam", action="store_true", help="Emit SAM instead of BAM")
     p.add_argument("--emit-fastq", action="store_true")
+    p.add_argument("--emit-cram", action="store_true",
+                   help="Emit CRAM (non-reference mode; also chosen by a .cram output path)")
+    p.add_argument("--cram-rans", action=argparse.BooleanOptionalAction, default=True,
+                   help="Compress CRAM data-series blocks with rANS 4x8 (on by default); "
+                        "--no-cram-rans falls back to gzip")
     p.add_argument("--emit-moves", action="store_true")
     p.add_argument("-c", "--chunksize", type=int, default=None)
     p.add_argument("-b", "--batchsize", type=int, default=None,
@@ -137,12 +148,14 @@ def _add_basecaller(sub: argparse._SubParsersAction, allow_abbrev: bool = True) 
     p.add_argument("--estimate-poly-a", action="store_true")
     p.add_argument("--poly-a-config", default=None, help="Poly(A) estimation config TOML")
     p.add_argument("--disable-read-splitting", action="store_true")
+    p.add_argument("--rna-adapters", action="store_true", help="Force RNA adapter trimming")
     p.add_argument("--modified-bases-models", default=None,
                    help="Comma-separated paths to modified-base model directories")
     p.add_argument("--modified-bases-threshold", type=float, default=0.05)
     p.add_argument("--modified-bases-batchsize", type=int, default=None)
     p.add_argument("--min-qscore", type=float, default=0.0)
-    p.add_argument("--resume-from", default=None, help="Resume from a partial BAM/SAM")
+    p.add_argument("--resume-from", default=None,
+                   help="Resume from a partial BAM, SAM or non-reference CRAM")
     p.add_argument("--read-ids", default=None,
                    help="File with one read id per line; only these are basecalled")
     p.add_argument("--max-reads", type=int, default=None)
@@ -233,7 +246,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
     if args.resume_from:
         try:
             header_text, resume_records = read_records(args.resume_from)
-        except ValueError as exc:  # CRAM, or not a BAM
+        except ValueError as exc:  # not a BAM, or a reference-based CRAM
             print(f"> {exc}", file=sys.stderr)
             return 1
         err = _validate_resume_cl(header_text, model_dir, args.modified_bases_models)
@@ -308,6 +321,7 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         barcode_classifier=barcode_classifier, barcode_both_ends=args.barcode_both_ends,
         sample_sheet=sample_sheet, estimate_poly_a=args.estimate_poly_a,
         poly_a_config=poly_a_config, trimmer=trimmer, aligner=aligner,
+        force_rna_adapter_trim=args.rna_adapters,
     )
     try:
         files = find_pod5_files(args.data, recursive=args.recursive)
@@ -326,10 +340,13 @@ def _run_basecaller(args: argparse.Namespace) -> int:
         # a directory: calls_<timestamp>.<ext> inside it (hts_writer/Structure.cpp:44-55)
         Path(output).mkdir(parents=True, exist_ok=True)
         ts = datetime.datetime.now(datetime.timezone.utc).strftime("%Y-%m-%d_T%H-%M-%S")
-        ext = ".fastq" if args.emit_fastq else ".sam" if args.emit_sam else ".bam"
+        ext = (".fastq" if args.emit_fastq else ".sam" if args.emit_sam
+               else ".cram" if args.emit_cram else ".bam")
         output = str(Path(output) / f"calls_{ts}{ext}")
         print(f"> Output: {output}", file=sys.stderr)
-    writer, fh = _open_writer(output, args, header)
+    # CRAM with --emit-cram or for a .cram path, as the JAX command chooses it
+    emit_cram = args.emit_cram or output.endswith(".cram")
+    writer, fh = _open_writer(output, args, header, cram=emit_cram, rans=args.cram_rans)
     sink, summary_fh = writer, None
     if args.emit_summary:
         from dorado_tpu_torch.io.summary import StreamingSummaryWriter, _parse_rg_run_ids
@@ -497,9 +514,12 @@ def _add_duplex(sub: argparse._SubParsersAction) -> None:
     p.set_defaults(func=_run_duplex)
 
 
-def _open_writer(output: str, args: argparse.Namespace, header):
+def _open_writer(output: str, args: argparse.Namespace, header, cram: bool = False,
+                 rans: bool = True):
     """(writer, the file it writes or None for stdout) for ``output`` (a
-    path, or - for stdout) and --emit-sam / --emit-fastq."""
+    path, or - for stdout) and --emit-sam / --emit-fastq; else CRAM (rANS
+    blocks, or gzip with ``rans=False``) when ``cram`` is set, else BAM."""
+    from dorado_tpu_torch.io.cram import CramWriter
     from dorado_tpu_torch.io.sam import BamWriter, FastqWriter, SamWriter
 
     text = args.emit_fastq or args.emit_sam
@@ -508,8 +528,13 @@ def _open_writer(output: str, args: argparse.Namespace, header):
         stream = sys.stdout if text else sys.stdout.buffer
     else:
         fh = stream = open(output, "w" if text else "wb")
-    cls = FastqWriter if args.emit_fastq else SamWriter if args.emit_sam else BamWriter
-    return cls(stream, header), fh
+    if args.emit_fastq:
+        return FastqWriter(stream, header), fh
+    if args.emit_sam:
+        return SamWriter(stream, header), fh
+    if cram:
+        return CramWriter(stream, header, rans=rans), fh
+    return BamWriter(stream, header), fh
 
 
 def _run_duplex(args: argparse.Namespace) -> int:
@@ -1283,17 +1308,15 @@ def _run_aligner(args: argparse.Namespace) -> int:
     from dorado_tpu_torch.alignment.aligner import RecordAligner
     from dorado_tpu_torch.alignment.bed_file import BedFile
     from dorado_tpu_torch.alignment.index import ReferenceIndex
+    from dorado_tpu_torch.io.cram import CramWriter
     from dorado_tpu_torch.io.sam import BamWriter, SamHeader, SamWriter
     from dorado_tpu_torch.io.sorted_bam import SortedBamWriter
 
     out_is_stdout = args.output == "-"
-    if not args.emit_sam and not out_is_stdout and args.output.endswith(".cram"):
-        print("> CRAM output is not supported by the port: write BAM or SAM", file=sys.stderr)
-        return 1
     k, w, n_secondary = _parse_mm2_opts(args.mm2_opts, args.k, args.w)
     try:
         _, records = _read_inputs(args.reads, args.recursive)
-    except (ValueError, FileNotFoundError) as exc:  # CRAM, not a BAM, an empty folder
+    except (ValueError, FileNotFoundError) as exc:  # not a BAM, an RR=true CRAM, no files
         print(f"> {exc}", file=sys.stderr)
         return 1
 
@@ -1315,6 +1338,11 @@ def _run_aligner(args: argparse.Namespace) -> int:
     if args.emit_sam:
         fh = None if out_is_stdout else open(args.output, "w")
         writer = SamWriter(fh or sys.stdout, header)
+    elif not out_is_stdout and args.output.endswith(".cram"):
+        # a .cram path: reference-based slices (RR=true) against the index's
+        # contigs, as the JAX command writes them; no .bai
+        fh = open(args.output, "wb")
+        writer = CramWriter(fh, header, ref_seqs=dict(zip(index.names, index.seqs)))
     else:
         fh = None if out_is_stdout else open(args.output, "wb")
         stream = fh or sys.stdout.buffer
@@ -1350,8 +1378,8 @@ def _run_aligner(args: argparse.Namespace) -> int:
 
 
 def _add_summary(sub: argparse._SubParsersAction) -> None:
-    p = sub.add_parser("summary", help="Create sequencing summary from a BAM/SAM")
-    p.add_argument("reads", help="Basecalled BAM or SAM file, or a folder of them")
+    p = sub.add_parser("summary", help="Create sequencing summary from a BAM/SAM/CRAM")
+    p.add_argument("reads", help="Basecalled BAM, SAM or CRAM file, or a folder of them")
     p.add_argument("-r", "--recursive", action="store_true")
     p.set_defaults(func=_run_summary)
 
@@ -1374,7 +1402,7 @@ def _run_summary(args: argparse.Namespace) -> int:
             text, recs = read_records(rf)
             header = header or text
             records += recs
-    except ValueError as exc:  # CRAM, or not a BAM
+    except ValueError as exc:  # not a BAM, or a reference-based CRAM
         print(f"> {exc}", file=sys.stderr)
         return 1
     n = write_summary(records, sys.stdout, header_text=header)
@@ -1384,7 +1412,7 @@ def _run_summary(args: argparse.Namespace) -> int:
 
 def _add_demux(sub: argparse._SubParsersAction) -> None:
     p = sub.add_parser("demux", help="Demultiplex basecalled reads by barcode")
-    p.add_argument("reads", help="Basecalled BAM, SAM or FASTQ file, or a folder of them")
+    p.add_argument("reads", help="Basecalled BAM, SAM, CRAM or FASTQ file, or a folder of them")
     p.add_argument("--kit-name", default=None,
                    help="Barcoding kit (or use --barcode-arrangement)")
     p.add_argument("--output-dir", required=True)
@@ -1412,9 +1440,10 @@ def _add_demux(sub: argparse._SubParsersAction) -> None:
 
 
 def _read_inputs(reads: str, recursive: bool):
-    """(header text of the first BAM or SAM, records) of a BAM, SAM or
-    FASTQ file or of a folder of them (``recursive``: and its subfolders);
-    raises ValueError for CRAM and FileNotFoundError for a folder of none."""
+    """(header text of the first BAM, SAM or CRAM, records) of a BAM, SAM,
+    CRAM or FASTQ file or of a folder of them (``recursive``: and its
+    subfolders); raises ValueError for a reference-based CRAM and
+    FileNotFoundError for a folder of none."""
     from dorado_tpu_torch.io.bam_reader import read_records
     from dorado_tpu_torch.io.sam import SamRecord
 
@@ -1449,7 +1478,7 @@ def _run_demux(args: argparse.Namespace) -> int:
 
     try:
         header_text, records = _read_inputs(args.reads, args.recursive)
-    except (ValueError, FileNotFoundError) as exc:  # CRAM, not a BAM, an empty folder
+    except (ValueError, FileNotFoundError) as exc:  # not a BAM, an RR=true CRAM, no files
         print(f"> {exc}", file=sys.stderr)
         return 1
     # BAM input carries no run index: aliases are looked up by barcode alone
@@ -1530,7 +1559,7 @@ def _run_demux(args: argparse.Namespace) -> int:
 
 def _add_trim(sub: argparse._SubParsersAction) -> None:
     p = sub.add_parser("trim", help="Trim adapters and primers from basecalled reads")
-    p.add_argument("reads", help="Basecalled BAM or SAM file")
+    p.add_argument("reads", help="Basecalled BAM, SAM or CRAM file")
     p.add_argument("-o", "--output", default="-", help="Output file or - for stdout")
     p.add_argument("--emit-sam", action="store_true", help="Emit SAM instead of BAM")
     p.add_argument("--emit-fastq", action="store_true")
@@ -1542,6 +1571,9 @@ def _add_trim(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--max-reads", type=int, default=None)
     p.add_argument("--read-ids", default=None,
                    help="File with one read id per line; only these are trimmed")
+    # read by neither the JAX command nor this one: both trim as for DNA
+    p.add_argument("--rna", action="store_true",
+                   help="Input is direct RNA (accepted; the trim is the same)")
     p.set_defaults(func=_run_trim)
 
 
@@ -1556,7 +1588,7 @@ def _run_trim(args: argparse.Namespace) -> int:
                         if args.primer_sequences else None))
     try:
         _, records = read_records(args.reads)
-    except ValueError as exc:  # CRAM, or not a BAM
+    except ValueError as exc:  # not a BAM, or a reference-based CRAM
         print(f"> {exc}", file=sys.stderr)
         return 1
     only_ids = _read_ids(args.read_ids)

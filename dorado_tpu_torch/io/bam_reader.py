@@ -1,11 +1,11 @@
 """Reading BAM and SAM back: record decoding and aux-tag parsing.
 
-Port of ``dorado_tpu/io/bam_reader.py`` for BAM and SAM, over the port's
-own BGZF readers (``io/bgzf.py``) and record model (``io/sam.py``): enough of
-the BAM spec to read back BAM output, as ``--resume-from``, ``summary``,
-``aligner`` and the sorted writer's merge do and as the merge of several
-processes' BAMs (``parallel.distributed``) re-encodes them, and region
-queries through a .bai (``fetch_region``). CRAM is refused.
+Port of ``dorado_tpu/io/bam_reader.py``, over the port's own BGZF readers
+(``io/bgzf.py``) and record model (``io/sam.py``): enough of the BAM spec to
+read back BAM output, as ``--resume-from``, ``summary``, ``aligner`` and the
+sorted writer's merge do and as the merge of several processes' BAMs
+(``parallel.distributed``) re-encodes them, and region queries through a
+.bai (``fetch_region``). ``read_records`` also reads CRAM (``io/cram.py``).
 """
 
 from __future__ import annotations
@@ -154,11 +154,17 @@ def iter_sam(path: Path | str) -> Iterator[SamRecord]:
 
 
 def read_records(path: Path | str) -> tuple[str, list[SamRecord]]:
-    """(header text, records) of a BAM or SAM file."""
+    """(header text, records) of a BAM, SAM or CRAM file. A reference-based
+    CRAM (RR=true, as ``aligner -o x.cram`` writes) raises ValueError: no
+    reference is passed here, as in the JAX package; read it with
+    ``CramReader(path, ref_seqs=...)``."""
     with open(path, "rb") as fh:
         magic = fh.read(4)
     if magic == b"CRAM":
-        raise ValueError(f"{path}: CRAM is not supported by the port: give a BAM or SAM file")
+        from dorado_tpu_torch.io.cram import CramReader
+
+        reader = CramReader(path)
+        return reader.header_text, list(reader.records())
     if magic[:2] == b"\x1f\x8b":
         return read_bam(path)
     header_lines = []

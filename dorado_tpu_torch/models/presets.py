@@ -81,6 +81,29 @@ def lstm_sup_config() -> BasecallModelConfig:
     return cfg
 
 
+def rna004_hac_config() -> BasecallModelConfig:
+    """A stand-in for the direct-RNA hac model, named
+    rna004_130bps_hac@v5.0.0 (the JAX package's model registry); the
+    reference's RNA configs are not in the repository. Field by field:
+
+      - from the registry's ``rna004_130bps`` chemistry: ``sample_type``
+        RNA004 and ``sample_rate`` 4000;
+      - from hac v4.3 (``hac_v43_config``), the stand-ins: the convs 1 -> 16
+        -> 16 (k5, swish) -> 384 (k19, stride 6, tanh), 5 LSTM layers of
+        384, ``state_len`` 4 (256 states), ``clamp``, no bias,
+        ``blank_score`` 2.0, ``scale`` 1.0, qscale 1.1 and qbias -1.1,
+        chunk 10000 with overlap 500, and pa scaling with hac's
+        standardisation (mean 91.88, stdev 22.65).
+
+    ``config_toml`` writes ``sample_type``, so both packages' loaders read
+    it as an RNA model."""
+    cfg = hac_v43_config()
+    cfg.model_path = Path("rna004_130bps_hac@v5.0.0")
+    cfg.sample_type = SampleType.RNA004
+    cfg.sample_rate = 4000
+    return cfg
+
+
 def fast_v40_config() -> BasecallModelConfig:
     """dna_r10.4.1_e8.2_260bps_fast@v4.0.0: conv 16/16/96 (stride 5),
     5x LSTM(96), LinearCRF state_len 3."""

@@ -4,7 +4,9 @@ Three strategies, selected by the model config (quantile / med_mad / pA
 standardisation), with formulas matching the reference node
 (dorado/read_pipeline/nodes/ScalerNode.cpp:33-52,195-230) so that downstream
 calls are comparable. Scaled output is ``(x - shift) / scale`` in all modes.
-DNA only: the RNA adapter trim of the JAX package is not ported yet.
+
+The RNA adapter-position detector mirrors
+ScalerNode.cpp:59-116 (sliding-window medians over raw int16 signal).
 """
 
 from __future__ import annotations
@@ -111,11 +113,44 @@ def open_pore_adjustment(
     return (open_pore_level - expected) / read_scale
 
 
+def determine_rna_adapter_pos(signal: np.ndarray) -> int:
+    """Approximate end of the DNA adapter in a direct-RNA read, found by
+    watching for a jump in sliding-window signal medians."""
+    window, stride = 250, 50
+    median_diff = 125
+    median_diff_only = 150
+    min_median_rna = 700
+
+    n = len(signal)
+    medians = np.zeros(5, dtype=np.int16)
+    window_pos = np.zeros(5, dtype=np.int64)
+    median_idx = 0
+    start, end = 1000, 3 * n // 4
+    for i in range(start, end, stride):
+        win = signal[i : i + window]
+        med = np.int16(np.median(win))
+        slot = median_idx % 5
+        medians[slot] = med
+        window_pos[slot] = median_idx
+        min_slot = int(np.argmin(medians))
+        max_slot = int(np.argmax(medians))
+        lo, hi = int(medians[min_slot]), int(medians[max_slot])
+        if (
+            median_idx >= 5
+            and window_pos[max_slot] > window_pos[min_slot]
+            and ((hi > min_median_rna and hi - lo > median_diff) or hi - lo > median_diff_only)
+        ):
+            return i
+        median_idx += 1
+    return 0
+
+
 class Scaler:
     """Per-read scaler: int16 raw signal -> normalised float32 array."""
 
-    def __init__(self, params: SignalNormalisationParams):
+    def __init__(self, params: SignalNormalisationParams, is_rna: bool = False):
         self.params = params
+        self.is_rna = is_rna
 
     def scale_read(
         self,
@@ -124,8 +159,15 @@ class Scaler:
         read_offset: float = 0.0,
         open_pore_level: float = float("nan"),
         flow_cell_product_code: str = "",
-    ) -> tuple[np.ndarray, ScalingResult]:
-        """Returns (scaled float32 signal, shift/scale)."""
+    ) -> tuple[np.ndarray, int, ScalingResult]:
+        """Returns (scaled float32 signal, trimmed-sample count, shift/scale)."""
+        trim_start = 0
+        if self.is_rna:
+            # the adapter's end lies below 3/4 of the read, so it never
+            # trims the whole signal
+            trim_start = determine_rna_adapter_pos(signal)
+            signal = signal[trim_start:]
+
         strategy = self.params.strategy
         adjustment = 0.0
         if strategy is ScalingStrategy.PA:
@@ -135,10 +177,11 @@ class Scaler:
             adjustment = open_pore_adjustment(
                 open_pore_level, flow_cell_product_code, read_scale
             )
-        elif strategy is ScalingStrategy.QUANTILE:
-            result = quantile_scaling(signal, self.params)
         else:
-            result = med_mad(signal)
+            if strategy is ScalingStrategy.QUANTILE:
+                result = quantile_scaling(signal, self.params)
+            else:
+                result = med_mad(signal)
 
         scaled = (signal.astype(np.float32) - (result.shift + adjustment)) / result.scale
-        return scaled, result
+        return scaled, trim_start, result

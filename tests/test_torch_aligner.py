@@ -6,8 +6,9 @@ through the .bai, and ``python -m dorado_tpu_torch aligner`` against
 ``dorado_tpu.cli.main``'s in process: SAM text and BAM records, header and
 index equal (but for ``@PG``), for FASTQ, BAM and folder input, secondary
 records, ``--allow-sec-supp``, ``--bed-file``, ``--mm2-opts``,
-``--max-reads`` and ``--no-sort``. CRAM, which the port does not read or
-write yet, is refused with exit code 1."""
+``--max-reads`` and ``--no-sort``; ``-o x.cram`` writes a reference-based
+CRAM, as the JAX command does, which no command reads back without its
+reference (exit code 1)."""
 
 import bisect
 import random
@@ -305,14 +306,31 @@ def test_aligner_folder(capfd, inputs, recursive):
 
 
 def test_aligner_refuses_cram_and_empty_folders(capfd, inputs):
+    """``-o out.cram`` writes the JAX command's records as a reference-based
+    CRAM (read back through the contigs); a reference-based CRAM as input is
+    refused with exit code 1, naming the contig it needs, as is an empty
+    folder."""
+    from dorado_tpu.io.cram import CramReader as JaxCramReader
+    from dorado_tpu_torch.alignment.index import ReferenceIndex
+    from dorado_tpu_torch.io.cram import CramReader
+    from tests.torch_cram import rr_cram
+
     argv = ["aligner", str(inputs["ref"]), str(inputs["fastq"])]
-    rc, err = _run(torch_main, argv, inputs["dir"] / "out.cram", capfd)
-    assert rc == 1 and "CRAM" in err
+    index = ReferenceIndex.build(str(inputs["ref"]))
+    refs = dict(zip(index.names, index.seqs))
+    got = {}
+    for who, main, reader in (("jax", jax_main, JaxCramReader), ("torch", torch_main, CramReader)):
+        out = inputs["dir"] / f"out_{who}.cram"
+        rc, err = _run(main, argv, out, capfd)
+        assert rc == 0, err
+        assert out.read_bytes()[:4] == b"CRAM" and not out.with_suffix(".cram.bai").exists()
+        got[who] = [_fields(r) for r in reader(out, ref_seqs=refs).records()]
+    assert got["torch"] == got["jax"] and len(got["torch"]) > 24
     cram = inputs["dir"] / "in.cram"
-    cram.write_bytes(b"CRAM\x03\x00" + bytes(30))
+    rr_cram(cram)
     rc, err = _run(torch_main, ["aligner", str(inputs["ref"]), str(cram)],
                    inputs["dir"] / "x.bam", capfd)
-    assert rc == 1 and "CRAM is not supported" in err
+    assert rc == 1 and "RR=true slice needs ref_seqs['ctg'] to decode" in err
     empty = inputs["dir"] / "empty"
     empty.mkdir()
     aligner_parity(capfd, inputs, "empty", ["aligner", str(inputs["ref"]), str(empty)], rc=1)

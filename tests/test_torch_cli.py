@@ -32,6 +32,7 @@ from dorado_tpu_torch.modbase.model import init_modbase_params, save_modbase_mod
 from dorado_tpu_torch.models.presets import config_toml, hac_5mcg_5hmcg_v3_config, hac_v43_config
 from dorado_tpu_torch.utils.sequence import reverse_complement
 from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
+from tests.torch_cram import rr_cram
 from tests.torch_pod5_writer import make_reads, run_info, write_pod5
 
 REPO = Path(__file__).resolve().parent.parent
@@ -271,7 +272,8 @@ def test_cli_exits_1(inputs, mod_dir, tmp_path, capsys, case):
     if case == "fast5":
         (empty / "old.fast5").write_bytes(b"")
     if case == "resume-cram":
-        (tmp_path / "x.cram").write_bytes(b"CRAM\x03\x00")
+        # a reference-based CRAM: no reader is given its contig, as in JAX
+        rr_cram(tmp_path / "x.cram")
     if case == "resume-other-model":
         # a file another model wrote, which the JAX command refuses too
         (tmp_path / "other.sam").write_text(
@@ -299,7 +301,7 @@ def test_cli_exits_1(inputs, mod_dir, tmp_path, capsys, case):
                               "--resume-from file",
         "resume-other-modbase": "Resumed: ('dna_r10.4.1_e8.2_400bps_hac@v4.3.0', "
                                 "('dna_r10.4.1_e8.2_400bps_hac@v5.0.0_6mA@v2',))",
-        "resume-cram": "CRAM is not supported by the port",
+        "resume-cram": "RR=true slice needs ref_seqs['ctg'] to decode",
         "beam-host": "beam-host is not supported",
         "fast5": "FAST5 files are not supported",
     }[case]
@@ -308,8 +310,7 @@ def test_cli_exits_1(inputs, mod_dir, tmp_path, capsys, case):
 
 def test_cli_rejects_options_it_does_not_have(inputs):
     model, data = inputs
-    for extra in (["--rna-adapters"], ["--emit-cram"], ["--dtype", "float16"],
-                  ["--trim", "barcodes"]):
+    for extra in (["--dtype", "float16"], ["--trim", "barcodes"]):
         with pytest.raises(SystemExit) as exc:
             main(["basecaller", str(model), str(data), *COMMON, "-x", "cpu", *extra])
         assert exc.value.code == 2

@@ -41,6 +41,7 @@ from dorado_tpu_torch.models.presets import config_toml, hac_v43_config
 from dorado_tpu_torch.utils.sequence import reverse_complement
 from tests.test_torch_demux import write_custom_kit
 from tests.test_torch_runner import _narrow_hac, assert_qstrings_close, jax_params_with_moves
+from tests.torch_cram import rr_cram
 from tests.torch_demux import barcoded_read, planted_records, random_seq
 from tests.torch_pod5_writer import make_reads, run_info, write_pod5
 
@@ -228,10 +229,11 @@ def test_basecaller_options_parse_and_trim_values(inputs):
     for value in ("all", "adapters", "primers", "none"):
         assert main(["basecaller", str(model), str(data), "--trim", value, "-x", "cpu",
                      "--max-reads", "0", "-o", "/dev/null"]) == 0
-    for extra in (["--rna-adapters"], ["--trim", "barcodes"]):
-        with pytest.raises(SystemExit) as exc:
-            main(["basecaller", str(model), str(data), *extra, "-x", "cpu"])
-        assert exc.value.code == 2
+    assert main(["basecaller", str(model), str(data), "--rna-adapters", "-x", "cpu",
+                 "--max-reads", "0", "-o", "/dev/null"]) == 0
+    with pytest.raises(SystemExit) as exc:
+        main(["basecaller", str(model), str(data), "--trim", "barcodes", "-x", "cpu"])
+    assert exc.value.code == 2
 
 
 # ---- demux and trim ----------------------------------------------------------------
@@ -348,12 +350,13 @@ def test_demux_exits_1(tmp_path, capsys, case, reads_bam):
     d, _ = reads_bam
     reads = {"no-kit": str(d / "reads.bam"), "cram": str(tmp_path / "x.cram"),
              "empty-folder": str(tmp_path / "empty")}[case]
-    (tmp_path / "x.cram").write_bytes(b"CRAM\x03\x00")
+    rr_cram(tmp_path / "x.cram")  # reference-based: no reader is given its contig
     (tmp_path / "empty").mkdir()
     extra = ["--kit-name", KIT] if case != "no-kit" else []
     assert main(["demux", reads, *extra, "--output-dir", str(tmp_path / "o")]) == 1
     err = capsys.readouterr().err
-    assert {"no-kit": "demux requires --kit-name", "cram": "CRAM is not supported by the port",
+    assert {"no-kit": "demux requires --kit-name",
+            "cram": "RR=true slice needs ref_seqs['ctg'] to decode",
             "empty-folder": "No read files found"}[case] in err
     if case == "no-kit":
         with capsys.disabled():  # the JAX command enables faulthandler on the real stderr
@@ -415,9 +418,12 @@ def test_trim_matches_jax(trim_bam, tmp_path, case, jax_registries):
 
 
 def test_trim_rejects_rna_and_cram(trim_bam, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["trim", str(trim_bam), "--rna"])
-    assert exc.value.code == 2
-    (tmp_path / "x.cram").write_bytes(b"CRAM\x03\x00")
+    """``--rna`` is accepted and, as in the JAX command, which never reads
+    it, changes nothing; a reference-based CRAM exits 1 naming its contig."""
+    assert main(["trim", str(trim_bam), "--rna", "-o", str(tmp_path / "rna.bam")]) == 0
+    assert main(["trim", str(trim_bam), "-o", str(tmp_path / "dna.bam")]) == 0
+    rna, dna = (read_records(tmp_path / f"{x}.bam")[1] for x in ("rna", "dna"))
+    assert [r.to_sam_line() for r in rna] == [r.to_sam_line() for r in dna] and len(rna) == 24
+    rr_cram(tmp_path / "x.cram")
     assert main(["trim", str(tmp_path / "x.cram"), "-o", str(tmp_path / "o.bam")]) == 1
-    assert "CRAM is not supported" in capsys.readouterr().err
+    assert "RR=true slice needs ref_seqs['ctg'] to decode" in capsys.readouterr().err

@@ -62,7 +62,8 @@ def test_package_imports_no_jax():
             "dorado_tpu_torch.io.summary", "dorado_tpu_torch.demux.adapters",
             "dorado_tpu_torch.demux.barcoder", "dorado_tpu_torch.demux.custom_kit",
             "dorado_tpu_torch.demux.trimmer", "dorado_tpu_torch.polytail.calculator",
-            "dorado_tpu_torch.utils.sample_sheet",
+            "dorado_tpu_torch.utils.sample_sheet", "dorado_tpu_torch.io.cram",
+            "dorado_tpu_torch.io.rans", "dorado_tpu_torch.splitter.rna_splitter",
             } <= set(names)
     code = (
         "import importlib, sys\n"
@@ -772,3 +773,51 @@ def test_cpu_polish_run_launches_no_kernel(no_kernels, one_thread, tmp_path, kin
     (name, seq), = pipe.run(fasta, {"ctg": reads})
     assert name == "ctg" and seq and pipe.stats.windows == 3
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+@pytest.mark.parametrize("decoder", ["viterbi", "beam"])
+def test_cpu_rna_run_launches_no_kernel(no_kernels, one_thread, decoder):
+    """A direct-RNA run on the CPU (the RNA stand-in, narrow): the RNA split,
+    the adapter trim and the reversal on the host, every kernel's plain
+    version on the device side; none is built or launched."""
+    from dorado_tpu_torch.io.pod5 import Pod5Read, RunInfo
+    from dorado_tpu_torch.models.presets import rna004_hac_config
+    from tests.torch_rna import rna_signals
+
+    cfg = rna004_hac_config()
+    cfg.lstm_size = cfg.convs[2].size = 16
+    pipe = BasecallerPipeline(cfg, LSTMCRFModel(cfg), chunk_size=1200, batch_size=4,
+                              device="cpu", decoder=decoder, estimate_poly_a=True)
+    assert pipe.rna_splitter is not None and pipe.read_splitter is None
+    info = RunInfo(acquisition_id="a", sample_rate=4000, protocol_run_id="run")
+    reads = [Pod5Read(
+        read_id=f"rna-{i}", signal=sig, read_number=i, start_sample=0, median_before=200.0,
+        channel=1, well=1, pore_type="not_set", calibration_offset=0.0, calibration_scale=0.2,
+        end_reason="signal_positive", end_reason_forced=False, open_pore_level=float("nan"),
+        num_reads_since_mux_change=0, time_since_mux_change=0.0, num_minknow_events=0,
+        tracked_scaling_scale=float("nan"), tracked_scaling_shift=float("nan"),
+        predicted_scaling_scale=float("nan"), predicted_scaling_shift=float("nan"),
+        run_info=info, filename="rna.pod5") for i, sig in enumerate(rna_signals(3, [6000, 9000]))]
+
+    class Keep:
+        records = []
+
+        def write(self, rec):
+            self.records.append(rec)
+
+    out = Keep()
+    pipe.run_reads(reads, out)
+    assert {r.qname.split(":")[0] for r in out.records} == {"rna-0", "rna-1"}
+    assert len(out.records) == 3  # the second read splits at its spike
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+def test_rna_pipeline_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from dorado_tpu_torch.models.presets import rna004_hac_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = rna004_hac_config()
+    cfg.lstm_size = cfg.convs[2].size = 16
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            BasecallerPipeline(cfg, LSTMCRFModel(cfg), **kw)

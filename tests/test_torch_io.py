@@ -278,10 +278,18 @@ def test_read_records_matches_jax(tmp_path, fmt):
 
 
 def test_read_records_refuses_cram(tmp_path):
+    """A reference-based CRAM needs its contig, which ``read_records`` is not
+    given (as in the JAX package): ValueError naming it. A non-reference
+    CRAM reads (``tests/test_torch_cram.py``)."""
+    from tests.torch_cram import rr_cram
+
     path = tmp_path / "x.cram"
-    path.write_bytes(b"CRAM\x03\x00")
-    with pytest.raises(ValueError, match="CRAM is not supported"):
+    refs = rr_cram(path)
+    with pytest.raises(ValueError, match="RR=true slice needs ref_seqs\\['ctg'\\]"):
         read_records(path)
+    from dorado_tpu_torch.io.cram import CramReader
+
+    assert len(list(CramReader(path, ref_seqs=refs).records())) == 4
 
 
 @pytest.mark.parametrize("fmt", ["sam", "bam"])

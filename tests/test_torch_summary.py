@@ -2,7 +2,7 @@
 package on the CPU: ``python -m dorado_tpu_torch summary`` against
 ``dorado_tpu.cli.main``'s on BAMs the port wrote (basecalled with
 ``--reference``, and the ``aligner``'s), on a folder of them, and its
-refusal of CRAM; ``summary_row`` and ``write_summary`` against the JAX
+refusal of a reference-based CRAM; ``summary_row`` and ``write_summary`` against the JAX
 package's on the same records; and ``basecaller --reference --bed-file
 --emit-summary`` (a narrow hac model, ``-x cpu``, the white-noise reads of
 ``tests/test_torch_cli.py``) against the JAX command: the same records
@@ -25,6 +25,7 @@ from dorado_tpu_torch.cli.main import main as torch_main
 from dorado_tpu_torch.io import sam, summary
 from dorado_tpu_torch.io.bam_reader import read_records
 from tests.test_torch_cli import COMMON, _assert_records_match, inputs  # noqa: F401
+from tests.torch_cram import rr_cram
 from tests.torch_polish import revcomp, write_fasta
 
 QS_COLUMN = "mean_qscore_template"
@@ -154,7 +155,8 @@ def test_summary_of_a_port_bam_matches_jax(capfd, aligned, inputs, reference,  #
 
 def test_summary_of_aligner_output_and_folders(capfd, reference, tmp_path):
     """The aligner's sorted BAM (secondary records skipped), then a folder of
-    a BAM and a SAM, searched with -r; CRAM input and an empty folder exit 1."""
+    a BAM and a SAM, searched with -r; a reference-based CRAM (no reader is
+    given its contig, as in JAX) and an empty folder exit 1."""
     folder = tmp_path / "runs"
     (folder / "sub").mkdir(parents=True)
     bam = folder / "aligned.bam"
@@ -166,9 +168,9 @@ def test_summary_of_aligner_output_and_folders(capfd, reference, tmp_path):
         assert rc == 0 and (rc, text) == _summary(capfd, jax_main, path, *extra)[:2]
     assert len(text.splitlines()) == 11  # the header and 5 reads from each file
     cram = tmp_path / "x.cram"
-    cram.write_bytes(b"CRAM\x03\x00" + bytes(30))
+    rr_cram(cram)
     rc, _, err = _summary(capfd, torch_main, cram)
-    assert rc == 1 and "CRAM is not supported" in err
+    assert rc == 1 and "RR=true slice needs ref_seqs['ctg'] to decode" in err
     (tmp_path / "empty").mkdir()
     assert _summary(capfd, torch_main, tmp_path / "empty")[0] == 1
     assert _summary(capfd, jax_main, tmp_path / "empty")[0] == 1
